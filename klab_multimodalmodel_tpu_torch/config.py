@@ -1,0 +1,196 @@
+"""Configuration of the serving path: model geometries and the run config.
+
+The port's own copy of what the captioning path reads from the JAX
+package's ``klab_multimodalmodel_tpu/config.py``: the T5 and SwinV2 geometry
+tables, the custom-size registry, and a ``Config`` with the same field names
+and defaults for the fields this package reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+# ---------------------------------------------------------------------------
+# Model geometry tables
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Size:
+    """Geometry + recipe of a T5 checkpoint family member (published
+    google/t5 configs). ``feed_forward_proj`` and ``tie_word_embeddings``
+    select the v1.1 / Flan recipe: gated-gelu MLPs and an untied LM head."""
+
+    d_model: int
+    d_kv: int
+    d_ff: int
+    num_layers: int
+    num_decoder_layers: int
+    num_heads: int
+    vocab_size: int = 32128
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "relu"  # original T5 uses un-gated ReLU MLPs
+    tie_word_embeddings: bool = True
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+
+
+T5_SIZES: dict[str, T5Size] = {
+    "t5-small": T5Size(d_model=512, d_kv=64, d_ff=2048, num_layers=6,
+                       num_decoder_layers=6, num_heads=8),
+    "t5-base": T5Size(d_model=768, d_kv=64, d_ff=3072, num_layers=12,
+                      num_decoder_layers=12, num_heads=12),
+    "t5-large": T5Size(d_model=1024, d_kv=64, d_ff=4096, num_layers=24,
+                       num_decoder_layers=24, num_heads=16),
+    "t5-3b": T5Size(d_model=1024, d_kv=128, d_ff=16384, num_layers=24,
+                    num_decoder_layers=24, num_heads=32),
+    "t5-11b": T5Size(d_model=1024, d_kv=128, d_ff=65536, num_layers=24,
+                     num_decoder_layers=24, num_heads=128),
+}
+
+
+def _v11(d_model, d_ff, num_layers, num_heads):
+    return T5Size(d_model=d_model, d_kv=64, d_ff=d_ff, num_layers=num_layers,
+                  num_decoder_layers=num_layers, num_heads=num_heads,
+                  feed_forward_proj="gated-gelu", tie_word_embeddings=False)
+
+
+for _stem in ("google/t5-v1_1", "google/flan-t5"):
+    T5_SIZES[f"{_stem}-small"] = _v11(512, 1024, 8, 6)
+    T5_SIZES[f"{_stem}-base"] = _v11(768, 2048, 12, 12)
+    T5_SIZES[f"{_stem}-large"] = _v11(1024, 2816, 24, 16)
+    T5_SIZES[f"{_stem}-xl"] = _v11(2048, 5120, 24, 32)
+    T5_SIZES[f"{_stem}-xxl"] = _v11(4096, 10240, 24, 64)
+del _stem  # registration loop variable; not part of the module API
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinV2Size:
+    """Geometry of a SwinV2 checkpoint family member. The default is
+    microsoft/swinv2-base-patch4-window8-256."""
+
+    image_size: int = 256
+    patch_size: int = 4
+    num_channels: int = 3
+    embed_dim: int = 128
+    depths: tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 8
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    layer_norm_eps: float = 1e-5
+    drop_path_rate: float = 0.1
+    pretrained_window_sizes: tuple[int, ...] = (0, 0, 0, 0)
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+    @property
+    def num_patches_out(self) -> int:
+        side = self.image_size // self.patch_size
+        side //= 2 ** (len(self.depths) - 1)
+        return side * side
+
+
+SWINV2_SIZES: dict[str, SwinV2Size] = {
+    "microsoft/swinv2-tiny-patch4-window8-256": SwinV2Size(
+        embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
+    "microsoft/swinv2-small-patch4-window8-256": SwinV2Size(
+        embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24)),
+    "microsoft/swinv2-base-patch4-window8-256": SwinV2Size(),
+    "microsoft/swinv2-large-patch4-window12-192-22k": SwinV2Size(
+        image_size=192, embed_dim=192, depths=(2, 2, 18, 2),
+        num_heads=(6, 12, 24, 48), window_size=12),
+}
+
+
+# ---------------------------------------------------------------------------
+# Run config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Config:
+    """The fields of the JAX package's ``Config`` that captioning reads,
+    with the same names and defaults."""
+
+    image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
+    language_model_name: str = "t5-large"
+    transformer_model_name: str = "t5-large"
+    max_source_length: int = 256
+    seed: int = 0
+    # dtype of the SwinV2 attention logits/softmax chain.
+    swin_softmax_dtype: str = "float32"
+    # SwinV2 MLP activation: exact erf GELU, or the tanh approximation.
+    swin_gelu_approximate: bool = False
+    # Route SwinV2 window attention / T5 full-sequence attention through
+    # the hand-written kernels (ops/fused_attention.py). Decode steps never
+    # take a kernel.
+    use_pallas_attention: bool = False
+    use_pallas_t5_attention: bool = False
+    # Only the dense model is ported; kept so configs carry the field.
+    moe_experts: int = 0
+    # Attend pad positions (the reference's no-mask behaviour).
+    reference_pad_quirks: bool = False
+    # Identity-initialized projection between vision features and d_model.
+    use_vision_projection: bool = True
+    generate_max_length: int = 20
+    num_beams: int = 1
+
+    def __post_init__(self) -> None:
+        if self.swin_softmax_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"swin_softmax_dtype={self.swin_softmax_dtype!r}:"
+                             " expected 'float32' or 'bfloat16'")
+        if self.moe_experts != 0:
+            raise NotImplementedError(
+                "moe_experts > 0 is not ported; only the dense model is")
+
+    # -- derived model geometries ------------------------------------------
+    @property
+    def language_t5(self) -> T5Size:
+        return _t5_size(self.language_model_name)
+
+    @property
+    def transformer_t5(self) -> T5Size:
+        return _t5_size(self.transformer_model_name)
+
+    @property
+    def swin(self) -> SwinV2Size:
+        return _swin_size(self.image_model_name)
+
+
+# Custom geometry registry: lets tests and users register model sizes under
+# arbitrary names without touching the published tables.
+_CUSTOM_T5: dict[str, T5Size] = {}
+_CUSTOM_SWIN: dict[str, SwinV2Size] = {}
+
+
+def register_t5_size(name: str, size: T5Size) -> None:
+    _CUSTOM_T5[name] = size
+
+
+def register_swin_size(name: str, size: SwinV2Size) -> None:
+    _CUSTOM_SWIN[name] = size
+
+
+def _t5_size(name: str) -> T5Size:
+    if name in _CUSTOM_T5:
+        return _CUSTOM_T5[name]
+    if name in T5_SIZES:
+        return T5_SIZES[name]
+    raise KeyError(f"unknown T5 model name {name!r}; register_t5_size() first")
+
+
+def _swin_size(name: str) -> SwinV2Size:
+    if name in _CUSTOM_SWIN:
+        return _CUSTOM_SWIN[name]
+    if name in SWINV2_SIZES:
+        return SWINV2_SIZES[name]
+    raise KeyError(
+        f"unknown SwinV2 model name {name!r}; register_swin_size() first")

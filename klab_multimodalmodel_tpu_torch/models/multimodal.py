@@ -1,0 +1,121 @@
+"""The multimodal captioning model, generation half.
+
+A SwinV2 image encoder and a frozen T5 text encoder produce embeddings that
+are projected, concatenated along the sequence axis and fed as
+``inputs_embeds`` into a full T5 encoder-decoder: image+text embeddings act
+as soft prompts re-encoded by the main T5's own encoder.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import Config
+from ..utils.device import resolve_device
+from .layers import lecun_normal_
+from .swinv2 import SwinV2Encoder
+from .t5 import Cache, T5Encoder, T5ForConditionalGeneration
+
+
+class MultiModalModel(nn.Module):
+    """SwinV2 + frozen T5 encoder -> seq-concat -> T5 enc-dec, fp32.
+
+    ``device``: None means the card (see ``utils.device``). Weights are
+    uninitialized until ``init_weights`` or ``load_state_dict``.
+    """
+
+    def __init__(self, config: Config, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        sm = (torch.bfloat16 if cfg.swin_softmax_dtype == "bfloat16"
+              else torch.float32)
+        with torch.device(device):
+            self.image_model = SwinV2Encoder(
+                cfg.swin, use_pallas=cfg.use_pallas_attention,
+                softmax_dtype=sm, gelu_approximate=cfg.swin_gelu_approximate,
+                device=device)
+            self.language_model = T5Encoder(
+                cfg.language_t5, use_pallas=cfg.use_pallas_t5_attention,
+                device=device)
+            self.transformer = T5ForConditionalGeneration(
+                cfg.transformer_t5, use_pallas=cfg.use_pallas_t5_attention,
+                device=device)
+            d_model = cfg.transformer_t5.d_model
+            vis_dim = cfg.swin.num_features
+            if cfg.use_vision_projection or vis_dim != d_model:
+                self.vision_projection = nn.Linear(vis_dim, d_model,
+                                                   bias=False)
+            lang_dim = cfg.language_t5.d_model
+            if lang_dim != d_model:
+                self.language_projection = nn.Linear(lang_dim, d_model,
+                                                     bias=False)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Seeded random weights with the JAX init's distributions; the
+        vision projection starts as the identity when it is square."""
+        self.image_model.init_weights(generator)
+        self.language_model.init_weights(generator)
+        self.transformer.init_weights(generator)
+        proj = getattr(self, "vision_projection", None)
+        if proj is not None:
+            if proj.in_features == proj.out_features:
+                with torch.no_grad():
+                    proj.weight.copy_(torch.eye(proj.in_features))
+            else:
+                lecun_normal_(proj.weight, proj.in_features, generator)
+        if hasattr(self, "language_projection"):
+            lecun_normal_(self.language_projection.weight,
+                          self.language_projection.in_features, generator)
+
+    # -- embedding cascade -------------------------------------------------
+    def encode_multimodal(self, images: torch.Tensor, source_ids: torch.Tensor,
+                          source_mask: Optional[torch.Tensor] = None
+                          ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """images (B,H,W,3) + token ids -> (concat_embeds, concat_mask)."""
+        lang = self.language_model(input_ids=source_ids,
+                                   attention_mask=source_mask)
+        img = self.image_model(images)
+        return self._project_and_concat(img, lang, source_mask)
+
+    def _project_and_concat(self, img: torch.Tensor, lang: torch.Tensor,
+                            source_mask: Optional[torch.Tensor]
+                            ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if hasattr(self, "vision_projection"):
+            img = self.vision_projection(img)
+        if hasattr(self, "language_projection"):
+            lang = self.language_projection(lang)
+        concat = torch.cat([img, lang], dim=1)
+        if source_mask is None:
+            return concat, None
+        # Image tokens are valid wherever the ROW is: a row whose source is
+        # entirely padding is masked wholesale, image tokens included.
+        row_valid = source_mask.amax(dim=1, keepdim=True)
+        img_mask = row_valid.expand(-1, img.shape[1])
+        return concat, torch.cat([img_mask, source_mask], dim=1)
+
+    # -- generation entry (encoder half; the decode loop lives in infer/) --
+    def encode_for_generation(self, images: torch.Tensor,
+                              source_ids: torch.Tensor,
+                              source_mask: Optional[torch.Tensor] = None
+                              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self.config.reference_pad_quirks:
+            # The reference attends pads during generation too.
+            source_mask = None
+        concat, concat_mask = self.encode_multimodal(images, source_ids,
+                                                     source_mask)
+        enc = self.transformer.encode(inputs_embeds=concat,
+                                      attention_mask=concat_mask)
+        return enc, concat_mask
+
+    def decode_step(self, token: torch.Tensor, step: int,
+                    encoder_hidden: torch.Tensor, max_decode_len: int,
+                    encoder_mask: Optional[torch.Tensor] = None,
+                    cache: Optional[Cache] = None
+                    ) -> tuple[torch.Tensor, Cache]:
+        return self.transformer.decode_step(
+            token, step, encoder_hidden, max_decode_len,
+            encoder_attention_mask=encoder_mask, cache=cache)

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, from the package's sources only, one ``nvcc`` per source, all
+started together, into ``_build/`` beside the package (git-ignored). A
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a finished build is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("t5_attention_fwd", "swin_attention_fwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures (see each source's extern "C" function).
+_SIGNATURES = {
+    "t5_attention_fwd": ("klab_t5_attention_fwd",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "swin_attention_fwd": ("klab_swin_attention_fwd",
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P]),
+}
+
+_lock = threading.Lock()
+_functions: dict[str, ctypes._CFuncPtr] = {}
+# ptxas report (registers, shared memory, spills) of each build in this
+# process, for the chip smoke run to print.
+build_logs: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home
+                 else []) + ["/usr/local/cuda/bin/nvcc"]:
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+
+
+def build_all() -> None:
+    """Compile every source whose library is missing: one ``nvcc`` each,
+    all running at once. Raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = []
+    for name in SOURCES:
+        target = _library_path(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, tmp, proc))
+    failures = []
+    for name, target, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, target)  # atomic: other processes see whole files
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+def kernel_function(name: str):
+    """The ctypes function of kernel ``name``, building it first if needed."""
+    with _lock:
+        fn = _functions.get(name)
+        if fn is None:
+            path = _library_path(name)
+            if not path.exists():
+                build_all()
+            symbol, argtypes = _SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[name] = fn
+        return fn
