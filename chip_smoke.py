@@ -5,20 +5,44 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. Record the card (``nvidia-smi`` name and power limit) and build both CUDA
-   kernels from ``klab_multimodalmodel_tpu_torch/csrc``.
-2. Hold each kernel against its plain PyTorch version at the captioning
-   path's shapes, in fp32 and bf16, and time kernel, plain version and (for
-   T5) ``F.scaled_dot_product_attention`` as a yardstick, with CUDA events.
-   Prints one ``{"kernels": [...]}`` line.
+1. Record the card (``nvidia-smi`` name and power limit) and build the three
+   CUDA kernels from ``klab_multimodalmodel_tpu_torch/csrc``, one ``nvcc``
+   per source, all at once.
+2. Hold each kernel against its plain PyTorch version at the shapes of both
+   main paths, and time kernel, plain version and the library yardstick
+   (``F.scaled_dot_product_attention``, forward or forward+backward) with
+   CUDA events, beside the least time the card could take:
+   - T5 forward: captioning shapes at rate 0 (fp32, bf16); training shapes
+     (batch 32, bf16) at rate 0.1 against the plain version under the same
+     Philox mask, once more with uniform probabilities (any keep bit that
+     differed would show), and the keep fraction over 52 M probabilities;
+   - T5 backward: the three training shapes (encoder self 320x320 with
+     dBias, decoder self 128x128 with relpos+causal bias and dBias, cross
+     128x320 with a key mask) at rate 0.1 in fp32 and bf16 against the plain
+     backward, and dBias bitwise equal across two runs;
+   - Swin forward: every stage shape with the fp32 and the bf16 softmax
+     chain, at captioning (fp32) and training (bf16, batch 32) shapes.
 3. Caption at full width: SwinV2-base + t5-large text tower + t5-large
    transformer (~1.16 B parameters, fp32, seeded random weights), both
-   kernel flags on, three batch-8 requests of seeded 256x256 uint8 images
-   with the COCO prompt through ``Captioner``. Checks the kernel launch
-   counts of every request (24 Swin, 48 T5), the token layout, a finite
-   encoder output, and the encoder output against the same weights run
-   without the kernels.
-4. Prints ``{"ok": true, "device": {...}}`` as the last line.
+   kernel flags on, three batch-8 requests through ``Captioner``; checks the
+   launch counts of every request (24 Swin, 48 T5), the token layout, a
+   finite encoder output, and the encoder output against the same weights
+   run without the kernels.
+4. Train at full width: the reference caption recipe's ``Config`` defaults
+   (compute bf16, fp32 parameters, Adam lr 1e-3, frozen towers, both kernel
+   flags on), batch 32, one warm-up step and five timed steps with dropout
+   on one fixed batch of seeded images, the COCO prompt and seeded captions.
+   Checks the launches of every step (T5 forward 96, 72 of them at rate
+   0.1; T5 backward 72, 48 with dBias; Swin 24), finite and falling losses,
+   frozen towers bitwise unchanged, both relative-position tables moved;
+   then, at batch 8 with dropout off, the loss and every trainable
+   gradient with the kernels against the same weights without them, and in
+   bf16 compute against the forward kernel followed by the plain backward
+   (the backward kernel's roundings), with readings that split the bf16
+   gap to the path without kernels beside it (see ``TOL_TRAIN_GRAD``).
+   Prints step time, images/s, peak memory and one profiled step.
+5. Prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the
+   last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -29,31 +53,71 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE_T5 = "klab_multimodalmodel_tpu_torch/csrc/t5_attention_fwd.cu"
-SOURCE_SWIN = "klab_multimodalmodel_tpu_torch/csrc/swin_attention_fwd.cu"
-# Both kernels replace modes of the one forward Pallas kernel, _fwd_kernel.
-REPLACES = "klab_multimodalmodel_tpu/ops/fused_attention.py:109"
+CSRC = "klab_multimodalmodel_tpu_torch/csrc/"
+TPU_KERNELS = "klab_multimodalmodel_tpu/ops/fused_attention.py"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    # Both forwards replace modes of the one forward Pallas kernel.
+    "t5_attention_fwd": (CSRC + "t5_attention_fwd.cu", TPU_KERNELS + ":109"),
+    "t5_attention_bwd": (CSRC + "t5_attention_bwd.cu", TPU_KERNELS + ":179"),
+    "swin_attention_fwd": (CSRC + "swin_attention_fwd.cu",
+                           TPU_KERNELS + ":109"),
+}
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory,
+# fp32 outside the tensor cores (fp32 inputs), bf16 tensor cores (bf16).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 # Kernel vs plain version: summation order; bf16 also rounds q/k, the
 # probabilities and the output (one bf16 ulp of a result near 2-4 is 0.016).
 TOL_FP32 = dict(rtol=0.0, atol=1e-4)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
+# Gradients, largest error over largest value: dS and the dropped
+# probabilities are rounded to bf16 before their products in bf16; the bias
+# gradient sums the fp32 dS in both versions.
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2, "dbias": 1e-4}
+# Swin with a bf16 softmax chain: a logit can round one bf16 ulp apart (fp32
+# dot products summed in another order), which moves one probability by up
+# to ~28 % at logits in [32, 64). Such flips are rare: at most 1e-4 of the
+# outputs may fall outside the bf16 tolerance above, and the mean error
+# stays under 1e-3.
+TOL_SWIN_BF16_CHAIN = dict(outside=1e-4, mean=1e-3)
+# Keep fraction of the dropout at rate 0.1.
+TOL_KEEP = 1e-3
 # Encoder output with kernels vs without, relative to its largest value:
 # fp32 summation order compounded over 24 + 24 + 24 layers.
 TOL_ENCODER_REL = 1e-3
+# Training at batch 8, dropout off, on the same weights: the loss within
+# 1e-2 relative; every trainable tensor's gradient at cosine >= 0.99 and a
+# norm within 2 %, all of them together at cosine >= 0.999 (TOL_TRAIN_GRAD).
+# That holds the kernels against the path without them in fp32 compute, where
+# the two differ by summation order only, and in bf16 compute against the
+# forward kernel followed by the plain backward, which rounds as the backward
+# kernel does. The path without kernels rounds otherwise in bf16: its
+# autograd rounds dP to bf16 (the gradient of the probabilities' cast) before
+# dS = P (dP - sum dP P) subtracts two near-equal numbers, where the backward
+# kernel, as the TPU kernel, keeps dP in fp32; and its forwards round
+# differently from the kernels'. Single deep-decoder q/k gradients move by a
+# few % under either. Against that path every tensor is held at cosine >= 0.9
+# and a norm within 15 % (TOL_TRAIN_GRAD_BF16_VS_NONE); the readings that
+# split the gap between the two causes are printed beside it.
+TOL_TRAIN_LOSS_REL = 1e-2
+TOL_TRAIN_GRAD = dict(cosine=0.99, norm=0.02, total=0.999)
+TOL_TRAIN_GRAD_BF16_VS_NONE = dict(cosine=0.9, norm=0.15, total=0.999)
 
 BATCH, REQUESTS, SEED = 8, 3, 0
+TRAIN_BATCH, CMP_BATCH, STEPS, RATE = 32, 8, 5, 0.1
 T5_H, T5_D, SWIN_N, SWIN_D = 16, 64, 64, 32
+T5_LAYERS = 24
+SRC_LEN, TGT_LEN, IMG_TOKENS = 256, 128, 64
+ENC_LEN = IMG_TOKENS + SRC_LEN
 
 
 def check(cond: bool, what: str) -> None:
@@ -103,9 +167,9 @@ def host_ms(fn, runs: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -113,70 +177,280 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def sdpa_backends(fn) -> list[str]:
+    """The ATen attention ops one call of ``fn`` ran (the SDPA backend)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.key.startswith("aten::_scaled_dot_product")
+                   or e.key.startswith("aten::_efficient_attention")
+                   or e.key.startswith("aten::_flash_attention")})
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def t5_case(L: int, n_masked: int, dtype, gen):
+@dataclasses.dataclass
+class T5Shape:
+    name: str
+    path: str          # "captioning" (per request) or "training" (per step)
+    B: int
+    Q: int
+    K: int
+    bias: bool         # a learned head bias (with dBias in the backward)
+    mask: int          # keys masked at the end of every row, -1 for none
+    rate: float
+    per_path: int      # launches in one request or one training step
+    causal: bool = False
+
+
+def t5_shapes() -> list[T5Shape]:
+    # Captioning: text tower at the COCO prompt's 30 ids bucketed to 32 (2
+    # pad keys masked), main encoder at 64 image tokens + those 32.
+    # Training, batch 32: text tower at 256 (the prompt padded: 226 pad
+    # keys), main encoder at 320 (the same pads), decoder self-attention at
+    # 128 with relpos + causal bias and no key mask, cross-attention 128 x
+    # 320 with the encoder's key mask and no bias.
+    pad = SRC_LEN - 30
+    return [
+        T5Shape("text", "captioning", BATCH, 32, 32, True, 2, 0.0, 24),
+        T5Shape("encoder", "captioning", BATCH, 96, 96, True, 2, 0.0, 24),
+        T5Shape("text", "training", TRAIN_BATCH, SRC_LEN, SRC_LEN, True, pad,
+                0.0, T5_LAYERS),
+        T5Shape("encoder", "training", TRAIN_BATCH, ENC_LEN, ENC_LEN, True,
+                pad, RATE, T5_LAYERS),
+        T5Shape("decoder", "training", TRAIN_BATCH, TGT_LEN, TGT_LEN, True,
+                -1, RATE, T5_LAYERS, causal=True),
+        T5Shape("cross", "training", TRAIN_BATCH, TGT_LEN, ENC_LEN, False,
+                pad, RATE, T5_LAYERS),
+    ]
+
+
+def t5_inputs(sh: T5Shape, dtype, gen):
     import torch
 
     dev = "cuda"
-    q, k, v = (torch.randn(BATCH, T5_H, L, T5_D, generator=gen,
-                           device=dev).to(dtype) for _ in range(3))
-    bias = torch.randn(T5_H, L, L, generator=gen, device=dev)
-    kmask = torch.ones(BATCH, L, dtype=torch.int32, device=dev)
-    kmask[:, L - n_masked:] = 0
-    return q, k, v, bias, kmask
+    q = torch.randn(sh.B, T5_H, sh.Q, T5_D, generator=gen, device=dev)
+    k, v, do = (torch.randn(sh.B, T5_H, n, T5_D, generator=gen, device=dev)
+                for n in (sh.K, sh.K, sh.Q))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    bias = None
+    if sh.bias:
+        bias = torch.randn(T5_H, sh.Q, sh.K, generator=gen, device=dev)
+        if sh.causal:
+            i = torch.arange(sh.Q, device=dev)
+            bias = bias + torch.where(i[:, None] >= i[None, :], 0.0, -1e9)
+    kmask = None
+    if sh.mask >= 0:
+        kmask = torch.ones(sh.B, sh.K, dtype=torch.int32, device=dev)
+        kmask[:, sh.K - sh.mask:] = 0
+    return q, k, v, do, bias, kmask
 
 
-def check_t5(gen, card: str) -> dict:
+def sdpa_mask(bias, kmask, dtype):
+    """The additive float mask SDPA takes for (bias, key mask)."""
+    import torch
+
+    parts = []
+    if bias is not None:
+        parts.append(bias[None])
+    if kmask is not None:
+        parts.append(torch.where(kmask[:, None, None, :] > 0, 0.0, -1e9))
+    if not parts:
+        return None
+    out = parts[0] if len(parts) == 1 else parts[0] + parts[1]
+    return out.to(dtype)
+
+
+def io_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def check_t5_fwd(gen, card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from klab_multimodalmodel_tpu_torch.ops import (t5_attention,
+    from klab_multimodalmodel_tpu_torch.ops import (draw_seed, t5_attention,
+                                                    t5_attention_fwd,
                                                     t5_attention_plain)
-    # Text tower: 30 prompt ids bucketed to 32 (2 pad keys masked); main
-    # encoder: 64 image tokens + those 32.
     shapes, errs, errs16 = [], [], []
-    for L, masked, per_request in ((32, 2, 24), (96, 2, 24)):
+    for sh in t5_shapes():
+        seed = draw_seed(gen) if sh.rate else None
         for dtype in (torch.float32, torch.bfloat16):
-            args = t5_case(L, masked, dtype, gen)
-            got = t5_attention(*args)
+            q, k, v, _, bias, kmask = t5_inputs(sh, dtype, gen)
+            got = t5_attention(q, k, v, bias, kmask, sh.rate, seed)
             torch.cuda.synchronize()
-            want = t5_attention_plain(*args)
+            want = t5_attention_plain(q, k, v, bias, kmask, sh.rate, seed)
             err = max_err(got, want)
             tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
             check(torch.allclose(got.float(), want.float(), **tol),
-                  f"t5_attention L={L} {dtype}: max abs err {err}")
+                  f"t5 fwd {sh.name} {sh.path} {dtype}: max abs err {err}")
             (errs if dtype == torch.float32 else errs16).append(err)
-        q, k, v, bias, kmask = t5_case(L, masked, torch.float32, gen)
-        mask_bias = torch.where(kmask[:, None, None, :] > 0, 0.0, -1e9)
-        attn_mask = (bias[None] + mask_bias).contiguous()
-        ms = time_ms(lambda: t5_attention(q, k, v, bias, kmask))
-        plain = time_ms(lambda: t5_attention_plain(q, k, v, bias, kmask))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, scale=1.0))
-        elems = BATCH * T5_H * L * T5_D
-        nbytes = 4 * elems * 4 + bias.numel() * 4 + kmask.numel() * 4
-        flops = 4 * BATCH * T5_H * L * L * T5_D
-        b, by = bound_ms(nbytes, flops)
-        shapes.append(dict(shape=[BATCH, T5_H, L, L, T5_D], dtype="float32",
-                           per_request=per_request, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=b, bound_by=by,
-                           bytes=nbytes, flops=flops))
-        print(f"t5_attention B={BATCH} H={T5_H} L={L} D={T5_D} fp32: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms,"
-              f" bound {b:.4f} ms ({by}) [{card}]")
-    return dict(name="t5_attention_fwd", route="cuda", source=SOURCE_T5,
-                replaces=REPLACES, mode="plain (T5), dropout rate 0",
+            if sh.rate:
+                # Uniform probabilities: each key weighs 1/(0.9 K), so one
+                # keep bit that differed from the plain version's would move
+                # an output by ~|v|/(0.9 K), far above the tolerance.
+                z = torch.zeros_like(q)
+                got = t5_attention(z, k, v, None, None, sh.rate, seed)
+                want = t5_attention_plain(z, k, v, None, None, sh.rate, seed)
+                check(torch.allclose(got.float(), want.float(), **tol),
+                      f"t5 fwd {sh.name} uniform P {dtype}: keep bits "
+                      f"differ (max abs err {max_err(got, want)})")
+        # Time in the path's dtype: fp32 for captioning, bf16 for training.
+        dtype = torch.float32 if sh.path == "captioning" else torch.bfloat16
+        q, k, v, _, bias, kmask = t5_inputs(sh, dtype, gen)
+        # Training calls that need a gradient also write the row stats.
+        stats = sh.path == "training" and sh.name != "text"
+        iters = 20 if sh.path == "training" else 50
+        ms = time_ms(lambda: t5_attention_fwd(q, k, v, bias, kmask, sh.rate,
+                                              seed, stats), iters)
+        plain = time_ms(lambda: t5_attention_plain(q, k, v, bias, kmask,
+                                                   sh.rate, seed), iters)
+        mask = sdpa_mask(bias, kmask, dtype)
+        if mask is not None:
+            mask = mask.expand(sh.B, T5_H, sh.Q, sh.K).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=sh.rate, scale=1.0)
+        lib = time_ms(sdpa, iters)
+        nbytes = (io_bytes(q, k, v, q) + io_bytes(bias, kmask)
+                  + (8 * sh.B * T5_H * sh.Q if stats else 0))
+        flops = 4 * sh.B * T5_H * sh.Q * sh.K * T5_D
+        b, by = bound_ms(nbytes, flops, dtype_name(dtype))
+        shapes.append(dict(
+            name=sh.name, path=sh.path, shape=[sh.B, T5_H, sh.Q, sh.K, T5_D],
+            dtype=dtype_name(dtype), rate=sh.rate, per_path=sh.per_path,
+            ms=ms, plain_ms=plain, library_ms=lib, library=sdpa_backends(sdpa),
+            bound_ms=b, bound_by=by, bytes=nbytes, flops=flops))
+        print(f"t5 fwd {sh.path} {sh.name} B={sh.B} Q={sh.Q} K={sh.K} "
+              f"{dtype_name(dtype)} rate={sh.rate}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms ({by}) "
+              f"[{card}]")
+
+    # Keep fraction over 32*16*320*320 = 52.4 M probabilities: q = 0 and
+    # v = 1 make every output (kept keys)/(0.9 K).
+    z = torch.zeros(TRAIN_BATCH, T5_H, ENC_LEN, T5_D, device="cuda")
+    out = t5_attention(z, z, torch.ones_like(z), None, None, RATE,
+                       draw_seed(gen))
+    keep = float(out[..., 0].double().mean() * (1 - RATE))
+    print(f"dropout keep fraction over {z[..., 0].numel() * ENC_LEN} "
+          f"probabilities: {keep:.6f} (0.9 +- {TOL_KEEP})")
+    check(abs(keep - (1 - RATE)) <= TOL_KEEP, f"keep fraction {keep}")
+    return dict(name="t5_attention_fwd", mode="plain (T5), rates 0 and 0.1",
                 max_abs_err=max(errs), max_abs_err_bf16=max(errs16),
+                keep_fraction=keep, shapes=shapes)
+
+
+def check_t5_bwd(gen, card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from klab_multimodalmodel_tpu_torch.ops import (draw_seed,
+                                                    t5_attention_bwd,
+                                                    t5_attention_bwd_plain,
+                                                    t5_attention_fwd)
+    shapes, errs, rels16 = [], [], []
+    for sh in t5_shapes():
+        if sh.path != "training" or sh.name == "text":
+            continue  # the frozen text tower takes no backward
+        seed = draw_seed(gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, bias, kmask = t5_inputs(sh, dtype, gen)
+            _, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed,
+                                        True)
+            got = t5_attention_bwd(q, k, v, do, bias, kmask, RATE, seed,
+                                   stats, sh.bias)
+            torch.cuda.synchronize()
+            want = t5_attention_bwd_plain(q, k, v, do, bias, kmask, RATE,
+                                          seed, sh.bias)
+            for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if w is None:
+                    check(g is None, f"{name} without a bias")
+                    continue
+                tol = TOL_GRAD["dbias" if name == "dbias"
+                               else dtype_name(dtype)]
+                r = rel_err(g, w)
+                check(g.dtype == w.dtype and r <= tol,
+                      f"t5 bwd {sh.name} {dtype} {name}: rel err {r}")
+                if dtype == torch.float32:
+                    errs.append(max_err(g, w))
+                else:
+                    rels16.append(r)
+            if sh.bias and dtype == torch.bfloat16:
+                again = t5_attention_bwd(q, k, v, do, bias, kmask, RATE,
+                                         seed, stats, True)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"t5 bwd {sh.name}: two runs differ (dBias must be "
+                      "bitwise reproducible)")
+        # Time in bf16, as training runs it.
+        dtype = torch.bfloat16
+        q, k, v, do, bias, kmask = t5_inputs(sh, dtype, gen)
+        _, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed, True)
+        ms = time_ms(lambda: t5_attention_bwd(q, k, v, do, bias, kmask, RATE,
+                                              seed, stats, sh.bias), 10, 2)
+        plain = time_ms(lambda: t5_attention_bwd_plain(
+            q, k, v, do, bias, kmask, RATE, seed, sh.bias), 10, 2)
+        # Library: SDPA forward + backward with the same dropout rate and a
+        # float mask that requires grad where the bias does, minus its
+        # forward.
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        bias_leaf = (bias.detach().requires_grad_() if bias is not None
+                     else None)
+
+        def sdpa_fwd():
+            mask = sdpa_mask(bias_leaf, kmask, dtype)
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, dropout_p=RATE, scale=1.0)
+
+        def sdpa_fwd_bwd():
+            inputs = leaves + ([bias_leaf] if bias_leaf is not None else [])
+            return torch.autograd.grad(sdpa_fwd(), inputs, do)
+
+        lib_fwd = time_ms(sdpa_fwd, 10, 2)
+        lib = time_ms(sdpa_fwd_bwd, 10, 2) - lib_fwd
+        # Reads q, k, v, dO, the bias, the key mask and the row stats once;
+        # writes dq, dk, dv (the sizes of q, k, v) and dBias (the bias's).
+        nbytes = (io_bytes(q, k, v, do) + io_bytes(q, k, v)
+                  + io_bytes(bias, kmask, stats)
+                  + (io_bytes(bias) if sh.bias else 0))
+        # The gradients' four products plus the logits again (the inputs do
+        # not hold P): 10 B H Q K D.
+        flops = 10 * sh.B * T5_H * sh.Q * sh.K * T5_D
+        b, by = bound_ms(nbytes, flops, "bfloat16")
+        shapes.append(dict(
+            name=sh.name, path="training", shape=[sh.B, T5_H, sh.Q, sh.K,
+                                                  T5_D],
+            dtype="bfloat16", rate=RATE, dbias=sh.bias, per_path=sh.per_path,
+            ms=ms, plain_ms=plain, library_ms=lib,
+            library=sdpa_backends(sdpa_fwd_bwd), bound_ms=b, bound_by=by,
+            bytes=nbytes, flops=flops))
+        print(f"t5 bwd training {sh.name} B={sh.B} Q={sh.Q} K={sh.K} bf16 "
+              f"dbias={sh.bias}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"sdpa bwd {lib:.4f} ms ({shapes[-1]['library']}), bound "
+              f"{b:.4f} ms ({by}) [{card}]")
+    return dict(name="t5_attention_bwd", mode="T5, rate 0.1, dBias",
+                max_abs_err=max(errs), max_rel_err_bf16=max(rels16),
                 shapes=shapes)
 
 
-def swin_stage_cases():
+def swin_stage_cases(batch: int):
     """(stage, windows B*nW, heads, nW of the shifted mask, unshifted
-    blocks, shifted blocks) per stage of SwinV2-base at 256 px, batch 8."""
+    blocks, shifted blocks, feature side) per stage of SwinV2-base at
+    256 px."""
     from klab_multimodalmodel_tpu_torch.config import SwinV2Size
 
     size = SwinV2Size()
@@ -185,7 +459,7 @@ def swin_stage_cases():
     for si, (depth, heads) in enumerate(zip(size.depths, size.num_heads)):
         nW = (side // size.window_size) ** 2 if side > size.window_size else 1
         shifted = depth // 2 if side > size.window_size else 0
-        out.append((si, BATCH * nW, heads, nW, depth - shifted, shifted,
+        out.append((si, batch * nW, heads, nW, depth - shifted, shifted,
                     side))
         side //= 2
     return out
@@ -198,71 +472,111 @@ def check_swin(gen, card: str) -> dict:
         shifted_window_mask)
     from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
                                                     swin_attention_plain)
-    shapes, errs, errs16 = [], [], []
-    for si, Bn, H, nW, n_plain, n_shift, side in swin_stage_cases():
-        wmask = None
-        if n_shift:
-            w = int(SWIN_N ** 0.5)
-            wmask = torch.tensor(shifted_window_mask(side, side, w, w // 2),
-                                 device="cuda")
-        scale = (torch.log(torch.tensor(10.0, device="cuda"))
-                 + 0.5 * torch.randn(H, generator=gen, device="cuda"))
-        bias = 16 * torch.sigmoid(torch.randn(H, SWIN_N, SWIN_N,
-                                              generator=gen, device="cuda"))
-        for masked, count in ((False, n_plain), (True, n_shift)):
-            if count == 0:
-                continue
-            wm = wmask if masked else None
-            for dtype in (torch.bfloat16, torch.float32):
+    shapes, errs, errs16, chain = [], [], [], []
+    for path, batch, dtype in (("captioning", BATCH, torch.float32),
+                               ("training", TRAIN_BATCH, torch.bfloat16)):
+        for si, Bn, H, nW, n_plain, n_shift, side in swin_stage_cases(batch):
+            wmask = None
+            if n_shift:
+                w = int(SWIN_N ** 0.5)
+                wmask = torch.tensor(shifted_window_mask(side, side, w,
+                                                         w // 2),
+                                     device="cuda")
+            scale = (torch.log(torch.tensor(10.0, device="cuda"))
+                     + 0.5 * torch.randn(H, generator=gen, device="cuda"))
+            bias = 16 * torch.sigmoid(torch.randn(H, SWIN_N, SWIN_N,
+                                                  generator=gen,
+                                                  device="cuda"))
+            for masked, count in ((False, n_plain), (True, n_shift)):
+                if count == 0:
+                    continue
+                wm = wmask if masked else None
+                for dt in (torch.bfloat16, torch.float32):
+                    q, k, v = (torch.randn(Bn, H, SWIN_N, SWIN_D,
+                                           generator=gen,
+                                           device="cuda").to(dt)
+                               for _ in range(3))
+                    got = swin_attention(q, k, v, scale, bias, wm)
+                    torch.cuda.synchronize()
+                    want = swin_attention_plain(q, k, v, scale, bias, wm)
+                    err = max_err(got, want)
+                    tol = TOL_FP32 if dt == torch.float32 else TOL_BF16
+                    check(torch.allclose(got.float(), want.float(), **tol),
+                          f"swin stage {si} masked={masked} {dt}: max abs "
+                          f"err {err}")
+                    (errs if dt == torch.float32 else errs16).append(err)
+                    if path == "captioning":
+                        # The bf16 softmax chain at every stage shape.
+                        got = swin_attention(q, k, v, scale, bias, wm,
+                                             torch.bfloat16)
+                        torch.cuda.synchronize()
+                        want = swin_attention_plain(q, k, v, scale, bias, wm,
+                                                    torch.bfloat16)
+                        e = (got.float() - want.float()).abs()
+                        out = float((e > TOL_BF16["atol"] + TOL_BF16["rtol"]
+                                     * want.float().abs()).float().mean())
+                        mx, mean = float(e.max()), float(e.mean())
+                        chain.append(dict(stage=si, masked=masked,
+                                          dtype=dtype_name(dt), max=mx,
+                                          mean=mean, outside=out))
+                        check(out <= TOL_SWIN_BF16_CHAIN["outside"]
+                              and mean <= TOL_SWIN_BF16_CHAIN["mean"],
+                              f"swin bf16 chain stage {si} masked={masked} "
+                              f"{dt}: share outside {out}, mean {mean}, max "
+                              f"{mx}")
                 q, k, v = (torch.randn(Bn, H, SWIN_N, SWIN_D, generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(3))
-                got = swin_attention(q, k, v, scale, bias, wm)
-                torch.cuda.synchronize()
-                want = swin_attention_plain(q, k, v, scale, bias, wm)
-                err = max_err(got, want)
-                tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
-                check(torch.allclose(got.float(), want.float(), **tol),
-                      f"swin_attention stage {si} masked={masked} {dtype}: "
-                      f"max abs err {err}")
-                (errs if dtype == torch.float32 else errs16).append(err)
-            # q, k, v are the fp32 inputs (the last dtype above): time them.
-            ms = time_ms(lambda: swin_attention(q, k, v, scale, bias, wm))
-            plain = time_ms(lambda: swin_attention_plain(q, k, v, scale,
-                                                         bias, wm))
-            elems = Bn * H * SWIN_N * SWIN_D
-            nbytes = (4 * elems * 4 + bias.numel() * 4 + H * 4
-                      + (wm.numel() * 4 if wm is not None else 0))
-            flops = 4 * Bn * H * SWIN_N * SWIN_N * SWIN_D
-            b, by = bound_ms(nbytes, flops)
-            shapes.append(dict(stage=si, shape=[Bn, H, SWIN_N, SWIN_D],
-                               masked=masked, dtype="float32",
-                               per_request=count, ms=ms, plain_ms=plain,
-                               library_ms=None, bound_ms=b, bound_by=by,
-                               bytes=nbytes, flops=flops))
-            print(f"swin_attention stage {si} Bn={Bn} H={H} masked={masked}"
-                  f" fp32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {b:.4f} ms ({by}) [{card}]")
-    return dict(name="swin_attention_fwd", route="cuda", source=SOURCE_SWIN,
-                replaces=REPLACES, mode="cosine (SwinV2), fp32 softmax",
+                ms = time_ms(lambda: swin_attention(q, k, v, scale, bias, wm))
+                plain = time_ms(lambda: swin_attention_plain(
+                    q, k, v, scale, bias, wm), 20)
+                nbytes = io_bytes(q, k, v, q, bias, scale, wm)
+                flops = 4 * Bn * H * SWIN_N * SWIN_N * SWIN_D
+                b, by = bound_ms(nbytes, flops, dtype_name(dtype))
+                shapes.append(dict(
+                    stage=si, path=path, shape=[Bn, H, SWIN_N, SWIN_D],
+                    masked=masked, dtype=dtype_name(dtype), per_path=count,
+                    ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                    bound_by=by, bytes=nbytes, flops=flops))
+                print(f"swin {path} stage {si} Bn={Bn} H={H} masked={masked}"
+                      f" {dtype_name(dtype)}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, bound {b:.4f} ms ({by}) [{card}]")
+    print(f"swin bf16 softmax chain vs plain: worst share outside the bf16 "
+          f"tolerance {max(c['outside'] for c in chain):.2e}, worst mean "
+          f"{max(c['mean'] for c in chain):.2e}, worst max "
+          f"{max(c['max'] for c in chain):.4f} (tolerance share "
+          f"{TOL_SWIN_BF16_CHAIN['outside']}, mean "
+          f"{TOL_SWIN_BF16_CHAIN['mean']})")
+    return dict(name="swin_attention_fwd",
+                mode="cosine (SwinV2), fp32 and bf16 softmax chains",
                 max_abs_err=max(errs), max_abs_err_bf16=max(errs16),
-                shapes=shapes)
+                bf16_chain=chain, shapes=shapes,
+                library_note="none: no single PyTorch call computes it "
+                             "(per-head clamped logit scale on L2-normalized"
+                             " q and k; SDPA takes one scalar scale and no "
+                             "normalization)")
 
 
-def per_request_totals(entry: dict) -> None:
-    """Sum each timing over one request's launches of the kernel."""
-    sh = entry["shapes"]
-    for key in ("ms", "plain_ms", "bound_ms"):
-        entry[key] = sum(s[key] * s["per_request"] for s in sh)
-    entry["kernel_ms"] = entry["ms"]
-    libs = [s["library_ms"] for s in sh]
-    entry["library_ms"] = (None if None in libs else
-                           sum(s["library_ms"] * s["per_request"] for s in sh))
-    t_bytes = sum(s["bytes"] * s["per_request"] for s in sh)
-    t_ops = sum(s["flops"] * s["per_request"] for s in sh)
-    t_bytes, t_ops = t_bytes / PEAK_BYTES_PER_S, t_ops / PEAK_FP32_FLOP_PER_S
-    entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    entry["launches_per_request"] = sum(s["per_request"] for s in sh)
+def path_totals(entry: dict) -> None:
+    """Sum each timing over one request's (captioning) or one training
+    step's (training) launches of the kernel."""
+    entry["paths"] = {}
+    for path in ("captioning", "training"):
+        sh = [s for s in entry["shapes"] if s["path"] == path]
+        if not sh:
+            continue
+        tot = {k: sum(s[k] * s["per_path"] for s in sh)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        libs = [s["library_ms"] for s in sh]
+        tot["library_ms"] = (None if None in libs else
+                             sum(s["library_ms"] * s["per_path"] for s in sh))
+        t_bytes = sum(s["bytes"] * s["per_path"] for s in sh)
+        t_ops = sum(s["flops"] * s["per_path"] / PEAK_FLOP_PER_S[s["dtype"]]
+                    for s in sh)
+        tot["bound_by"] = ("bytes" if t_bytes / PEAK_BYTES_PER_S >= t_ops
+                           else "operations")
+        tot["launches_per_path"] = sum(s["per_path"] for s in sh)
+        entry["paths"][path] = tot
 
 
 # ---------------------------------------------------------------------------
@@ -280,17 +594,17 @@ def decoder_passes(ids) -> int:
     return last
 
 
-def profile_request(cap, images, request_ms: float, card: str) -> dict:
-    """One more request under ``torch.profiler``: the device time of its
-    kernels, their share of the (unprofiled) request time, and the kernels
-    that take most of it. The profiler slows the host, so the share is
-    taken against the request time measured without it."""
+def profile_device(fn, wall_ms: float, card: str, what: str) -> dict:
+    """One more run of ``fn`` under ``torch.profiler``: the device time of
+    its kernels, their share of the (unprofiled) wall time, and the kernels
+    that take most of it. The profiler slows the host, so the share is taken
+    against the time measured without it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cap.caption_finish(cap.caption_launch(images))
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -300,12 +614,12 @@ def profile_request(cap, images, request_ms: float, card: str) -> dict:
               "events)")
         return dict(busy_ms=None)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    out = dict(busy_ms=busy_ms, busy_share=busy_ms / request_ms,
+    out = dict(busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
                kernel_launches=sum(e.count for e in kernels),
                top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
                          count=e.count) for e in top])
-    print(f"device busy {busy_ms:.2f} ms of a {request_ms:.2f} ms request "
-          f"({100 * busy_ms / request_ms:.1f}%), "
+    print(f"device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms {what} "
+          f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{out['kernel_launches']} kernel launches [{card}]")
     for t in out["top"]:
         print(f"  {t['ms']:8.3f} ms  x{t['count']:<6d} {t['name']}")
@@ -397,7 +711,9 @@ def caption(card: str) -> dict:
     del plain_model, plain_cap
 
     mean_ms = sum(r["ms"] for r in per_request) / len(per_request)
-    device = profile_request(cap, images, mean_ms, card)
+    device = profile_device(
+        lambda: cap.caption_finish(cap.caption_launch(images)), mean_ms,
+        card, "request")
     decode_ms_per_token = sum(
         (r["ms"] - encode_ms) / r["passes"] for r in per_request) / len(
             per_request)
@@ -411,6 +727,329 @@ def caption(card: str) -> dict:
                   token_agreement_vs_plain=agree, device=device,
                   sample_captions=texts[0][:2])
     print("captioning " + json.dumps(result))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: training at full width
+# ---------------------------------------------------------------------------
+
+
+def train_batch(cfg, batch: int, seed: int) -> dict:
+    """Seeded uint8 images, the COCO prompt padded to max_source_length
+    with its mask, and seeded byte-tokenizer captions (random words of
+    lowercase letters) padded to max_target_length."""
+    import numpy as np
+
+    from klab_multimodalmodel_tpu_torch.data.datasets import COCO_PROMPT
+    from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+
+    rng = np.random.default_rng(seed)
+    tok = ByteTokenizer()
+    size = cfg.swin.image_size
+    src = tok([COCO_PROMPT] * batch, max_length=cfg.max_source_length)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    captions = [" ".join("".join(rng.choice(letters, rng.integers(2, 9)))
+                         for _ in range(rng.integers(4, 16)))
+                for _ in range(batch)]
+    tgt = tok(captions, max_length=cfg.max_target_length)
+    return dict(images=rng.integers(0, 256, (batch, size, size, 3),
+                                    dtype=np.uint8),
+                source_ids=src.input_ids, source_mask=src.attention_mask,
+                target_ids=tgt.input_ids, target_mask=tgt.attention_mask)
+
+
+def launch_counts() -> dict:
+    from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
+                                                    t5_attention,
+                                                    t5_attention_bwd)
+    return dict(t5_fwd=t5_attention.launches,
+                t5_fwd_dropout=t5_attention.launches_dropout,
+                t5_bwd=t5_attention_bwd.launches,
+                t5_bwd_dbias=t5_attention_bwd.launches_dbias,
+                swin=swin_attention.launches)
+
+
+def reset_counts() -> None:
+    from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
+                                                    t5_attention,
+                                                    t5_attention_bwd)
+    t5_attention.launches = t5_attention.launches_dropout = 0
+    t5_attention_bwd.launches = t5_attention_bwd.launches_dbias = 0
+    swin_attention.launches = 0
+
+
+STEP_LAUNCHES = dict(t5_fwd=96, t5_fwd_dropout=72, t5_bwd=72,
+                     t5_bwd_dbias=48, swin=24)
+
+
+def loss_and_grads(trainer, batch: dict) -> tuple[float, dict]:
+    """Loss and trainable gradients of one deterministic (dropout off)
+    forward and backward, no update."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.data.image_ops import (
+        normalize_images)
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    b = trainer.to_device(batch)
+    images = normalize_images(b["images"], dtype=trainer.policy.compute_dtype)
+    loss = model(images, b["source_ids"], b["target_ids"], b["source_mask"],
+                 b["target_mask"], deterministic=True).loss
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def plain_backward_attention(fp32: bool):
+    """A stand-in for the model's ``t5_attention`` in the comparisons of
+    phase 4: the forward kernel, then the plain backward
+    (``t5_attention_bwd_plain``: the backward kernel's math and roundings),
+    or, with ``fp32``, the plain backward on fp32 copies of its inputs, so
+    that neither dS nor the dropped probabilities are rounded to bf16."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.ops import (t5_attention_bwd_plain,
+                                                    t5_attention_fwd)
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, bias_h, kmask, seed, rate):
+            out, _ = t5_attention_fwd(q, k, v, bias_h, kmask, rate, seed)
+            ctx.rate = rate
+            ctx.save_for_backward(q, k, v, bias_h, kmask, seed)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, bias_h, kmask, seed = ctx.saved_tensors
+            ins = (q, k, v, dout)
+            if fp32:
+                ins = tuple(t.float() for t in ins)
+            need_dbias = bias_h is not None and ctx.needs_input_grad[3]
+            dq, dk, dv, dbias = t5_attention_bwd_plain(
+                *ins, bias_h, kmask, ctx.rate, seed, need_dbias)
+            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
+                    None, None, None)
+
+    def attention(q, k, v, bias_h=None, kmask=None, dropout_rate=0.0,
+                  seed=None):
+        return Fn.apply(q, k, v, bias_h, kmask, seed, float(dropout_rate))
+    return attention
+
+
+def attention_fp32_dp(q, k, v, bias=None, dropout_rate=0.0,
+                      generator=None):
+    """A stand-in for the model's ``dot_product_attention`` (the path
+    without kernels) at rate 0: the same forward values, with the
+    probabilities rounded to the compute dtype, but a gradient that reaches
+    them in fp32, so that dP is not rounded to bf16."""
+    check(dropout_rate == 0, "the fp32-dP stand-in runs without dropout")
+    logits = q.float() @ k.float().transpose(-1, -2)
+    if bias is not None:
+        logits = logits + bias.float()
+    p = logits.softmax(-1)
+    p = p + (p.to(q.dtype).float() - p).detach()
+    return (p @ v.float()).to(q.dtype)
+
+
+# Phase 4's paths, each on the same weights: the kernels; the forward kernel
+# and the plain backward, in the io dtype or in fp32; none; none with dP kept
+# in fp32. Value: (kernel flags, the model's t5_attention or None to keep it,
+# the model's dot_product_attention or None).
+PATHS = {
+    "kernels": (True, None, None),
+    "plain_backward": (True, lambda: plain_backward_attention(False), None),
+    "plain_backward_fp32": (True, lambda: plain_backward_attention(True),
+                            None),
+    "none": (False, None, None),
+    "none_fp32_dp": (False, None, lambda: attention_fp32_dp),
+}
+
+
+def path_grads(cfg, state: dict, compute_dtype: str, batch: dict,
+               path: str) -> tuple[float, dict]:
+    """Loss and trainable gradients on the weights ``state``, dropout off,
+    in ``compute_dtype``, through ``PATHS[path]``."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.models import t5
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    kernels, t5_attention, attention = PATHS[path]
+    c = dataclasses.replace(cfg, compute_dtype=compute_dtype,
+                            use_pallas_attention=kernels,
+                            use_pallas_t5_attention=kernels)
+    t = Trainer(c)
+    t.init_state(state_dict=state)
+    saved = t5.t5_attention, t5.dot_product_attention
+    if t5_attention is not None:
+        t5.t5_attention = t5_attention()
+    if attention is not None:
+        t5.dot_product_attention = attention()
+    try:
+        out = loss_and_grads(t, batch)
+    finally:
+        t5.t5_attention, t5.dot_product_attention = saved
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
+              tol: dict | None) -> dict:
+    """Loss and per-tensor gradient agreement of run ``a`` against run
+    ``b``; printed, and checked against ``tol`` unless it is None."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    check(grads_a.keys() == grads_b.keys(), "the same trainable tensors")
+    loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+    worst_cos, worst_norm = (1.0, ""), (0.0, "")
+    dot = na = nb = 0.0
+    for n, ga in grads_a.items():
+        gb = grads_b[n].float()
+        ga = ga.float()
+        d, x, y = float((ga * gb).sum()), float(ga.norm()), float(gb.norm())
+        cos, norm = d / (x * y), abs(x / y - 1)
+        check(math.isfinite(cos) and math.isfinite(norm),
+              f"gradient of {n}: cosine {cos}, norm ratio off by {norm}")
+        worst_cos = min(worst_cos, (cos, n))
+        worst_norm = max(worst_norm, (norm, n))
+        dot, na, nb = dot + d, na + x * x, nb + y * y
+    total = dot / math.sqrt(na * nb)
+    tols = ("not checked" if tol is None else
+            f"tolerances: loss {TOL_TRAIN_LOSS_REL}, cosine >= "
+            f"{tol['cosine']}, norm {tol['norm']}, all >= {tol['total']}")
+    print(f"training, {what} (batch {CMP_BATCH}, dropout off): loss "
+          f"{loss_a:.6f} vs {loss_b:.6f}, rel {loss_rel:.2e}; worst "
+          f"gradient cosine {worst_cos[0]:.6f} ({worst_cos[1]}); worst norm "
+          f"ratio off by {worst_norm[0]:.2e} ({worst_norm[1]}); all "
+          f"{len(grads_a)} tensors together: cosine {total:.6f} ({tols})")
+    if tol is not None:
+        check(loss_rel <= TOL_TRAIN_LOSS_REL,
+              f"{what}: loss rel diff {loss_rel}")
+        check(worst_cos[0] >= tol["cosine"],
+              f"{what}: gradient cosine {worst_cos}")
+        check(worst_norm[0] <= tol["norm"],
+              f"{what}: gradient norm {worst_norm}")
+        check(total >= tol["total"],
+              f"{what}: gradient cosine of all tensors {total}")
+    return dict(loss_a=loss_a, loss_b=loss_b, loss_rel=loss_rel,
+                worst_cosine=worst_cos, worst_norm_rel=worst_norm,
+                total_cosine=total, tolerance=tol)
+
+
+def compare_paths(cfg, state: dict, batch: dict) -> dict:
+    """Kernels against none on the weights ``state`` in fp32 compute; in
+    bf16 compute the kernels against the forward kernel with the plain
+    backward, then against none, with the readings that locate the gap
+    beside it (see TOL_TRAIN_GRAD)."""
+    out = {}
+    kernels = path_grads(cfg, state, "float32", batch, "kernels")
+    none = path_grads(cfg, state, "float32", batch, "none")
+    out["float32"] = dict(kernels_vs_none=agreement(
+        kernels, none, "float32, kernels vs none", TOL_TRAIN_GRAD))
+    del kernels, none
+    runs = {p: path_grads(cfg, state, "bfloat16", batch, p) for p in PATHS}
+    bf16 = {}
+    for a, b, tol in (
+            ("kernels", "plain_backward", TOL_TRAIN_GRAD),
+            ("kernels", "none", TOL_TRAIN_GRAD_BF16_VS_NONE),
+            ("plain_backward", "none", None),
+            ("plain_backward_fp32", "none", None),
+            ("kernels", "none_fp32_dp", None),
+            ("none", "none_fp32_dp", None),
+            ("plain_backward_fp32", "none_fp32_dp", None)):
+        bf16[f"{a}_vs_{b}"] = agreement(runs[a], runs[b],
+                                        f"bfloat16, {a} vs {b}", tol)
+    out["bfloat16"] = bf16
+    return out
+
+
+def train(card: str) -> dict:
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                 seed=SEED)
+    check(cfg.compute_dtype == "bfloat16" and cfg.lr == 1e-3
+          and cfg.lr_scheduler == "" and not cfg.image_model_train,
+          "the reference caption recipe's Config defaults")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg)
+    model = trainer.init_state(
+        torch.Generator(device="cuda").manual_seed(cfg.seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"training model: {n_params} parameters, {n_train} trainable, "
+          f"built in {time.perf_counter() - t0:.2f} s [{card}]")
+    check(n_train > 7e8, f"trainable t5-large expected, got {n_train}")
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    relpos = {s: getattr(model.transformer, s).relative_attention_bias
+              .weight.detach().clone() for s in ("encoder", "decoder")}
+    batch = train_batch(cfg, TRAIN_BATCH, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(batch, gen))]  # warm-up step
+    first_ms = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for _ in range(STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == STEP_LAUNCHES, f"launches in one step {got}, expected "
+              f"{STEP_LAUNCHES}")
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"losses (warm-up, then {STEPS} steps, dropout on): "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for n, p in model.named_parameters():
+        if n in frozen:
+            check(torch.equal(p, frozen[n]), f"frozen {n} changed")
+    for s, w in relpos.items():
+        moved = float((getattr(model.transformer, s).relative_attention_bias
+                       .weight.detach() - w).abs().max())
+        print(f"{s} relative_attention_bias moved by {moved:.3e}")
+        check(moved > 0, f"{s} relative_attention_bias did not move")
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"train step: {mean_ms:.2f} ms mean over {STEPS} "
+          f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{TRAIN_BATCH / (mean_ms / 1e3):.2f} images/s, first step "
+          f"{first_ms:.2f} ms, peak memory {peak_gb:.2f} GB [{card}]")
+    device = profile_device(lambda: trainer.train_step(batch, gen), mean_ms,
+                            card, "training step")
+
+    # Kernels against none (and, in bf16, against the plain backward):
+    # batch 8, dropout off, the same weights, in fp32 and in bf16 compute.
+    cmp_batch = train_batch(cfg, CMP_BATCH, SEED + 2)
+    state = model.state_dict()
+    vs_plain = compare_paths(cfg, state, cmp_batch)
+    result = dict(card=card, parameters=n_params, trainable=n_train,
+                  batch=TRAIN_BATCH, losses=losses, first_step_ms=first_ms,
+                  step_ms=step_ms, mean_step_ms=mean_ms,
+                  images_per_s=TRAIN_BATCH / (mean_ms / 1e3),
+                  peak_memory_gb=peak_gb, launches=launches,
+                  launches_per_step=STEP_LAUNCHES, device=device,
+                  vs_plain=vs_plain)
+    print("training " + json.dumps(result))
     return result
 
 
@@ -437,28 +1076,49 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_t5(gen, card), check_swin(gen, card)]
+    kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
+               check_swin(gen, card)]
     for entry in kernels:
-        per_request_totals(entry)
+        entry["source"], entry["replaces"] = KERNELS[entry["name"]]
+        entry["route"] = "cuda"
+        path_totals(entry)
 
+    # Each main path runs with the counts set to 0 just before it and read
+    # just after (inside caption() and train(): the three timed requests,
+    # the five timed steps).
+    reset_counts()
     captioning = caption(card)
+    reset_counts()
+    training = train(card)
+    keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
+            "t5_attention_bwd": ("t5_bwd", None),
+            "swin_attention_fwd": ("swin", "swin")}
     for entry in kernels:
-        key = "t5" if entry["name"].startswith("t5") else "swin"
-        entry["launches"] = captioning["launches"][key]
+        train_key, caption_key = keys[entry["name"]]
+        entry["launches"] = training["launches"][train_key]
+        entry["launches_captioning"] = (
+            captioning["launches"][caption_key] if caption_key else 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")
-    summary = [{k: e[k] for k in (
+        # The line reports one training step's launches of each kernel.
+        entry.update({k: entry["paths"]["training"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    summary = [{k: e.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms",
-        "launches_per_request", "max_abs_err_bf16")} for e in kernels]
-    print(json.dumps({"kernels": summary, "card": card,
-                      "times": "per request (all of the kernel's launches in"
-                               " one batch-8 request), fp32, warm L2"}))
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches_captioning")} for e in kernels]
+    print(json.dumps({
+        "kernels": summary, "card": card,
+        "times": f"per training step (all of the kernel's launches in one "
+                 f"batch-{TRAIN_BATCH} step, bf16 inputs, warm L2); "
+                 f"launches: the {STEPS} timed steps; launches_captioning: "
+                 f"the {REQUESTS} timed requests"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels,
-                   "captioning": captioning}, f, indent=1)
+                   "captioning": captioning, "training": training}, f,
+                  indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

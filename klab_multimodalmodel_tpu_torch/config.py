@@ -1,9 +1,9 @@
-"""Configuration of the serving path: model geometries and the run config.
+"""Configuration: model geometries and the run config.
 
-The port's own copy of what the captioning path reads from the JAX
-package's ``klab_multimodalmodel_tpu/config.py``: the T5 and SwinV2 geometry
-tables, the custom-size registry, and a ``Config`` with the same field names
-and defaults for the fields this package reads.
+The port's own copy of what the captioning and training paths read from the
+JAX package's ``klab_multimodalmodel_tpu/config.py``: the T5 and SwinV2
+geometry tables, the custom-size registry, and a ``Config`` with the same
+field names and defaults for the fields this package reads.
 """
 
 from __future__ import annotations
@@ -115,16 +115,36 @@ SWINV2_SIZES: dict[str, SwinV2Size] = {
 # ---------------------------------------------------------------------------
 
 
+_DTYPE_NAMES = ("float32", "bfloat16")
+_SCHEDULERS = ("", "cosine", "linear", "exponential", "step")
+
+
 @dataclasses.dataclass
 class Config:
-    """The fields of the JAX package's ``Config`` that captioning reads,
-    with the same names and defaults."""
+    """The fields of the JAX package's ``Config`` that captioning and the
+    training step read, with the same names and defaults. Values this port
+    does not support yet raise ``NotImplementedError`` naming the ROADMAP
+    item that brings them."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
+    # Train the image tower. Its backward is not ported: only together with
+    # freeze_image_model_updates (zero updates, so it runs frozen).
+    image_model_train: bool = False
     language_model_name: str = "t5-large"
     transformer_model_name: str = "t5-large"
     max_source_length: int = 256
+    max_target_length: int = 128
+    lr: float = 0.001
+    lr_scheduler: str = ""  # '', cosine, linear, exponential, step
+    batch_size: int = 64
+    accumulation_steps: int = 1
     seed: int = 0
+    # Compute dtype policy: params fp32, activations bf16.
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    optimizer: str = "adam"
+    adam_mu_dtype: str = "float32"
+    frozen_param_dtype: str = "float32"
     # dtype of the SwinV2 attention logits/softmax chain.
     swin_softmax_dtype: str = "float32"
     # SwinV2 MLP activation: exact erf GELU, or the tanh approximation.
@@ -138,18 +158,42 @@ class Config:
     moe_experts: int = 0
     # Attend pad positions (the reference's no-mask behaviour).
     reference_pad_quirks: bool = False
+    # The reference's optimizer covers only the transformer: with
+    # image_model_train, the image tower still takes no update.
+    freeze_image_model_updates: bool = False
     # Identity-initialized projection between vision features and d_model.
     use_vision_projection: bool = True
     generate_max_length: int = 20
     num_beams: int = 1
 
     def __post_init__(self) -> None:
-        if self.swin_softmax_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"swin_softmax_dtype={self.swin_softmax_dtype!r}:"
-                             " expected 'float32' or 'bfloat16'")
+        for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
+                     "adam_mu_dtype", "frozen_param_dtype"):
+            if getattr(self, name) not in _DTYPE_NAMES:
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected "
+                                 "'float32' or 'bfloat16'")
+        if self.lr_scheduler not in _SCHEDULERS:
+            raise ValueError(f"unknown lr_scheduler {self.lr_scheduler!r}")
+        if self.optimizer not in ("adam", "adafactor"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.moe_experts != 0:
             raise NotImplementedError(
                 "moe_experts > 0 is not ported; only the dense model is")
+        if self.optimizer == "adafactor":
+            raise NotImplementedError(
+                "optimizer='adafactor' is not ported yet (ROADMAP A2.1)")
+        if self.adam_mu_dtype != "float32":
+            raise NotImplementedError(
+                "adam_mu_dtype='bfloat16' is not ported yet (ROADMAP A2.1)")
+        if self.frozen_param_dtype != "float32":
+            raise NotImplementedError(
+                "frozen_param_dtype other than 'float32' is not ported yet "
+                "(ROADMAP A2.1)")
+        if self.image_model_train and not self.freeze_image_model_updates:
+            raise NotImplementedError(
+                "a trainable image tower needs the SwinV2 backward, which is "
+                "not ported yet (ROADMAP A2.2); image_model_train with "
+                "freeze_image_model_updates runs the tower frozen")
 
     # -- derived model geometries ------------------------------------------
     @property

@@ -8,8 +8,13 @@
 // Computes, per (window b, head h), with N window tokens of head dim D:
 //   qn = q * rsqrt(sum(q^2) + 1e-24), kn likewise (fp32, cast back to the
 //   input dtype), S = (qn kn^T) * exp(min(scale[h], ln 100)) + bias[h]
-//   (+ wmask[b mod nW] for shifted windows), P = softmax(S) in fp32,
-//   O = P V, output in the input dtype (fp32 or bf16).
+//   (+ wmask[b mod nW] for shifted windows), P = softmax(S), O = P V, output
+//   in the input dtype (fp32 or bf16).
+// The chain from the logits to P runs in fp32, or in bf16 (`sm_bf16`, the
+// reference's `swin_softmax_dtype='bfloat16'`): then every step rounds to
+// bf16 as the TPU kernel's does in `sm_dtype` -- the logits, the scale, the
+// product, each added table, the max-subtracted logits, their exp, the row
+// sum and the quotient -- while sums and products are formed in fp32.
 //
 // What bounds it on this card: at the serving shapes (N=64, D=32) one
 // (window, head) reads 24 KB of q/k/v (fp32) and writes 8 KB for ~0.5 MFLOP
@@ -65,7 +70,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// One step of the softmax chain: rounds to bf16 when the chain runs in bf16.
+template <bool SM_BF16>
+__device__ __forceinline__ float chain(float x) {
+  return SM_BF16 ? bf16_round(x) : x;
+}
+
+template <typename T, bool SM_BF16>
 __global__ void __launch_bounds__(kThreads)
     swin_attention_fwd_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
@@ -110,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const float s = expf(fminf(scale[h], kLogMaxScale));
+  const float s = chain<SM_BF16>(expf(fminf(scale[h], kLogMaxScale)));
   const float* bias_h = bias + (size_t)h * N * N;
   const float* mask_w =
       (wmask != nullptr) ? wmask + (size_t)(b % nW) * N * N : nullptr;
@@ -121,13 +136,21 @@ __global__ void __launch_bounds__(kThreads)
     const float* kr = k_s + c * ld;
     float dot = 0.f;
     for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-    float logit = dot * s + bias_h[i];
-    if (mask_w != nullptr) logit += mask_w[i];
+    float logit;
+    if (SM_BF16) {
+      logit = bf16_round(bf16_round(dot) * s);
+      logit = bf16_round(logit + bf16_round(bias_h[i]));
+      if (mask_w != nullptr)
+        logit = bf16_round(logit + bf16_round(mask_w[i]));
+    } else {
+      logit = dot * s + bias_h[i];
+      if (mask_w != nullptr) logit += mask_w[i];
+    }
     s_s[r * lds + c] = logit;
   }
   __syncthreads();
 
-  // Row softmax in fp32: one warp per row.
+  // Row softmax, one warp per row.
   for (int r = warp; r < N; r += nwarps) {
     float* row = s_s + r * lds;
     float mx = -INFINITY;
@@ -135,12 +158,13 @@ __global__ void __launch_bounds__(kThreads)
     mx = warp_max(mx);
     float sum = 0.f;
     for (int c = lane; c < N; c += 32) {
-      const float e = expf(row[c] - mx);
+      const float e = chain<SM_BF16>(expf(chain<SM_BF16>(row[c] - mx)));
       row[c] = e;
       sum += e;
     }
-    sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) row[c] = round_to<T>(row[c] / sum);
+    sum = chain<SM_BF16>(warp_sum(sum));
+    for (int c = lane; c < N; c += 32)
+      row[c] = round_to<T>(chain<SM_BF16>(row[c] / sum));
   }
   __syncthreads();
 
@@ -154,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool SM_BF16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* scale, const void* bias, const void* wmask,
                    void* out, int Bn, int H, int N, int D, int nW,
@@ -162,7 +186,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const size_t smem = sizeof(float) * ((size_t)2 * N * (D + 1) +
                                        (size_t)N * D + (size_t)N * (N + 1));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  auto kernel = swin_attention_fwd_kernel<T>;
+  auto kernel = swin_attention_fwd_kernel<T, SM_BF16>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -179,21 +203,35 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* scale, const void* bias, const void* wmask,
+                     void* out, int Bn, int H, int N, int D, int nW,
+                     int sm_bf16, cudaStream_t stream) {
+  if (sm_bf16)
+    return launch<T, true>(q, k, v, scale, bias, wmask, out, Bn, H, N, D, nW,
+                           stream);
+  return launch<T, false>(q, k, v, scale, bias, wmask, out, Bn, H, N, D, nW,
+                          stream);
+}
+
 // q/k/v/out (Bn,H,N,D) contiguous, fp32 (is_bf16=0) or bf16 (is_bf16=1);
 // scale (H,) fp32 raw logit scale; bias (H,N,N) fp32; wmask (nW,N,N) fp32
-// or NULL (then nW is ignored). Returns the launch's cudaError_t.
+// or NULL (then nW is ignored); sm_bf16: the softmax chain in bf16 (1) or
+// fp32 (0). Returns the launch's cudaError_t.
 extern "C" int klab_swin_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* scale,
                                        const void* bias, const void* wmask,
                                        void* out, int Bn, int H, int N, int D,
-                                       int nW, int is_bf16, void* stream) {
+                                       int nW, int is_bf16, int sm_bf16,
+                                       void* stream) {
   if (Bn < 1 || H < 1 || N < 1 || D < 1 || H > 65535 ||
       (wmask != nullptr && (nW < 1 || Bn % nW != 0)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, k, v, scale, bias, wmask, out, Bn,
-                                      H, N, D, nW, s);
-  return (int)launch<float>(q, k, v, scale, bias, wmask, out, Bn, H, N, D,
-                            nW, s);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, scale, bias, wmask, out, Bn,
+                                        H, N, D, nW, sm_bf16, s);
+  return (int)dispatch<float>(q, k, v, scale, bias, wmask, out, Bn, H, N, D,
+                              nW, sm_bf16, s);
 }

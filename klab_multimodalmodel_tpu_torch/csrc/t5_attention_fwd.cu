@@ -1,20 +1,32 @@
 // T5 attention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces: klab_multimodalmodel_tpu/ops/fused_attention.py, `_fwd_kernel`
-// in plain mode (cosine=False) at dropout rate 0, reached through `_fwd` and
+// in plain mode (cosine=False), reached through `_fwd` and
 // `t5_fused_attention[_packed]`.
 //
 // Computes, per (batch b, head h):
-//   O = softmax(Q K^T + bias[h] + (kmask[b] > 0 ? 0 : -1e9)) V
+//   P = softmax(Q K^T + bias[h] + (kmask[b] > 0 ? 0 : -1e9))
+//   O = dropout(P) V,  dropout(P) = keep ? P / (1 - rate) : 0
 // with no 1/sqrt(d) scale, logits and softmax in fp32, and the output in the
-// input dtype (fp32 or bf16). Q != K is allowed.
+// input dtype (fp32 or bf16). Q != K is allowed. At rate > 0 the keep bits
+// come from Philox4x32-10 keyed by a seed read from device memory
+// (`philox.cuh`): a pure function of (seed, b, h, q, k), which the backward
+// (`t5_attention_bwd.cu`) draws again. With `stats` given, the row max and
+// the row sum of exp(logit - max) go out as (B, H, Q, 2) fp32 for the
+// backward. (A single log-sum-exp would lose a fully masked row: -1e9 +
+// log K rounds to -1e9 in fp32, and exp(logit - lse) would give 1, not 1/K.)
 //
 // What bounds it on this card: at the serving shapes (B=8, H=16, D=64,
 // L=32 or 96, fp32) one (b, h) moves 4*L*D*4 bytes of q/k/v/o for 4*L*L*D
 // FLOP of products: L/4 FLOP per byte, 8 at L=32 and 24 at L=96, either side
 // of the fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20). The whole call is a
 // few MB and a few hundred MFLOP, so at these sizes launch latency and the
-// scalar-FMA products weigh more than either bound.
+// scalar-FMA products weigh more than either bound. At the training shapes
+// (B=32, L=128..320, bf16) the ratio is L/2 = 64..160 FLOP per byte, under
+// the bf16 tensor-core ridge (989 TFLOP/s over 3.35 TB/s = 295): bytes bound
+// it, but only a tensor-core kernel comes near; this one runs fp32 FMAs.
+// Dropout adds one Philox4x32-10 per probability (each lane draws the word
+// of its own key; four lanes share a counter).
 // Design: one block per (b, h, 32-query tile); key/value tiles of 32 rows
 // are staged once in shared memory (fp32) and read by every query row of the
 // block, so Q/K/V leave device memory once; an online (running max / sum)
@@ -26,6 +38,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -69,7 +84,10 @@ __global__ void __launch_bounds__(kWarps * 32)
                             const T* __restrict__ v,
                             const float* __restrict__ bias,
                             const int* __restrict__ kmask,
-                            T* __restrict__ out, int H, int Q, int K, int D) {
+                            const long long* __restrict__ seed,
+                            T* __restrict__ out, float* __restrict__ stats,
+                            int H, int Q, int K, int D, uint32_t threshold,
+                            float keep_prob) {
   extern __shared__ float smem[];
   float* q_s = smem;                     // [kBlockQ][D]
   float* k_s = q_s + kBlockQ * D;        // [kBlockK][D + 1], padded: no
@@ -85,6 +103,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* qp = q + bh * Q * D;
   const T* kp = k + bh * K * D;
   const T* vp = v + bh * K * D;
+  const bool dropout = seed != nullptr;
+  const uint64_t seed_v = dropout ? (uint64_t)*seed : 0;
 
   for (int i = tid; i < kBlockQ * D; i += blockDim.x) {
     const int r = i / D;
@@ -138,10 +158,17 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float p = key_ok ? expf(s - m_new) : 0.f;
         const float corr = expf(m[r] - m_new);  // 0 on the first tile
         l[r] = l[r] * corr + warp_sum(p);
+        // The normalizer sums the probabilities before dropout; only the
+        // product with V sees the dropped, rescaled ones.
+        float pd = p;
+        if (dropout)
+          pd = (key_ok && klab::dropout_keep(seed_v, b, h, qi, key, threshold))
+                   ? p / keep_prob
+                   : 0.f;
 #pragma unroll
         for (int c = 0; c < NCH; ++c) acc[r][c] *= corr;
         for (int j = 0; j < kBlockK; ++j) {
-          const float pj = __shfl_sync(kFull, p, j);
+          const float pj = __shfl_sync(kFull, pd, j);
 #pragma unroll
           for (int c = 0; c < NCH; ++c) {
             const int d = lane + 32 * c;
@@ -163,14 +190,25 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int d = lane + 32 * c;
         if (d < D) out[(bh * Q + qi) * D + d] = from_float<T>(acc[r][c] * inv);
       }
+      if (stats != nullptr && lane == 0) {
+        stats[(bh * Q + qi) * 2] = m[r];
+        stats[(bh * Q + qi) * 2 + 1] = l[r];
+      }
     }
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *bias, *kmask, *seed;
+  void *out, *stats;
+  int B, H, Q, K, D;
+  uint32_t threshold;
+  float keep_prob;
+};
+
 template <typename T, int NCH>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, const void* kmask, void* out, int B,
-                   int H, int Q, int K, int D, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int D = a.D;
   const size_t smem =
       sizeof(float) * ((size_t)kBlockQ * D + (size_t)kBlockK * (D + 1) +
                        (size_t)kBlockK * D);
@@ -180,27 +218,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((Q + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((a.Q + kBlockQ - 1) / kBlockQ, a.H, a.B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const int*>(kmask), static_cast<T*>(out), H, Q, K, D);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<const int*>(a.kmask), static_cast<const long long*>(a.seed),
+      static_cast<T*>(a.out), static_cast<float*>(a.stats), a.H, a.Q, a.K, D,
+      a.threshold, a.keep_prob);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* bias, const void* kmask, void* out, int B,
-                     int H, int Q, int K, int D, cudaStream_t stream) {
-  switch ((D + 31) / 32) {
+cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+  switch ((a.D + 31) / 32) {
     case 1:
-      return launch<T, 1>(q, k, v, bias, kmask, out, B, H, Q, K, D, stream);
+      return launch<T, 1>(a, stream);
     case 2:
-      return launch<T, 2>(q, k, v, bias, kmask, out, B, H, Q, K, D, stream);
+      return launch<T, 2>(a, stream);
     case 3:
-      return launch<T, 3>(q, k, v, bias, kmask, out, B, H, Q, K, D, stream);
+      return launch<T, 3>(a, stream);
     case 4:
-      return launch<T, 4>(q, k, v, bias, kmask, out, B, H, Q, K, D, stream);
+      return launch<T, 4>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -210,18 +248,22 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q (B,H,Q,D), k/v (B,H,K,D), out (B,H,Q,D): contiguous, fp32 (is_bf16=0)
 // or bf16 (is_bf16=1). bias (H,Q,K) fp32 or NULL; kmask (B,K) int32 or NULL.
-// Returns the cudaError_t of the launch (0 = success).
+// seed: one int64 in device memory, or NULL for no dropout; rate in [0, 1)
+// is the dropout rate (ignored without a seed). stats (B,H,Q,2) fp32 or
+// NULL. Returns the cudaError_t of the launch (0 = success).
 extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                                      const void* v, const void* bias,
-                                     const void* kmask, void* out, int B,
-                                     int H, int Q, int K, int D, int is_bf16,
-                                     void* stream) {
+                                     const void* kmask, const void* seed,
+                                     void* out, void* stats, int B, int H,
+                                     int Q, int K, int D, int is_bf16,
+                                     double rate, void* stream) {
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
-      B > 65535)
+      B > 65535 || !(rate >= 0.0 && rate < 1.0))
     return (int)cudaErrorInvalidValue;
+  // floor(rate * 2^32) and 1 - rate in fp32, as the TPU kernel forms them.
+  const Args a{q, k, v, bias, kmask, seed, out, stats, B, H, Q, K, D,
+               (uint32_t)(rate * 4294967296.0), (float)(1.0 - rate)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, bias, kmask, out, B, H, Q,
-                                        K, D, s);
-  return (int)dispatch<float>(q, k, v, bias, kmask, out, B, H, Q, K, D, s);
+  if (is_bf16) return (int)dispatch<__nv_bfloat16>(a, s);
+  return (int)dispatch<float>(a, s);
 }

@@ -9,10 +9,11 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def normalize_images(images_uint8: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) fp32, on the images'
-    device."""
+def normalize_images(images_uint8: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) in ``dtype`` (computed
+    in fp32, then cast), on the images' device."""
     x = images_uint8.to(torch.float32) / 255.0
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    return (x - mean) / std
+    return ((x - mean) / std).to(dtype)

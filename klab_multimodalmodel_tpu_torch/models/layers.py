@@ -1,4 +1,12 @@
-"""Shared building blocks: norms, reference attention, initializers."""
+"""Shared building blocks: norms, dense layers in a compute dtype, dropout,
+reference attention, initializers.
+
+Parameters are fp32. A module's compute dtype (flax's module ``dtype``)
+casts the inputs and weights of its matrix products, as flax's
+``promote_dtype`` does; norms keep fp32 statistics and return their input's
+dtype. The port uses explicit dtypes, not ``torch.autocast``: autocast would
+keep the residual stream in fp32 where the reference's is in the compute
+dtype."""
 
 from __future__ import annotations
 
@@ -52,26 +60,63 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` whose product runs in ``compute_dtype``: input, weight
+    and bias are cast to it (flax ``nn.Dense(dtype=...)``); the parameters
+    stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale the
+    kept values by ``1 / (1 - rate)`` formed in x's dtype. The mask comes
+    from the explicit ``generator`` (on x's device), never from the global
+    one. Rate 0 is the identity."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout at rate > 0 needs a generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None
+                          bias: Optional[torch.Tensor] = None,
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
-    """Reference attention, q,k,v (B, H, L, D), deterministic: no
-    1/sqrt(d) scale (T5 folds it into the init), fp32 logits and softmax,
-    probabilities cast to the input dtype before the product."""
+    """Reference attention, q,k,v (B, H, L, D): no 1/sqrt(d) scale (T5
+    folds it into the init), fp32 logits and softmax, probabilities cast to
+    the input dtype, then dropped (``dropout``, at ``dropout_rate``) in that
+    dtype, then multiplied by v with an fp32 sum."""
     dtype = q.dtype
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1).to(dtype)
+    probs = dropout(torch.softmax(logits, dim=-1).to(dtype), dropout_rate,
+                    generator)
     return torch.matmul(probs.float(), v.float()).to(dtype)
 
 
 def mlp_block(x: torch.Tensor, fc1: nn.Linear, fc2: nn.Linear,
               gelu_approximate: bool = False) -> torch.Tensor:
-    """The JAX package's ``MlpBlock`` (SwinV2 FFN) at inference:
-    ``fc2(gelu(fc1(x)))``. The two layers belong to the calling block so
-    that they carry HF's Swinv2 names (``intermediate.dense``,
-    ``output.dense``)."""
+    """The JAX package's ``MlpBlock`` (SwinV2 FFN), deterministic:
+    ``fc2(gelu(fc1(x)))`` (the GELU in fc1's output dtype). The two layers
+    belong to the calling block so that they carry HF's Swinv2 names
+    (``intermediate.dense``, ``output.dense``)."""
     h = F.gelu(fc1(x), approximate="tanh" if gelu_approximate else "none")
     return fc2(h)
 

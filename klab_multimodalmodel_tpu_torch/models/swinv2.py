@@ -1,11 +1,15 @@
-"""SwinV2 vision encoder (HF ``Swinv2Model`` equivalent), inference.
+"""SwinV2 vision encoder (HF ``Swinv2Model`` equivalent), deterministic.
 
 Patch embedding, four stages of shifted-window attention with the v2
 changes (scaled-cosine attention with a learned clamped logit scale,
 log-spaced continuous relative-position-bias MLP, residual-post-norm), patch
 merging, and the final LayerNorm producing ``last_hidden_state``. Parameters
 carry HF's Swinv2 names so a state dict from ``checkpoint/from_jax.py``
-loads with ``strict=True``.
+loads with ``strict=True``. ``dtype`` is the compute dtype of the patch
+embedding and of every dense layer (flax's module dtype); the continuous
+position bias MLP, the norms' statistics and the parameters stay fp32. The
+tower runs deterministically (no drop-path) in training too, as the JAX
+package runs it.
 
 With ``use_pallas`` every window attention goes through the hand-written
 kernel (``ops.fused_attention.swin_attention``); otherwise it runs the
@@ -19,12 +23,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinV2Size
 from ..ops.fused_attention import LOG_MAX_SCALE, swin_attention
 from ..utils.device import resolve_device
-from .layers import LayerNorm, init_linear_, lecun_normal_, mlp_block
+from .layers import Dense, LayerNorm, init_linear_, lecun_normal_, mlp_block
 
 # ---------------------------------------------------------------------------
 # Static tables
@@ -110,18 +115,20 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  pretrained_window_size: int = 0, qkv_bias: bool = True,
                  use_pallas: bool = False,
-                 softmax_dtype: torch.dtype = torch.float32):
+                 softmax_dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.use_pallas = use_pallas
         self.softmax_dtype = softmax_dtype
+        self.dtype = dtype
         self.logit_scale = nn.Parameter(torch.empty(num_heads, 1, 1))
         self.continuous_position_bias_mlp = nn.Sequential(
             nn.Linear(2, 512, bias=True), nn.ReLU(),
             nn.Linear(512, num_heads, bias=False))
-        self.query = nn.Linear(dim, dim, bias=qkv_bias)
-        self.key = nn.Linear(dim, dim, bias=False)
-        self.value = nn.Linear(dim, dim, bias=qkv_bias)
+        self.query = Dense(dim, dim, bias=qkv_bias, compute_dtype=dtype)
+        self.key = Dense(dim, dim, bias=False, compute_dtype=dtype)
+        self.value = Dense(dim, dim, bias=qkv_bias, compute_dtype=dtype)
         # torch.tensor (not from_numpy) so the tables follow the device the
         # model is built under.
         self.register_buffer("relative_coords_table", torch.tensor(
@@ -168,16 +175,19 @@ class WindowAttention(nn.Module):
 
     def _reference_attention(self, q, k, v, scale, bias_h, mask):
         """Cosine attention of the JAX package's unflagged branch:
-        normalize by max(||x||, 1e-12) in fp32, scale by the clamped learned
-        temperature, softmax in ``softmax_dtype``."""
-        sm = self.softmax_dtype
+        normalize by max(||x||, 1e-12) in fp32 and cast to the compute
+        dtype, scale by the clamped learned temperature, softmax in
+        ``softmax_dtype``, probabilities cast to the compute dtype before
+        the product with v."""
+        sm, dt = self.softmax_dtype, self.dtype
         q32 = q.float()
         k32 = k.float()
         q32 = q32 / torch.clamp(torch.linalg.vector_norm(
             q32, dim=-1, keepdim=True), min=1e-12)
         k32 = k32 / torch.clamp(torch.linalg.vector_norm(
             k32, dim=-1, keepdim=True), min=1e-12)
-        logits = torch.matmul(q32, k32.transpose(-1, -2)).to(sm)
+        logits = torch.matmul(q32.to(dt).float(),
+                              k32.to(dt).float().transpose(-1, -2)).to(sm)
         s = torch.exp(torch.clamp(scale, max=LOG_MAX_SCALE))
         logits = logits * s[None, :, None, None].to(sm)
         logits = logits + bias_h[None].to(sm)
@@ -187,7 +197,7 @@ class WindowAttention(nn.Module):
             logits = (logits.view(Bn // nW, nW, H, N, N)
                       + mask.to(sm)[None, :, None]).view(Bn, H, N, N)
         probs = torch.softmax(logits, dim=-1)
-        return torch.matmul(probs.to(v.dtype), v)
+        return torch.matmul(probs.to(dt).float(), v.float()).to(dt)
 
 
 class SwinV2Block(nn.Module):
@@ -200,7 +210,8 @@ class SwinV2Block(nn.Module):
                  qkv_bias: bool = True, layer_norm_eps: float = 1e-5,
                  pretrained_window_size: int = 0, use_pallas: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
-                 gelu_approximate: bool = False):
+                 gelu_approximate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         R = self.input_resolution = input_resolution
         # Shrink the window when the feature map is no larger than it
@@ -211,13 +222,16 @@ class SwinV2Block(nn.Module):
         self.attention = nn.ModuleDict({
             "self": WindowAttention(
                 dim, num_heads, self.window_size, pretrained_window_size,
-                qkv_bias, use_pallas, softmax_dtype),
-            "output": nn.ModuleDict({"dense": nn.Linear(dim, dim)}),
+                qkv_bias, use_pallas, softmax_dtype, dtype),
+            "output": nn.ModuleDict({"dense": Dense(dim, dim,
+                                                    compute_dtype=dtype)}),
         })
         self.layernorm_before = LayerNorm(dim, layer_norm_eps)
         hidden = int(dim * mlp_ratio)
-        self.intermediate = nn.ModuleDict({"dense": nn.Linear(dim, hidden)})
-        self.output = nn.ModuleDict({"dense": nn.Linear(hidden, dim)})
+        self.intermediate = nn.ModuleDict({"dense": Dense(
+            dim, hidden, compute_dtype=dtype)})
+        self.output = nn.ModuleDict({"dense": Dense(hidden, dim,
+                                                    compute_dtype=dtype)})
         self.layernorm_after = LayerNorm(dim, layer_norm_eps)
         mask = None
         if self.shift_size > 0:
@@ -255,9 +269,11 @@ class SwinV2Block(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 patch merge: concat -> Linear(4C->2C) -> LayerNorm (v2 order)."""
 
-    def __init__(self, dim: int, layer_norm_eps: float = 1e-5):
+    def __init__(self, dim: int, layer_norm_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False,
+                               compute_dtype=dtype)
         self.norm = LayerNorm(2 * dim, layer_norm_eps)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -280,15 +296,18 @@ class SwinV2Encoder(nn.Module):
 
     Input is channels-last ``(B, H, W, 3)``, as in the JAX package; it is
     permuted to channels-first for the patch-embedding convolution.
-    ``device``: None means the card (see ``utils.device``).
+    ``dtype``: the compute dtype. ``device``: None means the card (see
+    ``utils.device``).
     """
 
     def __init__(self, size: SwinV2Size, use_pallas: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
-                 gelu_approximate: bool = False, device=None):
+                 gelu_approximate: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         with torch.device(resolve_device(device)):
             cfg = self.size = size
+            self.dtype = dtype
             p = cfg.patch_size
             self.embeddings = nn.ModuleDict({
                 "patch_embeddings": nn.ModuleDict({"projection": nn.Conv2d(
@@ -307,10 +326,11 @@ class SwinV2Encoder(nn.Module):
                         layer_norm_eps=cfg.layer_norm_eps,
                         pretrained_window_size=cfg.pretrained_window_sizes[si],
                         use_pallas=use_pallas, softmax_dtype=softmax_dtype,
-                        gelu_approximate=gelu_approximate)
+                        gelu_approximate=gelu_approximate, dtype=dtype)
                     for li in range(depth))})
                 if si < len(cfg.depths) - 1:
-                    stage["downsample"] = PatchMerging(dim, cfg.layer_norm_eps)
+                    stage["downsample"] = PatchMerging(
+                        dim, cfg.layer_norm_eps, dtype)
                     R //= 2
                     dim *= 2
                 stages.append(stage)
@@ -330,8 +350,10 @@ class SwinV2Encoder(nn.Module):
         self.layernorm.init_weights(generator)
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings["patch_embeddings"]["projection"](
-            pixel_values.permute(0, 3, 1, 2))
+        proj = self.embeddings["patch_embeddings"]["projection"]
+        dt = self.dtype
+        x = F.conv2d(pixel_values.permute(0, 3, 1, 2).to(dt),
+                     proj.weight.to(dt), proj.bias.to(dt), stride=proj.stride)
         B, C, R, _ = x.shape
         x = self.embeddings["norm"](x.flatten(2).transpose(1, 2))
         for stage in self.encoder["layers"]:

@@ -1,9 +1,17 @@
-"""T5 encoder-decoder (v1.0 and v1.1/Flan geometries), dense serving subset.
+"""T5 encoder-decoder (v1.0 and v1.1/Flan geometries), dense subset.
 
-The port of the JAX package's ``models/t5.py`` for inference: relative-
-position-bucket attention bias, RMSNorm, ReLU or gated tanh-GELU MLPs, the
-tied LM head with its ``d_model**-0.5`` scale (or an untied ``lm_head``), and
-incremental decoding against a KV cache. Layers run as a Python loop.
+The port of the JAX package's ``models/t5.py``: relative-position-bucket
+attention bias, RMSNorm, ReLU or gated tanh-GELU MLPs, the tied LM head with
+its ``d_model**-0.5`` scale (or an untied ``lm_head``), incremental decoding
+against a KV cache, and the training forward (teacher-forced decoder,
+``shift_right``, ``cross_entropy_loss``). Layers run as a Python loop.
+
+Every module takes a compute dtype (``dtype``, flax's module dtype):
+embeddings and matrix products run in it, the parameters stay fp32. With
+``deterministic=False`` dropout runs where the JAX package places it (stack
+input, each residual branch, after the MLP activation, after the final
+norm, and on the attention probabilities), drawing from an explicit
+``torch.Generator``.
 
 Parameters carry HuggingFace's names (``encoder.block.{i}.layer.0.
 SelfAttention.q.weight``, ...), so a state dict from
@@ -12,13 +20,15 @@ also lists (``encoder.embed_tokens``, a tied ``lm_head``) are not stored
 twice.
 
 With ``use_pallas`` a stack routes its full-sequence attention through the
-hand-written kernel (``ops.fused_attention.t5_attention``), passing the
-(H, Q, K) head bias and the (B, K) key mask straight to it. Decode steps
-never take the kernel.
+hand-written kernels (``ops.fused_attention.t5_attention``: forward, and the
+backward when a gradient is needed), passing the (H, Q, K) head bias and the
+(B, K) key mask straight to them; the probabilities are dropped inside the
+kernel. Decode steps never take the kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -27,9 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import T5Size
-from ..ops.fused_attention import t5_attention
+from ..ops.fused_attention import draw_seed, t5_attention
 from ..utils.device import resolve_device
-from .layers import NEG_INF, RMSNorm, dot_product_attention, normal_
+from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
+                     normal_)
 
 # A decode cache: one dict per layer, {"self": {...}, "cross": {...}}.
 Cache = list
@@ -98,12 +109,14 @@ class T5RelativePositionBias(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class KlabDense(nn.Linear):
-    """Bias-free dense layer (torch layout: weight (out, in)) with the T5
-    fan-in normal init of its JAX counterpart."""
+class KlabDense(Dense):
+    """Bias-free dense layer (torch layout: weight (out, in)) in the compute
+    dtype, with the T5 fan-in normal init of its JAX counterpart."""
 
-    def __init__(self, in_features: int, out_features: int, init_std: float):
-        super().__init__(in_features, out_features, bias=False)
+    def __init__(self, in_features: int, out_features: int, init_std: float,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=False,
+                         compute_dtype=compute_dtype)
         self.init_std = init_std
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -126,15 +139,16 @@ class T5Attention(nn.Module):
     """
 
     def __init__(self, size: T5Size, has_relative_attention_bias: bool = False,
-                 bidirectional: bool = True):
+                 bidirectional: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         s = self.size = size
         inner = s.num_heads * s.d_kv
         # Init stds follow the T5 fan-in scheme (mesh-tf init, as in HF).
-        self.q = KlabDense(s.d_model, inner, (s.d_model * s.d_kv) ** -0.5)
-        self.k = KlabDense(s.d_model, inner, s.d_model ** -0.5)
-        self.v = KlabDense(s.d_model, inner, s.d_model ** -0.5)
-        self.o = KlabDense(inner, s.d_model, inner ** -0.5)
+        self.q = KlabDense(s.d_model, inner, (s.d_model * s.d_kv) ** -0.5,
+                           dtype)
+        self.k = KlabDense(s.d_model, inner, s.d_model ** -0.5, dtype)
+        self.v = KlabDense(s.d_model, inner, s.d_model ** -0.5, dtype)
+        self.o = KlabDense(inner, s.d_model, inner ** -0.5, dtype)
         if has_relative_attention_bias:
             self.relative_attention_bias = T5RelativePositionBias(
                 s.relative_attention_num_buckets,
@@ -159,9 +173,12 @@ class T5Attention(nn.Module):
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 kernel_pack: Optional[tuple] = None,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q = self._split_heads(self.q(x))
         is_cross = kv is not None
+        rate = 0.0 if deterministic or cache is not None else (
+            self.size.dropout_rate)
         if cache is not None:
             k, v, bias = self._decode_kv(x, kv, bias, cache)
         else:
@@ -169,11 +186,21 @@ class T5Attention(nn.Module):
             k = self._split_heads(self.k(src))
             v = self._split_heads(self.v(src))
             if kernel_pack is not None:
+                # The kernel drops the probabilities itself, from a seed
+                # drawn from the step's generator.
                 head_bias, kmask = kernel_pack
+                seed = None
+                if rate > 0:
+                    if generator is None:
+                        raise ValueError("dropout at rate > 0 needs a "
+                                         "generator")
+                    seed = draw_seed(generator)
                 attn = t5_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), head_bias, kmask)
+                                    v.contiguous(), head_bias, kmask, rate,
+                                    seed)
                 return self.o(self._merge_heads(attn))
-        attn = dot_product_attention(q, k, v, bias=bias)
+        attn = dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
+                                     generator=generator)
         return self.o(self._merge_heads(attn))
 
     def _decode_kv(self, x, kv, bias, cache):
@@ -237,29 +264,31 @@ class T5Mlp(nn.Module):
     """T5 feed-forward: un-gated ``wo(act(wi(x)))`` or the v1.1 gated
     ``wo(act(wi_0(x)) * wi_1(x))`` (HF's ``DenseReluDense``)."""
 
-    def __init__(self, size: T5Size):
+    def __init__(self, size: T5Size, dtype: torch.dtype = torch.float32):
         super().__init__()
-        s = size
+        s = self.size = size
         self.act, self.gated = _t5_act(s.feed_forward_proj)
         std_in = s.d_model ** -0.5
         if self.gated:
-            self.wi_0 = KlabDense(s.d_model, s.d_ff, std_in)
-            self.wi_1 = KlabDense(s.d_model, s.d_ff, std_in)
+            self.wi_0 = KlabDense(s.d_model, s.d_ff, std_in, dtype)
+            self.wi_1 = KlabDense(s.d_model, s.d_ff, std_in, dtype)
         else:
-            self.wi = KlabDense(s.d_model, s.d_ff, std_in)
-        self.wo = KlabDense(s.d_ff, s.d_model, s.d_ff ** -0.5)
+            self.wi = KlabDense(s.d_model, s.d_ff, std_in, dtype)
+        self.wo = KlabDense(s.d_ff, s.d_model, s.d_ff ** -0.5, dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for layer in ((self.wi_0, self.wi_1) if self.gated else (self.wi,)):
             layer.init_weights(generator)
         self.wo.init_weights(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.gated:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
-        return self.wo(h)
+        rate = 0.0 if deterministic else self.size.dropout_rate
+        return self.wo(dropout(h, rate, generator))
 
 
 class T5Block(nn.Module):
@@ -267,23 +296,24 @@ class T5Block(nn.Module):
     as HF's ``layer`` list so parameter names match."""
 
     def __init__(self, size: T5Size, has_cross_attention: bool,
-                 has_relative_attention_bias: bool):
+                 has_relative_attention_bias: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        s = size
+        s = self.size = size
         self.has_cross_attention = has_cross_attention
         eps = s.layer_norm_epsilon
         layers = [nn.ModuleDict({
             "layer_norm": RMSNorm(s.d_model, eps),
             "SelfAttention": T5Attention(
                 s, has_relative_attention_bias,
-                bidirectional=not has_cross_attention)})]
+                bidirectional=not has_cross_attention, dtype=dtype)})]
         if has_cross_attention:
             layers.append(nn.ModuleDict({
                 "layer_norm": RMSNorm(s.d_model, eps),
-                "EncDecAttention": T5Attention(s)}))
+                "EncDecAttention": T5Attention(s, dtype=dtype)}))
         layers.append(nn.ModuleDict({
             "layer_norm": RMSNorm(s.d_model, eps),
-            "DenseReluDense": T5Mlp(s)}))
+            "DenseReluDense": T5Mlp(s, dtype)}))
         self.layer = nn.ModuleList(layers)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -292,21 +322,29 @@ class T5Block(nn.Module):
                 m.init_weights(generator)
 
     def forward(self, x, self_bias, enc_out, cross_bias, self_pack=None,
-                cross_pack=None, cache: Optional[dict] = None):
+                cross_pack=None, cache: Optional[dict] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        rate = 0.0 if deterministic else self.size.dropout_rate
         sa = self.layer[0]
         h = sa["SelfAttention"](sa["layer_norm"](x), bias=self_bias,
                                 kernel_pack=self_pack,
-                                cache=None if cache is None else cache["self"])
-        x = x + h
+                                cache=None if cache is None else cache["self"],
+                                deterministic=deterministic,
+                                generator=generator)
+        x = x + dropout(h, rate, generator)
         if self.has_cross_attention:
             ca = self.layer[1]
             h = ca["EncDecAttention"](
                 ca["layer_norm"](x), kv=enc_out, bias=cross_bias,
                 kernel_pack=cross_pack,
-                cache=None if cache is None else cache["cross"])
-            x = x + h
+                cache=None if cache is None else cache["cross"],
+                deterministic=deterministic, generator=generator)
+            x = x + dropout(h, rate, generator)
         ff = self.layer[-1]
-        return x + ff["DenseReluDense"](ff["layer_norm"](x))
+        h = ff["DenseReluDense"](ff["layer_norm"](x), deterministic,
+                                 generator)
+        return x + dropout(h, rate, generator)
 
 
 def _mask_to_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -340,11 +378,13 @@ class T5Stack(nn.Module):
     """
 
     def __init__(self, size: T5Size, num_layers: int, is_decoder: bool,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.size = size
         self.use_pallas = use_pallas
         self.block = nn.ModuleList(
-            T5Block(size, is_decoder, has_relative_attention_bias=(i == 0))
+            T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
+                    dtype=dtype)
             for i in range(num_layers))
         self.final_layer_norm = RMSNorm(size.d_model, size.layer_norm_epsilon)
 
@@ -362,8 +402,11 @@ class T5Stack(nn.Module):
                 kmask: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 cross_kmask: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None) -> torch.Tensor:
-        x = inputs_embeds
+                cache: Optional[Cache] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        deterministic = deterministic or cache is not None
+        rate = 0.0 if deterministic else self.size.dropout_rate
+        x = dropout(inputs_embeds, rate, generator)
         self_bias = cross_bias = self_pack = cross_pack = None
         if self.use_pallas and cache is None:
             self_pack = (_kernel_bias(head_bias), _kernel_mask(kmask))
@@ -374,8 +417,9 @@ class T5Stack(nn.Module):
                 head_bias, kmask, enc_out, cross_kmask)
         for i, blk in enumerate(self.block):
             x = blk(x, self_bias, enc_out, cross_bias, self_pack, cross_pack,
-                    cache=None if cache is None else cache[i])
-        return self.final_layer_norm(x)
+                    cache=None if cache is None else cache[i],
+                    deterministic=deterministic, generator=generator)
+        return dropout(self.final_layer_norm(x), rate, generator)
 
 
 def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -394,16 +438,18 @@ def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 class T5Encoder(nn.Module):
     """T5EncoderModel equivalent. Accepts token ids or ``inputs_embeds``.
 
-    ``device``: None means the card (see ``utils.device``)."""
+    ``dtype``: the compute dtype. ``device``: None means the card (see
+    ``utils.device``)."""
 
     def __init__(self, size: T5Size, use_pallas: bool = False,
-                 device=None):
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         with torch.device(resolve_device(device)):
             self.size = size
+            self.dtype = dtype
             self.shared = nn.Embedding(size.vocab_size, size.d_model)
             self.encoder = T5Stack(size, size.num_layers, is_decoder=False,
-                                   use_pallas=use_pallas)
+                                   use_pallas=use_pallas, dtype=dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.shared.weight, 1.0, generator)
@@ -411,14 +457,16 @@ class T5Encoder(nn.Module):
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if inputs_embeds is None:
-            inputs_embeds = self.shared(input_ids.long())
+            inputs_embeds = self.shared(input_ids.long()).to(self.dtype)
         L = inputs_embeds.shape[1]
         relpos = self.encoder.relative_attention_bias
         return self.encoder(inputs_embeds, head_bias=relpos(L, L),
-                            kmask=attention_mask)
+                            kmask=attention_mask,
+                            deterministic=deterministic, generator=generator)
 
 
 def new_cache(num_layers: int) -> Cache:
@@ -426,24 +474,64 @@ def new_cache(num_layers: int) -> Cache:
     return [{"self": {}, "cross": {}} for _ in range(num_layers)]
 
 
+@dataclasses.dataclass
+class Seq2SeqOutput:
+    loss: Optional[torch.Tensor]
+    logits: torch.Tensor
+    encoder_last_hidden_state: torch.Tensor
+
+
+def causal_bias(length: int, device=None) -> torch.Tensor:
+    """(L, L) fp32: 0 where the key is at or before the query, else -1e9."""
+    idx = torch.arange(length, device=device)
+    return torch.where(idx[:, None] >= idx[None, :], 0.0, NEG_INF)
+
+
+def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
+                pad_token_id: int) -> torch.Tensor:
+    """HF ``_shift_right``: prepend the start token, drop the last, map -100
+    to the pad id."""
+    start = torch.full(labels.shape[:-1] + (1,), decoder_start_token_id,
+                       dtype=labels.dtype, device=labels.device)
+    shifted = torch.cat([start, labels[..., :-1]], dim=-1)
+    return torch.where(shifted == -100, pad_token_id, shifted)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Token-level cross entropy in fp32, mean over the weighted positions
+    (every position when ``weights`` is None)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None]
+                               )[..., 0]
+    nll = logz - label_logit
+    weights = (torch.ones_like(nll) if weights is None
+               else weights.to(torch.float32))
+    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
 class T5ForConditionalGeneration(nn.Module):
     """Full encoder-decoder with the tied (or untied) LM head.
 
-    ``device``: None means the card (see ``utils.device``)."""
+    ``dtype``: the compute dtype. ``device``: None means the card (see
+    ``utils.device``)."""
 
     def __init__(self, size: T5Size, use_pallas: bool = False,
-                 device=None):
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         with torch.device(resolve_device(device)):
             s = self.size = size
+            self.dtype = dtype
             self.shared = nn.Embedding(s.vocab_size, s.d_model)
             self.encoder = T5Stack(s, s.num_layers, is_decoder=False,
-                                   use_pallas=use_pallas)
+                                   use_pallas=use_pallas, dtype=dtype)
             self.decoder = T5Stack(s, s.num_decoder_layers, is_decoder=True,
-                                   use_pallas=use_pallas)
+                                   use_pallas=use_pallas, dtype=dtype)
             if not s.tie_word_embeddings:
                 self.lm_head = KlabDense(s.d_model, s.vocab_size,
-                                         s.d_model ** -0.5)
+                                         s.d_model ** -0.5, dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.shared.weight, 1.0, generator)
@@ -452,20 +540,50 @@ class T5ForConditionalGeneration(nn.Module):
         if not self.size.tie_word_embeddings:
             self.lm_head.init_weights(generator)
 
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.shared(ids.long()).to(self.dtype)
+
     def encode(self, input_ids=None, inputs_embeds=None,
-               attention_mask=None) -> torch.Tensor:
+               attention_mask=None, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if inputs_embeds is None:
-            inputs_embeds = self.shared(input_ids.long())
+            inputs_embeds = self._embed(input_ids)
         L = inputs_embeds.shape[1]
         relpos = self.encoder.relative_attention_bias
         return self.encoder(inputs_embeds, head_bias=relpos(L, L),
-                            kmask=attention_mask)
+                            kmask=attention_mask,
+                            deterministic=deterministic, generator=generator)
 
     def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Logits in the compute dtype (flax ``Embed.attend`` for the tied
+        head)."""
         s = self.size
         if s.tie_word_embeddings:
-            return F.linear(hidden * (s.d_model ** -0.5), self.shared.weight)
+            return F.linear((hidden * (s.d_model ** -0.5)).to(self.dtype),
+                            self.shared.weight.to(self.dtype))
         return self.lm_head(hidden)
+
+    def decode_train(self, decoder_input_ids: torch.Tensor,
+                     encoder_hidden: torch.Tensor,
+                     encoder_attention_mask: Optional[torch.Tensor] = None,
+                     decoder_attention_mask: Optional[torch.Tensor] = None,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Teacher-forced decoder over the whole target: (B, L) ids ->
+        (B, L, vocab) logits. The self-attention bias is the relative-
+        position bias plus the causal mask."""
+        L = decoder_input_ids.shape[1]
+        head_bias = (self.decoder.relative_attention_bias(L, L)
+                     + causal_bias(L, decoder_input_ids.device))
+        hidden = self.decoder(self._embed(decoder_input_ids),
+                              head_bias=head_bias,
+                              kmask=decoder_attention_mask,
+                              enc_out=encoder_hidden,
+                              cross_kmask=encoder_attention_mask,
+                              deterministic=deterministic,
+                              generator=generator)
+        return self._lm_logits(hidden)
 
     def decode_step(self, decoder_input_token: torch.Tensor, step: int,
                     encoder_hidden: torch.Tensor, max_decode_len: int,
@@ -478,7 +596,7 @@ class T5ForConditionalGeneration(nn.Module):
         ((B, T, vocab) logits, the cache, updated in place)."""
         if cache is None:
             cache = new_cache(len(self.decoder.block))
-        dec_embeds = self.shared(decoder_input_token.long())
+        dec_embeds = self._embed(decoder_input_token)
         T = decoder_input_token.shape[1]
         # Bias rows for the chunk's positions against the full cache length.
         full_bias = self.decoder.relative_attention_bias(max_decode_len,
@@ -488,3 +606,29 @@ class T5ForConditionalGeneration(nn.Module):
                               enc_out=encoder_hidden,
                               cross_kmask=encoder_attention_mask, cache=cache)
         return self._lm_logits(hidden), cache
+
+    def forward(self, input_ids=None, inputs_embeds=None, attention_mask=None,
+                labels=None, decoder_input_ids=None,
+                decoder_attention_mask=None, label_weights=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Seq2SeqOutput:
+        """Training forward: encode, teacher-forced decode of
+        ``shift_right(labels)`` (or ``decoder_input_ids``), and the
+        cross-entropy loss against ``labels`` weighted by
+        ``label_weights``."""
+        s = self.size
+        enc = self.encode(input_ids, inputs_embeds, attention_mask,
+                          deterministic, generator)
+        if decoder_input_ids is None:
+            decoder_input_ids = shift_right(
+                labels, s.decoder_start_token_id, s.pad_token_id)
+        logits = self.decode_train(decoder_input_ids, enc,
+                                   encoder_attention_mask=attention_mask,
+                                   decoder_attention_mask=decoder_attention_mask,
+                                   deterministic=deterministic,
+                                   generator=generator)
+        loss = None
+        if labels is not None:
+            loss = cross_entropy_loss(logits, labels, label_weights)
+        return Seq2SeqOutput(loss=loss, logits=logits,
+                             encoder_last_hidden_state=enc)

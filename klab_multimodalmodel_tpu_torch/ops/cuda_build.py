@@ -4,8 +4,10 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, from the package's sources only, one ``nvcc`` per source, all
 started together, into ``_build/`` beside the package (git-ignored). A
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a finished build is reused.
+library's file name carries a hash of its source, of every ``csrc/`` header
+the source includes (``#include "..."``, followed through headers) and of the
+flags, so an edited source or header is rebuilt and a finished build is
+reused.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,20 +25,23 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("t5_attention_fwd", "swin_attention_fwd")
+SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "swin_attention_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F64 = ctypes.c_double
 # C signatures (see each source's extern "C" function).
 _SIGNATURES = {
     "t5_attention_fwd": ("klab_t5_attention_fwd",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                         [_P] * 8 + [_I] * 6 + [_F64, _P]),
+    "t5_attention_bwd": ("klab_t5_attention_bwd",
+                         [_P] * 14 + [_I] * 6 + [_F64, _P]),
     "swin_attention_fwd": ("klab_swin_attention_fwd",
-                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P]),
+                           [_P] * 7 + [_I] * 7 + [_P]),
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _functions: dict[str, ctypes._CFuncPtr] = {}
@@ -57,10 +63,28 @@ def nvcc_path() -> str:
     return found
 
 
+def _sources_of(name: str) -> list[Path]:
+    """The ``.cu`` file of kernel ``name`` and every ``csrc/`` header it
+    includes, directly or through another header, in a fixed order."""
+    seen: list[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC_DIR / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> None:

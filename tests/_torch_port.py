@@ -41,7 +41,8 @@ def configs(t5="v10", kernels=True, **overrides):
     kw = dict(image_model_name=SWIN_NAME, language_model_name=name,
               transformer_model_name=name, max_source_length=32,
               generate_max_length=8, use_pallas_attention=kernels,
-              use_pallas_t5_attention=kernels, **overrides)
+              use_pallas_t5_attention=kernels)
+    kw.update(overrides)
     return jcfg.Config(**kw), tcfg.Config(**kw)
 
 
@@ -57,3 +58,25 @@ def jax_multimodal_params(jax_config, seed=0):
         jax.random.PRNGKey(seed), np.zeros((1, size, size, 3), np.float32),
         np.zeros((1, 16), np.int32), np.zeros((1, 4), np.int32))["params"]
     return jax.tree.map(np.asarray, params)
+
+
+def jax_train_state(trainer, params):
+    """What ``Trainer.init_state`` sets up, on given parameters (nested
+    dicts of numpy arrays) and without tracing the model's init: the
+    optimizer, a fresh state and the state's shardings on the trainer's
+    mesh."""
+    import jax.numpy as jnp
+
+    from klab_multimodalmodel_tpu.parallel.partitioning import (
+        make_param_specs, make_shardings)
+    from klab_multimodalmodel_tpu.train.optim import make_optimizer
+    from klab_multimodalmodel_tpu.train.trainer import TrainState
+
+    p = jax.tree.map(jnp.asarray, params)
+    trainer.tx = make_optimizer(trainer.config, p, trainer.num_epochs)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=p,
+                       opt_state=trainer.tx.init(p))
+    trainer.state_specs = make_param_specs(state)
+    trainer.state_shardings = make_shardings(trainer.state_specs,
+                                             trainer.mesh)
+    return state

@@ -1,20 +1,28 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, at small shapes and at the captioning path's shapes. Skipped without
-a card; run them there with ``python -m pytest -m cuda
-tests/test_torch_cuda_kernels.py``.
+card, at small shapes and at the captioning and training paths' shapes.
+Skipped without a card; run them there with ``python -m pytest --noconftest
+-m cuda tests/test_torch_cuda_kernels.py``.
 
 Tolerances (summation order; bf16 also rounds q, k, the probabilities and
 the output, so two near-equal results can round one bf16 ulp apart): 1e-4
-absolute in fp32, 2e-2 absolute plus 2e-2 relative in bf16.
+absolute in fp32, 2e-2 absolute plus 2e-2 relative in bf16. Gradients are
+held by their largest error over their largest value: 1e-4 in fp32, 2e-2 in
+bf16 (dS and the dropped probabilities are rounded to bf16 before their
+products, and a near-tie can round one bf16 ulp apart), 1e-4 for the bias
+gradient in both (it sums the fp32 dS). The Swin kernel with
+a bf16 softmax chain: see ``test_swin_bf16_chain_matches_plain``.
 """
 
 import pytest
 import torch
 
 from klab_multimodalmodel_tpu_torch.models.swinv2 import shifted_window_mask
-from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
+from klab_multimodalmodel_tpu_torch.ops import (draw_seed, swin_attention,
                                                 swin_attention_plain,
                                                 t5_attention,
+                                                t5_attention_bwd,
+                                                t5_attention_bwd_plain,
+                                                t5_attention_fwd,
                                                 t5_attention_plain)
 
 pytestmark = pytest.mark.cuda
@@ -98,10 +106,171 @@ def test_kernel_wrappers_raise_on_bad_inputs(cuda):
         t5_attention(q, q, q, kmask=torch.ones(2, 8, device=cuda))
     with pytest.raises(ValueError):
         t5_attention(q, q.cpu(), q)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         t5_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="seed"):
+        t5_attention(q, q, q, dropout_rate=0.1,
+                     seed=torch.zeros(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="dout"):
+        t5_attention_bwd(q, q, q, q[:1])
+    with pytest.raises(ValueError, match="stats"):
+        t5_attention_bwd(q, q, q, q)  # the forward's row stats are required
     x = torch.zeros(1, 2, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="multiple"):
         swin_attention(x, x, x, torch.zeros(2, device=cuda),
                        torch.zeros(2, 4, 4, device=cuda),
                        torch.zeros(2, 4, 4, device=cuda))
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _case(gen, cuda, dtype, B, H, Q, K, D, bias, mask):
+    q, k, v, do = (_rand(gen, s, dtype, cuda) for s in (
+        (B, H, Q, D), (B, H, K, D), (B, H, K, D), (B, H, Q, D)))
+    b = _rand(gen, (H, Q, K), torch.float32, cuda) if bias else None
+    m = None
+    if mask:
+        m = torch.ones(B, K, dtype=torch.int32, device=cuda)
+        m[0, K // 2:] = 0
+        m[-1, :] = 0  # a fully masked row: uniform P, as on the TPU
+    return q, k, v, do, b, m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Q,K,D", [
+    (2, 3, 5, 7, 8),         # ragged tiles, D < 32
+    (3, 2, 40, 70, 48),      # several tiles, D not /32
+    (2, 2, 16, 16, 128),     # widest head dim
+    (4, 16, 128, 128, 64),   # decoder self-attention
+    (4, 16, 128, 320, 64),   # cross-attention
+    (4, 16, 320, 320, 64),   # main encoder self-attention
+])
+def test_t5_dropout_forward_matches_plain(cuda, dtype, B, H, Q, K, D):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, _, b, m = _case(gen, cuda, dtype, B, H, Q, K, D, True, True)
+    seed = draw_seed(gen)
+    before = (t5_attention.launches, t5_attention.launches_dropout)
+    got = t5_attention(q, k, v, b, m, 0.1, seed)
+    torch.cuda.synchronize()
+    assert (t5_attention.launches, t5_attention.launches_dropout) == (
+        before[0] + 1, before[1] + 1)
+    want = t5_attention_plain(q, k, v, b, m, 0.1, seed)
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+    # Uniform probabilities (q = 0, no bias or mask): every key weighs
+    # 1/(0.9 K), so one keep bit that differed from the plain version's
+    # would move the output by ~|v|/(0.9 K), far above the tolerance.
+    z = torch.zeros_like(q)
+    got = t5_attention(z, k, v, None, None, 0.1, seed)
+    want = t5_attention_plain(z, k, v, None, None, 0.1, seed)
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+
+
+def test_t5_dropout_keep_fraction(cuda):
+    """With q = 0 and v = 1 each output is (kept keys)/(0.9 K): the kernel's
+    keep fraction over 8*16*320*320 = 13.1 M probabilities is 0.9 within
+    0.001 (1000 standard deviations of a binomial: a wrong threshold or a
+    stuck generator, not chance, fails it)."""
+    B, H, L, D = 8, 16, 320, 64
+    z = torch.zeros(B, H, L, D, device=cuda)
+    seed = torch.tensor([12345], dtype=torch.int64, device=cuda)
+    out = t5_attention(z, z, torch.ones_like(z), None, None, 0.1, seed)
+    frac = float(out[..., 0].double().mean() * 0.9)
+    assert abs(frac - 0.9) < 1e-3, frac
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,Q,K,D,bias,mask", [
+    (2, 3, 5, 7, 8, True, True),
+    (3, 2, 40, 70, 48, True, True),
+    (2, 2, 16, 16, 128, False, True),
+    (4, 16, 128, 128, 64, True, False),   # decoder self (relpos + causal)
+    (4, 16, 128, 320, 64, False, True),   # cross: key mask, no bias
+    (4, 16, 320, 320, 64, True, True),    # main encoder self
+])
+def test_t5_backward_matches_plain(cuda, dtype, rate, B, H, Q, K, D, bias,
+                                   mask):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do, b, m = _case(gen, cuda, dtype, B, H, Q, K, D, bias, mask)
+    seed = draw_seed(gen) if rate else None
+    want = t5_attention_bwd_plain(q, k, v, do, b, m, rate, seed, bias)
+    before = (t5_attention_bwd.launches, t5_attention_bwd.launches_dbias)
+    # Directly with the forward's row stats, and through autograd.
+    _, stats = t5_attention_fwd(q, k, v, b, m, rate, seed, with_stats=True)
+    got = t5_attention_bwd(q, k, v, do, b, m, rate, seed, stats, bias)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if b is not None:
+        leaves.append(b.clone().requires_grad_())
+    out = t5_attention(*leaves[:3], leaves[3] if bias else None, m, rate,
+                       seed)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert t5_attention_bwd.launches == before[0] + 2
+    assert t5_attention_bwd.launches_dbias == before[1] + 2 * bool(bias)
+    auto = [t.grad for t in leaves] + ([] if bias else [None])
+    for name, w, g, a in zip(("dq", "dk", "dv", "dbias"), want, got, auto):
+        if w is None:
+            assert g is None and a is None
+            continue
+        # dS is fp32 in both versions, so dbias is held at the fp32
+        # tolerance in bf16 too.
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
+        assert g.dtype == w.dtype and a.dtype == w.dtype
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+
+
+def test_t5_dbias_is_bitwise_reproducible(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, 8, 16, 320, 320,
+                              64, True, True)
+    seed = draw_seed(gen)
+    _, stats = t5_attention_fwd(q, k, v, b, m, 0.1, seed, with_stats=True)
+    one = t5_attention_bwd(q, k, v, do, b, m, 0.1, seed, stats, True)
+    two = t5_attention_bwd(q, k, v, do, b, m, 0.1, seed, stats, True)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bn,H,w,side", [
+    (8, 2, 4, 8),       # small: N=16, nW=4
+    (512, 4, 8, 64),    # stage 0 at 256 px, batch 8: nW=64
+    (128, 8, 8, 32),    # stage 1: nW=16
+    (32, 16, 8, 16),    # stage 2: nW=4
+    (8, 32, 8, 8),      # stage 3: one window per image, never shifted
+])
+def test_swin_bf16_chain_matches_plain(cuda, dtype, Bn, H, w, side):
+    """The softmax chain in bf16 (``swin_softmax_dtype='bfloat16'``).
+    Both versions round after every step of the chain, but the fp32 dot
+    products are summed in another order, so a logit can round one bf16 ulp
+    apart; in [32, 64) that ulp (0.25) moves one probability by up to 28 %.
+    Such flips are rare. Tolerance: at most 1e-4 of the outputs outside the
+    bf16 tolerance (2e-2 + 2e-2 relative), mean error under 1e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    N, D = w * w, 32
+    q, k, v = (_rand(gen, (Bn, H, N, D), dtype, cuda) for _ in range(3))
+    scale = torch.log(torch.tensor(10.0, device=cuda)) + torch.randn(
+        H, generator=gen, device=cuda)
+    bias = 16 * torch.sigmoid(_rand(gen, (H, N, N), torch.float32, cuda))
+    masks = [None]
+    if side > w:
+        masks.append(torch.tensor(shifted_window_mask(side, side, w, w // 2),
+                                  device=cuda))
+    for wm in masks:
+        got = swin_attention(q, k, v, scale, bias, wm,
+                             softmax_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        want = swin_attention_plain(q, k, v, scale, bias, wm,
+                                    softmax_dtype=torch.bfloat16)
+        err = (got.float() - want.float()).abs()
+        outside = float((err > 2e-2 + 2e-2 * want.float().abs()).float()
+                        .mean())
+        assert outside <= 1e-4 and float(err.mean()) <= 1e-3, (
+            outside, float(err.mean()), float(err.max()))

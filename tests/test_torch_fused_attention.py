@@ -1,5 +1,6 @@
-"""The port's plain attention versions against the JAX package's Pallas
-kernels (interpret mode on the CPU), and the wrappers' refusals. The CUDA
+"""The port's plain attention forwards against the JAX package's Pallas
+kernels (interpret mode on the CPU), and the wrappers' refusals (the
+backward and dropout: tests/test_torch_attention_bwd.py). The CUDA
 kernels themselves are held against these plain versions on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 
@@ -15,6 +16,7 @@ from klab_multimodalmodel_tpu_torch.models.swinv2 import shifted_window_mask
 from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
                                                 swin_attention_plain,
                                                 t5_attention,
+                                                t5_attention_bwd,
                                                 t5_attention_plain)
 
 TOL = 2e-5  # fp32, summation order (as tests/test_fused_attention.py)
@@ -113,16 +115,24 @@ def test_bf16_plain_matches_pallas(rng):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        t5_attention(x, x, x, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    seed = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="seed"):
+        t5_attention(x, x, x, dropout_rate=0.1)  # rate > 0 needs a seed
+    for rate in (-0.1, 1.0):
+        with pytest.raises(ValueError, match="rate"):
+            t5_attention(x, x, x, dropout_rate=rate, seed=seed)
+    with pytest.raises(ValueError, match="need_dbias"):
+        t5_attention_bwd(x, x, x, x, need_dbias=True)  # no bias given
+    with pytest.raises(ValueError, match="softmax_dtype"):
         swin_attention(x, x, x, torch.zeros(1), torch.zeros(1, 4, 4),
-                       softmax_dtype=torch.bfloat16)
+                       softmax_dtype=torch.float16)
     # A tensor that is neither on the CPU nor on a card is refused, never
     # handed to the plain version.
     m = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         t5_attention(m, m, m)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        t5_attention_bwd(m, m, m, m)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         swin_attention(m, m, m, torch.zeros(1, device="meta"),
                        torch.zeros(1, 4, 4, device="meta"))
