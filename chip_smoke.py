@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Record the card (``nvidia-smi`` name and power limit) and build the three
    CUDA kernels from ``klab_multimodalmodel_tpu_torch/csrc``, one ``nvcc``
-   per source, all at once.
+   per source, all at once; print ptxas's registers and spills of every
+   kernel instantiation.
 2. Hold each kernel against its plain PyTorch version at the shapes of both
    main paths, and time kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``, forward or forward+backward) with
@@ -19,9 +20,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - T5 backward: the three training shapes (encoder self 320x320 with
      dBias, decoder self 128x128 with relpos+causal bias and dBias, cross
      128x320 with a key mask) at rate 0.1 in fp32 and bf16 against the plain
-     backward, and dBias bitwise equal across two runs;
+     backward, dq, dk, dv and dBias bitwise equal across two runs, and the
+     time with dBias against without it (the dS scratch and its reduction);
+   - at the training shapes, both T5 kernels also timed without dropout and
+     without the head bias: what each input costs them;
    - Swin forward: every stage shape with the fp32 and the bf16 softmax
      chain, at captioning (fp32) and training (bf16, batch 32) shapes.
+   Each T5 kernel's time per training step is printed beside that of the
+   scalar kernels it replaced in bf16 and beside SDPA's.
 3. Caption at full width: SwinV2-base + t5-large text tower + t5-large
    transformer (~1.16 B parameters, fp32, seeded random weights), both
    kernel flags on, three batch-8 requests through ``Captioner``; checks the
@@ -69,6 +75,11 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "swin_attention_fwd": (CSRC + "swin_attention_fwd.cu",
                            TPU_KERNELS + ":109"),
 }
+
+# Per batch-32 bf16 training step, the scalar (no tensor core) T5 kernels
+# that the bf16 tensor-core kernels replaced, as PERF.md records them (NVIDIA
+# H100 80GB HBM3, 700.00 W); printed beside this run's.
+SCALAR_STEP_MS = {"t5_attention_fwd": 160.49, "t5_attention_bwd": 300.07}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory,
 # fp32 outside the tensor cores (fp32 inputs), bf16 tensor cores (bf16).
@@ -118,6 +129,32 @@ T5_H, T5_D, SWIN_N, SWIN_D = 16, 64, 64, 32
 T5_LAYERS = 24
 SRC_LEN, TGT_LEN, IMG_TOKENS = 256, 128, 64
 ENC_LEN = IMG_TOKENS + SRC_LEN
+
+
+def build_report() -> list[dict]:
+    """ptxas's registers and spills of every kernel instantiation that this
+    process built, printed one line each (names demangled by ``c++filt``
+    where the toolkit's machine has it)."""
+    from klab_multimodalmodel_tpu_torch.ops import cuda_build
+
+    rows = [dict(source=name, **r)
+            for name, log in cuda_build.build_logs.items()
+            for r in cuda_build.ptxas_report(log)]
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["function"] for r in rows),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(rows):
+        names = [r["function"] for r in rows]
+    for r, name in zip(rows, names):
+        r["kernel"] = name.replace("(anonymous namespace)::", "").split("(")[0]
+        print(f"  {r['source']}: {r['kernel']}: {r['registers']} registers, "
+              f"spill stores {r['spill_stores']} B, spill loads "
+              f"{r['spill_loads']} B")
+    return rows
 
 
 def check(cond: bool, what: str) -> None:
@@ -319,6 +356,15 @@ def check_t5_fwd(gen, card: str) -> dict:
                                               seed, stats), iters)
         plain = time_ms(lambda: t5_attention_plain(q, k, v, bias, kmask,
                                                    sh.rate, seed), iters)
+        # What the kernel's inputs cost it at the training shapes: the same
+        # call without dropout and without the head bias.
+        costs = {}
+        if sh.path == "training" and sh.rate:
+            costs["rate0_ms"] = time_ms(lambda: t5_attention_fwd(
+                q, k, v, bias, kmask, 0.0, None, stats), iters)
+        if sh.path == "training" and bias is not None:
+            costs["no_bias_ms"] = time_ms(lambda: t5_attention_fwd(
+                q, k, v, None, kmask, sh.rate, seed, stats), iters)
         mask = sdpa_mask(bias, kmask, dtype)
         if mask is not None:
             mask = mask.expand(sh.B, T5_H, sh.Q, sh.K).contiguous()
@@ -335,11 +381,12 @@ def check_t5_fwd(gen, card: str) -> dict:
             name=sh.name, path=sh.path, shape=[sh.B, T5_H, sh.Q, sh.K, T5_D],
             dtype=dtype_name(dtype), rate=sh.rate, per_path=sh.per_path,
             ms=ms, plain_ms=plain, library_ms=lib, library=sdpa_backends(sdpa),
-            bound_ms=b, bound_by=by, bytes=nbytes, flops=flops))
+            bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, **costs))
         print(f"t5 fwd {sh.path} {sh.name} B={sh.B} Q={sh.Q} K={sh.K} "
               f"{dtype_name(dtype)} rate={sh.rate}: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms ({by}) "
-              f"[{card}]")
+              f"[{card}]" + "".join(f", {k.removesuffix('_ms')} {v:.4f} ms"
+                                    for k, v in costs.items()))
 
     # Keep fraction over 32*16*320*320 = 52.4 M probabilities: q = 0 and
     # v = 1 make every output (kept keys)/(0.9 K).
@@ -394,14 +441,26 @@ def check_t5_bwd(gen, card: str) -> dict:
                 again = t5_attention_bwd(q, k, v, do, bias, kmask, RATE,
                                          seed, stats, True)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"t5 bwd {sh.name}: two runs differ (dBias must be "
-                      "bitwise reproducible)")
+                      f"t5 bwd {sh.name}: two runs differ (dq, dk, dv and "
+                      "dBias must be bitwise reproducible)")
         # Time in bf16, as training runs it.
         dtype = torch.bfloat16
         q, k, v, do, bias, kmask = t5_inputs(sh, dtype, gen)
         _, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed, True)
         ms = time_ms(lambda: t5_attention_bwd(q, k, v, do, bias, kmask, RATE,
                                               seed, stats, sh.bias), 10, 2)
+        # With dBias the dS scratch (B, H, Q, K) fp32 is written once and
+        # read once by the reduction over b.
+        no_dbias_ms = scratch_bytes = no_bias_ms = None
+        if sh.bias:
+            no_dbias_ms = time_ms(lambda: t5_attention_bwd(
+                q, k, v, do, bias, kmask, RATE, seed, stats, False), 10, 2)
+            scratch_bytes = 2 * 4 * sh.B * T5_H * sh.Q * sh.K
+        if bias is not None:
+            no_bias_ms = time_ms(lambda: t5_attention_bwd(
+                q, k, v, do, None, kmask, RATE, seed, stats, False), 10, 2)
+        rate0_ms = time_ms(lambda: t5_attention_bwd(
+            q, k, v, do, bias, kmask, 0.0, None, stats, sh.bias), 10, 2)
         plain = time_ms(lambda: t5_attention_bwd_plain(
             q, k, v, do, bias, kmask, RATE, seed, sh.bias), 10, 2)
         # Library: SDPA forward + backward with the same dropout rate and a
@@ -437,11 +496,20 @@ def check_t5_bwd(gen, card: str) -> dict:
             dtype="bfloat16", rate=RATE, dbias=sh.bias, per_path=sh.per_path,
             ms=ms, plain_ms=plain, library_ms=lib,
             library=sdpa_backends(sdpa_fwd_bwd), bound_ms=b, bound_by=by,
-            bytes=nbytes, flops=flops))
+            bytes=nbytes, flops=flops, no_dbias_ms=no_dbias_ms,
+            dbias_scratch_bytes=scratch_bytes, rate0_ms=rate0_ms,
+            no_bias_ms=no_bias_ms))
         print(f"t5 bwd training {sh.name} B={sh.B} Q={sh.Q} K={sh.K} bf16 "
               f"dbias={sh.bias}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"sdpa bwd {lib:.4f} ms ({shapes[-1]['library']}), bound "
               f"{b:.4f} ms ({by}) [{card}]")
+        print(f"  without dropout {rate0_ms:.4f} ms" + (
+            f", without the bias {no_bias_ms:.4f} ms"
+            if no_bias_ms is not None else "") + f" [{card}]")
+        if sh.bias:
+            print(f"  without dBias {no_dbias_ms:.4f} ms: the dS scratch "
+                  f"({scratch_bytes} bytes written and read) and its "
+                  f"reduction cost {ms - no_dbias_ms:.4f} ms [{card}]")
     return dict(name="t5_attention_bwd", mode="T5, rate 0.1, dBias",
                 max_abs_err=max(errs), max_rel_err_bf16=max(rels16),
                 shapes=shapes)
@@ -577,6 +645,26 @@ def path_totals(entry: dict) -> None:
                            else "operations")
         tot["launches_per_path"] = sum(s["per_path"] for s in sh)
         entry["paths"][path] = tot
+
+
+def print_step_totals(entry: dict, card: str) -> None:
+    """One training step's time of a T5 kernel beside the scalar kernels'
+    and SDPA's, and, for the forward, kernel against plain at each training
+    shape."""
+    if entry["name"] not in SCALAR_STEP_MS:
+        return
+    tr = entry["paths"]["training"]
+    print(f"{entry['name']} per training step ({tr['launches_per_path']} "
+          f"launches): kernel {tr['ms']:.2f} ms (scalar kernels: "
+          f"{SCALAR_STEP_MS[entry['name']]} ms), sdpa {tr['library_ms']:.2f} "
+          f"ms, plain {tr['plain_ms']:.2f} ms, bound {tr['bound_ms']:.2f} ms "
+          f"({tr['bound_by']}) [{card}]")
+    if entry["name"] == "t5_attention_fwd":
+        for s in entry["shapes"]:
+            if s["path"] == "training":
+                print(f"  {s['name']} {s['shape']} rate={s['rate']}: kernel "
+                      f"{s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} ms "
+                      f"({s['plain_ms'] / s['ms']:.2f}x)")
 
 
 # ---------------------------------------------------------------------------
@@ -1070,10 +1158,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for name, log in cuda_build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    build = build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
@@ -1082,6 +1167,7 @@ def main() -> int:
         entry["source"], entry["replaces"] = KERNELS[entry["name"]]
         entry["route"] = "cuda"
         path_totals(entry)
+        print_step_totals(entry, card)
 
     # Each main path runs with the counts set to 0 just before it and read
     # just after (inside caption() and train(): the three timed requests,
@@ -1116,7 +1202,7 @@ def main() -> int:
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels,
+        json.dump({"card": card, "build": build, "kernels": kernels,
                    "captioning": captioning, "training": training}, f,
                   indent=1)
     print(json.dumps({"ok": True, "device": {

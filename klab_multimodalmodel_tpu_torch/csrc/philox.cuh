@@ -55,4 +55,24 @@ __device__ __forceinline__ bool dropout_keep(uint64_t seed, int b, int h,
   return pick_word(philox4x32_10(ctr, key), k & 3) > threshold;
 }
 
+// The Philox key of the int64 seed in device memory: its low and high 32
+// bits, as `dropout_keep` forms them; zero without a seed.
+__device__ __forceinline__ uint2 seed_key(const long long* seed) {
+  if (seed == nullptr) return make_uint2(0u, 0u);
+  const uint64_t sd = (uint64_t)*seed;
+  return make_uint2((uint32_t)sd, (uint32_t)(sd >> 32));
+}
+
+// The keep bits of the four probabilities that share one counter, keys
+// 4 * kc .. 4 * kc + 3 of query q: bit i is word i's. One Philox call for
+// four keep bits; the tensor-core kernels hand them between lanes.
+__device__ __forceinline__ uint32_t keep_nibble(uint2 key, uint32_t kc, int q,
+                                                int h, int b,
+                                                uint32_t threshold) {
+  const uint4 w = philox4x32_10(
+      make_uint4(kc, (uint32_t)q, (uint32_t)h, (uint32_t)b), key);
+  return (uint32_t)(w.x > threshold) | (uint32_t)(w.y > threshold) << 1 |
+         (uint32_t)(w.z > threshold) << 2 | (uint32_t)(w.w > threshold) << 3;
+}
+
 }  // namespace klab

@@ -45,8 +45,8 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _functions: dict[str, ctypes._CFuncPtr] = {}
-# ptxas report (registers, shared memory, spills) of each build in this
-# process, for the chip smoke run to print.
+# nvcc's log of each build in this process (with ptxas's registers, shared
+# memory and spills per kernel: ``ptxas_report``), for the chip smoke run.
 build_logs: dict[str, str] = {}
 
 
@@ -114,6 +114,33 @@ def build_all() -> None:
             os.replace(tmp, target)  # atomic: other processes see whole files
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel entry function of an ``nvcc -Xptxas -v`` log: its
+    (mangled) name, registers per thread and spill bytes, in log order."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append(dict(function=m.group(1), registers=None,
+                            spill_stores=0, spill_loads=0))
+            continue
+        if not out:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_function(name: str):

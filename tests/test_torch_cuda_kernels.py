@@ -238,6 +238,61 @@ def test_t5_dbias_is_bitwise_reproducible(cuda):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,Q,K,D,bias,mask,causal", [
+    (2, 2, 65, 65, 64, True, True, False),    # one row and one key past 64
+    (2, 2, 127, 321, 64, True, True, False),  # ragged both ways
+    (2, 2, 321, 127, 48, True, True, False),  # head dim padded to 48
+    (2, 3, 65, 127, 8, False, True, False),   # head dim 8 padded to 16
+    (2, 2, 127, 127, 64, True, False, True),  # causal bias, no key mask
+])
+def test_t5_tensor_core_edges_match_plain(cuda, rate, B, H, Q, K, D, bias,
+                                          mask, causal):
+    """The bf16 tensor-core kernels (64-row tiles, head dim zero-padded to a
+    multiple of 16) at ragged tile edges, with a fully masked row (``_case``
+    masks every key of the last batch row) or a causal bias: forward and
+    backward against the plain versions at the tolerances above."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, B, H, Q, K, D, bias,
+                              mask)
+    if causal:
+        i = torch.arange(Q, device=cuda)
+        b = b + torch.where(i[:, None] >= i[None, :], 0.0, -1e9)
+    seed = draw_seed(gen) if rate else None
+    got = t5_attention(q, k, v, b, m, rate, seed)
+    torch.cuda.synchronize()
+    want = t5_attention_plain(q, k, v, b, m, rate, seed)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOLS[torch.bfloat16])
+    _, stats = t5_attention_fwd(q, k, v, b, m, rate, seed, with_stats=True)
+    got = t5_attention_bwd(q, k, v, do, b, m, rate, seed, stats, bias)
+    torch.cuda.synchronize()
+    want = t5_attention_bwd_plain(q, k, v, do, b, m, rate, seed, bias)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else torch.bfloat16]
+        assert g.dtype == w.dtype
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_t5_gradients_bitwise_reproducible_at_encoder_shape(cuda, rate):
+    """dq, dk, dv and dBias of the bf16 backward at the training encoder's
+    shape (batch 32, 16 heads, 320 x 320): no float atomics, so two runs
+    give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, 32, 16, 320, 320,
+                              64, True, True)
+    seed = draw_seed(gen) if rate else None
+    _, stats = t5_attention_fwd(q, k, v, b, m, rate, seed, with_stats=True)
+    one = t5_attention_bwd(q, k, v, do, b, m, rate, seed, stats, True)
+    two = t5_attention_bwd(q, k, v, do, b, m, rate, seed, stats, True)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bn,H,w,side", [
     (8, 2, 4, 8),       # small: N=16, nW=4
