@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. Hold each kernel against its plain PyTorch version at the shapes of both
    main paths, and time kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``, forward or forward+backward) with
-   CUDA events, beside the least time the card could take:
+   CUDA events, beside the least time the card could take. Times are device
+   times: the host enqueues each timed loop behind a device-side sleep (see
+   ``time_both``), and the host's time per call of the kernel's wrapper
+   and of SDPA is printed beside them at the forward kernels' shapes:
    - T5 forward: captioning shapes at rate 0 (fp32, bf16); training shapes
      (batch 32, bf16) at rate 0.1 against the plain version under the same
      Philox mask, once more with uniform probabilities (any keep bit that
@@ -25,9 +28,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - at the training shapes, both T5 kernels also timed without dropout and
      without the head bias: what each input costs them;
    - Swin forward: every stage shape with the fp32 and the bf16 softmax
-     chain, at captioning (fp32) and training (bf16, batch 32) shapes.
-   Each T5 kernel's time per training step is printed beside that of the
-   scalar kernels it replaced in bf16 and beside SDPA's.
+     chain, at captioning (fp32) and training (bf16, batch 32) shapes; then
+     swinv2-large's windows (N = 36 and 144) and launches whose windows do
+     not split evenly into the kernel's groups (see
+     ``swin_extra_cases``), in both input dtypes and both chains. Beside
+     each timed Swin shape, a yardstick for the attention part only: SDPA
+     on q and k normalized and scaled outside the timed call, with the
+     bias (and mask) as its float mask. No single PyTorch call computes
+     the whole function, so it is no ``library_ms``.
+   Each redesigned kernel's time per request or per step is printed beside
+   that of the kernel it replaced (``OLD_PATH_MS``, as ``PERF.md`` records
+   it) and beside SDPA's or the yardstick.
 3. Caption at full width: SwinV2-base + t5-large text tower + t5-large
    transformer (~1.16 B parameters, fp32, seeded random weights), both
    kernel flags on, three batch-8 requests through ``Captioner``; checks the
@@ -76,10 +87,21 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            TPU_KERNELS + ":109"),
 }
 
-# Per batch-32 bf16 training step, the scalar (no tensor core) T5 kernels
-# that the bf16 tensor-core kernels replaced, as PERF.md records them (NVIDIA
-# H100 80GB HBM3, 700.00 W); printed beside this run's.
-SCALAR_STEP_MS = {"t5_attention_fwd": 160.49, "t5_attention_bwd": 300.07}
+# Per-path times of the kernels that this tree's kernels replaced, as
+# PERF.md section 6 records them (chip_smoke.py on NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's: (kernel, path): (ms, what, source).
+OLD_PATH_MS = {
+    ("t5_attention_fwd", "training"): (
+        160.49, "scalar kernel", "PERF.md section 6, row 1"),
+    ("t5_attention_bwd", "training"): (
+        300.07, "scalar kernels", "PERF.md section 6, row 3"),
+    ("t5_attention_fwd", "captioning"): (
+        2.03, "scalar fp32 kernel", "PERF.md section 6, row 1f"),
+    ("swin_attention_fwd", "training"): (
+        6.32, "block per (window, head)", "PERF.md section 6, row 2"),
+    ("swin_attention_fwd", "captioning"): (
+        1.742, "block per (window, head)", "PERF.md section 6, row 2f"),
+}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory,
 # fp32 outside the tensor cores (fp32 inputs), bf16 tensor cores (bf16).
@@ -171,22 +193,42 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events over ``iters``
-    back-to-back calls after ``warmup`` calls (inputs stay warm in L2, as
-    they are when the preceding projection has just written them)."""
+# Clock cycles of the device-side sleep that holds the queue while the host
+# enqueues a timed loop: ~25 ms at the H100's 1.98 GHz, longer than any
+# loop's enqueue in phase 2.
+HOLD_CYCLES = 50_000_000
+
+
+def time_both(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn()``: CUDA events around
+    ``iters`` back-to-back calls that the host enqueues behind a device-side
+    sleep (``torch.cuda._sleep``), so the device runs them from its queue
+    without waiting for the host, and the host clock over the enqueue. A
+    small kernel's wrapper can take longer on the host than the kernel on
+    the card; back-to-back events would then time the host. Inputs stay warm
+    in L2, as they are when the preceding projection has just written
+    them."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn()`` in ms (see ``time_both``)."""
+    return time_both(fn, iters, warmup)[0]
 
 
 def host_ms(fn, runs: int = 3) -> float:
@@ -352,8 +394,8 @@ def check_t5_fwd(gen, card: str) -> dict:
         # Training calls that need a gradient also write the row stats.
         stats = sh.path == "training" and sh.name != "text"
         iters = 20 if sh.path == "training" else 50
-        ms = time_ms(lambda: t5_attention_fwd(q, k, v, bias, kmask, sh.rate,
-                                              seed, stats), iters)
+        ms, host = time_both(lambda: t5_attention_fwd(
+            q, k, v, bias, kmask, sh.rate, seed, stats), iters)
         plain = time_ms(lambda: t5_attention_plain(q, k, v, bias, kmask,
                                                    sh.rate, seed), iters)
         # What the kernel's inputs cost it at the training shapes: the same
@@ -372,7 +414,7 @@ def check_t5_fwd(gen, card: str) -> dict:
         def sdpa():
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=sh.rate, scale=1.0)
-        lib = time_ms(sdpa, iters)
+        lib, lib_host = time_both(sdpa, iters)
         nbytes = (io_bytes(q, k, v, q) + io_bytes(bias, kmask)
                   + (8 * sh.B * T5_H * sh.Q if stats else 0))
         flops = 4 * sh.B * T5_H * sh.Q * sh.K * T5_D
@@ -381,12 +423,15 @@ def check_t5_fwd(gen, card: str) -> dict:
             name=sh.name, path=sh.path, shape=[sh.B, T5_H, sh.Q, sh.K, T5_D],
             dtype=dtype_name(dtype), rate=sh.rate, per_path=sh.per_path,
             ms=ms, plain_ms=plain, library_ms=lib, library=sdpa_backends(sdpa),
-            bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, **costs))
+            bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+            host_ms=host, library_host_ms=lib_host, **costs))
         print(f"t5 fwd {sh.path} {sh.name} B={sh.B} Q={sh.Q} K={sh.K} "
               f"{dtype_name(dtype)} rate={sh.rate}: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms ({by}) "
               f"[{card}]" + "".join(f", {k.removesuffix('_ms')} {v:.4f} ms"
-                                    for k, v in costs.items()))
+                                    for k, v in costs.items())
+              + f"; host per call: wrapper {host:.4f} ms, sdpa "
+              f"{lib_host:.4f} ms")
 
     # Keep fraction over 32*16*320*320 = 52.4 M probabilities: q = 0 and
     # v = 1 make every output (kept keys)/(0.9 K).
@@ -533,28 +578,129 @@ def swin_stage_cases(batch: int):
     return out
 
 
-def check_swin(gen, card: str) -> dict:
+def swin_extra_cases():
+    """(case, windows Bn, heads, window side, feature side) beyond
+    swinv2-base's stages: swinv2-large's windows at a small batch, and
+    launches whose windows do not split evenly into the kernel's groups
+    (with Bn H >= 2048 it puts G = 2 windows in a block, so an odd number
+    of windows per mask position leaves a last block of one)."""
+    return [("N=36 (window 6, nW=4)", 32, 4, 6, 12),
+            ("N=144 (window 12, nW=4)", 32, 4, 12, 24),
+            ("33 windows a mask position, G=2", 132, 16, 8, 16),
+            ("65 windows unmasked, G=2", 65, 32, 8, 8)]
+
+
+def swin_tables(gen, H: int, w: int, side: int):
+    """A per-head logit scale, the position bias (H, N, N) and, where the
+    feature map is larger than the window, the shifted-window mask."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.models.swinv2 import (
         shifted_window_mask)
+    scale = (torch.log(torch.tensor(10.0, device="cuda"))
+             + 0.5 * torch.randn(H, generator=gen, device="cuda"))
+    bias = 16 * torch.sigmoid(torch.randn(H, w * w, w * w, generator=gen,
+                                          device="cuda"))
+    wmask = None
+    if side > w:
+        wmask = torch.tensor(shifted_window_mask(side, side, w, w // 2),
+                             device="cuda")
+    return scale, bias, wmask
+
+
+def chain_errors(got, want) -> dict:
+    """Against the plain version with a bf16 softmax chain: the share of
+    outputs outside the bf16 tolerance, the mean and the largest error."""
+    e = (got.float() - want.float()).abs()
+    out = float((e > TOL_BF16["atol"] + TOL_BF16["rtol"]
+                 * want.float().abs()).float().mean())
+    return dict(max=float(e.max()), mean=float(e.mean()), outside=out)
+
+
+def chain_ok(c: dict) -> bool:
+    return (c["outside"] <= TOL_SWIN_BF16_CHAIN["outside"]
+            and c["mean"] <= TOL_SWIN_BF16_CHAIN["mean"])
+
+
+def swin_yardstick(q, k, v, scale, bias, wmask):
+    """SDPA on the attention part alone, as a yardstick: q and k
+    L2-normalized and q scaled by its head's clamped logit scale outside
+    the timed call, the bias (plus the window mask) as the float mask, in
+    the input dtype. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from klab_multimodalmodel_tpu_torch.ops.fused_attention import (
+        LOG_MAX_SCALE)
+
+    def l2n(x):
+        x32 = x.float()
+        return x32 * torch.rsqrt((x32 * x32).sum(-1, keepdim=True) + 1e-24)
+    s = torch.exp(torch.clamp(scale, max=LOG_MAX_SCALE))
+    qs = (l2n(q) * s[None, :, None, None]).to(q.dtype)
+    kn = l2n(k).to(k.dtype)
+    mask = bias[None]
+    if wmask is not None:
+        mask = mask + wmask.repeat(q.shape[0] // wmask.shape[0], 1,
+                                   1)[:, None]
+    mask = mask.to(q.dtype)
+    return lambda: F.scaled_dot_product_attention(qs, kn, v, attn_mask=mask,
+                                                  scale=1.0)
+
+
+def check_swin_extra(gen) -> list[dict]:
+    """``swin_extra_cases`` in both input dtypes and both chains against the
+    plain version, at the tolerances of the stage shapes."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
+                                                    swin_attention_plain)
+    out = []
+    for case, Bn, H, w, side in swin_extra_cases():
+        scale, bias, wmask = swin_tables(gen, H, w, side)
+        for wm in [None] + ([wmask] if wmask is not None else []):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn(Bn, H, w * w, SWIN_D, generator=gen,
+                                       device="cuda").to(dt)
+                           for _ in range(3))
+                for sm in (torch.float32, torch.bfloat16):
+                    got = swin_attention(q, k, v, scale, bias, wm, sm)
+                    torch.cuda.synchronize()
+                    want = swin_attention_plain(q, k, v, scale, bias, wm, sm)
+                    what = (f"swin {case} masked={wm is not None} {dt} "
+                            f"chain {dtype_name(sm)}")
+                    if sm == torch.float32:
+                        tol = TOL_FP32 if dt == torch.float32 else TOL_BF16
+                        err = dict(max=max_err(got, want))
+                        check(torch.allclose(got.float(), want.float(),
+                                             **tol),
+                              f"{what}: max abs err {err['max']}")
+                    else:
+                        err = chain_errors(got, want)
+                        check(chain_ok(err), f"{what}: {err}")
+                    out.append(dict(case=case, shape=[Bn, H, w * w, SWIN_D],
+                                    masked=wm is not None,
+                                    dtype=dtype_name(dt),
+                                    chain=dtype_name(sm), **err))
+    print(f"swin beyond swinv2-base ({len(out)} checks: N=36, N=144, "
+          f"ragged groups; both dtypes and chains): worst fp32-chain max abs "
+          f"err {max(c['max'] for c in out if c['chain'] == 'float32'):.2e},"
+          f" worst bf16-chain share outside "
+          f"{max(c['outside'] for c in out if 'outside' in c):.2e}")
+    return out
+
+
+def check_swin(gen, card: str) -> dict:
+    import torch
+
     from klab_multimodalmodel_tpu_torch.ops import (swin_attention,
                                                     swin_attention_plain)
     shapes, errs, errs16, chain = [], [], [], []
     for path, batch, dtype in (("captioning", BATCH, torch.float32),
                                ("training", TRAIN_BATCH, torch.bfloat16)):
         for si, Bn, H, nW, n_plain, n_shift, side in swin_stage_cases(batch):
-            wmask = None
-            if n_shift:
-                w = int(SWIN_N ** 0.5)
-                wmask = torch.tensor(shifted_window_mask(side, side, w,
-                                                         w // 2),
-                                     device="cuda")
-            scale = (torch.log(torch.tensor(10.0, device="cuda"))
-                     + 0.5 * torch.randn(H, generator=gen, device="cuda"))
-            bias = 16 * torch.sigmoid(torch.randn(H, SWIN_N, SWIN_N,
-                                                  generator=gen,
-                                                  device="cuda"))
+            w = int(SWIN_N ** 0.5)
+            scale, bias, wmask = swin_tables(gen, H, w, side)
             for masked, count in ((False, n_plain), (True, n_shift)):
                 if count == 0:
                     continue
@@ -580,45 +726,45 @@ def check_swin(gen, card: str) -> dict:
                         torch.cuda.synchronize()
                         want = swin_attention_plain(q, k, v, scale, bias, wm,
                                                     torch.bfloat16)
-                        e = (got.float() - want.float()).abs()
-                        out = float((e > TOL_BF16["atol"] + TOL_BF16["rtol"]
-                                     * want.float().abs()).float().mean())
-                        mx, mean = float(e.max()), float(e.mean())
+                        c = chain_errors(got, want)
                         chain.append(dict(stage=si, masked=masked,
-                                          dtype=dtype_name(dt), max=mx,
-                                          mean=mean, outside=out))
-                        check(out <= TOL_SWIN_BF16_CHAIN["outside"]
-                              and mean <= TOL_SWIN_BF16_CHAIN["mean"],
-                              f"swin bf16 chain stage {si} masked={masked} "
-                              f"{dt}: share outside {out}, mean {mean}, max "
-                              f"{mx}")
+                                          dtype=dtype_name(dt), **c))
+                        check(chain_ok(c), f"swin bf16 chain stage {si} "
+                              f"masked={masked} {dt}: {c}")
                 q, k, v = (torch.randn(Bn, H, SWIN_N, SWIN_D, generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(3))
-                ms = time_ms(lambda: swin_attention(q, k, v, scale, bias, wm))
+                ms, host = time_both(lambda: swin_attention(q, k, v, scale,
+                                                            bias, wm))
                 plain = time_ms(lambda: swin_attention_plain(
                     q, k, v, scale, bias, wm), 20)
+                yard_fn = swin_yardstick(q, k, v, scale, bias, wm)
+                yard = time_ms(yard_fn)
                 nbytes = io_bytes(q, k, v, q, bias, scale, wm)
                 flops = 4 * Bn * H * SWIN_N * SWIN_N * SWIN_D
                 b, by = bound_ms(nbytes, flops, dtype_name(dtype))
                 shapes.append(dict(
                     stage=si, path=path, shape=[Bn, H, SWIN_N, SWIN_D],
                     masked=masked, dtype=dtype_name(dtype), per_path=count,
-                    ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                    ms=ms, host_ms=host, plain_ms=plain, library_ms=None,
+                    yardstick_ms=yard,
+                    yardstick=sdpa_backends(yard_fn), bound_ms=b,
                     bound_by=by, bytes=nbytes, flops=flops))
                 print(f"swin {path} stage {si} Bn={Bn} H={H} masked={masked}"
                       f" {dtype_name(dtype)}: kernel {ms:.4f} ms, plain "
-                      f"{plain:.4f} ms, bound {b:.4f} ms ({by}) [{card}]")
+                      f"{plain:.4f} ms, yardstick (attention part only) "
+                      f"{yard:.4f} ms, bound {b:.4f} ms ({by}) [{card}]")
     print(f"swin bf16 softmax chain vs plain: worst share outside the bf16 "
           f"tolerance {max(c['outside'] for c in chain):.2e}, worst mean "
           f"{max(c['mean'] for c in chain):.2e}, worst max "
           f"{max(c['max'] for c in chain):.4f} (tolerance share "
           f"{TOL_SWIN_BF16_CHAIN['outside']}, mean "
           f"{TOL_SWIN_BF16_CHAIN['mean']})")
+    extra = check_swin_extra(gen)
     return dict(name="swin_attention_fwd",
                 mode="cosine (SwinV2), fp32 and bf16 softmax chains",
                 max_abs_err=max(errs), max_abs_err_bf16=max(errs16),
-                bf16_chain=chain, shapes=shapes,
+                bf16_chain=chain, extra_shapes=extra, shapes=shapes,
                 library_note="none: no single PyTorch call computes it "
                              "(per-head clamped logit scale on L2-normalized"
                              " q and k; SDPA takes one scalar scale and no "
@@ -635,9 +781,10 @@ def path_totals(entry: dict) -> None:
             continue
         tot = {k: sum(s[k] * s["per_path"] for s in sh)
                for k in ("ms", "plain_ms", "bound_ms")}
-        libs = [s["library_ms"] for s in sh]
-        tot["library_ms"] = (None if None in libs else
-                             sum(s["library_ms"] * s["per_path"] for s in sh))
+        for key in ("library_ms", "yardstick_ms"):
+            vals = [s.get(key) for s in sh]
+            tot[key] = (None if None in vals else
+                        sum(s[key] * s["per_path"] for s in sh))
         t_bytes = sum(s["bytes"] * s["per_path"] for s in sh)
         t_ops = sum(s["flops"] * s["per_path"] / PEAK_FLOP_PER_S[s["dtype"]]
                     for s in sh)
@@ -647,18 +794,23 @@ def path_totals(entry: dict) -> None:
         entry["paths"][path] = tot
 
 
-def print_step_totals(entry: dict, card: str) -> None:
-    """One training step's time of a T5 kernel beside the scalar kernels'
-    and SDPA's, and, for the forward, kernel against plain at each training
-    shape."""
-    if entry["name"] not in SCALAR_STEP_MS:
-        return
-    tr = entry["paths"]["training"]
-    print(f"{entry['name']} per training step ({tr['launches_per_path']} "
-          f"launches): kernel {tr['ms']:.2f} ms (scalar kernels: "
-          f"{SCALAR_STEP_MS[entry['name']]} ms), sdpa {tr['library_ms']:.2f} "
-          f"ms, plain {tr['plain_ms']:.2f} ms, bound {tr['bound_ms']:.2f} ms "
-          f"({tr['bound_by']}) [{card}]")
+def print_path_totals(entry: dict, card: str) -> None:
+    """Each path's total of a kernel beside that of the kernel it replaced
+    (``OLD_PATH_MS``) and SDPA's or the Swin yardstick's, and, for the T5
+    forward, kernel against plain at each training shape."""
+    for path, tot in entry["paths"].items():
+        per = "request" if path == "captioning" else "training step"
+        old = OLD_PATH_MS.get((entry["name"], path))
+        if tot["library_ms"] is not None:
+            lib = f"sdpa {tot['library_ms']:.4f} ms"
+        else:
+            lib = (f"yardstick (attention part only) "
+                   f"{tot['yardstick_ms']:.4f} ms")
+        print(f"{entry['name']} per {per} ({tot['launches_per_path']} "
+              f"launches): kernel {tot['ms']:.4f} ms"
+              + (f" ({old[1]}: {old[0]} ms, {old[2]})" if old else "")
+              + f", {lib}, plain {tot['plain_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}) [{card}]")
     if entry["name"] == "t5_attention_fwd":
         for s in entry["shapes"]:
             if s["path"] == "training":
@@ -1157,7 +1309,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     cuda_build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    print(f"kernel build: {build_s:.2f} s")
     build = build_report()
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1167,7 +1320,7 @@ def main() -> int:
         entry["source"], entry["replaces"] = KERNELS[entry["name"]]
         entry["route"] = "cuda"
         path_totals(entry)
-        print_step_totals(entry, card)
+        print_path_totals(entry, card)
 
     # Each main path runs with the counts set to 0 just before it and read
     # just after (inside caption() and train(): the three timed requests,
@@ -1202,7 +1355,8 @@ def main() -> int:
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build": build, "kernels": kernels,
+        json.dump({"card": card, "build_s": build_s, "build": build,
+                   "kernels": kernels,
                    "captioning": captioning, "training": training}, f,
                   indent=1)
     print(json.dumps({"ok": True, "device": {

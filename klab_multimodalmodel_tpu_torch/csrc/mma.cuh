@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks (sm_80 and later; built
-// here for sm_90a) and the loads of the attention inputs, shared by the bf16
-// T5 attention kernels (`t5_attention_fwd.cu`, `t5_attention_bwd.cu`).
+// here for sm_90a) and the loads of the attention inputs, shared by the
+// attention kernels (`t5_attention_fwd.cu`, `t5_attention_bwd.cu`,
+// `swin_attention_fwd.cu`).
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 in, fp32 accumulators), for
 // lane = 4 * g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -91,34 +92,46 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// Starts copying rows [r0, r0 + rows) of a row-major (n, D) matrix of T
+// (fp32 or bf16) into shared rows of `ld` elements covering DP columns (DP
+// a multiple of a 16-byte chunk), zero past row n and past column D, with
+// `nthreads` threads numbered from `tid`. A chunk inside the matrix goes by
+// cp.async when `vec` (D a multiple of a chunk and a 16-byte aligned
+// matrix), any other chunk by plain loads. The caller commits, waits and
+// synchronizes.
+template <typename T, int DP>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          int r0, int rows, int n, int D,
+                                          bool vec, int tid, int nthreads) {
+  constexpr int kE = 16 / sizeof(T);
+  constexpr int kChunks = DP / kE;
+  for (int i = tid; i < rows * kChunks; i += nthreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * kE;
+    const int row = r0 + r;
+    T* d = dst + r * ld + c;
+    const T* s = src + (size_t)row * D + c;
+    if (vec && row < n && c < D) {
+      cp_async16(d, s);
+    } else {
+      uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      T* e = reinterpret_cast<T*>(&z);
+      if (row < n)
+        for (int j = 0; j < kE && c + j < D; ++j) e[j] = s[j];
+      *reinterpret_cast<uint4*>(d) = z;
+    }
+  }
+}
+
 // Starts copying rows [r0, r0 + ROWS) of a row-major (n, D) bf16 matrix into
-// a shared tile of ROWS x DP with row stride DP + 8, zero past row n and past
-// column D, with THREADS threads. A 16-byte chunk inside the matrix goes by
-// cp.async when `vec` (D % 8 == 0 and a 16-byte aligned matrix); a chunk on
-// a ragged column edge, or any chunk without `vec`, by plain loads. The
-// caller commits, waits and synchronizes.
+// a shared tile of ROWS x DP with row stride DP + 8 (see above), with the
+// THREADS threads of the block.
 template <int ROWS, int DP, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int n, int D, bool vec) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kLd = DP + 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int row = r0 + r;
-    __nv_bfloat16* d = dst + r * kLd + c;
-    const __nv_bfloat16* s = src + (size_t)row * D + c;
-    if (row >= n || c >= D) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    } else if (vec && c + 8 <= D) {
-      cp_async16(d, s);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = (c + e < D) ? s[e] : __float2bfloat16(0.f);
-    }
-  }
+  load_rows<__nv_bfloat16, DP>(dst, DP + 8, src, r0, ROWS, n, D, vec,
+                               threadIdx.x, THREADS);
 }
 
 // Writes rows [r0, r0 + ROWS) of a row-major (n, D) bf16 matrix from a
@@ -144,6 +157,20 @@ __device__ __forceinline__ void store_tile_warp(__nv_bfloat16* dst,
       for (int e = 0; e < 8 && c + e < D; ++e) d[e] = s[e];
     }
   }
+}
+
+// acc + a . b, summed in the order of the components (fp32 SIMT products).
+__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// acc + s v, component by component.
+__device__ __forceinline__ float4 fma4s(float s, float4 v, float4 acc) {
+  return make_float4(fmaf(s, v.x, acc.x), fmaf(s, v.y, acc.y),
+                     fmaf(s, v.z, acc.z), fmaf(s, v.w, acc.w));
 }
 
 // 2^x on the special-function unit (ex2.approx.ftz: relative error below

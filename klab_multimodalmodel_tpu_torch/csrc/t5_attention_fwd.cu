@@ -19,21 +19,34 @@
 // What bounds it on this card: at the serving shapes (B=8, H=16, D=64,
 // L=32 or 96, fp32) one (b, h) moves 4*L*D*4 bytes of q/k/v/o for 4*L*L*D
 // FLOP of products: L/4 FLOP per byte, 8 at L=32 and 24 at L=96, either side
-// of the fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20). The whole call is a
-// few MB and a few hundred MFLOP, so at these sizes launch latency and the
-// scalar-FMA products weigh more than either bound. At the training shapes
-// (B=32, L=128..320, bf16) the ratio is L/2 = 64..160 FLOP per byte, under
-// the bf16 tensor-core ridge (989 TFLOP/s over 3.35 TB/s = 295): bytes bound
+// of the fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20). A whole call is 4 or
+// 13 MB and 8 or 75 MFLOP, a few microseconds either way: what sets its
+// time is how much of the card it fills and how long each thread's chain
+// of dependent loads and FMAs is. At the training shapes (B=32,
+// L=128..320, bf16) the ratio is L/2 = 64..160 FLOP per byte, under the
+// bf16 tensor-core ridge (989 TFLOP/s over 3.35 TB/s = 295): bytes bound
 // it, and only tensor cores keep the products off the critical path; with
 // dropout the Philox draws are the largest integer work.
 //
 // Design, fp32 (captioning; TF32 stays off there, so no tensor cores): one
-// block per (b, h, 32-query tile); key/value tiles of 32 rows are staged
-// once in shared memory (fp32) and read by every query row of the block, so
-// Q/K/V leave device memory once; an online (running max / sum) softmax over
-// key tiles keeps any K within a fixed shared-memory footprint and never
-// writes the logits out. Each lane owns one key of the tile for the logits
-// and D/32 output columns for P V, as plain fp32 FMAs.
+// block of 128 threads per (b, h, 16-query tile), so the text tower (L=32)
+// launches 256 blocks and the encoder (L=96) 768 on 132 SMs, seven to an
+// SM (31.5 KB of shared memory each), so the encoder runs in one wave. Key
+// and value tiles of 32 keys reach shared memory by 16-byte cp.async and
+// are read by every query row of the block: the next key tile while this
+// one computes, this tile's values under its Q K^T (one value stage).
+// Each thread owns two query rows: a 2 x 2 register tile of the logits
+// (keys j, j + 16) and a 2 x 4 tile of the output per 64 head-dim columns,
+// both fed by float4 shared reads (each word feeds two to four FMAs). The
+// 16 lanes that share two rows reduce the row max in four shuffle steps; an
+// online softmax (running max, per-lane running sum, expf) over key tiles
+// keeps any K within a fixed footprint and never writes the logits out;
+// only P crosses shared memory between the two products. The head bias and
+// the key addends of a tile come from L2 during the previous tile's P V,
+// so no load waits between the two products. Dropout: one
+// Philox call per lane and tile gives four keep bits, handed to the lanes
+// that hold those keys by shuffles. Each dot product and each output sum
+// runs in the order of d and of the keys, as the scalar kernel's did.
 //
 // Design, bf16 (training), FlashAttention-2's structure: one block per
 // (b, h, 64-query tile), four warps of 16 query rows, each warp's Q
@@ -66,201 +79,274 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockK = 32;                     // keys per tile: one per lane
-constexpr float kMaskedLogit = -1e9f;           // NEG of the TPU kernel
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ---------------------------------------------------------------------------
+// fp32: register-tiled SIMT (captioning keeps TF32 off)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Rows = 16;  // query rows per block: 8 row pairs
+constexpr int kF32Keys = 32;  // keys per K/V tile
+constexpr int kF32Threads = 128;
+
+struct F32Args {
+  const float *q, *k, *v, *bias;
+  const int* kmask;
+  const long long* seed;
+  float *out, *stats;
+  int H, Q, K, D;
+  uint32_t threshold;
+  float inv_keep;  // 1 / (1 - rate)
+  bool vec;        // D % 4 == 0 and 16-byte aligned q, k, v, out
+};
+
+// Shared memory: Q and two K tiles (rows of DP + 4 floats), one V tile (rows
+// of DP), P: 31.5 KB at DP = 64, so seven blocks fit an SM.
+template <int DP>
+constexpr size_t fwd_f32_smem() {
+  return sizeof(float) * ((size_t)(kF32Rows + 2 * kF32Keys) * (DP + 4) +
+                          (size_t)kF32Keys * DP +
+                          (size_t)kF32Rows * (kF32Keys + 4));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// Thread t owns block rows 2 (t >> 4) and 2 (t >> 4) + 1 in both products:
+// keys j and j + 16 of each tile in S (j = t & 15), float4 column chunks
+// j + 16 c in O. The 16 lanes of a half-warp share the two rows, so the
+// row max is a 4-step shuffle and the running max and sum never leave the
+// registers; only P crosses shared memory, between the two products.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads)
+    t5_attention_fwd_f32_kernel(F32Args a) {
+  constexpr int LD = DP + 4;         // 16-byte rows, odd in 16-byte units
+  constexpr int LP = kF32Keys + 4;
+  constexpr int NC = (DP / 4 + 15) / 16;  // column chunks per thread
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;                   // [16][LD]
+  float* k_s = q_s + kF32Rows * LD;      // [2][32][LD]
+  float* v_s = k_s + 2 * kF32Keys * LD;  // [32][DP]: rows read whole
+  float* p_s = v_s + kF32Keys * DP;      // [16][LP]
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// NCH = ceil(D / 32): output columns each lane owns (lane + 32 * c).
-template <typename T, int NCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    t5_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const float* __restrict__ bias,
-                            const int* __restrict__ kmask,
-                            const long long* __restrict__ seed,
-                            T* __restrict__ out, float* __restrict__ stats,
-                            int H, int Q, int K, int D, uint32_t threshold,
-                            float keep_prob) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // [kBlockQ][D]
-  float* k_s = q_s + kBlockQ * D;        // [kBlockK][D + 1], padded: no
-  float* v_s = k_s + kBlockK * (D + 1);  // [kBlockK][D]     bank conflicts
-
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kF32Rows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const size_t bh = (size_t)b * H + h;
-  const T* qp = q + bh * Q * D;
-  const T* kp = k + bh * K * D;
-  const T* vp = v + bh * K * D;
-  const bool dropout = seed != nullptr;
-  const uint64_t seed_v = dropout ? (uint64_t)*seed : 0;
+  const int lane = tid & 31;
+  const int j = tid & 15;
+  const int row0 = 2 * (tid >> 4);  // this thread's rows: row0, row0 + 1
+  const size_t bh = (size_t)b * a.H + h;
+  const float* kg = a.k + bh * a.K * a.D;
+  const float* vg = a.v + bh * a.K * a.D;
+  const bool dropout = a.seed != nullptr;
+  const uint2 pkey = klab::seed_key(a.seed);
 
-  for (int i = tid; i < kBlockQ * D; i += blockDim.x) {
-    const int r = i / D;
-    q_s[i] = (q0 + r < Q) ? to_float(qp[(size_t)q0 * D + i]) : 0.f;
-  }
+  klab::load_rows<float, DP>(q_s, LD, a.q + bh * a.Q * a.D, q0, kF32Rows,
+                             a.Q, a.D, a.vec, tid, kF32Threads);
+  klab::load_rows<float, DP>(k_s, LD, kg, 0, kF32Keys, a.K, a.D, a.vec, tid,
+                             kF32Threads);
+  klab::load_rows<float, DP>(v_s, DP, vg, 0, kF32Keys, a.K, a.D, a.vec, tid,
+                             kF32Threads);
+  klab::cp_async_commit();
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NCH];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's part of the row sums
+  float4 o[2][NC];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
-  }
+    for (int c = 0; c < NC; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int k0 = 0; k0 < K; k0 += kBlockK) {
-    __syncthreads();  // q_s written; the previous K/V tile fully consumed
-    for (int i = tid; i < kBlockK * D; i += blockDim.x) {
-      const int j = i / D;
-      const int d = i % D;
-      const bool ok = k0 + j < K;
-      const size_t src = (size_t)(k0 + j) * D + d;
-      k_s[j * (D + 1) + d] = ok ? to_float(kp[src]) : 0.f;
-      v_s[j * D + d] = ok ? to_float(vp[src]) : 0.f;
+  // The addends of this thread's four logits for the tile at k0: the head
+  // bias, then the key's (0, -1e9 masked, -inf past K). They come from L2,
+  // so each tile's are loaded during the previous tile's P V.
+  float bs[2][2], add[2];
+  const auto load_addends = [&](int k0) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + j + 16 * c;
+      add[c] = klab::key_addend(a.kmask, b, key, a.K);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + row0 + r;
+        bs[r][c] = (a.bias != nullptr && qi < a.Q && key < a.K)
+                       ? __ldg(a.bias + ((size_t)h * a.Q + qi) * a.K + key)
+                       : 0.f;
+      }
+    }
+  };
+  load_addends(0);
+
+  const int nk = (a.K + kF32Keys - 1) / kF32Keys;
+  for (int t = 0; t < nk; ++t) {
+    const int st = t & 1;
+    const int k0 = t * kF32Keys;
+    klab::cp_async_wait<0>();
+    __syncthreads();  // K tile t has landed; tile t - 1's V and P are used up
+    if (t > 0) {  // V tile t, under this tile's Q K^T (tile 0 came with Q)
+      klab::load_rows<float, DP>(v_s, DP, vg, k0, kF32Keys, a.K, a.D, a.vec,
+                                 tid, kF32Threads);
+      klab::cp_async_commit();
+    }
+    if (t + 1 < nk) {  // the next K tile into the other stage
+      klab::load_rows<float, DP>(k_s + (st ^ 1) * kF32Keys * LD, LD, kg,
+                                 k0 + kF32Keys, kF32Keys, a.K, a.D, a.vec, tid,
+                                 kF32Threads);
+      klab::cp_async_commit();
+    }
+    const float* kt = k_s + st * kF32Keys * LD;
+
+    // S = Q K^T, each dot product summed in the order of d.
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int d = 0; d < DP; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_s + row0 * LD + d);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(q_s + (row0 + 1) * LD + d);
+      const float4 ka = *reinterpret_cast<const float4*>(kt + j * LD + d);
+      const float4 kb =
+          *reinterpret_cast<const float4*>(kt + (j + 16) * LD + d);
+      s[0][0] = klab::fma4(qa, ka, s[0][0]);
+      s[0][1] = klab::fma4(qa, kb, s[0][1]);
+      s[1][0] = klab::fma4(qb, ka, s[1][0]);
+      s[1][1] = klab::fma4(qb, kb, s[1][1]);
+    }
+
+    // Online softmax: the normalizer sums the probabilities before dropout.
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[r][c] = (s[r][c] + bs[r][c]) + add[c];
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      // Key k0 < K is in the tile, so the new max is finite; corr is 0 on
+      // the first tile.
+      const float m_new = fmaxf(m[r], mx);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) s[r][c] = expf(s[r][c] - m_new);
+      l[r] = l[r] * corr[r] + (s[r][0] + s[r][1]);
+    }
+    if (t + 1 < nk) load_addends(k0 + kF32Keys);
+    if (dropout) {
+      // Lane j of each half-warp draws the keep bits of keys
+      // k0 + 4 (j & 7) .. + 3 of row row0 + (j >> 3); key k0 + j + 16 c of
+      // row row0 + r is bit j & 3 of lane 8 r + 4 c + (j >> 2)'s draw.
+      const uint32_t mine = klab::keep_nibble(
+          pkey, (uint32_t)(k0 >> 2) + (j & 7), q0 + row0 + (j >> 3), h, b,
+          a.threshold);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t bits = __shfl_sync(
+              kFull, mine, (lane & 16) + 8 * r + 4 * c + (j >> 2));
+          if (!((bits >> (j & 3)) & 1u)) s[r][c] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) p_s[(row0 + r) * LP + j + 16 * c] = s[r][c];
+    if (t > 0) {  // V tile t has landed (the next K tile may still be coming)
+      if (t + 1 < nk)
+        klab::cp_async_wait<1>();
+      else
+        klab::cp_async_wait<0>();
     }
     __syncthreads();
 
-    const int key = k0 + lane;
-    const bool key_ok = key < K;
-    float mask_add = 0.f;
-    if (kmask != nullptr && key_ok && kmask[(size_t)b * K + key] <= 0)
-      mask_add = kMaskedLogit;
-
+    // O = O * corr + Pd V, each sum in the order of the keys.
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int qi = q0 + row;
-      if (qi < Q) {  // warp-uniform
-        float s = -INFINITY;
-        if (key_ok) {
-          const float* qr = q_s + row * D;
-          const float* kr = k_s + lane * (D + 1);
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-          s = dot;
-          if (bias != nullptr) s += bias[((size_t)h * Q + qi) * K + key];
-          s += mask_add;
-        }
-        // Lane 0 always holds a valid key (k0 < K), so m_new is finite.
-        const float m_new = fmaxf(m[r], warp_max(s));
-        const float p = key_ok ? expf(s - m_new) : 0.f;
-        const float corr = expf(m[r] - m_new);  // 0 on the first tile
-        l[r] = l[r] * corr + warp_sum(p);
-        // The normalizer sums the probabilities before dropout; only the
-        // product with V sees the dropped, rescaled ones.
-        float pd = p;
-        if (dropout)
-          pd = (key_ok && klab::dropout_keep(seed_v, b, h, qi, key, threshold))
-                   ? p / keep_prob
-                   : 0.f;
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) acc[r][c] *= corr;
-        for (int j = 0; j < kBlockK; ++j) {
-          const float pj = __shfl_sync(kFull, pd, j);
+      for (int c = 0; c < NC; ++c) {
+        o[r][c].x *= corr[r];
+        o[r][c].y *= corr[r];
+        o[r][c].z *= corr[r];
+        o[r][c].w *= corr[r];
+      }
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const int d = lane + 32 * c;
-            if (d < D) acc[r][c] = fmaf(pj, v_s[j * D + d], acc[r][c]);
+    for (int kk = 0; kk < kF32Keys; kk += 4) {
+      const float4 pa = *reinterpret_cast<const float4*>(p_s + row0 * LP + kk);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(p_s + (row0 + 1) * LP + kk);
+      const float pr[2][4] = {{pa.x, pa.y, pa.z, pa.w},
+                              {pb.x, pb.y, pb.z, pb.w}};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int col = 4 * (j + 16 * c);
+          if (col < DP) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(v_s + (kk + u) * DP + col);
+            o[0][c] = klab::fma4s(pr[0][u], vv, o[0][c]);
+            o[1][c] = klab::fma4s(pr[1][u], vv, o[1][c]);
           }
         }
-        m[r] = m_new;
-      }
     }
   }
 
+  // O / (sum * (1 - rate)); the row stats for the backward.
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + warp * kRowsPerWarp + r;
-    if (qi < Q) {
-      const float inv = 1.f / l[r];
+  for (int r = 0; r < 2; ++r) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) out[(bh * Q + qi) * D + d] = from_float<T>(acc[r][c] * inv);
-      }
-      if (stats != nullptr && lane == 0) {
-        stats[(bh * Q + qi) * 2] = m[r];
-        stats[(bh * Q + qi) * 2 + 1] = l[r];
+    for (int off = 8; off > 0; off >>= 1)
+      l[r] += __shfl_xor_sync(kFull, l[r], off);
+    const int qi = q0 + row0 + r;
+    if (qi >= a.Q) continue;
+    const float inv = a.inv_keep / l[r];
+    float* orow = a.out + (bh * a.Q + qi) * a.D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * (j + 16 * c);
+      if (col >= a.D) continue;
+      const float4 y = make_float4(o[r][c].x * inv, o[r][c].y * inv,
+                                   o[r][c].z * inv, o[r][c].w * inv);
+      if (a.vec) {
+        *reinterpret_cast<float4*>(orow + col) = y;
+      } else {
+        const float ys[4] = {y.x, y.y, y.z, y.w};
+        for (int e = 0; e < 4 && col + e < a.D; ++e) orow[col + e] = ys[e];
       }
     }
+    if (a.stats != nullptr && j == 0)
+      *reinterpret_cast<float2*>(a.stats + (bh * a.Q + qi) * 2) =
+          make_float2(m[r], l[r]);
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *bias, *kmask, *seed;
-  void *out, *stats;
-  int B, H, Q, K, D;
-  uint32_t threshold;
-  float keep_prob;
-};
-
-template <typename T, int NCH>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int D = a.D;
-  const size_t smem =
-      sizeof(float) * ((size_t)kBlockQ * D + (size_t)kBlockK * (D + 1) +
-                       (size_t)kBlockK * D);
-  auto kernel = t5_attention_fwd_kernel<T, NCH>;
+template <int DP>
+cudaError_t launch_f32(const F32Args& a, int B, cudaStream_t stream) {
+  const size_t smem = fwd_f32_smem<DP>();
+  auto kernel = t5_attention_fwd_f32_kernel<DP>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((a.Q + kBlockQ - 1) / kBlockQ, a.H, a.B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
-      static_cast<const int*>(a.kmask), static_cast<const long long*>(a.seed),
-      static_cast<T*>(a.out), static_cast<float*>(a.stats), a.H, a.Q, a.K, D,
-      a.threshold, a.keep_prob);
+  const dim3 grid((a.Q + kF32Rows - 1) / kF32Rows, a.H, B);
+  kernel<<<grid, kF32Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+// The head dim padded to a multiple of 32: one instantiation each.
+cudaError_t dispatch_f32(const F32Args& a, int B, cudaStream_t stream) {
   switch ((a.D + 31) / 32) {
     case 1:
-      return launch<T, 1>(a, stream);
+      return launch_f32<32>(a, B, stream);
     case 2:
-      return launch<T, 2>(a, stream);
+      return launch_f32<64>(a, B, stream);
     case 3:
-      return launch<T, 3>(a, stream);
+      return launch_f32<96>(a, B, stream);
     case 4:
-      return launch<T, 4>(a, stream);
+      return launch_f32<128>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -555,7 +641,8 @@ bool aligned(const void* p, uintptr_t n) {
 }  // namespace
 
 // q (B,H,Q,D), k/v (B,H,K,D), out (B,H,Q,D): contiguous, fp32 (is_bf16=0:
-// the scalar kernel) or bf16 (is_bf16=1: the tensor-core kernel). bias (H,Q,K) fp32 or NULL; kmask (B,K) int32 or NULL.
+// the register-tiled SIMT kernel) or bf16 (is_bf16=1: the tensor-core
+// kernel). bias (H,Q,K) fp32 or NULL; kmask (B,K) int32 or NULL.
 // seed: one int64 in device memory, or NULL for no dropout; rate in [0, 1)
 // is the dropout rate (ignored without a seed). stats (B,H,Q,2) fp32 or
 // NULL. Returns the cudaError_t of the launch (0 = success).
@@ -568,9 +655,11 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
       B > 65535 || !(rate >= 0.0 && rate < 1.0))
     return (int)cudaErrorInvalidValue;
-  // floor(rate * 2^32) and 1 - rate in fp32, as the TPU kernel forms them.
-  const Args a{q, k, v, bias, kmask, seed, out, stats, B, H, Q, K, D,
-               (uint32_t)(rate * 4294967296.0), (float)(1.0 - rate)};
+  // floor(rate * 2^32), as the TPU kernel forms it.
+  const uint32_t threshold = (uint32_t)(rate * 4294967296.0);
+  const float inv_keep = (float)(1.0 / (1.0 - rate));
+  const bool vec = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+                   aligned(out, 16);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
@@ -578,12 +667,15 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                    static_cast<const bf16*>(v), static_cast<const float*>(bias),
                    static_cast<const int*>(kmask),
                    static_cast<const long long*>(seed), static_cast<bf16*>(out),
-                   static_cast<float*>(stats), H, Q, K, D, a.threshold,
-                   (float)(1.0 / (1.0 - rate)),
-                   D % 8 == 0 && aligned(q, 16) && aligned(k, 16) &&
-                       aligned(v, 16) && aligned(out, 16),
-                   K % 2 == 0 && aligned(bias, 8)};
+                   static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
+                   D % 8 == 0 && vec, K % 2 == 0 && aligned(bias, 8)};
     return (int)dispatch_tc(t, B, s);
   }
-  return (int)dispatch<float>(a, s);
+  const F32Args f{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(bias),
+                  static_cast<const int*>(kmask),
+                  static_cast<const long long*>(seed), static_cast<float*>(out),
+                  static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
+                  D % 4 == 0 && vec};
+  return (int)dispatch_f32(f, B, s);
 }

@@ -26,8 +26,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "swin_attention_fwd")
+# --split-compile 0: optimize a source's kernels on all CPU cores at once
+# (the Swin source instantiates 48).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -32,6 +32,7 @@ from .cuda_build import kernel_function
 
 NEG = -1e9
 LOG_MAX_SCALE = math.log(100.0)
+SWIN_MAX_TOKENS = 144  # window tokens the Swin kernel takes (12 x 12)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -340,7 +341,10 @@ def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """SwinV2 cosine window attention through
     ``csrc/swin_attention_fwd.cu`` (see ``swin_attention_plain``), forward
     only. ``logit_scale`` (H,), ``bias_h`` and ``window_mask`` must be fp32
-    on the card; ``softmax_dtype`` is float32 or bfloat16."""
+    on the card; ``softmax_dtype`` is float32 or bfloat16. The kernel takes
+    windows of at most ``SWIN_MAX_TOKENS`` (144, a 12 x 12 window) tokens
+    and head dims of at most 128; a larger CUDA input raises
+    ``ValueError``."""
     if softmax_dtype not in _DTYPES:
         raise ValueError(f"swin_attention: softmax_dtype {softmax_dtype}: "
                          "expected float32 or bfloat16")
@@ -348,6 +352,10 @@ def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return swin_attention_plain(q, k, v, logit_scale, bias_h,
                                     window_mask, softmax_dtype)
     Bn, H, N, D = q.shape
+    if N > SWIN_MAX_TOKENS or D > 128:
+        raise ValueError(f"swin_attention: {N} tokens of head dim {D}: the "
+                         f"kernel takes at most {SWIN_MAX_TOKENS} tokens and "
+                         "a head dim of at most 128")
     _check_qkv(q, k, v, (Bn, H, N, D))
     _check_aux(logit_scale, "logit_scale", (H,), torch.float32, q.device)
     _check_aux(bias_h, "bias_h", (H, N, N), torch.float32, q.device)

@@ -1,4 +1,4 @@
-// Host emulation of the CUDA features the T5 attention kernels use, so that
+// Host emulation of the CUDA features the attention kernels use, so that
 // `tests/test_torch_cuda_emulation.py` can compile `csrc/*.cu` with g++ and
 // hold the kernels' logic (fragment layouts, lane exchanges, tile edges)
 // against the plain PyTorch versions on the CPU. Each CUDA thread is a
@@ -56,6 +56,9 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
+// Round-to-nearest product and sum (x86-64 without -mfma never contracts).
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

@@ -47,12 +47,14 @@ def test_sources_of_follows_includes():
                                          "philox.cuh"]
     assert names["t5_attention_bwd"] == ["t5_attention_bwd.cu", "mma.cuh",
                                          "philox.cuh"]
-    assert names["swin_attention_fwd"] == ["swin_attention_fwd.cu"]
+    assert names["swin_attention_fwd"] == ["swin_attention_fwd.cu",
+                                           "mma.cuh"]
 
 
 @pytest.mark.parametrize("edited,rebuilt", [
     ("philox.cuh", {"t5_attention_fwd", "t5_attention_bwd"}),
-    ("mma.cuh", {"t5_attention_fwd", "t5_attention_bwd"}),
+    ("mma.cuh", {"t5_attention_fwd", "t5_attention_bwd",
+                 "swin_attention_fwd"}),
     ("swin_attention_fwd.cu", {"swin_attention_fwd"}),
 ])
 def test_library_hash_covers_includes(tmp_path, monkeypatch, edited,

@@ -1,21 +1,33 @@
-"""The T5 attention kernels' logic on the CPU: ``csrc/t5_attention_fwd.cu``
-and ``csrc/t5_attention_bwd.cu`` compiled with g++ against a host emulation
+"""The attention kernels' logic on the CPU: ``csrc/t5_attention_fwd.cu``,
+``csrc/t5_attention_bwd.cu`` and ``csrc/swin_attention_fwd.cu`` compiled
+with g++ against a host emulation
 of the CUDA features they use (``tests/cuda_host/emulation.h``: one fiber per
 thread, warp collectives resolved when the whole warp has arrived), then
 called through their C entry points on CPU tensors and held against the
 plain PyTorch versions. This checks what the card-only tests check of the
 kernels' arithmetic (fragment layouts of ``mma.sync`` and ``ldmatrix``, the
 lanes' exchange of Philox keep bits, ragged tiles, padded head dims, masked
-rows) without the card; it says nothing of the PTX, of speed or of races
-between warps. Skipped where g++ is missing.
+rows, the Swin kernel's grouping of windows into blocks) without the card;
+it says nothing of the PTX, of speed or of races between warps. Skipped
+where g++ is missing. The Swin source is built with
+``KLAB_SWIN_TARGET_BLOCKS=4``, so that these tiny launches group two
+windows to a block, with a last group of one.
 
 Tolerances are the card-only tests': 2e-2 absolute plus 2e-2 relative for a
 bf16 output, 1e-4 absolute in fp32; gradients by their largest error over
 their largest value, 2e-2 in bf16, 1e-4 in fp32 and for the bias gradient.
+The fp32 T5 forward's row stats: the max within 1e-4, the sum within 1e-5
+relative (summation order). The Swin kernel with a bf16 softmax chain: a
+logit can round one bf16 ulp apart from the plain version's (fp32 dot
+products summed in another order), which moves one probability by up to
+~28 %; at most one row of outputs in a hundred may fall outside the bf16
+tolerance, and the mean error stays under 1e-3 (the card's tests, at
+larger sizes, allow 1e-4 of the outputs).
 """
 
 import concurrent.futures
 import ctypes
+import math
 import re
 import shutil
 import subprocess
@@ -26,10 +38,10 @@ import torch
 
 from klab_multimodalmodel_tpu_torch.ops import cuda_build
 from klab_multimodalmodel_tpu_torch.ops.fused_attention import (
-    t5_attention_bwd_plain, t5_attention_plain)
+    NEG, swin_attention_plain, t5_attention_bwd_plain, t5_attention_plain)
 
 HOST = Path(__file__).resolve().parent / "cuda_host"
-SOURCES = ("t5_attention_fwd", "t5_attention_bwd")
+SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "swin_attention_fwd")
 # The inline-PTX helpers of csrc/mma.cuh and their host versions.
 HOST_HELPERS = {
     "smem_u32": "",
@@ -111,7 +123,8 @@ def kernels(tmp_path_factory):
         lib = out / f"lib{name}.so"
         proc = subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I",
-             str(HOST), "-include", "emulation.h", "-o", str(lib),
+             str(HOST), "-include", "emulation.h",
+             "-DKLAB_SWIN_TARGET_BLOCKS=4", "-o", str(lib),
              str(out / f"{name}.cpp")], capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr[-4000:]
         symbol, argtypes = cuda_build._SIGNATURES[name]
@@ -212,3 +225,94 @@ def test_t5_kernels_on_host_match_plain(kernels, dtype, B, H, Q, K, D, rate,
         tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
         assert x.dtype == w.dtype
         assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,Q,K,D", [
+    (2, 2, 32, 32, 64),   # captioning text tower, small B and H
+    (1, 2, 96, 96, 64),   # captioning encoder: three key tiles
+    (1, 2, 5, 7, 8),      # ragged, D 8
+    (2, 1, 40, 70, 48),   # D 48: a part-filled column chunk
+    (1, 1, 33, 17, 128),  # widest head dim
+])
+def test_t5_fp32_forward_on_host_matches_plain(kernels, rate, B, H, Q, K,
+                                               D):
+    """The fp32 (captioning) forward: output against the plain version,
+    the row stats against the plain logits' row max and sum of exp(logit -
+    max), and with dropout the keep bits on uniform probabilities. The last
+    batch row is fully masked."""
+    g = torch.Generator().manual_seed(B * 1000 + Q * 10 + D)
+    q, k, v = (torch.randn(s, generator=g) for s in (
+        (B, H, Q, D), (B, H, K, D), (B, H, K, D)))
+    b = torch.randn(H, Q, K, generator=g)
+    m = torch.ones(B, K, dtype=torch.int32)
+    m[0, K // 2:] = 0
+    m[-1, :] = 0
+    seed = torch.tensor([0x0FED_CBA9_8765_4321], dtype=torch.int64)
+    out, stats = _forward(kernels["t5_attention_fwd"], q, k, v, b, m, rate,
+                          seed)
+    want = t5_attention_plain(q, k, v, b, m, rate, seed)
+    torch.testing.assert_close(out, want, **TOLS[torch.float32])
+    logits = q @ k.transpose(-1, -2) + b + torch.where(
+        m[:, None, None, :] > 0, 0.0, NEG)
+    row_max = logits.amax(-1)
+    row_sum = torch.exp(logits - row_max[..., None]).sum(-1)
+    torch.testing.assert_close(stats[..., 0], row_max, rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(stats[..., 1], row_sum, rtol=1e-5, atol=0.0)
+    if rate:
+        z = torch.zeros_like(q)
+        got, _ = _forward(kernels["t5_attention_fwd"], z, k, v, None, None,
+                          rate, seed)
+        want = t5_attention_plain(z, k, v, None, None, rate, seed)
+        torch.testing.assert_close(got, want, **TOLS[torch.float32])
+
+
+def _swin(fn, q, k, v, scale, bias, wmask, sm_bf16):
+    Bn, H, N, D = q.shape
+    out = torch.full_like(q, float("nan"))
+    nW = 0 if wmask is None else wmask.shape[0]
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(scale), _ptr(bias), _ptr(wmask),
+             _ptr(out), Bn, H, N, D, nW, int(q.dtype == torch.bfloat16),
+             int(sm_bf16), None)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("sm_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N,D", [
+    (16, 20),   # the tests' window 4; D not a multiple of 8 (bf16 loads
+                # element by element)
+    (36, 32),   # swinv2-large's last stage: window 6, N padded to 48
+    (64, 32),   # window 8: every stage of swinv2-base
+    (144, 32),  # swinv2-large's window 12: the wide register tile
+])
+def test_swin_kernel_on_host_matches_plain(kernels, sm_dtype, dtype, masked,
+                                           N, D):
+    """The Swin forward against the plain version. Unmasked: 5 windows of 2
+    heads; masked: 10 windows (two mask positions) of 1 head. Either way
+    blocks take 2 windows each and the last block 1."""
+    g = torch.Generator().manual_seed(N * 10 + D)
+    Bn, H = (10, 1) if masked else (5, 2)
+    q, k, v = (torch.randn(Bn, H, N, D, generator=g).to(dtype)
+               for _ in range(3))
+    scale = math.log(10.0) + 0.5 * torch.randn(H, generator=g)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=g))
+    wmask = None
+    if masked:
+        wmask = torch.where(torch.rand(2, N, N, generator=g) < 0.3, -100.0,
+                            0.0)
+        wmask[:, torch.arange(N), torch.arange(N)] = 0.0
+    got = _swin(kernels["swin_attention_fwd"], q, k, v, scale, bias, wmask,
+                sm_dtype == torch.bfloat16)
+    want = swin_attention_plain(q, k, v, scale, bias, wmask, sm_dtype)
+    assert got.dtype == dtype
+    if sm_dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+        return
+    err = (got.float() - want.float()).abs()
+    tol = TOLS[torch.bfloat16]
+    outside = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    assert float(outside.float().mean()) <= 1e-2, float(outside.float().mean())
+    assert float(err.mean()) <= 1e-3, float(err.mean())

@@ -9,8 +9,9 @@ absolute in fp32, 2e-2 absolute plus 2e-2 relative in bf16. Gradients are
 held by their largest error over their largest value: 1e-4 in fp32, 2e-2 in
 bf16 (dS and the dropped probabilities are rounded to bf16 before their
 products, and a near-tie can round one bf16 ulp apart), 1e-4 for the bias
-gradient in both (it sums the fp32 dS). The Swin kernel with
-a bf16 softmax chain: see ``test_swin_bf16_chain_matches_plain``.
+gradient in both (it sums the fp32 dS). The forward's row stats: the max
+within 1e-4, the sum within 1e-5 relative. The Swin kernel with a bf16
+softmax chain: see ``test_swin_bf16_chain_matches_plain``.
 """
 
 import pytest
@@ -24,6 +25,7 @@ from klab_multimodalmodel_tpu_torch.ops import (draw_seed, swin_attention,
                                                 t5_attention_bwd_plain,
                                                 t5_attention_fwd,
                                                 t5_attention_plain)
+from klab_multimodalmodel_tpu_torch.ops.fused_attention import NEG
 
 pytestmark = pytest.mark.cuda
 TOLS = {torch.float32: dict(rtol=0.0, atol=1e-4),
@@ -120,6 +122,10 @@ def test_kernel_wrappers_raise_on_bad_inputs(cuda):
         swin_attention(x, x, x, torch.zeros(2, device=cuda),
                        torch.zeros(2, 4, 4, device=cuda),
                        torch.zeros(2, 4, 4, device=cuda))
+    x = torch.zeros(1, 2, 169, 16, device=cuda)  # a 13 x 13 window
+    with pytest.raises(ValueError, match="at most 144 tokens"):
+        swin_attention(x, x, x, torch.zeros(2, device=cuda),
+                       torch.zeros(2, 169, 169, device=cuda))
 
 
 def _rel_err(got, want) -> float:
@@ -324,8 +330,80 @@ def test_swin_bf16_chain_matches_plain(cuda, dtype, Bn, H, w, side):
         torch.cuda.synchronize()
         want = swin_attention_plain(q, k, v, scale, bias, wm,
                                     softmax_dtype=torch.bfloat16)
-        err = (got.float() - want.float()).abs()
-        outside = float((err > 2e-2 + 2e-2 * want.float().abs()).float()
-                        .mean())
-        assert outside <= 1e-4 and float(err.mean()) <= 1e-3, (
-            outside, float(err.mean()), float(err.max()))
+        _assert_bf16_chain_close(got, want)
+
+
+def _assert_bf16_chain_close(got, want):
+    err = (got.float() - want.float()).abs()
+    outside = float((err > 2e-2 + 2e-2 * want.float().abs()).float().mean())
+    assert outside <= 1e-4 and float(err.mean()) <= 1e-3, (
+        outside, float(err.mean()), float(err.max()))
+
+
+@pytest.mark.parametrize("sm_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bn,H,w,side", [
+    (32, 4, 6, 12),    # swinv2-large's last stage: N=36 (padded to 48), nW=4
+    (32, 4, 12, 24),   # swinv2-large's window 12: N=144, nW=4
+    (132, 16, 8, 16),  # Bn H = 2112: two windows a block, 33 a mask
+                       # position, so the last block of each takes one
+    (65, 32, 8, 8),    # unmasked, 65 windows two a block: the last takes one
+])
+def test_swin_kernel_wide_windows_and_grouping_match_plain(
+        cuda, sm_dtype, dtype, Bn, H, w, side):
+    """Window sizes beyond swinv2-base's (N = 36 and 144, the second in the
+    kernel's wide register tile) and launches that group windows into
+    blocks with a ragged last group, in both chains, against the plain
+    version at the tolerances above."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    N, D = w * w, 32
+    q, k, v = (_rand(gen, (Bn, H, N, D), dtype, cuda) for _ in range(3))
+    scale = torch.log(torch.tensor(10.0, device=cuda)) + torch.randn(
+        H, generator=gen, device=cuda)
+    bias = 16 * torch.sigmoid(_rand(gen, (H, N, N), torch.float32, cuda))
+    masks = [None]
+    if side > w:
+        masks.append(torch.tensor(shifted_window_mask(side, side, w, w // 2),
+                                  device=cuda))
+    for wm in masks:
+        got = swin_attention(q, k, v, scale, bias, wm, softmax_dtype=sm_dtype)
+        torch.cuda.synchronize()
+        want = swin_attention_plain(q, k, v, scale, bias, wm, sm_dtype)
+        assert got.dtype == dtype
+        if sm_dtype == torch.bfloat16:
+            _assert_bf16_chain_close(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOLS[dtype])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,H,Q,K,D", [
+    (2, 3, 5, 7, 8),        # ragged, D 8
+    (8, 16, 32, 32, 64),    # captioning text tower
+    (8, 16, 96, 96, 64),    # captioning encoder
+])
+def test_t5_fp32_forward_stats_and_dropout(cuda, rate, B, H, Q, K, D):
+    """The fp32 forward at the captioning geometry: output against the plain
+    version, the row stats against the plain logits' row max and sum of
+    exp(logit - max) (the last batch row fully masked), and at rate 0.1 the
+    keep bits on uniform probabilities."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, _, b, m = _case(gen, cuda, torch.float32, B, H, Q, K, D, True,
+                             True)
+    seed = draw_seed(gen) if rate else None
+    got, stats = t5_attention_fwd(q, k, v, b, m, rate, seed, with_stats=True)
+    torch.cuda.synchronize()
+    want = t5_attention_plain(q, k, v, b, m, rate, seed)
+    torch.testing.assert_close(got, want, **TOLS[torch.float32])
+    logits = q @ k.transpose(-1, -2) + b + torch.where(
+        m[:, None, None, :] > 0, 0.0, NEG)
+    row_max = logits.amax(-1)
+    row_sum = torch.exp(logits - row_max[..., None]).sum(-1)
+    torch.testing.assert_close(stats[..., 0], row_max, rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(stats[..., 1], row_sum, rtol=1e-5, atol=0.0)
+    if rate:
+        z = torch.zeros_like(q)
+        got = t5_attention(z, k, v, None, None, rate, seed)
+        want = t5_attention_plain(z, k, v, None, None, rate, seed)
+        torch.testing.assert_close(got, want, **TOLS[torch.float32])
