@@ -57,9 +57,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bf16 compute against the forward kernel followed by the plain backward
    (the backward kernel's roundings), with readings that split the bf16
    gap to the path without kernels beside it (see ``TOL_TRAIN_GRAD``).
-   Prints step time, images/s, peak memory and one profiled step.
-5. Prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the
-   last line.
+   Prints step time, images/s, peak memory and one profiled step (with the
+   optimizer's device time).
+5. The ``train_with_swin`` recipe and the training options:
+   a. the SwinV2 tower trainable (``image_model_train``), both kernel flags
+      on, otherwise phase 4's set-up: one warm-up and five timed steps.
+      Checks the launches of every step (phase 4's: the Swin kernel's 24
+      forwards; its backward is a recompute in plain PyTorch), finite and
+      falling losses, the text tower bitwise unchanged, every SwinV2 tensor
+      moved (each logit scale and the position-bias MLP included), and the
+      trainable count (t5-large + projection + the SwinV2 tower). Prints
+      step time, images/s, peak memory, the profiled step's busy share and
+      the Swin backward's device time in it.
+   b. batch 8, dropout off, on 5a's weights: the loss and every SwinV2
+      gradient with the Swin kernel against the same path without it,
+      checked at phase 4's tolerances in fp32 compute, printed beside them
+      in bf16 compute, with a reading that splits the bf16 gap (see
+      ``swin_kernel_vs_none``).
+   c. three timed steps each of the frozen towers and Adam's first moment
+      stored in bf16, of Adafactor, and of ``remat`` 'full' and
+      'dots_saveable' (frozen towers, kernel flags on, batch 32), in one
+      table beside phase 4's step: step ms, device busy ms, the optimizer's
+      device time and share, peak memory. Under remat each step launches
+      the T5 forward 96 + 72 times (the recompute).
+6. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+   one phase-5a step), then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -834,11 +856,22 @@ def decoder_passes(ids) -> int:
     return last
 
 
-def profile_device(fn, wall_ms: float, card: str, what: str) -> dict:
+# The host ranges that phases 4-5 read apart in their profiles: the Swin
+# backward (a recompute in plain PyTorch, SwinAttentionFn) and the
+# optimizer's step.
+SWIN_BWD_SPAN, OPT_SPAN = "SwinAttentionFnBackward", "Optimizer.step"
+
+
+def profile_device(fn, wall_ms: float, card: str, what: str,
+                   spans: tuple[str, ...] = ()) -> dict:
     """One more run of ``fn`` under ``torch.profiler``: the device time of
     its kernels, their share of the (unprofiled) wall time, and the kernels
     that take most of it. The profiler slows the host, so the share is taken
-    against the time measured without it."""
+    against the time measured without it. ``spans``: names of host ranges
+    (an autograd node such as ``SwinAttentionFnBackward``, or
+    ``Optimizer.step``) whose kernels' device time is read apart, under
+    ``span_ms``: of the ranges whose name holds the span's, the largest
+    total (a nested range of the same name holds no more)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -846,23 +879,45 @@ def profile_device(fn, wall_ms: float, card: str, what: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # A host range opened by record_function (torch.optim's
+    # "Optimizer.step#...") also leaves a device-side annotation that spans
+    # its first to its last kernel, gaps included: it is no kernel, and
+    # counting it would count its kernels twice.
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation",
+                                                False)]
+    annotations = {e.key: e.device_time_total / 1e3 for e in device
+                   if getattr(e, "is_user_annotation", False)}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("device time: not measured (the profiler saw no device "
               "events)")
         return dict(busy_ms=None)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    span_ms = {}
+    for span in spans:
+        ranges = [e.device_time_total for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CUDA
+                  and span in e.key]
+        span_ms[span] = max(ranges) / 1e3 if ranges else None
     out = dict(busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
                kernel_launches=sum(e.count for e in kernels),
                top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
-                         count=e.count) for e in top])
+                         count=e.count) for e in top], span_ms=span_ms,
+               annotation_span_ms=annotations)
     print(f"device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms {what} "
           f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{out['kernel_launches']} kernel launches [{card}]")
     for t in out["top"]:
         print(f"  {t['ms']:8.3f} ms  x{t['count']:<6d} {t['name']}")
+    for key, ms in annotations.items():
+        print(f"  (not in busy: the device-side annotation {key} spans "
+              f"{ms:.3f} ms)")
+    for span, ms in span_ms.items():
+        print(f"  device ms under {span}: "
+              + ("not measured (no such range)" if ms is None
+                 else f"{ms:.3f} ({100 * ms / busy_ms:.1f}% of busy)"))
     return out
 
 
@@ -1021,6 +1076,44 @@ def reset_counts() -> None:
 
 STEP_LAUNCHES = dict(t5_fwd=96, t5_fwd_dropout=72, t5_bwd=72,
                      t5_bwd_dbias=48, swin=24)
+# Trainable parameters of phase 4's step: t5-large (shared embedding, both
+# stacks) and the vision projection; phase 5a adds the SwinV2 tower's.
+TRAINABLE_T5_PROJ = 738_716_672
+
+
+def free() -> None:
+    """Collect what the caller has dropped and return the card's cached
+    blocks, so the next model starts from an empty card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_steps(trainer, batch, gen, steps: int, expected: dict,
+                what: str) -> tuple[list[float], list[float], dict]:
+    """(step ms, losses, launches of one step): ``steps`` steps after the
+    caller's warm-up, the launch counts set to 0 just before them and read
+    just after, each step's launches checked against ``expected``."""
+    import torch
+
+    reset_counts()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == expected, f"{what}: launches in one step {got}, "
+              f"expected {expected}")
+    return step_ms, losses, got
 
 
 def loss_and_grads(trainer, batch: dict) -> tuple[float, dict]:
@@ -1147,6 +1240,7 @@ def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
     loss_rel = abs(loss_a - loss_b) / abs(loss_b)
     worst_cos, worst_norm = (1.0, ""), (0.0, "")
     dot = na = nb = 0.0
+    cosines, norms = {}, {}
     for n, ga in grads_a.items():
         gb = grads_b[n].float()
         ga = ga.float()
@@ -1156,16 +1250,24 @@ def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
               f"gradient of {n}: cosine {cos}, norm ratio off by {norm}")
         worst_cos = min(worst_cos, (cos, n))
         worst_norm = max(worst_norm, (norm, n))
+        cosines[n], norms[n] = cos, y
         dot, na, nb = dot + d, na + x * x, nb + y * y
     total = dot / math.sqrt(na * nb)
+    # How many tensors fall under cosine 0.99, and how large the worst one's
+    # gradient is beside the largest (a small gradient that cancels over
+    # many positions moves most under a change of rounding).
+    below = sum(c < 0.99 for c in cosines.values())
+    worst_share = norms[worst_cos[1]] / max(norms.values())
     tols = ("not checked" if tol is None else
             f"tolerances: loss {TOL_TRAIN_LOSS_REL}, cosine >= "
             f"{tol['cosine']}, norm {tol['norm']}, all >= {tol['total']}")
     print(f"training, {what} (batch {CMP_BATCH}, dropout off): loss "
           f"{loss_a:.6f} vs {loss_b:.6f}, rel {loss_rel:.2e}; worst "
-          f"gradient cosine {worst_cos[0]:.6f} ({worst_cos[1]}); worst norm "
-          f"ratio off by {worst_norm[0]:.2e} ({worst_norm[1]}); all "
-          f"{len(grads_a)} tensors together: cosine {total:.6f} ({tols})")
+          f"gradient cosine {worst_cos[0]:.6f} ({worst_cos[1]}, its gradient's"
+          f" norm {worst_share:.2e} of the largest); {below} tensors under "
+          f"cosine 0.99; worst norm ratio off by {worst_norm[0]:.2e} "
+          f"({worst_norm[1]}); all {len(grads_a)} tensors together: cosine "
+          f"{total:.6f} ({tols})")
     if tol is not None:
         check(loss_rel <= TOL_TRAIN_LOSS_REL,
               f"{what}: loss rel diff {loss_rel}")
@@ -1177,7 +1279,8 @@ def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
               f"{what}: gradient cosine of all tensors {total}")
     return dict(loss_a=loss_a, loss_b=loss_b, loss_rel=loss_rel,
                 worst_cosine=worst_cos, worst_norm_rel=worst_norm,
-                total_cosine=total, tolerance=tol)
+                total_cosine=total, tolerance=tol, under_0_99=below,
+                worst_cosine_norm_share=worst_share)
 
 
 def compare_paths(cfg, state: dict, batch: dict) -> dict:
@@ -1241,20 +1344,9 @@ def train(card: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    step_ms = []
-    for _ in range(STEPS):
-        before = launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-        after = launch_counts()
-        got = {k: after[k] - before[k] for k in after}
-        check(got == STEP_LAUNCHES, f"launches in one step {got}, expected "
-              f"{STEP_LAUNCHES}")
+    step_ms, timed, _ = timed_steps(trainer, batch, gen, STEPS, STEP_LAUNCHES,
+                                    "training step")
+    losses += timed
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"losses (warm-up, then {STEPS} steps, dropout on): "
@@ -1275,7 +1367,7 @@ def train(card: str) -> dict:
           f"{TRAIN_BATCH / (mean_ms / 1e3):.2f} images/s, first step "
           f"{first_ms:.2f} ms, peak memory {peak_gb:.2f} GB [{card}]")
     device = profile_device(lambda: trainer.train_step(batch, gen), mean_ms,
-                            card, "training step")
+                            card, "training step", (OPT_SPAN,))
 
     # Kernels against none (and, in bf16, against the plain backward):
     # batch 8, dropout off, the same weights, in fp32 and in bf16 compute.
@@ -1291,6 +1383,244 @@ def train(card: str) -> dict:
                   vs_plain=vs_plain)
     print("training " + json.dumps(result))
     return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the train_with_swin recipe and the training options
+# ---------------------------------------------------------------------------
+
+OPTION_STEPS = 3
+# Phase 5c's runs: the _tpu_fast recipes' storage, Adafactor, and the two
+# remat policies, each with the frozen towers and both kernel flags on.
+OPTIONS = {
+    "bf16 frozen towers + bf16 Adam mu": dict(frozen_param_dtype="bfloat16",
+                                              adam_mu_dtype="bfloat16"),
+    "adafactor": dict(optimizer="adafactor"),
+    "remat full": dict(remat="full"),
+    "remat dots_saveable": dict(remat="dots_saveable"),
+}
+# Under remat each of the transformer's 72 attention calls runs its forward
+# kernel again in the backward's recompute, at the same rate.
+REMAT_LAUNCHES = dict(STEP_LAUNCHES, t5_fwd=96 + 72, t5_fwd_dropout=72 + 72)
+
+
+def train_swin(card: str) -> tuple[dict, dict]:
+    """5a: the train_with_swin recipe at full width, the SwinV2 tower
+    trainable, both kernel flags on, batch 32, bf16. Returns the results
+    and the trained weights (a state dict on the card) for 5b."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(image_model_train=True, use_pallas_attention=True,
+                 use_pallas_t5_attention=True, seed=SEED)
+    trainer = Trainer(cfg)
+    model = trainer.init_state(
+        torch.Generator(device="cuda").manual_seed(cfg.seed))
+    n_swin = sum(p.numel() for p in model.image_model.parameters())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"train_with_swin model: {n_train} trainable parameters, "
+          f"{n_swin} of them the SwinV2 tower's [{card}]")
+    check(n_train == TRAINABLE_T5_PROJ + n_swin and 8e7 < n_swin < 9e7,
+          f"trainable t5-large + projection + SwinV2-base expected, got "
+          f"{n_train} ({n_swin} Swin)")
+    text = {n: p.detach().clone()
+            for n, p in model.language_model.named_parameters()}
+    swin = {n: p.detach().clone()
+            for n, p in model.image_model.named_parameters()}
+    batch = train_batch(cfg, TRAIN_BATCH, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = float(trainer.train_step(batch, gen))  # warm-up step
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen, STEPS,
+                                            STEP_LAUNCHES, "train_with_swin")
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [first] + losses
+    print(f"train_with_swin losses (warm-up, then {STEPS} steps, dropout "
+          f"on): " + ", ".join(f"{x:.4f}" for x in losses))
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for n, p in model.language_model.named_parameters():
+        check(torch.equal(p, text[n]), f"text tower {n} changed")
+    moved = {n: float((p.detach() - swin[n]).abs().max())
+             for n, p in model.image_model.named_parameters()}
+    still = [n for n, m in moved.items() if m == 0]
+    check(not still, f"Swin tensors that did not move: {still}")
+    print(f"every SwinV2 tensor moved ({len(moved)}), the least by "
+          f"{min(moved.values()):.3e} "
+          f"({min(moved, key=moved.get)}); the text tower is unchanged")
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"train_with_swin step: {mean_ms:.2f} ms mean over {STEPS} "
+          f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{TRAIN_BATCH / (mean_ms / 1e3):.2f} images/s, first step "
+          f"{first_ms:.2f} ms, peak memory {peak_gb:.2f} GB [{card}]")
+    device = profile_device(lambda: trainer.train_step(batch, gen), mean_ms,
+                            card, "train_with_swin step",
+                            (SWIN_BWD_SPAN, OPT_SPAN))
+    state = model.state_dict()
+    del trainer, model, text, swin
+    free()
+    result = dict(card=card, trainable=n_train, swin_parameters=n_swin,
+                  batch=TRAIN_BATCH, losses=losses, first_step_ms=first_ms,
+                  step_ms=step_ms, mean_step_ms=mean_ms,
+                  images_per_s=TRAIN_BATCH / (mean_ms / 1e3),
+                  peak_memory_gb=peak_gb, launches=launches,
+                  launches_per_step=per_step, device=device,
+                  swin_backward_ms=device.get("span_ms", {}).get(
+                      SWIN_BWD_SPAN),
+                  least_swin_move=min(moved.values()))
+    return result, state
+
+
+def swin_kernel_vs_none(state: dict) -> dict:
+    """5b: batch 8, dropout off, the 5a weights: the loss and every SwinV2
+    gradient with the Swin kernel against the same path without it (the T5
+    kernels on in both), checked at phase 4's tolerances in fp32 compute
+    and printed beside them in bf16 compute. The two paths differ by
+    design in bf16: the one without the kernel (as the JAX package's)
+    rounds q̂ and k̂ to bf16 before their product, the kernel's recompute
+    (as the JAX package's) keeps them fp32. A third bf16 run, the path
+    without the kernel with its attention replaced by
+    ``swin_attention_reference``, tells whether the gap comes from that
+    difference or from bf16 rounding at large."""
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    cfg = Config(image_model_train=True, use_pallas_t5_attention=True,
+                 seed=SEED)
+    batch = train_batch(cfg, CMP_BATCH, SEED + 3)
+    out = {}
+    for dtype, tol in (("float32", TOL_TRAIN_GRAD), ("bfloat16", None)):
+        runs = {}
+        for flag in (True, False):
+            c = dataclasses.replace(cfg, compute_dtype=dtype,
+                                    use_pallas_attention=flag)
+            runs[flag] = swin_grads(c, state, batch)
+        out[dtype] = agreement(runs[True], runs[False],
+                               f"{dtype}, SwinV2 gradients, Swin kernel vs "
+                               "none", tol)
+    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    runs["fp32_qk"] = swin_grads(c, state, batch, fp32_qk=True)
+    out["bfloat16_vs_fp32_qk"] = agreement(
+        runs[True], runs["fp32_qk"], "bfloat16, SwinV2 gradients, Swin "
+        "kernel vs none with fp32 q-hat and k-hat", None)
+    out["bfloat16_none_vs_fp32_qk"] = agreement(
+        runs[False], runs["fp32_qk"], "bfloat16, SwinV2 gradients, none vs "
+        "none with fp32 q-hat and k-hat", None)
+    return out
+
+
+def swin_grads(cfg, state: dict, batch: dict,
+               fp32_qk: bool = False) -> tuple[float, dict]:
+    """Loss and the SwinV2 tower's gradients of one deterministic forward
+    and backward on the weights ``state``; with ``fp32_qk`` the path
+    without the Swin kernel attends through ``swin_attention_reference``
+    (see ``swin_kernel_vs_none``)."""
+    from klab_multimodalmodel_tpu_torch.models import swinv2
+    from klab_multimodalmodel_tpu_torch.ops import swin_attention_reference
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(cfg)
+    t.init_state(state_dict=state)
+    saved = swinv2.WindowAttention._reference_attention
+    if fp32_qk:
+        swinv2.WindowAttention._reference_attention = (
+            lambda self, q, k, v, scale, bias_h, mask:
+            swin_attention_reference(q, k, v, scale, bias_h, mask,
+                                     self.softmax_dtype))
+    try:
+        loss, grads = loss_and_grads(t, batch)
+    finally:
+        swinv2.WindowAttention._reference_attention = saved
+    del t
+    free()
+    return loss, {n: g for n, g in grads.items()
+                  if n.startswith("image_model.")}
+
+
+def train_options(card: str, phase4: dict) -> dict:
+    """5c: three timed steps of each of ``OPTIONS`` at batch 32 with the
+    frozen towers and both kernel flags on, beside phase 4's step: step ms,
+    the optimizer's device time (profile) and peak memory."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    dev4 = phase4["device"]
+    rows = {"phase 4 (fp32 frozen towers, Adam)": dict(
+        mean_step_ms=phase4["mean_step_ms"],
+        peak_memory_gb=phase4["peak_memory_gb"],
+        optimizer_ms=dev4.get("span_ms", {}).get(OPT_SPAN),
+        optimizer_span_ms=optimizer_span(dev4),
+        busy_ms=dev4.get("busy_ms"))}
+    for name, overrides in OPTIONS.items():
+        cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                     seed=SEED, **overrides)
+        trainer = Trainer(cfg)
+        model = trainer.init_state(
+            torch.Generator(device="cuda").manual_seed(cfg.seed))
+        if cfg.frozen_param_dtype == "bfloat16":
+            check(all(p.dtype == torch.bfloat16 for n, p in
+                      model.named_parameters() if not p.requires_grad),
+                  f"{name}: frozen parameters in bf16")
+        batch = train_batch(cfg, TRAIN_BATCH, SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        first = float(trainer.train_step(batch, gen))  # warm-up step
+        torch.cuda.reset_peak_memory_stats()
+        expected = REMAT_LAUNCHES if cfg.remat else STEP_LAUNCHES
+        step_ms, losses, per_step = timed_steps(
+            trainer, batch, gen, OPTION_STEPS, expected, name)
+        losses = [first] + losses
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mean_ms = sum(step_ms) / len(step_ms)
+        print(f"{name}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; step {mean_ms:.2f} ms ({', '.join(f'{t:.2f}' for t in step_ms)}),"
+              f" peak memory {peak_gb:.2f} GB, launches per step {per_step} "
+              f"[{card}]")
+        device = profile_device(lambda: trainer.train_step(batch, gen),
+                                mean_ms, card, f"{name} step", (OPT_SPAN,))
+        rows[name] = dict(mean_step_ms=mean_ms, step_ms=step_ms,
+                          peak_memory_gb=peak_gb, losses=losses,
+                          optimizer_ms=device.get("span_ms", {}).get(
+                              OPT_SPAN),
+                          optimizer_span_ms=optimizer_span(device),
+                          busy_ms=device.get("busy_ms"),
+                          launches_per_step=per_step)
+        del trainer, model
+        free()
+    print(f"training options, batch {TRAIN_BATCH}, bf16 compute, "
+          f"{OPTION_STEPS} timed steps each [{card}]:")
+    print("  (optimizer: its kernels' device time and their share of busy;"
+          " span: first to last of its kernels on the device, gaps "
+          "included)")
+    print(f"  {'run':40s} {'step ms':>9s} {'busy ms':>9s} "
+          f"{'optimizer ms (share)':>21s} {'span ms':>9s} {'peak GB':>8s}")
+    for name, r in rows.items():
+        opt, busy, span = (r["optimizer_ms"], r["busy_ms"],
+                           r["optimizer_span_ms"])
+        opt_txt = ("not measured" if opt is None or not busy
+                   else f"{opt:.3f} ({100 * opt / busy:.1f}%)")
+        busy_txt = "not measured" if busy is None else f"{busy:.2f}"
+        span_txt = "not measured" if span is None else f"{span:.2f}"
+        print(f"  {name:40s} {r['mean_step_ms']:9.2f} {busy_txt:>9s} "
+              f"{opt_txt:>21s} {span_txt:>9s} {r['peak_memory_gb']:8.2f}")
+    return rows
+
+
+def optimizer_span(device: dict):
+    """The device-side span of the optimizer's step in a profile (see
+    ``profile_device``), or None."""
+    spans = [ms for key, ms in device.get("annotation_span_ms", {}).items()
+             if key.startswith(OPT_SPAN)]
+    return spans[0] if spans else None
 
 
 def main() -> int:
@@ -1329,6 +1659,13 @@ def main() -> int:
     captioning = caption(card)
     reset_counts()
     training = train(card)
+    free()
+    reset_counts()
+    swin_training, state = train_swin(card)
+    swin_training["swin_kernel_vs_none"] = swin_kernel_vs_none(state)
+    del state
+    free()
+    options = train_options(card, training)
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -1338,26 +1675,33 @@ def main() -> int:
         entry["launches_captioning"] = (
             captioning["launches"][caption_key] if caption_key else 0)
         check(entry["launches"] > 0, f"{entry['name']} never launched")
+        entry["launches_train_with_swin_step"] = (
+            swin_training["launches_per_step"][train_key])
+        check(entry["launches_train_with_swin_step"] > 0,
+              f"{entry['name']} never launched in train_with_swin")
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     summary = [{k: e.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_captioning")} for e in kernels]
+        "launches_captioning", "launches_train_with_swin_step")}
+        for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
         "times": f"per training step (all of the kernel's launches in one "
                  f"batch-{TRAIN_BATCH} step, bf16 inputs, warm L2); "
                  f"launches: the {STEPS} timed steps; launches_captioning: "
-                 f"the {REQUESTS} timed requests"}))
+                 f"the {REQUESTS} timed requests; "
+                 f"launches_train_with_swin_step: one step of phase 5a"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "build": build,
                    "kernels": kernels,
-                   "captioning": captioning, "training": training}, f,
+                   "captioning": captioning, "training": training,
+                   "train_with_swin": swin_training, "options": options}, f,
                   indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

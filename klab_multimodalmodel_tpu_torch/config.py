@@ -117,18 +117,18 @@ SWINV2_SIZES: dict[str, SwinV2Size] = {
 
 _DTYPE_NAMES = ("float32", "bfloat16")
 _SCHEDULERS = ("", "cosine", "linear", "exponential", "step")
+_REMAT = ("", "full", "dots_saveable")
 
 
 @dataclasses.dataclass
 class Config:
     """The fields of the JAX package's ``Config`` that captioning and the
-    training step read, with the same names and defaults. Values this port
-    does not support yet raise ``NotImplementedError`` naming the ROADMAP
-    item that brings them."""
+    training step read, with the same names and defaults. ``moe_experts >
+    0`` raises ``NotImplementedError``: only the dense model is ported."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
-    # Train the image tower. Its backward is not ported: only together with
-    # freeze_image_model_updates (zero updates, so it runs frozen).
+    # Train the image tower (it joins the optimizer unless
+    # freeze_image_model_updates is set).
     image_model_train: bool = False
     language_model_name: str = "t5-large"
     transformer_model_name: str = "t5-large"
@@ -142,8 +142,13 @@ class Config:
     # Compute dtype policy: params fp32, activations bf16.
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    optimizer: str = "adam"
+    # Activation checkpointing of the trainable transformer's blocks: '',
+    # 'full' or 'dots_saveable' (keep the matrix products' outputs).
+    remat: str = ""
+    optimizer: str = "adam"  # or 'adafactor'
+    # Storage dtype of Adam's first moment (the second stays fp32).
     adam_mu_dtype: str = "float32"
+    # Storage dtype of the frozen towers' parameters.
     frozen_param_dtype: str = "float32"
     # dtype of the SwinV2 attention logits/softmax chain.
     swin_softmax_dtype: str = "float32"
@@ -176,24 +181,12 @@ class Config:
             raise ValueError(f"unknown lr_scheduler {self.lr_scheduler!r}")
         if self.optimizer not in ("adam", "adafactor"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.remat not in _REMAT:
+            raise ValueError(f"unknown remat {self.remat!r}: expected one of "
+                             f"{_REMAT}")
         if self.moe_experts != 0:
             raise NotImplementedError(
                 "moe_experts > 0 is not ported; only the dense model is")
-        if self.optimizer == "adafactor":
-            raise NotImplementedError(
-                "optimizer='adafactor' is not ported yet (ROADMAP A2.1)")
-        if self.adam_mu_dtype != "float32":
-            raise NotImplementedError(
-                "adam_mu_dtype='bfloat16' is not ported yet (ROADMAP A2.1)")
-        if self.frozen_param_dtype != "float32":
-            raise NotImplementedError(
-                "frozen_param_dtype other than 'float32' is not ported yet "
-                "(ROADMAP A2.1)")
-        if self.image_model_train and not self.freeze_image_model_updates:
-            raise NotImplementedError(
-                "a trainable image tower needs the SwinV2 backward, which is "
-                "not ported yet (ROADMAP A2.2); image_model_train with "
-                "freeze_image_model_updates runs the tower frozen")
 
     # -- derived model geometries ------------------------------------------
     @property

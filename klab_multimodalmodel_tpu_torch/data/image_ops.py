@@ -10,10 +10,15 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_images(images_uint8: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32,
+                     reference_double_rescale: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) in ``dtype`` (computed
-    in fp32, then cast), on the images' device."""
+    in fp32, then cast), on the images' device. ``reference_double_rescale``
+    reproduces the reference's numerics: the images, already scaled to
+    [0, 1], are divided by 255 once more before the ImageNet normalization."""
     x = images_uint8.to(torch.float32) / 255.0
+    if reference_double_rescale:
+        x = x / 255.0
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).to(dtype)

@@ -1,9 +1,11 @@
 """Shared building blocks: norms, dense layers in a compute dtype, dropout,
 reference attention, initializers.
 
-Parameters are fp32. A module's compute dtype (flax's module ``dtype``)
-casts the inputs and weights of its matrix products, as flax's
-``promote_dtype`` does; norms keep fp32 statistics and return their input's
+Parameters are fp32, or bf16 where the trainer stores a frozen tower in
+bf16. A module's compute dtype (flax's module ``dtype``) casts the inputs
+and weights of its matrix products, as flax's ``promote_dtype`` does; norms
+keep fp32 statistics and weights whatever the parameters' dtype (as flax
+promotes a bf16 weight against fp32 statistics) and return their input's
 dtype. The port uses explicit dtypes, not ``torch.autocast``: autocast would
 keep the residual stream in fp32 where the reference's is in the compute
 dtype."""
@@ -62,8 +64,8 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Linear):
     """``nn.Linear`` whose product runs in ``compute_dtype``: input, weight
-    and bias are cast to it (flax ``nn.Dense(dtype=...)``); the parameters
-    stay fp32."""
+    and bias are cast to it (flax ``nn.Dense(dtype=...)``), whatever the
+    parameters' dtype."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):

@@ -5,10 +5,15 @@ are projected, concatenated along the sequence axis and fed as
 ``inputs_embeds`` into a full T5 encoder-decoder: image+text embeddings act
 as soft prompts re-encoded by the main T5's own encoder.
 
-Both towers run deterministically and under ``torch.no_grad()`` (the JAX
-package's ``stop_gradient``), so autograd keeps no graph for them: the text
-tower is always frozen, and the image tower's backward is not ported (a
-trainable image tower is refused by ``Config``).
+Both towers run deterministically (no dropout or drop-path, as in the JAX
+package, even when the image tower trains). The text tower is always frozen
+and runs under ``torch.no_grad()`` (the JAX package's ``stop_gradient``), so
+autograd keeps no graph for it. The image tower runs under autograd when it
+trains (``image_model_train`` without ``freeze_image_model_updates``), its
+window attention through the Swin kernel's recompute backward when the
+kernel flag is on; otherwise it runs under ``torch.no_grad()`` too. (With
+``freeze_image_model_updates`` the JAX package computes the tower's
+gradients and drops them; skipping them gives the same update.)
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ class MultiModalModel(nn.Module):
     """SwinV2 + frozen T5 encoder -> seq-concat -> T5 enc-dec.
 
     ``dtype``: the compute dtype (fp32 for captioning, the policy's for
-    training); parameters are fp32. ``device``: None means the card (see
+    training); parameters are fp32 (the trainer may store the frozen towers'
+    in bf16). ``device``: None means the card (see
     ``utils.device``). Weights are uninitialized until ``init_weights`` or
     ``load_state_dict``.
     """
@@ -52,7 +58,7 @@ class MultiModalModel(nn.Module):
                 dtype=dtype, device=device)
             self.transformer = T5ForConditionalGeneration(
                 cfg.transformer_t5, use_pallas=cfg.use_pallas_t5_attention,
-                dtype=dtype, device=device)
+                dtype=dtype, remat=cfg.remat, device=device)
             d_model = cfg.transformer_t5.d_model
             vis_dim = cfg.swin.num_features
             if cfg.use_vision_projection or vis_dim != d_model:
@@ -107,7 +113,11 @@ class MultiModalModel(nn.Module):
                           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         """images (B,H,W,3) + token ids -> (concat_embeds, concat_mask)."""
         lang = self._language(source_ids, source_mask)
-        img = self.image_features(images)
+        cfg = self.config
+        if cfg.image_model_train and not cfg.freeze_image_model_updates:
+            img = self.image_model(images)
+        else:
+            img = self.image_features(images)
         return self._project_and_concat(img, lang, source_mask)
 
     def _project_and_concat(self, img: torch.Tensor, lang: torch.Tensor,

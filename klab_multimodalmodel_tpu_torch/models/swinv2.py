@@ -7,13 +7,15 @@ merging, and the final LayerNorm producing ``last_hidden_state``. Parameters
 carry HF's Swinv2 names so a state dict from ``checkpoint/from_jax.py``
 loads with ``strict=True``. ``dtype`` is the compute dtype of the patch
 embedding and of every dense layer (flax's module dtype); the continuous
-position bias MLP, the norms' statistics and the parameters stay fp32. The
-tower runs deterministically (no drop-path) in training too, as the JAX
-package runs it.
+position bias MLP and the norms' statistics run in fp32 whatever the
+parameters' dtype (bf16 when the tower is frozen and stored in bf16). The
+tower runs deterministically (no drop-path, no attention dropout) in
+training too, trainable or not, as the JAX package runs it.
 
 With ``use_pallas`` every window attention goes through the hand-written
-kernel (``ops.fused_attention.swin_attention``); otherwise it runs the
-reference form, which normalizes q and k by ``max(||x||, 1e-12)``.
+kernel (``ops.fused_attention.swin_attention``, with its recompute backward
+when the tower trains); otherwise it runs the reference form, which
+normalizes q and k by ``max(||x||, 1e-12)``.
 """
 
 from __future__ import annotations
@@ -146,9 +148,14 @@ class WindowAttention(nn.Module):
             init_linear_(layer, generator)
 
     def position_bias(self, N: int) -> torch.Tensor:
-        """Continuous relative position bias, (H, N, N): a tiny MLP over the
-        static log-spaced table, then 16*sigmoid (v2 bounding)."""
-        cpb = self.continuous_position_bias_mlp(self.relative_coords_table)
+        """Continuous relative position bias, (H, N, N) fp32: a tiny MLP
+        over the static log-spaced table, then 16*sigmoid (v2 bounding). The
+        MLP runs in fp32 whatever its parameters' dtype, as the JAX
+        package's ``nn.Dense(dtype=float32)`` promotes them."""
+        fc1, _, fc2 = self.continuous_position_bias_mlp
+        cpb = F.linear(self.relative_coords_table, fc1.weight.float(),
+                       fc1.bias.float())
+        cpb = F.linear(F.relu(cpb), fc2.weight.float())
         bias = cpb[self.relative_position_index].view(N, N, -1)
         return (16.0 * torch.sigmoid(bias)).permute(2, 0, 1).contiguous()
 
@@ -166,8 +173,9 @@ class WindowAttention(nn.Module):
         bias_h = self.position_bias(N)
         scale = self.logit_scale.view(H)
         if self.use_pallas:
+            # The kernel takes an fp32 scale (exact for bf16 parameters).
             out = swin_attention(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), scale, bias_h, mask,
+                                 v.contiguous(), scale.float(), bias_h, mask,
                                  softmax_dtype=self.softmax_dtype)
         else:
             out = self._reference_attention(q, k, v, scale, bias_h, mask)

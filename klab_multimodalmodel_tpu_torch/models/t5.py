@@ -24,16 +24,26 @@ hand-written kernels (``ops.fused_attention.t5_attention``: forward, and the
 backward when a gradient is needed), passing the (H, Q, K) head bias and the
 (B, K) key mask straight to them; the probabilities are dropped inside the
 kernel. Decode steps never take the kernels.
+
+``remat`` ('full' or 'dots_saveable') checkpoints each block of
+``T5ForConditionalGeneration``'s two stacks, as the JAX package wraps its
+scanned blocks: the backward recomputes the block's forward. The recompute
+replays the step generator's state from before the block, so it draws the
+forward's dropout masks and kernel seeds again, and leaves the generator
+where the forward left it (``torch.utils.checkpoint`` restores only the
+default generators).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from ..config import T5Size
@@ -368,20 +378,65 @@ def _assemble_dense_biases(head_bias, kmask, enc_out, cross_kmask):
     return self_bias, cross_bias
 
 
+# The aten products that 'dots_saveable' keeps (jax.checkpoint_policies.
+# dots_saveable keeps every dot_general's output): F.linear and torch.matmul
+# reach these.
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(blk: nn.Module, remat: str, x: torch.Tensor,
+                 generator: Optional[torch.Generator], **kwargs
+                 ) -> torch.Tensor:
+    """``blk(x, **kwargs)`` under activation checkpointing ('full': keep
+    only the block's input; 'dots_saveable': keep the matrix products'
+    outputs too). The forward records ``generator``'s state; the recompute
+    sets it back, runs, and restores the state it found."""
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        if calls and state is not None:  # the backward's recompute
+            found = generator.get_state()
+            generator.set_state(state)
+            try:
+                return blk(x, generator=generator, **kwargs)
+            finally:
+                generator.set_state(found)
+        calls.append(1)
+        return blk(x, generator=generator, **kwargs)
+
+    context = ckpt.noop_context_fn
+    if remat == "dots_saveable":
+        context = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(run, x, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context)
+
+
 class T5Stack(nn.Module):
     """Encoder or decoder stack (embedding handled by the caller).
 
     Callers pass the decomposed attention inputs: a shared per-head bias
     ``head_bias`` (H, Q, K) and raw key masks ``kmask``/``cross_kmask``
     (B, K). The reference path sums them into dense logit biases; the kernel
-    path (``use_pallas``) hands them to the kernel unchanged.
+    path (``use_pallas``) hands them to the kernel unchanged. ``remat``
+    checkpoints each block when autograd records (see ``_remat_block``).
     """
 
     def __init__(self, size: T5Size, num_layers: int, is_decoder: bool,
-                 use_pallas: bool = False, dtype: torch.dtype = torch.float32):
+                 use_pallas: bool = False, dtype: torch.dtype = torch.float32,
+                 remat: str = ""):
         super().__init__()
         self.size = size
         self.use_pallas = use_pallas
+        self.remat = remat
         self.block = nn.ModuleList(
             T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
                     dtype=dtype)
@@ -415,10 +470,16 @@ class T5Stack(nn.Module):
         else:
             self_bias, cross_bias = _assemble_dense_biases(
                 head_bias, kmask, enc_out, cross_kmask)
+        remat = self.remat if torch.is_grad_enabled() and cache is None else ""
+        kw = dict(self_bias=self_bias, enc_out=enc_out, cross_bias=cross_bias,
+                  self_pack=self_pack, cross_pack=cross_pack,
+                  deterministic=deterministic)
         for i, blk in enumerate(self.block):
-            x = blk(x, self_bias, enc_out, cross_bias, self_pack, cross_pack,
-                    cache=None if cache is None else cache[i],
-                    deterministic=deterministic, generator=generator)
+            if remat:
+                x = _remat_block(blk, remat, x, generator, **kw)
+            else:
+                x = blk(x, cache=None if cache is None else cache[i],
+                        generator=generator, **kw)
         return dropout(self.final_layer_norm(x), rate, generator)
 
 
@@ -515,20 +576,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 class T5ForConditionalGeneration(nn.Module):
     """Full encoder-decoder with the tied (or untied) LM head.
 
-    ``dtype``: the compute dtype. ``device``: None means the card (see
+    ``dtype``: the compute dtype. ``remat``: '', 'full' or 'dots_saveable'
+    (see ``_remat_block``). ``device``: None means the card (see
     ``utils.device``)."""
 
     def __init__(self, size: T5Size, use_pallas: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, remat: str = "",
+                 device=None):
         super().__init__()
         with torch.device(resolve_device(device)):
             s = self.size = size
             self.dtype = dtype
             self.shared = nn.Embedding(s.vocab_size, s.d_model)
             self.encoder = T5Stack(s, s.num_layers, is_decoder=False,
-                                   use_pallas=use_pallas, dtype=dtype)
+                                   use_pallas=use_pallas, dtype=dtype,
+                                   remat=remat)
             self.decoder = T5Stack(s, s.num_decoder_layers, is_decoder=True,
-                                   use_pallas=use_pallas, dtype=dtype)
+                                   use_pallas=use_pallas, dtype=dtype,
+                                   remat=remat)
             if not s.tie_word_embeddings:
                 self.lm_head = KlabDense(s.d_model, s.vocab_size,
                                          s.d_model ** -0.5, dtype)

@@ -2,7 +2,8 @@
 
 from .fused_attention import (draw_seed, dropout_keep_mask,  # noqa: F401
                               philox4x32_10,
-                              swin_attention, swin_attention_plain,
+                              SwinAttentionFn, swin_attention,
+                              swin_attention_plain, swin_attention_reference,
                               t5_attention, t5_attention_bwd,
                               t5_attention_bwd_plain, t5_attention_fwd,
                               t5_attention_plain)

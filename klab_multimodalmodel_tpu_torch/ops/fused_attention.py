@@ -13,7 +13,10 @@ Three hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions:
 * ``swin_attention`` (cosine mode): L2-normalized q and k, logits scaled by
   ``exp(min(logit_scale[h], ln 100))``, plus the continuous position bias
   and, for shifted windows, the window mask of window ``b mod nW``; the
-  softmax chain in fp32 or bf16.
+  softmax chain in fp32 or bf16. When a gradient is needed it runs through
+  ``SwinAttentionFn``, whose backward is autograd of a recompute
+  (``swin_attention_reference``) in plain PyTorch, as the JAX package's is
+  in XLA: there is no backward kernel.
 
 Each wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each counts its launches in plain
@@ -169,25 +172,49 @@ def swin_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (nW,N,N) or None. q and k normalize as ``x * rsqrt(sum x^2 + 1e-24)`` in
     fp32 and cast back to the input dtype; the logits chain runs in
     ``softmax_dtype``."""
-    sm = softmax_dtype
-    qn = _l2_normalize(q)
-    kn = _l2_normalize(k)
-    logits = torch.matmul(qn.float(), kn.float().transpose(-1, -2)).to(sm)
+    qn = _l2_normalize(q).to(q.dtype).float()
+    kn = _l2_normalize(k).to(k.dtype).float()
+    p = _softmax(_swin_logits(qn, kn, logit_scale, bias_h, window_mask,
+                              softmax_dtype))
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def swin_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, logit_scale: torch.Tensor,
+                             bias_h: torch.Tensor,
+                             window_mask: Optional[torch.Tensor] = None,
+                             softmax_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """The function the Swin backward differentiates, the JAX package's
+    recompute reference: q and k normalized in fp32 and kept fp32 through
+    the product (``swin_attention_plain`` casts them back to the input
+    dtype, as the kernel does), the logits chain in ``softmax_dtype``, the
+    probabilities cast to v's dtype before an fp32-accumulated product."""
+    logits = _swin_logits(_l2_normalize(q), _l2_normalize(k), logit_scale,
+                          bias_h, window_mask, softmax_dtype)
+    p = torch.softmax(logits, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def _swin_logits(qn, kn, logit_scale, bias_h, window_mask, sm):
+    """The cosine logits from fp32 normalized q and k, in ``sm``: the
+    product, times the clamped scale, plus the bias and the window mask of
+    window ``b mod nW``."""
+    logits = torch.matmul(qn, kn.transpose(-1, -2)).to(sm)
     s = torch.exp(torch.clamp(logit_scale.float(), max=LOG_MAX_SCALE)).to(sm)
     logits = logits * s[None, :, None, None]
     logits = logits + bias_h.to(sm)[None]
     if window_mask is not None:
         nW = window_mask.shape[0]
-        tiled = window_mask.to(sm).repeat(q.shape[0] // nW, 1, 1)
+        tiled = window_mask.to(sm).repeat(qn.shape[0] // nW, 1, 1)
         logits = logits + tiled[:, None]
-    p = _softmax(logits)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+    return logits
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x * rsqrt(sum x^2 + 1e-24) over the last dim, in fp32."""
     x32 = x.float()
-    return (x32 * torch.rsqrt((x32 * x32).sum(-1, keepdim=True) + 1e-24)
-            ).to(x.dtype)
+    return x32 * torch.rsqrt((x32 * x32).sum(-1, keepdim=True) + 1e-24)
 
 
 def _softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -338,16 +365,33 @@ def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window_mask: Optional[torch.Tensor] = None,
                    softmax_dtype: torch.dtype = torch.float32
                    ) -> torch.Tensor:
-    """SwinV2 cosine window attention through
-    ``csrc/swin_attention_fwd.cu`` (see ``swin_attention_plain``), forward
-    only. ``logit_scale`` (H,), ``bias_h`` and ``window_mask`` must be fp32
-    on the card; ``softmax_dtype`` is float32 or bfloat16. The kernel takes
-    windows of at most ``SWIN_MAX_TOKENS`` (144, a 12 x 12 window) tokens
-    and head dims of at most 128; a larger CUDA input raises
-    ``ValueError``."""
+    """SwinV2 cosine window attention (see ``swin_attention_plain``): the
+    forward kernel ``csrc/swin_attention_fwd.cu`` and, when autograd needs
+    a gradient of q, k, v, ``logit_scale`` or ``bias_h``, the recompute
+    backward through ``SwinAttentionFn``. ``logit_scale`` (H,), ``bias_h``
+    and ``window_mask`` must be fp32 on the card; ``softmax_dtype`` is
+    float32 or bfloat16. The kernel takes windows of at most
+    ``SWIN_MAX_TOKENS`` (144, a 12 x 12 window) tokens and head dims of at
+    most 128; a larger CUDA input raises ``ValueError``."""
     if softmax_dtype not in _DTYPES:
         raise ValueError(f"swin_attention: softmax_dtype {softmax_dtype}: "
                          "expected float32 or bfloat16")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, logit_scale, bias_h)):
+        return SwinAttentionFn.apply(q, k, v, logit_scale, bias_h,
+                                     window_mask, softmax_dtype)
+    return swin_attention_fwd(q, k, v, logit_scale, bias_h, window_mask,
+                              softmax_dtype)
+
+
+swin_attention.launches = 0
+
+
+def swin_attention_fwd(q, k, v, logit_scale, bias_h, window_mask=None,
+                       softmax_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, the plain version on CPU tensors.
+    No autograd: ``swin_attention`` is the entry point."""
     if q.device.type == "cpu":
         return swin_attention_plain(q, k, v, logit_scale, bias_h,
                                     window_mask, softmax_dtype)
@@ -380,7 +424,34 @@ def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-swin_attention.launches = 0
+class SwinAttentionFn(torch.autograd.Function):
+    """Swin attention with its backward: the forward kernel on CUDA tensors
+    (the plain version on CPU tensors); the backward is autograd of
+    ``swin_attention_reference`` recomputed from the saved inputs, in the
+    forward's ``softmax_dtype``, as the JAX package's custom VJP is. It
+    gives dq, dk, dv, d(logit scale) and d(bias); the window mask takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logit_scale, bias_h, window_mask,
+                softmax_dtype):
+        ctx.softmax_dtype = softmax_dtype
+        ctx.save_for_backward(q, k, v, logit_scale, bias_h, window_mask)
+        return swin_attention_fwd(q, k, v, logit_scale, bias_h, window_mask,
+                                  softmax_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, logit_scale, bias_h, window_mask = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(
+            (q, k, v, logit_scale, bias_h), ctx.needs_input_grad[:5])]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            out = swin_attention_reference(*leaves, window_mask,
+                                           ctx.softmax_dtype)
+            got = iter(torch.autograd.grad(out, wanted, dout))
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        return (*grads, None, None)
 
 
 def _check_rate(rate: float, seed) -> None:

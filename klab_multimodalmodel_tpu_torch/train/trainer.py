@@ -2,11 +2,15 @@
 
 The port of the JAX package's ``train/trainer.py`` on one card: device-side
 image normalization in the compute dtype, the frozen towers' forwards under
-``torch.no_grad()``, the trainable transformer's forward and backward (its
-full-sequence attention through the hand-written kernels when
-``use_pallas_t5_attention`` is on), gradient accumulation over
-``accumulation_steps`` microbatches, and the Adam update. The JAX package's
-mesh, sharding and buffer donation have no counterpart on one device.
+``torch.no_grad()``, the trainable parts' forward and backward (the
+transformer, the projections and, with ``image_model_train``, the SwinV2
+tower; the attention through the hand-written kernels when the kernel flags
+are on), gradient accumulation over ``accumulation_steps`` microbatches, and
+the update (Adam, Adam with a bf16 first moment, or Adafactor;
+``train/optim.py``). With ``frozen_param_dtype='bfloat16'`` the frozen
+towers' parameters are stored in bf16, as the JAX package's
+``_maybe_cast_frozen`` stores them. The JAX package's mesh, sharding and
+buffer donation have no counterpart on one device.
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -32,9 +36,9 @@ Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
 @dataclasses.dataclass
 class Trainer:
-    """Owns the model (fp32 parameters, compute dtype from the config's
-    policy), the optimizer and its schedule. ``device``: None means the
-    card."""
+    """Owns the model (fp32 parameters, the frozen ones in
+    ``frozen_param_dtype``; compute dtype from the config's policy), the
+    optimizer and its schedule. ``device``: None means the card."""
 
     config: Config
     num_epochs: int = 1
@@ -57,7 +61,8 @@ class Trainer:
         """Seeded random weights (``generator``, or one seeded with
         ``config.seed`` on the device), or ``state_dict`` (for example from
         ``checkpoint.from_jax.convert_jax_params``); then a fresh optimizer
-        over the trainable parameters. Returns the model."""
+        over the trainable parameters, and the frozen parameters cast to
+        ``frozen_param_dtype``. Returns the model."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         else:
@@ -67,6 +72,12 @@ class Trainer:
             self.model.init_weights(generator)
         self.optimizer, self.scheduler = make_optimizer(
             self.config, self.model, self.num_epochs)
+        if self.config.frozen_param_dtype == "bfloat16":
+            # They feed bf16 compute and take no update; the buffers (window
+            # masks, coordinate tables) stay fp32.
+            for p in self.model.parameters():
+                if not p.requires_grad:
+                    p.data = p.data.to(torch.bfloat16)
         self.step = 0
         return self.model
 

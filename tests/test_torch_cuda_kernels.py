@@ -11,7 +11,8 @@ bf16 (dS and the dropped probabilities are rounded to bf16 before their
 products, and a near-tie can round one bf16 ulp apart), 1e-4 for the bias
 gradient in both (it sums the fp32 dS). The forward's row stats: the max
 within 1e-4, the sum within 1e-5 relative. The Swin kernel with a bf16
-softmax chain: see ``test_swin_bf16_chain_matches_plain``.
+softmax chain: see ``test_swin_bf16_chain_matches_plain``. The Swin
+kernel's gradients: see ``test_swin_kernel_gradients_match_the_recompute``.
 """
 
 import pytest
@@ -20,6 +21,7 @@ import torch
 from klab_multimodalmodel_tpu_torch.models.swinv2 import shifted_window_mask
 from klab_multimodalmodel_tpu_torch.ops import (draw_seed, swin_attention,
                                                 swin_attention_plain,
+                                                swin_attention_reference,
                                                 t5_attention,
                                                 t5_attention_bwd,
                                                 t5_attention_bwd_plain,
@@ -407,3 +409,49 @@ def test_t5_fp32_forward_stats_and_dropout(cuda, rate, B, H, Q, K, D):
         got = t5_attention(z, k, v, None, None, rate, seed)
         want = t5_attention_plain(z, k, v, None, None, rate, seed)
         torch.testing.assert_close(got, want, **TOLS[torch.float32])
+
+
+@pytest.mark.parametrize("sm_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bn,H,side", [
+    (2048, 4, 64),   # stage 0 of a batch-32 training step: nW=64
+    (128, 16, 16),   # stage 2: nW=4
+])
+def test_swin_kernel_gradients_match_the_recompute(cuda, sm_dtype, Bn, H,
+                                                   side):
+    """``swin_attention`` on bf16 CUDA tensors that require grad (the
+    training tower): the forward launches the kernel once and holds its
+    plain version's tolerance; the gradients (``SwinAttentionFn``'s
+    backward, autograd of ``swin_attention_reference``) equal autograd of
+    the recompute on the same inputs within 1e-6 of their largest value:
+    the same operations, so only the order of a reduction could differ."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    w, D = 8, 32
+    N = w * w
+    q, k, v, do = (_rand(gen, (Bn, H, N, D), torch.bfloat16, cuda)
+                   for _ in range(4))
+    scale = torch.log(torch.tensor(10.0, device=cuda)) + torch.randn(
+        H, generator=gen, device=cuda)
+    bias = 16 * torch.sigmoid(_rand(gen, (H, N, N), torch.float32, cuda))
+    wmask = torch.tensor(shifted_window_mask(side, side, w, w // 2),
+                         device=cuda)
+    for wm in (None, wmask):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+        before = swin_attention.launches
+        out = swin_attention(*leaves, wm, softmax_dtype=sm_dtype)
+        assert swin_attention.launches == before + 1
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        want_out = swin_attention_plain(q, k, v, scale, bias, wm, sm_dtype)
+        if sm_dtype == torch.bfloat16:
+            _assert_bf16_chain_close(out.detach(), want_out)
+        else:
+            torch.testing.assert_close(out.detach().float(), want_out.float(),
+                                       **TOLS[torch.bfloat16])
+        ref = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+        want = torch.autograd.grad(
+            swin_attention_reference(*ref, wm, sm_dtype), ref, do)
+        for name, g, w_ in zip(("dq", "dk", "dv", "dscale", "dbias"), got,
+                               want):
+            assert g.dtype == w_.dtype and g.shape == w_.shape, name
+            assert _rel_err(g, w_) <= 1e-6, (name, _rel_err(g, w_))

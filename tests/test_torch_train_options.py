@@ -1,7 +1,7 @@
 """The training step's options: the bf16 compute policy against the JAX
 package, gradient accumulation, the cached-feature loss, the learning-rate
 schedules against the JAX package's, the frozen towers, dropout, and the
-configuration values the port refuses."""
+configuration values the port takes and refuses."""
 
 import dataclasses
 
@@ -161,14 +161,33 @@ def test_schedules_match_optax(name):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(optimizer="adafactor"), "A2.1"),
-    (dict(adam_mu_dtype="bfloat16"), "A2.1"),
-    (dict(frozen_param_dtype="bfloat16"), "A2.1"),
-    (dict(image_model_train=True), "A2.2"),
+    (dict(moe_experts=4), "dense model"),
 ])
 def test_config_refuses_what_is_not_ported(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         tcfg.Config(**overrides)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(remat="selective"), dict(optimizer="sgd"),
+    dict(adam_mu_dtype="float16"), dict(frozen_param_dtype="int8"),
+])
+def test_config_refuses_unknown_values(overrides):
+    with pytest.raises(ValueError):
+        tcfg.Config(**overrides)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(image_model_train=True), dict(optimizer="adafactor"),
+    dict(adam_mu_dtype="bfloat16"), dict(frozen_param_dtype="bfloat16"),
+    dict(remat="full"), dict(remat="dots_saveable"),
+])
+def test_config_takes_every_training_option(overrides):
+    """Every training option of the JAX ``Trainer`` constructs (each is
+    trained in test_torch_train_swin.py, test_torch_train_storage.py and
+    test_torch_remat.py)."""
+    for name, value in overrides.items():
+        assert getattr(tcfg.Config(**overrides), name) == value
 
 
 def test_frozen_towers_stay_frozen(params):
