@@ -80,8 +80,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       table beside phase 4's step: step ms, device busy ms, the optimizer's
       device time and share, peak memory. Under remat each step launches
       the T5 forward 96 + 72 times (the recompute).
-6. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
-   one phase-5a step), then ``{"ok": true, ...}`` as the last line.
+6. The training loop: ``train(config)`` at full width (the Config
+   defaults, both kernel flags on, batch 32, 2 epochs) on the synthetic
+   dataset (64 rows of 256 px, the COCO prompt; 2 updates and 2 validation
+   batches an epoch), four runs in a temporary result directory: A
+   uncached; C with ``cache_frozen_features`` (epoch 1 fills, epoch 2 trains
+   from the cache); B1 as C halting after update 3; B2 the same command
+   again, which resumes from ``step_3``. First one step twice from the same
+   state and generator (the determinism reading). Checks the launches of
+   every step and validation batch (full step 96 / 72 / 24 T5 forward /
+   backward / Swin, cached step 72 / 72 / 0, full val batch 96 / 0 / 24,
+   cached val batch 72 / 0 / 0), C's losses against A's and B2's losses,
+   steps, min_val_loss and trainable parameters against C's (bitwise, or
+   within the determinism reading's gap), the checkpoints, sidecars, cache
+   files and ``metrics.jsonl``. Prints each step kind's device span (CUDA
+   events, nothing synchronized inside the loop) and peak memory, one
+   profiled full and one profiled cached step, images/s per epoch, the
+   host time the deferred fill blocks, and each save's size, stall and
+   background write; the free disk before it.
+7. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+   one phase-5a step and in phase 6's full and cached steps), then
+   ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -1623,6 +1642,423 @@ def optimizer_span(device: dict):
     return spans[0] if spans else None
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training loop at full width
+# ---------------------------------------------------------------------------
+
+# The synthetic dataset's 64 rows at batch 32: two updates and two
+# validation batches an epoch; B1 halts after update 3 (epoch 2, cursor 1).
+LOOP_ROWS, LOOP_EPOCHS, LOOP_HALT = 64, 2, 3
+LOOP_UPDATES = LOOP_EPOCHS * LOOP_ROWS // TRAIN_BATCH
+# Launches of one call of each step kind that train() makes: a full step
+# (images through both towers), a step from cached tower features (the
+# towers skipped: no Swin launch, no text-tower launch), and the two kinds of
+# validation batch (dropout off, no backward).
+LOOP_LAUNCHES = {
+    "full step": STEP_LAUNCHES,
+    "cached step": dict(STEP_LAUNCHES, t5_fwd=72, swin=0),
+    "full eval": dict(t5_fwd=96, t5_fwd_dropout=0, t5_bwd=0, t5_bwd_dbias=0,
+                      swin=24),
+    "cached eval": dict(t5_fwd=72, t5_fwd_dropout=0, t5_bwd=0,
+                        t5_bwd_dbias=0, swin=0),
+}
+
+
+class LoopRecorder:
+    """Wraps the ``Trainer``'s four step methods, and the host calls of the
+    loop that ``HOST`` names, while phase 6 drives ``train()``. Per step
+    call: its kind, its launches (the counts before and after it), its span
+    on the device (CUDA events around it, read after the run: nothing
+    synchronizes inside it), its host time and its peak memory.
+    ``profile``: {kind: (n, wall_ms)} runs the n-th call of that kind under
+    the profiler (``profile_device``), with a synchronize before it, its
+    busy share taken against ``wall_ms`` (None: the mean span of the kind's
+    calls before it). ``host_ms`` / ``host_calls``: host time and calls of
+    each ``HOST`` entry; ``data wait`` is the time the loop waited for the
+    loader's next batch."""
+
+    METHODS = ("train_step", "train_step_with_features", "eval_step",
+               "eval_step_with_features")
+    # label: (module, class, method)
+    HOST = {
+        "to_device": ("train.trainer", "Trainer", "to_device"),
+        "fill: start the copy": ("train.trainer", "Trainer", "copy_to_host"),
+        "fill: wait for the copy": ("train.trainer", "HostCopy", "wait"),
+        "fill: write the cache": ("train.feature_cache",
+                                  "FrozenFeatureCache", "put"),
+        "cache read": ("train.feature_cache", "FrozenFeatureCache", "get"),
+        "cache flush": ("train.feature_cache", "FrozenFeatureCache",
+                        "flush"),
+        "epoch close (loss sync)": ("obs.metrics", "LossCounter",
+                                    "count_and_get_loss"),
+        "checkpoint save (stall)": ("checkpoint.io", "CheckpointManager",
+                                    "save"),
+        "checkpoint wait": ("checkpoint.io", "CheckpointManager", "wait"),
+        "checkpoint restore": ("checkpoint.io", "CheckpointManager",
+                               "restore"),
+    }
+
+    def __init__(self, card: str, profile: dict | None = None):
+        self.card = card
+        self.profile = profile or {}
+        self.calls: list[dict] = []
+        self.profiles: dict = {}
+        self.host_ms = {k: 0.0 for k in [*self.HOST, "data wait"]}
+        self.host_calls = dict.fromkeys(self.host_ms, 0)
+
+    def __enter__(self):
+        import importlib
+
+        from klab_multimodalmodel_tpu_torch.data.pipeline import DataLoader
+        from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+        self._saved = [(Trainer, n, getattr(Trainer, n))
+                       for n in self.METHODS]
+        for name in self.METHODS:
+            setattr(Trainer, name, self._step(name, getattr(Trainer, name)))
+        for label, (mod, cls_name, name) in self.HOST.items():
+            cls = getattr(importlib.import_module(
+                f"klab_multimodalmodel_tpu_torch.{mod}"), cls_name)
+            self._saved.append((cls, name, getattr(cls, name)))
+            setattr(cls, name, self._timed(getattr(cls, name), label))
+        self._saved.append((DataLoader, "iter_from", DataLoader.iter_from))
+        DataLoader.iter_from = self._timed_iter(DataLoader.iter_from)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+    def _add(self, label: str, t0: float) -> None:
+        self.host_ms[label] += (time.perf_counter() - t0) * 1e3
+        self.host_calls[label] += 1
+
+    def _timed(self, orig, label: str):
+        rec = self
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                rec._add(label, t0)
+        return call
+
+    def _timed_iter(self, orig):
+        rec = self
+
+        def iter_from(loader, start_batch):
+            it = orig(loader, start_batch)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    rec._add("data wait", t0)
+                yield item
+        return iter_from
+
+    def _step(self, name: str, orig):
+        import torch
+
+        rec = self
+
+        def call(trainer, batch, *args):
+            kind = (("cached " if "image_features" in batch else "full ")
+                    + ("eval" if name.startswith("eval") else "step"))
+            n = 1 + sum(c["kind"] == kind for c in rec.calls)
+            profiled = rec.profile.get(kind, (0, 0))[0] == n
+            before = launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            box = {}
+            if profiled:
+                torch.cuda.synchronize()
+                wall = rec.profile[kind][1]
+                if wall is None:  # the mean span of this kind's calls so far
+                    spans = [c["events"][0].elapsed_time(c["events"][1])
+                             for c in rec.calls if c["kind"] == kind
+                             and not c["profiled"]]
+                    wall = sum(spans) / len(spans)
+                rec.profiles[kind] = profile_device(
+                    lambda: box.setdefault("out", orig(trainer, batch, *args)),
+                    wall, rec.card, f"phase-6 {kind}")
+            else:
+                t0 = time.perf_counter()
+                start.record()
+                box["out"] = orig(trainer, batch, *args)
+                end.record()
+                host = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            rec.calls.append(dict(
+                kind=kind, profiled=profiled, events=(start, end),
+                host_ms=None if profiled else host,
+                launches={k: after[k] - before[k] for k in after},
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            return box["out"]
+        return call
+
+    def summary(self) -> dict:
+        """Per kind: calls, mean device span (profiled calls left out),
+        peak memory, and the launches of one call, each call's checked."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for c in self.calls:
+            check(c["launches"] == LOOP_LAUNCHES[c["kind"]],
+                  f"phase 6 {c['kind']}: launches {c['launches']}, expected "
+                  f"{LOOP_LAUNCHES[c['kind']]}")
+            k = out.setdefault(c["kind"], dict(calls=0, span_ms=[],
+                                               host_ms=[], peak_gb=0.0))
+            k["calls"] += 1
+            k["launches"] = c["launches"]
+            k["peak_gb"] = max(k["peak_gb"], c["peak_gb"])
+            if not c["profiled"]:
+                k["span_ms"].append(c["events"][0].elapsed_time(
+                    c["events"][1]))
+                k["host_ms"].append(c["host_ms"])
+        for k in out.values():
+            k["mean_span_ms"] = (sum(k["span_ms"]) / len(k["span_ms"])
+                                 if k["span_ms"] else None)
+        return out
+
+
+def loop_determinism(cfg, card: str) -> dict:
+    """One training step twice from the same state and generator (the
+    first batch of the loop's epoch 1): loss, gradients and updated
+    parameters bitwise equal, or the gap that sets the resume check's
+    tolerance."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.data import get_dataloader
+    from klab_multimodalmodel_tpu_torch.text import load_tokenizer
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    loader = get_dataloader(cfg, "train", load_tokenizer(""))
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    batch.pop("index")
+    trainer = Trainer(cfg, num_epochs=LOOP_EPOCHS)
+    runs = []
+    for _ in range(2):
+        model = trainer.init_state()
+        gen = torch.Generator(device=trainer.device).manual_seed(
+            cfg.seed + 1)
+        loss = trainer.train_step(batch, gen)
+        runs.append(dict(
+            loss=float(loss),
+            grads={n: p.grad.detach().clone() for n, p in
+                   model.named_parameters() if p.grad is not None},
+            params={n: p.detach().clone() for n, p in
+                    model.named_parameters() if p.requires_grad}))
+    a, b = runs
+    gap = dict(loss=abs(a["loss"] - b["loss"]),
+               grads=max(max_err(a["grads"][n], b["grads"][n])
+                         for n in a["grads"]),
+               params=max(max_err(a["params"][n], b["params"][n])
+                          for n in a["params"]))
+    differing = sorted(n for n in a["grads"]
+                       if not torch.equal(a["grads"][n], b["grads"][n]))
+    bitwise = not differing and gap["loss"] == 0 and gap["params"] == 0
+    print(f"determinism: one step twice from the same state and generator: "
+          + ("bitwise equal" if bitwise else
+             f"differ by loss {gap['loss']:.3e}, gradients "
+             f"{gap['grads']:.3e}, parameters {gap['params']:.3e}; "
+             f"{len(differing)} gradients differ, e.g. {differing[:5]}")
+          + f" ({len(a['grads'])} gradients) [{card}]")
+    del trainer, model, runs, a, b
+    free()
+    return dict(bitwise=bitwise, gap=gap, differing=differing)
+
+
+def loop_run(cfg, card: str, what: str, profile=None):
+    """``train(cfg)`` under a ``LoopRecorder``, the launch counts set to 0
+    just before it and read just after: (summary, recorder, launches)."""
+    from klab_multimodalmodel_tpu_torch.train import train
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with LoopRecorder(card, profile) as rec:
+        out = train(cfg)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = rec.summary()
+    print(f"phase 6 run {what}: {seconds:.2f} s, {out['steps']} updates, "
+          f"halted {out['halted']}, losses {out['losses']}, min_val_loss "
+          f"{out['min_val_loss']} [{card}]")
+    for kind, k in steps.items():
+        span = ("not measured" if k["mean_span_ms"] is None
+                else f"{k['mean_span_ms']:.2f}")
+        print(f"  {kind}: {k['calls']} calls, device span {span} ms mean "
+              f"({', '.join(f'{t:.2f}' for t in k['span_ms'])}), host "
+              f"({', '.join(f'{t:.2f}' for t in k['host_ms'])}) ms, peak "
+              f"{k['peak_gb']:.2f} GB, launches {k['launches']}")
+    print("  host ms (calls): " + ", ".join(
+        f"{label} {ms:.2f} ({rec.host_calls[label]})"
+        for label, ms in rec.host_ms.items() if rec.host_calls[label]))
+    for save in out["saves"]:
+        print(f"  save {save['name']}: {save['bytes'] / 1e9:.3f} GB, loop "
+              f"stall {save['stall_s']:.3f} s, background write "
+              f"{save.get('write_s', float('nan')):.3f} s")
+    metrics = [json.loads(line) for line in
+               open(os.path.join(cfg.result_dir, "metrics.jsonl"))]
+    for row in metrics:
+        print(f"  epoch {row['epoch']}: {row['img_per_sec']} images/s over "
+              f"{row['epoch_seconds']} s (train {row['train_loss']:.6f}, "
+              f"val {row['val_loss']:.6f})")
+    result = dict(seconds=seconds, steps=int(out["steps"]),
+                  halted=out["halted"], losses=out["losses"],
+                  min_val_loss=out["min_val_loss"], step_kinds=steps,
+                  profiles=rec.profiles, saves=out["saves"],
+                  metrics=metrics, launches=launches, host_ms=rec.host_ms,
+                  host_calls=rec.host_calls)
+    return result, out
+
+
+def same(a, b, tol: float) -> bool:
+    """Equal, or within ``tol`` where the determinism reading found a
+    gap."""
+    return a == b if tol == 0 else abs(a - b) <= tol
+
+
+def loop_phase(card: str) -> dict:
+    """Phase 6: ``train(config)`` at full width on the synthetic dataset, four
+    runs: A uncached; C with the frozen-feature cache; B1 as C halting after
+    update 3; B2 the same command again, which resumes. Holds C's losses to
+    A's and B2's losses, steps, min_val_loss and parameters to C's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        print(f"phase 6: {free_gb:.1f} GB free on the disk of {root}")
+        base = dict(use_pallas_attention=True, use_pallas_t5_attention=True,
+                    seed=SEED, data_dir="synthetic", batch_size=TRAIN_BATCH,
+                    num_epochs=LOOP_EPOCHS)
+        cfg = Config(**base)
+        check(cfg.compute_dtype == "bfloat16" and cfg.lr == 1e-3
+              and not cfg.image_model_train
+              and cfg.transformer_t5.dropout_rate == RATE,
+              "the reference caption recipe's Config defaults")
+        det = loop_determinism(cfg, card)
+        tol_loss = det["gap"]["loss"]
+        tol_param = det["gap"]["params"]
+
+        def config(tag, **kw):
+            return Config(**base, result_dir=os.path.join(root, tag), **kw)
+
+        a, out = loop_run(config("A"), card, "A (uncached)",
+                            profile={"full step": (4, None)})
+        del out
+        free()
+        shutil.rmtree(os.path.join(root, "A"))
+
+        c, out = loop_run(config("C", cache_frozen_features=True), card,
+                            "C (cache_frozen_features)")
+        c_params = {n: p.detach().clone()
+                    for n, p in out["trainer"].model.named_parameters()
+                    if p.requires_grad}
+        del out
+        free()
+        cdir = os.path.join(root, "C")
+        for tag in ("train", "val"):
+            for kind in ("img", "lang"):
+                for suffix in ("", ".mask.npy", ".meta.json"):
+                    path = os.path.join(cdir, "feature_cache",
+                                        f"{tag}.{kind}.feat{suffix}")
+                    check(os.path.exists(path), f"{path} missing")
+        check(len(c["metrics"]) == LOOP_EPOCHS,
+              f"metrics.jsonl: {len(c['metrics'])} lines")
+        for phase in ("train", "val"):
+            for x, y in zip(c["losses"][phase], a["losses"][phase]):
+                check(same(x, y, tol_loss), f"cached {phase} losses "
+                      f"{c['losses'][phase]} vs uncached {a['losses'][phase]}")
+        shutil.rmtree(cdir)
+
+        cached_ms = c["step_kinds"]["cached step"]["mean_span_ms"]
+        b1, out = loop_run(config("B", cache_frozen_features=True,
+                                    halt_after_steps=LOOP_HALT), card,
+                             "B1 (halts after update 3)")
+        del out
+        free()
+        check(b1["halted"] and b1["steps"] == LOOP_HALT,
+              f"B1 halted {b1['halted']} after {b1['steps']} updates")
+        bdir = os.path.join(root, "B", "checkpoints")
+        for name in ("best", f"step_{LOOP_HALT}"):
+            check(os.path.isdir(os.path.join(bdir, name))
+                  and os.path.exists(os.path.join(bdir, f"{name}.meta.json")),
+                  f"B1's checkpoint {name} or its sidecar missing")
+        # B2 resumes from step_N, not from best; dropping best keeps the
+        # disk at two checkpoints (~21 GB) when B2 saves its own.
+        shutil.rmtree(os.path.join(bdir, "best"))
+        b2, out = loop_run(config("B", cache_frozen_features=True,
+                                    halt_after_steps=LOOP_HALT), card,
+                             "B2 (the same command: resumes from step_3)",
+                             profile={"cached step": (1, cached_ms)})
+        check(not b2["halted"] and b2["steps"] == LOOP_UPDATES,
+              f"B2 halted {b2['halted']} after {b2['steps']} updates")
+        check(b2["losses"] == c["losses"] if tol_loss == 0 else all(
+            same(x, y, tol_loss) for p in ("train", "val")
+            for x, y in zip(b2["losses"][p], c["losses"][p])),
+            f"resumed losses {b2['losses']} vs {c['losses']}")
+        check(same(b2["min_val_loss"], c["min_val_loss"], tol_loss),
+              f"min_val_loss {b2['min_val_loss']} vs {c['min_val_loss']}")
+        param_gap = 0.0
+        for n, p in out["trainer"].model.named_parameters():
+            if p.requires_grad and not torch.equal(p, c_params[n]):
+                param_gap = max(param_gap, max_err(p, c_params[n]))
+        check(param_gap <= tol_param, f"resumed parameters differ from the "
+              f"uninterrupted run's by {param_gap:.3e} (determinism gap "
+              f"{tol_param:.3e})")
+        print(f"resume: B2 equals C "
+              + ("bitwise" if param_gap == 0 and tol_loss == 0 else
+                 f"within the determinism gap (parameters {param_gap:.3e})")
+              + f": losses, {b2['steps']} updates, min_val_loss, "
+              f"{len(c_params)} trainable tensors [{card}]")
+        del out, c_params
+        free()
+        check(len(b2["metrics"]) == LOOP_EPOCHS,
+              f"B's metrics.jsonl: {len(b2['metrics'])} lines")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    full, fill = a["step_kinds"]["full step"], c["step_kinds"]["full step"]
+    cached = c["step_kinds"]["cached step"]
+    saves = a["saves"] + c["saves"] + b1["saves"] + b2["saves"]
+    fills = c["host_calls"]["fill: wait for the copy"]
+    fill_ms = (c["host_ms"]["fill: wait for the copy"]
+               + c["host_ms"]["fill: write the cache"]) / max(fills, 1)
+    busy = (a["profiles"]["full step"].get("busy_ms"),
+            b2["profiles"]["cached step"].get("busy_ms"))
+    print(f"phase 6 [{card}]: device span per step: full {full['mean_span_ms']:.2f}"
+          f" ms (A), full with the cache's fill {fill['mean_span_ms']:.2f} ms "
+          f"(C, epoch 1), cached {cached['mean_span_ms']:.2f} ms (C, epoch "
+          f"2); device busy of one profiled full / cached step {busy[0]} / "
+          f"{busy[1]} ms; peak memory {full['peak_gb']:.2f} / "
+          f"{cached['peak_gb']:.2f} GB; images/s by epoch, C: "
+          f"{[r['img_per_sec'] for r in c['metrics']]}, A: "
+          f"{[r['img_per_sec'] for r in a['metrics']]}; the deferred fill "
+          f"blocks the host {fill_ms:.3f} ms per full step; checkpoint "
+          f"{saves[0]['bytes'] / 1e9:.3f} GB, loop stall "
+          f"{min(s['stall_s'] for s in saves):.3f}-"
+          f"{max(s['stall_s'] for s in saves):.3f} s, background write "
+          f"{min(s['write_s'] for s in saves):.3f}-"
+          f"{max(s['write_s'] for s in saves):.3f} s over {len(saves)} saves")
+    return dict(card=card, free_disk_gb=free_gb, determinism=det,
+                runs=dict(A=a, C=c, B1=b1, B2=b2), full_step=full,
+                fill_step=fill, cached_step=cached, busy_ms=busy,
+                fill_host_ms=fill_ms)
+
+
 def main() -> int:
     import torch
 
@@ -1666,6 +2102,8 @@ def main() -> int:
     del state
     free()
     options = train_options(card, training)
+    free()
+    looping = loop_phase(card)
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -1679,13 +2117,22 @@ def main() -> int:
             swin_training["launches_per_step"][train_key])
         check(entry["launches_train_with_swin_step"] > 0,
               f"{entry['name']} never launched in train_with_swin")
+        c_run = looping["runs"]["C"]
+        entry["launches_loop_run"] = c_run["launches"][train_key]
+        check(entry["launches_loop_run"] > 0,
+              f"{entry['name']} never launched by train()")
+        for kind in ("full step", "cached step"):
+            entry[f"launches_loop_{kind.replace(' ', '_')}"] = (
+                c_run["step_kinds"][kind]["launches"][train_key])
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     summary = [{k: e.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_captioning", "launches_train_with_swin_step")}
+        "launches_captioning", "launches_train_with_swin_step",
+        "launches_loop_run", "launches_loop_full_step",
+        "launches_loop_cached_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -1693,7 +2140,10 @@ def main() -> int:
                  f"batch-{TRAIN_BATCH} step, bf16 inputs, warm L2); "
                  f"launches: the {STEPS} timed steps; launches_captioning: "
                  f"the {REQUESTS} timed requests; "
-                 f"launches_train_with_swin_step: one step of phase 5a"}))
+                 f"launches_train_with_swin_step: one step of phase 5a; "
+                 f"launches_loop_run: phase 6's run C of train(); "
+                 f"launches_loop_full_step / _cached_step: one full and "
+                 f"one cached step of that run"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1701,8 +2151,8 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "build": build,
                    "kernels": kernels,
                    "captioning": captioning, "training": training,
-                   "train_with_swin": swin_training, "options": options}, f,
-                  indent=1)
+                   "train_with_swin": swin_training, "options": options,
+                   "loop": looping}, f, indent=1, default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

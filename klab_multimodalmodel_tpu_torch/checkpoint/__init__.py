@@ -1,1 +1,1 @@
-"""Weight conversion into the port's state dicts."""
+"""Weight conversion into the port's state dicts, and checkpoints."""

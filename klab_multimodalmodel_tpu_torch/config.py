@@ -9,6 +9,8 @@ field names and defaults for the fields this package reads.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +124,12 @@ _REMAT = ("", "full", "dots_saveable")
 
 @dataclasses.dataclass
 class Config:
-    """The fields of the JAX package's ``Config`` that captioning and the
-    training step read, with the same names and defaults. ``moe_experts >
-    0`` raises ``NotImplementedError``: only the dense model is ported."""
+    """The fields of the JAX package's ``Config`` that captioning, the
+    training step and the training loop read, with the same names and
+    defaults. Options that are not ported raise ``NotImplementedError``
+    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12),
+    ``native_tokenizer`` (A6), ``eval_captions_every > 0`` (A8) and
+    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -136,8 +141,13 @@ class Config:
     max_target_length: int = 128
     lr: float = 0.001
     lr_scheduler: str = ""  # '', cosine, linear, exponential, step
-    batch_size: int = 64
+    batch_size: int = 64  # per device
     accumulation_steps: int = 1
+    num_epochs: int | None = None
+    num_steps: int | None = None
+    save_interval: int | None = None
+    data_dir: str = "/user/data/mscoco2017/"
+    result_dir: str = "results/"
     seed: int = 0
     # Compute dtype policy: params fp32, activations bf16.
     compute_dtype: str = "bfloat16"
@@ -170,6 +180,38 @@ class Config:
     use_vision_projection: bool = True
     generate_max_length: int = 20
     num_beams: int = 1
+    # Tokenizer file, or '' for the byte tokenizer (the only one ported).
+    tokenizer_path: str = ""
+    native_tokenizer: bool = False  # not ported (A6)
+    # Directory of a pretrained port checkpoint whose top-level submodules
+    # initialize a fresh run (checkpoint/io.py load_pretrained_params);
+    # ignored when resuming from a checkpoint in result_dir.
+    init_checkpoint: str = ""
+    # Cache the frozen towers' outputs across epochs (train/feature_cache.py):
+    # epoch 1 fills, later epochs skip the towers. Needs a frozen image tower.
+    cache_frozen_features: bool = False
+    # Stop after this many optimizer steps with a step_N checkpoint that a
+    # rerun of the same command resumes from bitwise (0 = off).
+    halt_after_steps: int = 0
+    # Save the same checkpoint on SIGTERM after the update in flight.
+    save_on_sigterm: bool = True
+    # Leftover microbatches when len(loader) % accumulation_steps != 0:
+    # 'pad' (zero-weight rows, gradient-exact), 'drop' or 'error'.
+    accumulation_tail: str = "pad"
+    # Trace the first N optimizer steps into {result_dir}/profile (0 = off).
+    profile_steps: int = 0
+    profile_server_port: int = 0  # not ported (no live profiler server)
+    tensorboard: bool = False  # scalars under {result_dir}/tb
+    # Data pipeline: decode workers (0 = os.cpu_count() // 4), 'thread' or
+    # 'process' workers, batches prefetched ahead of the step.
+    num_workers: int = 0
+    # Trim each update's source/target padding to the smallest power-of-two
+    # width (floors 16/8) that holds its longest row; loss-identical.
+    bucket_lengths: bool = False
+    decode_workers: str = "thread"
+    prefetch_batches: int = 2
+    log_every_steps: int = 50
+    eval_captions_every: int = 0  # not ported (A8)
 
     def __post_init__(self) -> None:
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
@@ -186,7 +228,32 @@ class Config:
                              f"{_REMAT}")
         if self.moe_experts != 0:
             raise NotImplementedError(
-                "moe_experts > 0 is not ported; only the dense model is")
+                "moe_experts > 0 is not ported (ROADMAP A12); only the dense "
+                "model is")
+        if self.native_tokenizer:
+            raise NotImplementedError(
+                "native_tokenizer is not ported (ROADMAP A6)")
+        if self.eval_captions_every > 0:
+            raise NotImplementedError(
+                "eval_captions_every > 0 is not ported (ROADMAP A8); "
+                "evaluate the checkpoints after training instead")
+        if self.profile_server_port > 0:
+            raise NotImplementedError(
+                "profile_server_port: PyTorch has no live profiler server; "
+                "use profile_steps to trace steps into result_dir/profile")
+        if self.accumulation_tail not in ("pad", "drop", "error"):
+            raise ValueError(
+                f"unknown accumulation_tail {self.accumulation_tail!r}")
+        if self.decode_workers not in ("thread", "process"):
+            raise ValueError(f"unknown decode_workers {self.decode_workers!r}")
+        if self.bucket_lengths and self.reference_pad_quirks:
+            raise ValueError(
+                "bucket_lengths trims pad columns, but reference_pad_quirks "
+                "keeps every position in the loss; drop one of the flags")
+        if self.cache_frozen_features and self.image_model_train:
+            raise ValueError(
+                "cache_frozen_features requires a frozen image tower "
+                "(image_model_train=False)")
 
     # -- derived model geometries ------------------------------------------
     @property
@@ -200,6 +267,25 @@ class Config:
     @property
     def swin(self) -> SwinV2Size:
         return _swin_size(self.image_model_name)
+
+    # -- (de)serialization -------------------------------------------------
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    def save(self, result_dir: str | None = None) -> str:
+        path = os.path.join(result_dir or self.result_dir, "config.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.to_json())
+        return path
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        """A config from ``to_json``'s text; fields this package does not
+        have (the JAX package's mesh and multi-host fields) are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in json.loads(text).items()
+                      if k in names})
 
 
 # Custom geometry registry: lets tests and users register model sizes under

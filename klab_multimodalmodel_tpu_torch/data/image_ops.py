@@ -19,6 +19,10 @@ def normalize_images(images_uint8: torch.Tensor,
     x = images_uint8.to(torch.float32) / 255.0
     if reference_double_rescale:
         x = x / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    # Asynchronous copies: a blocking one would wait for the device to drain
+    # the steps enqueued before this one.
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32).to(
+        x.device, non_blocking=True)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32).to(
+        x.device, non_blocking=True)
     return ((x - mean) / std).to(dtype)

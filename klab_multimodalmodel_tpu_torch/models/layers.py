@@ -90,7 +90,9 @@ def dropout(x: torch.Tensor, rate: float,
         raise ValueError("dropout at rate > 0 needs a generator")
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    scale = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    # A fill on the device, not a copy from the host: a copy would wait
+    # for the device to drain.
+    scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 

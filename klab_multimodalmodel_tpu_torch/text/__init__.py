@@ -1,3 +1,5 @@
-"""Tokenization."""
+"""Tokenization and span corruption."""
 
-from .tokenizer import BatchEncoding, ByteTokenizer, TokenizerBase  # noqa: F401
+from .span_corruption import span_corrupt  # noqa: F401
+from .tokenizer import (BatchEncoding, ByteTokenizer, TokenizerBase,  # noqa: F401
+                        load_tokenizer)

@@ -141,3 +141,14 @@ class ByteTokenizer(TokenizerBase):
         if buf:
             parts.append(buf.decode("utf-8", errors="replace"))
         return "".join(parts)
+
+
+def load_tokenizer(path: str = "") -> TokenizerBase:
+    """Config-driven factory: '' gives the byte tokenizer. A tokenizer file
+    (``tokenizer.json`` or ``spiece.model``) needs the unigram tokenizer,
+    which is not ported yet (ROADMAP A6)."""
+    if path:
+        raise NotImplementedError(
+            f"tokenizer_path={path!r}: the unigram tokenizer is not ported "
+            "(ROADMAP A6); use '' for the byte tokenizer")
+    return ByteTokenizer()

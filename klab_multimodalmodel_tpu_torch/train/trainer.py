@@ -82,8 +82,22 @@ class Trainer:
         return self.model
 
     def to_device(self, batch: Batch) -> dict:
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items()}
+        """The batch on the model's device. Host arrays go to the card
+        through pinned memory, asynchronously: a blocking copy would wait
+        for the steps already enqueued."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t.to(self.device)
+        return out
+
+    def copy_to_host(self, tensors) -> "HostCopy":
+        """Start copying ``tensors`` (a step's tower features) to the host
+        behind the work enqueued so far; ``wait()`` on the result returns
+        them."""
+        return HostCopy(tuple(tensors), self.device)
 
     # -- losses ------------------------------------------------------------
     def _loss(self, batch: dict, generator, deterministic: bool
@@ -177,3 +191,28 @@ class Trainer:
     def eval_step_with_features(self, batch: Batch):
         """``eval_step`` that also returns the frozen towers' outputs."""
         return self._features_then_loss(self.to_device(batch), None, True)
+
+
+class HostCopy:
+    """Device tensors on their way to the host. On the card: copies into
+    pinned buffers, asynchronous, and an event recorded after them; the
+    device tensors are held until the event completes. On the CPU: clones.
+    ``wait()`` blocks until the copies are done and returns them."""
+
+    def __init__(self, tensors: tuple, device: torch.device):
+        self._src = tensors
+        self._event = None
+        if device.type == "cuda":
+            self._host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in tensors)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = tuple(t.detach().clone() for t in tensors)
+
+    def wait(self) -> tuple:
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return self._host
