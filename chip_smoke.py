@@ -98,9 +98,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    profiled full and one profiled cached step, images/s per epoch, the
    host time the deferred fill blocks, and each save's size, stall and
    background write; the free disk before it.
-7. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
-   one phase-5a step and in phase 6's full and cached steps), then
-   ``{"ok": true, ...}`` as the last line.
+7. The evaluation path on phase 3's weights (the same seed) and requests:
+   a. beam search (``num_beams`` 4) through ``Captioner.caption``: one
+      warm-up and three timed batch-8 requests; checks every request's
+      launches (24 Swin, 48 T5 forward: the encoder runs once, before its
+      output is repeated per beam), the token layout, ``num_beams=1``
+      through the router against phase 3's greedy tokens, and the beams
+      with the kernels against the same weights without them (identical
+      rows counted; for each row that differs the two best scores and
+      their margin printed). Prints request ms, decoder passes, ms per
+      pass, busy share and peak memory.
+   b. sampling (temperature 0.7, top-k 50, top-p 0.9) from a CUDA
+      generator: two runs from one seed are equal, every drawn token has a
+      finite warped logit under the same decode steps, ``top_k=1`` gives
+      the greedy tokens.
+   c. ``caption_stream`` (chunk 4): its final texts equal ``caption``'s;
+      prints the time to the first yield.
+   d. ``evaluation.run`` over 40 seeded images with four seeded references
+      each, at batch 32 (a ragged tail of 8), with ``num_beams`` 1 and 4,
+      the image loader swapped for one of seeded arrays (the script needs
+      no Pillow); checks the launches and ``metrics.json``'s
+      keys and finite values; prints images/s and the loader's host time.
+8. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+   one phase-5a step, in phase 6's full and cached steps and in one
+   phase-7a beam request), then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -1041,6 +1062,7 @@ def caption(card: str) -> dict:
                   token_agreement_vs_plain=agree, device=device,
                   sample_captions=texts[0][:2])
     print("captioning " + json.dumps(result))
+    result["greedy_ids"] = [ids.tolist() for ids in all_ids]  # for phase 7
     return result
 
 
@@ -2059,6 +2081,362 @@ def loop_phase(card: str) -> dict:
                 fill_host_ms=fill_ms)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the evaluation path (beams, sampling, streaming, evaluation)
+# ---------------------------------------------------------------------------
+
+BEAMS, STREAM_CHUNK = 4, 4
+SAMPLING = dict(temperature=0.7, top_k=50, top_p=0.9)
+EVAL_IMAGES, EVAL_BATCH, EVAL_REFS = 40, 32, 4
+REQUEST_LAUNCHES = dict(t5_fwd=48, t5_fwd_dropout=0, t5_bwd=0,
+                        t5_bwd_dbias=0, swin=24)
+
+
+def count_passes(model) -> list:
+    """Count the decoder passes of ``model.transformer`` (one
+    ``decode_step`` call each) in the returned one-item list."""
+    passes = [0]
+    step = model.transformer.decode_step
+
+    def counted(*args, **kwargs):
+        passes[0] += 1
+        return step(*args, **kwargs)
+
+    model.transformer.decode_step = counted
+    return passes
+
+
+def check_layout(ids, cfg, what: str) -> None:
+    """(batch, max_length) ids, the start token first, ids in the
+    vocabulary, and pad after a row's eos."""
+    check(tuple(ids.shape) == (BATCH, cfg.generate_max_length),
+          f"{what}: token shape {tuple(ids.shape)}")
+    check(bool((ids[:, 0] == 0).all()), f"{what}: column 0 is the start")
+    check(bool(((ids >= 0) & (ids < cfg.transformer_t5.vocab_size)).all()),
+          f"{what}: token ids in the vocabulary")
+    for row in ids.tolist():
+        if 1 in row[1:]:
+            e = row.index(1, 1)
+            check(all(t == 0 for t in row[e + 1:]),
+                  f"{what}: pad after eos in {row}")
+
+
+def in_warped_support(cap, images, ids) -> bool:
+    """Every drawn token (up to a row's eos) has a finite warped logit
+    under the same model, teacher-forced through the same decode steps."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.generate import warp_logits
+
+    t5 = cap.model.transformer
+    with torch.inference_mode():
+        enc, mask = cap._encode_prefill(images, None)
+        cache, ok = None, True
+        finished = torch.zeros(ids.shape[0], dtype=torch.bool,
+                               device=ids.device)
+        for s in range(ids.shape[1] - 1):
+            logits, cache = t5.decode_step(ids[:, s:s + 1], s, enc,
+                                           ids.shape[1], mask, cache=cache)
+            warped = warp_logits(logits[:, -1], **SAMPLING)
+            chosen = warped.gather(1, ids[:, s + 1:s + 2].long())[:, 0]
+            ok &= bool((torch.isfinite(chosen) | finished).all())
+            finished |= ids[:, s + 1] == 1
+    return ok
+
+
+def timed_request(cap, passes, images, **kw) -> tuple[float, int, object]:
+    """(ms, decoder passes, ids) of one request, host clock around work
+    that ends in the ids' read-back."""
+    import torch
+
+    passes[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = cap.caption_launch(images, **kw)
+    cap.caption_finish(ids)
+    return (time.perf_counter() - t0) * 1e3, passes[0], ids
+
+
+def beam_phase(card, cfg, model, cap, requests, greedy_ids) -> dict:
+    """7a: three greedy requests (``num_beams=1`` through the router,
+    against phase 3's tokens), then three beam requests, their launches and
+    layout, in turns with the greedy ones on the same images; beams with
+    the kernels against the same weights without them."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.infer.generate import (
+        beam_search_decode)
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+
+    passes = count_passes(model)
+    t0 = time.perf_counter()
+    cap.caption(requests[0], num_beams=BEAMS)  # warm-up
+    first_ms = (time.perf_counter() - t0) * 1e3
+    greedy = []
+    for images, want in zip(requests[1:], greedy_ids):
+        ms, n, ids = timed_request(cap, passes, images, num_beams=1)
+        check(ids.tolist() == want, "num_beams=1 through the router differs "
+              "from phase 3's greedy tokens")
+        greedy.append(dict(ms=ms, passes=n))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    per_request, beam_ids = [], []
+    for images in requests[1:]:
+        before = launch_counts()
+        ms, n, ids = timed_request(cap, passes, images, num_beams=BEAMS)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == REQUEST_LAUNCHES, f"beam request launches {got}, "
+              f"expected {REQUEST_LAUNCHES}")
+        check_layout(ids, cfg, "beam request")
+        per_request.append(dict(ms=ms, passes=n))
+        beam_ids.append(ids)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for images, row in zip(requests[1:], greedy):  # greedy again, in turn
+        row["ms_after_beams"] = timed_request(cap, passes, images,
+                                              num_beams=1)[0]
+
+    images = requests[1]
+    enc, mask = cap._encode_prefill(images, None)
+    with torch.inference_mode():
+        ids_k, scores_k = beam_search_decode(
+            model.transformer, enc, mask, cfg.generate_max_length, BEAMS,
+            return_scores=True)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False,
+                                    use_pallas_t5_attention=False)
+    plain_model = MultiModalModel(plain_cfg)
+    plain_model.load_state_dict(model.state_dict(), strict=True)
+    plain_cap = Captioner(plain_cfg, plain_model, cap.tokenizer)
+    enc_p, mask_p = plain_cap._encode_prefill(images, None)
+    with torch.inference_mode():
+        ids_p, scores_p = beam_search_decode(
+            plain_model.transformer, enc_p, mask_p, cfg.generate_max_length,
+            BEAMS, return_scores=True)
+    del plain_model, plain_cap
+    check(bool((ids_k == beam_ids[0]).all()), "beam search is not "
+          "deterministic: the same request gave other tokens")
+    same = (ids_k == ids_p).all(dim=1)
+    differing = []
+    for r in torch.nonzero(~same).flatten().tolist():
+        differing.append(dict(
+            row=r, best_kernels=float(scores_k[r, 0]),
+            best_plain=float(scores_p[r, 0]),
+            margin=abs(float(scores_k[r, 0]) - float(scores_p[r, 0])),
+            runner_up_gap_kernels=float(scores_k[r, 0] - scores_k[r, 1])))
+    print(f"beams, kernels vs none: {int(same.sum())}/{BATCH} rows "
+          f"identical")
+    for d in differing:
+        print(f"  row {d['row']}: best score {d['best_kernels']:.6f} with "
+              f"kernels, {d['best_plain']:.6f} without (margin "
+              f"{d['margin']:.3e}; winner - runner-up with kernels "
+              f"{d['runner_up_gap_kernels']:.3e})")
+
+    mean_ms = sum(r["ms"] for r in per_request) / len(per_request)
+    mean_passes = sum(r["passes"] for r in per_request) / len(per_request)
+    greedy_ms = sum(r["ms"] + r["ms_after_beams"] for r in greedy) / (
+        2 * len(greedy))
+    out = dict(num_beams=BEAMS, requests=per_request,
+               first_request_ms=first_ms, request_ms=mean_ms,
+               passes=mean_passes,
+               ms_per_pass=mean_ms / mean_passes, peak_memory_gb=peak_gb,
+               greedy_requests=greedy, greedy_request_ms=greedy_ms,
+               launches=launches, launches_per_request=REQUEST_LAUNCHES,
+               identical_rows_vs_plain=int(same.sum()),
+               differing_rows_vs_plain=differing)
+    print(f"phase 7a [{card}]: beam request (num_beams {BEAMS}, batch "
+          f"{BATCH}) {mean_ms:.2f} ms, {mean_passes:.1f} passes, "
+          f"{out['ms_per_pass']:.2f} ms per pass, peak {peak_gb:.2f} GB; "
+          f"greedy request in turn {greedy_ms:.2f} ms "
+          f"({mean_ms / greedy_ms:.2f}x)")
+    return out
+
+
+def sampling_phase(card, cap, requests, greedy_ids) -> dict:
+    """7b: two sampled runs from one generator seed are equal, every token
+    lies in the warped support, and top_k=1 gives the greedy tokens."""
+    import torch
+
+    def sample(images, seed, **kw):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return cap.caption_launch(images, do_sample=True, generator=gen,
+                                  **kw)
+
+    images = requests[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = sample(images, SEED, **SAMPLING)
+    cap.caption_finish(a)
+    ms = (time.perf_counter() - t0) * 1e3
+    b = sample(images, SEED, **SAMPLING)
+    check(bool((a == b).all()), "two sampled runs from one seed differ")
+    check_layout(a, cap.config, "sampled request")
+    other = sample(images, SEED + 1, **SAMPLING)
+    check(in_warped_support(cap, images, a),
+          "a sampled token lies outside the warped support")
+    for images, want in zip(requests[1:], greedy_ids):
+        check(sample(images, SEED + 2, top_k=1).tolist() == want,
+              "top_k=1 sampling differs from greedy")
+    out = dict(request_ms=ms, other_seed_differs=bool((a != other).any()),
+               sample_captions=cap.caption_finish(a)[:2], **SAMPLING)
+    print(f"phase 7b [{card}]: sampled request {ms:.2f} ms; another seed "
+          f"{'differs' if out['other_seed_differs'] else 'is equal'}")
+    return out
+
+
+def streaming_phase(card, cap, requests) -> dict:
+    """7c: caption_stream's final texts equal caption's; the time to the
+    first yield."""
+    import torch
+
+    images = requests[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cap.caption(images)
+    caption_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    stream = cap.caption_stream(images, chunk_size=STREAM_CHUNK)
+    texts, done = next(stream)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    yields = 1
+    for texts, done in stream:
+        yields += 1
+    total_ms = (time.perf_counter() - t0) * 1e3
+    check(done and texts == want, "the stream's final texts differ from "
+          "caption's")
+    out = dict(chunk_size=STREAM_CHUNK, first_yield_ms=first_ms,
+               stream_ms=total_ms, yields=yields, caption_ms=caption_ms)
+    print(f"phase 7c [{card}]: stream (chunk {STREAM_CHUNK}) first yield "
+          f"{first_ms:.2f} ms, {yields} yields in {total_ms:.2f} ms "
+          f"(caption: {caption_ms:.2f} ms)")
+    return out
+
+
+def evaluation_run(card, cfg, model, root: str) -> dict:
+    """7d: ``evaluation.run`` over EVAL_IMAGES seeded images with
+    EVAL_REFS seeded references each, at batch EVAL_BATCH (a ragged tail),
+    with num_beams 1 and 4. The script needs no Pillow: the evaluation's
+    image loader is swapped for one of seeded arrays."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.evaluation import evaluate
+    from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+
+    rng = np.random.default_rng(SEED + 7)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, rng.integers(2, 8)))
+             for _ in range(60)]
+    images, anns = [], []
+    for i in range(EVAL_IMAGES):
+        images.append({"id": i, "file_name": f"{i:012d}.jpg"})
+        for j in range(EVAL_REFS):
+            anns.append({"id": EVAL_REFS * i + j, "image_id": i,
+                         "caption": " ".join(rng.choice(words,
+                                                        rng.integers(5, 12)))})
+    os.makedirs(os.path.join(root, "annotations"))
+    with open(os.path.join(root, "annotations", "captions_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+
+    size = cfg.swin.image_size
+    load_s = [0.0]
+
+    def seeded_loader(path: str, image_size: int):
+        t0 = time.perf_counter()
+        index = int(os.path.basename(path).split(".")[0])
+        img = np.random.default_rng(index).integers(
+            0, 256, (image_size, image_size, 3), dtype=np.uint8)
+        load_s[0] += time.perf_counter() - t0
+        return img
+
+    print("phase 7d: evaluation.evaluate.load_image_resized is swapped for "
+          "a loader of seeded arrays (the script needs no Pillow)")
+    real_loader = evaluate.load_image_resized
+    evaluate.load_image_resized = seeded_loader
+    out = {}
+    try:
+        for beams in (1, BEAMS):
+            run_cfg = dataclasses.replace(
+                cfg, num_beams=beams, data_dir=root,
+                result_dir=os.path.join(root, f"beams{beams}"))
+            reset_counts()
+            load_s[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = evaluate.run(run_cfg, model, ByteTokenizer())
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            batches = -(-EVAL_IMAGES // EVAL_BATCH)
+            want = {k: v * batches for k, v in REQUEST_LAUNCHES.items()}
+            check(got == want, f"evaluation launches {got}, expected {want}")
+            with open(os.path.join(run_cfg.result_dir, "metrics.json")) as f:
+                written = json.load(f)
+            keys = ("CIDEr-D", "BLEU-1", "BLEU-2", "BLEU-3", "BLEU-4",
+                    "ROUGE-L")
+            check(written == metrics and written["num_images"] == EVAL_IMAGES
+                  and all(math.isfinite(written[k]) for k in keys),
+                  f"metrics.json {written}")
+            out[f"num_beams_{beams}"] = dict(
+                seconds=seconds, images_per_s=EVAL_IMAGES / seconds,
+                loader_seconds=load_s[0],
+                **{k: written[k] for k in keys})
+            print(f"phase 7d [{card}]: evaluate {EVAL_IMAGES} images at "
+                  f"batch {EVAL_BATCH}, num_beams {beams}: {seconds:.2f} s, "
+                  f"{EVAL_IMAGES / seconds:.2f} images/s (the image loader "
+                  f"{1e3 * load_s[0]:.2f} ms of it, on the host while the "
+                  f"card idles); CIDEr-D {written['CIDEr-D']:.4f}, BLEU-4 "
+                  f"{written['BLEU-4']:.3e}")
+    finally:
+        evaluate.load_image_resized = real_loader
+    return out
+
+
+def evaluation_phase(card: str, greedy_ids: list) -> dict:
+    """Phase 7 on phase 3's weights (the same seed) and requests."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                 seed=SEED)
+    model = MultiModalModel(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(cfg.seed))
+    cap = Captioner(cfg, model, ByteTokenizer())
+    rng = np.random.default_rng(SEED)  # phase 3's requests
+    size = cfg.swin.image_size
+    requests = [rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+                for _ in range(REQUESTS + 1)]
+    out = dict(beams=beam_phase(card, cfg, model, cap, requests, greedy_ids))
+    out["sampling"] = sampling_phase(card, cap, requests, greedy_ids)
+    out["streaming"] = streaming_phase(card, cap, requests)
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        out["evaluation"] = evaluation_run(card, cfg, model, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # Profiled last: every timing above ran before this profile.
+    beams = out["beams"]
+    beams["device"] = profile_device(
+        lambda: cap.caption_finish(cap.caption_launch(requests[1],
+                                                      num_beams=BEAMS)),
+        beams["request_ms"], card, "beam request")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 7: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2104,6 +2482,8 @@ def main() -> int:
     options = train_options(card, training)
     free()
     looping = loop_phase(card)
+    free()
+    evaluating = evaluation_phase(card, captioning["greedy_ids"])
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -2124,6 +2504,8 @@ def main() -> int:
         for kind in ("full step", "cached step"):
             entry[f"launches_loop_{kind.replace(' ', '_')}"] = (
                 c_run["step_kinds"][kind]["launches"][train_key])
+        entry["launches_beam_request"] = (
+            evaluating["beams"]["launches"][train_key] // REQUESTS)
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -2132,7 +2514,7 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "launches_captioning", "launches_train_with_swin_step",
         "launches_loop_run", "launches_loop_full_step",
-        "launches_loop_cached_step")}
+        "launches_loop_cached_step", "launches_beam_request")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -2143,7 +2525,8 @@ def main() -> int:
                  f"launches_train_with_swin_step: one step of phase 5a; "
                  f"launches_loop_run: phase 6's run C of train(); "
                  f"launches_loop_full_step / _cached_step: one full and "
-                 f"one cached step of that run"}))
+                 f"one cached step of that run; launches_beam_request: one "
+                 f"num_beams-{BEAMS} request of phase 7a"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2152,7 +2535,8 @@ def main() -> int:
                    "kernels": kernels,
                    "captioning": captioning, "training": training,
                    "train_with_swin": swin_training, "options": options,
-                   "loop": looping}, f, indent=1, default=str)
+                   "loop": looping, "evaluation": evaluating}, f, indent=1,
+                  default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,15 +2,19 @@
 
 The port's own copy of what the captioning and training paths read from the
 JAX package's ``klab_multimodalmodel_tpu/config.py``: the T5 and SwinV2
-geometry tables, the custom-size registry, and a ``Config`` with the same
-field names and defaults for the fields this package reads.
+geometry tables, the custom-size registry, a ``Config`` with the same
+field names and defaults for the fields this package reads, and the
+command line (``build_arg_parser`` / ``parse_arguments``) with the JAX
+package's flags.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
+from typing import Any, Sequence
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +132,8 @@ class Config:
     training step and the training loop read, with the same names and
     defaults. Options that are not ported raise ``NotImplementedError``
     naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12),
-    ``native_tokenizer`` (A6), ``eval_captions_every > 0`` (A8) and
-    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
+    ``native_tokenizer`` (A6) and ``profile_server_port > 0`` (PyTorch has
+    no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -211,7 +215,10 @@ class Config:
     decode_workers: str = "thread"
     prefetch_batches: int = 2
     log_every_steps: int = 50
-    eval_captions_every: int = 0  # not ported (A8)
+    # Every N epochs, caption the first eval_captions_limit COCO-val images
+    # and log CIDEr-D / BLEU-4 / ROUGE-L (0 = off).
+    eval_captions_every: int = 0
+    eval_captions_limit: int = 256
 
     def __post_init__(self) -> None:
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
@@ -233,10 +240,6 @@ class Config:
         if self.native_tokenizer:
             raise NotImplementedError(
                 "native_tokenizer is not ported (ROADMAP A6)")
-        if self.eval_captions_every > 0:
-            raise NotImplementedError(
-                "eval_captions_every > 0 is not ported (ROADMAP A8); "
-                "evaluate the checkpoints after training instead")
         if self.profile_server_port > 0:
             raise NotImplementedError(
                 "profile_server_port: PyTorch has no live profiler server; "
@@ -317,3 +320,134 @@ def _swin_size(name: str) -> SwinV2Size:
         return SWINV2_SIZES[name]
     raise KeyError(
         f"unknown SwinV2 model name {name!r}; register_swin_size() first")
+
+
+# ---------------------------------------------------------------------------
+# Command line: the JAX package's flags, names, defaults and choices
+# ---------------------------------------------------------------------------
+
+# Flags whose value the port cannot honour unless it is the default: the
+# fields its Config lacks, and a tokenizer file (load_tokenizer refuses
+# one). flag: (default, the ROADMAP item that ports it).
+UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
+    "mesh_shape": ((-1, 1, 1, 1, 1, 1), "A11, distributed training"),
+    "dcn_mesh_shape": ((1, 1, 1, 1, 1, 1), "A11, distributed training"),
+    "scan_unroll": (0, "A, not ported by design: the port's layers run "
+                       "in a Python loop, with no XLA scan to unroll"),
+    "seq_attention": ("allgather", "A12, ring attention"),
+    "pipeline_stages": (1, "A12, GPipe"),
+    "pipeline_microbatches": (0, "A12, GPipe"),
+    "moe_top_k": (1, "A12, MoE"),
+    "moe_capacity_factor": (1.25, "A12, MoE"),
+    "moe_aux_loss_weight": (0.01, "A12, MoE"),
+    "tokenizer_path": ("", "A6, the unigram tokenizer"),
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """The JAX package's training flags, with the same names, defaults and
+    choices (the reference's flags first)."""
+    parser = argparse.ArgumentParser(
+        description="KLab MultiModalModel, PyTorch/CUDA port")
+    d = Config()
+    t5_names = list(T5_SIZES) + list(_CUSTOM_T5)
+    add = parser.add_argument
+    add("--image_model_name", type=str, default=d.image_model_name)
+    add("--image_model_train", action="store_true")
+    add("--language_model_name", type=str, default=d.language_model_name,
+        choices=t5_names)
+    add("--transformer_model_name", type=str,
+        default=d.transformer_model_name, choices=t5_names)
+    add("--max_source_length", type=int, default=d.max_source_length)
+    add("--max_target_length", type=int, default=d.max_target_length)
+    add("--lr", type=float, default=d.lr)
+    add("--lr_scheduler", type=str, default=d.lr_scheduler,
+        choices=list(_SCHEDULERS))
+    add("--batch_size", type=int, default=d.batch_size)
+    add("--accumulation_steps", type=int, default=d.accumulation_steps)
+    add("--num_epochs", type=int, default=None)
+    add("--num_steps", type=int, default=None)
+    add("--save_interval", type=int, default=None)
+    add("--data_dir", type=str, default=d.data_dir)
+    add("--result_dir", type=str, default=d.result_dir)
+    add("--seed", type=int, default=d.seed)
+    add("--mesh_shape", type=int, nargs="+",
+        default=list(UNPORTED_FLAGS["mesh_shape"][0]),
+        help="not ported (ROADMAP A11): only the default is accepted")
+    add("--dcn_mesh_shape", type=int, nargs="+",
+        default=list(UNPORTED_FLAGS["dcn_mesh_shape"][0]),
+        help="not ported (ROADMAP A11): only the default is accepted")
+    add("--compute_dtype", type=str, default=d.compute_dtype,
+        choices=list(_DTYPE_NAMES))
+    add("--remat", type=str, default=d.remat, choices=list(_REMAT))
+    add("--scan_unroll", type=int, default=UNPORTED_FLAGS["scan_unroll"][0])
+    add("--optimizer", type=str, default=d.optimizer,
+        choices=["adam", "adafactor"])
+    add("--adam_mu_dtype", type=str, default=d.adam_mu_dtype,
+        choices=list(_DTYPE_NAMES))
+    add("--frozen_param_dtype", type=str, default=d.frozen_param_dtype,
+        choices=list(_DTYPE_NAMES))
+    add("--use_pallas_attention", action="store_true")
+    add("--swin_softmax_dtype", type=str, default=d.swin_softmax_dtype,
+        choices=list(_DTYPE_NAMES))
+    add("--swin_gelu_approximate", action="store_true")
+    add("--use_pallas_t5_attention", action="store_true")
+    add("--seq_attention", type=str,
+        default=UNPORTED_FLAGS["seq_attention"][0],
+        choices=["allgather", "ring"])
+    for name in ("pipeline_stages", "pipeline_microbatches", "moe_top_k"):
+        add(f"--{name}", type=int, default=UNPORTED_FLAGS[name][0])
+    add("--moe_experts", type=int, default=d.moe_experts)
+    for name in ("moe_capacity_factor", "moe_aux_loss_weight"):
+        add(f"--{name}", type=float, default=UNPORTED_FLAGS[name][0])
+    add("--reference_pad_quirks", action="store_true")
+    add("--freeze_image_model_updates", action="store_true")
+    add("--cache_frozen_features", action="store_true")
+    add("--tokenizer_path", type=str, default=d.tokenizer_path)
+    add("--native_tokenizer", action="store_true")
+    add("--halt_after_steps", type=int, default=d.halt_after_steps)
+    add("--init_checkpoint", type=str, default=d.init_checkpoint)
+    add("--num_workers", type=int, default=d.num_workers)
+    add("--decode_workers", type=str, default=d.decode_workers,
+        choices=["thread", "process"])
+    add("--bucket_lengths", action="store_true")
+    add("--accumulation_tail", type=str, default=d.accumulation_tail,
+        choices=["pad", "drop", "error"])
+    add("--tensorboard", action="store_true")
+    add("--profile_steps", type=int, default=d.profile_steps)
+    add("--profile_server_port", type=int, default=d.profile_server_port)
+    add("--log_every_steps", type=int, default=d.log_every_steps)
+    add("--eval_captions_every", type=int, default=d.eval_captions_every)
+    add("--eval_captions_limit", type=int, default=d.eval_captions_limit)
+    add("--generate_max_length", type=int, default=d.generate_max_length)
+    add("--num_beams", type=int, default=d.num_beams)
+    return parser
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """A ``Config`` from ``build_arg_parser``'s namespace. A flag the port
+    cannot honour, given another value than its default, raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it (all such
+    flags in one message); the ``Config`` then refuses its own unported
+    values (``moe_experts``, ``native_tokenizer``,
+    ``profile_server_port``)."""
+    kwargs: dict[str, Any] = dict(vars(args))
+    fields = {f.name for f in dataclasses.fields(Config)}
+    refused = []
+    for name, (default, item) in UNPORTED_FLAGS.items():
+        value = kwargs[name] if name in fields else kwargs.pop(name)
+        if isinstance(value, list):
+            value = tuple(value)
+        if value != default:
+            refused.append(f"--{name} {value!r} (ROADMAP {item})")
+    if refused:
+        raise NotImplementedError(
+            "flags not ported, accepted only at their defaults: "
+            + "; ".join(refused))
+    return Config(**kwargs)
+
+
+def parse_arguments(argv: Sequence[str] | None = None) -> Config:
+    """The JAX package's ``parse_arguments``: the command line (``argv``,
+    default ``sys.argv[1:]``) as a ``Config``."""
+    return config_from_args(build_arg_parser().parse_args(argv))

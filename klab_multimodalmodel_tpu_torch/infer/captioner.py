@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Union
+import contextlib
+from typing import Iterator, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -14,15 +15,19 @@ from ..models.multimodal import MultiModalModel
 from ..text.tokenizer import TokenizerBase
 from ..utils.bucketing import pow2_bucket_width
 from ..utils.device import resolve_device
-from .generate import generate
+from .generate import generate, stream_decode
 
 
 class Captioner:
-    """Batched greedy caption generation, in fp32.
+    """Batched caption generation (greedy, beam search, sampling,
+    streaming), in fp32.
 
     ``state_dict_or_model``: a ``MultiModalModel`` state dict (loaded with
     ``strict=True`` into a model built here), or a ``MultiModalModel``
-    already on ``device``. ``device``: None means the card.
+    already on ``device``, such as a trainer's. A model built with another
+    compute dtype computes in fp32 for the length of each call and is put
+    back after; its parameters are used as they are. ``device``: None
+    means the card.
 
     ``bucket_source=True`` (default) trims the tokenized prompt to the
     smallest power-of-two column bucket >= the longest real prompt (min 16,
@@ -50,17 +55,26 @@ class Captioner:
         self.tokenizer = tokenizer
         self.bucket_source = bucket_source
 
+    def _fp32(self):
+        if self.model.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return self.model.computing_in(torch.float32)
+
     def caption(self, images_uint8: np.ndarray,
                 prompts: Optional[Sequence[str]] = None,
                 max_length: Optional[int] = None,
                 num_beams: Optional[int] = None,
-                do_sample: bool = False, min_length: int = 0,
-                repetition_penalty: float = 1.0,
+                do_sample: bool = False, temperature: float = 1.0,
+                top_k: int = 0, top_p: float = 1.0,
+                generator: Optional[torch.Generator] = None,
+                min_length: int = 0, repetition_penalty: float = 1.0,
                 no_repeat_ngram_size: int = 0) -> list[str]:
         """images (B, H, W, 3) uint8 -> captions."""
         return self.caption_finish(self.caption_launch(
             images_uint8, prompts, max_length=max_length,
-            num_beams=num_beams, do_sample=do_sample, min_length=min_length,
+            num_beams=num_beams, do_sample=do_sample,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            generator=generator, min_length=min_length,
             repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram_size))
 
@@ -69,24 +83,61 @@ class Captioner:
                        prompts: Optional[Sequence[str]] = None,
                        max_length: Optional[int] = None,
                        num_beams: Optional[int] = None,
-                       do_sample: bool = False, min_length: int = 0,
-                       repetition_penalty: float = 1.0,
+                       do_sample: bool = False, temperature: float = 1.0,
+                       top_k: int = 0, top_p: float = 1.0,
+                       generator: Optional[torch.Generator] = None,
+                       min_length: int = 0, repetition_penalty: float = 1.0,
                        no_repeat_ngram_size: int = 0) -> torch.Tensor:
         """Encode prefill + decode loop; returns the (B, max_length) token
-        ids on the device. ``caption_finish`` reads them back."""
-        enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
+        ids on the device. The decode loop reads a flag back every pass, so
+        this returns when decoding is done; ``caption_finish`` reads the ids
+        back. ``generator``: the sampling draws' source, on the device."""
         cfg = self.config
-        return generate(
-            self.model.transformer, enc_hidden, enc_mask,
-            max_length=max_length or cfg.generate_max_length,
-            num_beams=num_beams or cfg.num_beams, do_sample=do_sample,
-            min_length=min_length, repetition_penalty=repetition_penalty,
-            no_repeat_ngram_size=no_repeat_ngram_size)
+        enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
+        with self._fp32():
+            return generate(
+                self.model.transformer, enc_hidden, enc_mask,
+                max_length=max_length or cfg.generate_max_length,
+                num_beams=num_beams or cfg.num_beams, do_sample=do_sample,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                generator=generator, min_length=min_length,
+                repetition_penalty=repetition_penalty,
+                no_repeat_ngram_size=no_repeat_ngram_size)
 
     def caption_finish(self, ids: torch.Tensor) -> list[str]:
         """Read the ids back to the host and detokenize."""
         return self.tokenizer.batch_decode(ids.cpu().numpy(),
                                            skip_special_tokens=True)
+
+    def caption_stream(self, images_uint8: np.ndarray,
+                       prompts: Optional[Sequence[str]] = None,
+                       max_length: Optional[int] = None,
+                       chunk_size: int = 4, do_sample: bool = False,
+                       temperature: float = 1.0, top_k: int = 0,
+                       top_p: float = 1.0,
+                       generator: Optional[torch.Generator] = None,
+                       min_length: int = 0, repetition_penalty: float = 1.0,
+                       no_repeat_ngram_size: int = 0
+                       ) -> Iterator[tuple[list[str], bool]]:
+        """Streaming captioning: yields ``(texts, done)``, the captions
+        decoded so far, after the first token and then after every
+        ``chunk_size`` tokens. The final texts equal :meth:`caption`'s for
+        the same arguments and generator state (greedy and sampling; beams
+        do not stream). A model of another compute dtype computes in fp32
+        until the stream ends."""
+        cfg = self.config
+        enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
+        with torch.inference_mode(), self._fp32():
+            for tokens, n_valid, done in stream_decode(
+                    self.model.transformer, enc_hidden, enc_mask,
+                    max_length=max_length or cfg.generate_max_length,
+                    chunk_size=chunk_size, do_sample=do_sample,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    generator=generator, min_length=min_length,
+                    repetition_penalty=repetition_penalty,
+                    no_repeat_ngram_size=no_repeat_ngram_size):
+                yield (self.tokenizer.batch_decode(
+                    tokens[:, :n_valid], skip_special_tokens=True), done)
 
     @torch.inference_mode()
     def _encode_prefill(self, images_uint8: np.ndarray,
@@ -118,4 +169,5 @@ class Captioner:
         images = normalize_images(torch.as_tensor(images_uint8).to(dev))
         ids = torch.as_tensor(np.asarray(src_ids)).to(dev)
         mask = torch.as_tensor(np.asarray(src_mask)).to(dev)
-        return self.model.encode_for_generation(images, ids, mask)
+        with self._fp32():
+            return self.model.encode_for_generation(images, ids, mask)

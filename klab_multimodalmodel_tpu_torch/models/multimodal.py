@@ -18,6 +18,7 @@ gradients and drops them; skipping them gives the same update.)
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -86,6 +87,25 @@ class MultiModalModel(nn.Module):
         if hasattr(self, "language_projection"):
             lecun_normal_(self.language_projection.weight,
                           self.language_projection.in_features, generator)
+
+    @contextlib.contextmanager
+    def computing_in(self, dtype: torch.dtype):
+        """Run the block with every submodule's compute dtype set to
+        ``dtype``, the parameters untouched, and the dtypes put back after:
+        the training loop's caption evaluation computes in fp32 on the
+        trainer's own model (a ``Captioner``'s compute dtype), as the JAX
+        package's evaluation runs an fp32 model on the training
+        parameters."""
+        saved = [(m, name, getattr(m, name)) for m in self.modules()
+                 for name in ("dtype", "compute_dtype")
+                 if isinstance(getattr(m, name, None), torch.dtype)]
+        for m, name, _ in saved:
+            setattr(m, name, dtype)
+        try:
+            yield self
+        finally:
+            for m, name, value in saved:
+                setattr(m, name, value)
 
     # -- frozen towers ------------------------------------------------------
     def image_features(self, images: torch.Tensor) -> torch.Tensor:

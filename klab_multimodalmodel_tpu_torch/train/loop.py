@@ -14,8 +14,11 @@ Beyond the reference, as in the JAX package: epoch-seeded shuffling, losses
 kept on the device until an epoch closes, gradient accumulation with a
 gradient-exact ragged tail, full-state checkpoints with a resume that equals
 the uninterrupted run bitwise (mid-epoch too: ``halt_after_steps`` and
-SIGTERM), power-of-two length buckets, and the frozen-feature cache
-(``cache_frozen_features``).
+SIGTERM), power-of-two length buckets, the frozen-feature cache
+(``cache_frozen_features``), and every ``eval_captions_every`` epochs the
+CIDEr-D / BLEU-4 / ROUGE-L of the first ``eval_captions_limit`` COCO-val
+images (logged, TensorBoard ``quality/*``, and the epoch's
+``metrics.jsonl`` row).
 
 Dropout draws from one ``torch.Generator`` on the model's device, seeded
 with ``seed + 1`` (the JAX package's dropout key); every checkpoint records
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 from ..checkpoint.io import CheckpointManager, load_pretrained_params
 from ..config import Config
 from ..data.pipeline import DataLoader, get_dataloader
+from ..evaluation.evaluate import coco_references, evaluate_captions
 from ..obs import profiler
 from ..obs.logger import get_logger
 from ..obs.metrics import LossCounter
@@ -291,6 +295,21 @@ def train(config: Config,
                 "min_val_loss": min_val_loss, "steps": steps,
                 "saves": ckpt.saves, **summary_extra}
 
+    eval_refs = None  # (paths, references) of COCO val, read once
+
+    def eval_captions(refs) -> dict:
+        """Caption the first ``eval_captions_limit`` val images with the
+        trainer's own model (in fp32, as a ``Captioner`` computes) and
+        score them. Draws nothing from the step generator, and puts the
+        model back in training mode."""
+        try:
+            with profiler.annotate("eval_captions"):
+                return evaluate_captions(
+                    config, trainer.model, tokenizer, refs[0], refs[1],
+                    limit=config.eval_captions_limit, device=trainer.device)
+        finally:
+            trainer.model.train()
+
     for epoch in range(start_epoch, num_epochs + 1):
         train_loader.set_epoch(epoch)
         set_skip_image_load(train_cache, train_loader)
@@ -392,6 +411,22 @@ def train(config: Config,
         dt = time.perf_counter() - epoch_t0
         ips = images_seen / dt if dt > 0 else 0.0
         lr = float(lr_schedule(max(steps - 1, 0)))  # at the epoch's last update
+        caption_scores = None
+        if (config.eval_captions_every
+                and epoch % config.eval_captions_every == 0):
+            if eval_refs is None:
+                eval_refs = coco_references(config.data_dir, "val")
+            caption_scores = eval_captions(eval_refs)
+            logger.info(
+                f"[Epoch ({epoch}/{num_epochs})] CIDEr-D : "
+                f"{caption_scores['CIDEr-D']:.3f}, BLEU-4 : "
+                f"{caption_scores['BLEU-4']:.4f}, ROUGE-L : "
+                f"{caption_scores['ROUGE-L']:.4f} "
+                f"({caption_scores['num_images']} images)")
+            if tb.enabled:
+                tb.scalar("quality/cider_d", caption_scores["CIDEr-D"], epoch)
+                tb.scalar("quality/bleu4", caption_scores["BLEU-4"], epoch)
+                tb.scalar("quality/rouge_l", caption_scores["ROUGE-L"], epoch)
         if tb.enabled:
             tb.scalar("loss/train", train_loss, epoch)
             tb.scalar("loss/val", val_loss, epoch)
@@ -403,6 +438,9 @@ def train(config: Config,
         row = {"epoch": epoch, "steps": steps, "train_loss": train_loss,
                "val_loss": val_loss, "img_per_sec": round(ips, 2), "lr": lr,
                "epoch_seconds": round(dt, 2)}
+        if caption_scores is not None:
+            row["cider_d"] = caption_scores["CIDEr-D"]
+            row["bleu4"] = caption_scores["BLEU-4"]
         with open(os.path.join(config.result_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(row) + "\n")
 

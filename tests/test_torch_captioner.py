@@ -18,6 +18,7 @@ from klab_multimodalmodel_tpu.text import ByteTokenizer as JByteTokenizer
 from klab_multimodalmodel_tpu_torch.checkpoint.from_jax import (
     convert_jax_params)
 from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+from klab_multimodalmodel_tpu_torch.infer.generate import generate
 from klab_multimodalmodel_tpu_torch.models.multimodal import MultiModalModel
 from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
 
@@ -111,14 +112,19 @@ def test_caption_tokens_match_jax_exactly(cascade, rng):
 
 
 def test_generate_refuses_beams_and_sampling(cascade):
+    """Beams and sampling each run; what is still refused is the two
+    together (HF's ValueError) and speculative decoding (ROADMAP A10)."""
     _, tcfg, params = cascade
     cap = Captioner(tcfg, convert_jax_params(params, tcfg), ByteTokenizer(),
                     device="cpu")
     images = np.zeros((1, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="beam"):
-        cap.caption(images, num_beams=2)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        cap.caption(images, do_sample=True)
+    assert len(cap.caption(images, num_beams=2)) == 1
+    assert len(cap.caption(images, do_sample=True)) == 1
+    with pytest.raises(ValueError, match="beam-search sampling"):
+        cap.caption(images, num_beams=2, do_sample=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        generate(cap.model.transformer, torch.zeros(1, 4, 32), None,
+                 speculative_draft=4)
 
 
 def test_seeded_init_is_reproducible(cascade):

@@ -1,0 +1,321 @@
+"""The port's command line and the training loop's caption evaluation.
+
+- ``parse_arguments`` against the JAX package's: every flag with the same
+  name, default and choices; the flags of each ``run_scripts/*/*.sh`` give
+  equal values in every field both configs have; a flag the port cannot
+  honour raises ``NotImplementedError`` naming its ROADMAP item.
+- ``train``, ``eval`` and ``caption`` end to end with ``--device cpu`` on a
+  tiny run over a COCO-layout directory of JPEGs (``python -m`` for
+  ``caption``); the ``klab-torch-*`` console scripts resolve to them.
+- The loop's caption evaluation (``eval_captions_every``): its ``cider_d``
+  and ``bleu4`` in ``metrics.jsonl`` equal ``evaluate_captions`` (and the
+  ``eval`` command) on the same weights; it draws nothing from the step
+  generator (parameters and losses equal a run without it, bitwise); a
+  halted and resumed run with it on equals the uninterrupted one, bitwise.
+"""
+
+import dataclasses
+import glob
+import json
+import os
+import pathlib
+import shlex
+import subprocess
+import sys
+import tomllib
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_port as tp
+import klab_multimodalmodel_tpu.config as jcfg
+import klab_multimodalmodel_tpu_torch.config as tcfg
+from klab_multimodalmodel_tpu_torch import cli
+from klab_multimodalmodel_tpu_torch import __main__ as module_main
+from klab_multimodalmodel_tpu_torch.evaluation import (coco_references,
+                                                       evaluate_captions)
+from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+from klab_multimodalmodel_tpu_torch.train import train
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SCRIPTS = sorted(ROOT.glob("run_scripts/*/*.sh"))
+DROP_T5 = "t5-torchport-tiny-dropout"
+tcfg.register_t5_size(DROP_T5, tcfg.T5Size(**dict(tp.TINY_T5,
+                                                  dropout_rate=0.1)))
+
+
+def _script_argv(path: pathlib.Path) -> list[str]:
+    """The flags after ``python train.py`` in a run script."""
+    text = path.read_text().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines()
+                if ln.strip().startswith("python train.py"))
+    return shlex.split(line)[2:]
+
+
+def _actions(parser):
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_flags_match_jax():
+    """Every JAX flag, with its default, type, nargs and choices (the
+    model-name choices are the registries, which hold more names in the
+    JAX package when other tests registered some)."""
+    want, got = (_actions(jcfg.build_arg_parser()),
+                 _actions(tcfg.build_arg_parser()))
+    assert got.keys() == want.keys()
+    for dest, w in want.items():
+        g = got[dest]
+        assert g.option_strings == w.option_strings, dest
+        assert (g.default, g.type, g.nargs, g.const) == (
+            w.default, w.type, w.nargs, w.const), dest
+        if dest.endswith("_model_name") and w.choices:
+            assert set(tcfg.T5_SIZES) <= set(g.choices), dest
+        else:
+            assert g.choices == w.choices, dest
+
+
+def _shared_fields(jc, tc):
+    names = [f.name for f in dataclasses.fields(tc)]
+    assert set(names) <= {f.name for f in dataclasses.fields(jc)}
+    return {n: (getattr(jc, n), getattr(tc, n)) for n in names}
+
+
+@pytest.mark.parametrize("script", SCRIPTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_parse_arguments_matches_jax_on_run_scripts(script):
+    argv = _script_argv(script)
+    want = jcfg.parse_arguments(argv)
+    refused = [f"--{name}" for name, (default, _) in
+               tcfg.UNPORTED_FLAGS.items()
+               if getattr(want, name) != default]
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+            tcfg.parse_arguments(argv)
+        for flag in refused:
+            assert flag in str(err.value), (flag, str(err.value))
+        return
+    for name, (w, g) in _shared_fields(
+            want, tcfg.parse_arguments(argv)).items():
+        assert w == g, name
+
+
+def test_defaults_match_jax():
+    for name, (w, g) in _shared_fields(jcfg.parse_arguments([]),
+                                       tcfg.parse_arguments([])).items():
+        assert w == g, name
+
+
+@pytest.mark.parametrize("argv,item", [
+    ("--mesh_shape 2 1 1 1 1 1", "A11"),
+    ("--dcn_mesh_shape 2 1 1 1 1 1", "A11"),
+    ("--scan_unroll 2", "not ported by design"),
+    ("--seq_attention ring", "A12"),
+    ("--pipeline_stages 2", "A12"),
+    ("--pipeline_microbatches 4", "A12"),
+    ("--moe_top_k 2", "A12"),
+    ("--moe_capacity_factor 2.0", "A12"),
+    ("--moe_aux_loss_weight 0.1", "A12"),
+    ("--moe_experts 8", "A12"),
+    ("--tokenizer_path spiece.model", "A6"),
+    ("--native_tokenizer", "A6"),
+    ("--profile_server_port 9012", "no live profiler server")])
+def test_unported_flag_raises_naming_its_item(argv, item):
+    jcfg.parse_arguments(shlex.split(argv))  # a valid JAX command line
+    with pytest.raises(NotImplementedError, match=item):
+        tcfg.parse_arguments(shlex.split(argv))
+
+
+def test_entry_points_resolve():
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    want = {"klab-torch-train": cli.main, "klab-torch-eval": cli.eval_main,
+            "klab-torch-caption": cli.caption_main}
+    for name, fn in want.items():
+        module, attr = scripts[name].split(":")
+        assert module == "klab_multimodalmodel_tpu_torch.cli"
+        assert getattr(cli, attr) is fn
+    assert module_main.COMMANDS["train"] is cli.main
+    assert module_main.main([]) == 2
+    assert module_main.main(["nope"]) == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        module_main.main(["serve", "--result_dir", "x"])
+
+
+# ---------------------------------------------------------------------------
+# End to end on a tiny COCO run
+# ---------------------------------------------------------------------------
+
+REFS = ["a red square on a wall", "two dogs in a field", "a plate of food",
+        "a man on a bike", "a small boat"]
+
+
+def _coco_dir(root: pathlib.Path) -> str:
+    """COCO layout: 4 train and 3 val JPEGs of seeded noise; val images
+    carry two captions each."""
+    from PIL import Image
+
+    d = root / "mscoco2017"  # the dataset is chosen by this name
+    (d / "annotations").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for phase, n in (("train", 4), ("val", 3)):
+        (d / f"{phase}2017").mkdir()
+        images, anns = [], []
+        for i in range(n):
+            name = f"{i:012d}.jpg"
+            Image.fromarray(rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)
+                            ).save(d / f"{phase}2017" / name)
+            images.append({"id": i, "file_name": name})
+            for j in range(2):
+                anns.append({"id": 10 * i + j, "image_id": i,
+                             "caption": REFS[(i + j) % len(REFS)]})
+        with open(d / "annotations" / f"captions_{phase}2017.json",
+                  "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+    return str(d)
+
+
+FLAGS = dict(image_model_name=tp.SWIN_NAME, language_model_name=DROP_T5,
+             transformer_model_name=DROP_T5, max_source_length=32,
+             max_target_length=16, batch_size=2, num_epochs=2,
+             save_interval=1, generate_max_length=8, eval_captions_every=1,
+             eval_captions_limit=3)
+
+
+def _argv(**flags) -> list[str]:
+    out = []
+    for k, v in flags.items():
+        out += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return out
+
+
+def _rows(result_dir):
+    """metrics.jsonl without its wall-clock fields."""
+    with open(os.path.join(result_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        for k in ("img_per_sec", "epoch_seconds"):
+            r.pop(k)
+    return rows
+
+
+def _state(result_dir, name):
+    return torch.load(os.path.join(result_dir, "checkpoints", name,
+                                   "model.pt"), weights_only=True)
+
+
+@pytest.fixture(scope="module")
+def run_a(tmp_path_factory):
+    """The uninterrupted run, through the train command: 2 epochs of 2
+    updates, bf16 compute, dropout on, the caption evaluation every epoch,
+    TensorBoard on."""
+    root = tmp_path_factory.mktemp("cli")
+    data = _coco_dir(root)
+    result = str(root / "a")
+    cli.main(_argv(**FLAGS, data_dir=data, result_dir=result,
+                   use_pallas_attention=True, use_pallas_t5_attention=True,
+                   tensorboard=True) + ["--device", "cpu"])
+    return root, data, result
+
+
+def test_loop_caption_scores_equal_evaluate_captions(run_a, capsys):
+    """Each epoch's row holds cider_d and bleu4; the last equals
+    evaluate_captions on the epoch_2 weights (a fresh fp32 Captioner,
+    where the loop wrapped the trainer's bf16 model), and the eval command
+    prints and writes the same metrics."""
+    _, data, result = run_a
+    rows = _rows(result)
+    assert [r["epoch"] for r in rows] == [1, 2]
+    assert all(np.isfinite([r["cider_d"], r["bleu4"]]).all() for r in rows)
+    with open(os.path.join(result, "config.json")) as f:
+        config = tcfg.Config.from_json(f.read())
+    assert config.compute_dtype == "bfloat16"
+    paths, refs = coco_references(data)
+    want = evaluate_captions(config, _state(result, "epoch_2"),
+                             ByteTokenizer(), paths, refs, limit=3,
+                             device="cpu")
+    assert (rows[-1]["cider_d"], rows[-1]["bleu4"]) == (
+        want["CIDEr-D"], want["BLEU-4"])
+    capsys.readouterr()
+    cli.eval_main(["--result_dir", result, "--checkpoint", "epoch_2",
+                   "--limit", "3", "--device", "cpu"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == want
+    with open(os.path.join(result, "metrics.json")) as f:
+        assert json.load(f) == want
+    with open(os.path.join(result, "train.log")) as f:
+        assert f.read().count("CIDEr-D : ") == 2
+    assert glob.glob(os.path.join(result, "tb", "events.*"))
+
+
+def test_loop_caption_evaluation_draws_nothing_and_resumes_exactly(run_a):
+    """Without the evaluation, the same run gives the same weights and
+    losses bitwise; halted after update 3 and rerun, it gives the
+    uninterrupted run's weights and metrics rows bitwise."""
+    root, data, result = run_a
+    base = tcfg.parse_arguments(_argv(**FLAGS, data_dir=data,
+                                      use_pallas_attention=True,
+                                      use_pallas_t5_attention=True))
+    off = train(dataclasses.replace(base, eval_captions_every=0,
+                                    result_dir=str(root / "off")),
+                device="cpu")
+    halted = dataclasses.replace(base, halt_after_steps=3,
+                                 result_dir=str(root / "b"))
+    b1 = train(halted, device="cpu")
+    assert b1["halted"] and int(b1["steps"]) == 3
+    b2 = train(halted, device="cpu")
+    assert not b2["halted"]
+    want = _state(result, "epoch_2")
+    for other in (str(root / "off"), str(root / "b")):
+        got = _state(other, "epoch_2")
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (other, k)
+    assert off["losses"] == b2["losses"]
+    assert _rows(str(root / "b")) == _rows(result)
+    assert all("cider_d" not in r for r in _rows(str(root / "off")))
+
+
+def test_caption_command_and_python_m(run_a, capsys, tmp_path):
+    """``caption`` prints one ``path<TAB>caption`` line per image, equal to
+    Captioner.caption on the same weights; ``python -m`` runs it too."""
+    from PIL import Image
+
+    _, _, result = run_a
+    imgs = []
+    for i, color in enumerate([(200, 30, 30), (20, 90, 160)]):
+        p = tmp_path / f"img{i}.png"
+        Image.new("RGB", (44, 36), color=color).save(p)
+        imgs.append(str(p))
+    with open(os.path.join(result, "config.json")) as f:
+        config = tcfg.Config.from_json(f.read())
+    cap = Captioner(config, _state(result, "best"), ByteTokenizer(),
+                    device="cpu")
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_resized)
+    want = cap.caption(np.stack([load_image_resized(p, 32) for p in imgs]),
+                       num_beams=2, max_length=6)
+    argv = ["caption", *imgs, "--result_dir", result, "--num_beams", "2",
+            "--max_length", "6", "--device", "cpu"]
+    capsys.readouterr()
+    assert module_main.main(argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"{p}\t{t}" for p, t in zip(imgs, want)]
+
+    # The same through ``python -m`` in a fresh interpreter (which has to
+    # register the tiny geometries the run's config names first).
+    code = (
+        "import runpy, sys\n"
+        "import klab_multimodalmodel_tpu_torch.config as c\n"
+        f"c.register_t5_size({DROP_T5!r}, "
+        f"c.T5Size(**{dict(tp.TINY_T5, dropout_rate=0.1)!r}))\n"
+        f"c.register_swin_size({tp.SWIN_NAME!r}, "
+        f"c.SwinV2Size(**{tp.TINY_SWIN!r}))\n"
+        f"sys.argv = ['klab_multimodalmodel_tpu_torch', *{argv!r}]\n"
+        "runpy.run_module('klab_multimodalmodel_tpu_torch', "
+        "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines() == lines

@@ -416,7 +416,7 @@ def test_stopwatch_counts():
 
 @pytest.mark.parametrize("field,value,error,match", [
     ("native_tokenizer", True, NotImplementedError, "A6"),
-    ("eval_captions_every", 1, NotImplementedError, "A8"),
+    ("moe_experts", 8, NotImplementedError, "A12"),
     ("profile_server_port", 9999, NotImplementedError, "profiler server"),
     ("accumulation_tail", "wrap", ValueError, "accumulation_tail"),
     ("decode_workers", "fiber", ValueError, "decode_workers"),
@@ -424,6 +424,16 @@ def test_stopwatch_counts():
 def test_config_refusals(field, value, error, match):
     with pytest.raises(error, match=match):
         tcfg.Config(**{field: value})
+
+
+def test_config_accepts_caption_evaluation():
+    """The loop's caption evaluation is ported: the field and its image
+    limit carry the JAX package's defaults and take a value."""
+    cfg = tcfg.Config(eval_captions_every=2, eval_captions_limit=16)
+    assert (cfg.eval_captions_every, cfg.eval_captions_limit) == (2, 16)
+    d, jd = tcfg.Config(), jcfg.Config()
+    assert (d.eval_captions_every, d.eval_captions_limit) == (
+        jd.eval_captions_every, jd.eval_captions_limit)
 
 
 def test_config_rejects_jax_invalid_combinations():
