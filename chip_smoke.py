@@ -119,9 +119,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the image loader swapped for one of seeded arrays (the script needs
       no Pillow); checks the launches and ``metrics.json``'s
       keys and finite values; prints images/s and the loader's host time.
-8. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
-   one phase-5a step, in phase 6's full and cached steps and in one
-   phase-7a beam request), then ``{"ok": true, ...}`` as the last line.
+8. The reference's artifacts at full width, needing nothing the card's
+   machine lacks (no ``transformers``, ``tokenizers``, ``safetensors`` or
+   Pillow), in a temporary directory that is removed afterwards:
+   a. phase 3's seeded weights exported through ``checkpoint.export_hf``:
+      the t5-large LM as a HF ``model.safetensors`` (a minimal writer kept
+      here) and the SwinV2 tower as ``pytorch_model.bin``; a seeded
+      T5-layout ``tokenizer.json`` (32,000 unigram pieces with a
+      Precompiled charsmap of full-width letters, 100 sentinels); then
+      ``python -m klab_multimodalmodel_tpu_torch convert-hf`` in a
+      subprocess. Checks the converted ``transformer`` and ``image_model``
+      bitwise against phase 3's, ``language_model`` against the LM's
+      encoder, and ``load_pretrained_params`` (strict) on all of them.
+      Prints the GB written and read and each step's seconds.
+   b. three batch-8 requests through ``Captioner`` with
+      ``load_tokenizer(<dir>/tokenizer.json)`` on images of COCO sizes
+      (375x500, 480x640, 640x427, ...) through the native bicubic resize.
+      Checks every request's launches (24 Swin, 48 T5), a finite encoder
+      output and the encoder against the same weights without kernels, the
+      prompt's ids (``tokenizer(prompt)``'s one C++ call against the ids
+      one text at a time, and the decode back to the prompt), the charsmap, and that every caption,
+      and the text of as many seeded rows of ordinary ids, is a ``str``
+      that survives encode and decode (random weights emit mostly special
+      ids); counts the rows that re-encode to their own ids. Prints request
+      ms, resize ms per image, and encode us per caption one by one against
+      ``tokenizer()``, and in a long batch on one thread against the
+      default threads.
+   c. ``train(config)`` from the converted directory with its
+      ``tokenizer.json`` and ``native_tokenizer``, batch 32, one epoch of 2
+      updates on the synthetic dataset. Checks every step's launches
+      (phase 6's full step), finite losses, the text tower equal to the
+      converted one, and one loader batch's ids against the tokenizer's
+      ids one text at a time. Prints step spans and the loader's encode ms
+      per batch.
+9. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+   one phase-5a step, in phase 6's full and cached steps, in one phase-7a
+   beam request, in one phase-8b request and one phase-8c step), then
+   ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -1832,7 +1866,7 @@ class LoopRecorder:
         out = {}
         for c in self.calls:
             check(c["launches"] == LOOP_LAUNCHES[c["kind"]],
-                  f"phase 6 {c['kind']}: launches {c['launches']}, expected "
+                  f"train() {c['kind']}: launches {c['launches']}, expected "
                   f"{LOOP_LAUNCHES[c['kind']]}")
             k = out.setdefault(c["kind"], dict(calls=0, span_ms=[],
                                                host_ms=[], peak_gb=0.0))
@@ -1897,7 +1931,7 @@ def loop_determinism(cfg, card: str) -> dict:
     return dict(bitwise=bitwise, gap=gap, differing=differing)
 
 
-def loop_run(cfg, card: str, what: str, profile=None):
+def loop_run(cfg, card: str, what: str, profile=None, phase: str = "6"):
     """``train(cfg)`` under a ``LoopRecorder``, the launch counts set to 0
     just before it and read just after: (summary, recorder, launches)."""
     from klab_multimodalmodel_tpu_torch.train import train
@@ -1909,7 +1943,7 @@ def loop_run(cfg, card: str, what: str, profile=None):
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     steps = rec.summary()
-    print(f"phase 6 run {what}: {seconds:.2f} s, {out['steps']} updates, "
+    print(f"phase {phase} run {what}: {seconds:.2f} s, {out['steps']} updates, "
           f"halted {out['halted']}, losses {out['losses']}, min_val_loss "
           f"{out['min_val_loss']} [{card}]")
     for kind, k in steps.items():
@@ -2436,6 +2470,462 @@ def evaluation_phase(card: str, greedy_ids: list) -> dict:
     print(f"phase 7: {out['seconds']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 8: the reference's artifacts (HF checkpoints, a T5 tokenizer.json)
+# ---------------------------------------------------------------------------
+
+# The seeded tokenizer.json: <pad>, </s>, <unk> and 31,997 more unigram
+# pieces, then 100 sentinels: 32,100 ids against the model's 32,128.
+ARTIFACT_PIECES, ARTIFACT_SENTINELS = 32_000, 100
+# Full-width letters and the ideographic space that the charsmap maps.
+ARTIFACT_CHARSMAP = {"Ａ": "A", "ｂ": "b", "ｃ": "c",
+                     "　": " "}
+# COCO-like image sizes (height, width): one batch-8 request's images.
+COCO_SIZES = [(375, 500), (480, 640), (640, 427), (427, 640), (500, 375),
+              (480, 640), (333, 500), (612, 612)]
+ENCODE_REPS = 20
+ENCODE_MANY = 8192  # texts in 8b's long encode batch
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A minimal ``.safetensors`` writer of fp32 tensors: a u64
+    little-endian header
+    length, the JSON header (8-byte aligned, as the format's own writer
+    pads it), then each tensor's bytes. A T5 tied copy (``embed_tokens``,
+    a tied ``lm_head``: the storage of ``shared.weight``) is left out, as
+    HF's ``save_pretrained`` leaves it out. Returns the bytes written."""
+    import struct
+
+    import torch
+
+    tied = ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight",
+            "lm_head.weight")
+    header, order, seen, offset = {}, [], set(), 0
+    for name in sorted(tensors, key=lambda k: (k in tied, k)):
+        t = tensors[name]
+        if t.data_ptr() in seen:
+            continue
+        seen.add(t.data_ptr())
+        n = t.numel() * t.element_size()
+        check(t.dtype == torch.float32, f"{name}: {t.dtype}, not fp32")
+        header[name] = {"dtype": "F32",
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        order.append(name)
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in order:
+            f.write(tensors[name].contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+    return 8 + len(blob) + offset
+
+
+def seeded_tokenizer_json(path: str, seed: int) -> None:
+    """A T5-layout ``tokenizer.json`` made from a seed, as HF writes one for
+    a converted spiece.model: a Unigram model (<pad>, </s>, <unk>, every
+    printable ASCII character and the metaspace, then seeded lowercase
+    pieces with and without the metaspace, with seeded scores), the
+    Precompiled charsmap of ``ARTIFACT_CHARSMAP``, Strip(right),
+    Replace(/ {2,}/ -> U+2581), Metaspace, and the sentinels as added
+    tokens, <extra_id_0> last."""
+    import base64
+
+    import numpy as np
+
+    from klab_multimodalmodel_tpu_torch.text.charsmap import build_charsmap
+
+    meta = "▁"
+    rng = np.random.default_rng(seed)
+    pieces = {c: float(-rng.uniform(12.0, 14.0))
+              for c in [chr(i) for i in range(33, 127)] + [meta]}
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(pieces) < ARTIFACT_PIECES - 3:
+        word = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        piece = meta + word if rng.random() < 0.6 else word
+        pieces.setdefault(piece, float(-rng.uniform(4.0, 12.0)))
+    specials = ["<pad>", "</s>", "<unk>"]
+    vocab = [[t, 0.0] for t in specials] + [[p, s] for p, s in
+                                            pieces.items()]
+
+    def added(i, content):
+        return {"id": i, "content": content, "single_word": False,
+                "lstrip": False, "rstrip": False, "normalized": False,
+                "special": True}
+
+    metaspace = {"type": "Metaspace", "replacement": meta,
+                 "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [added(i, t) for i, t in enumerate(specials)] + [
+            added(ARTIFACT_PIECES + ARTIFACT_SENTINELS - 1 - k,
+                  f"<extra_id_{k}>")
+            for k in reversed(range(ARTIFACT_SENTINELS))],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                build_charsmap(ARTIFACT_CHARSMAP)).decode()},
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": meta}]},
+        "pre_tokenizer": metaspace, "post_processor": None,
+        "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False}}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+
+
+def artifacts_export(card: str, cfg, root: str) -> dict:
+    """8a: phase 3's seeded weights exported through ``export_hf`` into a
+    HF T5 directory (``model.safetensors`` and the seeded
+    ``tokenizer.json``) and a HF SwinV2 directory (``pytorch_model.bin``),
+    then ``python -m klab_multimodalmodel_tpu_torch convert-hf`` over
+    them. Checks the converted towers bitwise against phase 3's weights and
+    loads them with ``load_pretrained_params``."""
+    import types
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.export_hf import (
+        export_swinv2, export_t5_lm, split_towers)
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        MODEL_FILE, load_pretrained_params)
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+
+    timing = {}
+    t0 = time.perf_counter()
+    model = MultiModalModel(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(cfg.seed))
+    phase3 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    free()
+    timing["phase-3 weights to the host"] = time.perf_counter() - t0
+    parts = split_towers(phase3)
+
+    t5_dir, swin_dir = os.path.join(root, "t5"), os.path.join(root, "swin")
+    out_dir = os.path.join(root, "converted")
+    os.makedirs(t5_dir)
+    os.makedirs(swin_dir)
+    t0 = time.perf_counter()
+    t5_bytes = write_safetensors(
+        os.path.join(t5_dir, "model.safetensors"),
+        export_t5_lm(parts["transformer"], cfg.transformer_t5))
+    timing["export t5 (model.safetensors)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swin_path = os.path.join(swin_dir, "pytorch_model.bin")
+    torch.save(export_swinv2(parts["image_model"], cfg.swin), swin_path)
+    swin_bytes = os.path.getsize(swin_path)
+    timing["export swinv2 (pytorch_model.bin)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeded_tokenizer_json(os.path.join(t5_dir, "tokenizer.json"), SEED)
+    timing["tokenizer.json"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "klab_multimodalmodel_tpu_torch",
+         "convert-hf", "--t5_dir", t5_dir, "--swin_dir", swin_dir,
+         "--language_model_name", cfg.language_model_name,
+         "--transformer_model_name", cfg.transformer_model_name,
+         "--image_model_name", cfg.image_model_name, "--output", out_dir],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    timing["convert-hf (subprocess)"] = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"convert-hf exit {proc.returncode}: {proc.stderr[-3000:]}")
+    print("phase 8a: convert-hf: " + proc.stdout.strip())
+    model_pt = os.path.join(out_dir, "checkpoints", "pretrained", MODEL_FILE)
+    written = os.path.getsize(model_pt)
+
+    t0 = time.perf_counter()
+    converted = torch.load(model_pt, map_location="cpu", weights_only=True,
+                           mmap=True)
+    got = split_towers(converted)
+    for tower in ("transformer", "image_model", "vision_projection"):
+        check(got[tower].keys() == parts[tower].keys(),
+              f"converted {tower}: keys differ from phase 3's")
+        for k, v in parts[tower].items():
+            check(torch.equal(got[tower][k], v),
+                  f"converted {tower}.{k} differs from phase 3's")
+    lm = parts["transformer"]
+    check(sorted(got["language_model"]) == sorted(
+        k for k in lm if k == "shared.weight" or k.startswith("encoder.")),
+        "converted language_model: not the LM's encoder keys")
+    for k, v in got["language_model"].items():
+        check(torch.equal(v, lm[k]), f"language_model.{k} is not the "
+              "LM's encoder tensor")
+    timing["bitwise check of the converted towers"] = (
+        time.perf_counter() - t0)
+    del converted, got
+    t0 = time.perf_counter()
+    model = MultiModalModel(cfg)
+    loaded = load_pretrained_params(out_dir, types.SimpleNamespace(
+        model=model))
+    torch.cuda.synchronize()
+    timing["load_pretrained_params (strict)"] = time.perf_counter() - t0
+    check(loaded == ["image_model", "language_model", "transformer",
+                     "vision_projection"], f"loaded {loaded}")
+    sizes = dict(t5_safetensors_gb=t5_bytes / 1e9,
+                 swin_bin_gb=swin_bytes / 1e9,
+                 converted_model_pt_gb=written / 1e9)
+    print(f"phase 8a [{card}]: wrote {t5_bytes / 1e9:.3f} GB "
+          f"model.safetensors and {swin_bytes / 1e9:.3f} GB "
+          f"pytorch_model.bin; convert-hf read {(t5_bytes + swin_bytes) / 1e9:.3f}"
+          f" GB and wrote {written / 1e9:.3f} GB; transformer and image_model "
+          f"bitwise phase 3's, language_model the LM's encoder; seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in timing.items()))
+    return dict(model=model, out_dir=out_dir, timing=timing, sizes=sizes,
+                convert_stdout=proc.stdout)
+
+
+def artifacts_caption(card: str, cfg, model, out_dir: str) -> dict:
+    """8b: three batch-8 requests through ``Captioner`` with the converted
+    weights and ``load_tokenizer(<dir>/tokenizer.json)``; images of COCO
+    sizes through the native bicubic resize."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.data.datasets import COCO_PROMPT
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.native import resize_batch
+    from klab_multimodalmodel_tpu_torch.text import load_tokenizer
+    from klab_multimodalmodel_tpu_torch.text.tokenizer import TokenizerBase
+
+    t0 = time.perf_counter()
+    tok = load_tokenizer(os.path.join(out_dir, "tokenizer.json"))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check((tok.vocab_size, tok.num_sentinels, tok.pad_id, tok.eos_id,
+           tok.unk_id) == (ARTIFACT_PIECES + ARTIFACT_SENTINELS,
+                           ARTIFACT_SENTINELS, 0, 1, 2),
+          f"tokenizer layout {tok.vocab_size} {tok.num_sentinels}")
+    prompt = tok([COCO_PROMPT], max_length=cfg.max_source_length)
+    n = int(prompt.attention_mask.sum())
+    check(tok.decode(prompt.input_ids[0]) == COCO_PROMPT,
+          f"prompt round trip: {tok.decode(prompt.input_ids[0])!r}")
+    # The text-at-a-time path (encode_ids, then truncate and pad in
+    # Python) against __call__'s one C++ call.
+    one = TokenizerBase.__call__(tok, [COCO_PROMPT], cfg.max_source_length)
+    check(np.array_equal(one.input_ids, prompt.input_ids)
+          and np.array_equal(one.attention_mask, prompt.attention_mask),
+          "tokenizer(prompt) vs its ids one text at a time")
+    check(tok.encode_ids("Ａ ｂｃ　x  ") ==
+          tok.encode_ids("A bc x"), "the charsmap's full-width letters")
+
+    rng = np.random.default_rng(SEED + 8)
+    size = cfg.swin.image_size
+    raw = [[rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in COCO_SIZES] for _ in range(REQUESTS + 1)]
+    resize_batch(raw[0][:1], size)  # builds and loads the library
+    resize_ms = {}
+    for threads in (1, 0):
+        t0 = time.perf_counter()
+        for imgs in raw:
+            resize_batch(imgs, size, n_threads=threads)
+        resize_ms[threads] = ((time.perf_counter() - t0) * 1e3
+                              / (len(raw) * BATCH))
+    requests = [resize_batch(imgs, size) for imgs in raw]
+
+    cap = Captioner(cfg, model, tok)
+    cap.caption(requests[0])  # warm-up
+    reset_counts()
+    per_request, texts, all_ids = [], [], []
+    for images in requests[1:]:
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = cap.caption_launch(images)
+        texts.extend(cap.caption_finish(ids))
+        per_request.append((time.perf_counter() - t0) * 1e3)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == REQUEST_LAUNCHES, f"phase 8b request launches {got}, "
+              f"expected {REQUEST_LAUNCHES}")
+        all_ids.extend(ids.cpu().tolist())
+    launches = launch_counts()
+
+    enc, _ = cap._encode_prefill(requests[1], None)
+    check(bool(torch.isfinite(enc).all()), "encoder output is finite")
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False,
+                                    use_pallas_t5_attention=False)
+    plain = MultiModalModel(plain_cfg)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    enc_plain, _ = Captioner(plain_cfg, plain, tok)._encode_prefill(
+        requests[1], None)
+    rel = float((enc - enc_plain).abs().max() / enc_plain.abs().max())
+    check(rel <= TOL_ENCODER_REL, f"encoder kernel-vs-plain rel diff {rel}")
+    del plain, enc, enc_plain
+    free()
+
+    # Random weights emit mostly special ids (the sentinel range and
+    # beyond), so their captions are short or empty: seeded rows of ordinary
+    # ids go through the same decode and encode beside them.
+    special = sum(tok.is_special(i) for row in all_ids for i in row[1:])
+    rows = all_ids + rng.integers(3, ARTIFACT_PIECES, (
+        len(all_ids), cfg.generate_max_length)).tolist()
+    decoded = tok.batch_decode(rows)
+    exact = 0
+    for row, text in zip(rows, decoded):
+        check(isinstance(text, str), f"caption {text!r} is not a str")
+        back = tok.encode_ids(text)
+        check(tok.decode(back) == text, f"caption {text!r} does not "
+              "survive encode and decode")
+        exact += back == [i for i in row if not tok.is_special(i)]
+    check(decoded[:len(texts)] == texts, "batch_decode vs the captioner's")
+    seeded = decoded[len(texts):]
+    t0 = time.perf_counter()
+    for _ in range(ENCODE_REPS):
+        TokenizerBase.__call__(tok, seeded, cfg.generate_max_length)
+    python_us = (time.perf_counter() - t0) * 1e6 / (ENCODE_REPS * len(seeded))
+    t0 = time.perf_counter()
+    for _ in range(ENCODE_REPS):
+        tok(seeded, max_length=cfg.generate_max_length)
+    batch_us = (time.perf_counter() - t0) * 1e6 / (ENCODE_REPS * len(seeded))
+    # A batch long enough for encode_batch's threads (one per KiB of text):
+    # one thread against the default.
+    many = seeded * (ENCODE_MANY // len(seeded))
+    many_bytes = sum(len(t.encode()) for t in many)
+    many_ids, many_us = {}, {}
+    for threads in (1, 0):
+        t0 = time.perf_counter()
+        many_ids[threads], _ = tok.encoder.encode_batch(
+            many, cfg.generate_max_length, n_threads=threads)
+        many_us[threads] = (time.perf_counter() - t0) * 1e6 / len(many)
+    check(np.array_equal(many_ids[0], many_ids[1]),
+          "encode_batch on threads vs one thread")
+    request_ms = sum(per_request) / len(per_request)
+    print(f"phase 8b [{card}]: tokenizer.json loaded in {load_ms:.2f} ms; "
+          f"prompt {n} ids; requests {', '.join(f'{m:.2f}' for m in per_request)}"
+          f" ms (mean {request_ms:.2f}); native bicubic resize of COCO sizes "
+          f"to {size}: {resize_ms[1]:.3f} ms per image on one thread, "
+          f"{resize_ms[0]:.3f} ms per image in a batch on the pool; encode "
+          f"{python_us:.2f} us per caption one by one, {batch_us:.2f} us "
+          f"through tokenizer() (the {len(seeded)} seeded rows' texts), "
+          f"{many_us[1]:.3f} us on one thread and {many_us[0]:.3f} us on the "
+          f"default threads in a batch of {len(many)} ({many_bytes} bytes; "
+          f"host CPUs {os.cpu_count()}, {len(os.sched_getaffinity(0))} "
+          f"usable); "
+          f"encoder "
+          f"output kernels vs none {rel:.3e}; {special} of "
+          f"{sum(len(r) - 1 for r in all_ids)} generated ids are special; "
+          f"{exact} of {len(rows)} rows (captions and seeded rows) re-encode "
+          f"to their ids, every one to its text; samples {texts[:2]}, "
+          f"{seeded[:2]}")
+    return dict(request_ms=per_request, mean_request_ms=request_ms,
+                resize_ms_per_image_one_thread=resize_ms[1],
+                resize_ms_per_image_pool=resize_ms[0],
+                encode_us_per_caption_one_by_one=python_us,
+                encode_us_per_caption_tokenizer=batch_us,
+                encode_us_per_caption_long_batch_one_thread=many_us[1],
+                encode_us_per_caption_long_batch_threads=many_us[0],
+                long_batch_texts=len(many), long_batch_bytes=many_bytes,
+                host_cpus=os.cpu_count(),
+                usable_cpus=len(os.sched_getaffinity(0)),
+                tokenizer_load_ms=load_ms, prompt_ids=n,
+                encoder_rel_diff_vs_plain=rel, launches=launches,
+                special_ids=special, exact_round_trips=exact,
+                rows=len(rows), sample_captions=texts[:2],
+                sample_seeded=seeded[:2])
+
+
+def artifacts_train(card: str, cfg, out_dir: str, root: str) -> dict:
+    """8c: ``train(config)`` from the converted directory with its
+    tokenizer.json and ``native_tokenizer``, batch 32, one epoch of 2
+    updates on the synthetic dataset; otherwise phase 6's Config."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.data import get_dataloader
+    from klab_multimodalmodel_tpu_torch.text import load_tokenizer
+    from klab_multimodalmodel_tpu_torch.text.tokenizer import TokenizerBase
+
+    tok_path = os.path.join(out_dir, "tokenizer.json")
+    cfg = dataclasses.replace(
+        cfg, data_dir="synthetic", batch_size=TRAIN_BATCH, num_epochs=1,
+        init_checkpoint=out_dir, tokenizer_path=tok_path,
+        native_tokenizer=True, result_dir=os.path.join(root, "run"))
+    tok = load_tokenizer(tok_path)
+    loader = get_dataloader(cfg, "train", tok)
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    items = [loader.dataset[int(i)] for i in batch["index"]]
+    for key, col, length in (("source", 1, cfg.max_source_length),
+                             ("target", 2, cfg.max_target_length)):
+        want = TokenizerBase.__call__(tok, [it[col] for it in items], length)
+        check(np.array_equal(batch[f"{key}_ids"], want.input_ids)
+              and np.array_equal(batch[f"{key}_mask"], want.attention_mask),
+              f"loader {key} ids vs the tokenizer's one text at a time")
+    encode_ms = {}
+    for name, fn in (("tokenizer", lambda t, n: tok(t, max_length=n)),
+                     ("one by one",
+                      lambda t, n: TokenizerBase.__call__(tok, t, n))):
+        t0 = time.perf_counter()
+        for _ in range(ENCODE_REPS):
+            fn([it[1] for it in items], cfg.max_source_length)
+            fn([it[2] for it in items], cfg.max_target_length)
+        encode_ms[name] = (time.perf_counter() - t0) * 1e3 / ENCODE_REPS
+    loader.close()
+
+    result, out = loop_run(cfg, card, "8c (from the converted directory)",
+                           phase="8")
+    check(result["steps"] == 2 and not result["halted"],
+          f"{result['steps']} updates")
+    check(all(math.isfinite(x) for p in ("train", "val")
+              for x in result["losses"][p]), f"losses {result['losses']}")
+    converted = torch.load(os.path.join(out_dir, "checkpoints", "pretrained",
+                                        "model.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)
+    frozen = out["trainer"].model.language_model.state_dict()
+    for k, v in frozen.items():
+        check(torch.equal(v.cpu(), converted[f"language_model.{k}"]),
+              f"the trained run's text tower {k} is not the converted one")
+    del out, converted, frozen
+    free()
+    full = result["step_kinds"]["full step"]
+    print(f"phase 8c [{card}]: step spans "
+          f"{', '.join(f'{t:.2f}' for t in full['span_ms'])} ms on the "
+          f"device, host {', '.join(f'{t:.2f}' for t in full['host_ms'])} "
+          f"ms; the loader's encode of one batch-{TRAIN_BATCH} batch "
+          f"(source and target): {encode_ms['tokenizer']:.3f} ms through "
+          f"the tokenizer, {encode_ms['one by one']:.3f} ms one text at a "
+          f"time; losses {result['losses']}")
+    result["loader_encode_ms"] = encode_ms
+    return result
+
+
+def artifacts_phase(card: str, **names) -> dict:
+    """Phase 8: the reference's artifacts at full width (the Config's
+    model names unless ``names`` overrides them), in a temporary directory
+    that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        print(f"phase 8: {free_gb:.1f} GB free on the disk of {root}")
+        cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                     seed=SEED, **names)
+        a = artifacts_export(card, cfg, root)
+        model = a.pop("model")
+        b = artifacts_caption(card, cfg, model, a["out_dir"])
+        del model
+        free()
+        c = artifacts_train(card, cfg, a["out_dir"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 8: {seconds:.1f} s")
+    return dict(card=card, free_disk_gb=free_gb, export=a, caption=b,
+                train=c, seconds=seconds)
+
+
 
 def main() -> int:
     import torch
@@ -2456,6 +2946,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s")
     build = build_report()
+    from klab_multimodalmodel_tpu_torch import native
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"host runtime build ({native.compiler()} "
+          f"{' '.join(native.CXXFLAGS)}): {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
@@ -2484,6 +2979,8 @@ def main() -> int:
     looping = loop_phase(card)
     free()
     evaluating = evaluation_phase(card, captioning["greedy_ids"])
+    free()
+    artifacts = artifacts_phase(card)
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -2506,6 +3003,13 @@ def main() -> int:
                 c_run["step_kinds"][kind]["launches"][train_key])
         entry["launches_beam_request"] = (
             evaluating["beams"]["launches"][train_key] // REQUESTS)
+        entry["launches_artifacts_request"] = (
+            artifacts["caption"]["launches"][train_key] // REQUESTS)
+        entry["launches_artifacts_step"] = (
+            artifacts["train"]["step_kinds"]["full step"]["launches"][
+                train_key])
+        check(entry["launches_artifacts_step"] > 0,
+              f"{entry['name']} never launched by phase 8's train()")
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -2514,7 +3018,8 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "launches_captioning", "launches_train_with_swin_step",
         "launches_loop_run", "launches_loop_full_step",
-        "launches_loop_cached_step", "launches_beam_request")}
+        "launches_loop_cached_step", "launches_beam_request",
+        "launches_artifacts_request", "launches_artifacts_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -2526,7 +3031,10 @@ def main() -> int:
                  f"launches_loop_run: phase 6's run C of train(); "
                  f"launches_loop_full_step / _cached_step: one full and "
                  f"one cached step of that run; launches_beam_request: one "
-                 f"num_beams-{BEAMS} request of phase 7a"}))
+                 f"num_beams-{BEAMS} request of phase 7a; "
+                 f"launches_artifacts_request / _step: one request of phase "
+                 f"8b and one full step of phase 8c (the converted HF "
+                 f"artifacts)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2535,8 +3043,8 @@ def main() -> int:
                    "kernels": kernels,
                    "captioning": captioning, "training": training,
                    "train_with_swin": swin_training, "options": options,
-                   "loop": looping, "evaluation": evaluating}, f, indent=1,
-                  default=str)
+                   "loop": looping, "evaluation": evaluating,
+                   "artifacts": artifacts}, f, indent=1, default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""``python -m klab_multimodalmodel_tpu_torch {train,eval,caption} ...``:
-the console entry points of ``cli.py``, each with its own flags."""
+"""``python -m klab_multimodalmodel_tpu_torch
+{train,eval,caption,convert-hf,export-hf} ...``: the console entry points
+of ``cli.py``, each with its own flags."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ import sys
 from . import cli
 
 COMMANDS = {"train": cli.main, "eval": cli.eval_main,
-            "caption": cli.caption_main, "serve": cli.serve_main}
+            "caption": cli.caption_main, "convert-hf": cli.convert_hf_main,
+            "export-hf": cli.export_hf_main, "serve": cli.serve_main}
 
 
 def main(argv=None) -> int:

@@ -131,9 +131,8 @@ class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
     training step and the training loop read, with the same names and
     defaults. Options that are not ported raise ``NotImplementedError``
-    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12),
-    ``native_tokenizer`` (A6) and ``profile_server_port > 0`` (PyTorch has
-    no live profiler server)."""
+    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12) and
+    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -184,9 +183,13 @@ class Config:
     use_vision_projection: bool = True
     generate_max_length: int = 20
     num_beams: int = 1
-    # Tokenizer file, or '' for the byte tokenizer (the only one ported).
+    # Tokenizer file (tokenizer.json or spiece.model), or '' for the byte
+    # tokenizer.
     tokenizer_path: str = ""
-    native_tokenizer: bool = False  # not ported (A6)
+    # The JAX package's switch to its C++ encoder. The port's unigram
+    # tokenizer always encodes there: the flag only requires a
+    # tokenizer_path (get_dataloader).
+    native_tokenizer: bool = False
     # Directory of a pretrained port checkpoint whose top-level submodules
     # initialize a fresh run (checkpoint/io.py load_pretrained_params);
     # ignored when resuming from a checkpoint in result_dir.
@@ -237,9 +240,6 @@ class Config:
             raise NotImplementedError(
                 "moe_experts > 0 is not ported (ROADMAP A12); only the dense "
                 "model is")
-        if self.native_tokenizer:
-            raise NotImplementedError(
-                "native_tokenizer is not ported (ROADMAP A6)")
         if self.profile_server_port > 0:
             raise NotImplementedError(
                 "profile_server_port: PyTorch has no live profiler server; "
@@ -327,8 +327,7 @@ def _swin_size(name: str) -> SwinV2Size:
 # ---------------------------------------------------------------------------
 
 # Flags whose value the port cannot honour unless it is the default: the
-# fields its Config lacks, and a tokenizer file (load_tokenizer refuses
-# one). flag: (default, the ROADMAP item that ports it).
+# fields its Config lacks. flag: (default, the ROADMAP item that ports it).
 UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
     "mesh_shape": ((-1, 1, 1, 1, 1, 1), "A11, distributed training"),
     "dcn_mesh_shape": ((1, 1, 1, 1, 1, 1), "A11, distributed training"),
@@ -340,7 +339,6 @@ UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
     "moe_top_k": (1, "A12, MoE"),
     "moe_capacity_factor": (1.25, "A12, MoE"),
     "moe_aux_loss_weight": (0.01, "A12, MoE"),
-    "tokenizer_path": ("", "A6, the unigram tokenizer"),
 }
 
 
@@ -429,8 +427,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
     flags in one message); the ``Config`` then refuses its own unported
-    values (``moe_experts``, ``native_tokenizer``,
-    ``profile_server_port``)."""
+    values (``moe_experts``, ``profile_server_port``)."""
     kwargs: dict[str, Any] = dict(vars(args))
     fields = {f.name for f in dataclasses.fields(Config)}
     refused = []

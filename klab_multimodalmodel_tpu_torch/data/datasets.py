@@ -7,9 +7,10 @@ The reference's datasets:
   * RedCaps: indexes ``annotations/*.json`` eagerly and span-corrupts each
     sample anew per epoch; ``phase`` does not split the data (train and val
     iterate the same examples, as in the reference);
-  * images: decode -> RGB -> resize to (size, size) on the host, through
-    Pillow, imported where an image is decoded; normalization runs on the
-    device (``image_ops.normalize_images``).
+  * images: decode -> RGB through Pillow (imported where an image is
+    decoded), then the port's C++ bicubic resize (``native.resize_batch``) to
+    (size, size) on the host; normalization runs on the device
+    (``image_ops.normalize_images``).
 
 Items are ``(image_uint8 (H,W,3), src_text, tgt_text)``; tokenization and
 batching live in ``pipeline.py``. The synthetic dataset needs no file and
@@ -31,13 +32,29 @@ COCO_PROMPT = "What does th image describe ?"  # sic: the reference's prompt
 
 def load_image_resized(path: str, size: int = 256) -> np.ndarray:
     """Decode -> RGB -> bicubic resize -> (size, size, 3) uint8. JPEG draft
-    mode decodes straight to a scale near the target (never below it)."""
+    mode decodes straight to a scale near the target (never below it); the
+    port's C++ runtime does the resize, as the JAX package's does."""
+    return _decode_resized(path, size)
+
+
+def load_image_bytes_resized(data: bytes, size: int = 256) -> np.ndarray:
+    """``load_image_resized`` over in-memory encoded bytes."""
+    import io
+
+    return _decode_resized(io.BytesIO(data), size)
+
+
+def _decode_resized(src, size: int) -> np.ndarray:
     from PIL import Image
 
-    with Image.open(path) as im:
+    from ..native import BICUBIC, resize_batch
+
+    with Image.open(src) as im:
+        # draft only applies to JPEG. It never drafts below the target size.
         im.draft("RGB", (size, size))
         im = im.convert("RGB")
-        return np.asarray(im.resize((size, size)), dtype=np.uint8)
+        return resize_batch([np.asarray(im, dtype=np.uint8)], size,
+                            filter=BICUBIC, n_threads=1)[0]
 
 
 class DatasetBase:

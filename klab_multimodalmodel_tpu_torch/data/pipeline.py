@@ -196,11 +196,17 @@ class DataLoader:
 
 def get_dataloader(config, phase: str, tokenizer: TokenizerBase) -> DataLoader:
     """The reference's ``get_dataloader(args, phase, rank)`` on one device:
-    the global batch is ``batch_size``; train shuffles, val does not."""
+    the global batch is ``batch_size``; train shuffles, val does not.
+    ``native_tokenizer`` is the JAX package's switch to its C++ encoder;
+    the port's unigram tokenizer always encodes there, so the flag only
+    keeps the JAX check that it names a ``tokenizer_path``."""
     from .datasets import build_dataset
 
     dataset = build_dataset(config.data_dir, phase, config.swin.image_size,
                             config.seed)
+    if config.native_tokenizer and not config.tokenizer_path:
+        raise ValueError("--native_tokenizer requires --tokenizer_path "
+                         "(the byte fallback has no native core)")
     return DataLoader(
         dataset, tokenizer, global_batch_size=config.batch_size,
         max_source_length=config.max_source_length,

@@ -2,4 +2,5 @@
 
 from .span_corruption import span_corrupt  # noqa: F401
 from .tokenizer import (BatchEncoding, ByteTokenizer, TokenizerBase,  # noqa: F401
-                        load_tokenizer)
+                        UnigramTokenizer, load_tokenizer,
+                        train_unigram_tokenizer)

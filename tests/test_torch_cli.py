@@ -118,8 +118,6 @@ def test_defaults_match_jax():
     ("--moe_capacity_factor 2.0", "A12"),
     ("--moe_aux_loss_weight 0.1", "A12"),
     ("--moe_experts 8", "A12"),
-    ("--tokenizer_path spiece.model", "A6"),
-    ("--native_tokenizer", "A6"),
     ("--profile_server_port 9012", "no live profiler server")])
 def test_unported_flag_raises_naming_its_item(argv, item):
     jcfg.parse_arguments(shlex.split(argv))  # a valid JAX command line
@@ -127,16 +125,50 @@ def test_unported_flag_raises_naming_its_item(argv, item):
         tcfg.parse_arguments(shlex.split(argv))
 
 
+@pytest.mark.parametrize("flags", ["--tokenizer_path {path}",
+                                   "--native_tokenizer --tokenizer_path "
+                                   "{path}"])
+def test_tokenizer_flags_parse_and_run(tmp_path, flags):
+    """``--tokenizer_path`` (a spiece.model) and ``--native_tokenizer``
+    parse as the JAX package parses them, and the loader that ``train``
+    builds from them encodes the COCO prompt as the JAX tokenizer does."""
+    from klab_multimodalmodel_tpu.text import load_tokenizer as jax_load
+    from klab_multimodalmodel_tpu_torch.data import get_dataloader
+    from klab_multimodalmodel_tpu_torch.text import load_tokenizer
+    from test_torch_text_unigram import write_spm
+
+    path = write_spm(tmp_path / "spiece.model")
+    argv = shlex.split(flags.format(path=path)) + [
+        "--image_model_name", tp.SWIN_NAME, "--data_dir", "synthetic",
+        "--batch_size", "2", "--max_source_length", "16"]
+    got = tcfg.parse_arguments(argv)
+    for name, (w, g) in _shared_fields(jcfg.parse_arguments(argv),
+                                       got).items():
+        assert w == g, name
+    assert got.tokenizer_path == path
+    loader = get_dataloader(got, "train", load_tokenizer(got.tokenizer_path))
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    want = jax_load(path)(["What does th image describe ?"] * 2,
+                          max_length=16)
+    np.testing.assert_array_equal(batch["source_ids"], want.input_ids)
+    np.testing.assert_array_equal(batch["source_mask"], want.attention_mask)
+
+
 def test_entry_points_resolve():
     with open(ROOT / "pyproject.toml", "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     want = {"klab-torch-train": cli.main, "klab-torch-eval": cli.eval_main,
-            "klab-torch-caption": cli.caption_main}
+            "klab-torch-caption": cli.caption_main,
+            "klab-torch-convert-hf": cli.convert_hf_main,
+            "klab-torch-export-hf": cli.export_hf_main}
     for name, fn in want.items():
         module, attr = scripts[name].split(":")
         assert module == "klab_multimodalmodel_tpu_torch.cli"
         assert getattr(cli, attr) is fn
     assert module_main.COMMANDS["train"] is cli.main
+    assert module_main.COMMANDS["convert-hf"] is cli.convert_hf_main
+    assert module_main.COMMANDS["export-hf"] is cli.export_hf_main
     assert module_main.main([]) == 2
     assert module_main.main(["nope"]) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):

@@ -4,10 +4,10 @@ counter, the TensorBoard writer, the config's new fields and refusals, and
 the tokenizer factory.
 
 Batches, epoch orders and dataset items are compared exactly (ids, masks,
-images bitwise). Image decode: the port decodes and resizes through Pillow;
-the JAX package resizes through its C++ runtime when that is built (within
-1 of Pillow, ``tests/test_native.py``) and through the same Pillow call
-otherwise, the branch these tests hold the port against.
+images bitwise). Image decode: both packages decode through Pillow and
+resize through their C++ runtimes, the port through its own copy of the
+JAX package's, so the images are held bitwise against the JAX package's
+native resize; one case holds them within 1 of Pillow's resize.
 """
 
 import dataclasses
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port as tp
 import klab_multimodalmodel_tpu.config as jcfg
 import klab_multimodalmodel_tpu.data as jdata
 import klab_multimodalmodel_tpu.native as jnative
@@ -125,12 +126,6 @@ def test_abandoned_iteration_releases_producer():
 
 
 @pytest.fixture
-def no_native(monkeypatch):
-    """The JAX package's Pillow resize (see the module docstring)."""
-    monkeypatch.setattr(jnative, "available", lambda: False)
-
-
-@pytest.fixture
 def coco_dir(tmp_path):
     """MSCOCO layout: 3 images of seeded noise, 2 captions each, and an
     image without a caption."""
@@ -189,7 +184,7 @@ def _assert_items_equal(jds, tds, epochs=(0,)):
             np.testing.assert_array_equal(ti, ji)
 
 
-def test_coco_dataset_matches_jax(coco_dir, no_native):
+def test_coco_dataset_matches_jax(coco_dir):
     jds = jdata.build_dataset(coco_dir, "val", image_size=32)
     tds = tdata.build_dataset(coco_dir, "val", image_size=32)
     assert isinstance(tds, tdata.CocoCaptionDataset)
@@ -200,11 +195,49 @@ def test_coco_dataset_matches_jax(coco_dir, no_native):
     assert not tds[0][0].any()
 
 
-def test_redcaps_dataset_matches_jax(redcaps_dir, no_native):
+def test_redcaps_dataset_matches_jax(redcaps_dir):
     jds = jdata.build_dataset(redcaps_dir, "train", image_size=32, seed=5)
     tds = tdata.build_dataset(redcaps_dir, "train", image_size=32, seed=5)
     assert isinstance(tds, tdata.RedCapsDataset) and not tds.source_is_static
     _assert_items_equal(jds, tds, epochs=(0, 1, 2))
+
+
+def test_coco_images_within_one_of_pillow(coco_dir):
+    """The native bicubic resize against Pillow's ``resize`` on the same
+    decoded JPEGs: off by at most one (8-bit fixed-point coefficients in
+    Pillow, doubles in the C++ code)."""
+    from PIL import Image
+
+    assert jnative.available()  # the JAX side above resizes natively
+    tds = tdata.build_dataset(coco_dir, "val", image_size=32)
+    for i, path in enumerate(tds.images):
+        with Image.open(path) as im:
+            im.draft("RGB", (32, 32))
+            ref = np.asarray(im.convert("RGB").resize((32, 32)))
+        got = tds[i][0]
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_image_bytes_loader_matches_jax(coco_dir):
+    """``load_image_bytes_resized`` (encoded bytes in memory) gives the
+    file loader's pixels and the JAX package's, and the resize refuses
+    what it cannot take."""
+    from klab_multimodalmodel_tpu.data.datasets import (
+        load_image_bytes_resized as jax_bytes_loader)
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_bytes_resized, load_image_resized)
+    from klab_multimodalmodel_tpu_torch.native import resize_batch
+
+    path = tdata.build_dataset(coco_dir, "val", image_size=32).images[0]
+    with open(path, "rb") as f:
+        data = f.read()
+    got = load_image_bytes_resized(data, 24)
+    np.testing.assert_array_equal(got, load_image_resized(path, 24))
+    np.testing.assert_array_equal(got, jax_bytes_loader(data, 24))
+    for bad in (np.zeros((4, 4, 3), np.float32), np.zeros((4, 4), np.uint8),
+                np.zeros((0, 4, 3), np.uint8)):
+        with pytest.raises(ValueError, match="uint8 images"):
+            resize_batch([bad], 8)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -415,7 +448,6 @@ def test_stopwatch_counts():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("native_tokenizer", True, NotImplementedError, "A6"),
     ("moe_experts", 8, NotImplementedError, "A12"),
     ("profile_server_port", 9999, NotImplementedError, "profiler server"),
     ("accumulation_tail", "wrap", ValueError, "accumulation_tail"),
@@ -424,6 +456,41 @@ def test_stopwatch_counts():
 def test_config_refusals(field, value, error, match):
     with pytest.raises(error, match=match):
         tcfg.Config(**{field: value})
+
+
+@pytest.mark.parametrize("pretrain", [False, True])
+def test_config_accepts_native_tokenizer(tmp_path, pretrain):
+    """``native_tokenizer`` with a ``tokenizer_path`` (a spiece.model):
+    ``get_dataloader``'s batches equal the JAX loader's with the JAX C++
+    encoder, and the port's loader built without the flag. Without a path
+    it raises as the JAX one does."""
+    from klab_multimodalmodel_tpu.text.tokenizer import (
+        UnigramTokenizer as JaxUnigramTokenizer)
+    from test_torch_text_unigram import write_spm
+
+    path = write_spm(tmp_path / "spiece.model")
+    cfg = tcfg.Config(native_tokenizer=True, tokenizer_path=path,
+                      data_dir="synthetic-pretrain" if pretrain
+                      else "synthetic", batch_size=4, max_source_length=24,
+                      max_target_length=16, num_workers=2,
+                      image_model_name=tp.SWIN_NAME)
+    tok = load_tokenizer(path)
+    loader = tdata.get_dataloader(cfg, "train", tok)
+    kw = dict(global_batch_size=4, max_source_length=24,
+              max_target_length=16, seed=0)
+    j = jdata.DataLoader(jdata.SyntheticCaptionDataset(
+        n=64, image_size=32, pretrain=pretrain), JaxUnigramTokenizer(path),
+        native_encoder=jnative.NativeUnigramEncoder(path), **kw)
+    plain = tdata.DataLoader(tdata.SyntheticCaptionDataset(
+        n=64, image_size=32, pretrain=pretrain), tok, **kw)
+    for dl in (loader, j, plain):
+        dl.set_epoch(1)
+    native_batches = list(loader)
+    _assert_batches_equal(list(j), native_batches)
+    _assert_batches_equal(list(plain), native_batches)
+    with pytest.raises(ValueError, match="requires --tokenizer_path"):
+        tdata.get_dataloader(dataclasses.replace(cfg, tokenizer_path=""),
+                             "train", tok)
 
 
 def test_config_accepts_caption_evaluation():
@@ -460,12 +527,24 @@ def test_config_json_round_trip_and_jax_file(tmp_path):
     assert "mesh_shape" not in names and "dropout_rng_impl" not in names
 
 
-def test_load_tokenizer():
+def test_load_tokenizer(tmp_path):
+    """'' gives the byte tokenizer, a spiece.model the unigram tokenizer,
+    each with the JAX package's ids."""
+    from klab_multimodalmodel_tpu.text import load_tokenizer as jax_load
+    from klab_multimodalmodel_tpu_torch.text import UnigramTokenizer
+    from test_torch_text_unigram import write_spm
+
+    prompt = ["What does th image describe ?"]
     tok = load_tokenizer("")
     assert isinstance(tok, ByteTokenizer)
-    ids = tok(["What does th image describe ?"], max_length=40).input_ids
+    ids = tok(prompt, max_length=40).input_ids
     np.testing.assert_array_equal(
-        ids, JaxByteTokenizer()(["What does th image describe ?"],
-                                max_length=40).input_ids)
-    with pytest.raises(NotImplementedError, match="A6"):
-        load_tokenizer("spiece.model")
+        ids, JaxByteTokenizer()(prompt, max_length=40).input_ids)
+    path = write_spm(tmp_path / "spiece.model")
+    tok = load_tokenizer(path)
+    assert isinstance(tok, UnigramTokenizer)
+    np.testing.assert_array_equal(tok(prompt, max_length=40).input_ids,
+                                  jax_load(path)(prompt,
+                                                 max_length=40).input_ids)
+    with pytest.raises(FileNotFoundError):
+        load_tokenizer(str(tmp_path / "missing.model"))

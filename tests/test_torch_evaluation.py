@@ -3,8 +3,9 @@ floats, exactly, on a fixed corpus and on PTB edge strings; COCO references;
 ``evaluate_captions`` on the same weights and JPEGs (same predictions, same
 metrics); ``run`` writing ``metrics.json``.
 
-Image decode: both sides through Pillow (the JAX package's C++ resize is
-switched off, as in ``tests/test_torch_data.py``)."""
+Image decode: both sides through Pillow, then each package's C++ bicubic
+resize (the port's is a copy of the JAX package's, bitwise equal, as in
+``tests/test_torch_data.py``)."""
 
 import dataclasses
 import json
@@ -15,7 +16,6 @@ import pytest
 
 import _torch_port as tp
 import klab_multimodalmodel_tpu.evaluation as jeval
-import klab_multimodalmodel_tpu.native as jnative
 from klab_multimodalmodel_tpu.ops import set_interpret
 from klab_multimodalmodel_tpu.text import ByteTokenizer as JByteTokenizer
 from klab_multimodalmodel_tpu_torch import evaluation as teval
@@ -117,11 +117,9 @@ def weights():
 
 
 @pytest.mark.parametrize("num_beams", [1, 2])
-def test_evaluate_captions_matches_jax(coco_val, weights, monkeypatch,
-                                       num_beams):
+def test_evaluate_captions_matches_jax(coco_val, weights, num_beams):
     """Five images at batch 2 (a ragged tail of one), the same
     predictions and the same metric floats."""
-    monkeypatch.setattr(jnative, "available", lambda: False)
     jcfg, tcfg, params = weights
     paths, refs = teval.coco_references(coco_val)
     assert (paths, refs) == jeval.coco_references(coco_val)

@@ -1,8 +1,12 @@
 """The port stands alone: it imports no ``jax`` and nothing of the JAX
-package, and neither does ``chip_smoke.py``."""
+package, and neither does ``chip_smoke.py``; no file of either names the
+repo-root ``native/`` directory or its ``libklab_host.so``, and the port's
+own C++ runtime builds under ``_build/`` only."""
 
 import ast
+import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -65,6 +69,61 @@ def test_no_source_names_the_jax_package(path):
         if level and path.parent != ROOT:
             depth = len(path.relative_to(PORT).parts) - 1
             assert level <= depth + 1, (module, level)
+
+
+# A path into the repo-root native/ directory: "native/" not preceded by the
+# port's package name, or a string literal that is the directory itself.
+ROOT_NATIVE = re.compile(r"(?<!klab_multimodalmodel_tpu_torch/)\bnative/")
+PORT_FILES = sorted(p for p in PORT.rglob("*") if p.is_file()
+                    and p.suffix in (".py", ".cpp", ".cu", ".cuh")
+                    and "_build" not in p.parts)
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_names_the_root_native_runtime(path):
+    text = path.read_text()
+    assert "libklab_host.so" not in text
+    assert not ROOT_NATIVE.search(text), ROOT_NATIVE.search(text)
+    if path.suffix == ".py":
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert node.value.strip("/") != "native", node.lineno
+
+
+def _tree(root: pathlib.Path, outputs: tuple = ()) -> dict:
+    """(size, mtime) of every file under ``root``, the build and cache
+    directories and the files named in ``outputs`` left out."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = [d for d in dirnames if d not in (
+            "_build", "__pycache__")]
+        for name in filenames:
+            if name in outputs:
+                continue
+            st = os.stat(os.path.join(dirpath, name))
+            out[os.path.join(dirpath, name)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def test_native_build_writes_only_under_build(tmp_path):
+    """The port's library comes from its own ``klab_host.cpp`` and lands in
+    the given build directory: the port's tree and the repo-root
+    ``native/`` are untouched by a build."""
+    from klab_multimodalmodel_tpu_torch import native
+
+    assert native.SOURCE.parent == PORT / "native"
+    assert native.BUILD_DIR == PORT / "_build"
+    assert native.library_path().parent == PORT / "_build"
+    # The JAX package's own build output (its Makefile's target) may appear
+    # meanwhile: other test processes build it through the JAX package.
+    jax_outputs = ("libklab_host.so",)
+    before = (_tree(PORT), _tree(ROOT / "native", jax_outputs))
+    build = tmp_path / "_build"
+    lib = native.build_library(build)
+    assert lib.parent == build and lib.exists()
+    assert [p.name for p in build.iterdir()] == [lib.name]
+    assert (_tree(PORT), _tree(ROOT / "native", jax_outputs)) == before
 
 
 # Optional packages, which a CUDA host need not have: nothing the port
