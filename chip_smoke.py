@@ -152,10 +152,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       converted one, and one loader batch's ids against the tokenizer's
       ids one text at a time. Prints step spans and the loader's encode ms
       per batch.
-9. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+9. The serving stack on phase 3's weights (the same seed), fp32, both
+   kernel flags on, the byte tokenizer and the COCO prompt. The card's
+   machine has no Pillow, so the services' image decoder is swapped for a
+   decoder of raw ``.npy`` bytes (printed); the CPU tests run Pillow's.
+   Each of the 48 seeded 256x256 images is first captioned alone (batch 1):
+   every served token row must equal its image's own row, or differ only
+   at a knife edge (greedy's top-2 margin there under ``KNIFE_EDGE_REL``,
+   printed).
+   a. ``CaptionService`` (max_batch 8, window 5 ms) behind
+      ``CaptionHTTPServer`` on 127.0.0.1: ``/healthz`` 503 before the
+      warmup and 200 after; three rounds of 16 concurrent ``/caption``
+      requests from 16 client threads; every response 200 with a ``str``;
+      24 Swin + 48 T5 launches per dispatched batch. Prints p50/p90
+      request ms, captions/s, mean batch rows and one profiled round's
+      busy share.
+   b. ``ContinuousCaptionService`` (16 slots, engine chunk 4, max_prefill
+      8) under the same load: 24 + 48 launches per prefill, no fallback;
+      the same readings beside 9a's, plus the tick's span (enqueue to
+      reap), passes per tick and live slots; then eight arrivals through
+      a ``DecodeEngine`` with staggered inserts against ``greedy_decode``
+      of the same encoder rows, an idle slot's cache index run past the
+      buffer.
+   c. ``/caption_stream`` on 9a's server: the last event is ``/caption``'s
+      text; prints the time to the first event.
+   d. ``Captioner(speculative_draft=4)`` on phase 3's three batch-8
+      requests against greedy (knife-edge rule); prints decoder passes,
+      accepted drafts and request ms beside greedy's, timed in turn.
+   e. ``Captioner(decode_int8=True)``: one decode step's logits against the
+      same weights held as Q s in fp32 (``TOL_INT8_DEQUANT_REL``); prints
+      the token rows equal to fp32 greedy's, request ms and peak memory
+      beside fp32's in turn, and the int8 tree's bytes.
+   Then ``serve --replicas 2`` on one card must exit with the JAX
+   package's message.
+10. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
-   beam request, in one phase-8b request and one phase-8c step), then
-   ``{"ok": true, ...}`` as the last line.
+   beam request, in one phase-8b request and one phase-8c step, and in one
+   batch of phase 9a), then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -2927,6 +2960,728 @@ def artifacts_phase(card: str, **names) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the serving stack at full width
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS, SERVE_ROUNDS = 16, 3
+SERVE_MAX_BATCH, SERVE_WINDOW_MS = 8, 5.0
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_PREFILL = 16, 4, 8
+SPEC_DRAFT = 4
+# A token row that differs from greedy's (another batch shape, a wider
+# chunk) must be a knife edge: at the first differing position, greedy's
+# top-1 and top-2 logits within this much of the top-1's size (fp32 products
+# at other shapes round apart by ~1e-6 relative).
+KNIFE_EDGE_REL = 1e-5
+# One int8 decode step's logits against the same weights held as Q s in
+# fp32, relative to the largest logit: (x Q^T) s against x (Q s)^T, float
+# rounding compounded over the 24 decoder layers.
+TOL_INT8_DEQUANT_REL = 1e-4
+SERVE_TIMEOUT_S = 120  # every client call and wait of phase 9
+
+
+def npy_bytes(image) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, image, allow_pickle=False)
+    return buf.getvalue()
+
+
+def npy_decode(data: bytes, size: int):
+    """The request bytes as a raw ``.npy`` uint8 (size, size, 3) array."""
+    import io
+
+    import numpy as np
+
+    image = np.load(io.BytesIO(data), allow_pickle=False)
+    if image.shape != (size, size, 3) or image.dtype != np.uint8:
+        raise ValueError(f"expected a ({size}, {size}, 3) uint8 .npy, got "
+                         f"{image.shape} {image.dtype}")
+    return image
+
+
+class NpyRequests:
+    """Swap the services' image decoder (``load_image_bytes_resized``:
+    Pillow, which the card's machine lacks) for ``npy_decode`` while the
+    block runs."""
+
+    def __enter__(self):
+        from klab_multimodalmodel_tpu_torch.serve import continuous, service
+
+        self.modules = (service, continuous)
+        self.saved = [m.load_image_bytes_resized for m in self.modules]
+        for m in self.modules:
+            m.load_image_bytes_resized = npy_decode
+        print("phase 9: the services' load_image_bytes_resized (Pillow) is "
+              "swapped for a decoder of raw .npy bytes; requests carry "
+              "seeded 256x256 arrays")
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.modules, self.saved):
+            m.load_image_bytes_resized = fn
+
+
+def http_call(base: str, path: str, payload=None):
+    """(status, JSON body) of a GET (no payload) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse_first_event(host: str, port: int, payload: dict):
+    """(ms to the first event, every event) of one ``/caption_stream``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=SERVE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    conn.request("POST", "/caption_stream", json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"/caption_stream status {resp.status}")
+    events, first_ms = [], None
+    for line in resp:
+        if line.startswith(b"data: "):
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            events.append(json.loads(line[len(b"data: "):]))
+    conn.close()
+    return first_ms, events
+
+
+def percentile(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * len(v)))]
+
+
+def load_rounds(base: str, rounds) -> dict:
+    """Each round: one /caption request per client thread, all at once;
+    the next round starts when every response is in. Returns the client
+    ms per request, each round's wall ms, and the responses."""
+    import threading
+
+    lat, walls, responses = [], [], []
+    for payloads in rounds:
+        out = [None] * len(payloads)
+
+        def client(i):
+            t0 = time.perf_counter()
+            status, body = http_call(base, "/caption", payloads[i])
+            out[i] = (status, body, (time.perf_counter() - t0) * 1e3)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(payloads))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+            check(not t.is_alive(), "a client thread hung")
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for status, body, ms in out:
+            check(status == 200 and isinstance(body.get("caption"), str),
+                  f"/caption answered {status} {body}")
+            lat.append(ms)
+        responses.append([body["caption"] for _, body, _ in out])
+    n = sum(len(p) for p in rounds)
+    return dict(request_ms=lat, round_ms=walls, responses=responses,
+                p50_ms=percentile(lat, 0.5), p90_ms=percentile(lat, 0.9),
+                captions_per_s=n / (sum(walls) / 1e3))
+
+
+def greedy_margin(t5, enc, mask, row, s: int) -> float:
+    """Greedy's relative top-1 minus top-2 logit at position ``s`` of the
+    token row ``row`` (1-D), teacher-forced on the row's own prefix."""
+    import torch
+
+    L = len(row)
+    tokens = torch.as_tensor(row, device=enc.device)[None].to(torch.int32)
+    cache = None
+    with torch.inference_mode():
+        for t in range(s):
+            logits, cache = t5.decode_step(tokens[:, t:t + 1], t, enc, L,
+                                           mask, cache=cache)
+    top2 = logits[0, -1].float().topk(2).values
+    return float(top2[0] - top2[1]) / max(abs(float(top2[0])), 1e-30)
+
+
+def knife_edges(t5, enc, mask, got_rows, want_rows, what: str) -> dict:
+    """Rows of ``got_rows`` against greedy's ``want_rows`` (same encoder
+    rows ``enc``/``mask``): equal, or a knife edge at the first difference
+    (printed). Fails on any other difference."""
+    equal, margins = 0, []
+    for i, (got, want) in enumerate(zip(got_rows, want_rows)):
+        got, want = list(got), list(want)
+        if got == want:
+            equal += 1
+            continue
+        s = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        m = greedy_margin(t5, enc[i:i + 1], mask[i:i + 1], want, s)
+        margins.append(m)
+        print(f"  {what}: row {i} differs from greedy first at position "
+              f"{s}: greedy's relative top-2 margin there {m:.3e} "
+              f"(knife edge below {KNIFE_EDGE_REL})")
+        check(m < KNIFE_EDGE_REL, f"{what}: row {i} differs from greedy at "
+              f"{s} with margin {m:.3e}, no knife edge")
+    return dict(rows=len(want_rows), equal=equal, knife_edge_margins=margins)
+
+
+class ServedRows:
+    """The token row behind each served caption, keyed by its image: the
+    dynamic batcher's finish stage and the engine scheduler's submit are
+    wrapped to record them."""
+
+    def __init__(self):
+        self.rows = {}
+
+    @staticmethod
+    def key(image) -> bytes:
+        import hashlib
+
+        return hashlib.sha1(image.tobytes()).digest()
+
+    def wrap_batcher(self, svc):
+        finish = svc._batcher._finalize
+
+        def recording(gen, ids, payloads):
+            rows = ids.cpu().tolist()
+            for (image, _), row in zip(payloads, rows):
+                self.rows[self.key(image)] = row
+            return finish(gen, ids, payloads)
+
+        svc._batcher._finalize = recording
+
+    def wrap_scheduler(self, svc):
+        sched = svc.scheduler
+        submit = sched.submit
+
+        def recording(image, *args, **kwargs):
+            row, n_valid = submit(image, *args, **kwargs)
+            self.rows[self.key(image)] = row.tolist()
+            return row, n_valid
+
+        sched.submit = recording
+
+
+def serving_encoder_vs_plain(card, cfg, model, tok, images) -> dict:
+    """The encoder prefill with the kernels against the same weights
+    without them, at every batch the serving path gives it: the dynamic
+    batcher's buckets and the engine's prefill buckets (the stream and the
+    solo captions run at 1, 9d and 9e at 8). The engine's text width is
+    the COCO prompt's bucket, the width ``_encode_prefill`` trims to, so one
+    reading per batch covers both services."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.serve.service import batch_buckets
+
+    buckets = sorted(set(batch_buckets(SERVE_MAX_BATCH))
+                     | set(batch_buckets(ENGINE_PREFILL)))
+    cap = Captioner(cfg, model, tok)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False,
+                                    use_pallas_t5_attention=False)
+    plain = MultiModalModel(plain_cfg)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    plain.eval()
+    plain_cap = Captioner(plain_cfg, plain, tok)
+    out = {}
+    for b in buckets:
+        before = launch_counts()
+        enc, mask = cap._encode_prefill(images[:b], None)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == REQUEST_LAUNCHES, f"phase 9 prefill at batch {b} "
+              f"launched {got}, expected {REQUEST_LAUNCHES}")
+        enc_p, mask_p = plain_cap._encode_prefill(images[:b], None)
+        check(tuple(enc.shape) == tuple(enc_p.shape)
+              and torch.equal(mask, mask_p),
+              f"phase 9 prefill at batch {b}: shapes {tuple(enc.shape)} vs "
+              f"{tuple(enc_p.shape)} or masks differ")
+        check(bool(torch.isfinite(enc).all()),
+              f"phase 9 prefill at batch {b} is finite")
+        rel = float((enc - enc_p).abs().max() / enc_p.abs().max())
+        check(rel <= TOL_ENCODER_REL, f"phase 9 prefill at batch {b}: "
+              f"encoder kernel-vs-plain rel diff {rel}")
+        out[b] = rel
+    del plain, plain_cap, enc, enc_p
+    free()
+    print(f"phase 9 [{card}]: encoder prefill, kernels vs none (max abs diff "
+          f"/ max abs, tolerance {TOL_ENCODER_REL}) at every serving batch: "
+          + ", ".join(f"batch {b} {r:.3e}" for b, r in out.items()))
+    return out
+
+
+def solo_rows(cap, images) -> list:
+    """Each image captioned alone (batch 1): its greedy token row."""
+    return [cap.caption_launch(img[None])[0].tolist() for img in images]
+
+
+def served_vs_solo(cap, images, solo, served: ServedRows, what) -> dict:
+    """Served rows against each image's row alone, by the knife-edge rule;
+    the margins along each image's own batch-1 encoder row."""
+    got = [served.rows[ServedRows.key(img)] for img in images]
+    out = dict(rows=len(images), equal=0, knife_edge_margins=[])
+    for img, g, want in zip(images, got, solo):
+        if g == want:
+            out["equal"] += 1
+            continue
+        enc, mask = cap._encode_prefill(img[None], None)
+        r = knife_edges(cap.decode_model, enc, mask, [g], [want], what)
+        out["knife_edge_margins"] += r["knife_edge_margins"]
+    return out
+
+
+def texts_equal(responses, solo, tok) -> int:
+    """How many served captions equal the text of the image's own row
+    (a row that differs was held to the knife-edge rule already)."""
+    flat = [c for r in responses for c in r]
+    return sum(int(a == b) for a, b in zip(
+        flat, tok.batch_decode(solo, skip_special_tokens=True)))
+
+
+def dynamic_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
+    """9a: CaptionService behind CaptionHTTPServer under SERVE_ROUNDS
+    rounds of SERVE_CLIENTS concurrent /caption requests; then 9c, the
+    stream, on the same server."""
+    import threading
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.serve.http import CaptionHTTPServer
+    from klab_multimodalmodel_tpu_torch.serve.service import CaptionService
+
+    svc = CaptionService(cfg, model, tok, max_batch=SERVE_MAX_BATCH,
+                         window_ms=SERVE_WINDOW_MS)
+    served = ServedRows()
+    served.wrap_batcher(svc)
+    gate = threading.Event()
+    warm = svc.warmup
+    svc.warmup = lambda: (gate.wait(SERVE_TIMEOUT_S), warm())[1]
+    server = CaptionHTTPServer(svc, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    starter = threading.Thread(target=server.start)
+    try:
+        starter.start()
+        code, _ = http_call(base, "/healthz")
+        check(code == 503, f"/healthz before warmup: {code}")
+        t0 = time.perf_counter()
+        gate.set()
+        starter.join(timeout=SERVE_TIMEOUT_S)
+        warmup_s = time.perf_counter() - t0
+        code, _ = http_call(base, "/healthz")
+        check(code == 200, f"/healthz after warmup: {code}")
+
+        torch.cuda.synchronize()
+        reset_counts()
+        before = http_call(base, "/stats")[1]
+        out = load_rounds(base, rounds)
+        got = launch_counts()
+        code, snap = http_call(base, "/stats")
+        check(code == 200, f"/stats answered {code}")
+        batches = snap["batches"] - before["batches"]
+        want = {k: v * batches for k, v in REQUEST_LAUNCHES.items()}
+        check(got == want, f"9a launches {got} over {batches} batches, "
+              f"expected {want}")
+        out.update(batches=batches, launches=got,
+                   launches_per_batch=dict(REQUEST_LAUNCHES),
+                   mean_batch_rows=snap["mean_batch_occupancy"],
+                   stats=snap, warmup_s=warmup_s)
+        out["vs_solo"] = served_vs_solo(svc.captioner, images, solo, served,
+                                        "9a served row")
+        out["texts_equal_solo"] = texts_equal(out["responses"], solo, tok)
+        out["device"] = profile_device(
+            lambda: load_rounds(base, rounds[:1]),
+            sum(out["round_ms"]) / len(out["round_ms"]), card,
+            f"round of {SERVE_CLIENTS} concurrent requests (9a)")
+
+        # 9c: the stream's final event is /caption's text.
+        import base64
+
+        payload = {"image_b64": base64.b64encode(npy_bytes(images[0]))
+                   .decode()}
+        code, body = http_call(base, "/caption", payload)
+        first_ms, events = sse_first_event("127.0.0.1", server.port,
+                                           dict(payload, chunk_size=
+                                                STREAM_CHUNK))
+        check(events and events[-1] == {"caption": body["caption"],
+                                        "done": True},
+              f"9c: the stream's last event {events[-1:]} vs /caption "
+              f"{body}")
+        stream = dict(first_event_ms=first_ms, events=len(events),
+                      chunk_size=STREAM_CHUNK)
+    finally:
+        gate.set()
+        starter.join(timeout=SERVE_TIMEOUT_S)
+        server.stop()
+    print(f"phase 9a [{card}]: dynamic batching (max_batch "
+          f"{SERVE_MAX_BATCH}, window {SERVE_WINDOW_MS} ms), "
+          f"{SERVE_ROUNDS} rounds x {SERVE_CLIENTS} clients: request p50 "
+          f"{out['p50_ms']:.2f} ms, p90 {out['p90_ms']:.2f} ms, "
+          f"{out['captions_per_s']:.2f} captions/s, mean batch rows "
+          f"{out['mean_batch_rows']:.2f}, {batches} batches, launches per "
+          f"batch {REQUEST_LAUNCHES['swin']} Swin + "
+          f"{REQUEST_LAUNCHES['t5_fwd']} T5; served rows equal to their "
+          f"own batch-1 rows {out['vs_solo']['equal']}/{len(images)}; "
+          f"warmup {warmup_s:.2f} s")
+    print(f"phase 9c [{card}]: /caption_stream (chunk {STREAM_CHUNK}) first "
+          f"event {first_ms:.2f} ms, {len(events)} events, last = /caption")
+    del out["responses"]
+    return dict(dynamic=out, stream=stream)
+
+
+def engine_direct(card, cap, images) -> dict:
+    """9b's engine check: eight arrivals through a DecodeEngine of
+    ENGINE_SLOTS slots, four inserted, one tick, four more, against
+    greedy_decode of the same encoder rows; the idle slots' cache index
+    runs past the buffer."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.engine import DecodeEngine
+    from klab_multimodalmodel_tpu_torch.infer.generate import greedy_decode
+
+    L = cap.config.generate_max_length
+    enc, mask = cap._encode_prefill(images, None)
+    t5 = cap.decode_model
+    with torch.inference_mode():
+        want = greedy_decode(t5, enc, mask, L).tolist()
+    engine = DecodeEngine(t5, slots=ENGINE_SLOTS, source_width=enc.shape[1],
+                          d_model=enc.shape[2], max_length=L,
+                          chunk=ENGINE_CHUNK)
+    rows = {}
+    for part, ticks in ((slice(0, 4), 1), (slice(4, 8), 0)):
+        e, m = enc[part], mask[part]
+        pre = engine.prefill(e, m)
+        for j in range(e.shape[0]):
+            engine.insert(pre, e, m, j, tag=part.start + j)
+        for _ in range(ticks):
+            engine.tick()
+            rows.update({t: r.tolist() for t, r, _ in engine.reap()})
+    for _ in range(100):
+        if not engine.has_live():
+            break
+        engine.tick()
+        rows.update({t: r.tolist() for t, r, _ in engine.reap()})
+    check(sorted(rows) == list(range(len(images))),
+          f"the engine reaped {sorted(rows)}")
+    idle = int(engine.state.cache[0]["self"]["cache_index"].max())
+    check(idle > L, f"no slot's index ran past the buffer ({idle} <= {L})")
+    out = knife_edges(t5, enc, mask, [rows[i] for i in range(len(images))],
+                      want, "9b engine row")
+    out["idle_cache_index"] = idle
+    print(f"phase 9b [{card}]: DecodeEngine ({ENGINE_SLOTS} slots, chunk "
+          f"{ENGINE_CHUNK}), staggered inserts: {out['equal']}/"
+          f"{out['rows']} rows equal greedy_decode's, knife edges "
+          f"{out['knife_edge_margins']}; an idle slot's cache index reached "
+          f"{idle} (buffer {L}) without a fault")
+    return out
+
+
+def continuous_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
+    """9b: ContinuousCaptionService behind CaptionHTTPServer under the same
+    load, with the engine's tick timed and its occupancy sampled."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.serve.continuous import (
+        ContinuousCaptionService)
+    from klab_multimodalmodel_tpu_torch.serve.http import CaptionHTTPServer
+
+    svc = ContinuousCaptionService(
+        cfg, model, tok, max_batch=SERVE_MAX_BATCH,
+        window_ms=SERVE_WINDOW_MS, slots=ENGINE_SLOTS,
+        engine_chunk=ENGINE_CHUNK, max_prefill=ENGINE_PREFILL)
+    served = ServedRows()
+    served.wrap_scheduler(svc)
+    server = CaptionHTTPServer(svc, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{server.port}"
+    ticks = []
+    try:
+        t0 = time.perf_counter()
+        server.start()
+        warmup_s = time.perf_counter() - t0
+        engine = svc.scheduler.engine
+        tick, reap = engine.tick, engine.reap
+
+        def timed_tick():
+            t = time.perf_counter()
+            live = int(engine.active.sum())
+            tick()
+            ticks.append(dict(live=live, t0=t,
+                              enqueue_ms=(time.perf_counter() - t) * 1e3))
+
+        def timed_reap():
+            t = time.perf_counter()
+            out = reap()
+            if ticks and "reap_ms" not in ticks[-1]:
+                ticks[-1]["reap_ms"] = (time.perf_counter() - t) * 1e3
+                ticks[-1]["span_ms"] = (time.perf_counter()
+                                        - ticks[-1]["t0"]) * 1e3
+            return out
+
+        engine.tick, engine.reap = timed_tick, timed_reap
+        torch.cuda.synchronize()
+        reset_counts()
+        before = http_call(base, "/stats")[1]
+        out = load_rounds(base, rounds)
+        got = launch_counts()
+        code, snap = http_call(base, "/stats")
+        check(code == 200, f"/stats answered {code}")
+        prefills = snap["batches"] - before["batches"]
+        want = {k: v * prefills for k, v in REQUEST_LAUNCHES.items()}
+        check(got == want, f"9b launches {got} over {prefills} prefills, "
+              f"expected {want}")
+        check(snap["fallback"]["requests"] == 0, "9b fell back to the "
+              "dynamic batcher")
+        spans = [t["span_ms"] for t in ticks if "span_ms" in t]
+        out.update(prefills=prefills, launches=got,
+                   mean_prefill_rows=snap["mean_batch_occupancy"],
+                   ticks=len(ticks), passes_per_tick=ENGINE_CHUNK,
+                   tick_span_ms=float(np.mean(spans)),
+                   tick_enqueue_ms=float(np.mean([t["enqueue_ms"]
+                                                  for t in ticks])),
+                   tick_reap_ms=float(np.mean([t.get("reap_ms", 0.0)
+                                               for t in ticks])),
+                   mean_live_slots=float(np.mean([t["live"]
+                                                  for t in ticks])),
+                   stats=snap, warmup_s=warmup_s)
+        out["vs_solo"] = served_vs_solo(svc.captioner, images, solo, served,
+                                        "9b served row")
+        out["texts_equal_solo"] = texts_equal(out["responses"], solo, tok)
+        out["device"] = profile_device(
+            lambda: load_rounds(base, rounds[:1]),
+            sum(out["round_ms"]) / len(out["round_ms"]), card,
+            f"round of {SERVE_CLIENTS} concurrent requests (9b)")
+    finally:
+        server.stop()
+    out["direct"] = engine_direct(card, svc.captioner, images[:8])
+    print(f"phase 9b [{card}]: continuous batching ({ENGINE_SLOTS} slots, "
+          f"chunk {ENGINE_CHUNK}, max_prefill {ENGINE_PREFILL}), same load: "
+          f"request p50 {out['p50_ms']:.2f} ms, p90 {out['p90_ms']:.2f} ms, "
+          f"{out['captions_per_s']:.2f} captions/s, {prefills} prefills of "
+          f"{out['mean_prefill_rows']:.2f} rows ({REQUEST_LAUNCHES['swin']} "
+          f"Swin + {REQUEST_LAUNCHES['t5_fwd']} T5 each); {out['ticks']} "
+          f"ticks of {ENGINE_CHUNK} passes: tick (enqueue to reap) "
+          f"{out['tick_span_ms']:.2f} ms, enqueue {out['tick_enqueue_ms']:.2f}"
+          f" ms, reap wait {out['tick_reap_ms']:.2f} ms, "
+          f"{out['mean_live_slots']:.2f} of {ENGINE_SLOTS} slots live; "
+          f"served rows equal to their own batch-1 rows "
+          f"{out['vs_solo']['equal']}/{len(images)}")
+    del out["responses"]
+    return out
+
+
+def in_turn(captioners: dict, requests) -> tuple[dict, dict]:
+    """Each request through each named Captioner, the order reversed every
+    other request (a, b, b, a, ...): ({name: [ms, ...]}, {name: [ids,
+    ...]}), the host clock around work that ends in the ids' read-back and
+    detokenization."""
+    import torch
+
+    names = list(captioners)
+    ms = {k: [] for k in names}
+    ids = {k: [] for k in names}
+    for r, images in enumerate(requests):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = captioners[k].caption_launch(images)
+            captioners[k].caption_finish(out)
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+            ids[k].append(out)
+    return ms, ids
+
+
+def speculative_phase(card, cfg, model, tok, requests) -> dict:
+    """9d: Captioner(speculative_draft=SPEC_DRAFT) on three batch-8
+    requests against greedy (knife-edge rule), passes and accepted drafts,
+    request ms beside greedy's in turn."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.infer.speculative import (
+        speculative_greedy_decode_with_stats)
+
+    greedy = Captioner(cfg, model, tok, speculative_draft=0)
+    spec = Captioner(cfg, model, tok, speculative_draft=SPEC_DRAFT)
+    spec.caption(requests[0])  # warm-up
+    L = cfg.generate_max_length
+    times, ids = in_turn({"greedy": greedy, "speculative": spec},
+                         requests[1:])
+    per = []
+    for images, g, s in zip(requests[1:], ids["greedy"],
+                            ids["speculative"]):
+        enc, mask = greedy._encode_prefill(images, None)
+        with torch.inference_mode():
+            tok_s, passes, acc = speculative_greedy_decode_with_stats(
+                model.transformer, enc, mask, L, draft_len=SPEC_DRAFT)
+        check(torch.equal(tok_s, s), "9d: the Captioner's speculative ids "
+              "differ from speculative_greedy_decode's")
+        r = knife_edges(model.transformer, enc, mask, s.tolist(),
+                        g.tolist(), "9d speculative row")
+        r.update(passes=passes + 1, greedy_passes=decoder_passes(g.cpu()),
+                 accepted=acc.tolist())
+        per.append(r)
+    out = dict(requests=per, ms=times, draft_len=SPEC_DRAFT)
+    print(f"phase 9d [{card}]: speculative (draft {SPEC_DRAFT}) vs greedy, "
+          f"in turn: " + "; ".join(
+              f"{ts:.2f} vs {tg:.2f} ms, passes {r['passes']} vs "
+              f"{r['greedy_passes']}, accepted drafts {sum(r['accepted'])} "
+              f"({r['equal']}/{r['rows']} rows equal greedy)"
+              for r, ts, tg in zip(per, times["speculative"],
+                                   times["greedy"])))
+    return out
+
+
+def int8_phase(card, cfg, model, tok, requests) -> dict:
+    """9e: Captioner(decode_int8=True): one decode step's logits against
+    the same weights as Q s in fp32; token rows equal to fp32 greedy's;
+    request ms and peak memory beside fp32's, in turn; the int8 tree's
+    bytes."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.infer.quantize import decode_bytes
+    from klab_multimodalmodel_tpu_torch.models.t5 import KlabDense
+
+    fp32 = Captioner(cfg, model, tok)
+    t0 = time.perf_counter()
+    int8 = Captioner(cfg, model, tok, decode_int8=True)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    q = int8.decode_model
+    deq = type(q)(q.size, use_pallas=False, dtype=torch.float32,
+                  device=int8.device)
+    deq.load_state_dict({k: v.float() for k, v in q.state_dict().items()
+                         if not k.endswith("qscale")}, strict=True)
+    with torch.no_grad():
+        for name, mod in q.named_modules():
+            if isinstance(mod, KlabDense):
+                deq.get_submodule(name).weight.copy_(
+                    mod.weight.float() * mod.qscale[:, None])
+    images = requests[1]
+    enc, mask = fp32._encode_prefill(images, None)
+    start = torch.zeros(enc.shape[0], 1, dtype=torch.int32,
+                        device=enc.device)
+    with torch.inference_mode():
+        a = q.decode_step(start, 0, enc, cfg.generate_max_length, mask)[0]
+        b = deq.decode_step(start, 0, enc, cfg.generate_max_length, mask)[0]
+    rel = rel_err(a, b)
+    check(rel <= TOL_INT8_DEQUANT_REL, f"9e: int8 logits vs Q s in fp32 "
+          f"{rel:.3e}")
+    del deq
+    free()
+    int8.caption(requests[0])  # warm-up
+    times, ids = in_turn({"fp32": fp32, "int8": int8}, requests[1:])
+    equal = sum(int(torch.equal(x, y)) for a, b in zip(ids["int8"],
+                                                       ids["fp32"])
+                for x, y in zip(a, b))
+    peak = {}
+    for name, cap in (("fp32", fp32), ("int8", int8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cap.caption(images)
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+    tree = dict(int8=decode_bytes(q), fp32=decode_bytes(model.transformer))
+    out = dict(logits_rel_vs_dequantized=rel, rows_equal_fp32=equal,
+               rows=BATCH * (len(requests) - 1), ms=times, peak_gb=peak,
+               tree_bytes=tree, quantize_s=quantize_s)
+    print(f"phase 9e [{card}]: int8 decode: one step's logits vs Q s in "
+          f"fp32 {rel:.3e} (tolerance {TOL_INT8_DEQUANT_REL}); token rows "
+          f"equal to fp32 greedy's {equal}/{out['rows']}; request ms int8 "
+          f"{', '.join(f'{t:.2f}' for t in times['int8'])} vs fp32 "
+          f"{', '.join(f'{t:.2f}' for t in times['fp32'])} (in turn); peak "
+          f"{peak['int8']:.2f} vs {peak['fp32']:.2f} GB; transformer "
+          f"{tree['int8'] / 1e9:.3f} GB int8 tree vs {tree['fp32'] / 1e9:.3f}"
+          f" GB fp32; quantized in {quantize_s:.2f} s")
+    return out
+
+
+def serving_phase(card: str) -> dict:
+    """Phase 9: the serving stack on phase 3's weights (the same seed)."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch import cli
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                 seed=SEED)
+    model = MultiModalModel(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(cfg.seed))
+    model.eval()
+    tok = ByteTokenizer()
+    size = cfg.swin.image_size
+    rng = np.random.default_rng(SEED + 9)
+    images = rng.integers(0, 256, (SERVE_ROUNDS * SERVE_CLIENTS, size, size,
+                                   3), dtype=np.uint8)
+    rounds = [[{"image_b64": base64.b64encode(npy_bytes(img)).decode()}
+               for img in images[r * SERVE_CLIENTS:(r + 1) * SERVE_CLIENTS]]
+              for r in range(SERVE_ROUNDS)]
+    requests = [np.random.default_rng(SEED).integers(
+        0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+        for _ in range(REQUESTS + 1)]  # phase 3's
+    out = dict(encoder_vs_plain=serving_encoder_vs_plain(
+        card, cfg, model, tok, images))
+    with NpyRequests():
+        from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+
+        solo_cap = Captioner(cfg, model, tok)
+        solo_cap.caption(images[:1])  # warm-up
+        t0 = time.perf_counter()
+        solo = solo_rows(solo_cap, images)
+        solo_s = time.perf_counter() - t0
+        print(f"phase 9: each of the {len(images)} images captioned alone "
+              f"(batch 1) in {solo_s:.2f} s [{card}]")
+        out.update(dynamic_phase(card, cfg, model, tok, rounds, images,
+                                 solo))
+        free()
+        out["continuous"] = continuous_phase(card, cfg, model, tok, rounds,
+                                             images, solo)
+        free()
+    out["speculative"] = speculative_phase(card, cfg, model, tok, requests)
+    free()
+    out["int8"] = int8_phase(card, cfg, model, tok, requests)
+    try:
+        cli.serve_main(["--result_dir", "absent", "--replicas", "2"])
+        check(False, "--replicas 2 on one card was not refused")
+    except SystemExit as e:
+        check(str(e) == "--replicas 2 > 1 visible devices",
+              f"--replicas 2 refused with {e}")
+        print(f"phase 9: serve --replicas 2 on one card exits: {e}")
+    del model
+    free()
+    a, b = out["dynamic"], out["continuous"]
+    print(f"phase 9 [{card}]: dynamic vs continuous under "
+          f"{SERVE_ROUNDS} x {SERVE_CLIENTS} concurrent requests: p50 "
+          f"{a['p50_ms']:.2f} vs {b['p50_ms']:.2f} ms, p90 {a['p90_ms']:.2f}"
+          f" vs {b['p90_ms']:.2f} ms, {a['captions_per_s']:.2f} vs "
+          f"{b['captions_per_s']:.2f} captions/s, busy share "
+          f"{(a['device'].get('busy_share') or 0):.3f} vs "
+          f"{(b['device'].get('busy_share') or 0):.3f}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2981,6 +3736,8 @@ def main() -> int:
     evaluating = evaluation_phase(card, captioning["greedy_ids"])
     free()
     artifacts = artifacts_phase(card)
+    free()
+    serving = serving_phase(card)
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -3010,6 +3767,12 @@ def main() -> int:
                 train_key])
         check(entry["launches_artifacts_step"] > 0,
               f"{entry['name']} never launched by phase 8's train()")
+        dyn = serving["dynamic"]
+        entry["launches_serving_prefill"] = (
+            dyn["launches"][train_key] // dyn["batches"])
+        if caption_key:
+            check(entry["launches_serving_prefill"] > 0,
+                  f"{entry['name']} never launched by phase 9's serving")
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -3019,7 +3782,8 @@ def main() -> int:
         "launches_captioning", "launches_train_with_swin_step",
         "launches_loop_run", "launches_loop_full_step",
         "launches_loop_cached_step", "launches_beam_request",
-        "launches_artifacts_request", "launches_artifacts_step")}
+        "launches_artifacts_request", "launches_artifacts_step",
+        "launches_serving_prefill")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -3034,7 +3798,8 @@ def main() -> int:
                  f"num_beams-{BEAMS} request of phase 7a; "
                  f"launches_artifacts_request / _step: one request of phase "
                  f"8b and one full step of phase 8c (the converted HF "
-                 f"artifacts)"}))
+                 f"artifacts); launches_serving_prefill: one batch of "
+                 f"phase 9a's HTTP load"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3044,7 +3809,8 @@ def main() -> int:
                    "captioning": captioning, "training": training,
                    "train_with_swin": swin_training, "options": options,
                    "loop": looping, "evaluation": evaluating,
-                   "artifacts": artifacts}, f, indent=1, default=str)
+                   "artifacts": artifacts, "serving": serving}, f,
+                  indent=1, default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """``python -m klab_multimodalmodel_tpu_torch
-{train,eval,caption,convert-hf,export-hf} ...``: the console entry points
+{train,eval,caption,convert-hf,export-hf,serve} ...``: the console entry points
 of ``cli.py``, each with its own flags."""
 
 from __future__ import annotations

@@ -10,11 +10,15 @@ pretrained checkpoint for ``--init_checkpoint``, with the T5 directory's
 ``tools/convert_hf_checkpoint.py``, with its flags).
 ``klab-torch-export-hf``: a run's checkpoint -> one HF ``pytorch_model.bin``
 per tower and ``vision_projection.bin`` (``tools/export_hf_checkpoint.py``).
+``klab-torch-serve``: serve a trained run over HTTP with dynamic batching
+(``POST /caption``, ``POST /caption_stream``, ``GET /healthz``,
+``GET /stats``), or continuous batching, int8 decode, speculative decode or
+one replica per card.
 
 Each also runs as ``python -m klab_multimodalmodel_tpu_torch
-{train,eval,caption,convert-hf,export-hf}``. Train, eval and caption run on
-the card; ``--device cpu`` (the one flag the JAX package's commands lack)
-runs them on the CPU. The converters run on the host.
+{train,eval,caption,convert-hf,export-hf,serve}``. Train, eval, caption and
+serve run on the card; ``--device cpu`` (the one flag the JAX package's
+commands lack) runs them on the CPU. The converters run on the host.
 """
 
 from __future__ import annotations
@@ -215,11 +219,130 @@ def export_hf_main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"wrote {out}/vision_projection.bin")
 
 
-def serve_main(argv: Optional[Sequence[str]] = None) -> None:
-    raise NotImplementedError(
-        "serving (HTTP, dynamic and continuous batching, replicas) is not "
-        "ported (ROADMAP A10)")
+def serve_parser() -> argparse.ArgumentParser:
+    """``klab-torch-serve``'s flags: the JAX ``klab-serve``'s and
+    ``--device``."""
+    p = argparse.ArgumentParser(
+        description="Serve a trained run over HTTP with dynamic batching "
+                    "(POST /caption, streaming POST /caption_stream, "
+                    "GET /healthz, GET /stats)")
+    p.add_argument("--result_dir", required=True)
+    p.add_argument("--checkpoint", default="best")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max_batch", type=int, default=8,
+                   help="largest coalesced batch; requests pad to "
+                        "power-of-two buckets up to this")
+    p.add_argument("--batch_window_ms", type=float, default=5.0,
+                   help="how long the first queued request waits for "
+                        "companions before its batch dispatches")
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip running the batch buckets before reporting "
+                        "healthy (first requests then pay the set-up)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weight-only decode (infer/quantize.py); the "
+                        "encoders keep full precision")
+    p.add_argument("--speculative_draft", type=int, default=0,
+                   help="prompt-lookup speculative decoding with draft "
+                        "length K for plain-greedy requests "
+                        "(infer/speculative.py; greedy's tokens, fewer "
+                        "decoder passes when drafts are accepted); 0 off")
+    p.add_argument("--max_gen_length", type=int, default=128,
+                   help="upper bound on per-request max_length (the "
+                        "cache's size)")
+    p.add_argument("--stream_chunk", type=int, default=4,
+                   help="default tokens per /caption_stream SSE event "
+                        "(clients may override with chunk_size)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve N replicas, one per card, least-loaded "
+                        "routing")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching for the greedy default path "
+                        "(serve/continuous.py): a resident decode batch "
+                        "that requests join and leave mid-flight; beams "
+                        "and sampling fall back to the dynamic batcher")
+    p.add_argument("--slots", type=int, default=16,
+                   help="resident decode-batch rows for --continuous")
+    p.add_argument("--engine_chunk", type=int, default=4,
+                   help="decode steps between admission/reap boundaries "
+                        "for --continuous")
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    return p
 
+
+def serve_main(argv: Optional[Sequence[str]] = None) -> None:
+    """Serve until SIGTERM (which drains: the accept loop stops and the
+    service closes) or Ctrl-C."""
+    import signal
+    import threading
+
+    from .serve.service import batch_buckets
+    from .serve.http import CaptionHTTPServer
+    from .utils.device import resolve_device
+
+    p = serve_parser()
+    args = p.parse_args(argv)
+    if args.speculative_draft < 0:
+        p.error(f"--speculative_draft must be >= 0, got "
+                f"{args.speculative_draft}")
+    if args.continuous and args.replicas > 1:
+        raise SystemExit("--continuous with --replicas is not supported "
+                         "yet; pick one scale-out mode")
+    if args.continuous and args.speculative_draft:
+        raise SystemExit("--continuous with --speculative_draft is not "
+                         "supported: the engine decodes one token per slot "
+                         "per pass, so the drafts would serve only the "
+                         "fallback's requests; pick one")
+    device = resolve_device(args.device)
+    if args.replicas > 1:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        if args.replicas > len(devices):
+            raise SystemExit(f"--replicas {args.replicas} > "
+                             f"{len(devices)} visible devices")
+
+    config, tokenizer, state = _load_run(args.result_dir, args.checkpoint)
+    service_kw = dict(max_batch=args.max_batch,
+                      window_ms=args.batch_window_ms,
+                      decode_int8=args.int8,
+                      max_gen_length=args.max_gen_length,
+                      stream_chunk=args.stream_chunk,
+                      speculative_draft=args.speculative_draft)
+    if args.replicas > 1:
+        from .serve.replicas import ReplicatedCaptionService
+
+        service = ReplicatedCaptionService(
+            config, state, tokenizer, devices[:args.replicas], **service_kw)
+    elif args.continuous:
+        from .serve.continuous import ContinuousCaptionService
+
+        service = ContinuousCaptionService(
+            config, state, tokenizer, slots=args.slots,
+            engine_chunk=args.engine_chunk, device=device, **service_kw)
+    else:
+        from .serve.service import CaptionService
+
+        service = CaptionService(config, state, tokenizer, device=device,
+                                 **service_kw)
+    del state
+    server = CaptionHTTPServer(service, host=args.host, port=args.port)
+    n_buckets = 0 if args.no_warmup else len(batch_buckets(args.max_batch))
+    print(f"klab-torch-serve: listening on {args.host}:{server.port} "
+          f"(warming {n_buckets} buckets)", flush=True)
+    halt = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: halt.set())
+    except ValueError:
+        pass  # not the main thread: Ctrl-C only
+    server.start(warmup=not args.no_warmup)
+    print("klab-torch-serve: ready", flush=True)
+    try:
+        halt.wait()
+        print("klab-torch-serve: SIGTERM, draining", flush=True)
+    except KeyboardInterrupt:
+        pass
+    server.stop()
 
 if __name__ == "__main__":
     main()

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Iterator, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -33,13 +34,22 @@ class Captioner:
     smallest power-of-two column bucket >= the longest real prompt (min 16,
     capped at ``max_source_length``) before the encoders run: every trimmed
     column is pad that the attention masks already exclude.
+
+    ``decode_int8``: decode through an int8 weight-only copy of the
+    transformer (``infer/quantize.py``); the encoders keep the
+    full-precision model. ``speculative_draft``: the draft length of
+    prompt-lookup speculative decoding for plain greedy requests
+    (``infer/speculative.py``); 0 is off, None reads
+    ``KLAB_DECODE_SPECULATIVE`` (unset is 0), and a value that is not a
+    non-negative integer raises ``ValueError``.
     """
 
     def __init__(self, config: Config,
                  state_dict_or_model: Union[Mapping[str, torch.Tensor],
                                             MultiModalModel],
                  tokenizer: TokenizerBase, bucket_source: bool = True,
-                 device=None):
+                 device=None, decode_int8: bool = False,
+                 speculative_draft: Optional[int] = None):
         self.config = config
         self.device = resolve_device(device)
         if isinstance(state_dict_or_model, MultiModalModel):
@@ -54,8 +64,20 @@ class Captioner:
         self.model = model.eval()
         self.tokenizer = tokenizer
         self.bucket_source = bucket_source
+        if speculative_draft is None:
+            speculative_draft = _speculative_from_env()
+        elif speculative_draft < 0:
+            raise ValueError(f"speculative_draft must be >= 0, got "
+                             f"{speculative_draft}")
+        self.speculative_draft = speculative_draft
+        self.decode_model = model.transformer
+        if decode_int8:
+            from .quantize import quantize_for_decode
+
+            self.decode_model = quantize_for_decode(model.transformer)
 
     def _fp32(self):
+        """fp32 compute for the length of a call (see the class doc)."""
         if self.model.dtype == torch.float32:
             return contextlib.nullcontext()
         return self.model.computing_in(torch.float32)
@@ -96,13 +118,14 @@ class Captioner:
         enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
         with self._fp32():
             return generate(
-                self.model.transformer, enc_hidden, enc_mask,
+                self.decode_model, enc_hidden, enc_mask,
                 max_length=max_length or cfg.generate_max_length,
                 num_beams=num_beams or cfg.num_beams, do_sample=do_sample,
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 generator=generator, min_length=min_length,
                 repetition_penalty=repetition_penalty,
-                no_repeat_ngram_size=no_repeat_ngram_size)
+                no_repeat_ngram_size=no_repeat_ngram_size,
+                speculative_draft=self.speculative_draft)
 
     def caption_finish(self, ids: torch.Tensor) -> list[str]:
         """Read the ids back to the host and detokenize."""
@@ -129,7 +152,7 @@ class Captioner:
         enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
         with torch.inference_mode(), self._fp32():
             for tokens, n_valid, done in stream_decode(
-                    self.model.transformer, enc_hidden, enc_mask,
+                    self.decode_model, enc_hidden, enc_mask,
                     max_length=max_length or cfg.generate_max_length,
                     chunk_size=chunk_size, do_sample=do_sample,
                     temperature=temperature, top_k=top_k, top_p=top_p,
@@ -171,3 +194,16 @@ class Captioner:
         mask = torch.as_tensor(np.asarray(src_mask)).to(dev)
         with self._fp32():
             return self.model.encode_for_generation(images, ids, mask)
+
+
+def _speculative_from_env() -> int:
+    """``KLAB_DECODE_SPECULATIVE`` as a draft length (unset: 0)."""
+    raw = os.environ.get("KLAB_DECODE_SPECULATIVE", "0")
+    try:
+        value = int(raw)
+    except ValueError:
+        value = -1
+    if value < 0:
+        raise ValueError(f"KLAB_DECODE_SPECULATIVE must be a non-negative "
+                         f"integer (a draft length, 0 off), got {raw!r}")
+    return value

@@ -21,7 +21,9 @@ request, and its output is repeated K times before the decoder.
 
 Sampling draws from an explicit ``torch.Generator`` on the model's device
 (HF's softmax + multinomial), so a run is reproducible per generator state;
-the draws are torch's, not the JAX package's threefry stream.
+the draws are torch's, not the JAX package's threefry stream. The engine
+(``infer/engine.py``) gives each row its own generator: row ``i`` draws
+from its ``(1, V)`` row with generator ``i``, as a batch-1 loop would.
 """
 
 from __future__ import annotations
@@ -35,6 +37,18 @@ import torch
 from ..models.t5 import Cache, T5ForConditionalGeneration
 
 NEG9 = -1.0e9  # HF's additive masking of beams, bit for bit
+
+
+def _broadcast_cache_index(cache: Cache, n_rows: int) -> Cache:
+    """Int ``cache_index`` entries -> (n_rows,) int64 tensors, in place:
+    ``decode_step`` then runs every row at its own position (the engine's
+    slots, speculative decoding's per-row acceptance)."""
+    for layer in cache:
+        kv = layer["self"]
+        kv["cache_index"] = torch.full((n_rows,), kv["cache_index"],
+                                       dtype=torch.int64,
+                                       device=kv["cached_key"].device)
+    return cache
 
 
 def _init_cache(model: T5ForConditionalGeneration,
@@ -65,7 +79,9 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 @dataclasses.dataclass(frozen=True)
 class _Choice:
     """How the sequential loops choose a token: HF's processor chain, then
-    argmax, or the warpers and a draw from ``generator``."""
+    argmax, or the warpers and a draw from ``generator``. ``generators``
+    (one per row, None for a row that draws nothing) replaces
+    ``generator`` with per-row draws."""
 
     do_sample: bool = False
     temperature: float = 1.0
@@ -75,6 +91,19 @@ class _Choice:
     repetition_penalty: float = 1.0
     no_repeat_ngram_size: int = 0
     generator: Optional[torch.Generator] = None
+    generators: Optional[tuple] = None
+
+
+def _draw(probs: torch.Tensor, choice: _Choice) -> torch.Tensor:
+    """(B,) draws from (B, V) probabilities: one multinomial over the batch
+    from ``generator``, or row by row from ``generators`` (a row without a
+    generator takes its argmax; the caller discards it)."""
+    if choice.generators is None:
+        return torch.multinomial(probs, 1, generator=choice.generator)[:, 0]
+    rows = [torch.multinomial(probs[i:i + 1], 1, generator=g)[:, 0]
+            if g is not None else probs[i:i + 1].argmax(-1)
+            for i, g in enumerate(choice.generators)]
+    return torch.cat(rows)
 
 
 def _select_next(logits, tokens, step, size, finished,
@@ -90,8 +119,7 @@ def _select_next(logits, tokens, step, size, finished,
     if choice.do_sample:
         logits = warp_logits(logits, choice.temperature, choice.top_k,
                              choice.top_p)
-        nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                generator=choice.generator)[:, 0]
+        nxt = _draw(torch.softmax(logits, dim=-1), choice)
     else:
         nxt = torch.argmax(logits, dim=-1)
     return torch.where(finished, size.pad_token_id, nxt).to(torch.int32)
@@ -505,12 +533,14 @@ def generate(model: T5ForConditionalGeneration,
     sampling for ``do_sample=True`` (sampled beam search raises
     ``ValueError``, as in HF). ``generator``: the sampling draws' source,
     on the model's device (default: one seeded with 0).
-    ``speculative_draft > 0`` raises ``NotImplementedError``: speculative
-    decoding is ROADMAP A10."""
-    if speculative_draft > 0:
-        raise NotImplementedError(
-            f"speculative_draft={speculative_draft}: speculative decoding "
-            "is not ported (ROADMAP A10)")
+
+    ``speculative_draft > 0`` takes plain greedy (no processors) through
+    prompt-lookup speculative decoding with that draft length
+    (``infer/speculative.py``: greedy's tokens, fewer decoder passes when
+    drafts are accepted); other configurations ignore it."""
+    if speculative_draft < 0:
+        raise ValueError(f"speculative_draft must be >= 0, got "
+                         f"{speculative_draft}")
     if do_sample:
         if num_beams > 1:
             raise ValueError("beam-search sampling is not supported; use "
@@ -521,6 +551,13 @@ def generate(model: T5ForConditionalGeneration,
             temperature, top_k, top_p, min_length, repetition_penalty,
             no_repeat_ngram_size)
     if num_beams <= 1:
+        if (speculative_draft > 0 and min_length == 0
+                and repetition_penalty == 1.0 and no_repeat_ngram_size == 0):
+            from .speculative import speculative_greedy_decode
+
+            return speculative_greedy_decode(model, encoder_hidden,
+                                             encoder_mask, max_length,
+                                             draft_len=speculative_draft)
         return greedy_decode(model, encoder_hidden, encoder_mask, max_length,
                              min_length, repetition_penalty,
                              no_repeat_ngram_size)

@@ -121,16 +121,29 @@ class T5RelativePositionBias(nn.Module):
 
 class KlabDense(Dense):
     """Bias-free dense layer (torch layout: weight (out, in)) in the compute
-    dtype, with the T5 fan-in normal init of its JAX counterpart."""
+    dtype, with the T5 fan-in normal init of its JAX counterpart.
+
+    With a ``qscale`` buffer (``infer/quantize.py``) the weight is the int8
+    grid ``Q`` and the per-output-channel scale multiplies the output, in
+    fp32, cast back: exact for a bias-free product, ``x (Q s)^T == (x Q^T)
+    s``. The int8 weight is dequantized to the compute dtype per call (the
+    JAX package's int8 product is an XLA dot with a convert, no kernel)."""
 
     def __init__(self, in_features: int, out_features: int, init_std: float,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=False,
                          compute_dtype=compute_dtype)
         self.init_std = init_std
+        self.register_buffer("qscale", None)
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.weight, self.init_std, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        if self.qscale is None:
+            return y
+        return (y.float() * self.qscale.float()).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +156,10 @@ class T5Attention(nn.Module):
 
     Modes: full-sequence self-attention, cross-attention (``kv`` given),
     and incremental decode (``cache`` given) against a fixed-shape KV cache
-    with a scalar write index. ``kernel_pack`` = (head bias (H,Q,K) fp32,
-    key mask (B,K) int32), either may be None, routes full-sequence
-    attention through the hand-written kernel.
+    with a write index: an int (every row at one position) or a (B,) int64
+    tensor (every row at its own position). ``kernel_pack`` = (head bias
+    (H,Q,K) fp32, key mask (B,K) int32), either may be None, routes
+    full-sequence attention through the hand-written kernel.
     """
 
     def __init__(self, size: T5Size, has_relative_attention_bias: bool = False,
@@ -228,22 +242,37 @@ class T5Attention(nn.Module):
         B, H, T, D = k.shape
         if "cached_key" not in cache:
             max_len = bias.shape[-1] if bias is not None else T
-            cache["cached_key"] = k.new_zeros(B, H, max_len, D)
-            cache["cached_value"] = v.new_zeros(B, H, max_len, D)
+            # One spare column past the buffer, which no query reads: a
+            # per-row write past the end lands there.
+            cache["cached_key"] = k.new_zeros(B, H, max_len + 1, D)
+            cache["cached_value"] = v.new_zeros(B, H, max_len + 1, D)
             cache["cache_index"] = 0
         i = cache["cache_index"]
         ck, cv = cache["cached_key"], cache["cached_value"]
-        ck[:, :, i:i + T] = k
-        cv[:, :, i:i + T] = v
+        max_len = ck.shape[2] - 1
+        t_pos = torch.arange(T, device=x.device)
+        if isinstance(i, torch.Tensor):
+            # Per-row index (the engine's slots, speculative acceptance):
+            # chunk token t of row b goes to position i[b] + t, in place. A
+            # position past the buffer (an idle engine slot) goes to the
+            # spare column, so the buffer is written exactly and only at
+            # the chunk's positions.
+            dst = (i[:, None] + t_pos).clamp(max=max_len)
+            dst = dst[:, None, :, None].expand(B, H, T, D)
+            ck.scatter_(2, dst, k)
+            cv.scatter_(2, dst, v)
+            q_pos = (i[:, None] + t_pos)[:, None, :, None]       # (B,1,T,1)
+        else:
+            ck[:, :, i:i + T] = k
+            cv[:, :, i:i + T] = v
+            q_pos = (i + t_pos)[None, None, :, None]
         cache["cache_index"] = i + T
         # Mask cache slots not yet written, causal per query row: the j-th
         # query of a chunk sees positions up to i + j.
-        max_len = ck.shape[2]
-        q_pos = (i + torch.arange(T, device=x.device))[None, None, :, None]
         pos = torch.arange(max_len, device=x.device)[None, None, None, :]
         step_bias = torch.where(pos <= q_pos, 0.0, NEG_INF)
         bias = step_bias if bias is None else bias + step_bias
-        return ck, cv, bias
+        return ck[:, :, :max_len], cv[:, :, :max_len], bias
 
 
 def _t5_act(feed_forward_proj: str):
@@ -366,9 +395,12 @@ def _mask_to_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _assemble_dense_biases(head_bias, kmask, enc_out, cross_kmask):
     """Reference-path logit biases from the decomposed attention inputs:
-    the shared (H, Q, K) head bias broadcast over batch plus the key-mask
+    the shared (H, Q, K) head bias broadcast over batch (a (B, H, Q, K) one
+    is already per row: decode at per-row positions) plus the key-mask
     bias, and the cross-attention key-mask bias."""
-    self_bias = None if head_bias is None else head_bias[None]
+    self_bias = None
+    if head_bias is not None:
+        self_bias = head_bias if head_bias.dim() == 4 else head_bias[None]
     mask_bias = _mask_to_bias(kmask)
     if mask_bias is not None:
         self_bias = mask_bias if self_bias is None else self_bias + mask_bias
@@ -597,6 +629,9 @@ class T5ForConditionalGeneration(nn.Module):
             if not s.tie_word_embeddings:
                 self.lm_head = KlabDense(s.d_model, s.vocab_size,
                                          s.d_model ** -0.5, dtype)
+            # The int8 tied head (infer/quantize.py); None otherwise.
+            self.register_buffer("head_q", None)
+            self.register_buffer("head_scale", None)
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.shared.weight, 1.0, generator)
@@ -621,11 +656,17 @@ class T5ForConditionalGeneration(nn.Module):
 
     def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Logits in the compute dtype (flax ``Embed.attend`` for the tied
-        head)."""
+        head). With ``head_q`` / ``head_scale`` buffers (the int8 tied head
+        of ``infer/quantize.py``) the head reads the int8 copy and the
+        per-vocab-row scale multiplies the logits in fp32."""
         s = self.size
         if s.tie_word_embeddings:
-            return F.linear((hidden * (s.d_model ** -0.5)).to(self.dtype),
-                            self.shared.weight.to(self.dtype))
+            hidden = (hidden * (s.d_model ** -0.5)).to(self.dtype)
+            if self.head_q is not None:
+                logits = F.linear(hidden, self.head_q.to(self.dtype))
+                return (logits.float() * self.head_scale.float()).to(
+                    logits.dtype)
+            return F.linear(hidden, self.shared.weight.to(self.dtype))
         return self.lm_head(hidden)
 
     def decode_train(self, decoder_input_ids: torch.Tensor,
@@ -650,23 +691,34 @@ class T5ForConditionalGeneration(nn.Module):
                               generator=generator)
         return self._lm_logits(hidden)
 
-    def decode_step(self, decoder_input_token: torch.Tensor, step: int,
+    def decode_step(self, decoder_input_token: torch.Tensor, step,
                     encoder_hidden: torch.Tensor, max_decode_len: int,
                     encoder_attention_mask: Optional[torch.Tensor] = None,
                     cache: Optional[Cache] = None
                     ) -> tuple[torch.Tensor, Cache]:
         """One incremental decode step: ``decoder_input_token`` (B, T)
-        starts at cache position ``step`` (a Python int; all rows at the
-        same position). ``cache=None`` starts a new cache. Returns
-        ((B, T, vocab) logits, the cache, updated in place)."""
+        starts at position ``step``: a Python int (all rows at the same
+        position, the generate loops) or a (B,) int64 tensor (every row at
+        its own position: the engine and speculative decoding, whose caches
+        carry per-row ``cache_index`` tensors). ``cache=None`` starts a new
+        cache. Returns ((B, T, vocab) logits, the cache, updated in place).
+
+        The bias rows start at ``step`` clamped to ``[0, L - T]``, as
+        ``lax.dynamic_slice_in_dim`` clamps its start in the JAX package."""
         if cache is None:
             cache = new_cache(len(self.decoder.block))
         dec_embeds = self._embed(decoder_input_token)
         T = decoder_input_token.shape[1]
+        L = max_decode_len
         # Bias rows for the chunk's positions against the full cache length.
-        full_bias = self.decoder.relative_attention_bias(max_decode_len,
-                                                         max_decode_len)
-        head_bias = full_bias[:, step:step + T]
+        full_bias = self.decoder.relative_attention_bias(L, L)
+        if isinstance(step, torch.Tensor):
+            start = step.clamp(0, L - T)
+            rows = start[:, None] + torch.arange(T, device=step.device)
+            head_bias = full_bias[:, rows].permute(1, 0, 2, 3)  # (B,H,T,L)
+        else:
+            start = min(max(step, 0), L - T)
+            head_bias = full_bias[:, start:start + T]
         hidden = self.decoder(dec_embeds, head_bias=head_bias,
                               enc_out=encoder_hidden,
                               cross_kmask=encoder_attention_mask, cache=cache)

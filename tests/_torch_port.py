@@ -80,3 +80,137 @@ def jax_train_state(trainer, params):
     trainer.state_shardings = make_shardings(trainer.state_specs,
                                              trainer.mesh)
     return state
+
+
+def jax_t5_lm(name="v11", seed=3, src=6, eos_scale=1.0):
+    """(JAX T5ForConditionalGeneration, its seeded params as numpy, the
+    port's model on the CPU with the same weights) of a tiny T5 LM. With
+    the untied head ('v11'), ``eos_scale`` scales the eos column so that
+    rows finish at varied steps."""
+    import torch
+
+    import klab_multimodalmodel_tpu.models.t5 as jt5
+    from klab_multimodalmodel_tpu_torch.checkpoint.from_jax import (
+        convert_t5_lm)
+    from klab_multimodalmodel_tpu_torch.models import t5 as tt5
+
+    kw = T5_NAMES[name][1]
+    jmodel = jt5.T5ForConditionalGeneration(jcfg.T5Size(**kw))
+    ids = np.zeros((1, src), np.int32)
+    params = jax.tree.map(np.array, jax.jit(jmodel.init)(
+        jax.random.PRNGKey(seed), ids, decoder_input_ids=ids)["params"])
+    if eos_scale != 1.0:
+        params["lm_head"]["kernel"][:, 1] *= eos_scale
+    size = tcfg.T5Size(**kw)
+    model = tt5.T5ForConditionalGeneration(size, device="cpu")
+    model.load_state_dict({k: torch.tensor(v) for k, v in convert_t5_lm(
+        params, size).items()}, strict=True)
+    return jmodel, params, model.eval()
+
+
+def first_difference_margin(model, enc, mask, got, want):
+    """Where token rows ``got`` and ``want`` (1-D, from the same encoder
+    row) first differ: (position, top-1 minus top-2 logit of the port's
+    teacher-forced pass that chose it, relative to the top-1's size). None
+    when they are equal. A greedy choice between two tokens whose logits
+    are this close is a knife edge: fp32 rounding of another batch shape
+    may flip it."""
+    import torch
+
+    got, want = np.asarray(got), np.asarray(want)
+    diff = np.flatnonzero(got != want)
+    if diff.size == 0:
+        return None
+    s = int(diff[0])
+    L = len(want)
+    tokens = torch.as_tensor(want[None, :s]).to(torch.int32)
+    with torch.inference_mode():
+        logits = None
+        cache = None
+        for t in range(s):
+            logits, cache = model.decode_step(tokens[:, t:t + 1], t, enc,
+                                              L, mask, cache=cache)
+        top2 = logits[0, -1].float().topk(2).values
+    margin = float(top2[0] - top2[1]) / max(abs(float(top2[0])), 1e-30)
+    print(f"rows differ first at {s}: relative top-2 margin {margin:.3e}")
+    return s, margin
+
+
+def port_cascade_state(t5="v10", seed=0, **overrides):
+    """(port Config, seeded port MultiModalModel state dict on the CPU):
+    for tests of the port alone."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+
+    _, cfg = configs(t5, **overrides)
+    model = MultiModalModel(cfg, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return cfg, model.state_dict()
+
+
+def png_bytes(rng, size=32) -> bytes:
+    """A seeded RGB image encoded as PNG (Pillow)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                    ).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+HTTP_WAIT = 30  # seconds: the bound on a test's HTTP call
+
+
+def http_get(base: str, path: str):
+    """(status, JSON body) of a GET."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=HTTP_WAIT) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_post(base: str, path: str, payload: dict, raw: bool = False):
+    """(status, JSON body, or the raw bytes with ``raw``) of a JSON POST."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_WAIT) as r:
+            body = r.read()
+            return r.status, (body if raw else json.loads(body))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse_events(body: bytes) -> list:
+    """The JSON payloads of a server-sent-events body."""
+    import json
+
+    return [json.loads(chunk[len(b"data: "):])
+            for chunk in body.split(b"\n\n") if chunk.startswith(b"data: ")]
+
+
+def run_threads(targets, timeout: float = HTTP_WAIT) -> None:
+    """Start a thread per callable, join each with a timeout, and fail if
+    one is still running."""
+    import threading
+
+    threads = [threading.Thread(target=t) for t in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        assert not t.is_alive(), "a thread hung"

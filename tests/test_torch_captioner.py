@@ -113,7 +113,8 @@ def test_caption_tokens_match_jax_exactly(cascade, rng):
 
 def test_generate_refuses_beams_and_sampling(cascade):
     """Beams and sampling each run; what is still refused is the two
-    together (HF's ValueError) and speculative decoding (ROADMAP A10)."""
+    together (HF's ValueError) and a negative draft length. Speculative
+    decoding (ROADMAP A10) runs, with greedy's tokens."""
     _, tcfg, params = cascade
     cap = Captioner(tcfg, convert_jax_params(params, tcfg), ByteTokenizer(),
                     device="cpu")
@@ -122,9 +123,13 @@ def test_generate_refuses_beams_and_sampling(cascade):
     assert len(cap.caption(images, do_sample=True)) == 1
     with pytest.raises(ValueError, match="beam-search sampling"):
         cap.caption(images, num_beams=2, do_sample=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        generate(cap.model.transformer, torch.zeros(1, 4, 32), None,
-                 speculative_draft=4)
+    enc = torch.randn(1, 4, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        torch.testing.assert_close(
+            generate(cap.model.transformer, enc, None, speculative_draft=4),
+            generate(cap.model.transformer, enc, None), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="speculative_draft"):
+        generate(cap.model.transformer, enc, None, speculative_draft=-1)
 
 
 def test_seeded_init_is_reproducible(cascade):

@@ -7,6 +7,11 @@
 - ``train``, ``eval`` and ``caption`` end to end with ``--device cpu`` on a
   tiny run over a COCO-layout directory of JPEGs (``python -m`` for
   ``caption``); the ``klab-torch-*`` console scripts resolve to them.
+- ``serve``: its parser against the JAX ``klab-serve``'s on the same argv,
+  its refusals (``--continuous`` with ``--replicas`` or with
+  ``--speculative_draft``, more replicas than devices, a negative draft),
+  and ``python -m ... serve`` end to end in a subprocess: one
+  ``/caption``, then SIGTERM drains.
 - The loop's caption evaluation (``eval_captions_every``): its ``cider_d``
   and ``bleu4`` in ``metrics.jsonl`` equal ``evaluate_captions`` (and the
   ``eval`` command) on the same weights; it draws nothing from the step
@@ -14,6 +19,7 @@
   halted and resumed run with it on equals the uninterrupted one, bitwise.
 """
 
+import base64
 import dataclasses
 import glob
 import json
@@ -161,7 +167,8 @@ def test_entry_points_resolve():
     want = {"klab-torch-train": cli.main, "klab-torch-eval": cli.eval_main,
             "klab-torch-caption": cli.caption_main,
             "klab-torch-convert-hf": cli.convert_hf_main,
-            "klab-torch-export-hf": cli.export_hf_main}
+            "klab-torch-export-hf": cli.export_hf_main,
+            "klab-torch-serve": cli.serve_main}
     for name, fn in want.items():
         module, attr = scripts[name].split(":")
         assert module == "klab_multimodalmodel_tpu_torch.cli"
@@ -171,8 +178,7 @@ def test_entry_points_resolve():
     assert module_main.COMMANDS["export-hf"] is cli.export_hf_main
     assert module_main.main([]) == 2
     assert module_main.main(["nope"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        module_main.main(["serve", "--result_dir", "x"])
+    assert module_main.COMMANDS["serve"] is cli.serve_main
 
 
 # ---------------------------------------------------------------------------
@@ -351,3 +357,137 @@ def test_caption_command_and_python_m(run_a, capsys, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines() == lines
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+class _Parsed(Exception):
+    def __init__(self, parser, argv):
+        self.parser, self.argv = parser, argv
+
+
+def _jax_serve_parser(monkeypatch):
+    """The JAX ``serve_main``'s parser (it builds its parser inside the
+    function and parses ``sys.argv``): caught at ``parse_args``."""
+    import argparse
+
+    from klab_multimodalmodel_tpu import cli as jcli
+
+    def catch(self, args=None, namespace=None):
+        raise _Parsed(self, args)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    with pytest.raises(_Parsed) as caught:
+        jcli.serve_main()
+    monkeypatch.undo()
+    return caught.value.parser
+
+
+SERVE_ARGV = ["--result_dir", "r", "--checkpoint", "epoch_2", "--host",
+              "127.0.0.1", "--port", "0", "--max_batch", "4",
+              "--batch_window_ms", "2.5", "--no_warmup", "--int8",
+              "--speculative_draft", "3", "--max_gen_length", "64",
+              "--stream_chunk", "2", "--replicas", "1", "--continuous",
+              "--slots", "8", "--engine_chunk", "2"]
+
+
+def test_serve_parser_matches_jax(monkeypatch):
+    """Every JAX ``klab-serve`` flag with its default, type, nargs, const
+    and choices, plus ``--device``; the same argv parses to the same
+    values."""
+    want = _actions(_jax_serve_parser(monkeypatch))
+    got = _actions(cli.serve_parser())
+    assert got.keys() - want.keys() == {"device"}
+    for dest, w in want.items():
+        g = got[dest]
+        assert (g.option_strings, g.default, g.type, g.nargs, g.const,
+                g.choices, g.required) == (
+            w.option_strings, w.default, w.type, w.nargs, w.const,
+            w.choices, w.required), dest
+    jargs = _jax_serve_parser(monkeypatch).parse_args(SERVE_ARGV)
+    targs = cli.serve_parser().parse_args(SERVE_ARGV)
+    assert vars(targs) == dict(vars(jargs), device=None)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--continuous", "--replicas", "2"], "--continuous with --replicas"),
+    (["--continuous", "--speculative_draft", "2"],
+     "--continuous with --speculative_draft .* one token per slot"),
+    (["--replicas", "2"], "--replicas 2 > 1 visible devices"),
+])
+def test_serve_refusals(flags, message):
+    with pytest.raises(SystemExit, match=message):
+        cli.serve_main(["--result_dir", "absent", "--device", "cpu",
+                        *flags])
+
+
+def test_serve_refuses_a_negative_draft(capsys):
+    with pytest.raises(SystemExit) as err:
+        cli.serve_main(["--result_dir", "absent", "--device", "cpu",
+                        "--speculative_draft", "-1"])
+    assert err.value.code == 2
+    assert "--speculative_draft must be >= 0" in capsys.readouterr().err
+
+
+def test_serve_main_end_to_end_in_a_subprocess(run_a, tmp_path):
+    """``python -m ... serve`` on the tiny run: it binds, warms, answers one
+    ``/caption`` with the Captioner's caption of the same bytes, and drains
+    on SIGTERM (exit code 0)."""
+    import queue
+    import signal
+    import threading
+
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_bytes_resized)
+
+    _, _, result = run_a
+    png = tp.png_bytes(np.random.default_rng(9))
+    with open(os.path.join(result, "config.json")) as f:
+        config = tcfg.Config.from_json(f.read())
+    cap = Captioner(config, _state(result, "best"), ByteTokenizer(),
+                    device="cpu")
+    want = cap.caption(load_image_bytes_resized(png, 32)[None])[0]
+
+    argv = ["serve", "--result_dir", result, "--host", "127.0.0.1",
+            "--port", "0", "--max_batch", "2", "--device", "cpu"]
+    code = (
+        "import runpy, sys\n"
+        "import klab_multimodalmodel_tpu_torch.config as c\n"
+        f"c.register_t5_size({DROP_T5!r}, "
+        f"c.T5Size(**{dict(tp.TINY_T5, dropout_rate=0.1)!r}))\n"
+        f"c.register_swin_size({tp.SWIN_NAME!r}, "
+        f"c.SwinV2Size(**{tp.TINY_SWIN!r}))\n"
+        f"sys.argv = ['klab_multimodalmodel_tpu_torch', *{argv!r}]\n"
+        "runpy.run_module('klab_multimodalmodel_tpu_torch', "
+        "run_name='__main__')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+
+    def line_with(text):
+        while True:
+            ln = lines.get(timeout=120)
+            if text in ln:
+                return ln
+
+    try:
+        port = int(line_with("listening on").split(":")[-1].split()[0])
+        line_with("ready")
+        base = f"http://127.0.0.1:{port}"
+        assert tp.http_get(base, "/healthz") == (200, {"status": "ok"})
+        status, body = tp.http_post(
+            base, "/caption", {"image_b64": base64.b64encode(png).decode()})
+        assert (status, body) == (200, {"caption": want})
+        proc.send_signal(signal.SIGTERM)
+        assert "draining" in line_with("SIGTERM")
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

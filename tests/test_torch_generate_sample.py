@@ -139,5 +139,13 @@ def test_generate_routes_and_refuses(lm):
             _sample(model, enc, 0, max_length=10), rtol=0, atol=0)
     with pytest.raises(ValueError, match="beam-search sampling"):
         tgen.generate(model, enc, None, 10, num_beams=2, do_sample=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tgen.generate(model, enc, None, 10, speculative_draft=4)
+    # Speculative decoding (ROADMAP A10) takes plain greedy only.
+    from klab_multimodalmodel_tpu_torch.infer.speculative import (
+        speculative_greedy_decode)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            tgen.generate(model, enc, None, 10, speculative_draft=4),
+            speculative_greedy_decode(model, enc, None, 10, draft_len=4),
+            rtol=0, atol=0)
+    with pytest.raises(ValueError, match="speculative_draft"):
+        tgen.generate(model, enc, None, 10, speculative_draft=-4)
