@@ -185,10 +185,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       beside fp32's in turn, and the int8 tree's bytes.
    Then ``serve --replicas 2`` on one card must exit with the JAX
    package's message.
-10. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+10. Data-parallel training (DDP), phase 6's set-up (the Config defaults,
+   both kernel flags, ``cache_frozen_features``, 64 synthetic rows, 2
+   epochs, global batch 32), the per-rank memory reckoned and printed
+   first:
+   c. one rank over NCCL (world 1, this process's own process group):
+      the DDP reducer on NCCL on the card, at batch 32 and dropout 0. It
+      runs both epochs, since it is also 10a's one-process reference.
+   a. two ranks sharing the one card (``cuda:0`` given explicitly, gloo on
+      CUDA tensors: NCCL refuses two ranks on one device), launched by
+      ``torch.distributed.run``, which runs this script again with
+      ``--ddp-rank SPEC`` (the ranks' output in
+      ``chiprun_out/phase10_ranks.log``); batch 16 per rank, dropout 0.
+      Checks: the ranks' losses equal each other; per-step train losses
+      and ``min_val_loss`` against 10c within ``TOL_DDP``; every trainable
+      tensor's update against 10c's (cosine, and the largest difference
+      under Adam's bound, see ``TOL_DDP``); the frozen towers bitwise
+      unchanged on each rank; each rank's launches per step and
+      validation batch (phase 6's, no dropout launch); the checkpoint
+      written by rank 0 alone and loading with ``strict=True``. Prints
+      per rank the step spans and peak memory, the global images/s, and
+      one profiled rank-0 full step with the all-reduce's device and host
+      time and the busy share.
+   b. the same two-rank command with dropout 0.1: uninterrupted, halted
+      after update 3, and run again to resume; the resumed losses and
+      parameters equal the uninterrupted run's bitwise (or within phase
+      6's determinism reading), and the two ranks' first dropout masks
+      differ.
+   A rank that fails, or a launcher that exits non-zero, fails the run.
+11. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
-   beam request, in one phase-8b request and one phase-8c step, and in one
-   batch of phase 9a), then ``{"ok": true, ...}`` as the last line.
+   beam request, in one phase-8b request and one phase-8c step, in one
+   batch of phase 9a, and in one full step of a phase-10a rank), then
+   ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -978,7 +1007,8 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
     (an autograd node such as ``SwinAttentionFnBackward``, or
     ``Optimizer.step``) whose kernels' device time is read apart, under
     ``span_ms``: of the ranges whose name holds the span's, the largest
-    total (a nested range of the same name holds no more)."""
+    total (a nested range of the same name holds no more); their host time
+    under ``span_host_ms``, summed over the ranges of the largest name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1002,17 +1032,23 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
               "events)")
         return dict(busy_ms=None)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    span_ms = {}
+    span_ms, span_host_ms = {}, {}
     for span in spans:
-        ranges = [e.device_time_total for e in prof.key_averages()
+        ranges = [e for e in prof.key_averages()
                   if e.device_type != torch.autograd.DeviceType.CUDA
                   and span in e.key]
-        span_ms[span] = max(ranges) / 1e3 if ranges else None
+        widest = max(ranges, key=lambda e: e.device_time_total,
+                     default=None)
+        span_ms[span] = (widest.device_time_total / 1e3 if widest
+                         else None)
+        span_host_ms[span] = (dict(calls=widest.count, name=widest.key,
+                                   ms=widest.cpu_time_total / 1e3)
+                              if widest else None)
     out = dict(busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
                kernel_launches=sum(e.count for e in kernels),
                top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
                          count=e.count) for e in top], span_ms=span_ms,
-               annotation_span_ms=annotations)
+               span_host_ms=span_host_ms, annotation_span_ms=annotations)
     print(f"device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms {what} "
           f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{out['kernel_launches']} kernel launches [{card}]")
@@ -1022,9 +1058,12 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
         print(f"  (not in busy: the device-side annotation {key} spans "
               f"{ms:.3f} ms)")
     for span, ms in span_ms.items():
+        host = span_host_ms[span]
         print(f"  device ms under {span}: "
               + ("not measured (no such range)" if ms is None
-                 else f"{ms:.3f} ({100 * ms / busy_ms:.1f}% of busy)"))
+                 else f"{ms:.3f} ({100 * ms / busy_ms:.1f}% of busy); host "
+                      f"{host['ms']:.3f} ms over {host['calls']} calls of "
+                      f"{host['name']}"))
     return out
 
 
@@ -1764,7 +1803,10 @@ class LoopRecorder:
     busy share taken against ``wall_ms`` (None: the mean span of the kind's
     calls before it). ``host_ms`` / ``host_calls``: host time and calls of
     each ``HOST`` entry; ``data wait`` is the time the loop waited for the
-    loader's next batch."""
+    loader's next batch. ``expected``: the launches of one call of each
+    kind (``LOOP_LAUNCHES``); ``label`` and ``spans`` name the profile and
+    the host ranges read apart in it. Each train step's loss is kept (read
+    after the run)."""
 
     METHODS = ("train_step", "train_step_with_features", "eval_step",
                "eval_step_with_features")
@@ -1787,9 +1829,13 @@ class LoopRecorder:
                                "restore"),
     }
 
-    def __init__(self, card: str, profile: dict | None = None):
+    def __init__(self, card: str, profile: dict | None = None,
+                 expected: dict | None = None, label: str = "phase-6",
+                 spans: tuple[str, ...] = ()):
         self.card = card
         self.profile = profile or {}
+        self.expected = expected or LOOP_LAUNCHES
+        self.label, self.spans = label, spans
         self.calls: list[dict] = []
         self.profiles: dict = {}
         self.host_ms = {k: 0.0 for k in [*self.HOST, "data wait"]}
@@ -1874,7 +1920,7 @@ class LoopRecorder:
                     wall = sum(spans) / len(spans)
                 rec.profiles[kind] = profile_device(
                     lambda: box.setdefault("out", orig(trainer, batch, *args)),
-                    wall, rec.card, f"phase-6 {kind}")
+                    wall, rec.card, f"{rec.label} {kind}", rec.spans)
             else:
                 t0 = time.perf_counter()
                 start.record()
@@ -1882,8 +1928,11 @@ class LoopRecorder:
                 end.record()
                 host = (time.perf_counter() - t0) * 1e3
             after = launch_counts()
+            out = box["out"]
+            loss = out[0] if isinstance(out, tuple) else out
             rec.calls.append(dict(
                 kind=kind, profiled=profiled, events=(start, end),
+                loss=loss.detach() if kind.endswith("step") else None,
                 host_ms=None if profiled else host,
                 launches={k: after[k] - before[k] for k in after},
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9))
@@ -1898,9 +1947,9 @@ class LoopRecorder:
         torch.cuda.synchronize()
         out = {}
         for c in self.calls:
-            check(c["launches"] == LOOP_LAUNCHES[c["kind"]],
+            check(c["launches"] == self.expected[c["kind"]],
                   f"train() {c['kind']}: launches {c['launches']}, expected "
-                  f"{LOOP_LAUNCHES[c['kind']]}")
+                  f"{self.expected[c['kind']]}")
             k = out.setdefault(c["kind"], dict(calls=0, span_ms=[],
                                                host_ms=[], peak_gb=0.0))
             k["calls"] += 1
@@ -1914,6 +1963,11 @@ class LoopRecorder:
             k["mean_span_ms"] = (sum(k["span_ms"]) / len(k["span_ms"])
                                  if k["span_ms"] else None)
         return out
+
+    def step_losses(self) -> list[float]:
+        """Each train step's returned loss, in order."""
+        return [float(c["loss"]) for c in self.calls
+                if c["loss"] is not None]
 
 
 def loop_determinism(cfg, card: str) -> dict:
@@ -1964,15 +2018,19 @@ def loop_determinism(cfg, card: str) -> dict:
     return dict(bitwise=bitwise, gap=gap, differing=differing)
 
 
-def loop_run(cfg, card: str, what: str, profile=None, phase: str = "6"):
-    """``train(cfg)`` under a ``LoopRecorder``, the launch counts set to 0
-    just before it and read just after: (summary, recorder, launches)."""
+def loop_run(cfg, card: str, what: str, profile=None, phase: str = "6",
+             device=None, expected: dict | None = None,
+             spans: tuple[str, ...] = ()):
+    """``train(cfg, device=device)`` under a ``LoopRecorder``, the launch
+    counts set to 0 just before it and read just after: (result, train()'s
+    summary)."""
     from klab_multimodalmodel_tpu_torch.train import train
 
     reset_counts()
     t0 = time.perf_counter()
-    with LoopRecorder(card, profile) as rec:
-        out = train(cfg)
+    with LoopRecorder(card, profile, expected, f"phase-{phase}",
+                      spans) as rec:
+        out = train(cfg, device=device)
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     steps = rec.summary()
@@ -2000,6 +2058,7 @@ def loop_run(cfg, card: str, what: str, profile=None, phase: str = "6"):
               f"{row['epoch_seconds']} s (train {row['train_loss']:.6f}, "
               f"val {row['val_loss']:.6f})")
     result = dict(seconds=seconds, steps=int(out["steps"]),
+                  step_losses=rec.step_losses(),
                   halted=out["halted"], losses=out["losses"],
                   min_val_loss=out["min_val_loss"], step_kinds=steps,
                   profiles=rec.profiles, saves=out["saves"],
@@ -3682,6 +3741,418 @@ def serving_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data-parallel training across processes (DDP)
+# ---------------------------------------------------------------------------
+
+DDP_RANKS = 2
+DDP_BATCH = TRAIN_BATCH // DDP_RANKS  # per rank; the global batch stays 32
+# Both ranks share the one card, given explicitly (LOCAL_RANK 1 has none).
+DDP_DEVICE = "cuda:0"
+T5_NO_DROPOUT = "t5-large-dropout-0"
+LOOP_LAUNCHES_NO_DROPOUT = {kind: dict(n, t5_fwd_dropout=0)
+                            for kind, n in LOOP_LAUNCHES.items()}
+# One rank's device memory, reckoned before the first run (GB): the fp32
+# weights (~1.157 B parameters), t5-large's and the projection's fp32
+# gradients (DDP's bucket views: no second copy), Adam's two fp32 moments,
+# activations at 16 rows (phase 6's 35.14 GB peak at 32 rows less its
+# state, halved), and the frozen towers' copy that the bitwise check holds.
+DDP_MEMORY_GB = dict(weights=4.63, gradients=2.95, adam=5.91,
+                     activations=10.8, frozen_copy=1.68)
+# Two ranks against one process, bf16 compute: the ranks' GEMMs run at
+# batch 16 (other cuBLAS tilings than batch 32's, so other bf16 roundings
+# of the activations) and their gradients meet in gloo's fp32 sum. Losses
+# within phase 4's 1e-2 (TOL_TRAIN_LOSS_REL). Parameters after the run: each
+# trainable tensor's update (final minus initial) at cosine >= 0.99 against
+# the one process's, and no element further from the one process's than
+# 2 lr per update: Adam moves an element by about lr per update whatever
+# its gradient's size, so a gradient near 0 whose sign the rounding flips
+# parts the two runs by up to 2 lr an update (4 updates at lr 1e-3: 8e-3,
+# which is up to a third of the largest value of t5-large's q kernels,
+# initialized at std (1024 * 64) ** -0.5; the largest difference over the
+# largest value is printed beside it).
+TOL_DDP = dict(loss=TOL_TRAIN_LOSS_REL, update_cosine=0.99,
+               param_abs_per_update=2.0)  # x lr
+
+
+def register_no_dropout() -> None:
+    """t5-large with dropout 0, for the runs that phase 10 compares across
+    world sizes (each rank draws its own masks)."""
+    from klab_multimodalmodel_tpu_torch import config as tcfg
+
+    tcfg.register_t5_size(T5_NO_DROPOUT, dataclasses.replace(
+        tcfg.T5_SIZES["t5-large"], dropout_rate=0.0))
+
+
+def ddp_config(root: str, tag: str, dropout: bool = True, **kw):
+    """Phase 6's set-up (the Config defaults, both kernel flags, the
+    frozen-feature cache) at ``batch_size`` per rank."""
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    if not dropout:
+        kw["transformer_model_name"] = T5_NO_DROPOUT
+    return Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                  seed=SEED, data_dir="synthetic", num_epochs=LOOP_EPOCHS,
+                  cache_frozen_features=True,
+                  result_dir=os.path.join(root, tag), **kw)
+
+
+class FrozenWatch:
+    """Copies the frozen parameters of the model that
+    ``Trainer.init_state`` makes (on its device), and with ``trainable`` its
+    trainable ones to the host; ``unchanged(model)`` holds the frozen ones
+    bitwise against the model's."""
+
+    def __init__(self, trainable: bool = False):
+        self.keep_trainable = trainable
+        self.frozen, self.trainable = {}, {}
+
+    def __enter__(self):
+        from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+        self._orig = Trainer.init_state
+        watch = self
+
+        def init_state(trainer, *args, **kw):
+            model = watch._orig(trainer, *args, **kw)
+            watch.frozen = {n: p.detach().clone()
+                            for n, p in model.named_parameters()
+                            if not p.requires_grad}
+            if watch.keep_trainable:
+                watch.trainable = trainable_on_host(model)
+            return model
+        Trainer.init_state = init_state
+        return self
+
+    def __exit__(self, *exc):
+        from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+        Trainer.init_state = self._orig
+
+    def unchanged(self, model) -> bool:
+        import torch
+
+        live = dict(model.named_parameters())
+        return bool(self.frozen) and all(
+            torch.equal(live[n], p) for n, p in self.frozen.items())
+
+
+def trainable_on_host(model) -> dict:
+    """A host copy, in fp32, of the model's trainable parameters."""
+    import torch
+
+    return {n: p.detach().to("cpu", torch.float32, copy=True)
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def first_mask_bits(generator, device) -> str:
+    """The first 2^20 keep bits of the (16, 320, 1024) dropout mask at rate
+    0.1 that a generator seeded as ``generator`` was gives first, packed, as
+    hex: the loop's first draw on this rank."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.models.layers import dropout
+
+    g = torch.Generator(device=device).manual_seed(generator.initial_seed())
+    ones = torch.ones(DDP_BATCH, ENC_LEN, 1024, device=device)
+    keep = dropout(ones, RATE, g) != 0
+    return np.packbits(keep.flatten()[:1 << 20].cpu().numpy()).tobytes().hex()
+
+
+def ddp_rank_main(spec_path: str) -> int:
+    """One rank of phase 10's job (started by ``torch.distributed.run``):
+    the spec's ``train()`` runs in turn on ``cuda:0``, which both ranks
+    share (gloo on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this
+    rank's readings to ``{out}.{rank}.json``."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_no_dropout()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    rank, card = dist.get_rank(), spec["card"]
+    tol_loss, tol_param = spec["determinism_gap"]
+    readings, kept = {}, {}
+    for run in spec["runs"]:
+        cfg = Config.from_json(json.dumps(run["config"]))
+        profile = ({"full step": (2, None)}
+                   if rank == 0 and run.get("profile") else None)
+        with FrozenWatch() as frozen:
+            r, out = loop_run(
+                cfg, card, f"{run['tag']} rank {rank}", profile,
+                phase=run["tag"], device=device,
+                expected=(LOOP_LAUNCHES if run.get("dropout", True)
+                          else LOOP_LAUNCHES_NO_DROPOUT),
+                spans=("all_reduce",))
+        model = out["trainer"].model
+        check(out["trainer"].ddp is not None, "train() made no DDP wrapper")
+        r["frozen_unchanged"] = frozen.unchanged(model)
+        check(r["frozen_unchanged"], f"{run['tag']}: frozen towers moved")
+        r["saves"] = [s["name"] for s in out["saves"]]
+        r["peak_gb"] = max(k["peak_gb"] for k in r["step_kinds"].values())
+        r["generator_seed"] = out["generator"].initial_seed()
+        r["images_per_s"] = [m["img_per_sec"] for m in r["metrics"]]
+        # A run's first step carries the warm-up: the steady span is the
+        # mean of the later unprofiled ones.
+        spans = r["step_kinds"].get("full step", {}).get("span_ms", [])[1:]
+        r["steady_full_step_ms"] = sum(spans) / len(spans) if spans else None
+        if run.get("mask"):
+            r["mask_bits"] = first_mask_bits(out["generator"], device)
+        if run.get("params") and rank == 0:
+            torch.save(trainable_on_host(model), run["params"])
+        if run.get("load_check") and rank == 0:
+            # The checkpoint that rank 0 alone wrote loads strictly.
+            path = os.path.join(cfg.result_dir, "checkpoints", "best",
+                                "model.pt")
+            model.load_state_dict(torch.load(path, map_location=device,
+                                             weights_only=True), strict=True)
+            r["best_loaded_strict"] = True
+        if run.get("keep"):
+            kept[run["keep"]] = (r, trainable_on_host(model))
+        if run.get("against") in kept:
+            ref, ref_params = kept.pop(run["against"])
+            gap = 0.0
+            for n, p in trainable_on_host(model).items():
+                if not torch.equal(p, ref_params[n]):
+                    gap = max(gap, max_err(p, ref_params[n]))
+            r["param_gap"] = gap
+            r["losses_equal"] = r["losses"] == ref["losses"]
+            check(gap <= tol_param and (r["losses_equal"] or all(
+                same(x, y, tol_loss) for ph in ("train", "val")
+                for x, y in zip(r["losses"][ph], ref["losses"][ph]))),
+                f"{run['tag']} rank {rank}: resumed run differs from the "
+                f"uninterrupted one: parameters {gap:.3e}, losses "
+                f"{r['losses']} vs {ref['losses']}")
+        del out, model
+        free()
+        dist.barrier()
+        if rank == 0 and run.get("clean"):
+            shutil.rmtree(cfg.result_dir, ignore_errors=True)
+        for step in r["step_kinds"].values():
+            step.pop("span_ms")  # keep the means
+        readings[run["tag"]] = {k: v for k, v in r.items()
+                                if k not in ("metrics", "host_calls")}
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def update_agreement(got: dict, want: dict, init: dict) -> dict:
+    """Per trainable tensor (host copies, compared on the card): the cosine
+    of the two runs' updates (final minus initial), the largest
+    difference, and that over the largest value."""
+    import torch
+
+    rows = {}
+    for n, w in want.items():
+        g, w, i = (t.to(DDP_DEVICE, torch.float64)
+                   for t in (got[n], w, init[n]))
+        cos = float(torch.nn.functional.cosine_similarity(
+            (g - i).flatten(), (w - i).flatten(), dim=0))
+        diff = float((g - w).abs().max())
+        rows[n] = dict(cosine=cos, abs=diff,
+                       rel=diff / max(float(w.abs().max()), 1e-30))
+    return rows
+
+
+def ddp_phase(card: str, determinism: dict) -> dict:
+    """Phase 10: 10c, one process over NCCL (world 1, the DDP reducer on
+    the card), which is also the reference of 10a; then one
+    ``torch.distributed.run`` job of two ranks on the one card (gloo on
+    CUDA tensors) that runs 10a and 10b's three runs in turn."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    register_no_dropout()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    free()
+    total = sum(DDP_MEMORY_GB.values())
+    print(f"phase 10: memory reckoned per rank at batch {DDP_BATCH}: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in DDP_MEMORY_GB.items())
+          + f" = {total:.2f} GB; {DDP_RANKS} ranks {DDP_RANKS * total:.2f}"
+          f" GB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}; "
+          f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB [{card}]")
+    try:
+        # 10c: world 1 over NCCL, 2 epochs at batch 32, dropout 0.
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        try:
+            cfg = ddp_config(root, "10c", dropout=False,
+                             batch_size=TRAIN_BATCH)
+            # The seed's initial weights, as every run of the phase's.
+            with FrozenWatch(trainable=True) as watch:
+                one, out = loop_run(cfg, card, "10c (one rank over NCCL)",
+                                    phase="10c", device=DDP_DEVICE,
+                                    expected=LOOP_LAUNCHES_NO_DROPOUT)
+            check(watch.unchanged(out["trainer"].model),
+                  "10c: frozen towers moved")
+            check(out["trainer"].ddp is not None
+                  and dist.get_backend() == "nccl",
+                  "10c: no DDP wrapper over NCCL")
+            one_params = trainable_on_host(out["trainer"].model)
+            init_params = watch.trainable
+            del out, watch
+        finally:
+            dist.destroy_process_group()
+        free()
+        shutil.rmtree(cfg.result_dir, ignore_errors=True)
+        print(f"10c: train() over NCCL, world 1: {one['steps']} updates, "
+              f"losses {one['losses']} [{card}]")
+
+        def run(tag, result_dir, dropout=True, **kw):
+            c = ddp_config(root, result_dir, dropout=dropout,
+                           batch_size=DDP_BATCH, **kw)
+            return dict(tag=tag, dropout=dropout,
+                        config=json.loads(c.to_json()))
+        params_path = os.path.join(root, "10a.params.pt")
+        spec = dict(card=card, out=os.path.join(root, "rank"),
+                    determinism_gap=[determinism["gap"]["loss"],
+                                     determinism["gap"]["params"]],
+                    runs=[
+            dict(run("10a", "10a", dropout=False), profile=True, clean=True,
+                 params=params_path, load_check=True),
+            dict(run("10b-uninterrupted", "10b-u"), mask=True, keep="U",
+                 clean=True),
+            dict(run("10b-halt", "10b-r", halt_after_steps=LOOP_HALT)),
+            dict(run("10b-resume", "10b-r", halt_after_steps=LOOP_HALT),
+                 against="U", clean=True)])
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        log_path = os.path.join(out_dir, "phase10_ranks.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(DDP_RANKS),
+                 os.path.abspath(__file__), "--ddp-rank", spec_path],
+                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                timeout=900)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                print(f.read()[-6000:])
+        check(proc.returncode == 0, f"phase 10's torchrun job exited "
+              f"{proc.returncode} (chiprun_out/phase10_ranks.log)")
+        ranks = []
+        for r in range(DDP_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        ddp_params = torch.load(params_path, weights_only=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    a = [rk["10a"] for rk in ranks]
+    # 10a: the ranks agree with each other bitwise (all-reduced values)...
+    check(a[0]["step_losses"] == a[1]["step_losses"]
+          and a[0]["losses"] == a[1]["losses"],
+          f"10a: the ranks' losses differ: {a[0]['step_losses']} vs "
+          f"{a[1]['step_losses']}")
+    # ... and with one process within TOL_DDP.
+    check(len(a[0]["step_losses"]) == len(one["step_losses"])
+          and all(abs(x - y) <= TOL_DDP["loss"] * abs(y) for x, y in zip(
+              a[0]["step_losses"], one["step_losses"])),
+          f"10a: step losses {a[0]['step_losses']} vs one process "
+          f"{one['step_losses']}")
+    check(abs(a[0]["min_val_loss"] - one["min_val_loss"])
+          <= TOL_DDP["loss"] * abs(one["min_val_loss"]),
+          f"10a: min_val_loss {a[0]['min_val_loss']} vs "
+          f"{one['min_val_loss']}")
+    agree = update_agreement(ddp_params, one_params, init_params)
+    del ddp_params, one_params, init_params
+    free()
+    worst_cos = min(agree, key=lambda n: agree[n]["cosine"])
+    worst_abs = max(agree, key=lambda n: agree[n]["abs"])
+    worst_rel = max(agree, key=lambda n: agree[n]["rel"])
+    bound = TOL_DDP["param_abs_per_update"] * cfg.lr * LOOP_UPDATES
+    print(f"10a: 2 ranks vs one process: step losses "
+          f"{a[0]['step_losses']} vs {one['step_losses']}; min_val_loss "
+          f"{a[0]['min_val_loss']} vs {one['min_val_loss']}; updates of "
+          f"{len(agree)} trainable tensors: lowest cosine "
+          f"{agree[worst_cos]['cosine']:.6f} ({worst_cos}), largest "
+          f"difference {agree[worst_abs]['abs']:.3e} ({worst_abs}; bound "
+          f"{bound:.1e}), largest over the tensor's largest value "
+          f"{agree[worst_rel]['rel']:.3e} ({worst_rel}) [{card}]")
+    check(all(v["cosine"] >= TOL_DDP["update_cosine"] and v["abs"] <= bound
+              for v in agree.values()),
+          "10a: trainable tensors outside TOL_DDP")
+    check(a[0]["saves"] and not a[1]["saves"]
+          and a[0].get("best_loaded_strict"),
+          f"10a: saves {a[0]['saves']} / {a[1]['saves']}")
+    # 10b: halts after update 3 on both ranks, resumes exactly, and the
+    # ranks drew different masks.
+    for rk in ranks:
+        h, res = rk["10b-halt"], rk["10b-resume"]
+        check(h["halted"] and h["steps"] == LOOP_HALT,
+              f"10b: halted {h['halted']} after {h['steps']}")
+        check(not res["halted"] and res["steps"] == LOOP_UPDATES,
+              f"10b: resumed run ended after {res['steps']}")
+    bits = [bytes.fromhex(rk["10b-uninterrupted"]["mask_bits"])
+            for rk in ranks]
+    differ = sum(bin(x ^ y).count("1") for x, y in zip(*bits))
+    keep = sum(bin(x).count("1") for x in bits[0]) / (8 * len(bits[0]))
+    check(differ > 0, "10b: the ranks drew the same dropout masks")
+    print(f"10b: resumed = uninterrupted, rank 0 / 1: parameters "
+          f"{ranks[0]['10b-resume']['param_gap']:.3e} / "
+          f"{ranks[1]['10b-resume']['param_gap']:.3e}, losses equal "
+          f"{ranks[0]['10b-resume']['losses_equal']} / "
+          f"{ranks[1]['10b-resume']['losses_equal']}; the ranks' first "
+          f"masks differ in {differ} of {8 * len(bits[0])} keep bits (keep "
+          f"fraction {keep:.4f}); seeds "
+          f"{[rk['10b-uninterrupted']['generator_seed'] for rk in ranks]}")
+    for r, rk in enumerate(ranks):
+        for tag, rd in rk.items():
+            kinds = ", ".join(
+                f"{k} {v['calls']}x {v['mean_span_ms'] or 0:.2f} ms "
+                f"launches {v['launches']}"
+                for k, v in rd["step_kinds"].items())
+            print(f"  {tag} rank {r}: {rd['seconds']:.2f} s, peak "
+                  f"{rd['peak_gb']:.2f} GB; {kinds}")
+    prof = ranks[0]["10a"]["profiles"].get("full step", {})
+    steady = a[0]["steady_full_step_ms"]
+    busy = prof.get("busy_ms")
+    share = busy / steady if busy and steady else None
+    print(f"phase 10 [{card}]: job {job_s:.2f} s; 10a images/s (global) "
+          f"by epoch {a[0]['images_per_s']}; steady full step per rank "
+          f"{[rk['10a']['steady_full_step_ms'] for rk in ranks]} ms; "
+          f"profiled rank-0 full step: busy {busy} ms, {share} of rank "
+          f"0's steady step, all-reduce device ms "
+          f"{(prof.get('span_ms') or {}).get('all_reduce')}, host "
+          f"{(prof.get('span_host_ms') or {}).get('all_reduce')}")
+    return dict(card=card, memory_reckoned_gb=DDP_MEMORY_GB, job_s=job_s,
+                busy_share_steady=share,
+                one_process=one, ranks=ranks, agreement=dict(
+                    worst_cosine=agree[worst_cos], worst_abs=agree[worst_abs],
+                    worst_rel=agree[worst_rel]),
+                mask_bits_differ=differ, param_bound=bound)
+
+
 def main() -> int:
     import torch
 
@@ -3738,6 +4209,8 @@ def main() -> int:
     artifacts = artifacts_phase(card)
     free()
     serving = serving_phase(card)
+    free()
+    distributed = ddp_phase(card, looping["determinism"])
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -3767,6 +4240,15 @@ def main() -> int:
                 train_key])
         check(entry["launches_artifacts_step"] > 0,
               f"{entry['name']} never launched by phase 8's train()")
+        for r, rank in enumerate(distributed["ranks"]):
+            for kind, step in rank["10a"]["step_kinds"].items():
+                if kind.endswith("step"):
+                    check(step["launches"][train_key] > 0,
+                          f"{entry['name']} never launched in a {kind} of "
+                          f"phase 10a's rank {r}")
+        entry["launches_ddp_rank_step"] = (
+            distributed["ranks"][0]["10a"]["step_kinds"]["full step"][
+                "launches"][train_key])
         dyn = serving["dynamic"]
         entry["launches_serving_prefill"] = (
             dyn["launches"][train_key] // dyn["batches"])
@@ -3783,7 +4265,7 @@ def main() -> int:
         "launches_loop_run", "launches_loop_full_step",
         "launches_loop_cached_step", "launches_beam_request",
         "launches_artifacts_request", "launches_artifacts_step",
-        "launches_serving_prefill")}
+        "launches_serving_prefill", "launches_ddp_rank_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -3799,7 +4281,9 @@ def main() -> int:
                  f"launches_artifacts_request / _step: one request of phase "
                  f"8b and one full step of phase 8c (the converted HF "
                  f"artifacts); launches_serving_prefill: one batch of "
-                 f"phase 9a's HTTP load"}))
+                 f"phase 9a's HTTP load; launches_ddp_rank_step: one full "
+                 f"step of one of phase 10a's two DDP ranks (batch "
+                 f"{DDP_BATCH}, dropout 0)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3809,7 +4293,8 @@ def main() -> int:
                    "captioning": captioning, "training": training,
                    "train_with_swin": swin_training, "options": options,
                    "loop": looping, "evaluation": evaluating,
-                   "artifacts": artifacts, "serving": serving}, f,
+                   "artifacts": artifacts, "serving": serving,
+                   "ddp": distributed}, f,
                   indent=1, default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3818,4 +4303,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -14,6 +14,12 @@ and renamed into place, so ``latest()`` never sees a partial one; its
 ``meta.json`` travels in the same rename, so a checkpoint whose sidecar is
 missing still ranks by its own step count.
 
+Across processes (a ``utils.mesh.Mesh`` with a process group) every rank
+holds the same state: rank 0 alone writes, and ``wait()`` ends at a
+barrier, so that every rank passes it only once rank 0's write is renamed
+into place; every rank restores, each from the same files. A checkpoint
+does not record the world size that wrote it and resumes at another one.
+
 A pretrained checkpoint (``save_pretrained``) is a directory with a
 ``model.pt`` holding some of the model's top-level submodules
 (``image_model``, ``language_model``, ``transformer``, the projections).
@@ -30,6 +36,8 @@ import time
 from typing import Any, Optional
 
 import torch
+
+from ..utils.mesh import barrier
 
 MODEL_FILE = "model.pt"
 TRAIN_STATE_FILE = "train_state.pt"
@@ -129,11 +137,13 @@ class CheckpointManager:
     writes it to disk in a background thread; at most one save is in
     flight, and ``wait()`` drains it. ``saves`` records each save's name,
     bytes, the loop's stall (the copy to the host) and the write's
-    seconds."""
+    seconds. ``mesh``: across processes, only its rank 0 writes."""
 
-    def __init__(self, result_dir: str):
+    def __init__(self, result_dir: str, mesh=None):
         self.base = os.path.abspath(os.path.join(result_dir, "checkpoints"))
         os.makedirs(self.base, exist_ok=True)
+        self._mesh = mesh if mesh is not None and mesh.distributed else None
+        self.writer = self._mesh is None or self._mesh.rank == 0
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self.saves: list[dict] = []
@@ -145,6 +155,8 @@ class CheckpointManager:
     def save(self, name: str, trainer, metadata: Optional[dict] = None
              ) -> str:
         self.wait()
+        if not self.writer:
+            return self.path(name)
         t0 = time.perf_counter()
         pinned = trainer.device.type == "cuda"
         model = _to_host(trainer.model.state_dict(), pinned)
@@ -193,13 +205,16 @@ class CheckpointManager:
             self._error = e
 
     def wait(self) -> None:
-        """Block until the save in flight is on disk; raise its error."""
+        """Block until the save in flight is on disk (across processes:
+        every rank, until rank 0's is); raise its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
+        if self._mesh is not None:
+            barrier(self._mesh)
 
     # -- restore -----------------------------------------------------------
     def exists(self, name: str) -> bool:

@@ -19,6 +19,16 @@ Each also runs as ``python -m klab_multimodalmodel_tpu_torch
 {train,eval,caption,convert-hf,export-hf,serve}``. Train, eval, caption and
 serve run on the card; ``--device cpu`` (the one flag the JAX package's
 commands lack) runs them on the CPU. The converters run on the host.
+
+Train also runs data-parallel under torchrun, one process per card, as the
+reference launches it::
+
+    python -m torch.distributed.run --nproc_per_node W \
+        -m klab_multimodalmodel_tpu_torch train ...
+
+(``--batch_size`` per rank), and leaves the process group on exit. The other
+commands are single-process, as in the JAX package, and refuse a job of
+several processes.
 """
 
 from __future__ import annotations
@@ -32,8 +42,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config, build_arg_parser, config_from_args
+from .utils.mesh import distributed_env
 
 DEVICE_HELP = "'cuda' (default: the card) or 'cpu'"
 
@@ -47,7 +59,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
     device = args.device
     del args.device
-    train(config_from_args(args), device=device)
+    try:
+        train(config_from_args(args), device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _single_process(command: str) -> None:
+    """Raise in a job of several processes: ``command`` runs in one."""
+    job = distributed_env()
+    if job is not None and job.world_size > 1:
+        raise RuntimeError(
+            f"{command} runs in one process; it was launched as rank "
+            f"{job.rank} of {job.world_size} (only train runs under "
+            "torchrun)")
 
 
 def _load_run(result_dir: str, checkpoint: str):
@@ -80,6 +106,7 @@ def eval_main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--num_beams", type=int, default=None)
     p.add_argument("--device", default=None, help=DEVICE_HELP)
     args = p.parse_args(argv)
+    _single_process("eval")
 
     config, tokenizer, state = _load_run(args.result_dir, args.checkpoint)
     if args.data_dir:
@@ -110,6 +137,7 @@ def caption_main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--no_repeat_ngram_size", type=int, default=0)
     p.add_argument("--device", default=None, help=DEVICE_HELP)
     args = p.parse_args(argv)
+    _single_process("caption")
 
     config, tokenizer, state = _load_run(args.result_dir, args.checkpoint)
     captioner = Captioner(config, state, tokenizer, device=args.device)
@@ -157,6 +185,7 @@ def convert_hf_main(argv: Optional[Sequence[str]] = None) -> None:
     _model_name_flags(p)
     p.add_argument("--output", required=True)
     args = p.parse_args(argv)
+    _single_process("convert-hf")
     cfg = _names_config(args)
 
     t0 = time.perf_counter()
@@ -194,6 +223,7 @@ def export_hf_main(argv: Optional[Sequence[str]] = None) -> None:
     _model_name_flags(p)
     p.add_argument("--output", required=True)
     args = p.parse_args(argv)
+    _single_process("export-hf")
     cfg = _names_config(args)
 
     path = os.path.join(os.path.abspath(args.result_dir), "checkpoints",
@@ -282,6 +312,7 @@ def serve_main(argv: Optional[Sequence[str]] = None) -> None:
 
     p = serve_parser()
     args = p.parse_args(argv)
+    _single_process("serve")
     if args.speculative_draft < 0:
         p.error(f"--speculative_draft must be >= 0, got "
                 f"{args.speculative_draft}")

@@ -131,7 +131,8 @@ class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
     training step and the training loop read, with the same names and
     defaults. Options that are not ported raise ``NotImplementedError``
-    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12) and
+    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12), a
+    mesh axis other than ``data`` above 1 (A11b or A12) and
     ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
@@ -152,6 +153,15 @@ class Config:
     data_dir: str = "/user/data/mscoco2017/"
     result_dir: str = "results/"
     seed: int = 0
+    # Mesh: data x fsdp x tensor x seq x pipe x expert. Only the data axis
+    # is ported (one DDP rank per entry; -1 = the world's processes); the
+    # others must be 1. 3 to 6 entries, right-padded with 1.
+    mesh_shape: tuple[int, ...] = (-1, 1, 1, 1, 1, 1)
+    mesh_axis_names: tuple[str, ...] = ("data", "fsdp", "tensor", "seq",
+                                        "pipe", "expert")
+    # The JAX package's per-axis factors across slices; under DDP a data
+    # factor here is more data ranks (global data = mesh x dcn).
+    dcn_mesh_shape: tuple[int, ...] = (1, 1, 1, 1, 1, 1)
     # Compute dtype policy: params fp32, activations bf16.
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -202,6 +212,9 @@ class Config:
     halt_after_steps: int = 0
     # Save the same checkpoint on SIGTERM after the update in flight.
     save_on_sigterm: bool = True
+    # Multi-process runs agree on a halt (a SIGTERM may reach one rank
+    # only) every N optimizer steps, so that every rank saves together.
+    preempt_sync_steps: int = 10
     # Leftover microbatches when len(loader) % accumulation_steps != 0:
     # 'pad' (zero-weight rows, gradient-exact), 'drop' or 'error'.
     accumulation_tail: str = "pad"
@@ -224,6 +237,20 @@ class Config:
     eval_captions_limit: int = 256
 
     def __post_init__(self) -> None:
+        from .utils.mesh import DEFAULT_AXIS_NAMES, refuse_unported_axes
+
+        names = tuple(self.mesh_axis_names)
+        if names == DEFAULT_AXIS_NAMES[:len(names)]:
+            names = DEFAULT_AXIS_NAMES
+        self.mesh_axis_names = names
+        for name in ("mesh_shape", "dcn_mesh_shape"):
+            shape = tuple(int(s) for s in getattr(self, name))
+            if not 3 <= len(shape) <= len(names):
+                raise ValueError(
+                    f"{name}={shape}: expected 3 or {len(names)} axes")
+            shape = shape + (1,) * (len(names) - len(shape))
+            setattr(self, name, shape)
+            refuse_unported_axes(shape, names, name)
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
                      "adam_mu_dtype", "frozen_param_dtype"):
             if getattr(self, name) not in _DTYPE_NAMES:
@@ -285,10 +312,10 @@ class Config:
     @classmethod
     def from_json(cls, text: str) -> "Config":
         """A config from ``to_json``'s text; fields this package does not
-        have (the JAX package's mesh and multi-host fields) are ignored."""
+        have (the JAX package's other options) are ignored."""
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in json.loads(text).items()
-                      if k in names})
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in json.loads(text).items() if k in names})
 
 
 # Custom geometry registry: lets tests and users register model sizes under
@@ -329,8 +356,6 @@ def _swin_size(name: str) -> SwinV2Size:
 # Flags whose value the port cannot honour unless it is the default: the
 # fields its Config lacks. flag: (default, the ROADMAP item that ports it).
 UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
-    "mesh_shape": ((-1, 1, 1, 1, 1, 1), "A11, distributed training"),
-    "dcn_mesh_shape": ((1, 1, 1, 1, 1, 1), "A11, distributed training"),
     "scan_unroll": (0, "A, not ported by design: the port's layers run "
                        "in a Python loop, with no XLA scan to unroll"),
     "seq_attention": ("allgather", "A12, ring attention"),
@@ -369,12 +394,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--data_dir", type=str, default=d.data_dir)
     add("--result_dir", type=str, default=d.result_dir)
     add("--seed", type=int, default=d.seed)
-    add("--mesh_shape", type=int, nargs="+",
-        default=list(UNPORTED_FLAGS["mesh_shape"][0]),
-        help="not ported (ROADMAP A11): only the default is accepted")
+    add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
+        help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; DATA is the "
+             "DDP ranks (-1 = all processes), the other axes must be 1 "
+             "(FSDP, TENSOR: ROADMAP A11b; SEQ, PIPE, EXPERT: A12)")
     add("--dcn_mesh_shape", type=int, nargs="+",
-        default=list(UNPORTED_FLAGS["dcn_mesh_shape"][0]),
-        help="not ported (ROADMAP A11): only the default is accepted")
+        default=list(d.dcn_mesh_shape),
+        help="3-6 ints: per-axis factors across slices; the DATA factor "
+             "multiplies the DDP ranks, the others must be 1")
     add("--compute_dtype", type=str, default=d.compute_dtype,
         choices=list(_DTYPE_NAMES))
     add("--remat", type=str, default=d.remat, choices=list(_REMAT))
@@ -426,8 +453,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
     """A ``Config`` from ``build_arg_parser``'s namespace. A flag the port
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
-    flags in one message); the ``Config`` then refuses its own unported
-    values (``moe_experts``, ``profile_server_port``)."""
+    flags in one message), and so does ``--mesh_shape`` or
+    ``--dcn_mesh_shape`` with an axis other than data above 1; the
+    ``Config`` then refuses its own unported values (``moe_experts``,
+    ``profile_server_port``)."""
+    from .utils.mesh import unported_axes
+
     kwargs: dict[str, Any] = dict(vars(args))
     fields = {f.name for f in dataclasses.fields(Config)}
     refused = []
@@ -437,10 +468,15 @@ def config_from_args(args: argparse.Namespace) -> Config:
             value = tuple(value)
         if value != default:
             refused.append(f"--{name} {value!r} (ROADMAP {item})")
+    for name in ("mesh_shape", "dcn_mesh_shape"):
+        axes = unported_axes(kwargs[name])
+        if axes:
+            refused.append(f"--{name} {tuple(kwargs[name])!r} "
+                           f"({', '.join(axes)})")
     if refused:
         raise NotImplementedError(
-            "flags not ported, accepted only at their defaults: "
-            + "; ".join(refused))
+            "flags not ported (accepted only at their defaults; a mesh "
+            "only on its data axis): " + "; ".join(refused))
     return Config(**kwargs)
 
 

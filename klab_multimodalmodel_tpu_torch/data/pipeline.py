@@ -13,9 +13,10 @@ rebuilt it:
 
 Batches are dicts of numpy arrays: images uint8 (B,H,W,3) (normalized on the
 device, ``image_ops``), source/target ids and masks int32 (B,L), and each
-row's dataset index (keys the frozen-feature cache). One process draws the
-whole batch: ``process_index`` / ``process_count`` stay 0 / 1 until the port
-trains across processes (ROADMAP A11).
+row's dataset index (keys the frozen-feature cache). Across processes
+(``process_index`` / ``process_count``: the data rank and the data ranks),
+every process walks the same global order and draws the p-th contiguous
+chunk of each global batch, the wrapped last batch included.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+import torch.distributed as dist
 
 from ..text.tokenizer import TokenizerBase
 from .datasets import DatasetBase
@@ -195,8 +197,10 @@ class DataLoader:
 
 
 def get_dataloader(config, phase: str, tokenizer: TokenizerBase) -> DataLoader:
-    """The reference's ``get_dataloader(args, phase, rank)`` on one device:
-    the global batch is ``batch_size``; train shuffles, val does not.
+    """The reference's ``get_dataloader(args, phase, rank)``: ``batch_size``
+    is per data rank, so the global batch is ``batch_size`` times the
+    process group's size (1 without one), and this process draws its
+    rank's chunk of each; train shuffles, val does not.
     ``native_tokenizer`` is the JAX package's switch to its C++ encoder;
     the port's unigram tokenizer always encodes there, so the flag only
     keeps the JAX check that it names a ``tokenizer_path``."""
@@ -207,10 +211,14 @@ def get_dataloader(config, phase: str, tokenizer: TokenizerBase) -> DataLoader:
     if config.native_tokenizer and not config.tokenizer_path:
         raise ValueError("--native_tokenizer requires --tokenizer_path "
                          "(the byte fallback has no native core)")
+    rank, world = 0, 1
+    if dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
     return DataLoader(
-        dataset, tokenizer, global_batch_size=config.batch_size,
+        dataset, tokenizer, global_batch_size=config.batch_size * world,
         max_source_length=config.max_source_length,
         max_target_length=config.max_target_length,
         shuffle=(phase == "train"), seed=config.seed,
         num_workers=config.num_workers or None,
-        prefetch=config.prefetch_batches, worker_mode=config.decode_workers)
+        prefetch=config.prefetch_batches, process_index=rank,
+        process_count=world, worker_mode=config.decode_workers)

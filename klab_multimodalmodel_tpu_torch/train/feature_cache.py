@@ -13,7 +13,9 @@ so a bf16 cache holds exactly what the towers computed. numpy has no
 bfloat16, so bf16 rows are stored as their ``uint16`` bits and viewed as
 ``torch.bfloat16`` on the way out. A ``.meta.json`` records the geometry and
 dtype (a change recreates the cache) and ``.mask.npy`` which rows are
-filled; the mask is written only after the data, at ``flush()``.
+filled; the mask is written only after the data, at ``flush()``. A memmap
+has no second writer: across processes each rank keeps its own files
+(``train/loop.py`` names them ``.p{rank}``).
 """
 
 from __future__ import annotations

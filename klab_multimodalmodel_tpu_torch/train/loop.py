@@ -1,6 +1,7 @@
 """The training loop: epochs, validation, checkpoints, logging.
 
-The JAX package's ``train()`` on one device, which keeps the reference's
+The JAX package's ``train()``, on one card or on one DDP rank per card (the
+reference's ``torchrun --nproc_per_node W``), which keeps the reference's
 control flow:
   * epochs from ``num_steps`` as ``int(num_steps / len(loader)) + 1``;
   * ``min_val_loss`` starts at the literal 100;
@@ -20,11 +21,30 @@ CIDEr-D / BLEU-4 / ROUGE-L of the first ``eval_captions_limit`` COCO-val
 images (logged, TensorBoard ``quality/*``, and the epoch's
 ``metrics.jsonl`` row).
 
-Dropout draws from one ``torch.Generator`` on the model's device, seeded
-with ``seed + 1`` (the JAX package's dropout key); every checkpoint records
-its state between updates. Multi-process training (the JAX package's
-consensus on halts, buckets and the cached step, and its start barrier)
-waits for ROADMAP A11.
+Across processes (a process group: ``utils/mesh.py``; the data axis only)
+the loop takes the JAX package's multi-process branches. Rank 0 alone saves
+the config, logs at INFO, writes TensorBoard, the profile,
+``metrics.jsonl``, ``loss.png`` and the checkpoints; each rank keeps its
+own feature-cache files (``.p{rank}``). What decides a step's shape or
+kind, or whether to stop, is agreed over the host's gloo group: the bucket
+widths (the largest over the ranks), the cached or full step and the image
+decode skip (all ranks must hit), a halt (SIGTERM seen by any rank, agreed
+every ``preempt_sync_steps`` updates). The losses are all-reduced, so the
+ranks agree on ``min_val_loss`` and the ``best`` save too. The ranks meet at
+a barrier before the first step; with the kernels on a cold build, rank 0
+builds them while the others wait there. Loaders passed in must draw this
+rank's chunk (``process_index`` / ``process_count``).
+
+Dropout draws from one ``torch.Generator`` per rank on the rank's device,
+seeded with ``dropout_seed(seed, rank)``: ``seed + 1`` on rank 0 (the JAX
+package's dropout key, so one process draws what it always drew), mixed
+with the rank elsewhere, in the low 32 bits too (the CPU generator reads
+only those): the ranks' masks differ, where one shared seed would repeat
+rank 0's masks on every rank's own rows. Every checkpoint records each rank's
+generator state between updates (gathered to rank 0: ``generator_states``,
+and rank 0's as ``generator_state``), so a resume at the same world size
+equals the uninterrupted run bitwise; at another world size, a rank with no
+recorded state starts its seeded stream afresh.
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..checkpoint.io import CheckpointManager, load_pretrained_params
@@ -49,9 +70,16 @@ from ..obs.metrics import LossCounter
 from ..obs.tb import ScalarWriter
 from ..text.tokenizer import load_tokenizer
 from ..utils.bucketing import pow2_bucket_width
+from ..utils.mesh import (barrier, host_all_reduce, make_mesh,
+                          maybe_init_distributed, rank_device)
 from .feature_cache import FrozenFeatureCache, swin_feature_shape
 from .optim import make_lr_schedule
 from .trainer import Trainer
+
+
+def dropout_seed(seed: int, rank: int) -> int:
+    """The seed of data rank ``rank``'s dropout generator."""
+    return (seed + 1) ^ ((rank * 0x9E3779B97F4A7C15) & (2 ** 63 - 1))
 
 
 def train(config: Config,
@@ -60,12 +88,27 @@ def train(config: Config,
           resume: bool = True, *,
           device: Optional[Union[str, torch.device]] = None) -> dict:
     """Run training; returns a summary (the trainer, the loss history,
-    steps, ``min_val_loss``, ``halted``, the checkpoint saves).
-    ``device``: None means the card. Resumes from the most advanced
-    ``epoch_N`` / ``step_N`` checkpoint in ``result_dir`` when ``resume``."""
+    steps, ``min_val_loss``, ``halted``, the checkpoint saves, the
+    dropout generator). ``device``: None means the card (under torchrun,
+    ``cuda:LOCAL_RANK``). Joins the job's process group if the environment
+    names one of several processes and none exists yet. Resumes from the
+    most advanced ``epoch_N`` / ``step_N`` checkpoint in ``result_dir``
+    when ``resume``."""
+    device = rank_device(device)
+    maybe_init_distributed(device)
+    mesh = make_mesh(config.mesh_shape, config.mesh_axis_names,
+                     config.dcn_mesh_shape)
+    rank, world = mesh.rank, mesh.data
+    is_main = rank == 0
     logger = get_logger(config.result_dir)
-    config.save()
+    if is_main:
+        config.save()
     logger.info(config)
+    if config.eval_captions_every and world > 1:
+        raise ValueError(
+            "eval_captions_every supports single-process runs only "
+            "(caption decode is not sharded across processes); run "
+            "the eval command after training instead")
 
     tokenizer = load_tokenizer(config.tokenizer_path)
     owned = []  # loaders made here, whose decode pools finish() shuts down
@@ -75,6 +118,11 @@ def train(config: Config,
     if val_loader is None:
         val_loader = get_dataloader(config, "val", tokenizer)
         owned.append(val_loader)
+    for loader in (train_loader, val_loader):
+        if (loader.process_index, loader.process_count) != (rank, world):
+            raise ValueError(
+                f"a loader draws chunk {loader.process_index} of "
+                f"{loader.process_count}, but this is rank {rank} of {world}")
 
     num_epochs = config.num_epochs
     if num_epochs is None:
@@ -107,12 +155,22 @@ def train(config: Config,
     else:
         opt_steps_per_epoch = max(len(train_loader) // accum, 1)
 
-    trainer = Trainer(config, num_epochs=num_epochs, device=device)
-    trainer.init_state()  # seeded with config.seed on the device
+    if (world > 1 and device.type == "cuda" and (
+            config.use_pallas_attention or config.use_pallas_t5_attention)):
+        # A cold tree builds the kernels once, on rank 0, not W times.
+        if is_main:
+            from ..ops import cuda_build
+
+            cuda_build.build_all()
+        barrier(mesh)
+    trainer = Trainer(config, num_epochs=num_epochs, device=device,
+                      mesh=mesh)
+    # Seeded with config.seed on the device: every rank builds the same.
+    trainer.init_state(global_batch=train_loader.global_batch_size)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info(f"model parameters: {n_params:,}")
 
-    ckpt = CheckpointManager(config.result_dir)
+    ckpt = CheckpointManager(config.result_dir, mesh)
     start_epoch = 1
     steps = 0
     min_val_loss = 100  # the reference's literal
@@ -134,20 +192,24 @@ def train(config: Config,
 
     loss_counter = LossCounter(opt_steps_per_epoch, max(len(val_loader), 1))
     generator = torch.Generator(device=trainer.device).manual_seed(
-        config.seed + 1)
-    # An exact resume restores the generator, the epoch's cursor (update
+        dropout_seed(config.seed, rank))
+    # An exact resume restores the generators, the epoch's cursor (update
     # groups done) and the loss partials that every checkpoint records.
     resume_cursor = int(resume_meta.get("epoch_cursor", 0))
-    if resume_meta.get("generator_state") is not None:
-        generator.set_state(torch.tensor(resume_meta["generator_state"],
+    gen_states = resume_meta.get("generator_states") or (
+        [resume_meta["generator_state"]]
+        if resume_meta.get("generator_state") is not None else [])
+    if rank < len(gen_states):
+        generator.set_state(torch.tensor(gen_states[rank],
                                          dtype=torch.uint8))
     if resume_meta.get("loss_counter") is not None:
         loss_counter.load_state_dict(resume_meta["loss_counter"])
 
     tb = ScalarWriter(os.path.join(config.result_dir, "tb")
-                      if config.tensorboard else None)
+                      if config.tensorboard and is_main else None)
     lr_schedule = make_lr_schedule(config, max(num_epochs or 1, 1))
-    prof = profiler.StepWindowTrace(config.result_dir, config.profile_steps)
+    prof = profiler.StepWindowTrace(
+        config.result_dir, config.profile_steps if is_main else 0)
 
     # Frozen-feature caches (cache_frozen_features): epoch 1 fills them from
     # the normal step's tower outputs; later epochs skip the image tower,
@@ -159,14 +221,17 @@ def train(config: Config,
         img_shape = swin_feature_shape(config)
         lang_shape = (config.max_source_length, config.language_t5.d_model)
         cache_dir = os.path.join(config.result_dir, "feature_cache")
+        # Each rank owns its files (a memmap has no second writer); rows
+        # that a reshuffle moves to another rank miss there and refill.
+        proc_tag = f".p{rank}" if world > 1 else ""
 
         def make_caches(tag, loader):
             caches = {"img": FrozenFeatureCache(
-                os.path.join(cache_dir, f"{tag}.img.feat"),
+                os.path.join(cache_dir, f"{tag}.img.feat{proc_tag}"),
                 len(loader.dataset), img_shape, dtype=config.compute_dtype)}
             if getattr(loader.dataset, "source_is_static", False):
                 caches["lang"] = FrozenFeatureCache(
-                    os.path.join(cache_dir, f"{tag}.lang.feat"),
+                    os.path.join(cache_dir, f"{tag}.lang.feat{proc_tag}"),
                     len(loader.dataset), lang_shape,
                     dtype=config.compute_dtype)
             return caches
@@ -196,8 +261,10 @@ def train(config: Config,
         since pads are masked out."""
         if not config.bucket_lengths:
             return batch
-        sb = pow2_bucket_width(batch["source_mask"], 16)
-        tb_ = pow2_bucket_width(batch["target_mask"], 8)
+        # Each rank sees its own rows: the widest bucket of any rank.
+        sb, tb_ = host_all_reduce(
+            mesh, [pow2_bucket_width(batch["source_mask"], 16),
+                   pow2_bucket_width(batch["target_mask"], 8)], "max")
         out = dict(batch)
         for k, b in (("source_ids", sb), ("source_mask", sb),
                      ("target_ids", tb_), ("target_mask", tb_)):
@@ -232,11 +299,19 @@ def train(config: Config,
             for c in (*train_cache.values(), *val_cache.values()):
                 c.flush()
 
+    def all_ranks_agree(flag: bool) -> bool:
+        """True when every rank's ``flag`` is: which step runs is one
+        choice for all, or their collectives would part ways."""
+        return bool(host_all_reduce(mesh, [flag], "min")[0])
+
     def step_with_cache(caches, batch, index, run_cached, run_full):
-        """From the cache when every row is cached; else the step that also
-        returns the towers' features, whose fill is deferred."""
+        """From the cache when every row of every rank is cached; else the
+        step that also returns the towers' features, whose fill is
+        deferred."""
         if caches is not None and index is not None:
             fb = cache_lookup(caches, batch, index)
+            if not all_ranks_agree(fb is not None):
+                fb = None
             if fb is not None:
                 loss = run_cached(trainer.to_device(fb))
                 drain_fills()
@@ -249,22 +324,25 @@ def train(config: Config,
         return run_cached(trainer.to_device(batch))
 
     def set_skip_image_load(caches, loader):
-        """An epoch whose every row is in every cache skips the image
-        decode: the cached step never reads the pixels (call after
-        set_epoch)."""
+        """An epoch whose every row is in every cache of every rank skips
+        the image decode: the cached step never reads the pixels (call
+        after set_epoch)."""
         if caches is not None:
             rows = loader.epoch_indices().reshape(-1)
-            loader.dataset.skip_image_load = all(
-                c.has(rows) for c in caches.values())
+            loader.dataset.skip_image_load = all_ranks_agree(all(
+                c.has(rows) for c in caches.values()))
 
     # -- halts ---------------------------------------------------------------
-    halted = {"sigterm": False}
+    # "local": this rank saw SIGTERM; "global": the ranks agreed to halt.
+    # Every rank must reach the halt save at the same update, so the local
+    # flag is shared every preempt_sync_steps updates (one process: each).
+    halted = {"local": False, "global": False}
     prev_sigterm = None
     if config.save_on_sigterm:
         try:
             prev_sigterm = signal.signal(
                 signal.SIGTERM,
-                lambda *_: halted.__setitem__("sigterm", True))
+                lambda *_: halted.__setitem__("local", True))
         except ValueError:
             prev_sigterm = None  # not the main thread: no handler
 
@@ -274,14 +352,26 @@ def train(config: Config,
                       if config.halt_after_steps > steps else 0)
 
     def should_halt() -> bool:
+        if world == 1:
+            halted["global"] = halted["local"]
+        elif steps % max(config.preempt_sync_steps, 1) == 0:
+            halted["global"] = bool(
+                host_all_reduce(mesh, [halted["local"]], "max")[0])
         return bool((halt_threshold and steps >= halt_threshold)
-                    or halted["sigterm"])
+                    or halted["global"])
 
     def resume_state_meta() -> dict:
         """Generator and loss-partial fields of every checkpoint's
-        metadata, so that any resume is exact."""
-        return {"generator_state": generator.get_state().tolist(),
+        metadata, so that any resume is exact (every rank calls it)."""
+        state = generator.get_state().tolist()
+        meta = {"generator_state": state,
                 "loss_counter": loss_counter.state_dict()}
+        if world > 1:
+            states = [None] * world
+            dist.all_gather_object(states, state, group=mesh.cpu_group)
+            meta["generator_state"] = states[0]
+            meta["generator_states"] = states
+        return meta
 
     def finish(summary_extra: dict) -> dict:
         ckpt.wait()
@@ -293,7 +383,8 @@ def train(config: Config,
             signal.signal(signal.SIGTERM, prev_sigterm)
         return {"trainer": trainer, "losses": loss_counter.losses,
                 "min_val_loss": min_val_loss, "steps": steps,
-                "saves": ckpt.saves, **summary_extra}
+                "saves": ckpt.saves, "generator": generator,
+                **summary_extra}
 
     eval_refs = None  # (paths, references) of COCO val, read once
 
@@ -310,6 +401,7 @@ def train(config: Config,
         finally:
             trainer.model.train()
 
+    barrier(mesh)  # the ranks start their first step together
     for epoch in range(start_epoch, num_epochs + 1):
         train_loader.set_epoch(epoch)
         set_skip_image_load(train_cache, train_loader)
@@ -342,7 +434,8 @@ def train(config: Config,
                                    run_cached, run_full)
             loss_counter.add_loss("train", loss)
             steps += 1
-            images_seen += n_real_images
+            # Every rank draws an equal chunk of each global batch.
+            images_seen += n_real_images * world
             if config.log_every_steps and steps % config.log_every_steps == 0:
                 dt_so_far = time.perf_counter() - epoch_t0
                 logger.info(f"step {steps}: "
@@ -407,6 +500,8 @@ def train(config: Config,
             loss_counter.add_loss("val", loss)
         flush_caches()
 
+        # All-reduced, so equal on every rank: every rank takes the same
+        # ``best`` branch.
         train_loss, val_loss = loss_counter.count_and_get_loss()
         dt = time.perf_counter() - epoch_t0
         ips = images_seen / dt if dt > 0 else 0.0
@@ -441,8 +536,10 @@ def train(config: Config,
         if caption_scores is not None:
             row["cider_d"] = caption_scores["CIDEr-D"]
             row["bleu4"] = caption_scores["BLEU-4"]
-        with open(os.path.join(config.result_dir, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps(row) + "\n")
+        if is_main:
+            with open(os.path.join(config.result_dir, "metrics.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(row) + "\n")
 
         meta = {"epoch": epoch, "steps": steps,
                 "min_val_loss": min_val_loss, "epoch_cursor": 0,
@@ -465,9 +562,10 @@ def train(config: Config,
                 ckpt.save(f"step_{steps}", trainer, meta)
                 logger.info(f"Model step_{steps} saved")
 
-    try:
-        loss_counter.plot_loss(config.result_dir)
-    except ImportError:
-        logger.info("loss.png not written: matplotlib is not installed "
-                    "(metrics.jsonl holds the same curve)")
+    if is_main:
+        try:
+            loss_counter.plot_loss(config.result_dir)
+        except ImportError:
+            logger.info("loss.png not written: matplotlib is not installed "
+                        "(metrics.jsonl holds the same curve)")
     return finish({"halted": False})

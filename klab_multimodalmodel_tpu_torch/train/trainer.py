@@ -1,6 +1,6 @@
-"""The single-device training step of the cascade.
+"""The training step of the cascade, on one card or one DDP rank per card.
 
-The port of the JAX package's ``train/trainer.py`` on one card: device-side
+The port of the JAX package's ``train/trainer.py``: device-side
 image normalization in the compute dtype, the frozen towers' forwards under
 ``torch.no_grad()``, the trainable parts' forward and backward (the
 transformer, the projections and, with ``image_model_train``, the SwinV2
@@ -9,8 +9,23 @@ are on), gradient accumulation over ``accumulation_steps`` microbatches, and
 the update (Adam, Adam with a bf16 first moment, or Adafactor;
 ``train/optim.py``). With ``frozen_param_dtype='bfloat16'`` the frozen
 towers' parameters are stored in bf16, as the JAX package's
-``_maybe_cast_frozen`` stores them. The JAX package's mesh, sharding and
-buffer donation have no counterpart on one device.
+``_maybe_cast_frozen`` stores them.
+
+Across processes (a process group, ``utils/mesh.py``; the mesh's data axis
+only) the model is wrapped in ``DistributedDataParallel`` with its
+gradients as views of the reducer's buckets; the frozen towers take no part.
+The loss is the JAX package's: one token-weighted mean over each global
+microbatch, where global microbatch a is loader batch a of the update
+across all ranks (the rank's rows [a b, (a+1) b) of its merged batch).
+DDP alone would average the ranks' own means, which differ from it as soon
+as the ranks hold different numbers of target tokens. So each update first
+all-reduces the microbatches' token counts; a rank's microbatch loss is
+scaled by its share of its global microbatch's tokens (local count / global
+count / accum) and by the world size, which DDP's average divides out
+again, so that the reduced gradient is the global one. Every microbatch but
+the last runs under ``no_sync()``. Returned losses, training and
+validation, are the all-reduced global values. The JAX package's sharding
+and buffer donation have no counterpart.
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -18,51 +33,123 @@ model's device; the JAX package's dropout key becomes that generator.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
 from ..utils.device import resolve_device
+from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
 from .optim import make_optimizer
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
 
+class StepNet(nn.Module):
+    """The loss of a batch, from its images or from cached tower features,
+    as one module's forward: DDP reduces the gradients of what runs through
+    its wrapper's forward. Returns (loss, the frozen towers' outputs or
+    None)."""
+
+    def __init__(self, model: MultiModalModel, compute_dtype: torch.dtype):
+        super().__init__()
+        self.model = model
+        self.compute_dtype = compute_dtype
+
+    def forward(self, batch: dict, generator, deterministic: bool,
+                with_features: bool = False):
+        if with_features:
+            return self._features_then_loss(batch, generator, deterministic)
+        return self._loss(batch, generator, deterministic), None
+
+    def _loss(self, batch: dict, generator, deterministic: bool
+              ) -> torch.Tensor:
+        model = self.model
+        if "image_features" in batch:
+            # Cached tower features: the same loss as from the images.
+            return model.loss_from_image_features(
+                batch["image_features"], batch["source_ids"],
+                batch["target_ids"], source_mask=batch.get("source_mask"),
+                target_mask=batch.get("target_mask"),
+                language_features=batch.get("language_features"),
+                deterministic=deterministic, generator=generator).loss
+        images = normalize_images(batch["images"], dtype=self.compute_dtype)
+        return model(images, batch["source_ids"], batch["target_ids"],
+                     source_mask=batch.get("source_mask"),
+                     target_mask=batch.get("target_mask"),
+                     deterministic=deterministic, generator=generator).loss
+
+    def _features_then_loss(self, batch: dict, generator,
+                            deterministic: bool):
+        """(loss, (image features, language features)): the frozen towers'
+        outputs surfaced for a feature cache."""
+        images = normalize_images(batch["images"], dtype=self.compute_dtype)
+        img = self.model.image_features(images)
+        lang = self.model.language_features(batch["source_ids"],
+                                            batch.get("source_mask"))
+        fbatch = {k: v for k, v in batch.items() if k != "images"}
+        fbatch["image_features"] = img
+        fbatch["language_features"] = lang
+        return self._loss(fbatch, generator, deterministic), (img, lang)
+
+
 @dataclasses.dataclass
 class Trainer:
     """Owns the model (fp32 parameters, the frozen ones in
     ``frozen_param_dtype``; compute dtype from the config's policy), the
-    optimizer and its schedule. ``device``: None means the card."""
+    optimizer and its schedule. ``device``: None means the card. ``mesh``:
+    None makes it from the config over the process group, if there is one
+    (``utils.mesh.make_mesh``)."""
 
     config: Config
     num_epochs: int = 1
     device: Optional[Union[str, torch.device]] = None
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         cfg = self.config
         self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
+                                  cfg.dcn_mesh_shape)
+        if (self.mesh.distributed and self.device.type == "cuda"
+                and self.device.index is None):
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.policy = get_policy(cfg.compute_dtype, cfg.param_dtype)
         self.model = MultiModalModel(cfg, dtype=self.policy.compute_dtype,
                                      device=self.device)
+        self.net = StepNet(self.model, self.policy.compute_dtype)
+        self.ddp: Optional[DistributedDataParallel] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler = None
         self.step = 0
 
     # -- state creation ----------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
-                   state_dict: Optional[Mapping[str, torch.Tensor]] = None
-                   ) -> MultiModalModel:
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                   global_batch: Optional[int] = None) -> MultiModalModel:
         """Seeded random weights (``generator``, or one seeded with
         ``config.seed`` on the device), or ``state_dict`` (for example from
         ``checkpoint.from_jax.convert_jax_params``); then a fresh optimizer
-        over the trainable parameters, and the frozen parameters cast to
-        ``frozen_param_dtype``. Returns the model."""
+        over the trainable parameters, the frozen parameters cast to
+        ``frozen_param_dtype``, and across processes the DDP wrapper.
+        ``global_batch``, the rows of an update, must divide over the data
+        ranks. Returns the model."""
+        if global_batch is not None and global_batch % self.mesh.data:
+            raise ValueError(
+                f"global batch {global_batch} not divisible by the mesh's "
+                f"data factor {self.mesh.data} (mesh "
+                f"{dict(zip(self.mesh.axis_names, self.mesh.shape))})")
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         else:
@@ -79,6 +166,22 @@ class Trainer:
                 if not p.requires_grad:
                     p.data = p.data.to(torch.bfloat16)
         self.step = 0
+        self.ddp = None
+        if self.mesh.distributed:
+            # Every rank builds the same weights and buffers (the same seed,
+            # or the same checkpoint file): rank 0's broadcasts would only
+            # repeat them, at init and before every forward.
+            args = inspect.signature(
+                DistributedDataParallel.__init__).parameters
+            kw = dict(process_group=self.mesh.group,
+                      gradient_as_bucket_view=True)
+            kw["forward_sync_buffers" if "forward_sync_buffers" in args
+               else "broadcast_buffers"] = False
+            if "init_sync" in args:
+                kw["init_sync"] = False
+            if self.device.type == "cuda":
+                kw["device_ids"] = [self.device]
+            self.ddp = DistributedDataParallel(self.net, **kw)
         return self.model
 
     def to_device(self, batch: Batch) -> dict:
@@ -100,37 +203,20 @@ class Trainer:
         return HostCopy(tuple(tensors), self.device)
 
     # -- losses ------------------------------------------------------------
-    def _loss(self, batch: dict, generator, deterministic: bool
-              ) -> torch.Tensor:
-        model = self.model
-        if "image_features" in batch:
-            # Cached tower features: the same loss as from the images.
-            return model.loss_from_image_features(
-                batch["image_features"], batch["source_ids"],
-                batch["target_ids"], source_mask=batch.get("source_mask"),
-                target_mask=batch.get("target_mask"),
-                language_features=batch.get("language_features"),
-                deterministic=deterministic, generator=generator).loss
-        images = normalize_images(batch["images"],
-                                  dtype=self.policy.compute_dtype)
-        return model(images, batch["source_ids"], batch["target_ids"],
-                     source_mask=batch.get("source_mask"),
-                     target_mask=batch.get("target_mask"),
-                     deterministic=deterministic, generator=generator).loss
+    def _token_counts(self, batch: dict, parts: int) -> torch.Tensor:
+        """(parts,) fp32: the loss's target weights summed over each of the
+        batch's ``parts`` row blocks (every position with
+        ``reference_pad_quirks`` or no mask, as ``cross_entropy_loss``
+        weighs them)."""
+        ids = batch["target_ids"]
+        mask = batch.get("target_mask")
+        if mask is None or self.config.reference_pad_quirks:
+            mask = torch.ones(ids.shape, device=ids.device)
+        return mask.reshape(parts, -1).to(torch.float32).sum(dim=1)
 
-    def _features_then_loss(self, batch: dict, generator,
-                            deterministic: bool):
-        """(loss, (image features, language features)): the frozen towers'
-        outputs surfaced for a feature cache."""
-        images = normalize_images(batch["images"],
-                                  dtype=self.policy.compute_dtype)
-        img = self.model.image_features(images)
-        lang = self.model.language_features(batch["source_ids"],
-                                            batch.get("source_mask"))
-        fbatch = {k: v for k, v in batch.items() if k != "images"}
-        fbatch["image_features"] = img
-        fbatch["language_features"] = lang
-        return self._loss(fbatch, generator, deterministic), (img, lang)
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.mesh.group)
+        return t
 
     # -- steps -------------------------------------------------------------
     def train_step(self, batch: Batch,
@@ -160,37 +246,63 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         feats = []
-        for i in range(accum):
-            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-            if with_features:
-                loss, f = self._features_then_loss(mb, generator, False)
+        if self.ddp is None:
+            for i in range(accum):
+                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                loss, f = self.net(mb, generator, False, with_features)
                 feats.append(f)
-            else:
-                loss = self._loss(mb, generator, False)
-            loss.backward()  # sums the microbatches' gradients
-            loss_sum = loss_sum + loss.detach()
-        if accum > 1:
-            for group in self.optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(accum)
+                loss.backward()  # sums the microbatches' gradients
+                loss_sum = loss_sum + loss.detach()
+            if accum > 1:
+                for group in self.optimizer.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.div_(accum)
+            loss = loss_sum / accum
+        else:
+            # Each microbatch's share of its global microbatch's tokens.
+            counts = self._token_counts(batch, accum)
+            share = counts / (accum * self._all_reduce(counts.clone())
+                              .clamp(min=1.0))
+            world = self.mesh.data
+            for i in range(accum):
+                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                last = i == accum - 1
+                with (contextlib.nullcontext() if last
+                      else self.ddp.no_sync()):
+                    loss, f = self.ddp(mb, generator, False, with_features)
+                    # DDP divides the reduced gradient by the world size.
+                    (loss * (share[i] * world)).backward()
+                feats.append(f)
+                loss_sum = loss_sum + loss.detach() * share[i]
+            loss = self._all_reduce(loss_sum)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        loss = loss_sum / accum
         if with_features:
             return loss, tuple(torch.cat(parts) for parts in zip(*feats))
         return loss
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> torch.Tensor:
-        """Deterministic loss of ``batch``, no update."""
-        return self._loss(self.to_device(batch), None, True)
+        """Deterministic loss of ``batch``, no update (across processes:
+        the token-weighted mean over every rank's rows)."""
+        return self._eval(batch, with_features=False)[0]
 
     @torch.no_grad()
     def eval_step_with_features(self, batch: Batch):
-        """``eval_step`` that also returns the frozen towers' outputs."""
-        return self._features_then_loss(self.to_device(batch), None, True)
+        """``eval_step`` that also returns the frozen towers' outputs (this
+        rank's rows)."""
+        return self._eval(batch, with_features=True)
+
+    def _eval(self, batch: Batch, with_features: bool):
+        batch = self.to_device(batch)
+        loss, feats = self.net(batch, None, True, with_features)
+        if self.ddp is not None:
+            n = self._token_counts(batch, 1)[0]
+            pair = self._all_reduce(torch.stack([loss.float() * n, n]))
+            loss = pair[0] / pair[1].clamp(min=1.0)
+        return loss, feats
 
 
 class HostCopy:

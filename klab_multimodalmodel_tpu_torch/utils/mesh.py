@@ -1,0 +1,277 @@
+"""Process group, rank device and mesh of data-parallel training.
+
+The reference trains with ``torchrun --nproc_per_node=W train.py``: it calls
+``dist.init_process_group("nccl")`` and wraps its model in
+``DistributedDataParallel``. The JAX package replaced that with a device
+mesh over the axes ``(data, fsdp, tensor, seq, pipe, expert)``; the port
+goes back to the process group and keeps the mesh as a record of its shape.
+Only the ``data`` axis is ported: one process per data rank, gradients
+all-reduced by DDP (``train/trainer.py``). ``fsdp`` and ``tensor`` wait for
+ROADMAP A11b, ``seq``, ``pipe`` and ``expert`` for A12; a shape that sets
+any of them above 1 raises.
+
+Rendezvous comes from the environment, as torchrun sets it (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
+the JAX package's variables (``KLAB_MULTIHOST=1`` with ``KLAB_COORDINATOR``
+host:port, ``KLAB_NUM_PROCESSES`` and ``KLAB_PROCESS_ID``). A world of one
+process initializes nothing. The backend is NCCL on the card and gloo on
+the CPU; gloo on CUDA tensors (two ranks sharing one card, which NCCL
+refuses) only when ``KLAB_CPU_COLLECTIVES=gloo`` asks for it. Each rank runs on ``cuda:LOCAL_RANK``; a rank
+whose card does not exist raises unless its device is given explicitly.
+Host-side agreement (halts, bucket widths, barriers) goes over a gloo group
+of CPU tensors, so that it never waits on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import sys
+from datetime import timedelta
+from typing import Mapping, Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+from .device import resolve_device
+
+DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
+# Axes other than data, and the ROADMAP item that ports each.
+UNPORTED_AXES = {"fsdp": "A11b", "tensor": "A11b", "seq": "A12",
+                 "pipe": "A12", "expert": "A12"}
+# Generous: the first collective waits for the slowest rank's model build
+# and, on a cold tree, the kernels' build.
+TIMEOUT = timedelta(minutes=30)
+
+
+def pad_mesh_shape(mesh_shape: Sequence[int],
+                   n_axes: int = len(DEFAULT_AXIS_NAMES),
+                   fill: int = 1) -> tuple[int, ...]:
+    """Right-pad a mesh shape with 1s to the axis-name count (3-tuple
+    ``(data, fsdp, tensor)`` shapes address the 6-axis mesh unchanged)."""
+    shape = tuple(int(s) for s in mesh_shape)
+    if len(shape) > n_axes:
+        raise ValueError(f"mesh_shape {shape} has more than {n_axes} axes")
+    return shape + (fill,) * (n_axes - len(shape))
+
+
+def resolve_mesh_shape(mesh_shape: Sequence[int],
+                       num_devices: int) -> tuple[int, ...]:
+    """Resolve a -1 entry ("all remaining devices") in the mesh shape."""
+    shape = list(mesh_shape)
+    fixed = math.prod(s for s in shape if s != -1)
+    n_wild = sum(1 for s in shape if s == -1)
+    if n_wild > 1:
+        raise ValueError(f"at most one -1 in mesh_shape, got {mesh_shape}")
+    if n_wild == 1:
+        if num_devices % fixed != 0:
+            raise ValueError(
+                f"mesh_shape {mesh_shape} does not divide {num_devices} devices")
+        shape[shape.index(-1)] = num_devices // fixed
+    if math.prod(shape) != num_devices:
+        raise ValueError(
+            f"mesh_shape {shape} != device count {num_devices}")
+    return tuple(shape)
+
+
+def unported_axes(mesh_shape: Sequence[int],
+                  axis_names: Sequence[str] = DEFAULT_AXIS_NAMES
+                  ) -> list[str]:
+    """Each axis other than ``data`` that is not 1, with the ROADMAP item
+    that ports it."""
+    return [f"{name}={size} (ROADMAP {UNPORTED_AXES[name]})"
+            for name, size in zip(axis_names, mesh_shape)
+            if name in UNPORTED_AXES and int(size) != 1]
+
+
+def refuse_unported_axes(mesh_shape: Sequence[int],
+                         axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
+                         what: str = "mesh_shape") -> None:
+    """Raise ``NotImplementedError`` if an axis other than ``data`` is not
+    1, naming the ROADMAP item that ports it."""
+    refused = unported_axes(mesh_shape, axis_names)
+    if refused:
+        raise NotImplementedError(
+            f"{what}: only the data axis is ported (DDP); "
+            + ", ".join(refused))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistEnv:
+    """A process's place in the job: rank, world size, its card's index on
+    its host, and the rendezvous (``env://`` under torchrun, whose agent
+    holds the store, or ``tcp://host:port``)."""
+
+    rank: int
+    world_size: int
+    local_rank: int
+    init_method: str
+
+
+def distributed_env(environ: Optional[Mapping[str, str]] = None
+                    ) -> Optional[DistEnv]:
+    """The job from torchrun's variables or the JAX package's ``KLAB_*``
+    ones (torchrun's first); None when neither names one."""
+    env = os.environ if environ is None else environ
+    if "WORLD_SIZE" in env and "RANK" in env:
+        for key in ("MASTER_ADDR", "MASTER_PORT"):
+            if key not in env:
+                raise ValueError(f"RANK and WORLD_SIZE are set but {key} "
+                                 "is not: launch with torchrun")
+        return DistEnv(rank=int(env["RANK"]),
+                       world_size=int(env["WORLD_SIZE"]),
+                       local_rank=int(env.get("LOCAL_RANK", 0)),
+                       init_method="env://")
+    if env.get("KLAB_MULTIHOST", "0") == "1":
+        missing = [k for k in ("KLAB_COORDINATOR", "KLAB_NUM_PROCESSES",
+                               "KLAB_PROCESS_ID") if not env.get(k)]
+        if missing:
+            raise ValueError(f"KLAB_MULTIHOST=1 needs {', '.join(missing)}"
+                             " (no cluster is detected automatically)")
+        rank = int(env["KLAB_PROCESS_ID"])
+        return DistEnv(rank=rank, world_size=int(env["KLAB_NUM_PROCESSES"]),
+                       local_rank=int(env.get("LOCAL_RANK", rank)),
+                       init_method=f"tcp://{env['KLAB_COORDINATOR']}")
+    return None
+
+
+def rank_device(device: Optional[Union[str, torch.device]] = None,
+                environ: Optional[Mapping[str, str]] = None
+                ) -> torch.device:
+    """The device of this process. Given: that device. Else, in a job of
+    more than one process, ``cuda:LOCAL_RANK``, which must exist; else the
+    card (``resolve_device``)."""
+    if device is not None:
+        return resolve_device(device)
+    job = distributed_env(environ)
+    if job is None or job.world_size == 1:
+        return resolve_device(None)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if job.local_rank >= count:
+        raise RuntimeError(
+            f"rank {job.rank}: LOCAL_RANK {job.local_rank} has no card "
+            f"({count} visible); pass the device explicitly (device='cpu', "
+            "or one card that ranks share)")
+    return resolve_device(torch.device("cuda", job.local_rank))
+
+
+def maybe_init_distributed(device: Optional[Union[str, torch.device]] = None,
+                           environ: Optional[Mapping[str, str]] = None
+                           ) -> bool:
+    """Join the job's process group (the reference's
+    ``dist.init_process_group``). No-op when a group exists already (the
+    caller's) or the job is one process; True when this call made it.
+    ``device``: this rank's device (``rank_device``'s default otherwise).
+    The backend: NCCL on the card, gloo on the CPU, and gloo on the card
+    only when ``KLAB_CPU_COLLECTIVES=gloo`` asks for it."""
+    if dist.is_initialized():
+        return False
+    env = os.environ if environ is None else environ
+    job = distributed_env(env)
+    if job is None or job.world_size == 1:
+        return False
+    dev = rank_device(device, env)
+    asked = env.get("KLAB_CPU_COLLECTIVES", "")
+    if asked not in ("", "gloo"):
+        raise ValueError(f"KLAB_CPU_COLLECTIVES={asked!r}: the port's only "
+                         "host backend is 'gloo'")
+    backend = "gloo" if dev.type == "cpu" or asked else "nccl"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    print(f"rank {job.rank}/{job.world_size}: process group {backend} on "
+          f"{dev}", file=sys.stderr, flush=True)
+    dist.init_process_group(backend, init_method=job.init_method,
+                            world_size=job.world_size, rank=job.rank,
+                            timeout=TIMEOUT)
+    return True
+
+
+@dataclasses.dataclass
+class Mesh:
+    """The resolved ``(data, fsdp, tensor, seq, pipe, expert)`` shape and
+    the groups that carry it: ``group`` (the world's, for gradients and
+    device tensors; None in a process of its own) and ``cpu_group`` (gloo,
+    for host values)."""
+
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+    group: Optional[dist.ProcessGroup]
+    cpu_group: Optional[dist.ProcessGroup]
+    rank: int = 0
+
+    @property
+    def data(self) -> int:
+        return self.shape[self.axis_names.index("data")]
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+
+# (world group, its gloo twin): held, so that a later group made after a
+# destroy never meets a twin of an earlier one.
+_CPU_GROUPS: list = []
+
+
+def _cpu_group(group: dist.ProcessGroup) -> dist.ProcessGroup:
+    """A gloo group over the same ranks as ``group``: the group itself when
+    it is gloo, else one made once per process group."""
+    if dist.get_backend(group) == "gloo":
+        return group
+    for g, cpu in _CPU_GROUPS:
+        if g is group:
+            return cpu
+    cpu = dist.new_group(backend="gloo", timeout=TIMEOUT)
+    _CPU_GROUPS.append((group, cpu))
+    return cpu
+
+
+def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
+              axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
+              dcn_mesh_shape: Optional[Sequence[int]] = None) -> Mesh:
+    """The mesh over the world's processes (one, when no process group
+    exists). The data axis is ``mesh_shape``'s data entry (-1: the rest of
+    the world) times ``dcn_mesh_shape``'s: the JAX package's data parallel
+    across slices is, under DDP, more data ranks. Any other axis above 1
+    raises."""
+    axis_names = tuple(axis_names)
+    if set(axis_names) < set(DEFAULT_AXIS_NAMES):
+        axis_names = axis_names + tuple(
+            a for a in DEFAULT_AXIS_NAMES if a not in axis_names)
+    n = len(axis_names)
+    ici = pad_mesh_shape(mesh_shape, n)
+    dcn = pad_mesh_shape(dcn_mesh_shape or (), n)
+    refuse_unported_axes(ici, axis_names)
+    refuse_unported_axes(dcn, axis_names, "dcn_mesh_shape")
+    group = dist.group.WORLD if dist.is_initialized() else None
+    world = dist.get_world_size() if group is not None else 1
+    n_slices = math.prod(dcn)
+    if world % n_slices:
+        raise ValueError(f"dcn_mesh_shape {dcn} needs a world size "
+                         f"divisible by {n_slices}, got {world}")
+    per_slice = resolve_mesh_shape(ici, world // n_slices)
+    shape = tuple(a * b for a, b in zip(per_slice, dcn))
+    return Mesh(shape=shape, axis_names=axis_names, group=group,
+                cpu_group=_cpu_group(group) if group is not None else None,
+                rank=dist.get_rank() if group is not None else 0)
+
+
+def host_all_reduce(mesh: Mesh, values: Sequence[int],
+                    op: str = "max") -> list[int]:
+    """``values`` reduced elementwise over the mesh's processes ('max',
+    'min' or 'sum') on the host's gloo group; themselves in a process of
+    its own."""
+    if not mesh.distributed:
+        return [int(v) for v in values]
+    ops = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+           "sum": dist.ReduceOp.SUM}
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=ops[op], group=mesh.cpu_group)
+    return t.tolist()
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every process of the mesh waits for the others (on the host)."""
+    if mesh.distributed:
+        dist.monitored_barrier(group=mesh.cpu_group, timeout=TIMEOUT)

@@ -518,13 +518,18 @@ def test_config_json_round_trip_and_jax_file(tmp_path):
     assert path == os.path.join(str(tmp_path), "config.json")
     with open(path) as f:
         assert tcfg.Config.from_json(f.read()) == cfg
-    # A JAX run's config.json: its mesh and multi-host fields are ignored.
-    jax_cfg = jcfg.Config(num_epochs=3, batch_size=8, halt_after_steps=7)
+    # A JAX run's config.json: its mesh is read (the data axis is the
+    # port's), its other multi-host fields are ignored.
+    jax_cfg = jcfg.Config(num_epochs=3, batch_size=8, halt_after_steps=7,
+                          mesh_shape=(2, 1, 1), dcn_mesh_shape=(2, 1, 1))
     port = tcfg.Config.from_json(jax_cfg.to_json())
     assert (port.num_epochs, port.batch_size, port.halt_after_steps) == (
         3, 8, 7)
+    assert port.mesh_shape == jax_cfg.mesh_shape == (2, 1, 1, 1, 1, 1)
+    assert port.dcn_mesh_shape == jax_cfg.dcn_mesh_shape
+    assert port.mesh_axis_names == jax_cfg.mesh_axis_names
     names = {f.name for f in dataclasses.fields(tcfg.Config)}
-    assert "mesh_shape" not in names and "dropout_rng_impl" not in names
+    assert "dropout_rng_impl" not in names
 
 
 def test_load_tokenizer(tmp_path):
