@@ -83,21 +83,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. The training loop: ``train(config)`` at full width (the Config
    defaults, both kernel flags on, batch 32, 2 epochs) on the synthetic
    dataset (64 rows of 256 px, the COCO prompt; 2 updates and 2 validation
-   batches an epoch), four runs in a temporary result directory: A
+   batches an epoch), two runs in a temporary result directory: A
    uncached; C with ``cache_frozen_features`` (epoch 1 fills, epoch 2 trains
-   from the cache); B1 as C halting after update 3; B2 the same command
-   again, which resumes from ``step_3``. First one step twice from the same
-   state and generator (the determinism reading). Checks the launches of
-   every step and validation batch (full step 96 / 72 / 24 T5 forward /
-   backward / Swin, cached step 72 / 72 / 0, full val batch 96 / 0 / 24,
-   cached val batch 72 / 0 / 0), C's losses against A's and B2's losses,
-   steps, min_val_loss and trainable parameters against C's (bitwise, or
-   within the determinism reading's gap), the checkpoints, sidecars, cache
-   files and ``metrics.jsonl``. Prints each step kind's device span (CUDA
-   events, nothing synchronized inside the loop) and peak memory, one
-   profiled full and one profiled cached step, images/s per epoch, the
-   host time the deferred fill blocks, and each save's size, stall and
-   background write; the free disk before it.
+   from the cache). First one step twice from the same state and generator
+   (the determinism reading). Checks the launches of every step and
+   validation batch (full step 96 / 72 / 24 T5 forward / backward / Swin,
+   cached step 72 / 72 / 0, full val batch 96 / 0 / 24, cached val batch
+   72 / 0 / 0), C's losses against A's, the cache files and
+   ``metrics.jsonl``. Prints each step kind's device span (CUDA events,
+   nothing synchronized inside the loop) and peak memory, one profiled
+   full and one profiled cached step, images/s per epoch, the host time the
+   deferred fill blocks, and each save's size, stall and background write;
+   the free disk before it. (A halted and resumed run is phase 10b's.)
 7. The evaluation path on phase 3's weights (the same seed) and requests:
    a. beam search (``num_beams`` 4) through ``Captioner.caption``: one
       warm-up and three timed batch-8 requests; checks every request's
@@ -213,11 +210,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       6's determinism reading), and the two ranks' first dropout masks
       differ.
    A rank that fails, or a launcher that exits non-zero, fails the run.
-11. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+11. Mixture of experts at full width: phase 4's set-up with 4 experts,
+   top-2, capacity factor 1.25 and aux weight 0.01 in every MLP of the
+   t5-large transformer (24 + 24 blocks, each expert d_ff 4096), its
+   memory reckoned and printed before anything is built (batch 32, or 16
+   where 32 is reckoned over ``MOE_MEMORY_LIMIT_GB``):
+   a. one warm-up and three timed ``Trainer`` steps, dropout on: phase 4's
+      launches per step (MoE adds no attention launch), finite and falling
+      losses, finite balance losses, the frozen towers bitwise unchanged,
+      every router and expert slice moved; prints step ms, images/s, peak
+      memory and one profiled step's busy share with the device time under
+      the routing, the experts' FFN and the einsums' backward.
+   b. batch 8, dropout off, on 11a's weights, fp32 compute: the loss and
+      every trainable gradient with the kernels against the same path
+      without them (``TOL_TRAIN_GRAD``); the routing assignments of the two
+      runs compared token by token, the router's top-k margin printed at
+      each flip (no tolerance widened for one).
+   c. three batch-8 greedy requests through ``Captioner`` on 11a's weights
+      (fp32, both kernel flags): 24 Swin and 48 T5 launches each, the
+      tokens equal to a stepwise ``decode_step`` oracle, and eight rows
+      through a ``DecodeEngine`` against ``greedy_decode`` (9b's rule);
+      request ms beside phase 3's.
+12. The GPipe schedule at full width: phase 4's set-up at batch 16 with
+   the T5 kernel off (the JAX package refuses it with a pipeline), the
+   transformer's stacks as 4 stages of 8 microbatches, and the same
+   weights at one stage: one warm-up and two timed steps each (Swin 24
+   launches, T5 0), step ms and peak memory of each; then, dropout off and
+   fp32 compute, the loss and every gradient of 4 stages against 1
+   (``TOL_TRAIN_GRAD``).
+13. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
-   batch of phase 9a, and in one full step of a phase-10a rank), then
-   ``{"ok": true, ...}`` as the last line.
+   batch of phase 9a, in one full step of a phase-10a rank, in one
+   phase-11a step and one phase-11c request, and in one phase-12 step),
+   then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -1775,7 +1801,8 @@ def optimizer_span(device: dict):
 # ---------------------------------------------------------------------------
 
 # The synthetic dataset's 64 rows at batch 32: two updates and two
-# validation batches an epoch; B1 halts after update 3 (epoch 2, cursor 1).
+# validation batches an epoch; phase 10b halts after update 3 (epoch 2,
+# cursor 1).
 LOOP_ROWS, LOOP_EPOCHS, LOOP_HALT = 64, 2, 3
 LOOP_UPDATES = LOOP_EPOCHS * LOOP_ROWS // TRAIN_BATCH
 # Launches of one call of each step kind that train() makes: a full step
@@ -2074,10 +2101,10 @@ def same(a, b, tol: float) -> bool:
 
 
 def loop_phase(card: str) -> dict:
-    """Phase 6: ``train(config)`` at full width on the synthetic dataset, four
-    runs: A uncached; C with the frozen-feature cache; B1 as C halting after
-    update 3; B2 the same command again, which resumes. Holds C's losses to
-    A's and B2's losses, steps, min_val_loss and parameters to C's."""
+    """Phase 6: ``train(config)`` at full width on the synthetic dataset, two
+    runs: A uncached; C with the frozen-feature cache. Holds C's losses to
+    A's. (The halt-and-resume runs moved to phase 10b, which resumes two
+    ranks bitwise from a halt.)"""
     import shutil
     import tempfile
 
@@ -2099,7 +2126,6 @@ def loop_phase(card: str) -> dict:
               "the reference caption recipe's Config defaults")
         det = loop_determinism(cfg, card)
         tol_loss = det["gap"]["loss"]
-        tol_param = det["gap"]["params"]
 
         def config(tag, **kw):
             return Config(**base, result_dir=os.path.join(root, tag), **kw)
@@ -2111,10 +2137,10 @@ def loop_phase(card: str) -> dict:
         shutil.rmtree(os.path.join(root, "A"))
 
         c, out = loop_run(config("C", cache_frozen_features=True), card,
-                            "C (cache_frozen_features)")
-        c_params = {n: p.detach().clone()
-                    for n, p in out["trainer"].model.named_parameters()
-                    if p.requires_grad}
+                            "C (cache_frozen_features)",
+                            profile={"cached step": (2, None)})
+        check(not c["halted"] and c["steps"] == LOOP_UPDATES,
+              f"C halted {c['halted']} after {c['steps']} updates")
         del out
         free()
         cdir = os.path.join(root, "C")
@@ -2131,62 +2157,17 @@ def loop_phase(card: str) -> dict:
                 check(same(x, y, tol_loss), f"cached {phase} losses "
                       f"{c['losses'][phase]} vs uncached {a['losses'][phase]}")
         shutil.rmtree(cdir)
-
-        cached_ms = c["step_kinds"]["cached step"]["mean_span_ms"]
-        b1, out = loop_run(config("B", cache_frozen_features=True,
-                                    halt_after_steps=LOOP_HALT), card,
-                             "B1 (halts after update 3)")
-        del out
-        free()
-        check(b1["halted"] and b1["steps"] == LOOP_HALT,
-              f"B1 halted {b1['halted']} after {b1['steps']} updates")
-        bdir = os.path.join(root, "B", "checkpoints")
-        for name in ("best", f"step_{LOOP_HALT}"):
-            check(os.path.isdir(os.path.join(bdir, name))
-                  and os.path.exists(os.path.join(bdir, f"{name}.meta.json")),
-                  f"B1's checkpoint {name} or its sidecar missing")
-        # B2 resumes from step_N, not from best; dropping best keeps the
-        # disk at two checkpoints (~21 GB) when B2 saves its own.
-        shutil.rmtree(os.path.join(bdir, "best"))
-        b2, out = loop_run(config("B", cache_frozen_features=True,
-                                    halt_after_steps=LOOP_HALT), card,
-                             "B2 (the same command: resumes from step_3)",
-                             profile={"cached step": (1, cached_ms)})
-        check(not b2["halted"] and b2["steps"] == LOOP_UPDATES,
-              f"B2 halted {b2['halted']} after {b2['steps']} updates")
-        check(b2["losses"] == c["losses"] if tol_loss == 0 else all(
-            same(x, y, tol_loss) for p in ("train", "val")
-            for x, y in zip(b2["losses"][p], c["losses"][p])),
-            f"resumed losses {b2['losses']} vs {c['losses']}")
-        check(same(b2["min_val_loss"], c["min_val_loss"], tol_loss),
-              f"min_val_loss {b2['min_val_loss']} vs {c['min_val_loss']}")
-        param_gap = 0.0
-        for n, p in out["trainer"].model.named_parameters():
-            if p.requires_grad and not torch.equal(p, c_params[n]):
-                param_gap = max(param_gap, max_err(p, c_params[n]))
-        check(param_gap <= tol_param, f"resumed parameters differ from the "
-              f"uninterrupted run's by {param_gap:.3e} (determinism gap "
-              f"{tol_param:.3e})")
-        print(f"resume: B2 equals C "
-              + ("bitwise" if param_gap == 0 and tol_loss == 0 else
-                 f"within the determinism gap (parameters {param_gap:.3e})")
-              + f": losses, {b2['steps']} updates, min_val_loss, "
-              f"{len(c_params)} trainable tensors [{card}]")
-        del out, c_params
-        free()
-        check(len(b2["metrics"]) == LOOP_EPOCHS,
-              f"B's metrics.jsonl: {len(b2['metrics'])} lines")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     full, fill = a["step_kinds"]["full step"], c["step_kinds"]["full step"]
     cached = c["step_kinds"]["cached step"]
-    saves = a["saves"] + c["saves"] + b1["saves"] + b2["saves"]
+    saves = a["saves"] + c["saves"]
     fills = c["host_calls"]["fill: wait for the copy"]
     fill_ms = (c["host_ms"]["fill: wait for the copy"]
                + c["host_ms"]["fill: write the cache"]) / max(fills, 1)
     busy = (a["profiles"]["full step"].get("busy_ms"),
-            b2["profiles"]["cached step"].get("busy_ms"))
+            c["profiles"]["cached step"].get("busy_ms"))
     print(f"phase 6 [{card}]: device span per step: full {full['mean_span_ms']:.2f}"
           f" ms (A), full with the cache's fill {fill['mean_span_ms']:.2f} ms "
           f"(C, epoch 1), cached {cached['mean_span_ms']:.2f} ms (C, epoch "
@@ -2202,7 +2183,7 @@ def loop_phase(card: str) -> dict:
           f"{min(s['write_s'] for s in saves):.3f}-"
           f"{max(s['write_s'] for s in saves):.3f} s over {len(saves)} saves")
     return dict(card=card, free_disk_gb=free_gb, determinism=det,
-                runs=dict(A=a, C=c, B1=b1, B2=b2), full_step=full,
+                runs=dict(A=a, C=c), full_step=full,
                 fill_step=fill, cached_step=cached, busy_ms=busy,
                 fill_host_ms=fill_ms)
 
@@ -3401,9 +3382,9 @@ def dynamic_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
     return dict(dynamic=out, stream=stream)
 
 
-def engine_direct(card, cap, images) -> dict:
-    """9b's engine check: eight arrivals through a DecodeEngine of
-    ENGINE_SLOTS slots, four inserted, one tick, four more, against
+def engine_direct(card, cap, images, label: str = "9b") -> dict:
+    """9b's engine check (and 11c's): eight arrivals through a DecodeEngine
+    of ENGINE_SLOTS slots, four inserted, one tick, four more, against
     greedy_decode of the same encoder rows; the idle slots' cache index
     runs past the buffer."""
     import torch
@@ -3438,9 +3419,9 @@ def engine_direct(card, cap, images) -> dict:
     idle = int(engine.state.cache[0]["self"]["cache_index"].max())
     check(idle > L, f"no slot's index ran past the buffer ({idle} <= {L})")
     out = knife_edges(t5, enc, mask, [rows[i] for i in range(len(images))],
-                      want, "9b engine row")
+                      want, f"{label} engine row")
     out["idle_cache_index"] = idle
-    print(f"phase 9b [{card}]: DecodeEngine ({ENGINE_SLOTS} slots, chunk "
+    print(f"phase {label} [{card}]: DecodeEngine ({ENGINE_SLOTS} slots, chunk "
           f"{ENGINE_CHUNK}), staggered inserts: {out['equal']}/"
           f"{out['rows']} rows equal greedy_decode's, knife edges "
           f"{out['knife_edge_margins']}; an idle slot's cache index reached "
@@ -4153,6 +4134,440 @@ def ddp_phase(card: str, determinism: dict) -> dict:
                 mask_bits_differ=differ, param_bound=bound)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: mixture of experts at full width
+# ---------------------------------------------------------------------------
+
+MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25,
+           moe_aux_loss_weight=0.01)
+MOE_STEPS = 3
+# Phase 4's peak at batch 32 as PERF.md section 5 records it, the base of
+# 11a's reckoning when phase 4 did not run in this call.
+PHASE4_PEAK_GB = 36.83
+# The reckoned peak above which 11a trains at batch 16 instead of 32: the
+# card's 80 GB less room for the allocator's fragmentation.
+MOE_MEMORY_LIMIT_GB = 76.0
+
+
+def moe_memory(cfg, batch: int, phase4_peak_gb: float) -> dict:
+    """11a's peak memory, reckoned before anything is built: phase 4's
+    measured peak (the dense step at batch 32; its activations scale with
+    the batch) plus what the experts add. State: each parameter that the
+    experts add over the dense MLPs in fp32 with its gradient and Adam's two
+    moments (16 bytes). Activations, per MoE block over a dense one, the
+    tensors that autograd keeps in bf16 (2 bytes) at capacity C of S
+    tokens: the dispatched input and expert output (E G C D each), the ReLU
+    output, the dropped hidden (E G C F each, and the 1-byte keep mask),
+    dispatch and combine (G S E C each), the top-k passes' fp32 slot masks
+    (k G S E C), and the bf16 casts of both expert banks (2 E D F), less the
+    dense MLP's hidden, dropped hidden and mask (5 bytes G S F) and its
+    casts (2 D F)."""
+    from klab_multimodalmodel_tpu_torch.ops.moe import moe_capacity
+
+    t5 = cfg.transformer_t5
+    E, k, D, F = cfg.moe_experts, cfg.moe_top_k, t5.d_model, t5.d_ff
+    layers = t5.num_layers + t5.num_decoder_layers
+    added = layers * (2 * (E - 1) * D * F + E * D)
+    state_gb = added * 16 / 1e9
+    act = 0
+    for n, S in ((t5.num_layers,
+                  cfg.swin.num_patches_out + cfg.max_source_length),
+                 (t5.num_decoder_layers, cfg.max_target_length)):
+        C = moe_capacity(S, E, k, cfg.moe_capacity_factor)
+        moe = (2 * (2 * E * batch * C * D) + (2 + 2 + 1) * E * batch * C * F
+               + 2 * 2 * batch * S * E * C + 4 * k * batch * S * E * C
+               + 2 * 2 * E * D * F)
+        dense = 5 * batch * S * F + 2 * 2 * D * F
+        act += n * (moe - dense)
+    base = phase4_peak_gb * batch / TRAIN_BATCH
+    total = base + state_gb + act / 1e9
+    return dict(batch=batch, base_gb=base, state_gb=state_gb,
+                activations_gb=act / 1e9, total_gb=total,
+                added_parameters=added)
+
+
+class RoutingRecorder:
+    """Wraps the model's ``topk_routing`` (and ``moe_ffn``) while in use:
+    each routing call's assignments (combine > 0) and router logits, in
+    call order, and a profiler range around each call (``moe routing``,
+    ``moe ffn``) that ``profile_device`` reads apart."""
+
+    def __init__(self, keep: bool = True):
+        self.keep = keep
+        self.calls: list = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from klab_multimodalmodel_tpu_torch.models import t5
+
+        self._saved = t5.topk_routing, t5.moe_ffn
+        routing, ffn = self._saved
+        rec = self
+
+        def topk_routing(logits, top_k, capacity, mask=None):
+            with record_function("moe routing"):
+                combine, aux = routing(logits, top_k, capacity, mask=mask)
+            if rec.keep:
+                rec.calls.append((combine.detach() > 0, logits.detach()))
+            return combine, aux
+
+        def moe_ffn(*args, **kw):
+            with record_function("moe ffn"):
+                return ffn(*args, **kw)
+
+        t5.topk_routing, t5.moe_ffn = topk_routing, moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        from klab_multimodalmodel_tpu_torch.models import t5
+
+        t5.topk_routing, t5.moe_ffn = self._saved
+
+
+def routing_differences(a: list, b: list, top_k: int) -> dict:
+    """Tokens whose assignments differ between two runs' routing calls
+    (same inputs, same order). A token whose set of experts differs is a
+    flip: the router's relative top-k margin there (the k-th probability
+    over the next, in run ``a``) is printed. A token with the same experts
+    in another slot was moved by an earlier token's flip in its group."""
+    import torch
+
+    check(len(a) == len(b), f"routing calls {len(a)} vs {len(b)}")
+    tokens = flips = moved = 0
+    margins = []
+    for layer, ((ca, la), (cb, _)) in enumerate(zip(a, b)):
+        tokens += ca.shape[0] * ca.shape[1]
+        sets_a, sets_b = ca.any(-1), cb.any(-1)          # (G, S, E)
+        flip = (sets_a != sets_b).any(-1)                # (G, S)
+        slot = (ca != cb).any(-1).any(-1) & ~flip
+        flips += int(flip.sum())
+        moved += int(slot.sum())
+        if flip.any():
+            p = torch.softmax(la.float(), -1)[flip]
+            top = p.topk(min(top_k + 1, p.shape[-1]), -1).values
+            rel = (top[:, top_k - 1] - top[:, top_k]) / top[:, top_k - 1]
+            margins += [(layer, float(m)) for m in rel]
+    for layer, m in margins:
+        print(f"  routing flip in routing call {layer}: the router's "
+              f"relative top-{top_k} margin {m:.3e}")
+    return dict(tokens=tokens, flipped=flips, moved_slot=moved,
+                flip_margins=margins)
+
+
+def fingerprint_to_host(named) -> dict:
+    """Host copies of (name, tensor) pairs: the bitwise reference that a
+    later check compares with."""
+    return {n: p.detach().to("cpu", copy=True) for n, p in named}
+
+
+def moe_train(card: str, phase4_peak_gb: float) -> tuple[dict, dict, object]:
+    """11a: ``Trainer`` steps with 4 experts (top-2) in every MLP of the
+    t5-large transformer, at full depth, both kernel flags, dropout on."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                 seed=SEED, **MOE)
+    reckoned = [moe_memory(cfg, b, phase4_peak_gb) for b in (TRAIN_BATCH,
+                                                             TRAIN_BATCH // 2)]
+    for r in reckoned:
+        print(f"phase 11a: memory reckoned at batch {r['batch']}: "
+              f"{r['total_gb']:.2f} GB = phase 4's peak scaled "
+              f"{r['base_gb']:.2f} + the experts' state "
+              f"{r['state_gb']:.2f} ({r['added_parameters']} parameters "
+              f"added) + activations {r['activations_gb']:.2f}")
+    batch_rows = next((r["batch"] for r in reckoned
+                       if r["total_gb"] <= MOE_MEMORY_LIMIT_GB), None)
+    check(batch_rows is not None, "11a fits at neither batch")
+    if batch_rows != TRAIN_BATCH:
+        print(f"phase 11a: batch {TRAIN_BATCH} is reckoned over "
+              f"{MOE_MEMORY_LIMIT_GB} GB: training at batch {batch_rows}")
+    trainer = Trainer(cfg)
+    model = trainer.init_state(
+        torch.Generator(device="cuda").manual_seed(cfg.seed))
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    moe_names = [n for n, _ in model.named_parameters() if ".mlp." in n]
+    check(n_train == TRAINABLE_T5_PROJ + reckoned[0]["added_parameters"],
+          f"trainable parameters {n_train}")
+    check(len(moe_names) == 3 * 48, f"{len(moe_names)} MoE tensors")
+    frozen = fingerprint_to_host((n, p) for n, p in model.named_parameters()
+                                 if not p.requires_grad)
+    moe0 = fingerprint_to_host((n, model.get_parameter(n))
+                               for n in moe_names)
+    print(f"MoE training model: {n_train} trainable parameters, "
+          f"{sum(moe0[n].numel() for n in moe_names)} of them in the "
+          f"routers and expert banks [{card}]")
+    batch = train_batch(cfg, batch_rows, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    auxes = []
+    forward = model.transformer.forward
+
+    def recording(*args, **kw):
+        out = forward(*args, **kw)
+        auxes.append(out.aux_loss.detach())
+        return out
+
+    model.transformer.forward = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(batch, gen))]  # warm-up step
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, timed, per_step = timed_steps(trainer, batch, gen, MOE_STEPS,
+                                           STEP_LAUNCHES, "MoE training step")
+    losses += timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    aux = [float(a) for a in auxes]
+    print(f"MoE losses (warm-up, then {MOE_STEPS} steps, dropout on): "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; balance losses "
+          + ", ".join(f"{x:.4f}" for x in aux))
+    check(all(math.isfinite(x) for x in losses + aux),
+          f"non-finite loss {losses} or aux {aux}")
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    for n, p in model.named_parameters():
+        if n in frozen:
+            check(torch.equal(p.detach().cpu(), frozen[n]),
+                  f"frozen {n} changed")
+    still = [f"{n}[{e}]" for n in moe_names
+             for e in range(model.get_parameter(n).shape[0])
+             if torch.equal(model.get_parameter(n)[e].detach().cpu(),
+                            moe0[n][e])]
+    check(not still, f"MoE slices that did not move: {still[:8]}")
+    print(f"every router and expert slice moved ({len(moe_names)} tensors); "
+          f"the frozen towers are bitwise unchanged ({len(frozen)} tensors)")
+    del frozen, moe0
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"MoE train step: {mean_ms:.2f} ms mean over {MOE_STEPS} "
+          f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
+          f"{batch_rows / (mean_ms / 1e3):.2f} images/s, first step "
+          f"{first_ms:.2f} ms, peak memory {peak_gb:.2f} GB (reckoned "
+          f"{reckoned[0 if batch_rows == TRAIN_BATCH else 1]['total_gb']:.2f}"
+          f") [{card}]")
+    with RoutingRecorder(keep=False):
+        device = profile_device(lambda: trainer.train_step(batch, gen),
+                                mean_ms, card, "MoE training step",
+                                ("moe routing", "moe ffn", "BmmBackward0",
+                                 OPT_SPAN))
+    model.transformer.forward = forward
+    result = dict(card=card, reckoned=reckoned, batch=batch_rows,
+                  trainable=n_train, losses=losses, aux_losses=aux,
+                  first_step_ms=first_ms, step_ms=step_ms,
+                  mean_step_ms=mean_ms,
+                  images_per_s=batch_rows / (mean_ms / 1e3),
+                  peak_memory_gb=peak_gb, launches_per_step=per_step,
+                  device=device)
+    return result, cfg, trainer
+
+
+def moe_vs_plain(cfg, state: dict) -> dict:
+    """11b: batch 8, dropout off, on 11a's weights, fp32 compute: the loss
+    and every trainable gradient with the kernels against the same path
+    without them (phase 4's ``TOL_TRAIN_GRAD``), and the routing
+    assignments of the two runs compared token by token."""
+    batch = train_batch(cfg, CMP_BATCH, SEED + 2)
+    runs, routing = {}, {}
+    for path in ("kernels", "none"):
+        with RoutingRecorder() as rec:
+            runs[path] = path_grads(cfg, state, "float32", batch, path)
+        routing[path] = rec.calls
+    diff = routing_differences(routing["kernels"], routing["none"],
+                               cfg.moe_top_k)
+    print(f"phase 11b: routing, kernels vs none: {diff['flipped']} of "
+          f"{diff['tokens']} token-routings flipped an expert, "
+          f"{diff['moved_slot']} moved slot")
+    out = agreement(runs["kernels"], runs["none"],
+                    "MoE, float32, kernels vs none", TOL_TRAIN_GRAD)
+    out["routing"] = diff
+    return out
+
+
+def stepwise_greedy(t5, enc, mask, L: int):
+    """The stepwise oracle of greedy decoding (the JAX package's
+    tests/test_moe.py:473): a hand-written argmax loop over ``decode_step``
+    with its cache, pad after eos."""
+    import torch
+
+    s = t5.size
+    B = enc.shape[0]
+    tok = torch.full((B, L), s.pad_token_id, dtype=torch.int32,
+                     device=enc.device)
+    tok[:, 0] = s.decoder_start_token_id
+    finished = torch.zeros(B, dtype=torch.bool, device=enc.device)
+    cache = None
+    with torch.inference_mode():
+        for t in range(L - 1):
+            logits, cache = t5.decode_step(tok[:, t:t + 1], t, enc, L, mask,
+                                           cache=cache)
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)
+            nxt = torch.where(finished, s.pad_token_id, nxt)
+            tok[:, t + 1] = nxt
+            finished |= nxt == s.eos_token_id
+            if bool(finished.all()):
+                break
+    return tok
+
+
+def moe_serve(card: str, cfg, state: dict, phase3_request_ms) -> dict:
+    """11c: three batch-8 greedy requests through ``Captioner`` on 11a's
+    weights (fp32, both kernel flags): 24 Swin and 48 T5 launches each, the
+    tokens against the stepwise oracle, and eight rows through a
+    ``DecodeEngine`` against ``greedy_decode`` (routing groups are rows)."""
+    import numpy as np
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
+    from klab_multimodalmodel_tpu_torch.ops import swin_attention, t5_attention
+    from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
+
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    cap = Captioner(c, state, ByteTokenizer())
+    rng = np.random.default_rng(SEED)
+    size = c.swin.image_size
+    requests = [rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+                for _ in range(REQUESTS + 1)]
+    cap.caption(requests[0])  # warm-up
+    reset_counts()
+    per_request, all_ids = [], []
+    for images in requests[1:]:
+        s0, t0_count = swin_attention.launches, t5_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = cap.caption_launch(images)
+        cap.caption_finish(ids)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(swin=swin_attention.launches - s0,
+                   t5=t5_attention.launches - t0_count)
+        check(got == dict(swin=24, t5=48),
+              f"MoE request launches {got}, expected 24 Swin and 48 T5")
+        check(tuple(ids.shape) == (BATCH, c.generate_max_length),
+              f"token shape {tuple(ids.shape)}")
+        per_request.append(dict(ms=ms, passes=decoder_passes(ids.cpu())))
+        all_ids.append(ids)
+    launches = dict(swin=swin_attention.launches, t5=t5_attention.launches)
+    equal = 0
+    for images, ids in zip(requests[1:], all_ids):
+        enc, mask = cap._encode_prefill(images, None)
+        want = stepwise_greedy(cap.decode_model, enc, mask,
+                               c.generate_max_length)
+        check(torch.equal(ids, want), "MoE greedy tokens differ from the "
+              "stepwise decode_step oracle")
+        equal += int(torch.equal(ids, want))
+    engine = engine_direct(card, cap, requests[1], label="11c")
+    times = [r["ms"] for r in per_request]
+    mean_ms = sum(times) / len(times)
+    print(f"phase 11c [{card}]: MoE request {mean_ms:.2f} ms mean "
+          f"({', '.join(f'{t:.2f}' for t in times)}; phase 3's dense "
+          f"request {phase3_request_ms} ms), {equal} of {REQUESTS} requests "
+          f"equal the stepwise oracle")
+    del cap
+    free()
+    return dict(requests=per_request, request_ms=mean_ms,
+                phase3_request_ms=phase3_request_ms, launches=launches,
+                oracle_equal=equal, engine=engine)
+
+
+def moe_phase(card: str, phase4: dict | None = None,
+              phase3: dict | None = None) -> dict:
+    """Phase 11: 11a training steps, 11b kernels vs none, 11c serving."""
+    t_phase = time.perf_counter()
+    peak4 = phase4["peak_memory_gb"] if phase4 else PHASE4_PEAK_GB
+    train_out, cfg, trainer = moe_train(card, peak4)
+    trainer.optimizer = trainer.scheduler = None  # Adam's moments go
+    model = trainer.model
+    del trainer
+    model.zero_grad(set_to_none=True)
+    free()
+    state = model.state_dict()
+    out = dict(train=train_out)
+    out["vs_plain"] = moe_vs_plain(cfg, state)
+    out["serve"] = moe_serve(card, cfg, state,
+                             phase3["request_ms"] if phase3 else None)
+    del model, state
+    free()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the GPipe schedule at full width
+# ---------------------------------------------------------------------------
+
+GPIPE = dict(pipeline_stages=4, pipeline_microbatches=8)
+GPIPE_BATCH, GPIPE_STEPS = 16, 2
+# The T5 kernel is off (the JAX package refuses it with a pipeline): a step
+# launches only the Swin kernel.
+GPIPE_LAUNCHES = dict(t5_fwd=0, t5_fwd_dropout=0, t5_bwd=0, t5_bwd_dbias=0,
+                      swin=24)
+
+
+def gpipe_phase(card: str) -> dict:
+    """Phase 12: phase 4's set-up at batch 16 with the T5 kernel off, the
+    transformer's two stacks run as 4 GPipe stages of 8 microbatches: steps
+    beside the same weights at one stage, then, dropout off and in fp32
+    compute, the loss and every gradient against one stage."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    base = dict(use_pallas_attention=True, seed=SEED)
+    configs = {4: Config(**base, **GPIPE), 1: Config(**base)}
+    batch = train_batch(configs[1], GPIPE_BATCH, SEED)
+    runs = {}
+    for stages, cfg in configs.items():
+        trainer = Trainer(cfg)
+        trainer.init_state(  # the same seeded weights at either count
+            torch.Generator(device="cuda").manual_seed(cfg.seed))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        first = float(trainer.train_step(batch, gen))  # warm-up step
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, per_step = timed_steps(
+            trainer, batch, gen, GPIPE_STEPS, GPIPE_LAUNCHES,
+            f"{stages}-stage step")
+        losses = [first] + losses
+        check(all(math.isfinite(x) for x in losses),
+              f"{stages} stages: non-finite loss {losses}")
+        check(losses[-1] < losses[0],
+              f"{stages} stages: loss did not fall {losses}")
+        runs[stages] = dict(step_ms=step_ms,
+                            mean_step_ms=sum(step_ms) / len(step_ms),
+                            peak_memory_gb=torch.cuda.max_memory_allocated()
+                            / 1e9, losses=losses, launches_per_step=per_step)
+        trainer.optimizer = trainer.scheduler = None
+        model = trainer.model
+        del trainer
+        model.zero_grad(set_to_none=True)
+        free()
+    state = model.state_dict()  # the one-stage run's trained weights
+    # Dropout off, fp32 compute: 4 stages against 1 on the same weights, at
+    # phase 4's comparison batch (one row a microbatch).
+    cmp_batch = train_batch(configs[1], CMP_BATCH, SEED + 2)
+    cmp = {stages: path_grads(cfg, state, "float32", cmp_batch, "none")
+           for stages, cfg in configs.items()}
+    agree = agreement(cmp[4], cmp[1], "GPipe, float32, 4 stages vs 1",
+                      TOL_TRAIN_GRAD)
+    del model, state, cmp
+    free()
+    p, q = runs[4], runs[1]
+    print(f"phase 12 [{card}]: batch {GPIPE_BATCH}, 4 stages x 8 "
+          f"microbatches: step {p['mean_step_ms']:.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in p['step_ms'])}), peak "
+          f"{p['peak_memory_gb']:.2f} GB; 1 stage: step "
+          f"{q['mean_step_ms']:.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in q['step_ms'])}), peak "
+          f"{q['peak_memory_gb']:.2f} GB; launches per step "
+          f"{p['launches_per_step']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 12: {seconds:.1f} s")
+    return dict(card=card, batch=GPIPE_BATCH, runs=runs, vs_one_stage=agree,
+                seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -4211,6 +4626,10 @@ def main() -> int:
     serving = serving_phase(card)
     free()
     distributed = ddp_phase(card, looping["determinism"])
+    free()
+    moe = moe_phase(card, training, captioning)
+    free()
+    gpipe = gpipe_phase(card)
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -4255,6 +4674,18 @@ def main() -> int:
         if caption_key:
             check(entry["launches_serving_prefill"] > 0,
                   f"{entry['name']} never launched by phase 9's serving")
+        entry["launches_moe_step"] = moe["train"]["launches_per_step"][
+            train_key]
+        check(entry["launches_moe_step"] > 0,
+              f"{entry['name']} never launched in a phase-11a MoE step")
+        entry["launches_moe_request"] = (
+            moe["serve"]["launches"][caption_key] // REQUESTS
+            if caption_key else 0)
+        entry["launches_gpipe_step"] = gpipe["runs"][4][
+            "launches_per_step"][train_key]
+        if train_key == "swin":
+            check(entry["launches_gpipe_step"] > 0,
+                  "the Swin kernel never launched in a phase-12 step")
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -4265,7 +4696,8 @@ def main() -> int:
         "launches_loop_run", "launches_loop_full_step",
         "launches_loop_cached_step", "launches_beam_request",
         "launches_artifacts_request", "launches_artifacts_step",
-        "launches_serving_prefill", "launches_ddp_rank_step")}
+        "launches_serving_prefill", "launches_ddp_rank_step",
+        "launches_moe_step", "launches_moe_request", "launches_gpipe_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -4283,7 +4715,11 @@ def main() -> int:
                  f"artifacts); launches_serving_prefill: one batch of "
                  f"phase 9a's HTTP load; launches_ddp_rank_step: one full "
                  f"step of one of phase 10a's two DDP ranks (batch "
-                 f"{DDP_BATCH}, dropout 0)"}))
+                 f"{DDP_BATCH}, dropout 0); launches_moe_step / "
+                 f"_moe_request: one step of phase 11a (4 experts, top-2) "
+                 f"and one request of phase 11c; launches_gpipe_step: one "
+                 f"step of phase 12 (4 GPipe stages, the T5 kernel off as "
+                 f"the JAX package requires)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -4294,7 +4730,7 @@ def main() -> int:
                    "train_with_swin": swin_training, "options": options,
                    "loop": looping, "evaluation": evaluating,
                    "artifacts": artifacts, "serving": serving,
-                   "ddp": distributed}, f,
+                   "ddp": distributed, "moe": moe, "gpipe": gpipe}, f,
                   indent=1, default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ Each tower is checked against its geometry as ``convert_hf`` checks it, cast
 to fp32, and given back the tied copies HF's modules hold, so that
 ``transformers``' ``T5ForConditionalGeneration``, ``T5EncoderModel`` and
 ``Swinv2Model`` take the result with ``load_state_dict(strict=True)``. The
-port's copy of the JAX package's ``checkpoint/export_hf.py``.
+port's copy of the JAX package's ``checkpoint/export_hf.py``. An MoE
+transformer has no HF T5 layout: ``export_t5_lm`` raises ``ValueError``
+for one (the JAX exporter fails on its expert leaves too, less clearly).
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ def export_t5_lm(sd: Mapping[str, torch.Tensor], size: T5Size
                  ) -> dict[str, torch.Tensor]:
     """The port's ``T5ForConditionalGeneration`` -> HF's."""
     from ..models.t5 import T5ForConditionalGeneration
+
+    if any(".mlp.experts_" in k for k in sd):
+        raise ValueError(
+            "an MoE transformer (moe_experts > 0) has no HuggingFace T5 "
+            "layout: HF's T5 has one dense MLP per block, not expert banks "
+            "and a router; export the dense model")
 
     out = take(sd, expected_shapes(T5ForConditionalGeneration(
         size, device="meta")), "T5 LM", _never)

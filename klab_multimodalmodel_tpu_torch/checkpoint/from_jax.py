@@ -9,7 +9,17 @@ Layout rules (the port's own copy of the JAX package's HF export rules):
   per-layer keys;
 * flax conv kernels (kh, kw, in, out) -> torch (out, in, kh, kw);
 * keys are HF's names, as the port's modules use them. Tied copies
-  (``embed_tokens``, a tied ``lm_head``) are not emitted.
+  (``embed_tokens``, a tied ``lm_head``) are not emitted;
+* an MoE block's ``mlp/router`` kernel (D, E) becomes the port's
+  ``…layer.{ff}.mlp.router.weight`` (E, D), and its ``mlp/experts_wi``
+  (E, D, F) and ``mlp/experts_wo`` (E, F, D) become
+  ``…layer.{ff}.mlp.experts_wi`` / ``.experts_wo`` unchanged. No HF T5
+  checkpoint has experts: the names keep HF's prefix up to the feed-forward
+  layer;
+* a pipelined stack (``pipeline/stages/block/block/…``, leaves of shape
+  (S, L / S, …)) is read through ``unpipeline_t5_params`` as the scanned
+  stack it reshapes to: the port's layers are one list whatever the stage
+  count.
 """
 
 from __future__ import annotations
@@ -32,6 +42,29 @@ def _t(w) -> np.ndarray:
     return _np(w).T
 
 
+def unpipeline_t5_params(params: Params) -> dict:
+    """The JAX package's ``unpipeline_t5_params`` on numpy trees: each
+    pipelined stack's (S, L / S, …) leaves reshaped to the scanned
+    ``layers/block`` layout's (L, …); other trees are returned as they
+    are."""
+    p = dict(params)
+    for key in ("encoder", "decoder"):
+        if key in p and "pipeline" in p[key]:
+            stack = {k: v for k, v in p[key].items() if k != "pipeline"}
+            stack["layers"] = {"block": _map(
+                lambda a: a.reshape((a.shape[0] * a.shape[1],)
+                                    + a.shape[2:]),
+                p[key]["pipeline"]["stages"]["block"]["block"])}
+            p[key] = stack
+    return p
+
+
+def _map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(np.asarray(tree))
+
+
 def _t5_stack(stack: Params, relpos: Params, prefix: str, num_layers: int,
               is_decoder: bool, out: dict) -> None:
     block = stack["layers"]["block"]
@@ -50,10 +83,17 @@ def _t5_stack(stack: Params, relpos: Params, prefix: str, num_layers: int,
                     block["EncDecAttention"][p]["kernel"][i])
         out[f"{b}.{ff_idx}.layer_norm.weight"] = _np(
             block["ln_mlp"]["weight"][i])
+        mlp = block["mlp"]
+        if "experts_wi" in mlp:
+            f = f"{b}.{ff_idx}.mlp"
+            out[f"{f}.router.weight"] = _t(mlp["router"]["kernel"][i])
+            out[f"{f}.experts_wi"] = _np(mlp["experts_wi"][i])
+            out[f"{f}.experts_wo"] = _np(mlp["experts_wo"][i])
+            continue
         # v1.1 gated MLPs carry wi_0/wi_1 instead of wi.
-        for p in sorted(block["mlp"]):
+        for p in sorted(mlp):
             out[f"{b}.{ff_idx}.DenseReluDense.{p}.weight"] = _t(
-                block["mlp"][p]["kernel"][i])
+                mlp[p]["kernel"][i])
     out[f"{prefix}.block.0.layer.0.SelfAttention.relative_attention_bias"
         ".weight"] = _np(relpos["embedding"])
     out[f"{prefix}.final_layer_norm.weight"] = _np(
@@ -61,8 +101,9 @@ def _t5_stack(stack: Params, relpos: Params, prefix: str, num_layers: int,
 
 
 def convert_t5_lm(params: Params, size: T5Size) -> dict:
-    """JAX ``T5ForConditionalGeneration`` params -> port state dict
-    (numpy)."""
+    """JAX ``T5ForConditionalGeneration`` params (scanned or pipelined,
+    dense or MoE) -> port state dict (numpy)."""
+    params = unpipeline_t5_params(params)
     sd: dict = {"shared.weight": _np(params["shared"]["embedding"])}
     _t5_stack(params["encoder"], params["enc_relpos_bias"], "encoder",
               size.num_layers, False, sd)

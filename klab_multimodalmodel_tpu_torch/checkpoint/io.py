@@ -23,6 +23,16 @@ does not record the world size that wrote it and resumes at another one.
 A pretrained checkpoint (``save_pretrained``) is a directory with a
 ``model.pt`` holding some of the model's top-level submodules
 (``image_model``, ``language_model``, ``transformer``, the projections).
+A dense ``transformer`` loaded into an MoE model is sparse-upcycled
+(``models.t5.upcycle_t5_params``: every expert a copy of its block's dense
+MLP, the router fresh), as the JAX package's ``load_pretrained_params``
+does; a full-state resume across the dense/MoE boundary raises, since the
+experts' optimizer moments have no dense counterpart (an MoE checkpoint's
+metadata holds ``"moe": true``).
+
+Pipeline stage counts need no conversion: the port's layers keep their
+names whatever ``pipeline_stages`` is, so a checkpoint written at one stage
+count loads at any other (the JAX package reshapes its pipelined layout).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..models.t5 import upcycle_t5_params
 from ..utils.mesh import barrier
 
 MODEL_FILE = "model.pt"
@@ -127,8 +138,16 @@ def load_pretrained_params(path: str, trainer) -> list[str]:
             f"pretrained checkpoint {p} contains submodules {missing} the "
             "model does not have: geometry/config mismatch")
     for top, sd in groups.items():
+        fresh = children[top].state_dict()
+        if top == "transformer" and is_moe(fresh) and not is_moe(sd):
+            sd = upcycle_t5_params(sd, fresh)
         children[top].load_state_dict(sd, strict=True)
     return sorted(groups)
+
+
+def is_moe(state_dict) -> bool:
+    """Whether a state dict holds MoE expert banks (``T5MoeMlp``)."""
+    return any(k.endswith(".mlp.experts_wi") for k in state_dict)
 
 
 class CheckpointManager:
@@ -170,6 +189,8 @@ class CheckpointManager:
                   "bytes": _nbytes(model) + _nbytes(train_state)}
         self.saves.append(record)
         meta = {"steps": int(trainer.step), **(metadata or {})}
+        if is_moe(model):
+            meta["moe"] = True
         self._thread = threading.Thread(
             target=self._write, args=(name, model, train_state, meta, record),
             daemon=False)
@@ -222,12 +243,25 @@ class CheckpointManager:
 
     def restore(self, name: str, trainer) -> None:
         """Load checkpoint ``name`` into ``trainer`` (its model with
-        ``strict=True``, optimizer, schedule and step count)."""
+        ``strict=True``, optimizer, schedule and step count). Raises
+        ``ValueError`` across the dense/MoE boundary."""
         self.wait()
         d = self.path(name)
-        trainer.model.load_state_dict(
-            torch.load(os.path.join(d, MODEL_FILE), map_location="cpu",
-                       weights_only=True), strict=True)
+        saved = torch.load(os.path.join(d, MODEL_FILE), map_location="cpu",
+                           weights_only=True)
+        saved_moe = (self.load_metadata(name) or {}).get("moe",
+                                                          is_moe(saved))
+        target_moe = trainer.config.moe_experts > 0
+        if saved_moe != target_moe:
+            raise ValueError(
+                f"checkpoint {name} is {'MoE' if saved_moe else 'dense'} "
+                f"but the target model is {'MoE' if target_moe else 'dense'}"
+                ": full-state resume cannot cross the dense/MoE boundary "
+                "(expert optimizer moments have no dense counterpart). For "
+                "dense -> MoE, sparse-upcycle the params with "
+                "--init_checkpoint (fresh optimizer), per Komatsuzaki et "
+                "al. 2023.")
+        trainer.model.load_state_dict(saved, strict=True)
         state = torch.load(os.path.join(d, TRAIN_STATE_FILE),
                            map_location="cpu", weights_only=True)
         _load_optimizer_state(trainer.optimizer, state["optimizer"])

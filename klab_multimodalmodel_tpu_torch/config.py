@@ -129,10 +129,10 @@ _REMAT = ("", "full", "dots_saveable")
 @dataclasses.dataclass
 class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
-    training step and the training loop read, with the same names and
-    defaults. Options that are not ported raise ``NotImplementedError``
-    naming the ROADMAP item that ports them: ``moe_experts > 0`` (A12), a
-    mesh axis other than ``data`` above 1 (A11b or A12) and
+    training step and the training loop read, with the same names,
+    defaults and checks. Options that are not ported raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them: a mesh
+    axis other than ``data`` above 1 (A11b or A12c) and
     ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
@@ -155,7 +155,8 @@ class Config:
     seed: int = 0
     # Mesh: data x fsdp x tensor x seq x pipe x expert. Only the data axis
     # is ported (one DDP rank per entry; -1 = the world's processes); the
-    # others must be 1. 3 to 6 entries, right-padded with 1.
+    # others must be 1: the pipeline and the experts run unsharded on each
+    # rank. 3 to 6 entries, right-padded with 1.
     mesh_shape: tuple[int, ...] = (-1, 1, 1, 1, 1, 1)
     mesh_axis_names: tuple[str, ...] = ("data", "fsdp", "tensor", "seq",
                                         "pipe", "expert")
@@ -182,8 +183,21 @@ class Config:
     # take a kernel.
     use_pallas_attention: bool = False
     use_pallas_t5_attention: bool = False
-    # Only the dense model is ported; kept so configs carry the field.
+    # GPipe over the main transformer's two stacks (models/t5.py): this
+    # many stages of num_layers / stages consecutive blocks, with
+    # pipeline_microbatches microbatches (0 = pipeline_stages) per forward,
+    # which must divide it. On one rank the schedule only reorders work.
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 0
+    # Switch / GShard mixture of experts in every MLP of the main
+    # transformer (ops/moe.py): this many experts (0 = dense), each token
+    # routed to moe_top_k of them (1 or 2) at a per-expert capacity of
+    # ceil(top_k * tokens / experts * moe_capacity_factor); the balance loss
+    # joins the loss at moe_aux_loss_weight. The towers stay dense.
     moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
     # Attend pad positions (the reference's no-mask behaviour).
     reference_pad_quirks: bool = False
     # The reference's optimizer covers only the transformer: with
@@ -250,7 +264,12 @@ class Config:
                     f"{name}={shape}: expected 3 or {len(names)} axes")
             shape = shape + (1,) * (len(names) - len(shape))
             setattr(self, name, shape)
-            refuse_unported_axes(shape, names, name)
+        if self.pipeline_stages > 1 or self.moe_experts > 0:
+            # Before the axes' refusal: a value the JAX package refuses
+            # raises its ValueError.
+            self._check_pipeline_and_moe()
+        for name in ("mesh_shape", "dcn_mesh_shape"):
+            refuse_unported_axes(getattr(self, name), names, name)
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
                      "adam_mu_dtype", "frozen_param_dtype"):
             if getattr(self, name) not in _DTYPE_NAMES:
@@ -263,10 +282,6 @@ class Config:
         if self.remat not in _REMAT:
             raise ValueError(f"unknown remat {self.remat!r}: expected one of "
                              f"{_REMAT}")
-        if self.moe_experts != 0:
-            raise NotImplementedError(
-                "moe_experts > 0 is not ported (ROADMAP A12); only the dense "
-                "model is")
         if self.profile_server_port > 0:
             raise NotImplementedError(
                 "profile_server_port: PyTorch has no live profiler server; "
@@ -284,6 +299,74 @@ class Config:
             raise ValueError(
                 "cache_frozen_features requires a frozen image tower "
                 "(image_model_train=False)")
+
+    def _axis(self, name: str) -> int | None:
+        """A mesh axis's global size (ICI x DCN factor), 1 for an axis the
+        names lack, None for the -1 wildcard."""
+        try:
+            i = self.mesh_axis_names.index(name)
+        except ValueError:
+            return 1
+        ici, dcn = self.mesh_shape[i], self.dcn_mesh_shape[i]
+        if ici == -1 or dcn == -1:
+            return None
+        return ici * dcn
+
+    def _check_pipeline_and_moe(self) -> None:
+        """The JAX package's checks of the pipeline and MoE flags
+        (``config.py:420-475``), with its messages. Ring attention, which
+        the JAX package also refuses with a pipeline, is not ported:
+        ``--seq_attention ring`` raises on the command line."""
+        axis = self._axis
+        if self.pipeline_stages > 1:
+            if self.use_pallas_t5_attention:
+                raise ValueError(
+                    "pipeline_stages > 1 with use_pallas_t5_attention is "
+                    "not supported; drop one of the flags")
+            if axis("pipe") not in (None, 1, self.pipeline_stages):
+                raise ValueError(
+                    f"mesh pipe axis {axis('pipe')} must equal "
+                    f"pipeline_stages={self.pipeline_stages} (or 1 to run "
+                    "the schedule unsharded)")
+            if axis("seq") != 1:
+                raise ValueError(
+                    "pipeline_stages > 1 with a seq mesh axis > 1 is not "
+                    "supported (sharding constraints inside the vmapped "
+                    "stages); shard long sequences with --mesh_shape seq "
+                    "instead of the pipeline")
+        elif axis("pipe") != 1:
+            raise ValueError(
+                f"mesh pipe axis {axis('pipe')} > 1 requires "
+                "--pipeline_stages to match")
+        if self.moe_experts > 0:
+            if self.moe_top_k not in (1, 2):
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k}: expected 1 (Switch) "
+                    "or 2 (GShard)")
+            if self.pipeline_stages > 1:
+                raise ValueError(
+                    "moe_experts > 0 with pipeline_stages > 1 is not "
+                    "supported (the MoE aux loss does not thread through "
+                    "the pipeline tick schedule); shard experts with the "
+                    "mesh expert axis instead")
+            expert = axis("expert")
+            if expert is not None and self.moe_experts % max(expert, 1):
+                raise ValueError(
+                    f"moe_experts={self.moe_experts} must be divisible by "
+                    f"the mesh expert axis {expert}")
+            if self.moe_capacity_factor <= 0:
+                raise ValueError("moe_capacity_factor must be positive")
+            if self.bucket_lengths:
+                raise ValueError(
+                    "moe_experts > 0 with bucket_lengths is not supported: "
+                    "expert capacity quantizes on the (static) padded "
+                    "sequence length, so per-bucket capacities would break "
+                    "bucket_lengths' loss-identity guarantee; run MoE at "
+                    "fixed max lengths")
+        elif axis("expert") != 1:
+            raise ValueError(
+                f"mesh expert axis {axis('expert')} > 1 requires "
+                "--moe_experts")
 
     # -- derived model geometries ------------------------------------------
     @property
@@ -358,12 +441,7 @@ def _swin_size(name: str) -> SwinV2Size:
 UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
     "scan_unroll": (0, "A, not ported by design: the port's layers run "
                        "in a Python loop, with no XLA scan to unroll"),
-    "seq_attention": ("allgather", "A12, ring attention"),
-    "pipeline_stages": (1, "A12, GPipe"),
-    "pipeline_microbatches": (0, "A12, GPipe"),
-    "moe_top_k": (1, "A12, MoE"),
-    "moe_capacity_factor": (1.25, "A12, MoE"),
-    "moe_aux_loss_weight": (0.01, "A12, MoE"),
+    "seq_attention": ("allgather", "A12c, ring attention"),
 }
 
 
@@ -397,7 +475,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
         help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; DATA is the "
              "DDP ranks (-1 = all processes), the other axes must be 1 "
-             "(FSDP, TENSOR: ROADMAP A11b; SEQ, PIPE, EXPERT: A12)")
+             "(FSDP, TENSOR: ROADMAP A11b; SEQ, PIPE, EXPERT: A12c)")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
         help="3-6 ints: per-axis factors across slices; the DATA factor "
@@ -420,11 +498,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--seq_attention", type=str,
         default=UNPORTED_FLAGS["seq_attention"][0],
         choices=["allgather", "ring"])
-    for name in ("pipeline_stages", "pipeline_microbatches", "moe_top_k"):
-        add(f"--{name}", type=int, default=UNPORTED_FLAGS[name][0])
-    add("--moe_experts", type=int, default=d.moe_experts)
+    for name in ("pipeline_stages", "pipeline_microbatches", "moe_experts",
+                 "moe_top_k"):
+        add(f"--{name}", type=int, default=getattr(d, name))
     for name in ("moe_capacity_factor", "moe_aux_loss_weight"):
-        add(f"--{name}", type=float, default=UNPORTED_FLAGS[name][0])
+        add(f"--{name}", type=float, default=getattr(d, name))
     add("--reference_pad_quirks", action="store_true")
     add("--freeze_image_model_updates", action="store_true")
     add("--cache_frozen_features", action="store_true")
@@ -455,8 +533,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
     flags in one message), and so does ``--mesh_shape`` or
     ``--dcn_mesh_shape`` with an axis other than data above 1; the
-    ``Config`` then refuses its own unported values (``moe_experts``,
-    ``profile_server_port``)."""
+    ``Config`` then checks the rest as the JAX package's does (the pipeline
+    and MoE flags) and refuses ``profile_server_port``."""
     from .utils.mesh import unported_axes
 
     kwargs: dict[str, Any] = dict(vars(args))

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 from typing import Iterator, Mapping, Optional, Sequence, Union
 
@@ -33,7 +34,14 @@ class Captioner:
     ``bucket_source=True`` (default) trims the tokenized prompt to the
     smallest power-of-two column bucket >= the longest real prompt (min 16,
     capped at ``max_source_length``) before the encoders run: every trimmed
-    column is pad that the attention masks already exclude.
+    column is pad that the attention masks already exclude. Not under MoE:
+    expert capacity quantizes on the padded width, so trimming would change
+    which tokens overflow (the reason the config refuses ``bucket_lengths``
+    with ``moe_experts``).
+
+    ``pipeline_stages > 1``: decoding runs the same layers with the
+    schedule off (one stage), as the JAX package's captioner decodes a
+    pipelined model's parameters through an unpipelined one.
 
     ``decode_int8``: decode through an int8 weight-only copy of the
     transformer (``infer/quantize.py``); the encoders keep the
@@ -50,6 +58,9 @@ class Captioner:
                  tokenizer: TokenizerBase, bucket_source: bool = True,
                  device=None, decode_int8: bool = False,
                  speculative_draft: Optional[int] = None):
+        if config.pipeline_stages > 1:
+            config = dataclasses.replace(config, pipeline_stages=1,
+                                         pipeline_microbatches=0)
         self.config = config
         self.device = resolve_device(device)
         if isinstance(state_dict_or_model, MultiModalModel):
@@ -76,11 +87,16 @@ class Captioner:
 
             self.decode_model = quantize_for_decode(model.transformer)
 
-    def _fp32(self):
-        """fp32 compute for the length of a call (see the class doc)."""
-        if self.model.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return self.model.computing_in(torch.float32)
+    def _decoding(self):
+        """fp32 compute and one pipeline stage for the length of a call
+        (see the class doc): a model passed in, such as a trainer's, may
+        have either otherwise."""
+        ctx = contextlib.ExitStack()
+        if self.model.dtype != torch.float32:
+            ctx.enter_context(self.model.computing_in(torch.float32))
+        if self.model.transformer.encoder.pipeline_stages > 1:
+            ctx.enter_context(self.model.unpipelined())
+        return ctx
 
     def caption(self, images_uint8: np.ndarray,
                 prompts: Optional[Sequence[str]] = None,
@@ -116,7 +132,7 @@ class Captioner:
         back. ``generator``: the sampling draws' source, on the device."""
         cfg = self.config
         enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
-        with self._fp32():
+        with self._decoding():
             return generate(
                 self.decode_model, enc_hidden, enc_mask,
                 max_length=max_length or cfg.generate_max_length,
@@ -150,7 +166,7 @@ class Captioner:
         until the stream ends."""
         cfg = self.config
         enc_hidden, enc_mask = self._encode_prefill(images_uint8, prompts)
-        with torch.inference_mode(), self._fp32():
+        with torch.inference_mode(), self._decoding():
             for tokens, n_valid, done in stream_decode(
                     self.decode_model, enc_hidden, enc_mask,
                     max_length=max_length or cfg.generate_max_length,
@@ -173,9 +189,11 @@ class Captioner:
         enc_in = self.tokenizer(prompts, max_length=cfg.max_source_length)
         src_ids = np.asarray(enc_in.input_ids)
         src_mask = np.asarray(enc_in.attention_mask)
-        # In reference_pad_quirks mode pads are deliberately attended, so
-        # trimming them would change results.
-        if self.bucket_source and not cfg.reference_pad_quirks:
+        # In reference_pad_quirks mode pads are deliberately attended, and
+        # under MoE the padded width sets the capacity: trimming would
+        # change results.
+        if (self.bucket_source and not cfg.reference_pad_quirks
+                and not cfg.moe_experts):
             # Tokenize at full length first so truncation never changes,
             # then trim pad columns to the bucket.
             width = pow2_bucket_width(src_mask, 16)
@@ -192,7 +210,7 @@ class Captioner:
         images = normalize_images(torch.as_tensor(images_uint8).to(dev))
         ids = torch.as_tensor(np.asarray(src_ids)).to(dev)
         mask = torch.as_tensor(np.asarray(src_mask)).to(dev)
-        with self._fp32():
+        with self._decoding():
             return self.model.encode_for_generation(images, ids, mask)
 
 

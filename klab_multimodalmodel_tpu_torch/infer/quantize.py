@@ -73,11 +73,14 @@ def quantize_for_decode(model: T5ForConditionalGeneration,
     ``KlabDense`` weight (q, k, v, o, wi, wi_0, wi_1, wo, an untied
     lm_head) replaced by its int8 grid with a ``qscale`` buffer, every
     other fp32 parameter cast to ``cast_dtype`` (None keeps fp32), compute
-    in fp32. With ``int8_head`` a tied head gets ``head_q`` and
-    ``head_scale`` too."""
+    in fp32. An MoE model's router and expert banks are no ``KlabDense``:
+    they are cast, not quantized, as the JAX package's
+    ``QUANT_KERNEL_MODULES`` leaves them. With ``int8_head`` a tied head
+    gets ``head_q`` and ``head_scale`` too."""
     out = T5ForConditionalGeneration(
         model.size, use_pallas=model.encoder.use_pallas,
-        dtype=torch.float32, device="meta").requires_grad_(False)
+        dtype=torch.float32, device="meta",
+        **model.moe_kwargs).requires_grad_(False)
     state = {}
     for name, p in model.named_parameters():
         state[name] = p.detach()

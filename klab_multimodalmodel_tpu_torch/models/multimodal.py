@@ -59,7 +59,12 @@ class MultiModalModel(nn.Module):
                 dtype=dtype, device=device)
             self.transformer = T5ForConditionalGeneration(
                 cfg.transformer_t5, use_pallas=cfg.use_pallas_t5_attention,
-                dtype=dtype, remat=cfg.remat, device=device)
+                dtype=dtype, remat=cfg.remat, device=device,
+                pipeline_stages=cfg.pipeline_stages,
+                pipeline_microbatches=cfg.pipeline_microbatches,
+                moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+                moe_capacity_factor=cfg.moe_capacity_factor,
+                moe_aux_loss_weight=cfg.moe_aux_loss_weight)
             d_model = cfg.transformer_t5.d_model
             vis_dim = cfg.swin.num_features
             if cfg.use_vision_projection or vis_dim != d_model:
@@ -106,6 +111,22 @@ class MultiModalModel(nn.Module):
         finally:
             for m, name, value in saved:
                 setattr(m, name, value)
+
+    @contextlib.contextmanager
+    def unpipelined(self):
+        """Run the block with the transformer's GPipe schedule off (one
+        stage, the same layers): decoding is a sequential cache loop with
+        nothing to pipeline, as the JAX package's ``Captioner`` decodes a
+        pipelined model through its unpipelined parameters."""
+        stacks = (self.transformer.encoder, self.transformer.decoder)
+        saved = [s.pipeline_stages for s in stacks]
+        for s in stacks:
+            s.pipeline_stages = 1
+        try:
+            yield self
+        finally:
+            for s, stages in zip(stacks, saved):
+                s.pipeline_stages = stages
 
     # -- frozen towers ------------------------------------------------------
     def image_features(self, images: torch.Tensor) -> torch.Tensor:
@@ -211,10 +232,14 @@ class MultiModalModel(nn.Module):
             deterministic=deterministic, generator=generator)
 
     def _decoder_mask(self, target_mask):
-        """Decoder key mask: none for the dense model (target pads trail the
-        sequence, so the causal mask already hides them and the loss weights
-        drop their rows). The JAX package passes it only to route MoE
-        tokens, which the port does not have."""
+        """Decoder key mask, passed only under MoE: it is the decoder's
+        routing mask, so pad targets claim no expert capacity and stay out
+        of the balance loss (and phantom rows of the accumulation tail, all
+        of whose targets are masked, route nowhere). It changes no loss of
+        the attention itself: target pads trail the sequence, so the causal
+        mask already hides them from real queries, and the loss weights
+        drop their rows. The dense model passes none, as the JAX package's
+        does."""
         if self.config.moe_experts > 0:
             return target_mask
         return None

@@ -1,4 +1,4 @@
-"""T5 encoder-decoder (v1.0 and v1.1/Flan geometries), dense subset.
+"""T5 encoder-decoder (v1.0 and v1.1/Flan geometries).
 
 The port of the JAX package's ``models/t5.py``: relative-position-bucket
 attention bias, RMSNorm, ReLU or gated tanh-GELU MLPs, the tied LM head with
@@ -32,6 +32,20 @@ replays the step generator's state from before the block, so it draws the
 forward's dropout masks and kernel seeds again, and leaves the generator
 where the forward left it (``torch.utils.checkpoint`` restores only the
 default generators).
+
+``moe_experts > 0`` replaces every MLP of ``T5ForConditionalGeneration``'s
+stacks with a Switch / GShard mixture of experts (``T5MoeMlp``, routing in
+``ops/moe.py``): a block then returns ``(x, aux)``, a stack sums its blocks'
+balance losses, and ``forward`` adds ``moe_aux_loss_weight`` times the sum
+of both stacks' to the loss. The stack's key mask is also the routing mask
+(pads route nowhere); a decode step routes its chunk with no mask, at the
+capacity of the chunk's length, as the JAX package's does.
+
+``pipeline_stages > 1`` runs a stack's full-sequence forward as the JAX
+package's GPipe schedule (``T5Stack._pipelined``): S stages of consecutive
+blocks, M microbatches, M + S - 1 ticks. On one rank the schedule reorders
+work and changes no value. The layers keep their names, so a pipelined
+model's state dict is a plain one: checkpoints carry no stage count.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import re
 from typing import Optional
 
 import torch
@@ -48,6 +63,7 @@ from torch import nn
 
 from ..config import T5Size
 from ..ops.fused_attention import draw_seed, t5_attention
+from ..ops.moe import moe_capacity, moe_ffn, topk_routing
 from ..utils.device import resolve_device
 from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
                      normal_)
@@ -330,16 +346,63 @@ class T5Mlp(nn.Module):
         return self.wo(dropout(h, rate, generator))
 
 
+class T5MoeMlp(nn.Module):
+    """The JAX package's ``T5MoeMlp``: ``num_experts`` un-gated ReLU FFNs of
+    the full ``d_ff`` (whatever ``feed_forward_proj`` is), a bias-free
+    router in fp32 on x cast to fp32, and dense dispatch at fixed capacity
+    (``ops/moe.py``). ``experts_wi`` (E, D, F) and ``experts_wo`` (E, F, D)
+    are stored in fp32 and cast to x's dtype. The router is an
+    ``nn.Linear`` (not a ``KlabDense``), so int8 decode leaves it and the
+    expert banks unquantized, as the JAX package does. Returns ``(y,
+    aux)``."""
+
+    def __init__(self, size: T5Size, num_experts: int, top_k: int = 1,
+                 capacity_factor: float = 1.25):
+        super().__init__()
+        s = self.size = size
+        self.num_experts = num_experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.router = nn.Linear(s.d_model, num_experts, bias=False)
+        self.experts_wi = nn.Parameter(
+            torch.empty(num_experts, s.d_model, s.d_ff))
+        self.experts_wo = nn.Parameter(
+            torch.empty(num_experts, s.d_ff, s.d_model))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        normal_(self.router.weight, self.size.d_model ** -0.5, generator)
+        normal_(self.experts_wi, self.size.d_model ** -0.5, generator)
+        normal_(self.experts_wo, self.size.d_ff ** -0.5, generator)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        # The router in fp32: routing must not flip with the compute dtype.
+        logits = F.linear(x.float(), self.router.weight.float())
+        cap = moe_capacity(x.shape[1], self.num_experts, self.top_k,
+                           self.capacity_factor)
+        combine, aux = topk_routing(logits, self.top_k, cap, mask=mask)
+        rate = 0.0 if deterministic else self.size.dropout_rate
+        y = moe_ffn(x, combine, self.experts_wi, self.experts_wo, rate,
+                    generator)
+        return y.to(x.dtype), aux
+
+
 class T5Block(nn.Module):
     """Pre-norm residual block: self-attn [-> cross-attn] -> MLP, laid out
-    as HF's ``layer`` list so parameter names match."""
+    as HF's ``layer`` list so parameter names match. With ``moe_experts >
+    0`` the MLP is a ``T5MoeMlp`` (named ``mlp``, beside the layer norm
+    where HF has ``DenseReluDense``) and the block returns ``(x, aux)``."""
 
     def __init__(self, size: T5Size, has_cross_attention: bool,
                  has_relative_attention_bias: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25):
         super().__init__()
         s = self.size = size
         self.has_cross_attention = has_cross_attention
+        self.moe = moe_experts > 0
         eps = s.layer_norm_epsilon
         layers = [nn.ModuleDict({
             "layer_norm": RMSNorm(s.d_model, eps),
@@ -350,9 +413,15 @@ class T5Block(nn.Module):
             layers.append(nn.ModuleDict({
                 "layer_norm": RMSNorm(s.d_model, eps),
                 "EncDecAttention": T5Attention(s, dtype=dtype)}))
-        layers.append(nn.ModuleDict({
-            "layer_norm": RMSNorm(s.d_model, eps),
-            "DenseReluDense": T5Mlp(s, dtype)}))
+        if self.moe:
+            layers.append(nn.ModuleDict({
+                "layer_norm": RMSNorm(s.d_model, eps),
+                "mlp": T5MoeMlp(s, moe_experts, moe_top_k,
+                                moe_capacity_factor)}))
+        else:
+            layers.append(nn.ModuleDict({
+                "layer_norm": RMSNorm(s.d_model, eps),
+                "DenseReluDense": T5Mlp(s, dtype)}))
         self.layer = nn.ModuleList(layers)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -362,6 +431,7 @@ class T5Block(nn.Module):
 
     def forward(self, x, self_bias, enc_out, cross_bias, self_pack=None,
                 cross_pack=None, cache: Optional[dict] = None,
+                moe_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         rate = 0.0 if deterministic else self.size.dropout_rate
@@ -381,6 +451,10 @@ class T5Block(nn.Module):
                 deterministic=deterministic, generator=generator)
             x = x + dropout(h, rate, generator)
         ff = self.layer[-1]
+        if self.moe:
+            h, aux = ff["mlp"](ff["layer_norm"](x), deterministic, generator,
+                               mask=moe_mask)
+            return x + dropout(h, rate, generator), aux
         h = ff["DenseReluDense"](ff["layer_norm"](x), deterministic,
                                  generator)
         return x + dropout(h, rate, generator)
@@ -460,18 +534,28 @@ class T5Stack(nn.Module):
     (B, K). The reference path sums them into dense logit biases; the kernel
     path (``use_pallas``) hands them to the kernel unchanged. ``remat``
     checkpoints each block when autograd records (see ``_remat_block``).
+    With ``moe_experts > 0`` the forward returns ``(hidden, the sum of the
+    blocks' balance losses)``; with ``pipeline_stages > 1`` a full-sequence
+    forward runs the GPipe schedule (``_pipelined``).
     """
 
     def __init__(self, size: T5Size, num_layers: int, is_decoder: bool,
                  use_pallas: bool = False, dtype: torch.dtype = torch.float32,
-                 remat: str = ""):
+                 remat: str = "", pipeline_stages: int = 1,
+                 pipeline_microbatches: int = 0, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.size = size
         self.use_pallas = use_pallas
         self.remat = remat
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        self.moe = moe_experts > 0
         self.block = nn.ModuleList(
             T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
-                    dtype=dtype)
+                    dtype=dtype, moe_experts=moe_experts,
+                    moe_top_k=moe_top_k,
+                    moe_capacity_factor=moe_capacity_factor)
             for i in range(num_layers))
         self.final_layer_norm = RMSNorm(size.d_model, size.layer_norm_epsilon)
 
@@ -490,10 +574,22 @@ class T5Stack(nn.Module):
                 enc_out: Optional[torch.Tensor] = None,
                 cross_kmask: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None):
         deterministic = deterministic or cache is not None
         rate = 0.0 if deterministic else self.size.dropout_rate
         x = dropout(inputs_embeds, rate, generator)
+        if self.pipeline_stages > 1:
+            if cache is not None:
+                raise ValueError(
+                    "incremental decode with a pipelined stack: run a "
+                    "pipeline_stages=1 model (the same state dict)")
+            if self.moe:
+                raise ValueError(
+                    "moe_experts > 0 with pipeline_stages > 1 is not "
+                    "supported (config validation should have caught this)")
+            x = self._pipelined(x, head_bias, kmask, enc_out, cross_kmask,
+                                deterministic, generator)
+            return dropout(self.final_layer_norm(x), rate, generator)
         self_bias = cross_bias = self_pack = cross_pack = None
         if self.use_pallas and cache is None:
             self_pack = (_kernel_bias(head_bias), _kernel_mask(kmask))
@@ -502,17 +598,132 @@ class T5Stack(nn.Module):
         else:
             self_bias, cross_bias = _assemble_dense_biases(
                 head_bias, kmask, enc_out, cross_kmask)
-        remat = self.remat if torch.is_grad_enabled() and cache is None else ""
         kw = dict(self_bias=self_bias, enc_out=enc_out, cross_bias=cross_bias,
                   self_pack=self_pack, cross_pack=cross_pack,
                   deterministic=deterministic)
-        for i, blk in enumerate(self.block):
+        if self.moe:
+            # The key mask is also the routing mask: pads route nowhere.
+            kw["moe_mask"] = kmask
+        x, aux = self._run_blocks(self.block, x, kw, generator, cache)
+        x = dropout(self.final_layer_norm(x), rate, generator)
+        return (x, aux) if self.moe else x
+
+    def _run_blocks(self, blocks, x, kw: dict, generator, cache=None):
+        """``blocks`` in order on ``x``: (x, the sum of their balance
+        losses, or None for dense blocks)."""
+        remat = self.remat if torch.is_grad_enabled() and cache is None else ""
+        aux = None
+        for i, blk in enumerate(blocks):
             if remat:
-                x = _remat_block(blk, remat, x, generator, **kw)
+                out = _remat_block(blk, remat, x, generator, **kw)
             else:
-                x = blk(x, cache=None if cache is None else cache[i],
-                        generator=generator, **kw)
-        return dropout(self.final_layer_norm(x), rate, generator)
+                out = blk(x, cache=None if cache is None else cache[i],
+                          generator=generator, **kw)
+            if self.moe:
+                x, a = out
+                aux = a if aux is None else aux + a
+            else:
+                x = out
+        return x, aux
+
+    def _stage(self, s: int, mb: dict, head_bias, deterministic: bool,
+               generator) -> torch.Tensor:
+        """Stage ``s`` of the pipeline (its ``num_layers / S`` consecutive
+        blocks) on one microbatch ``mb`` (its activations ``x``, key masks
+        and encoder context). The dense logit biases are assembled here from
+        the shared head bias and the microbatch's masks, as the JAX
+        package's ``_StageBlocks`` does, so a microbatch carries only its
+        (rows, K) masks."""
+        per = len(self.block) // self.pipeline_stages
+        self_bias, cross_bias = _assemble_dense_biases(
+            head_bias, mb.get("kmask"), mb.get("enc_out"),
+            mb.get("cross_kmask"))
+        kw = dict(self_bias=self_bias, enc_out=mb.get("enc_out"),
+                  cross_bias=cross_bias, deterministic=deterministic)
+        x, _ = self._run_blocks(self.block[s * per:(s + 1) * per], mb["x"],
+                                kw, generator)
+        return x
+
+    def _pipelined(self, x, head_bias, kmask, enc_out, cross_kmask,
+                   deterministic: bool, generator) -> torch.Tensor:
+        """The JAX package's GPipe schedule (``_PipelineTicks``): M
+        microbatches (``pipeline_microbatches`` or S) of B / M rows through
+        S stages in M + S - 1 ticks. At tick t stage s takes what stage
+        s - 1 gave at tick t - 1 (stage 0 takes microbatch t) and runs
+        microbatch t - s where 0 <= t - s < M. Each microbatch carries its
+        activations, key masks and encoder context; the head bias is shared.
+        The last stage's outputs are put back in batch order.
+
+        The JAX package also runs the padding lanes (t - s outside [0, M),
+        fed ``t % M`` and masks seeded with ones) because its stages are one
+        vmapped SPMD program that must stay finite everywhere; their outputs
+        are never emitted. Here a stage that holds no microbatch at a tick
+        does nothing. Ticks and stages stay explicit so that stages can go
+        to ranks (ROADMAP A12c)."""
+        S = self.pipeline_stages
+        if len(self.block) % S:
+            raise ValueError(f"num_layers={len(self.block)} not divisible "
+                             f"by pipeline_stages={S}")
+        if self.use_pallas:
+            raise ValueError("pipeline_stages > 1 is incompatible with "
+                             "the T5 attention kernel (use_pallas)")
+        B = x.shape[0]
+        M = self.pipeline_microbatches or S
+        if B % M:
+            raise ValueError(f"batch={B} not divisible by "
+                             f"pipeline_microbatches={M}")
+        rows = B // M
+        travel = {k: v for k, v in (("x", x), ("kmask", kmask),
+                                    ("enc_out", enc_out),
+                                    ("cross_kmask", cross_kmask))
+                  if v is not None}
+        microbatches = [{k: v[m * rows:(m + 1) * rows]
+                         for k, v in travel.items()} for m in range(M)]
+        held: list = [None] * S  # what each stage gave at the last tick
+        out = []
+        for t in range(M + S - 1):
+            # The shift: stage 0 takes microbatch t, stage s what s - 1 gave.
+            inputs = [microbatches[t] if t < M else None] + held[:-1]
+            held = [None if mb is None else dict(
+                mb, x=self._stage(s, mb, head_bias, deterministic, generator))
+                for s, mb in enumerate(inputs)]
+            if held[-1] is not None:
+                out.append(held[-1]["x"])
+        return torch.cat(out)
+
+
+# A dense block's MLP weight in a T5ForConditionalGeneration state dict.
+_DENSE_MLP = re.compile(
+    r"^((?:encoder|decoder)\.block\.\d+\.layer\.\d+\.)"
+    r"DenseReluDense\.(wi|wo|wi_0|wi_1)\.weight$")
+
+
+def upcycle_t5_params(dense: dict, fresh_moe: dict) -> dict:
+    """Sparse upcycling (Komatsuzaki et al. 2023), the JAX package's
+    ``upcycle_t5_params`` on the port's ``T5ForConditionalGeneration``
+    state dicts: every expert starts as a copy of its block's dense ``wi``
+    / ``wo`` (in fp32), the router keeps ``fresh_moe``'s init (a fresh MoE
+    model of the same geometry), and every other tensor is ``dense``'s, the
+    same tensor object. Optimizer state is not upcycled: the paper's
+    procedure, ``init_checkpoint``, starts a fresh optimizer."""
+    out = {}
+    for key, value in dense.items():
+        m = _DENSE_MLP.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        prefix, name = m.groups()
+        target = f"{prefix}mlp.experts_{name}"
+        if target not in fresh_moe:
+            raise ValueError(
+                "upcycle_t5_params needs a dense source (mlp/wi) and an "
+                "MoE target (mlp/experts_wi)")
+        # torch's (out, in) weight is the expert bank's (in, out) slice.
+        w = value.float().t().contiguous()
+        out[target] = w.expand(fresh_moe[target].shape[0], *w.shape).clone()
+        out[f"{prefix}mlp.router.weight"] = fresh_moe[
+            f"{prefix}mlp.router.weight"]
+    return out
 
 
 def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -572,6 +783,9 @@ class Seq2SeqOutput:
     loss: Optional[torch.Tensor]
     logits: torch.Tensor
     encoder_last_hidden_state: torch.Tensor
+    # MoE only: both stacks' summed balance losses, raw (``loss`` already
+    # holds them times moe_aux_loss_weight).
+    aux_loss: Optional[torch.Tensor] = None
 
 
 def causal_bias(length: int, device=None) -> torch.Tensor:
@@ -609,23 +823,34 @@ class T5ForConditionalGeneration(nn.Module):
     """Full encoder-decoder with the tied (or untied) LM head.
 
     ``dtype``: the compute dtype. ``remat``: '', 'full' or 'dots_saveable'
-    (see ``_remat_block``). ``device``: None means the card (see
-    ``utils.device``)."""
+    (see ``_remat_block``). ``pipeline_stages`` / ``pipeline_microbatches``:
+    the GPipe schedule of both stacks' full-sequence forwards. ``moe_*``:
+    the mixture of experts in both stacks' MLPs (see the module doc).
+    ``device``: None means the card (see ``utils.device``)."""
 
     def __init__(self, size: T5Size, use_pallas: bool = False,
                  dtype: torch.dtype = torch.float32, remat: str = "",
-                 device=None):
+                 device=None, pipeline_stages: int = 1,
+                 pipeline_microbatches: int = 0, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_weight: float = 0.01):
         super().__init__()
         with torch.device(resolve_device(device)):
             s = self.size = size
             self.dtype = dtype
+            self.moe_kwargs = dict(moe_experts=moe_experts,
+                                   moe_top_k=moe_top_k,
+                                   moe_capacity_factor=moe_capacity_factor)
+            self.moe_aux_loss_weight = moe_aux_loss_weight
+            stack = dict(use_pallas=use_pallas, dtype=dtype, remat=remat,
+                         pipeline_stages=pipeline_stages,
+                         pipeline_microbatches=pipeline_microbatches,
+                         **self.moe_kwargs)
             self.shared = nn.Embedding(s.vocab_size, s.d_model)
             self.encoder = T5Stack(s, s.num_layers, is_decoder=False,
-                                   use_pallas=use_pallas, dtype=dtype,
-                                   remat=remat)
+                                   **stack)
             self.decoder = T5Stack(s, s.num_decoder_layers, is_decoder=True,
-                                   use_pallas=use_pallas, dtype=dtype,
-                                   remat=remat)
+                                   **stack)
             if not s.tie_word_embeddings:
                 self.lm_head = KlabDense(s.d_model, s.vocab_size,
                                          s.d_model ** -0.5, dtype)
@@ -643,16 +868,26 @@ class T5ForConditionalGeneration(nn.Module):
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids.long()).to(self.dtype)
 
+    def _split_aux(self, stack_out):
+        """MoE stacks return (hidden, aux); dense stacks return hidden."""
+        return stack_out if self.encoder.moe else (stack_out, None)
+
     def encode(self, input_ids=None, inputs_embeds=None,
                attention_mask=None, deterministic: bool = True,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._encode_with_aux(input_ids, inputs_embeds,
+                                     attention_mask, deterministic,
+                                     generator)[0]
+
+    def _encode_with_aux(self, input_ids, inputs_embeds, attention_mask,
+                         deterministic, generator):
         if inputs_embeds is None:
             inputs_embeds = self._embed(input_ids)
         L = inputs_embeds.shape[1]
         relpos = self.encoder.relative_attention_bias
-        return self.encoder(inputs_embeds, head_bias=relpos(L, L),
-                            kmask=attention_mask,
-                            deterministic=deterministic, generator=generator)
+        return self._split_aux(self.encoder(
+            inputs_embeds, head_bias=relpos(L, L), kmask=attention_mask,
+            deterministic=deterministic, generator=generator))
 
     def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Logits in the compute dtype (flax ``Embed.attend`` for the tied
@@ -679,17 +914,22 @@ class T5ForConditionalGeneration(nn.Module):
         """Teacher-forced decoder over the whole target: (B, L) ids ->
         (B, L, vocab) logits. The self-attention bias is the relative-
         position bias plus the causal mask."""
+        return self._decode_train_with_aux(
+            decoder_input_ids, encoder_hidden, encoder_attention_mask,
+            decoder_attention_mask, deterministic, generator)[0]
+
+    def _decode_train_with_aux(self, decoder_input_ids, encoder_hidden,
+                               encoder_attention_mask, decoder_attention_mask,
+                               deterministic, generator):
         L = decoder_input_ids.shape[1]
         head_bias = (self.decoder.relative_attention_bias(L, L)
                      + causal_bias(L, decoder_input_ids.device))
-        hidden = self.decoder(self._embed(decoder_input_ids),
-                              head_bias=head_bias,
-                              kmask=decoder_attention_mask,
-                              enc_out=encoder_hidden,
-                              cross_kmask=encoder_attention_mask,
-                              deterministic=deterministic,
-                              generator=generator)
-        return self._lm_logits(hidden)
+        hidden, aux = self._split_aux(self.decoder(
+            self._embed(decoder_input_ids), head_bias=head_bias,
+            kmask=decoder_attention_mask, enc_out=encoder_hidden,
+            cross_kmask=encoder_attention_mask, deterministic=deterministic,
+            generator=generator))
+        return self._lm_logits(hidden), aux
 
     def decode_step(self, decoder_input_token: torch.Tensor, step,
                     encoder_hidden: torch.Tensor, max_decode_len: int,
@@ -719,9 +959,11 @@ class T5ForConditionalGeneration(nn.Module):
         else:
             start = min(max(step, 0), L - T)
             head_bias = full_bias[:, start:start + T]
-        hidden = self.decoder(dec_embeds, head_bias=head_bias,
-                              enc_out=encoder_hidden,
-                              cross_kmask=encoder_attention_mask, cache=cache)
+        # Under MoE the chunk routes with no mask, at its own length's
+        # capacity (the JAX package's decode_step passes no key mask).
+        hidden, _ = self._split_aux(self.decoder(
+            dec_embeds, head_bias=head_bias, enc_out=encoder_hidden,
+            cross_kmask=encoder_attention_mask, cache=cache))
         return self._lm_logits(hidden), cache
 
     def forward(self, input_ids=None, inputs_embeds=None, attention_mask=None,
@@ -732,20 +974,23 @@ class T5ForConditionalGeneration(nn.Module):
         """Training forward: encode, teacher-forced decode of
         ``shift_right(labels)`` (or ``decoder_input_ids``), and the
         cross-entropy loss against ``labels`` weighted by
-        ``label_weights``."""
+        ``label_weights``, plus ``moe_aux_loss_weight`` times the balance
+        loss under MoE."""
         s = self.size
-        enc = self.encode(input_ids, inputs_embeds, attention_mask,
-                          deterministic, generator)
+        enc, enc_aux = self._encode_with_aux(input_ids, inputs_embeds,
+                                             attention_mask, deterministic,
+                                             generator)
         if decoder_input_ids is None:
             decoder_input_ids = shift_right(
                 labels, s.decoder_start_token_id, s.pad_token_id)
-        logits = self.decode_train(decoder_input_ids, enc,
-                                   encoder_attention_mask=attention_mask,
-                                   decoder_attention_mask=decoder_attention_mask,
-                                   deterministic=deterministic,
-                                   generator=generator)
+        logits, dec_aux = self._decode_train_with_aux(
+            decoder_input_ids, enc, attention_mask, decoder_attention_mask,
+            deterministic, generator)
+        aux = None if enc_aux is None else enc_aux + dec_aux
         loss = None
         if labels is not None:
             loss = cross_entropy_loss(logits, labels, label_weights)
+            if aux is not None:
+                loss = loss + self.moe_aux_loss_weight * aux
         return Seq2SeqOutput(loss=loss, logits=logits,
-                             encoder_last_hidden_state=enc)
+                             encoder_last_hidden_state=enc, aux_loss=aux)

@@ -469,8 +469,11 @@ def train(config: Config,
             # Ragged final update: pad the leftover microbatches to a full
             # group by cycling real rows with both masks zeroed. Zero target
             # weights make their loss and gradients exactly zero, so this
-            # equals the reference's smaller final group. Phantom index rows
-            # are -1, so the cache never stores their features.
+            # equals the reference's smaller final group. Under MoE the
+            # zeroed masks (the image tokens follow the source row's) keep
+            # the phantom rows out of routing, capacity and the balance
+            # loss's group mean. Phantom index rows are -1, so the cache
+            # never stores their features.
             real = {k: np.concatenate([m[k] for m in micro_group])
                     for k in micro_group[0]}
             n_real = real["images"].shape[0]

@@ -5,11 +5,13 @@ image normalization in the compute dtype, the frozen towers' forwards under
 ``torch.no_grad()``, the trainable parts' forward and backward (the
 transformer, the projections and, with ``image_model_train``, the SwinV2
 tower; the attention through the hand-written kernels when the kernel flags
-are on), gradient accumulation over ``accumulation_steps`` microbatches, and
-the update (Adam, Adam with a bf16 first moment, or Adafactor;
-``train/optim.py``). With ``frozen_param_dtype='bfloat16'`` the frozen
-towers' parameters are stored in bf16, as the JAX package's
-``_maybe_cast_frozen`` stores them.
+are on; under MoE the loss includes the weighted balance loss, and with
+``pipeline_stages > 1`` a microbatch's rows must divide into the
+pipeline's microbatches), gradient accumulation over
+``accumulation_steps`` microbatches, and the update (Adam, Adam with a
+bf16 first moment, or Adafactor; ``train/optim.py``). With
+``frozen_param_dtype='bfloat16'`` the frozen towers' parameters are stored
+in bf16, as the JAX package's ``_maybe_cast_frozen`` stores them.
 
 Across processes (a process group, ``utils/mesh.py``; the mesh's data axis
 only) the model is wrapped in ``DistributedDataParallel`` with its
@@ -25,7 +27,9 @@ count / accum) and by the world size, which DDP's average divides out
 again, so that the reduced gradient is the global one. Every microbatch but
 the last runs under ``no_sync()``. Returned losses, training and
 validation, are the all-reduced global values. The JAX package's sharding
-and buffer donation have no counterpart.
+and buffer donation have no counterpart. Under MoE a rank's balance loss is
+its own rows' and is weighted by the same share, where the JAX package's
+is one mean over the global batch's groups.
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -243,6 +247,11 @@ class Trainer:
             raise ValueError(f"batch of {rows} rows is not a multiple of "
                              f"accumulation_steps={accum}")
         b = rows // accum
+        cfg = self.config
+        micro = cfg.pipeline_microbatches or cfg.pipeline_stages
+        if cfg.pipeline_stages > 1 and b % micro:
+            raise ValueError(f"microbatch of {b} rows is not a multiple of "
+                             f"pipeline_microbatches={micro}")
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         feats = []

@@ -7,8 +7,9 @@ mesh over the axes ``(data, fsdp, tensor, seq, pipe, expert)``; the port
 goes back to the process group and keeps the mesh as a record of its shape.
 Only the ``data`` axis is ported: one process per data rank, gradients
 all-reduced by DDP (``train/trainer.py``). ``fsdp`` and ``tensor`` wait for
-ROADMAP A11b, ``seq``, ``pipe`` and ``expert`` for A12; a shape that sets
-any of them above 1 raises.
+ROADMAP A11b, ``seq``, ``pipe`` and ``expert`` for A12c (the GPipe schedule
+and the experts run unsharded on each rank); a shape that sets any of them
+above 1 raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -38,8 +39,8 @@ from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
 # Axes other than data, and the ROADMAP item that ports each.
-UNPORTED_AXES = {"fsdp": "A11b", "tensor": "A11b", "seq": "A12",
-                 "pipe": "A12", "expert": "A12"}
+UNPORTED_AXES = {"fsdp": "A11b", "tensor": "A11b", "seq": "A12c",
+                 "pipe": "A12c", "expert": "A12c"}
 # Generous: the first collective waits for the slowest rank's model build
 # and, on a cold tree, the kernels' build.
 TIMEOUT = timedelta(minutes=30)
