@@ -55,8 +55,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    then, at batch 8 with dropout off, the loss and every trainable
    gradient with the kernels against the same weights without them, and in
    bf16 compute against the forward kernel followed by the plain backward
-   (the backward kernel's roundings), with readings that split the bf16
-   gap to the path without kernels beside it (see ``TOL_TRAIN_GRAD``).
+   (the backward kernel's roundings) and against the path without kernels
+   (see ``TOL_TRAIN_GRAD``).
    Prints step time, images/s, peak memory and one profiled step (with the
    optimizer's device time).
 5. The ``train_with_swin`` recipe and the training options:
@@ -153,13 +153,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel flags on, the byte tokenizer and the COCO prompt. The card's
    machine has no Pillow, so the services' image decoder is swapped for a
    decoder of raw ``.npy`` bytes (printed); the CPU tests run Pillow's.
-   Each of the 48 seeded 256x256 images is first captioned alone (batch 1):
+   Each of the 16 seeded 256x256 images is first captioned alone (batch 1):
    every served token row must equal its image's own row, or differ only
    at a knife edge (greedy's top-2 margin there under ``KNIFE_EDGE_REL``,
    printed).
    a. ``CaptionService`` (max_batch 8, window 5 ms) behind
       ``CaptionHTTPServer`` on 127.0.0.1: ``/healthz`` 503 before the
-      warmup and 200 after; three rounds of 16 concurrent ``/caption``
+      warmup and 200 after; one round of 16 concurrent ``/caption``
       requests from 16 client threads; every response 200 with a ``str``;
       24 Swin + 48 T5 launches per dispatched batch. Prints p50/p90
       request ms, captions/s, mean batch rows and one profiled round's
@@ -184,8 +184,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    package's message.
 10. Data-parallel training (DDP), phase 6's set-up (the Config defaults,
    both kernel flags, ``cache_frozen_features``, 64 synthetic rows, 2
-   epochs, global batch 32), the per-rank memory reckoned and printed
-   first:
+   epochs, global batch 32) with the transformer's depth cut to 6 + 6
+   blocks of t5-large (the launches per step follow: ``step_launches``),
+   the per-rank memory reckoned and printed first:
    c. one rank over NCCL (world 1, this process's own process group):
       the DDP reducer on NCCL on the card, at batch 32 and dropout 0. It
       runs both epochs, since it is also 10a's one-process reference.
@@ -199,7 +200,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       tensor's update against 10c's (cosine, and the largest difference
       under Adam's bound, see ``TOL_DDP``); the frozen towers bitwise
       unchanged on each rank; each rank's launches per step and
-      validation batch (phase 6's, no dropout launch); the checkpoint
+      validation batch (no dropout launch); the checkpoint
       written by rank 0 alone and loading with ``strict=True``. Prints
       per rank the step spans and peak memory, the global images/s, and
       one profiled rank-0 full step with the all-reduce's device and host
@@ -238,12 +239,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launches, T5 0), step ms and peak memory of each; then, dropout off and
    fp32 compute, the loss and every gradient of 4 stages against 1
    (``TOL_TRAIN_GRAD``).
-13. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+13. Sharded training (FSDP2 over fsdp, tensor parallelism over tensor) at
+   t5-3b's full width (d_model 1024, 32 heads of d_kv 128, d_ff 16384),
+   its depth cut to 6 + 6 blocks, behind the default towers; bf16 compute,
+   Adam, both kernel flags, batch 16, dropout 0; every run from the same
+   seeded weights and rows. The per-rank memory of each layout is reckoned
+   first (``parallel.partitioning.per_rank_bytes``).
+   a. one process (world 1): one warm-up and two timed ``Trainer`` steps,
+      the reference of 13b-c; phase 4's checks (launches of every step,
+      finite losses, frozen towers unchanged).
+   b. ``(1, 2, 1)``: fsdp 2, batch 8 per rank; then its checkpoint, which
+      rank 0 alone writes, restored into a one-process ``Trainer`` here.
+   c. ``(1, 1, 2)``: tensor 2, 16 rows on both ranks: the transformer runs
+      16 of 32 heads and the text tower 8 of 16 per rank; after the
+      compared steps one step at dropout 0.1, then every parameter that no
+      tensor rank splits must be bitwise equal on both ranks.
+   13b and 13c run in one ``torch.distributed.run`` job of two ranks on
+   the one card (gloo on CUDA tensors, as phase 10), which runs this
+   script again with ``--shard-rank SPEC`` (the ranks' output in
+   ``chiprun_out/phase13_ranks.log``). Checks: each rank's launches per
+   step (T5 forward 42, backward 18, 12 with dBias, Swin 24;
+   ``step_launches``); the first step's gradients of every trainable
+   tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
+   updates after three steps are printed beside them); the checkpoint
+   restored bitwise. Prints per rank the step spans, peak memory, and in
+   one profiled step gloo's host time and the busy share. Then the T5 kernels at 13c's
+   per-rank shapes (bf16, 16 heads of d_kv 128) against their plain
+   versions with and without ``head_offset``, and their times per step
+   beside the plain versions', SDPA's and the bound.
+14. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
-   phase-11a step and one phase-11c request, and in one phase-12 step),
-   then ``{"ok": true, ...}`` as the last line.
+   phase-11a step and one phase-11c request, in one phase-12 step, and in
+   one step of a phase-13c rank), then ``{"ok": true, ...}`` as the last
+   line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -323,8 +353,7 @@ TOL_ENCODER_REL = 1e-3
 # kernel, as the TPU kernel, keeps dP in fp32; and its forwards round
 # differently from the kernels'. Single deep-decoder q/k gradients move by a
 # few % under either. Against that path every tensor is held at cosine >= 0.9
-# and a norm within 15 % (TOL_TRAIN_GRAD_BF16_VS_NONE); the readings that
-# split the gap between the two causes are printed beside it.
+# and a norm within 15 % (TOL_TRAIN_GRAD_BF16_VS_NONE).
 TOL_TRAIN_LOSS_REL = 1e-2
 TOL_TRAIN_GRAD = dict(cosine=0.99, norm=0.02, total=0.999)
 TOL_TRAIN_GRAD_BF16_VS_NONE = dict(cosine=0.9, norm=0.15, total=0.999)
@@ -501,17 +530,17 @@ def t5_shapes() -> list[T5Shape]:
     ]
 
 
-def t5_inputs(sh: T5Shape, dtype, gen):
+def t5_inputs(sh: T5Shape, dtype, gen, H: int = T5_H, D: int = T5_D):
     import torch
 
     dev = "cuda"
-    q = torch.randn(sh.B, T5_H, sh.Q, T5_D, generator=gen, device=dev)
-    k, v, do = (torch.randn(sh.B, T5_H, n, T5_D, generator=gen, device=dev)
+    q = torch.randn(sh.B, H, sh.Q, D, generator=gen, device=dev)
+    k, v, do = (torch.randn(sh.B, H, n, D, generator=gen, device=dev)
                 for n in (sh.K, sh.K, sh.Q))
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     bias = None
     if sh.bias:
-        bias = torch.randn(T5_H, sh.Q, sh.K, generator=gen, device=dev)
+        bias = torch.randn(H, sh.Q, sh.K, generator=gen, device=dev)
         if sh.causal:
             i = torch.arange(sh.Q, device=dev)
             bias = bias + torch.where(i[:, None] >= i[None, :], 0.0, -1e9)
@@ -1025,7 +1054,8 @@ SWIN_BWD_SPAN, OPT_SPAN = "SwinAttentionFnBackward", "Optimizer.step"
 
 
 def profile_device(fn, wall_ms: float, card: str, what: str,
-                   spans: tuple[str, ...] = ()) -> dict:
+                   spans: tuple[str, ...] = (),
+                   collectives: bool = False) -> dict:
     """One more run of ``fn`` under ``torch.profiler``: the device time of
     its kernels, their share of the (unprofiled) wall time, and the kernels
     that take most of it. The profiler slows the host, so the share is taken
@@ -1034,7 +1064,11 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
     ``Optimizer.step``) whose kernels' device time is read apart, under
     ``span_ms``: of the ranges whose name holds the span's, the largest
     total (a nested range of the same name holds no more); their host time
-    under ``span_host_ms``, summed over the ranges of the largest name."""
+    under ``span_host_ms``, summed over the ranges of the largest name.
+    ``collectives``: also the host and device time of the process group's
+    collectives: the ranges of the backend's work (``gloo:`` or
+    ``nccl:``, on gloo's own threads: host time there, and the device time
+    of the copies they run), and the ``c10d::`` operators' calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1075,14 +1109,30 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
                top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
                          count=e.count) for e in top], span_ms=span_ms,
                span_host_ms=span_host_ms, annotation_span_ms=annotations)
+    if collectives:
+        host = [e for e in prof.key_averages()
+                if e.device_type != torch.autograd.DeviceType.CUDA]
+        work = [e for e in host if e.key.startswith(("gloo:", "nccl:"))]
+        out["collectives"] = dict(
+            host_ms=sum(e.cpu_time_total for e in work) / 1e3,
+            device_ms=sum(e.device_time_total for e in work) / 1e3,
+            work={e.key: e.count for e in work},
+            calls={e.key: e.count for e in host
+                   if e.key.startswith("c10d::")})
+        print(f"  collectives: host {out['collectives']['host_ms']:.3f} ms, "
+              f"device {out['collectives']['device_ms']:.3f} ms, calls "
+              f"{out['collectives']['calls']}")
     print(f"device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms {what} "
           f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{out['kernel_launches']} kernel launches [{card}]")
     for t in out["top"]:
         print(f"  {t['ms']:8.3f} ms  x{t['count']:<6d} {t['name']}")
-    for key, ms in annotations.items():
+    for key, ms in sorted(annotations.items(), key=lambda a: -a[1])[:8]:
         print(f"  (not in busy: the device-side annotation {key} spans "
               f"{ms:.3f} ms)")
+    if len(annotations) > 8:
+        print(f"  ({len(annotations) - 8} shorter device-side annotations "
+              "not printed)")
     for span, ms in span_ms.items():
         host = span_host_ms[span]
         print(f"  device ms under {span}: "
@@ -1247,8 +1297,23 @@ def reset_counts() -> None:
     swin_attention.launches = 0
 
 
-STEP_LAUNCHES = dict(t5_fwd=96, t5_fwd_dropout=72, t5_bwd=72,
-                     t5_bwd_dbias=48, swin=24)
+def step_launches(text: int, enc: int, dec: int, dropout: bool = True,
+                  towers: bool = True, backward: bool = True) -> dict:
+    """The kernels' launches in one call of the cascade: the text tower's
+    ``text`` layers (no dropout, no backward; skipped with the towers, from
+    cached features), the transformer's ``enc`` self-attentions and
+    ``dec`` self- and cross-attentions (at rate > 0 with ``dropout``; each
+    with a backward, the self-attentions with dBias), the Swin tower's 24
+    windows attentions (with the towers)."""
+    fwd = enc + 2 * dec
+    return dict(t5_fwd=fwd + (text if towers else 0),
+                t5_fwd_dropout=fwd if dropout else 0,
+                t5_bwd=fwd if backward else 0,
+                t5_bwd_dbias=enc + dec if backward else 0,
+                swin=24 if towers else 0)
+
+
+STEP_LAUNCHES = step_launches(T5_LAYERS, T5_LAYERS, T5_LAYERS)
 # Trainable parameters of phase 4's step: t5-large (shared embedding, both
 # stacks) and the vision projection; phase 5a adds the SwinV2 tower's.
 TRAINABLE_T5_PROJ = 738_716_672
@@ -1309,12 +1374,11 @@ def loss_and_grads(trainer, batch: dict) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
-def plain_backward_attention(fp32: bool):
+def plain_backward_attention():
     """A stand-in for the model's ``t5_attention`` in the comparisons of
     phase 4: the forward kernel, then the plain backward
-    (``t5_attention_bwd_plain``: the backward kernel's math and roundings),
-    or, with ``fp32``, the plain backward on fp32 copies of its inputs, so
-    that neither dS nor the dropped probabilities are rounded to bf16."""
+    (``t5_attention_bwd_plain``: the backward kernel's math and
+    roundings)."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.ops import (t5_attention_bwd_plain,
@@ -1322,56 +1386,33 @@ def plain_backward_attention(fp32: bool):
 
     class Fn(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, bias_h, kmask, seed, rate):
-            out, _ = t5_attention_fwd(q, k, v, bias_h, kmask, rate, seed)
-            ctx.rate = rate
+        def forward(ctx, q, k, v, bias_h, kmask, seed, rate, head_offset):
+            out, _ = t5_attention_fwd(q, k, v, bias_h, kmask, rate, seed,
+                                      head_offset=head_offset)
+            ctx.rate, ctx.head_offset = rate, head_offset
             ctx.save_for_backward(q, k, v, bias_h, kmask, seed)
             return out
 
         @staticmethod
         def backward(ctx, dout):
             q, k, v, bias_h, kmask, seed = ctx.saved_tensors
-            ins = (q, k, v, dout)
-            if fp32:
-                ins = tuple(t.float() for t in ins)
             need_dbias = bias_h is not None and ctx.needs_input_grad[3]
             dq, dk, dv, dbias = t5_attention_bwd_plain(
-                *ins, bias_h, kmask, ctx.rate, seed, need_dbias)
-            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
-                    None, None, None)
+                q, k, v, dout, bias_h, kmask, ctx.rate, seed, need_dbias,
+                ctx.head_offset)
+            return dq, dk, dv, dbias, None, None, None, None
 
     def attention(q, k, v, bias_h=None, kmask=None, dropout_rate=0.0,
-                  seed=None):
-        return Fn.apply(q, k, v, bias_h, kmask, seed, float(dropout_rate))
+                  seed=None, head_offset=0):
+        return Fn.apply(q, k, v, bias_h, kmask, seed, float(dropout_rate),
+                        head_offset)
     return attention
 
 
-def attention_fp32_dp(q, k, v, bias=None, dropout_rate=0.0,
-                      generator=None):
-    """A stand-in for the model's ``dot_product_attention`` (the path
-    without kernels) at rate 0: the same forward values, with the
-    probabilities rounded to the compute dtype, but a gradient that reaches
-    them in fp32, so that dP is not rounded to bf16."""
-    check(dropout_rate == 0, "the fp32-dP stand-in runs without dropout")
-    logits = q.float() @ k.float().transpose(-1, -2)
-    if bias is not None:
-        logits = logits + bias.float()
-    p = logits.softmax(-1)
-    p = p + (p.to(q.dtype).float() - p).detach()
-    return (p @ v.float()).to(q.dtype)
-
-
-# Phase 4's paths, each on the same weights: the kernels; the forward kernel
-# and the plain backward, in the io dtype or in fp32; none; none with dP kept
-# in fp32. Value: (kernel flags, the model's t5_attention or None to keep it,
-# the model's dot_product_attention or None).
 PATHS = {
     "kernels": (True, None, None),
-    "plain_backward": (True, lambda: plain_backward_attention(False), None),
-    "plain_backward_fp32": (True, lambda: plain_backward_attention(True),
-                            None),
+    "plain_backward": (True, plain_backward_attention, None),
     "none": (False, None, None),
-    "none_fp32_dp": (False, None, lambda: attention_fp32_dp),
 }
 
 
@@ -1415,8 +1456,10 @@ def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
     dot = na = nb = 0.0
     cosines, norms = {}, {}
     for n, ga in grads_a.items():
-        gb = grads_b[n].float()
-        ga = ga.float()
+        # fp64 sums: fp32 ones over ~10^8 elements can put the cosine of
+        # all tensors together above 1.
+        gb = grads_b[n].double()
+        ga = ga.double()
         d, x, y = float((ga * gb).sum()), float(ga.norm()), float(gb.norm())
         cos, norm = d / (x * y), abs(x / y - 1)
         check(math.isfinite(cos) and math.isfinite(norm),
@@ -1459,8 +1502,7 @@ def agreement(a: tuple[float, dict], b: tuple[float, dict], what: str,
 def compare_paths(cfg, state: dict, batch: dict) -> dict:
     """Kernels against none on the weights ``state`` in fp32 compute; in
     bf16 compute the kernels against the forward kernel with the plain
-    backward, then against none, with the readings that locate the gap
-    beside it (see TOL_TRAIN_GRAD)."""
+    backward, then against none (see TOL_TRAIN_GRAD)."""
     out = {}
     kernels = path_grads(cfg, state, "float32", batch, "kernels")
     none = path_grads(cfg, state, "float32", batch, "none")
@@ -1471,12 +1513,7 @@ def compare_paths(cfg, state: dict, batch: dict) -> dict:
     bf16 = {}
     for a, b, tol in (
             ("kernels", "plain_backward", TOL_TRAIN_GRAD),
-            ("kernels", "none", TOL_TRAIN_GRAD_BF16_VS_NONE),
-            ("plain_backward", "none", None),
-            ("plain_backward_fp32", "none", None),
-            ("kernels", "none_fp32_dp", None),
-            ("none", "none_fp32_dp", None),
-            ("plain_backward_fp32", "none_fp32_dp", None)):
+            ("kernels", "none", TOL_TRAIN_GRAD_BF16_VS_NONE)):
         bf16[f"{a}_vs_{b}"] = agreement(runs[a], runs[b],
                                         f"bfloat16, {a} vs {b}", tol)
     out["bfloat16"] = bf16
@@ -1809,14 +1846,21 @@ LOOP_UPDATES = LOOP_EPOCHS * LOOP_ROWS // TRAIN_BATCH
 # (images through both towers), a step from cached tower features (the
 # towers skipped: no Swin launch, no text-tower launch), and the two kinds of
 # validation batch (dropout off, no backward).
-LOOP_LAUNCHES = {
-    "full step": STEP_LAUNCHES,
-    "cached step": dict(STEP_LAUNCHES, t5_fwd=72, swin=0),
-    "full eval": dict(t5_fwd=96, t5_fwd_dropout=0, t5_bwd=0, t5_bwd_dbias=0,
-                      swin=24),
-    "cached eval": dict(t5_fwd=72, t5_fwd_dropout=0, t5_bwd=0,
-                        t5_bwd_dbias=0, swin=0),
-}
+def loop_launches(layers: int = T5_LAYERS, dropout: bool = True) -> dict:
+    """``LOOP_LAUNCHES`` of a transformer of ``layers`` + ``layers`` blocks
+    behind the full text tower."""
+    return {
+        "full step": step_launches(T5_LAYERS, layers, layers, dropout),
+        "cached step": step_launches(T5_LAYERS, layers, layers, dropout,
+                                     towers=False),
+        "full eval": step_launches(T5_LAYERS, layers, layers, False,
+                                   backward=False),
+        "cached eval": step_launches(T5_LAYERS, layers, layers, False,
+                                     towers=False, backward=False),
+    }
+
+
+LOOP_LAUNCHES = loop_launches()
 
 
 class LoopRecorder:
@@ -3004,7 +3048,9 @@ def artifacts_phase(card: str, **names) -> dict:
 # Phase 9: the serving stack at full width
 # ---------------------------------------------------------------------------
 
-SERVE_CLIENTS, SERVE_ROUNDS = 16, 3
+# One round of 16 concurrent clients: every check of the phase holds on
+# one round, and the script's time goes to phase 13.
+SERVE_CLIENTS, SERVE_ROUNDS = 16, 1
 SERVE_MAX_BATCH, SERVE_WINDOW_MS = 8, 5.0
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_PREFILL = 16, 4, 8
 SPEC_DRAFT = 4
@@ -3730,16 +3776,23 @@ DDP_RANKS = 2
 DDP_BATCH = TRAIN_BATCH // DDP_RANKS  # per rank; the global batch stays 32
 # Both ranks share the one card, given explicitly (LOCAL_RANK 1 has none).
 DDP_DEVICE = "cuda:0"
-T5_NO_DROPOUT = "t5-large-dropout-0"
-LOOP_LAUNCHES_NO_DROPOUT = {kind: dict(n, t5_fwd_dropout=0)
-                            for kind, n in LOOP_LAUNCHES.items()}
+# Phase 10's transformer: t5-large at full width, its depth cut to 6 + 6
+# blocks (the text tower and the Swin tower whole): gloo's host all-reduce
+# of the gradients and the checkpoints shrink with it.
+DDP_LAYERS = 6
+T5_DDP = "t5-large-6x6"
+T5_NO_DROPOUT = "t5-large-6x6-dropout-0"
+DDP_LAUNCHES = loop_launches(DDP_LAYERS)
+DDP_LAUNCHES_NO_DROPOUT = loop_launches(DDP_LAYERS, dropout=False)
 # One rank's device memory, reckoned before the first run (GB): the fp32
-# weights (~1.157 B parameters), t5-large's and the projection's fp32
-# gradients (DDP's bucket views: no second copy), Adam's two fp32 moments,
-# activations at 16 rows (phase 6's 35.14 GB peak at 32 rows less its
-# state, halved), and the frozen towers' copy that the bitwise check holds.
-DDP_MEMORY_GB = dict(weights=4.63, gradients=2.95, adam=5.91,
-                     activations=10.8, frozen_copy=1.68)
+# weights (~0.633 B parameters: the towers' 0.423 B, the 6 + 6 blocks and
+# shared embedding's 0.209 B, the projection), the transformer's and the
+# projection's fp32 gradients (DDP's bucket views: no second copy), Adam's
+# two fp32 moments, activations at 16 rows (phase 6's 35.14 GB peak at 32
+# rows less its state, halved, the transformer's part a quarter), and the
+# frozen towers' copy that the bitwise check holds.
+DDP_MEMORY_GB = dict(weights=2.53, gradients=0.84, adam=1.68,
+                     activations=4.0, frozen_copy=1.68)
 # Two ranks against one process, bf16 compute: the ranks' GEMMs run at
 # batch 16 (other cuBLAS tilings than batch 32's, so other bf16 roundings
 # of the activations) and their gradients meet in gloo's fp32 sum. Losses
@@ -3757,21 +3810,26 @@ TOL_DDP = dict(loss=TOL_TRAIN_LOSS_REL, update_cosine=0.99,
 
 
 def register_no_dropout() -> None:
-    """t5-large with dropout 0, for the runs that phase 10 compares across
-    world sizes (each rank draws its own masks)."""
+    """Phase 10's t5-large of 6 + 6 blocks, with its dropout and with
+    dropout 0 (for the runs that phase 10 compares across world sizes: each
+    rank draws its own masks)."""
     from klab_multimodalmodel_tpu_torch import config as tcfg
 
+    cut = dataclasses.replace(tcfg.T5_SIZES["t5-large"],
+                              num_layers=DDP_LAYERS,
+                              num_decoder_layers=DDP_LAYERS)
+    tcfg.register_t5_size(T5_DDP, cut)
     tcfg.register_t5_size(T5_NO_DROPOUT, dataclasses.replace(
-        tcfg.T5_SIZES["t5-large"], dropout_rate=0.0))
+        cut, dropout_rate=0.0))
 
 
 def ddp_config(root: str, tag: str, dropout: bool = True, **kw):
     """Phase 6's set-up (the Config defaults, both kernel flags, the
-    frozen-feature cache) at ``batch_size`` per rank."""
+    frozen-feature cache) at ``batch_size`` per rank, the transformer cut
+    to ``DDP_LAYERS`` + ``DDP_LAYERS`` blocks."""
     from klab_multimodalmodel_tpu_torch.config import Config
 
-    if not dropout:
-        kw["transformer_model_name"] = T5_NO_DROPOUT
+    kw["transformer_model_name"] = T5_DDP if dropout else T5_NO_DROPOUT
     return Config(use_pallas_attention=True, use_pallas_t5_attention=True,
                   seed=SEED, data_dir="synthetic", num_epochs=LOOP_EPOCHS,
                   cache_frozen_features=True,
@@ -3872,8 +3930,8 @@ def ddp_rank_main(spec_path: str) -> int:
             r, out = loop_run(
                 cfg, card, f"{run['tag']} rank {rank}", profile,
                 phase=run["tag"], device=device,
-                expected=(LOOP_LAUNCHES if run.get("dropout", True)
-                          else LOOP_LAUNCHES_NO_DROPOUT),
+                expected=(DDP_LAUNCHES if run.get("dropout", True)
+                          else DDP_LAUNCHES_NO_DROPOUT),
                 spans=("all_reduce",))
         model = out["trainer"].model
         check(out["trainer"].ddp is not None, "train() made no DDP wrapper")
@@ -3987,7 +4045,7 @@ def ddp_phase(card: str, determinism: dict) -> dict:
             with FrozenWatch(trainable=True) as watch:
                 one, out = loop_run(cfg, card, "10c (one rank over NCCL)",
                                     phase="10c", device=DDP_DEVICE,
-                                    expected=LOOP_LAUNCHES_NO_DROPOUT)
+                                    expected=DDP_LAUNCHES_NO_DROPOUT)
             check(watch.unchanged(out["trainer"].model),
                   "10c: frozen towers moved")
             check(out["trainer"].ddp is not None
@@ -4568,6 +4626,560 @@ def gpipe_phase(card: str) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: sharded training (FSDP2 + tensor parallelism) at t5-3b's width
+# ---------------------------------------------------------------------------
+
+# t5-3b at full width, its depth cut to 6 + 6 blocks (24 + 24 would not fit
+# the script's time with gloo's host staging and the one-process
+# reference), dropout 0 for the compared steps.
+SHARD_LAYERS = 6
+SHARD_T5 = "t5-3b-6x6-dropout-0"
+SHARD_BATCH, SHARD_STEPS = 16, 2
+SHARD_RANKS = 2
+SHARD_LAYOUTS = {"13b": (1, 2, 1), "13c": (1, 1, 2)}
+SHARD_LAUNCHES = step_launches(T5_LAYERS, SHARD_LAYERS, SHARD_LAYERS,
+                               dropout=False)
+SHARD_LAUNCHES_DROPOUT = step_launches(T5_LAYERS, SHARD_LAYERS, SHARD_LAYERS)
+# 13b and 13c against 13a, bf16 compute: 13b's ranks run their GEMMs at 8
+# rows (other cuBLAS tilings, other bf16 roundings) and meet in gloo's fp32
+# reduce-scatter; 13c's row-parallel products (o, wo) sum two bf16 partials
+# in gloo where one process accumulates the whole contraction in fp32
+# before one rounding. Held: the first step's gradient of every trainable
+# tensor, from the same weights and rows, at phase 4's bf16 tolerance
+# (TOL_TRAIN_GRAD: cosine >= 0.99, norm within 2 %, all together >= 0.999)
+# and the losses of the three steps within phase 4's 1e-2. The updates
+# after three Adam steps are printed, not held: Adam moves an element by
+# about lr whatever its gradient's size, so where a gradient is near 0 a
+# rounding flips its sign and parts the runs by up to 2 lr a step; t5-3b's
+# ReLU MLP of d_ff 16384 has many such columns (on an H100: 13b's lowest
+# per-tensor update cosine 0.9858, decoder block 5's wi, while every loss
+# agreed within 2.6e-4).
+TOL_SHARD = dict(loss=TOL_TRAIN_LOSS_REL, grad=TOL_TRAIN_GRAD)
+# The T5 kernels at 13c's per-rank shapes: 16 heads of d_kv 128, rank 1's
+# heads 16..31.
+SHARD_HEADS, SHARD_D, SHARD_OFFSET = 16, 128, 16
+
+
+def register_shard_sizes() -> None:
+    """Phase 13's t5-3b of 6 + 6 blocks at dropout 0."""
+    from klab_multimodalmodel_tpu_torch import config as tcfg
+
+    tcfg.register_t5_size(SHARD_T5, dataclasses.replace(
+        tcfg.T5_SIZES["t5-3b"], num_layers=SHARD_LAYERS,
+        num_decoder_layers=SHARD_LAYERS, dropout_rate=0.0))
+
+
+def shard_config(**kw):
+    """Phase 4's set-up (the Config defaults, both kernel flags) with the
+    transformer ``SHARD_T5``."""
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    return Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                  seed=SEED, transformer_model_name=SHARD_T5, **kw)
+
+
+def shard_memory(card: str) -> dict:
+    """Each layout's per-rank parameters, gradients and Adam moments (GB),
+    reckoned on the meta device as ``parallelize`` lays them out."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+
+    cfg = shard_config()
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    shapes = [(n, tuple(p.shape), n in names)
+              for n, p in model.named_parameters()]
+    out = {}
+    for tag, axes in (("13a", {}), ("13b", {"fsdp": 2}),
+                      ("13c", {"tensor": 2})):
+        out[tag] = {k: v / 1e9 for k, v in per_rank_bytes(shapes,
+                                                           axes).items()}
+    print("phase 13: state per rank reckoned (GB; params, grads, Adam): "
+          + "; ".join(f"{t} {r['params']:.2f} + {r['grads']:.2f} + "
+                      f"{r['moments']:.2f} = {r['total']:.2f}"
+                      for t, r in out.items()) + f" [{card}]")
+    return out
+
+
+def shard_steps(trainer, batch: dict, gen, what: str,
+                first_grads=None) -> dict:
+    """One warm-up and ``SHARD_STEPS`` timed steps (launches checked
+    against ``SHARD_LAUNCHES``): losses, step ms, peak memory.
+    ``first_grads(trainer)`` runs after the warm-up, while the parameters
+    hold its gradients."""
+    import torch
+
+    t0 = time.perf_counter()
+    first = float(trainer.train_step(batch, gen))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if first_grads is not None:
+        first_grads(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen,
+                                            SHARD_STEPS, SHARD_LAUNCHES, what)
+    losses = [first] + losses
+    check(all(math.isfinite(x) for x in losses),
+          f"{what}: non-finite loss {losses}")
+    return dict(losses=losses, first_step_ms=first_ms, step_ms=step_ms,
+                mean_step_ms=sum(step_ms) / len(step_ms),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step=per_step)
+
+
+def set_dropout(module, rate: float) -> None:
+    """Every T5 module under ``module`` at dropout ``rate``."""
+    from klab_multimodalmodel_tpu_torch.config import T5Size
+
+    for m in module.modules():
+        if isinstance(getattr(m, "size", None), T5Size):
+            m.size = dataclasses.replace(m.size, dropout_rate=rate)
+
+
+def replicated_mismatches(model) -> tuple[int, list]:
+    """(parameters checked, names that differ from rank 0's): every
+    parameter that no tensor rank splits, compared bitwise with rank 0's
+    (broadcast). Each rank's shard is the whole parameter (fsdp 1)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        tensor_parallel)
+
+    checked, bad = 0, []
+    for n, p in model.named_parameters():
+        if tensor_parallel(n):
+            continue
+        local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+        ref = local.clone()
+        dist.broadcast(ref, src=0)
+        checked += 1
+        if not torch.equal(ref, local):
+            bad.append(n)
+    return checked, bad
+
+
+def shard_rank_main(spec_path: str) -> int:
+    """One rank of phase 13's job (started by ``torch.distributed.run``):
+    the spec's layouts in turn on ``cuda:0``, which both ranks share (gloo
+    on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings
+    to ``{out}.{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        gather_full)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_shard_sizes()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    rank, card = dist.get_rank(), spec["card"]
+    readings = {}
+    for run in spec["runs"]:
+        tag = run["tag"]
+        cfg = Config.from_json(json.dumps(run["config"]))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=device)
+        # Seeded with config.seed on the card: 13a's weights on every rank.
+        trainer.init_state()
+        mesh = trainer.mesh
+        check(trainer.sharded and trainer.ddp is None,
+              f"{tag}: the trainer is not sharded")
+        build_s = time.perf_counter() - t0
+        print(f"{tag} rank {rank}: sharded model built in {build_s:.2f} s",
+              flush=True)
+        full = train_batch(cfg, SHARD_BATCH, SEED)
+        n = SHARD_BATCH // mesh.dp_size
+        rows = {k: v[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+                for k, v in full.items()}
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        names = trainable_names(trainer.model, cfg)
+
+        def save_grads(t):
+            # The warm-up step's gradients, gathered whole to rank 0.
+            grads = {}
+            for n, p in t.model.named_parameters():
+                if n in names:
+                    g = gather_full(p.grad.detach())
+                    if rank == 0:
+                        grads[n] = g.float().cpu()
+            if rank == 0:
+                torch.save(grads, run["grads"])
+        r = shard_steps(trainer, rows, gen, f"{tag} rank {rank}",
+                        save_grads)
+        r.update(build_s=build_s, rows=n, dp=[mesh.dp_rank, mesh.dp_size],
+                 tensor=[mesh.tensor_rank, mesh.tensor])
+        t0 = time.perf_counter()
+        whole = trainer.full_state_dict()
+        if rank == 0:
+            torch.save({k: v for k, v in whole.items() if k in names},
+                       run["params"])
+        del whole
+        r["gather_s"] = time.perf_counter() - t0
+        if run.get("checkpoint"):
+            t0 = time.perf_counter()
+            manager = CheckpointManager(run["checkpoint"], mesh)
+            manager.save(f"step_{trainer.step}", trainer)
+            manager.wait()
+            r["checkpoint_s"] = time.perf_counter() - t0
+            r["saves"] = manager.saves
+        r["profile"] = profile_device(
+            lambda: trainer.train_step(rows, gen), r["mean_step_ms"], card,
+            f"{tag} rank {rank} step", collectives=True)
+        if run.get("dropout_step"):
+            # One step at dropout 0.1, then the parameters that no tensor
+            # rank splits, bitwise across the ranks.
+            set_dropout(trainer.model.transformer, RATE)
+            reset_counts()
+            loss = float(trainer.train_step(rows, gen))
+            got = launch_counts()
+            check(got == SHARD_LAUNCHES_DROPOUT,
+                  f"{tag}: launches of the dropout step {got}")
+            checked, bad = replicated_mismatches(trainer.model)
+            r.update(dropout_loss=loss, replicated_checked=checked,
+                     replicated_differ=bad)
+            check(math.isfinite(loss) and checked > 0 and not bad,
+                  f"{tag} rank {rank}: dropout loss {loss}, {len(bad)} of "
+                  f"{checked} replicated parameters differ across the "
+                  f"tensor ranks: {bad[:5]}")
+        print(f"{tag} rank {rank} [{card}]: build {build_s:.2f} s, losses "
+              f"{r['losses']}, steps "
+              f"{', '.join(f'{t:.2f}' for t in r['step_ms'])} ms, peak "
+              f"{r['peak_gb']:.2f} GB, launches {r['launches_per_step']}",
+              flush=True)
+        readings[tag] = r
+        del trainer, rows
+        free()
+        dist.barrier()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_t5_d128(gen, card: str) -> dict:
+    """The T5 kernels at 13c's per-rank shapes (bf16, batch 16, 16 heads of
+    d_kv 128, rate 0.1): forward and backward against their plain versions
+    at head offsets 0 and 16 (phase 2's tolerances), the offset's masks
+    apart from offset 0's; then per training step (6 launches of each
+    shape) the kernel, the plain version, SDPA and the bound, the forward
+    and the backward timed as phase 2 times them (rank 1's offset)."""
+    import torch
+    import torch.nn.functional as F
+
+    from klab_multimodalmodel_tpu_torch.ops import (draw_seed,
+                                                    t5_attention_bwd,
+                                                    t5_attention_bwd_plain,
+                                                    t5_attention_fwd,
+                                                    t5_attention_plain)
+    H, D, B, off = SHARD_HEADS, SHARD_D, SHARD_BATCH, SHARD_OFFSET
+    pad = SRC_LEN - 30
+    shapes = [
+        T5Shape("encoder", "training", B, ENC_LEN, ENC_LEN, True, pad, RATE,
+                SHARD_LAYERS),
+        T5Shape("decoder", "training", B, TGT_LEN, TGT_LEN, True, -1, RATE,
+                SHARD_LAYERS, causal=True),
+        T5Shape("cross", "training", B, TGT_LEN, ENC_LEN, False, pad, RATE,
+                SHARD_LAYERS)]
+    rows = {"fwd": [], "bwd": []}
+    worst = dict(fwd=0.0, bwd=0.0)
+    for sh in shapes:
+        seed = draw_seed(gen)
+        q, k, v, do, bias, kmask = t5_inputs(sh, torch.bfloat16, gen, H, D)
+        outs = {}
+        for o in (0, off):
+            out, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed,
+                                          True, head_offset=o)
+            want = t5_attention_plain(q, k, v, bias, kmask, RATE, seed, o)
+            err = max_err(out, want)
+            check(torch.allclose(out.float(), want.float(), **TOL_BF16),
+                  f"t5 fwd d128 {sh.name} head_offset {o}: max abs err "
+                  f"{err}")
+            worst["fwd"] = max(worst["fwd"], err)
+            got = t5_attention_bwd(q, k, v, do, bias, kmask, RATE, seed,
+                                   stats, sh.bias, head_offset=o)
+            wantb = t5_attention_bwd_plain(q, k, v, do, bias, kmask, RATE,
+                                           seed, sh.bias, o)
+            for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, wantb):
+                if w is None:
+                    continue
+                r = rel_err(g, w)
+                check(r <= TOL_GRAD["dbias" if name == "dbias"
+                                    else "bfloat16"],
+                      f"t5 bwd d128 {sh.name} head_offset {o} {name}: rel "
+                      f"err {r}")
+                worst["bwd"] = max(worst["bwd"], r)
+            outs[o] = out
+        check(not torch.equal(outs[0], outs[off]),
+              f"t5 fwd d128 {sh.name}: head_offset {off} drew offset 0's "
+              "masks")
+        _, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed, True,
+                                    head_offset=off)
+        ms = time_ms(lambda: t5_attention_fwd(
+            q, k, v, bias, kmask, RATE, seed, True, head_offset=off), 20)
+        plain = time_ms(lambda: t5_attention_plain(
+            q, k, v, bias, kmask, RATE, seed, off), 5, 1)
+        mask = sdpa_mask(bias, kmask, torch.bfloat16)
+        if mask is not None:
+            mask = mask.expand(B, H, sh.Q, sh.K).contiguous()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, dropout_p=RATE, scale=1.0)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), leaves, do)
+        lib = time_ms(sdpa, 20)
+        nbytes = io_bytes(q, k, v, q) + io_bytes(bias, kmask, stats)
+        b, by = bound_ms(nbytes, 4 * B * H * sh.Q * sh.K * D, "bfloat16")
+        rows["fwd"].append(dict(name=sh.name, shape=[B, H, sh.Q, sh.K, D],
+                                per_step=sh.per_path, ms=ms, plain_ms=plain,
+                                library_ms=lib, bound_ms=b, bound_by=by,
+                                bytes=nbytes,
+                                flops=4 * B * H * sh.Q * sh.K * D))
+        ms = time_ms(lambda: t5_attention_bwd(
+            q, k, v, do, bias, kmask, RATE, seed, stats, sh.bias,
+            head_offset=off), 10, 2)
+        plain = time_ms(lambda: t5_attention_bwd_plain(
+            q, k, v, do, bias, kmask, RATE, seed, sh.bias, off), 5, 1)
+        lib = time_ms(sdpa_fwd_bwd, 10, 2) - time_ms(sdpa, 10, 2)
+        nbytes = (io_bytes(q, k, v, do) + io_bytes(q, k, v)
+                  + io_bytes(bias, kmask, stats)
+                  + (io_bytes(bias) if sh.bias else 0))
+        flops = 10 * B * H * sh.Q * sh.K * D
+        b, by = bound_ms(nbytes, flops, "bfloat16")
+        rows["bwd"].append(dict(name=sh.name, shape=[B, H, sh.Q, sh.K, D],
+                                per_step=sh.per_path, dbias=sh.bias, ms=ms,
+                                plain_ms=plain, library_ms=lib, bound_ms=b,
+                                bound_by=by, bytes=nbytes, flops=flops))
+        for kind in ("fwd", "bwd"):
+            x = rows[kind][-1]
+            print(f"t5 {kind} d128 {sh.name} {x['shape']} rate {RATE}: "
+                  f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+                  f"sdpa {x['library_ms']:.4f} ms, bound {x['bound_ms']:.4f}"
+                  f" ms ({x['bound_by']}) [{card}]")
+        del q, k, v, do, bias, kmask, stats, leaves, mask
+        free()
+    totals = {}
+    for kind, rs in rows.items():
+        t = {key: sum(x[key] * x["per_step"] for x in rs)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        t_bytes = sum(x["bytes"] * x["per_step"] for x in rs)
+        t_ops = sum(x["flops"] * x["per_step"] for x in rs)
+        t["bound_by"] = ("bytes" if t_bytes / PEAK_BYTES_PER_S
+                         >= t_ops / PEAK_FLOP_PER_S["bfloat16"]
+                         else "operations")
+        t["launches_per_step"] = sum(x["per_step"] for x in rs)
+        totals[kind] = t
+        print(f"t5 {kind} at d_kv 128 per 13c rank step "
+              f"({t['launches_per_step']} launches): kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) [{card}]")
+    return dict(rows=rows, totals=totals, max_abs_err_fwd=worst["fwd"],
+                max_rel_err_bwd=worst["bwd"])
+
+
+def shard_phase(card: str) -> dict:
+    """Phase 13: 13a in this process, then one ``torch.distributed.run``
+    job of two ranks on the one card (gloo on CUDA tensors) that runs 13b
+    and 13c in turn; 13b's checkpoint restored here; then the T5 kernels
+    at 13c's per-rank shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    register_shard_sizes()
+    memory = shard_memory(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        # 13a: one process.
+        free()
+        cfg = shard_config(batch_size=SHARD_BATCH)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        model = trainer.init_state()
+        n_train = sum(p.numel() for p in model.parameters()
+                      if p.requires_grad)
+        build_s = time.perf_counter() - t0
+        init = trainable_on_host(model)
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        batch = train_batch(cfg, SHARD_BATCH, SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        one_grads = {}
+
+        def keep_grads(t):
+            one_grads.update({n: p.grad.detach().float().cpu()
+                              for n, p in t.model.named_parameters()
+                              if p.requires_grad})
+        one = shard_steps(trainer, batch, gen, "13a step", keep_grads)
+        check(all(torch.equal(p, frozen[n])
+                  for n, p in model.named_parameters() if n in frozen),
+              "13a: frozen towers moved")
+        one_params = trainable_on_host(model)
+        one["profile"] = profile_device(
+            lambda: trainer.train_step(batch, gen), one["mean_step_ms"],
+            card, "13a step")
+        one.update(build_s=build_s, trainable=n_train)
+        print(f"13a [{card}]: t5-3b {SHARD_LAYERS} + {SHARD_LAYERS} blocks, "
+              f"{n_train} trainable parameters, built in {build_s:.2f} s; "
+              f"losses {one['losses']}; steps "
+              f"{', '.join(f'{t:.2f}' for t in one['step_ms'])} ms, peak "
+              f"{one['peak_gb']:.2f} GB, launches {one['launches_per_step']}")
+        del trainer, model, frozen
+        free()
+
+        def run(tag, **kw):
+            c = shard_config(mesh_shape=SHARD_LAYOUTS[tag], batch_size=(
+                SHARD_BATCH // SHARD_LAYOUTS[tag][1]))
+            return dict(tag=tag, config=json.loads(c.to_json()),
+                        params=os.path.join(root, f"{tag}.params.pt"),
+                        grads=os.path.join(root, f"{tag}.grads.pt"), **kw)
+        spec = dict(card=card, out=os.path.join(root, "rank"), runs=[
+            run("13b", checkpoint=os.path.join(root, "13b")),
+            run("13c", dropout_step=True)])
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        # A rank that crashes prints its Python stack (faulthandler).
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONFAULTHANDLER="1",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        log_path = os.path.join(out_dir, "phase13_ranks.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(SHARD_RANKS),
+                 os.path.abspath(__file__), "--shard-rank", spec_path],
+                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                timeout=900)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                print(f.read()[-6000:])
+        check(proc.returncode == 0, f"phase 13's torchrun job exited "
+              f"{proc.returncode} (chiprun_out/phase13_ranks.log)")
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+
+        # 13b's checkpoint in one process: 13b's gathered parameters,
+        # bitwise.
+        t0 = time.perf_counter()
+        trainer = Trainer(shard_config(batch_size=SHARD_BATCH))
+        trainer.init_state()
+        manager = CheckpointManager(os.path.join(root, "13b"))
+        manager.restore(manager.latest(), trainer)
+        gathered = torch.load(os.path.join(root, "13b.params.pt"),
+                              weights_only=True)
+        restored = trainable_on_host(trainer.model)
+        restore_equal = (trainer.step == 1 + SHARD_STEPS
+                         and restored.keys() == gathered.keys()
+                         and all(torch.equal(restored[n], gathered[n])
+                                 for n in gathered))
+        restore_s = time.perf_counter() - t0
+        check(restore_equal, "13b's checkpoint restored in one process "
+              "differs from 13b's gathered parameters")
+        del trainer, restored
+        free()
+        agree, results = {}, {}
+        for tag in SHARD_LAYOUTS:
+            got = ([rk[tag] for rk in ranks])
+            params = (gathered if tag == "13b" else torch.load(
+                os.path.join(root, f"{tag}.params.pt"), weights_only=True))
+            check(got[0]["losses"] == got[1]["losses"],
+                  f"{tag}: the ranks' losses differ: {got[0]['losses']} vs "
+                  f"{got[1]['losses']}")
+            check(all(abs(x - y) <= TOL_SHARD["loss"] * abs(y)
+                      for x, y in zip(got[0]["losses"], one["losses"])),
+                  f"{tag}: losses {got[0]['losses']} vs 13a "
+                  f"{one['losses']}")
+            for r, g in enumerate(got):
+                check(g["launches_per_step"] == SHARD_LAUNCHES,
+                      f"{tag} rank {r}: launches {g['launches_per_step']}")
+            grads = torch.load(os.path.join(root, f"{tag}.grads.pt"),
+                               weights_only=True)
+            first = agreement((got[0]["losses"][0], grads),
+                              (one["losses"][0], one_grads),
+                              f"{tag} vs 13a, the first step's gradients",
+                              TOL_SHARD["grad"])
+            del grads
+            a = update_agreement(params, one_params, init)
+            del params
+            free()
+            worst_cos = min(a, key=lambda n: a[n]["cosine"])
+            worst_abs = max(a, key=lambda n: a[n]["abs"])
+            check(all(math.isfinite(v["cosine"]) for v in a.values()),
+                  f"{tag}: non-finite updates")
+            agree[tag] = dict(first_step_gradients=first,
+                              worst_update_cosine=[worst_cos, a[worst_cos]],
+                              worst_update_abs=[worst_abs, a[worst_abs]])
+            print(f"{tag} vs 13a [{card}]: losses {got[0]['losses']} vs "
+                  f"{one['losses']}; updates after {1 + SHARD_STEPS} steps "
+                  f"of {len(a)} trainable tensors (printed, not held): "
+                  f"lowest cosine {a[worst_cos]['cosine']:.6f} "
+                  f"({worst_cos}), largest difference "
+                  f"{a[worst_abs]['abs']:.3e} ({worst_abs})")
+            for r, g in enumerate(got):
+                coll = (g["profile"].get("collectives") or {})
+                print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
+                      f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                      f"(13a {one['mean_step_ms']:.2f}), peak "
+                      f"{g['peak_gb']:.2f} GB (13a {one['peak_gb']:.2f}); "
+                      f"profiled step: busy {g['profile'].get('busy_ms')} "
+                      f"ms, share {g['profile'].get('busy_share')}, "
+                      f"collectives host {coll.get('host_ms')} ms, device "
+                      f"{coll.get('device_ms')} ms; gather "
+                      f"{g['gather_s']:.2f} s"
+                      + (f", checkpoint {g['checkpoint_s']:.2f} s"
+                         if "checkpoint_s" in g else ""))
+            results[tag] = got
+        c = [rk["13c"] for rk in ranks]
+        print(f"13c [{card}]: dropout-0.1 step losses "
+              f"{[g['dropout_loss'] for g in c]}; "
+              f"{c[0]['replicated_checked']} replicated parameters bitwise "
+              f"equal across the tensor ranks; 13b's checkpoint restored "
+              f"bitwise in one process in {restore_s:.2f} s")
+        del one_params, init, gathered, one_grads
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    kernels = check_t5_d128(gen, card)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 13: {seconds:.1f} s (job {job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, one_process=one,
+                ranks=results, agreement=agree, job_s=job_s,
+                restore_s=restore_s, d128=kernels, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -4593,6 +5205,15 @@ def main() -> int:
     print(f"host runtime build ({native.compiler()} "
           f"{' '.join(native.CXXFLAGS)}): {time.perf_counter() - t0:.2f} s")
 
+    # Seconds of each phase since the script started (the build's first).
+    started = time.perf_counter() - build_s
+    seconds = {}
+
+    def done(phase: str) -> None:
+        seconds[phase] = time.perf_counter() - started - sum(
+            seconds.values())
+
+    done("1")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
                check_swin(gen, card)]
@@ -4601,15 +5222,18 @@ def main() -> int:
         entry["route"] = "cuda"
         path_totals(entry)
         print_path_totals(entry, card)
+    done("2")
 
     # Each main path runs with the counts set to 0 just before it and read
     # just after (inside caption() and train(): the three timed requests,
     # the five timed steps).
     reset_counts()
     captioning = caption(card)
+    done("3")
     reset_counts()
     training = train(card)
     free()
+    done("4")
     reset_counts()
     swin_training, state = train_swin(card)
     swin_training["swin_kernel_vs_none"] = swin_kernel_vs_none(state)
@@ -4617,19 +5241,33 @@ def main() -> int:
     free()
     options = train_options(card, training)
     free()
+    done("5")
     looping = loop_phase(card)
     free()
+    done("6")
     evaluating = evaluation_phase(card, captioning["greedy_ids"])
     free()
+    done("7")
     artifacts = artifacts_phase(card)
     free()
+    done("8")
     serving = serving_phase(card)
     free()
+    done("9")
     distributed = ddp_phase(card, looping["determinism"])
     free()
+    done("10")
     moe = moe_phase(card, training, captioning)
     free()
+    done("11")
     gpipe = gpipe_phase(card)
+    free()
+    done("12")
+    sharded = shard_phase(card)
+    done("13")
+    print("seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; total {time.perf_counter() - started:.1f} [{card}]")
     keys = {"t5_attention_fwd": ("t5_fwd", "t5"),
             "t5_attention_bwd": ("t5_bwd", None),
             "swin_attention_fwd": ("swin", "swin")}
@@ -4686,6 +5324,13 @@ def main() -> int:
         if train_key == "swin":
             check(entry["launches_gpipe_step"] > 0,
                   "the Swin kernel never launched in a phase-12 step")
+        for tag, got in sharded["ranks"].items():
+            for r, rank in enumerate(got):
+                check(rank["launches_per_step"][train_key] > 0,
+                      f"{entry['name']} never launched in a phase-{tag} "
+                      f"step of rank {r}")
+        entry["launches_shard_step"] = sharded["ranks"]["13c"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -4697,7 +5342,8 @@ def main() -> int:
         "launches_loop_cached_step", "launches_beam_request",
         "launches_artifacts_request", "launches_artifacts_step",
         "launches_serving_prefill", "launches_ddp_rank_step",
-        "launches_moe_step", "launches_moe_request", "launches_gpipe_step")}
+        "launches_moe_step", "launches_moe_request", "launches_gpipe_step",
+        "launches_shard_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -4719,7 +5365,9 @@ def main() -> int:
                  f"_moe_request: one step of phase 11a (4 experts, top-2) "
                  f"and one request of phase 11c; launches_gpipe_step: one "
                  f"step of phase 12 (4 GPipe stages, the T5 kernel off as "
-                 f"the JAX package requires)"}))
+                 f"the JAX package requires); launches_shard_step: one step "
+                 f"of a phase-13c rank (t5-3b, {SHARD_LAYERS} + "
+                 f"{SHARD_LAYERS} blocks, tensor 2)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -4730,8 +5378,9 @@ def main() -> int:
                    "train_with_swin": swin_training, "options": options,
                    "loop": looping, "evaluation": evaluating,
                    "artifacts": artifacts, "serving": serving,
-                   "ddp": distributed, "moe": moe, "gpipe": gpipe}, f,
-                  indent=1, default=str)
+                   "ddp": distributed, "moe": moe, "gpipe": gpipe,
+                   "sharded": sharded, "seconds": seconds}, f, indent=1,
+                  default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4741,4 +5390,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -14,11 +14,17 @@ and renamed into place, so ``latest()`` never sees a partial one; its
 ``meta.json`` travels in the same rename, so a checkpoint whose sidecar is
 missing still ranks by its own step count.
 
-Across processes (a ``utils.mesh.Mesh`` with a process group) every rank
-holds the same state: rank 0 alone writes, and ``wait()`` ends at a
-barrier, so that every rank passes it only once rank 0's write is renamed
-into place; every rank restores, each from the same files. A checkpoint
-does not record the world size that wrote it and resumes at another one.
+Across processes (a ``utils.mesh.Mesh`` with a process group) rank 0 alone
+writes, and ``wait()`` ends at a barrier, so that every rank passes it only
+once rank 0's write is renamed into place; every rank restores, each from
+the same files. Under DDP every rank holds the whole state already. Under
+FSDP2 and tensor parallelism every rank takes part in gathering it whole
+to rank 0's host (``Trainer.full_state_dict`` /
+``full_optimizer_state_dict``), so rank 0 writes the files one process
+writes; a restore cuts every rank's shards out of them again
+(``load_full_state_dict`` / ``load_full_optimizer_state_dict``). A
+checkpoint does not record the world size or mesh that wrote it and
+resumes at any other, one process included.
 
 A pretrained checkpoint (``save_pretrained``) is a directory with a
 ``model.pt`` holding some of the model's top-level submodules
@@ -89,11 +95,13 @@ def _write_json(path: str, obj: dict) -> None:
     os.replace(tmp, path)
 
 
-def _load_optimizer_state(opt: torch.optim.Optimizer, state: dict) -> None:
-    """``load_state_dict``, then the saved dtype of every state tensor:
-    torch casts floating state to its parameter's dtype, which would turn
-    ``AdamBf16Mu``'s bf16 first moment into fp32."""
-    opt.load_state_dict(state)
+def _load_optimizer_state(trainer, state: dict) -> None:
+    """The trainer's ``load_full_optimizer_state_dict``, then the saved
+    dtype of every state tensor: torch casts floating state to its
+    parameter's dtype, which would turn ``AdamBf16Mu``'s bf16 first moment
+    into fp32."""
+    opt = trainer.optimizer
+    trainer.load_full_optimizer_state_dict(state)
     params = [p for g in opt.param_groups for p in g["params"]]
     for i, saved in state["state"].items():
         live = opt.state[params[int(i)]]
@@ -118,8 +126,10 @@ def load_pretrained_params(path: str, trainer) -> list[str]:
     """Initialize the top-level submodules present in the pretrained
     checkpoint at ``path`` (or ``path/checkpoints/pretrained``) into
     ``trainer.model``, each with ``strict=True``; the others keep their
-    fresh weights. Raises on submodules the model lacks. Returns the names
-    loaded."""
+    fresh weights. Raises on submodules the model lacks. ``trainer``: a
+    ``Trainer`` (a sharded one takes them through its
+    ``load_full_state_dict``) or any object with a ``model``. Returns the
+    names loaded."""
     p = os.path.abspath(path)
     cand = os.path.join(p, "checkpoints", "pretrained")
     if os.path.isdir(cand):
@@ -141,7 +151,15 @@ def load_pretrained_params(path: str, trainer) -> list[str]:
         fresh = children[top].state_dict()
         if top == "transformer" and is_moe(fresh) and not is_moe(sd):
             sd = upcycle_t5_params(sd, fresh)
-        children[top].load_state_dict(sd, strict=True)
+        if not getattr(trainer, "sharded", False):
+            children[top].load_state_dict(sd, strict=True)
+            continue
+        if set(sd) != set(fresh):
+            raise RuntimeError(
+                f"pretrained {top}: missing {sorted(set(fresh) - set(sd))}, "
+                f"unexpected {sorted(set(sd) - set(fresh))}")
+        trainer.load_full_state_dict(
+            {f"{top}.{k}": v for k, v in sd.items()}, strict=False)
     return sorted(groups)
 
 
@@ -174,13 +192,22 @@ class CheckpointManager:
     def save(self, name: str, trainer, metadata: Optional[dict] = None
              ) -> str:
         self.wait()
-        if not self.writer:
+        sharded = trainer.sharded
+        if not (self.writer or sharded):
             return self.path(name)
         t0 = time.perf_counter()
         pinned = trainer.device.type == "cuda"
-        model = _to_host(trainer.model.state_dict(), pinned)
+        if sharded:
+            # Every rank gathers; rank 0 holds the whole state, on the host.
+            model = trainer.full_state_dict()
+            optimizer = trainer.full_optimizer_state_dict()
+            if not self.writer:
+                return self.path(name)
+        else:
+            model = _to_host(trainer.model.state_dict(), pinned)
+            optimizer = _to_host(trainer.optimizer.state_dict(), pinned)
         train_state = {
-            "optimizer": _to_host(trainer.optimizer.state_dict(), pinned),
+            "optimizer": optimizer,
             "scheduler": trainer.scheduler.state_dict(),
             "step": int(trainer.step)}
         if pinned:
@@ -261,10 +288,10 @@ class CheckpointManager:
                 "dense -> MoE, sparse-upcycle the params with "
                 "--init_checkpoint (fresh optimizer), per Komatsuzaki et "
                 "al. 2023.")
-        trainer.model.load_state_dict(saved, strict=True)
+        trainer.load_full_state_dict(saved, strict=True)
         state = torch.load(os.path.join(d, TRAIN_STATE_FILE),
                            map_location="cpu", weights_only=True)
-        _load_optimizer_state(trainer.optimizer, state["optimizer"])
+        _load_optimizer_state(trainer, state["optimizer"])
         trainer.scheduler.load_state_dict(state["scheduler"])
         trainer.step = int(state["step"])
 

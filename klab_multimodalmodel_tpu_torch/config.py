@@ -131,9 +131,10 @@ class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
     training step and the training loop read, with the same names,
     defaults and checks. Options that are not ported raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them: a mesh
-    axis other than ``data`` above 1 (A11b or A12c) and
-    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
+    ``NotImplementedError`` naming the ROADMAP item that ports them: a
+    ``seq``, ``pipe`` or ``expert`` mesh axis above 1 (A12c), MoE or GPipe
+    with ``fsdp`` or ``tensor`` above 1 (A12c) and ``profile_server_port >
+    0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -270,6 +271,7 @@ class Config:
             self._check_pipeline_and_moe()
         for name in ("mesh_shape", "dcn_mesh_shape"):
             refuse_unported_axes(getattr(self, name), names, name)
+        self._check_sharding()
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
                      "adam_mu_dtype", "frozen_param_dtype"):
             if getattr(self, name) not in _DTYPE_NAMES:
@@ -311,6 +313,31 @@ class Config:
         if ici == -1 or dcn == -1:
             return None
         return ici * dcn
+
+    def _check_sharding(self) -> None:
+        """The port's checks of the ``fsdp`` and ``tensor`` axes. The JAX
+        package leaves uneven shards to XLA; the port's tensor parallelism
+        runs whole heads and whole d_ff columns per rank, so both T5s'
+        heads and d_ff must divide by ``tensor`` (the vocab need not:
+        DTensor pads its uneven shards). MoE experts and GPipe stages
+        composed with these axes move onto ranks with ROADMAP A12c."""
+        fsdp, tensor = self._axis("fsdp"), self._axis("tensor")
+        if fsdp == 1 and tensor == 1:
+            return
+        if self.moe_experts > 0 or self.pipeline_stages > 1:
+            raise NotImplementedError(
+                f"moe_experts={self.moe_experts} / pipeline_stages="
+                f"{self.pipeline_stages} with mesh fsdp={fsdp}, "
+                f"tensor={tensor}: experts and stages sharded with these "
+                "axes are ROADMAP A12c (run them on a data-only mesh)")
+        if tensor not in (None, 1):
+            for which, size in (("language", self.language_t5),
+                                ("transformer", self.transformer_t5)):
+                if size.num_heads % tensor or size.d_ff % tensor:
+                    raise ValueError(
+                        f"{which} T5: num_heads={size.num_heads} and "
+                        f"d_ff={size.d_ff} must divide by the mesh tensor "
+                        f"axis {tensor}")
 
     def _check_pipeline_and_moe(self) -> None:
         """The JAX package's checks of the pipeline and MoE flags
@@ -532,9 +559,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
     flags in one message), and so does ``--mesh_shape`` or
-    ``--dcn_mesh_shape`` with an axis other than data above 1; the
+    ``--dcn_mesh_shape`` with a seq, pipe or expert axis above 1; the
     ``Config`` then checks the rest as the JAX package's does (the pipeline
-    and MoE flags) and refuses ``profile_server_port``."""
+    and MoE flags), the sharded axes, and refuses ``profile_server_port``."""
     from .utils.mesh import unported_axes
 
     kwargs: dict[str, Any] = dict(vars(args))
@@ -554,7 +581,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if refused:
         raise NotImplementedError(
             "flags not ported (accepted only at their defaults; a mesh "
-            "only on its data axis): " + "; ".join(refused))
+            "only on its data, fsdp and tensor axes): " + "; ".join(refused))
     return Config(**kwargs)
 
 

@@ -8,7 +8,9 @@
 // counterpart on the card. The keep bit of probability (b, h, q, k) is a
 // pure function of (seed, b, h, q, k), independent of how a kernel tiles
 // the work, so the forward, the backward (tiled differently) and the plain
-// PyTorch version (`ops/fused_attention.py`, `philox4x32_10`) all agree:
+// PyTorch version (`ops/fused_attention.py`, `philox4x32_10`) all agree. h
+// is the global head: a tensor-parallel rank passes its first head's index
+// as the kernels' `head_offset`, so its masks are one process's.
 //   counter = (k >> 2, q, h, b), key = (low, high 32 bits of the seed),
 //   word    = Philox4x32-10(counter, key)[k & 3],
 //   keep    = word > floor(rate * 2^32)   (as the TPU kernel compares).

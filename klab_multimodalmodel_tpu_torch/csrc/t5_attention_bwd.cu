@@ -115,6 +115,7 @@ struct Params {
   int B, H, Q, K, D;
   uint32_t threshold;
   float keep_prob;
+  int head_offset;  // the global index of head 0 (Philox's head)
 };
 
 __device__ __forceinline__ float dot(const float* a, const float* b, int D) {
@@ -224,7 +225,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dq_kernel(Params p) {
     __syncthreads();
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h, qi, key0, p.threshold)
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+                                         p.threshold)
                             : 0xffu;
 #pragma unroll
     for (int c = 0; c < kPerThread; ++c) {
@@ -253,7 +255,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dq_kernel(Params p) {
     __syncthreads();
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h, qi, key0, p.threshold)
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+                                         p.threshold)
                             : 0xffu;
 #pragma unroll
     for (int c = 0; c < kPerThread; ++c) {
@@ -338,7 +341,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dkdv_kernel(Params p) {
     }
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h, qi, key0, p.threshold)
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+                                         p.threshold)
                             : 0xffu;
 #pragma unroll
     for (int c = 0; c < kPerThread; ++c) {
@@ -486,6 +490,7 @@ struct TcParams {
   float inv_keep;         // 1 / (1 - rate)
   bool vec;               // D % 8 == 0 and 16-byte aligned matrices
   bool pair_vec;          // K even, bias and ds 8-byte aligned: float2
+  int head_offset;        // the global index of head 0 (Philox's head)
 };
 
 // Shared memory of either kernel: two resident tiles, two double-buffered
@@ -638,7 +643,8 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
         for (int n = 0; n < 2; ++n)
           mine |= klab::keep_nibble(pkey, (uint32_t)((kc + 8 * n) >> 2) + (t >> 1),
-                                    row0 + 8 * (t & 1), h, b, p.threshold)
+                                    row0 + 8 * (t & 1), h + p.head_offset, b,
+                                    p.threshold)
                   << (4 * n);
         const uint32_t theirs = __shfl_xor_sync(kFull, mine, 1);
         bits[0] = (t & 1) ? theirs : mine;
@@ -865,8 +871,8 @@ __global__ void __launch_bounds__(kTcThreads)
         uint32_t x = 0;
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          x |= klab::keep_nibble(pkey, kc, qc + 8 * n + 2 * t + (i & 1), h, b,
-                                 p.threshold)
+          x |= klab::keep_nibble(pkey, kc, qc + 8 * n + 2 * t + (i & 1),
+                                 h + p.head_offset, b, p.threshold)
                << (16 * n + 4 * i);
         x |= __shfl_xor_sync(kFull, x, 4);
         x |= __shfl_xor_sync(kFull, x, 8);
@@ -989,14 +995,18 @@ bool aligned(const void* p, uintptr_t n) {
 // seed: one int64 in device memory, or NULL for no dropout (then rate is
 // ignored); rate in [0, 1). stats (B,H,Q,2) fp32: the forward's row max and
 // sum (`t5_attention_fwd.cu` writes them). delta (B,H,Q) fp32 scratch. dbias
-// (H,Q,K) fp32 or NULL; with dbias, ds is a (B,H,Q,K) fp32 scratch. Returns
-// the first launch's cudaError_t that is not 0.
+// (H,Q,K) fp32 or NULL; with dbias, ds is a (B,H,Q,K) fp32 scratch.
+// head_offset: the global index of head 0, the head Philox is keyed on (a
+// tensor-parallel rank holds heads head_offset .. head_offset + H - 1).
+// Returns the first launch's cudaError_t that is not 0.
 extern "C" int klab_t5_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bias, const void* kmask, const void* seed, const void* stats,
     void* delta, void* dq, void* dk, void* dv, void* ds, void* dbias, int B,
-    int H, int Q, int K, int D, int is_bf16, double rate, void* stream) {
+    int H, int Q, int K, int D, int is_bf16, int head_offset, double rate,
+    void* stream) {
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
+      head_offset < 0 ||
       B > 65535 || !(rate >= 0.0 && rate < 1.0) || stats == nullptr ||
       (dbias != nullptr && (ds == nullptr || bias == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1007,7 +1017,8 @@ extern "C" int klab_t5_attention_bwd(
                  static_cast<const float*>(stats), static_cast<float*>(delta),
                  dq, dk, dv, static_cast<float*>(ds),
                  static_cast<float*>(dbias), B, H, Q, K, D,
-                 (uint32_t)(rate * 4294967296.0), (float)(1.0 - rate)};
+                 (uint32_t)(rate * 4294967296.0), (float)(1.0 - rate),
+                 head_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
@@ -1020,7 +1031,8 @@ extern "C" int klab_t5_attention_bwd(
                      D % 8 == 0 && aligned(q, 16) && aligned(k, 16) &&
                          aligned(v, 16) && aligned(dout, 16) &&
                          aligned(dq, 16) && aligned(dk, 16) && aligned(dv, 16),
-                     K % 2 == 0 && aligned(bias, 8) && aligned(ds, 8)};
+                     K % 2 == 0 && aligned(bias, 8) && aligned(ds, 8),
+                     head_offset};
     return (int)dispatch_tc(t, B, p.dbias, s);
   }
   return (int)dispatch<float>(p, s);

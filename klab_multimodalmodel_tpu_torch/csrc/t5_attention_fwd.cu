@@ -10,11 +10,12 @@
 // with no 1/sqrt(d) scale, logits and softmax in fp32, and the output in the
 // input dtype (fp32 or bf16). Q != K is allowed. At rate > 0 the keep bits
 // come from Philox4x32-10 keyed by a seed read from device memory
-// (`philox.cuh`): a pure function of (seed, b, h, q, k), which the backward
-// (`t5_attention_bwd.cu`) draws again. With `stats` given, the row max and
-// the row sum of exp(logit - max) go out as (B, H, Q, 2) fp32 for the
-// backward. (A single log-sum-exp would lose a fully masked row: -1e9 +
-// log K rounds to -1e9 in fp32, and exp(logit - lse) would give 1, not 1/K.)
+// (`philox.cuh`): a pure function of (seed, b, head_offset + h, q, k), which
+// the backward (`t5_attention_bwd.cu`) draws again. With `stats` given, the
+// row max and the row sum of exp(logit - max) go out as (B, H, Q, 2) fp32
+// for the backward. (A single log-sum-exp would lose a fully masked row:
+// -1e9 + log K rounds to -1e9 in fp32, and exp(logit - lse) would give 1,
+// not 1/K.)
 //
 // What bounds it on this card: at the serving shapes (B=8, H=16, D=64,
 // L=32 or 96, fp32) one (b, h) moves 4*L*D*4 bytes of q/k/v/o for 4*L*L*D
@@ -98,6 +99,7 @@ struct F32Args {
   uint32_t threshold;
   float inv_keep;  // 1 / (1 - rate)
   bool vec;        // D % 4 == 0 and 16-byte aligned q, k, v, out
+  int head_offset;  // the global index of head 0 (Philox's head)
 };
 
 // Shared memory: Q and two K tiles (rows of DP + 4 floats), one V tile (rows
@@ -238,8 +240,8 @@ __global__ void __launch_bounds__(kF32Threads)
       // k0 + 4 (j & 7) .. + 3 of row row0 + (j >> 3); key k0 + j + 16 c of
       // row row0 + r is bit j & 3 of lane 8 r + 4 c + (j >> 2)'s draw.
       const uint32_t mine = klab::keep_nibble(
-          pkey, (uint32_t)(k0 >> 2) + (j & 7), q0 + row0 + (j >> 3), h, b,
-          a.threshold);
+          pkey, (uint32_t)(k0 >> 2) + (j & 7), q0 + row0 + (j >> 3),
+          h + a.head_offset, b, a.threshold);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -373,6 +375,7 @@ struct TcArgs {
   float inv_keep;  // 1 / (1 - rate)
   bool vec;        // D % 8 == 0 and 16-byte aligned q, k, v, out
   bool bias_vec;   // K even and an 8-byte aligned bias: float2 loads
+  int head_offset;  // the global index of head 0 (Philox's head)
 };
 
 // Shared memory: Q (then O), two K and two V tiles, two key-addend rows.
@@ -527,7 +530,7 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
         mine |= klab::keep_nibble(pkey, (uint32_t)((k0 + 8 * n) >> 2) + (t >> 1),
-                                  qrow, h, b, a.threshold)
+                                  qrow, h + a.head_offset, b, a.threshold)
                 << (4 * n);
       const uint32_t theirs = __shfl_xor_sync(kFull, mine, 1);
       const uint32_t bits[2] = {(t & 1) ? theirs : mine,
@@ -645,14 +648,18 @@ bool aligned(const void* p, uintptr_t n) {
 // kernel). bias (H,Q,K) fp32 or NULL; kmask (B,K) int32 or NULL.
 // seed: one int64 in device memory, or NULL for no dropout; rate in [0, 1)
 // is the dropout rate (ignored without a seed). stats (B,H,Q,2) fp32 or
-// NULL. Returns the cudaError_t of the launch (0 = success).
+// NULL. head_offset: the global index of head 0, the head Philox is keyed
+// on (a tensor-parallel rank holds heads head_offset .. head_offset + H - 1).
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                                      const void* v, const void* bias,
                                      const void* kmask, const void* seed,
                                      void* out, void* stats, int B, int H,
                                      int Q, int K, int D, int is_bf16,
-                                     double rate, void* stream) {
+                                     int head_offset, double rate,
+                                     void* stream) {
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
+      head_offset < 0 ||
       B > 65535 || !(rate >= 0.0 && rate < 1.0))
     return (int)cudaErrorInvalidValue;
   // floor(rate * 2^32), as the TPU kernel forms it.
@@ -668,7 +675,8 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                    static_cast<const int*>(kmask),
                    static_cast<const long long*>(seed), static_cast<bf16*>(out),
                    static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
-                   D % 8 == 0 && vec, K % 2 == 0 && aligned(bias, 8)};
+                   D % 8 == 0 && vec, K % 2 == 0 && aligned(bias, 8),
+                   head_offset};
     return (int)dispatch_tc(t, B, s);
   }
   const F32Args f{static_cast<const float*>(q), static_cast<const float*>(k),
@@ -676,6 +684,6 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                   static_cast<const int*>(kmask),
                   static_cast<const long long*>(seed), static_cast<float*>(out),
                   static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
-                  D % 4 == 0 && vec};
+                  D % 4 == 0 && vec, head_offset};
   return (int)dispatch_f32(f, B, s);
 }

@@ -198,9 +198,10 @@ class DataLoader:
 
 def get_dataloader(config, phase: str, tokenizer: TokenizerBase) -> DataLoader:
     """The reference's ``get_dataloader(args, phase, rank)``: ``batch_size``
-    is per data rank, so the global batch is ``batch_size`` times the
-    process group's size (1 without one), and this process draws its
-    rank's chunk of each; train shuffles, val does not.
+    is per data rank, so the global batch is ``batch_size`` times the data
+    ranks (data x fsdp of the process group's mesh; 1 without one), and
+    this process draws its data rank's chunk of each (a tensor group's
+    ranks draw the same rows); train shuffles, val does not.
     ``native_tokenizer`` is the JAX package's switch to its C++ encoder;
     the port's unigram tokenizer always encodes there, so the flag only
     keeps the JAX check that it names a ``tokenizer_path``."""
@@ -213,7 +214,13 @@ def get_dataloader(config, phase: str, tokenizer: TokenizerBase) -> DataLoader:
                          "(the byte fallback has no native core)")
     rank, world = 0, 1
     if dist.is_initialized():
-        rank, world = dist.get_rank(), dist.get_world_size()
+        # The data x fsdp index and count: the ranks of a tensor group
+        # read the same rows.
+        from ..utils.mesh import make_mesh
+
+        mesh = make_mesh(config.mesh_shape, config.mesh_axis_names,
+                         config.dcn_mesh_shape)
+        rank, world = mesh.dp_rank, mesh.dp_size
     return DataLoader(
         dataset, tokenizer, global_batch_size=config.batch_size * world,
         max_source_length=config.max_source_length,

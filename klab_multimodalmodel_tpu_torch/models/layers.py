@@ -79,17 +79,30 @@ class Dense(nn.Linear):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale the
     kept values by ``1 / (1 - rate)`` formed in x's dtype. The mask comes
     from the explicit ``generator`` (on x's device), never from the global
-    one. Rate 0 is the identity."""
+    one. Rate 0 is the identity. ``shard`` = (dim, start, full): x is
+    columns ``start ..`` of a tensor ``full`` wide on ``dim`` (a tensor
+    rank's heads or d_ff columns); the mask is drawn at the full width and
+    sliced, so the rank keeps one process's mask and its generator moves as
+    one process's does."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout at rate > 0 needs a generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        dim, start, full = shard
+        shape = list(x.shape)
+        shape[dim] = full
+        keep = torch.rand(shape, generator=generator, device=x.device
+                          ).narrow(dim, start, x.shape[dim])
+    keep = keep < keep_prob
     # A fill on the device, not a copy from the host: a copy would wait
     # for the device to drain.
     scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
@@ -100,18 +113,21 @@ def dropout(x: torch.Tensor, rate: float,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None,
+                          heads: Optional[tuple[int, int]] = None
                           ) -> torch.Tensor:
     """Reference attention, q,k,v (B, H, L, D): no 1/sqrt(d) scale (T5
     folds it into the init), fp32 logits and softmax, probabilities cast to
     the input dtype, then dropped (``dropout``, at ``dropout_rate``) in that
-    dtype, then multiplied by v with an fp32 sum."""
+    dtype, then multiplied by v with an fp32 sum. ``heads`` = (first,
+    total): q holds heads ``first ..`` of ``total`` (a tensor rank's), and
+    the dropout mask is those heads' of one process."""
     dtype = q.dtype
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         logits = logits + bias.float()
     probs = dropout(torch.softmax(logits, dim=-1).to(dtype), dropout_rate,
-                    generator)
+                    generator, None if heads is None else (1, *heads))
     return torch.matmul(probs.float(), v.float()).to(dtype)
 
 

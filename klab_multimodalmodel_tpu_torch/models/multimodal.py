@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..parallel.partitioning import gather_columns
 from ..utils.device import resolve_device
 from .layers import Dense, lecun_normal_
 from .swinv2 import SwinV2Encoder
@@ -164,10 +165,14 @@ class MultiModalModel(nn.Module):
     def _project_and_concat(self, img: torch.Tensor, lang: torch.Tensor,
                             source_mask: Optional[torch.Tensor]
                             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        # Under tensor parallelism the projections are column-parallel:
+        # their outputs are gathered (``gather_columns``).
         if hasattr(self, "vision_projection"):
-            img = self.vision_projection(img)
+            img = gather_columns(self.vision_projection(img),
+                                 self.vision_projection.weight)
         if hasattr(self, "language_projection"):
-            lang = self.language_projection(lang)
+            lang = gather_columns(self.language_projection(lang),
+                                  self.language_projection.weight)
         concat = torch.cat([img, lang], dim=1)
         if source_mask is None:
             return concat, None

@@ -41,6 +41,15 @@ of both stacks' to the loss. The stack's key mask is also the routing mask
 (pads route nowhere); a decode step routes its chunk with no mask, at the
 capacity of the chunk's length, as the JAX package's does.
 
+Under tensor parallelism (``parallel/partitioning.py``, a ``tensor`` mesh
+axis above 1) each rank holds its heads' q/k/v/o columns and its d_ff
+columns of the MLP (``T5Stack.set_tensor_shard``): attention runs the
+rank's heads on their rows of the head bias, the kernels key their
+dropout on the global head (``head_offset``), and the MLP's and the plain
+attention's dropout masks are drawn at the full width and sliced, so every
+rank's masks are one process's. The relative-position table stays whole on
+every rank; each reads its heads' columns.
+
 ``pipeline_stages > 1`` runs a stack's full-sequence forward as the JAX
 package's GPipe schedule (``T5Stack._pipelined``): S stages of consecutive
 blocks, M microbatches, M + S - 1 ticks. On one rank the schedule reorders
@@ -64,6 +73,7 @@ from torch import nn
 from ..config import T5Size
 from ..ops.fused_attention import draw_seed, t5_attention
 from ..ops.moe import moe_capacity, moe_ffn, topk_routing
+from ..parallel.partitioning import gather_columns, tied_logits
 from ..utils.device import resolve_device
 from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
                      normal_)
@@ -182,6 +192,8 @@ class T5Attention(nn.Module):
                  bidirectional: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         s = self.size = size
+        # The global index of this rank's first head (tensor parallelism).
+        self.head_offset = 0
         inner = s.num_heads * s.d_kv
         # Init stds follow the T5 fan-in scheme (mesh-tf init, as in HF).
         self.q = KlabDense(s.d_model, inner, (s.d_model * s.d_kv) ** -0.5,
@@ -202,9 +214,10 @@ class T5Attention(nn.Module):
             self.relative_attention_bias.init_weights(generator)
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
-        B, L, _ = t.shape
-        return t.view(B, L, self.size.num_heads, self.size.d_kv).transpose(
-            1, 2)  # (B, H, L, D)
+        B, L, inner = t.shape
+        # The heads this rank holds: all, or num_heads / tensor.
+        return t.view(B, L, inner // self.size.d_kv,
+                      self.size.d_kv).transpose(1, 2)  # (B, H, L, D)
 
     def _merge_heads(self, t: torch.Tensor) -> torch.Tensor:
         B, H, L, D = t.shape
@@ -237,10 +250,13 @@ class T5Attention(nn.Module):
                     seed = draw_seed(generator)
                 attn = t5_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), head_bias, kmask, rate,
-                                    seed)
+                                    seed, head_offset=self.head_offset)
                 return self.o(self._merge_heads(attn))
+        heads = None
+        if q.shape[1] != self.size.num_heads:
+            heads = (self.head_offset, self.size.num_heads)
         attn = dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
-                                     generator=generator)
+                                     generator=generator, heads=heads)
         return self.o(self._merge_heads(attn))
 
     def _decode_kv(self, x, kv, bias, cache):
@@ -330,6 +346,9 @@ class T5Mlp(nn.Module):
         else:
             self.wi = KlabDense(s.d_model, s.d_ff, std_in, dtype)
         self.wo = KlabDense(s.d_ff, s.d_model, s.d_ff ** -0.5, dtype)
+        # The global index of this rank's first d_ff column (tensor
+        # parallelism).
+        self.ff_offset = 0
 
     def init_weights(self, generator: torch.Generator) -> None:
         for layer in ((self.wi_0, self.wi_1) if self.gated else (self.wi,)):
@@ -343,7 +362,10 @@ class T5Mlp(nn.Module):
         else:
             h = self.act(self.wi(x))
         rate = 0.0 if deterministic else self.size.dropout_rate
-        return self.wo(dropout(h, rate, generator))
+        shard = None
+        if h.shape[-1] != self.size.d_ff:
+            shard = (-1, self.ff_offset, self.size.d_ff)
+        return self.wo(dropout(h, rate, generator, shard))
 
 
 class T5MoeMlp(nn.Module):
@@ -551,6 +573,8 @@ class T5Stack(nn.Module):
         self.pipeline_stages = pipeline_stages
         self.pipeline_microbatches = pipeline_microbatches
         self.moe = moe_experts > 0
+        # (rank, size) of the tensor group this stack's heads split over.
+        self.tensor_shard = (0, 1)
         self.block = nn.ModuleList(
             T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
                     dtype=dtype, moe_experts=moe_experts,
@@ -568,6 +592,30 @@ class T5Stack(nn.Module):
             blk.init_weights(generator)
         self.final_layer_norm.init_weights(generator)
 
+    def set_tensor_shard(self, rank: int, size: int) -> None:
+        """Run heads ``rank * H / size ..`` and the same share of d_ff
+        columns: the layout that ``parallel/partitioning.py`` gives this
+        stack's weights over a tensor group of ``size``."""
+        s = self.size
+        if s.num_heads % size or s.d_ff % size:
+            raise ValueError(f"num_heads={s.num_heads} and d_ff={s.d_ff} "
+                             f"must divide by the tensor axis {size}")
+        self.tensor_shard = (rank, size)
+        for m in self.modules():
+            if isinstance(m, T5Attention):
+                m.head_offset = rank * s.num_heads // size
+            elif isinstance(m, T5Mlp):
+                m.ff_offset = rank * s.d_ff // size
+
+    def _local_heads(self, head_bias: Optional[torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+        """This rank's rows of a (H, Q, K) or (B, H, Q, K) head bias."""
+        rank, size = self.tensor_shard
+        if head_bias is None or size == 1:
+            return head_bias
+        per = self.size.num_heads // size
+        return head_bias.narrow(head_bias.dim() - 3, rank * per, per)
+
     def forward(self, inputs_embeds: torch.Tensor,
                 head_bias: Optional[torch.Tensor] = None,
                 kmask: Optional[torch.Tensor] = None,
@@ -578,6 +626,7 @@ class T5Stack(nn.Module):
         deterministic = deterministic or cache is not None
         rate = 0.0 if deterministic else self.size.dropout_rate
         x = dropout(inputs_embeds, rate, generator)
+        head_bias = self._local_heads(head_bias)
         if self.pipeline_stages > 1:
             if cache is not None:
                 raise ValueError(
@@ -901,8 +950,11 @@ class T5ForConditionalGeneration(nn.Module):
                 logits = F.linear(hidden, self.head_q.to(self.dtype))
                 return (logits.float() * self.head_scale.float()).to(
                     logits.dtype)
-            return F.linear(hidden, self.shared.weight.to(self.dtype))
-        return self.lm_head(hidden)
+            # Under tensor parallelism the embedding is split over the
+            # vocab, and so are the logits until they are gathered for the
+            # loss (``tied_logits``).
+            return tied_logits(hidden, self.shared.weight.to(self.dtype))
+        return gather_columns(self.lm_head(hidden), self.lm_head.weight)
 
     def decode_train(self, decoder_input_ids: torch.Tensor,
                      encoder_hidden: torch.Tensor,

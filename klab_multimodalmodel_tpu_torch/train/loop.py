@@ -21,11 +21,13 @@ CIDEr-D / BLEU-4 / ROUGE-L of the first ``eval_captions_limit`` COCO-val
 images (logged, TensorBoard ``quality/*``, and the epoch's
 ``metrics.jsonl`` row).
 
-Across processes (a process group: ``utils/mesh.py``; the data axis only)
-the loop takes the JAX package's multi-process branches. Rank 0 alone saves
-the config, logs at INFO, writes TensorBoard, the profile,
-``metrics.jsonl``, ``loss.png`` and the checkpoints; each rank keeps its
-own feature-cache files (``.p{rank}``). What decides a step's shape or
+Across processes (a process group: ``utils/mesh.py``) the loop takes the
+JAX package's multi-process branches. A data rank is an index over data x
+fsdp (``Mesh.dp_rank``): the ranks of one tensor group share it, draw the
+same rows and the same dropout stream. Rank 0 alone saves the config, logs
+at INFO, writes TensorBoard, the profile, ``metrics.jsonl``, ``loss.png``
+and the checkpoints; each process keeps its own feature-cache files
+(``.p{rank}``, the world rank). What decides a step's shape or
 kind, or whether to stop, is agreed over the host's gloo group: the bucket
 widths (the largest over the ranks), the cached or full step and the image
 decode skip (all ranks must hit), a halt (SIGTERM seen by any rank, agreed
@@ -35,13 +37,14 @@ a barrier before the first step; with the kernels on a cold build, rank 0
 builds them while the others wait there. Loaders passed in must draw this
 rank's chunk (``process_index`` / ``process_count``).
 
-Dropout draws from one ``torch.Generator`` per rank on the rank's device,
-seeded with ``dropout_seed(seed, rank)``: ``seed + 1`` on rank 0 (the JAX
+Dropout draws from one ``torch.Generator`` per data rank on the rank's
+device, seeded with ``dropout_seed(seed, rank)``: ``seed + 1`` on rank 0 (the JAX
 package's dropout key, so one process draws what it always drew), mixed
 with the rank elsewhere, in the low 32 bits too (the CPU generator reads
 only those): the ranks' masks differ, where one shared seed would repeat
-rank 0's masks on every rank's own rows. Every checkpoint records each rank's
-generator state between updates (gathered to rank 0: ``generator_states``,
+rank 0's masks on every rank's own rows. Every checkpoint records each data
+rank's generator state between updates (gathered to rank 0:
+``generator_states``,
 and rank 0's as ``generator_state``), so a resume at the same world size
 equals the uninterrupted run bitwise; at another world size, a rank with no
 recorded state starts its seeded stream afresh.
@@ -98,13 +101,14 @@ def train(config: Config,
     maybe_init_distributed(device)
     mesh = make_mesh(config.mesh_shape, config.mesh_axis_names,
                      config.dcn_mesh_shape)
-    rank, world = mesh.rank, mesh.data
-    is_main = rank == 0
+    # The data rank and the data ranks (data x fsdp).
+    rank, world = mesh.dp_rank, mesh.dp_size
+    is_main = mesh.rank == 0
     logger = get_logger(config.result_dir)
     if is_main:
         config.save()
     logger.info(config)
-    if config.eval_captions_every and world > 1:
+    if config.eval_captions_every and mesh.distributed:
         raise ValueError(
             "eval_captions_every supports single-process runs only "
             "(caption decode is not sharded across processes); run "
@@ -155,7 +159,7 @@ def train(config: Config,
     else:
         opt_steps_per_epoch = max(len(train_loader) // accum, 1)
 
-    if (world > 1 and device.type == "cuda" and (
+    if (mesh.distributed and device.type == "cuda" and (
             config.use_pallas_attention or config.use_pallas_t5_attention)):
         # A cold tree builds the kernels once, on rank 0, not W times.
         if is_main:
@@ -223,7 +227,7 @@ def train(config: Config,
         cache_dir = os.path.join(config.result_dir, "feature_cache")
         # Each rank owns its files (a memmap has no second writer); rows
         # that a reshuffle moves to another rank miss there and refill.
-        proc_tag = f".p{rank}" if world > 1 else ""
+        proc_tag = f".p{mesh.rank}" if mesh.distributed else ""
 
         def make_caches(tag, loader):
             caches = {"img": FrozenFeatureCache(
@@ -352,7 +356,7 @@ def train(config: Config,
                       if config.halt_after_steps > steps else 0)
 
     def should_halt() -> bool:
-        if world == 1:
+        if not mesh.distributed:
             halted["global"] = halted["local"]
         elif steps % max(config.preempt_sync_steps, 1) == 0:
             halted["global"] = bool(
@@ -366,9 +370,11 @@ def train(config: Config,
         state = generator.get_state().tolist()
         meta = {"generator_state": state,
                 "loss_counter": loss_counter.state_dict()}
-        if world > 1:
-            states = [None] * world
+        if mesh.distributed:
+            states = [None] * dist.get_world_size()
             dist.all_gather_object(states, state, group=mesh.cpu_group)
+            # One per data rank: a tensor group's ranks hold one stream.
+            states = states[::mesh.tensor]
             meta["generator_state"] = states[0]
             meta["generator_states"] = states
         return meta

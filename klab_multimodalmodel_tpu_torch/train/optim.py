@@ -18,6 +18,14 @@ optimizer steps.
 Freezing: the text tower is always frozen; the image tower is trainable
 only with ``image_model_train`` and without ``freeze_image_model_updates``.
 Frozen parameters get ``requires_grad=False`` and stay out of the optimizer.
+
+Sharded parameters (DTensors, under FSDP2 and tensor parallelism) take the
+same updates: Adam's and ``AdamBf16Mu``'s are elementwise and run on each
+rank's shards; ``Adafactor``'s factored statistics and its block RMS are
+means over whole parameters, which the JAX package gets from XLA, so it
+gathers each gradient whole, computes one process's update and applies
+the rank's shard of it (a mean over a shard alone would be silently
+wrong).
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from typing import Callable, Iterable
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..config import Config
+from ..parallel.partitioning import gather_full, local_shard
 
 
 def lr_factor(name: str, num_epochs: int) -> Callable[[int], float]:
@@ -135,9 +145,9 @@ class AdamBf16Mu(torch.optim.Optimizer):
     def _update(self, params: list, group: dict) -> None:
         b1, b2 = ADAM_B1, ADAM_B2
         states = [self.state[p] for p in params]
-        grads = [p.grad for p in params]
-        mus = [st["mu"] for st in states]
-        nus = [st["nu"] for st in states]
+        grads = [_local(p.grad) for p in params]
+        mus = [_local(st["mu"]) for st in states]
+        nus = [_local(st["nu"]) for st in states]
         mu = torch._foreach_mul(grads, 1 - b1)
         torch._foreach_add_(mu, mus, alpha=float(torch.tensor(
             b1, dtype=torch.bfloat16)))
@@ -155,7 +165,13 @@ class AdamBf16Mu(torch.optim.Optimizer):
         torch._foreach_div_(mu, [_bias_correction(b1, t) for t in steps])
         torch._foreach_div_(mu, denom)
         torch._foreach_mul_(mu, -group["lr"])
-        torch._foreach_add_(params, mu)
+        torch._foreach_add_([_local(p) for p in params], mu)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (the tensor itself otherwise):
+    elementwise updates run on the shards."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _bias_correction(decay: float, t: int) -> float:
@@ -188,7 +204,12 @@ class Adafactor(torch.optim.Optimizer):
     Each param group is one clipping block: the RMS that ``clip_by_block_rms``
     takes over a JAX leaf is taken over all the group's tensors together
     (``jax_leaf_groups`` gives the groups: a scanned T5 stack's leaf is the
-    per-layer tensors of one parameter)."""
+    per-layer tensors of one parameter). A sharded parameter's gradient is
+    gathered whole first; its statistics are then whole tensors, the same
+    on every rank, and the rank applies its shard of the update."""
+
+    # Its state is whole for a sharded parameter too (see above).
+    whole_state = True
 
     def __init__(self, params, lr: float):
         super().__init__(params, dict(lr=lr))
@@ -204,12 +225,17 @@ class Adafactor(torch.optim.Optimizer):
             rms = torch.sqrt(sq / sum(u.numel() for _, u in pairs))
             denom = torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
             for p, u in pairs:
-                p.add_(-(group["lr"] * (u / denom)))
+                step = -(group["lr"] * (u / denom))
+                if isinstance(p, DTensor):
+                    p.to_local().add_(local_shard(step, p))
+                else:
+                    p.add_(step)
 
     def _scaled(self, p: torch.Tensor) -> torch.Tensor:
         """``scale_by_factored_rms`` of one tensor: updates its state and
-        returns g / sqrt(v) with v the (factored) second-moment estimate."""
-        g = p.grad
+        returns g / sqrt(v) with v the (factored) second-moment estimate
+        (whole, for a sharded parameter too)."""
+        g = gather_full(p.grad)
         st = self.state[p]
         dims = _factored_dims(p.shape)
         if not st:

@@ -13,9 +13,18 @@ bf16 first moment, or Adafactor; ``train/optim.py``). With
 ``frozen_param_dtype='bfloat16'`` the frozen towers' parameters are stored
 in bf16, as the JAX package's ``_maybe_cast_frozen`` stores them.
 
-Across processes (a process group, ``utils/mesh.py``; the mesh's data axis
-only) the model is wrapped in ``DistributedDataParallel`` with its
+Across processes (a process group, ``utils/mesh.py``) a mesh of the data
+axis alone wraps the model in ``DistributedDataParallel`` with its
 gradients as views of the reducer's buckets; the frozen towers take no part.
+A mesh with ``fsdp`` or ``tensor`` above 1 shards it instead
+(``parallel/partitioning.py`` ``parallelize``): tensor parallelism over
+``tensor``, then FSDP2 over ``(data, fsdp)``, whose gradient reduction
+averages over the data x fsdp ranks as DDP's does over the world. The
+ranks of one tensor group hold the same rows and compute one loss; the
+relative-position tables' gradients, partial on each tensor rank (each
+reads its heads' columns), are summed over the tensor group after the
+backward. In what follows the "ranks" of the loss are the data x fsdp
+ranks.
 The loss is the JAX package's: one token-weighted mean over each global
 microbatch, where global microbatch a is loader batch a of the update
 across all ranks (the rank's rows [a b, (a+1) b) of its merged batch).
@@ -46,15 +55,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
+from ..parallel.partitioning import gather_full, local_shard, parallelize
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
-from .optim import make_optimizer
+from .optim import make_optimizer, trainable_names
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -134,6 +145,9 @@ class Trainer:
                                      device=self.device)
         self.net = StepNet(self.model, self.policy.compute_dtype)
         self.ddp: Optional[DistributedDataParallel] = None
+        # Under sharding: the modules whose weights' gradients are summed
+        # over the tensor group (``parallelize``).
+        self.tensor_partial: list = []
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler = None
         self.step = 0
@@ -148,12 +162,18 @@ class Trainer:
         over the trainable parameters, the frozen parameters cast to
         ``frozen_param_dtype``, and across processes the DDP wrapper.
         ``global_batch``, the rows of an update, must divide over the data
-        ranks. Returns the model."""
-        if global_batch is not None and global_batch % self.mesh.data:
+        ranks (data x fsdp). On a sharded mesh the weights are sharded
+        after they are made or loaded, and this runs once; later weights
+        come through ``load_full_state_dict``. Returns the model."""
+        dp = self.mesh.dp_size
+        if global_batch is not None and global_batch % dp:
             raise ValueError(
                 f"global batch {global_batch} not divisible by the mesh's "
-                f"data factor {self.mesh.data} (mesh "
+                f"data factor {dp} (mesh "
                 f"{dict(zip(self.mesh.axis_names, self.mesh.shape))})")
+        if self.sharded and self.optimizer is not None:
+            raise RuntimeError("a sharded Trainer is initialized once; load "
+                               "later weights with load_full_state_dict")
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         else:
@@ -161,17 +181,21 @@ class Trainer:
                 generator = torch.Generator(device=self.device).manual_seed(
                     self.config.seed)
             self.model.init_weights(generator)
+        if self.mesh.sharded:
+            # Shard the weights as they are (frozen ones in their storage
+            # dtype), then build the optimizer over the shards.
+            names = trainable_names(self.model, self.config)
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(name in names)
+            self._cast_frozen()
+            self.tensor_partial = parallelize(self.net, self.model,
+                                              self.mesh, self.device)
         self.optimizer, self.scheduler = make_optimizer(
             self.config, self.model, self.num_epochs)
-        if self.config.frozen_param_dtype == "bfloat16":
-            # They feed bf16 compute and take no update; the buffers (window
-            # masks, coordinate tables) stay fp32.
-            for p in self.model.parameters():
-                if not p.requires_grad:
-                    p.data = p.data.to(torch.bfloat16)
+        self._cast_frozen()
         self.step = 0
         self.ddp = None
-        if self.mesh.distributed:
+        if self.mesh.distributed and not self.sharded:
             # Every rank builds the same weights and buffers (the same seed,
             # or the same checkpoint file): rank 0's broadcasts would only
             # repeat them, at init and before every forward.
@@ -187,6 +211,95 @@ class Trainer:
                 kw["device_ids"] = [self.device]
             self.ddp = DistributedDataParallel(self.net, **kw)
         return self.model
+
+    @property
+    def sharded(self) -> bool:
+        """Parameters sharded over fsdp or tensor (FSDP2 and tensor
+        parallelism, from ``init_state`` on), not DDP."""
+        return self.mesh.sharded
+
+    def _cast_frozen(self) -> None:
+        if self.config.frozen_param_dtype == "bfloat16":
+            # They feed bf16 compute and take no update; the buffers (window
+            # masks, coordinate tables) stay fp32.
+            for p in self.model.parameters():
+                if not p.requires_grad and p.dtype != torch.bfloat16:
+                    p.data = p.data.to(torch.bfloat16)
+
+    # -- whole state dicts (sharded or not) --------------------------------
+    def full_state_dict(self) -> dict:
+        """The model's state dict with every tensor whole: its own on one
+        process or under DDP; under sharding gathered (every rank calls
+        it: ``parallel.partitioning.gather_full``), on the host, held by
+        rank 0 (the other ranks get an empty dict)."""
+        if not self.sharded:
+            return self.model.state_dict()
+        out = {}
+        for name, value in self.model.state_dict().items():
+            whole = gather_full(value.detach())
+            if self.mesh.rank == 0:
+                out[name] = whole.cpu()
+        return out
+
+    def load_full_state_dict(self, state_dict: Mapping[str, torch.Tensor],
+                             strict: bool = True) -> None:
+        """Load a whole state dict (one process's, the same on every rank)
+        into the model; under sharding each rank copies its shards out of
+        it (no communication)."""
+        if not self.sharded:
+            self.model.load_state_dict(state_dict, strict=strict)
+            return
+        live = dict(self.model.named_parameters())
+        live.update(self.model.named_buffers())
+        known = set(self.model.state_dict())
+        missing = sorted(known - set(state_dict))
+        unexpected = sorted(set(state_dict) - known)
+        if unexpected or (strict and missing):
+            raise RuntimeError(f"state dict: missing {missing}, "
+                               f"unexpected {unexpected}")
+        with torch.no_grad():
+            for name, value in state_dict.items():
+                t = live[name]
+                if isinstance(t, DTensor):
+                    t.to_local().copy_(local_shard(value, t))
+                else:
+                    t.copy_(value)
+
+    def full_optimizer_state_dict(self) -> dict:
+        """The optimizer's state dict (one process's form), every tensor
+        whole; under sharding gathered (every rank calls it) and held by
+        rank 0."""
+        state = self.optimizer.state_dict()
+        if not self.sharded:
+            return state
+        whole = {i: {k: (gather_full(v.detach()).cpu()
+                         if isinstance(v, torch.Tensor) else v)
+                     for k, v in st.items()}
+                 for i, st in state["state"].items()}
+        if self.mesh.rank != 0:
+            return {}
+        return {"state": whole, "param_groups": state["param_groups"]}
+
+    def load_full_optimizer_state_dict(self, state: dict) -> None:
+        """Load ``full_optimizer_state_dict``'s form into the optimizer;
+        under sharding a state tensor shaped as its parameter becomes the
+        rank's shard of it, unless the optimizer keeps whole state
+        (``Adafactor``)."""
+        if self.sharded and not getattr(self.optimizer, "whole_state",
+                                        False):
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            sharded = {}
+            for i, st in state["state"].items():
+                p = params[int(i)]
+                sharded[i] = {k: (DTensor.from_local(
+                    local_shard(v, p), p.device_mesh, p.placements,
+                    shape=p.shape, stride=p.stride())
+                    if isinstance(p, DTensor) and isinstance(v, torch.Tensor)
+                    and tuple(v.shape) == tuple(p.shape) else v)
+                    for k, v in st.items()}
+            state = dict(state, state=sharded)
+        self.optimizer.load_state_dict(state)
 
     def to_device(self, batch: Batch) -> dict:
         """The batch on the model's device. Host arrays go to the card
@@ -219,7 +332,9 @@ class Trainer:
         return mask.reshape(parts, -1).to(torch.float32).sum(dim=1)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t, group=self.mesh.group)
+        """``t`` summed over the data x fsdp ranks (the world's under DDP):
+        a tensor group holds one copy of its rows."""
+        dist.all_reduce(t, group=self.mesh.dp_group(self.device.type))
         return t
 
     # -- steps -------------------------------------------------------------
@@ -255,7 +370,10 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         feats = []
-        if self.ddp is None:
+        if self.sharded:
+            loss = self._sharded_microbatches(batch, accum, b, generator,
+                                              with_features, feats)
+        elif self.ddp is None:
             for i in range(accum):
                 mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
                 loss, f = self.net(mb, generator, False, with_features)
@@ -292,6 +410,34 @@ class Trainer:
             return loss, tuple(torch.cat(parts) for parts in zip(*feats))
         return loss
 
+    def _sharded_microbatches(self, batch: dict, accum: int, b: int,
+                              generator, with_features: bool,
+                              feats: list) -> torch.Tensor:
+        """The microbatches' forward and backward under FSDP2 and tensor
+        parallelism: the DDP branch's token shares over the data x fsdp
+        ranks, gradients reduced after the last microbatch only, then the
+        tensor-partial gradients summed over the tensor group. Returns the
+        global loss."""
+        counts = self._token_counts(batch, accum)
+        share = counts / (accum * self._all_reduce(counts.clone())
+                          .clamp(min=1.0))
+        dp = self.mesh.dp_size
+        loss_sum = torch.zeros((), device=self.device)
+        for i in range(accum):
+            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+            self.net.set_requires_gradient_sync(i == accum - 1)
+            loss, f = self.net(mb, generator, False, with_features)
+            # FSDP2 averages the reduced gradient over the dp ranks.
+            (loss * (share[i] * dp)).backward()
+            feats.append(f)
+            loss_sum = loss_sum + loss.detach() * share[i]
+        if self.tensor_partial:
+            group = self.mesh.tensor_group(self.device.type)
+            for m in self.tensor_partial:
+                if m.weight.grad is not None:
+                    dist.all_reduce(m.weight.grad.to_local(), group=group)
+        return self._all_reduce(loss_sum)
+
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> torch.Tensor:
         """Deterministic loss of ``batch``, no update (across processes:
@@ -307,7 +453,7 @@ class Trainer:
     def _eval(self, batch: Batch, with_features: bool):
         batch = self.to_device(batch)
         loss, feats = self.net(batch, None, True, with_features)
-        if self.ddp is not None:
+        if self.ddp is not None or self.sharded:
             n = self._token_counts(batch, 1)[0]
             pair = self._all_reduce(torch.stack([loss.float() * n, n]))
             loss = pair[0] / pair[1].clamp(min=1.0)

@@ -1,15 +1,19 @@
-"""Process group, rank device and mesh of data-parallel training.
+"""Process group, rank device and mesh of distributed training.
 
 The reference trains with ``torchrun --nproc_per_node=W train.py``: it calls
 ``dist.init_process_group("nccl")`` and wraps its model in
 ``DistributedDataParallel``. The JAX package replaced that with a device
 mesh over the axes ``(data, fsdp, tensor, seq, pipe, expert)``; the port
-goes back to the process group and keeps the mesh as a record of its shape.
-Only the ``data`` axis is ported: one process per data rank, gradients
-all-reduced by DDP (``train/trainer.py``). ``fsdp`` and ``tensor`` wait for
-ROADMAP A11b, ``seq``, ``pipe`` and ``expert`` for A12c (the GPipe schedule
-and the experts run unsharded on each rank); a shape that sets any of them
-above 1 raises.
+goes back to the process group, one process per rank, and lays the ranks
+out over ``(data, fsdp, tensor)`` in row-major order (rank = (d F + f) T +
+t). ``data`` alone: gradients all-reduced by DDP (``train/trainer.py``).
+``fsdp`` and ``tensor``: FSDP2 over ``(data, fsdp)`` and DTensor tensor
+parallelism over ``tensor`` (``parallel/partitioning.py``), on a
+``DeviceMesh`` of those three axes. The ranks of one tensor group share
+their rows: the batch splits over the ``data x fsdp`` index
+(``dp_rank`` of ``dp_size``). ``seq``, ``pipe`` and ``expert`` wait for
+ROADMAP A12c (the GPipe schedule and the experts run unsharded on each
+rank); a shape that sets any of them above 1 raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -38,9 +42,10 @@ import torch.distributed as dist
 from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
-# Axes other than data, and the ROADMAP item that ports each.
-UNPORTED_AXES = {"fsdp": "A11b", "tensor": "A11b", "seq": "A12c",
-                 "pipe": "A12c", "expert": "A12c"}
+# The axes that carry ranks: data, and the sharding of parameters.
+RANK_AXES = ("data", "fsdp", "tensor")
+# Axes not ported yet, and the ROADMAP item that ports each.
+UNPORTED_AXES = {"seq": "A12c", "pipe": "A12c", "expert": "A12c"}
 # Generous: the first collective waits for the slowest rank's model build
 # and, on a cold tree, the kernels' build.
 TIMEOUT = timedelta(minutes=30)
@@ -79,8 +84,8 @@ def resolve_mesh_shape(mesh_shape: Sequence[int],
 def unported_axes(mesh_shape: Sequence[int],
                   axis_names: Sequence[str] = DEFAULT_AXIS_NAMES
                   ) -> list[str]:
-    """Each axis other than ``data`` that is not 1, with the ROADMAP item
-    that ports it."""
+    """Each unported axis (``UNPORTED_AXES``) that is not 1, with the
+    ROADMAP item that ports it."""
     return [f"{name}={size} (ROADMAP {UNPORTED_AXES[name]})"
             for name, size in zip(axis_names, mesh_shape)
             if name in UNPORTED_AXES and int(size) != 1]
@@ -89,12 +94,12 @@ def unported_axes(mesh_shape: Sequence[int],
 def refuse_unported_axes(mesh_shape: Sequence[int],
                          axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
                          what: str = "mesh_shape") -> None:
-    """Raise ``NotImplementedError`` if an axis other than ``data`` is not
-    1, naming the ROADMAP item that ports it."""
+    """Raise ``NotImplementedError`` if an unported axis is not 1, naming
+    the ROADMAP item that ports it."""
     refused = unported_axes(mesh_shape, axis_names)
     if refused:
         raise NotImplementedError(
-            f"{what}: only the data axis is ported (DDP); "
+            f"{what}: only the data, fsdp and tensor axes are ported; "
             + ", ".join(refused))
 
 
@@ -193,7 +198,7 @@ class Mesh:
     """The resolved ``(data, fsdp, tensor, seq, pipe, expert)`` shape and
     the groups that carry it: ``group`` (the world's, for gradients and
     device tensors; None in a process of its own) and ``cpu_group`` (gloo,
-    for host values)."""
+    for host values). ``rank`` is the world rank."""
 
     shape: tuple[int, ...]
     axis_names: tuple[str, ...]
@@ -201,13 +206,81 @@ class Mesh:
     cpu_group: Optional[dist.ProcessGroup]
     rank: int = 0
 
+    def size(self, name: str) -> int:
+        """An axis's size (1 for an axis the names lack)."""
+        if name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
+
     @property
     def data(self) -> int:
-        return self.shape[self.axis_names.index("data")]
+        return self.size("data")
+
+    @property
+    def fsdp(self) -> int:
+        return self.size("fsdp")
+
+    @property
+    def tensor(self) -> int:
+        return self.size("tensor")
+
+    @property
+    def sharded(self) -> bool:
+        """Whether parameters are sharded (``fsdp`` or ``tensor`` above
+        1): FSDP2 and tensor parallelism instead of DDP."""
+        return self.fsdp > 1 or self.tensor > 1
+
+    @property
+    def dp_size(self) -> int:
+        """The ranks that hold different rows: data x fsdp."""
+        return self.data * self.fsdp
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index over data x fsdp: the chunk of each global
+        batch it draws, and the stream its dropout draws from."""
+        return self.rank // self.tensor
+
+    @property
+    def tensor_rank(self) -> int:
+        """This rank's place in its tensor group."""
+        return self.rank % self.tensor
 
     @property
     def distributed(self) -> bool:
         return self.group is not None
+
+    def device_mesh(self, device_type: str):
+        """The ``DeviceMesh`` over ``(data, fsdp, tensor)`` with named
+        dims, made once per device type (a collective: every rank calls
+        it). Its sub-meshes carry FSDP2 (``["data", "fsdp"]``) and tensor
+        parallelism (``["tensor"]``)."""
+        return self._meshes(device_type)[0]
+
+    def _meshes(self, device_type: str) -> tuple:
+        """(the ``DeviceMesh``, its data x fsdp dims flattened into one: the
+        rows' group, for token counts and losses), made once per device
+        type."""
+        meshes = self.__dict__.setdefault("_device_meshes", {})
+        if device_type not in meshes:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            dims = tuple(self.size(a) for a in RANK_AXES)
+            mesh = init_device_mesh(device_type, dims,
+                                    mesh_dim_names=RANK_AXES)
+            meshes[device_type] = (mesh,
+                                   mesh["data", "fsdp"]._flatten("dp"))
+        return meshes[device_type]
+
+    def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
+        """The group of this rank's data x fsdp peers (its tensor rank's
+        copies of the other rows); the world's without sharding."""
+        if not self.sharded:
+            return self.group
+        return self._meshes(device_type)[1].get_group()
+
+    def tensor_group(self, device_type: str) -> dist.ProcessGroup:
+        return self.device_mesh(device_type)["tensor"].get_group()
 
 
 # (world group, its gloo twin): held, so that a later group made after a
@@ -232,9 +305,9 @@ def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
               axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
               dcn_mesh_shape: Optional[Sequence[int]] = None) -> Mesh:
     """The mesh over the world's processes (one, when no process group
-    exists). The data axis is ``mesh_shape``'s data entry (-1: the rest of
-    the world) times ``dcn_mesh_shape``'s: the JAX package's data parallel
-    across slices is, under DDP, more data ranks. Any other axis above 1
+    exists). Each axis is ``mesh_shape``'s entry (-1: the rest of the
+    world) times ``dcn_mesh_shape``'s: the JAX package's parallelism across
+    slices is, here, more ranks on that axis. An unported axis above 1
     raises."""
     axis_names = tuple(axis_names)
     if set(axis_names) < set(DEFAULT_AXIS_NAMES):

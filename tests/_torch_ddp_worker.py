@@ -33,13 +33,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class Job:
-    """This worker under torchrun (``--standalone``: a free local port),
-    started in the background with ``runs``; ``results()`` waits for it
+    """This worker (or another ``script`` that reads the same spec) under
+    torchrun (``--standalone``: a free local port), started in the
+    background with ``runs``; ``results()`` waits for it
     and returns, per run, the ranks' results. ``sizes``: the geometries to
     register, {"t5_sizes": ..., "swin_sizes": ...}."""
 
     def __init__(self, tmp_path, runs: list, sizes: dict, nproc: int = 2,
-                 timeout: float = 240):
+                 timeout: float = 240, script: str = __file__):
         import subprocess
 
         self.runs, self.nproc, self.timeout = runs, nproc, timeout
@@ -53,16 +54,21 @@ class Job:
         env["OMP_NUM_THREADS"] = "1"
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+             "--nproc_per_node", str(nproc), os.path.abspath(script),
              spec_path], env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
 
-    def results(self) -> list:
+    def wait(self) -> str:
+        """Wait for the job (it must succeed); its output."""
         try:
             log, _ = self.proc.communicate(timeout=self.timeout)
         finally:
             self.proc.kill()
         assert self.proc.returncode == 0, log[-8000:]
+        return log
+
+    def results(self) -> list:
+        self.wait()
         out = []
         for run in self.runs:
             ranks = []
@@ -123,7 +129,8 @@ class StepLog:
         return step
 
 
-def main() -> None:
+def read_spec() -> dict:
+    """The spec file named on the command line, its sizes registered."""
     with open(sys.argv[1]) as f:
         spec = json.load(f)
     for name, kw in spec["t5_sizes"].items():
@@ -132,6 +139,11 @@ def main() -> None:
         tcfg.register_swin_size(name, tcfg.SwinV2Size(**{
             k: tuple(v) if isinstance(v, list) else v
             for k, v in kw.items()}))
+    return spec
+
+
+def main() -> None:
+    spec = read_spec()
     torch.set_num_threads(1)
     maybe_init_distributed("cpu")
     rank, world = dist.get_rank(), dist.get_world_size()

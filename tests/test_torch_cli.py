@@ -96,9 +96,10 @@ def test_parse_arguments_matches_jax_on_run_scripts(script):
     refused = [f"--{name}" for name, (default, _) in
                tcfg.UNPORTED_FLAGS.items()
                if getattr(want, name) != default]
-    # A mesh is ported on its data axis only (the others: A11b, A12c).
+    # A mesh is ported on its data, fsdp and tensor axes (the others:
+    # A12c).
     refused += [f"--{name}" for name in ("mesh_shape", "dcn_mesh_shape")
-                if any(s != 1 for s in getattr(want, name)[1:])]
+                if any(s != 1 for s in getattr(want, name)[3:])]
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             tcfg.parse_arguments(argv)
@@ -117,8 +118,10 @@ def test_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    ("--mesh_shape 1 2 1 1 1 1", "A11b"),
-    ("--dcn_mesh_shape 1 1 2 1 1 1", "A11b"),
+    ("--mesh_shape 1 2 1 1 1 1", None),
+    ("--dcn_mesh_shape 1 1 2 1 1 1", None),
+    ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", "A12c"),
+    ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12c"),
     ("--scan_unroll 2", "not ported by design"),
     ("--seq_attention ring", "A12c"),
     ("--pipeline_stages 2 --use_pallas_t5_attention", ValueError),

@@ -140,18 +140,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _forward(fn, q, k, v, bias, kmask, rate, seed):
+def _forward(fn, q, k, v, bias, kmask, rate, seed, head_offset=0):
     B, H, Q, D = q.shape
     out = torch.full_like(q, float("nan"))
     stats = torch.full((B, H, Q, 2), float("nan"))
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(kmask),
              _ptr(seed) if rate > 0 else None, _ptr(out), _ptr(stats), B, H,
-             Q, k.shape[2], D, int(q.dtype == torch.bfloat16), rate, None)
+             Q, k.shape[2], D, int(q.dtype == torch.bfloat16), head_offset,
+             rate, None)
     assert err == 0
     return out, stats
 
 
-def _backward(fn, q, k, v, do, bias, kmask, rate, seed, stats, need_dbias):
+def _backward(fn, q, k, v, do, bias, kmask, rate, seed, stats, need_dbias,
+              head_offset=0):
     B, H, Q, D = q.shape
     K = k.shape[2]
     delta = torch.full((B, H, Q), float("nan"))
@@ -161,7 +163,7 @@ def _backward(fn, q, k, v, do, bias, kmask, rate, seed, stats, need_dbias):
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(bias), _ptr(kmask),
              _ptr(seed) if rate > 0 else None, _ptr(stats), _ptr(delta),
              _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ds), _ptr(dbias), B, H, Q, K,
-             D, int(q.dtype == torch.bfloat16), rate, None)
+             D, int(q.dtype == torch.bfloat16), head_offset, rate, None)
     assert err == 0
     return dq, dk, dv, dbias
 
@@ -224,6 +226,37 @@ def test_t5_kernels_on_host_match_plain(kernels, dtype, B, H, Q, K, D, rate,
             continue
         tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
         assert x.dtype == w.dtype
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 48)])
+def test_t5_kernels_on_host_take_head_offset(kernels, dtype, D):
+    """A tensor-parallel rank's heads: the kernels on heads 2..3 of four
+    with ``head_offset`` 2 give the plain version's full call on those
+    heads, forward and backward, with dropout on; without the offset the
+    keep bits are heads 0..1's, so the output moves."""
+    g = torch.Generator().manual_seed(D)
+    B, H, Q, K, rate, off = 2, 4, 20, 24, 0.3, 2
+    q, k, v, do = (torch.randn(s, generator=g).to(dtype) for s in (
+        (B, H, Q, D), (B, H, K, D), (B, H, K, D), (B, H, Q, D)))
+    b = torch.randn(H, Q, K, generator=g)
+    seed = torch.tensor([0x7777_1234_5678_9ABC], dtype=torch.int64)
+    part = [t[:, off:].contiguous() for t in (q, k, v, do)]
+    out, stats = _forward(kernels["t5_attention_fwd"], *part[:3],
+                          b[off:].contiguous(), None, rate, seed, off)
+    want = t5_attention_plain(q, k, v, b, None, rate, seed)[:, off:]
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    shifted, _ = _forward(kernels["t5_attention_fwd"], *part[:3],
+                          b[off:].contiguous(), None, rate, seed)
+    assert _rel_err(shifted, want) > 0.1
+    got = _backward(kernels["t5_attention_bwd"], *part, b[off:].contiguous(),
+                    None, rate, seed, stats, True, off)
+    full = t5_attention_bwd_plain(q, k, v, do, b, None, rate, seed, True)
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
+        w = w[off:] if name == "dbias" else w[:, off:]
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
         assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
 
 

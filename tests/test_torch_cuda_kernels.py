@@ -234,6 +234,36 @@ def test_t5_backward_matches_plain(cuda, dtype, rate, B, H, Q, K, D, bias,
         assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Q,K,D,off", [
+    (2, 4, 40, 70, 48, 2),       # ragged tiles
+    (4, 16, 320, 320, 128, 16),  # t5-3b's encoder under tensor 2
+    (4, 8, 128, 320, 64, 8),     # the text tower's d_kv under tensor 2
+])
+def test_t5_head_offset_matches_the_full_call(cuda, dtype, B, H, Q, K, D,
+                                              off):
+    """A tensor rank's heads: the kernels on heads ``off ..`` with
+    ``head_offset`` give the plain full call's heads, forward and
+    backward, with dropout on."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do, b, m = _case(gen, cuda, dtype, B, 2 * H, Q, K, D, True,
+                              True)
+    seed = draw_seed(gen)
+    part = [t[:, off:off + H].contiguous() for t in (q, k, v, do)]
+    bh = b[off:off + H].contiguous()
+    want = t5_attention_plain(q, k, v, b, m, 0.1, seed)[:, off:off + H]
+    out, stats = t5_attention_fwd(*part[:3], bh, m, 0.1, seed,
+                                  with_stats=True, head_offset=off)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    full = t5_attention_bwd_plain(q, k, v, do, b, m, 0.1, seed, True)
+    got = t5_attention_bwd(*part, bh, m, 0.1, seed, stats, True,
+                           head_offset=off)
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
+        w = w[off:off + H] if name == "dbias" else w[:, off:off + H]
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
 def test_t5_dbias_is_bitwise_reproducible(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, 8, 16, 320, 320,

@@ -40,12 +40,14 @@ def test_resolve_mesh_shape_matches_jax(shape, n):
 
 
 @pytest.mark.parametrize("shape,item", [
-    ((1, 2, 1), "A11b"), ((1, 1, 2), "A11b"), ((1, 1, 1, 2), "A12"),
+    ((1, 2, 1, 2), "A12c"), ((1, 1, 2, 1, 2), "A12c"), ((1, 1, 1, 2), "A12"),
     ((1, 1, 1, 1, 2), "A12"), ((1, 1, 1, 1, 1, 2), "A12"),
-    ((1, -1, 1), "A11b")])
+    ((1, -1, 1, 1, 1, 2), "A12c")])
 def test_non_data_axes_are_refused(shape, item):
-    """By ``make_mesh``, by ``Config`` (``mesh_shape`` and
-    ``dcn_mesh_shape``) and by the command line, naming the ROADMAP item."""
+    """The axes not ported (seq, pipe, expert), alone or beside fsdp and
+    tensor: refused by ``make_mesh``, by ``Config`` (``mesh_shape`` and
+    ``dcn_mesh_shape``) and by the command line, naming the ROADMAP
+    item."""
     with pytest.raises(NotImplementedError, match=item):
         tmesh.make_mesh(shape)
     with pytest.raises(NotImplementedError, match=item):

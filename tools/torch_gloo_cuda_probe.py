@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Which collectives two processes sharing one CUDA card can run over gloo
+(the PyTorch port's phases 10 and 13 put two ranks on one card so: NCCL
+refuses two ranks on one device), and how long the large ones take.
+
+    python3 tools/torch_gloo_cuda_probe.py
+
+Each case runs in its own two-rank ``torch.distributed.run`` job (a case
+that crashes takes only its job down) and prints one line: ok or the
+failure, and the seconds of the timed ones. The cases: the c10d
+collectives on CUDA tensors (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``; the large ones at 256 MB), the functional
+collectives behind DTensor (``all_reduce``, ``all_gather_tensor``,
+``reduce_scatter_tensor``), and DTensor's ``full_tensor`` and
+``distribute_tensor``. Needs a card and the port's torch; no JAX.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+CASES = ("c10d_all_reduce", "c10d_all_gather", "c10d_reduce_scatter",
+         "funcol_all_reduce", "funcol_all_gather", "funcol_reduce_scatter",
+         "dtensor_full_tensor", "dtensor_distribute")
+
+
+def run_case(case: str) -> None:
+    """One rank of one case's job."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("t",))
+    x = torch.arange(8, device=dev, dtype=torch.float32) + 10 * rank
+    big = torch.ones(64 << 20, device=dev)  # 256 MB of fp32
+    timed = None
+    if case == "c10d_all_reduce":
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(big)
+        torch.cuda.synchronize()
+        timed = ("all_reduce of 256 MB", time.perf_counter() - t0)
+    elif case == "c10d_all_gather":
+        out = torch.empty(128 << 20, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_gather_into_tensor(out, big)
+        torch.cuda.synchronize()
+        timed = ("all_gather_into_tensor of 256 MB in, 512 MB out",
+                 time.perf_counter() - t0)
+    elif case == "c10d_reduce_scatter":
+        out = torch.empty(32 << 20, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.reduce_scatter_tensor(out, big)
+        torch.cuda.synchronize()
+        timed = ("reduce_scatter_tensor of 256 MB in",
+                 time.perf_counter() - t0)
+    elif case == "funcol_all_reduce":
+        funcol.all_reduce(x, "sum", mesh).tolist()
+    elif case == "funcol_all_gather":
+        funcol.all_gather_tensor(x, 0, mesh).tolist()
+    elif case == "funcol_reduce_scatter":
+        funcol.reduce_scatter_tensor(x, "sum", 0, mesh).tolist()
+    elif case == "dtensor_full_tensor":
+        DTensor.from_local(x, mesh, [Shard(0)]).full_tensor().tolist()
+    elif case == "dtensor_distribute":
+        distribute_tensor(torch.arange(8.0, device=dev), mesh,
+                          [Shard(0)]).to_local().tolist()
+    torch.cuda.synchronize()
+    if rank == 0:
+        print(f"RESULT {case}: ok" + (f"; {timed[0]}: {timed[1]:.4f} s"
+                                      if timed else ""), flush=True)
+    dist.destroy_process_group()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for case in CASES:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", os.path.abspath(__file__), "--case",
+             case], env=env, capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("RESULT")]
+        if proc.returncode == 0 and lines:
+            print(lines[0].removeprefix("RESULT "))
+        else:
+            crashed = "SIGSEGV" in proc.stdout + proc.stderr
+            print(f"{case}: fails (exit {proc.returncode}"
+                  + (", a rank crashed with SIGSEGV" if crashed else "")
+                  + ")")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--case"]:
+        run_case(sys.argv[2])
+        sys.exit(0)
+    sys.exit(main())
