@@ -263,17 +263,53 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
    updates after three steps are printed beside them); the checkpoint
    restored bitwise. Prints per rank the step spans, peak memory, and in
-   one profiled step gloo's host time and the busy share. Then the T5 kernels at 13c's
+   one profiled 13c step gloo's host time and the busy share (13b's, of a
+   10-13 s step, are in ``PERF.md``). Then the T5 kernels at 13c's
    per-rank shapes (bf16, 16 heads of d_kv 128) against their plain
    versions with and without ``head_offset``, and their times per step
    beside the plain versions', SDPA's and the bound.
-14. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+14. Sequence parallelism over the seq axis: phase 10's t5-large of 6 + 6
+   blocks behind the default towers at full depth, bf16, Adam, batch 16,
+   dropout 0 for the compared steps, every run from the same seeded
+   weights and rows.
+   a. one process, both kernel flags: one warm-up and two timed steps, a
+      profiled step, one step at dropout 0.1; a'. the same with the T5
+      kernel off. The references of b and c.
+   b. ``(1, 1, 1, 2)``, the all-gather path, both kernel flags: each rank
+      runs its half of every T5 stack's positions (the K/V gathered over
+      the seq group, the kernels keyed on the global query with
+      ``q_offset``); c. the same with ``--seq_attention ring`` and the T5
+      kernel off (the ring staged through the host: gloo refuses CUDA
+      tensors for point-to-point). Checks: each rank's launches per step
+      equal a's (T5 forward 42, backward 18, 12 with dBias, Swin 24) or
+      a''s (Swin 24), c's ring turning 60 times a step; the first step's
+      gradients and three losses against a's or a''s (``TOL_SHARD``); the
+      dropout-0.1 step's loss against the one process's on the same
+      stream (b draws the same masks; c's ring draws Philox masks where
+      a' draws the generator's: two draws); every parameter bitwise equal
+      on both ranks.
+   d. one step at batch 2 with the prompt padded to 2048 ids (2112 encoder
+      positions), the T5 kernel off: peak memory of a' and, per rank, of
+      b' (c's trainer on the all-gather path) and c; the ring's must be
+      below b''s.
+   b and c (with their d steps) run in one ``torch.distributed.run`` job
+   of two ranks on the one card (gloo on CUDA tensors), which runs this
+   script again with ``--seq-rank SPEC`` (the ranks' output in
+   ``chiprun_out/phase14_ranks.log``). Prints per rank the step spans,
+   peak memory, and in one profiled step gloo's host time and the busy
+   share.
+   e. The T5 kernels at a 14b rank's shapes (bf16, batch 16, 16 heads of
+      d_kv 64, half of each stack's queries against every key) against
+      their plain versions at rate 0.1 with and without ``q_offset``, and
+      their times per step beside the plain versions', SDPA's and the
+      bound.
+15. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
-   phase-11a step and one phase-11c request, in one phase-12 step, and in
-   one step of a phase-13c rank), then ``{"ok": true, ...}`` as the last
-   line.
+   phase-11a step and one phase-11c request, in one phase-12 step, in one
+   step of a phase-13c rank, and in one step of a phase-14b rank), then
+   ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -542,8 +578,11 @@ def t5_inputs(sh: T5Shape, dtype, gen, H: int = T5_H, D: int = T5_D):
     if sh.bias:
         bias = torch.randn(H, sh.Q, sh.K, generator=gen, device=dev)
         if sh.causal:
-            i = torch.arange(sh.Q, device=dev)
-            bias = bias + torch.where(i[:, None] >= i[None, :], 0.0, -1e9)
+            # The last Q rows of the causal mask (all of them at Q == K; a
+            # last seq rank's otherwise).
+            i = torch.arange(sh.K, device=dev)
+            bias = bias + torch.where(i[sh.K - sh.Q:, None] >= i[None, :],
+                                      0.0, -1e9)
     kmask = None
     if sh.mask >= 0:
         kmask = torch.ones(sh.B, sh.K, dtype=torch.int32, device=dev)
@@ -1386,10 +1425,12 @@ def plain_backward_attention():
 
     class Fn(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, bias_h, kmask, seed, rate, head_offset):
+        def forward(ctx, q, k, v, bias_h, kmask, seed, rate, head_offset,
+                    q_offset):
             out, _ = t5_attention_fwd(q, k, v, bias_h, kmask, rate, seed,
-                                      head_offset=head_offset)
-            ctx.rate, ctx.head_offset = rate, head_offset
+                                      head_offset=head_offset,
+                                      q_offset=q_offset)
+            ctx.rate, ctx.offsets = rate, (head_offset, q_offset)
             ctx.save_for_backward(q, k, v, bias_h, kmask, seed)
             return out
 
@@ -1399,13 +1440,13 @@ def plain_backward_attention():
             need_dbias = bias_h is not None and ctx.needs_input_grad[3]
             dq, dk, dv, dbias = t5_attention_bwd_plain(
                 q, k, v, dout, bias_h, kmask, ctx.rate, seed, need_dbias,
-                ctx.head_offset)
-            return dq, dk, dv, dbias, None, None, None, None
+                *ctx.offsets)
+            return dq, dk, dv, dbias, None, None, None, None, None
 
     def attention(q, k, v, bias_h=None, kmask=None, dropout_rate=0.0,
-                  seed=None, head_offset=0):
+                  seed=None, head_offset=0, q_offset=0):
         return Fn.apply(q, k, v, bias_h, kmask, seed, float(dropout_rate),
-                        head_offset)
+                        head_offset, q_offset)
     return attention
 
 
@@ -4837,9 +4878,13 @@ def shard_rank_main(spec_path: str) -> int:
             manager.wait()
             r["checkpoint_s"] = time.perf_counter() - t0
             r["saves"] = manager.saves
+        # One profiled step in 13c only: 13b's (a 10-13 s step of gloo's
+        # host staging, its readings in PERF.md) would cost the script
+        # ~15 s.
         r["profile"] = profile_device(
             lambda: trainer.train_step(rows, gen), r["mean_step_ms"], card,
-            f"{tag} rank {rank} step", collectives=True)
+            f"{tag} rank {rank} step", collectives=True) if run.get(
+                "profile") else {}
         if run.get("dropout_step"):
             # One step at dropout 0.1, then the parameters that no tensor
             # rank splits, bitwise across the ranks.
@@ -4871,13 +4916,16 @@ def shard_rank_main(spec_path: str) -> int:
     return 0
 
 
-def check_t5_d128(gen, card: str) -> dict:
-    """The T5 kernels at 13c's per-rank shapes (bf16, batch 16, 16 heads of
-    d_kv 128, rate 0.1): forward and backward against their plain versions
-    at head offsets 0 and 16 (phase 2's tolerances), the offset's masks
-    apart from offset 0's; then per training step (6 launches of each
-    shape) the kernel, the plain version, SDPA and the bound, the forward
-    and the backward timed as phase 2 times them (rank 1's offset)."""
+def check_t5_offsets(gen, card: str, what: str, shapes: list, H: int,
+                     D: int, offset: str, rate: float) -> dict:
+    """The T5 kernels at one rank's shapes (bf16; ``shapes``: (T5Shape, the
+    offset of the rank compared) pairs): forward and backward against their
+    plain versions at rate 0.1 with ``offset`` ('head_offset' or
+    'q_offset') 0 and the rank's (phase 2's tolerances), the offset's masks
+    apart from offset 0's; then per training step (``per_path`` launches
+    of each shape) the kernel, the plain version, SDPA and the bound at
+    ``rate``, the forward and the backward timed as phase 2 times them (at
+    the rank's offset). The text tower's launches have no backward."""
     import torch
     import torch.nn.functional as F
 
@@ -4886,53 +4934,47 @@ def check_t5_d128(gen, card: str) -> dict:
                                                     t5_attention_bwd_plain,
                                                     t5_attention_fwd,
                                                     t5_attention_plain)
-    H, D, B, off = SHARD_HEADS, SHARD_D, SHARD_BATCH, SHARD_OFFSET
-    pad = SRC_LEN - 30
-    shapes = [
-        T5Shape("encoder", "training", B, ENC_LEN, ENC_LEN, True, pad, RATE,
-                SHARD_LAYERS),
-        T5Shape("decoder", "training", B, TGT_LEN, TGT_LEN, True, -1, RATE,
-                SHARD_LAYERS, causal=True),
-        T5Shape("cross", "training", B, TGT_LEN, ENC_LEN, False, pad, RATE,
-                SHARD_LAYERS)]
     rows = {"fwd": [], "bwd": []}
     worst = dict(fwd=0.0, bwd=0.0)
-    for sh in shapes:
+    for sh, off in shapes:
+        B = sh.B
         seed = draw_seed(gen)
         q, k, v, do, bias, kmask = t5_inputs(sh, torch.bfloat16, gen, H, D)
         outs = {}
         for o in (0, off):
+            at = {offset: o}
             out, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed,
-                                          True, head_offset=o)
-            want = t5_attention_plain(q, k, v, bias, kmask, RATE, seed, o)
+                                          True, **at)
+            want = t5_attention_plain(q, k, v, bias, kmask, RATE, seed, **at)
             err = max_err(out, want)
             check(torch.allclose(out.float(), want.float(), **TOL_BF16),
-                  f"t5 fwd d128 {sh.name} head_offset {o}: max abs err "
-                  f"{err}")
+                  f"t5 fwd {what} {sh.name} {offset} {o}: max abs err {err}")
             worst["fwd"] = max(worst["fwd"], err)
             got = t5_attention_bwd(q, k, v, do, bias, kmask, RATE, seed,
-                                   stats, sh.bias, head_offset=o)
+                                   stats, sh.bias, **at)
             wantb = t5_attention_bwd_plain(q, k, v, do, bias, kmask, RATE,
-                                           seed, sh.bias, o)
+                                           seed, sh.bias, **at)
             for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, wantb):
                 if w is None:
                     continue
                 r = rel_err(g, w)
                 check(r <= TOL_GRAD["dbias" if name == "dbias"
                                     else "bfloat16"],
-                      f"t5 bwd d128 {sh.name} head_offset {o} {name}: rel "
+                      f"t5 bwd {what} {sh.name} {offset} {o} {name}: rel "
                       f"err {r}")
                 worst["bwd"] = max(worst["bwd"], r)
             outs[o] = out
         check(not torch.equal(outs[0], outs[off]),
-              f"t5 fwd d128 {sh.name}: head_offset {off} drew offset 0's "
+              f"t5 fwd {what} {sh.name}: {offset} {off} drew offset 0's "
               "masks")
-        _, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed, True,
-                                    head_offset=off)
+        at = {offset: off}
+        sd = seed if rate > 0 else None
+        _, stats = t5_attention_fwd(q, k, v, bias, kmask, rate, sd, True,
+                                    **at)
         ms = time_ms(lambda: t5_attention_fwd(
-            q, k, v, bias, kmask, RATE, seed, True, head_offset=off), 20)
+            q, k, v, bias, kmask, rate, sd, True, **at), 20)
         plain = time_ms(lambda: t5_attention_plain(
-            q, k, v, bias, kmask, RATE, seed, off), 5, 1)
+            q, k, v, bias, kmask, rate, sd, **at), 5, 1)
         mask = sdpa_mask(bias, kmask, torch.bfloat16)
         if mask is not None:
             mask = mask.expand(B, H, sh.Q, sh.K).contiguous()
@@ -4940,39 +4982,43 @@ def check_t5_d128(gen, card: str) -> dict:
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                *leaves, attn_mask=mask, dropout_p=RATE, scale=1.0)
+                *leaves, attn_mask=mask, dropout_p=rate, scale=1.0)
 
         def sdpa_fwd_bwd():
             return torch.autograd.grad(sdpa(), leaves, do)
         lib = time_ms(sdpa, 20)
         nbytes = io_bytes(q, k, v, q) + io_bytes(bias, kmask, stats)
-        b, by = bound_ms(nbytes, 4 * B * H * sh.Q * sh.K * D, "bfloat16")
-        rows["fwd"].append(dict(name=sh.name, shape=[B, H, sh.Q, sh.K, D],
-                                per_step=sh.per_path, ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=b, bound_by=by,
-                                bytes=nbytes,
-                                flops=4 * B * H * sh.Q * sh.K * D))
-        ms = time_ms(lambda: t5_attention_bwd(
-            q, k, v, do, bias, kmask, RATE, seed, stats, sh.bias,
-            head_offset=off), 10, 2)
-        plain = time_ms(lambda: t5_attention_bwd_plain(
-            q, k, v, do, bias, kmask, RATE, seed, sh.bias, off), 5, 1)
-        lib = time_ms(sdpa_fwd_bwd, 10, 2) - time_ms(sdpa, 10, 2)
-        nbytes = (io_bytes(q, k, v, do) + io_bytes(q, k, v)
-                  + io_bytes(bias, kmask, stats)
-                  + (io_bytes(bias) if sh.bias else 0))
-        flops = 10 * B * H * sh.Q * sh.K * D
+        flops = 4 * B * H * sh.Q * sh.K * D
         b, by = bound_ms(nbytes, flops, "bfloat16")
-        rows["bwd"].append(dict(name=sh.name, shape=[B, H, sh.Q, sh.K, D],
-                                per_step=sh.per_path, dbias=sh.bias, ms=ms,
+        rows["fwd"].append(dict(name=sh.name, shape=[B, H, sh.Q, sh.K, D],
+                                offset=off, per_step=sh.per_path, ms=ms,
                                 plain_ms=plain, library_ms=lib, bound_ms=b,
                                 bound_by=by, bytes=nbytes, flops=flops))
+        if sh.name != "text":
+            ms = time_ms(lambda: t5_attention_bwd(
+                q, k, v, do, bias, kmask, rate, sd, stats, sh.bias, **at),
+                10, 2)
+            plain = time_ms(lambda: t5_attention_bwd_plain(
+                q, k, v, do, bias, kmask, rate, sd, sh.bias, **at), 5, 1)
+            lib = time_ms(sdpa_fwd_bwd, 10, 2) - time_ms(sdpa, 10, 2)
+            nbytes = (io_bytes(q, k, v, do) + io_bytes(q, k, v)
+                      + io_bytes(bias, kmask, stats)
+                      + (io_bytes(bias) if sh.bias else 0))
+            flops = 10 * B * H * sh.Q * sh.K * D
+            b, by = bound_ms(nbytes, flops, "bfloat16")
+            rows["bwd"].append(dict(
+                name=sh.name, shape=[B, H, sh.Q, sh.K, D], offset=off,
+                per_step=sh.per_path, dbias=sh.bias, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b, bound_by=by, bytes=nbytes,
+                flops=flops))
         for kind in ("fwd", "bwd"):
+            if not rows[kind] or rows[kind][-1]["name"] != sh.name:
+                continue
             x = rows[kind][-1]
-            print(f"t5 {kind} d128 {sh.name} {x['shape']} rate {RATE}: "
-                  f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
-                  f"sdpa {x['library_ms']:.4f} ms, bound {x['bound_ms']:.4f}"
-                  f" ms ({x['bound_by']}) [{card}]")
+            print(f"t5 {kind} {what} {sh.name} {x['shape']} {offset} {off} "
+                  f"rate {rate}: kernel {x['ms']:.4f} ms, plain "
+                  f"{x['plain_ms']:.4f} ms, sdpa {x['library_ms']:.4f} ms, "
+                  f"bound {x['bound_ms']:.4f} ms ({x['bound_by']}) [{card}]")
         del q, k, v, do, bias, kmask, stats, leaves, mask
         free()
     totals = {}
@@ -4986,13 +5032,26 @@ def check_t5_d128(gen, card: str) -> dict:
                          else "operations")
         t["launches_per_step"] = sum(x["per_step"] for x in rs)
         totals[kind] = t
-        print(f"t5 {kind} at d_kv 128 per 13c rank step "
-              f"({t['launches_per_step']} launches): kernel {t['ms']:.4f} "
-              f"ms, plain {t['plain_ms']:.4f} ms, sdpa "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}) [{card}]")
+        print(f"t5 {kind} per {what} step ({t['launches_per_step']} "
+              f"launches): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
     return dict(rows=rows, totals=totals, max_abs_err_fwd=worst["fwd"],
                 max_rel_err_bwd=worst["bwd"])
+
+
+def d128_shapes() -> list[tuple["T5Shape", int]]:
+    """13c's per-rank shapes (batch 16, 16 heads of d_kv 128, rate 0.1),
+    rank 1's heads."""
+    pad = SRC_LEN - 30
+    B = SHARD_BATCH
+    return [(sh, SHARD_OFFSET) for sh in (
+        T5Shape("encoder", "training", B, ENC_LEN, ENC_LEN, True, pad, RATE,
+                SHARD_LAYERS),
+        T5Shape("decoder", "training", B, TGT_LEN, TGT_LEN, True, -1, RATE,
+                SHARD_LAYERS, causal=True),
+        T5Shape("cross", "training", B, TGT_LEN, ENC_LEN, False, pad, RATE,
+                SHARD_LAYERS))]
 
 
 def shard_phase(card: str) -> dict:
@@ -5061,7 +5120,7 @@ def shard_phase(card: str) -> dict:
                         grads=os.path.join(root, f"{tag}.grads.pt"), **kw)
         spec = dict(card=card, out=os.path.join(root, "rank"), runs=[
             run("13b", checkpoint=os.path.join(root, "13b")),
-            run("13c", dropout_step=True)])
+            run("13c", dropout_step=True, profile=True)])
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
@@ -5153,11 +5212,12 @@ def shard_phase(card: str) -> dict:
                       f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
                       f"(13a {one['mean_step_ms']:.2f}), peak "
                       f"{g['peak_gb']:.2f} GB (13a {one['peak_gb']:.2f}); "
-                      f"profiled step: busy {g['profile'].get('busy_ms')} "
-                      f"ms, share {g['profile'].get('busy_share')}, "
-                      f"collectives host {coll.get('host_ms')} ms, device "
-                      f"{coll.get('device_ms')} ms; gather "
-                      f"{g['gather_s']:.2f} s"
+                      + (f"profiled step: busy {g['profile']['busy_ms']} "
+                         f"ms, share {g['profile']['busy_share']}, "
+                         f"collectives host {coll.get('host_ms')} ms, device "
+                         f"{coll.get('device_ms')} ms; " if g["profile"]
+                         else "")
+                      + f"gather {g['gather_s']:.2f} s"
                       + (f", checkpoint {g['checkpoint_s']:.2f} s"
                          if "checkpoint_s" in g else ""))
             results[tag] = got
@@ -5172,12 +5232,367 @@ def shard_phase(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     free()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    kernels = check_t5_d128(gen, card)
+    kernels = check_t5_offsets(gen, card, "d128 13c rank",
+                               d128_shapes(), SHARD_HEADS, SHARD_D,
+                               "head_offset", RATE)
     seconds = time.perf_counter() - t_phase
     print(f"phase 13: {seconds:.1f} s (job {job_s:.2f} s)")
     return dict(card=card, memory_reckoned_gb=memory, one_process=one,
                 ranks=results, agreement=agree, job_s=job_s,
                 restore_s=restore_s, d128=kernels, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: sequence parallelism over the seq axis (all-gather and ring)
+# ---------------------------------------------------------------------------
+
+# Phase 10's t5-large of 6 + 6 blocks (T5_NO_DROPOUT; dropout 0 for the
+# compared steps) behind the default towers at full depth, batch 16, two
+# seq ranks sharing the card over gloo. Every run starts from the same
+# seeded weights and rows.
+SEQ_RANKS = 2
+SEQ_MESH = (1, 1, 1, SEQ_RANKS)
+SEQ_BATCH, SEQ_STEPS = 16, 2
+SEQ_LAUNCHES = step_launches(T5_LAYERS, DDP_LAYERS, DDP_LAYERS,
+                             dropout=False)
+SEQ_LAUNCHES_DROPOUT = step_launches(T5_LAYERS, DDP_LAYERS, DDP_LAYERS)
+# The T5 kernel off (a', c): the Swin kernel's launches only.
+SEQ_LAUNCHES_PLAIN = dict(t5_fwd=0, t5_fwd_dropout=0, t5_bwd=0,
+                          t5_bwd_dbias=0, swin=24)
+# The ring's exchanges in one step of c: the text tower's 24 self-
+# attentions forward (frozen), the transformer's 12 forward and backward
+# (one exchange forward, two backward).
+SEQ_RING_EXCHANGES = T5_LAYERS + 2 * DDP_LAYERS * 3
+# 14d: one step at batch 2 with the prompt padded to 2048 ids (encoder
+# 2112 positions), dropout 0.
+SEQ_LONG_BATCH, SEQ_LONG_SRC = 2, 2048
+
+
+def seq_config(**kw):
+    """Phase 14's set-up: the Config defaults, both kernel flags (``kw``
+    may turn the T5 kernel off), the transformer cut to ``DDP_LAYERS`` +
+    ``DDP_LAYERS`` blocks at dropout 0, batch ``SEQ_BATCH``."""
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    register_no_dropout()
+    kw = dict(dict(use_pallas_attention=True, use_pallas_t5_attention=True,
+                   batch_size=SEQ_BATCH), **kw)
+    return Config(seed=SEED, transformer_model_name=T5_NO_DROPOUT, **kw)
+
+
+def seq_run(trainer, tag: str, card: str, expected: dict, dropout: dict,
+            keep_grads, ring: bool, long: tuple = ()) -> dict:
+    """One warm-up and ``SEQ_STEPS`` timed steps of ``trainer`` at dropout
+    0 (launches checked against ``expected``), a profiled step, then one
+    step at dropout 0.1 (launches against ``dropout``), then for each of
+    ``long`` ('path': the trainer's own; 'allgather' or 'ring': its stacks
+    set so) one 14d step at batch 2 and 2048 source ids (dropout 0):
+    losses, spans, peak memory, the profile and the long steps' peaks;
+    with ``ring`` the ring's exchanges per step are counted too."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.ops import ring_attention
+
+    cfg = trainer.config
+    mesh = trainer.mesh
+    batch = train_batch(cfg, SEQ_BATCH, SEED)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    before = ring_attention.exchanges
+    t0 = time.perf_counter()
+    first = float(trainer.train_step(batch, gen))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    exchanges = ring_attention.exchanges - before
+    keep_grads(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen, SEQ_STEPS,
+                                            expected, tag)
+    losses = [first] + losses
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: non-finite loss {losses}")
+    if ring:
+        check(exchanges == SEQ_RING_EXCHANGES,
+              f"{tag}: the ring turned {exchanges} times in a step, "
+              f"expected {SEQ_RING_EXCHANGES}")
+    r = dict(losses=losses, first_step_ms=first_ms, step_ms=step_ms,
+             mean_step_ms=sum(step_ms) / len(step_ms),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_step=per_step, ring_exchanges_per_step=exchanges,
+             seq=[mesh.seq_rank, mesh.seq])
+    r["profile"] = profile_device(
+        lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
+        f"{tag} step", collectives=mesh.distributed)
+    # One step at dropout 0.1 on the generator the rate-0 steps left
+    # untouched (they draw nothing).
+    set_dropout(trainer.model.transformer, RATE)
+    reset_counts()
+    r["dropout_loss"] = float(trainer.train_step(batch, gen))
+    got = launch_counts()
+    check(got == dropout and math.isfinite(r["dropout_loss"]),
+          f"{tag}: the dropout step's loss {r['dropout_loss']}, launches "
+          f"{got}, expected {dropout}")
+    set_dropout(trainer.model.transformer, 0.0)
+    rows = train_batch(dataclasses.replace(cfg, max_source_length=(
+        SEQ_LONG_SRC)), SEQ_LONG_BATCH, SEED)
+    r["long"] = {}
+    for kind in long:
+        if kind != "path":
+            for stack in seq_stacks(trainer.model):
+                stack.ring_attention = kind == "ring"
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer.train_step(rows, gen))
+        check(math.isfinite(loss), f"{tag} long step ({kind}): loss {loss}")
+        r["long"][kind] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} [{card}]: losses {r['losses']}, steps "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, peak "
+          f"{r['peak_gb']:.2f} GB, launches {per_step}"
+          + (f", {exchanges} ring exchanges a step" if ring else "")
+          + f"; dropout-0.1 step loss {r['dropout_loss']:.6f}"
+          + (f"; batch {SEQ_LONG_BATCH} x {SEQ_LONG_SRC} ids, peak GB: "
+             + ", ".join(f"{k} {v:.2f}" for k, v in r["long"].items())
+             if long else ""), flush=True)
+    return r
+
+
+def seq_stacks(model) -> list:
+    return [model.language_model.encoder, model.transformer.encoder,
+            model.transformer.decoder]
+
+
+def all_mismatches(model) -> tuple[int, list]:
+    """(parameters checked, names that differ from rank 0's, bitwise, by
+    broadcast): every parameter, which each seq rank holds whole."""
+    import torch
+    import torch.distributed as dist
+
+    checked, bad = 0, []
+    for n, p in model.named_parameters():
+        ref = p.detach().clone()
+        dist.broadcast(ref, src=0)
+        checked += 1
+        if not torch.equal(ref, p.detach()):
+            bad.append(n)
+    return checked, bad
+
+
+def seq_rank_main(spec_path: str) -> int:
+    """One rank of phase 14's job (started by ``torch.distributed.run``):
+    14b and 14c in turn on ``cuda:0``, which both ranks share (gloo on
+    CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
+    ``{out}.{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_no_dropout()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    rank, card = dist.get_rank(), spec["card"]
+    readings = {}
+    for run in spec["runs"]:
+        tag = f"{run['tag']} rank {rank}"
+        cfg = Config.from_json(json.dumps(run["config"]))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=device)
+        # Seeded with config.seed on the card: 14a's weights on every rank.
+        trainer.init_state()
+        check(trainer.ddp is not None and trainer.mesh.seq == SEQ_RANKS,
+              f"{tag}: not a DDP trainer over {SEQ_RANKS} seq ranks")
+        build_s = time.perf_counter() - t0
+
+        def save_grads(t):
+            # The warm-up step's gradients, all-reduced over the ranks.
+            if rank == 0:
+                torch.save({n: p.grad.detach().float().cpu()
+                            for n, p in t.model.named_parameters()
+                            if p.requires_grad}, run["grads"])
+        r = seq_run(trainer, tag, card, run["launches"],
+                    run["launches_dropout"], save_grads, run["ring"],
+                    ("allgather", "ring") if run["ring"] else ())
+        checked, bad = all_mismatches(trainer.model)
+        check(checked > 0 and not bad,
+              f"{tag}: {len(bad)} of {checked} parameters differ across "
+              f"the seq ranks: {bad[:5]}")
+        r.update(build_s=build_s, params_checked=checked, params_differ=bad)
+        readings[run["tag"]] = r
+        del trainer
+        free()
+        dist.barrier()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def seq_kernel_shapes() -> list[tuple["T5Shape", int]]:
+    """(shape, q_offset of seq rank 1) of every T5 kernel launch of a
+    phase-14b rank's step: its half of the text tower's 256 queries, the
+    encoder's 320 and the decoder's 128, against every key."""
+    pad = SRC_LEN - 30
+    B, layers = SEQ_BATCH, DDP_LAYERS
+    return [
+        (T5Shape("text", "training", B, SRC_LEN // 2, SRC_LEN, True, pad,
+                 0.0, T5_LAYERS), SRC_LEN // 2),
+        (T5Shape("encoder", "training", B, ENC_LEN // 2, ENC_LEN, True, pad,
+                 0.0, layers), ENC_LEN // 2),
+        (T5Shape("decoder", "training", B, TGT_LEN // 2, TGT_LEN, True, -1,
+                 0.0, layers, causal=True), TGT_LEN // 2),
+        (T5Shape("cross", "training", B, TGT_LEN // 2, ENC_LEN, False, pad,
+                 0.0, layers), TGT_LEN // 2)]
+
+
+def seq_phase(card: str) -> dict:
+    """Phase 14: 14a and 14a' in this process, then one
+    ``torch.distributed.run`` job of two ranks on the one card (gloo on
+    CUDA tensors) that runs 14b and 14c in turn (each with its 14d step),
+    then the T5 kernels at a 14b rank's shapes (14e)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    plain_t5 = dict(use_pallas_t5_attention=False)
+    ones, one_grads = {}, {}
+    try:
+        for tag, kw, expected, dropout, long in (
+                ("14a", {}, SEQ_LAUNCHES, SEQ_LAUNCHES_DROPOUT, ()),
+                ("14a'", plain_t5, SEQ_LAUNCHES_PLAIN, SEQ_LAUNCHES_PLAIN,
+                 ("path",))):
+            free()
+            t0 = time.perf_counter()
+            trainer = Trainer(seq_config(**kw))
+            trainer.init_state()
+            build_s = time.perf_counter() - t0
+            grads = one_grads.setdefault(tag, {})
+
+            def keep(t, grads=grads):
+                grads.update({n: p.grad.detach().float().cpu()
+                              for n, p in t.model.named_parameters()
+                              if p.requires_grad})
+            ones[tag] = seq_run(trainer, f"{tag} step", card, expected,
+                                dropout, keep, False, long)
+            ones[tag]["build_s"] = build_s
+            del trainer
+            free()
+
+        def run(tag, ring, **kw):
+            c = seq_config(mesh_shape=SEQ_MESH, **kw)
+            return dict(tag=tag, ring=ring, config=json.loads(c.to_json()),
+                        grads=os.path.join(root, f"{tag}.grads.pt"),
+                        launches=(SEQ_LAUNCHES_PLAIN if ring
+                                  else SEQ_LAUNCHES),
+                        launches_dropout=(SEQ_LAUNCHES_PLAIN if ring
+                                          else SEQ_LAUNCHES_DROPOUT))
+        spec = dict(card=card, out=os.path.join(root, "rank"), runs=[
+            run("14b", False),
+            run("14c", True, seq_attention="ring", **plain_t5)])
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONFAULTHANDLER="1",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        log_path = os.path.join(out_dir, "phase14_ranks.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(SEQ_RANKS),
+                 os.path.abspath(__file__), "--seq-rank", spec_path],
+                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                timeout=600)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                print(f.read()[-6000:])
+        check(proc.returncode == 0, f"phase 14's torchrun job exited "
+              f"{proc.returncode} (chiprun_out/phase14_ranks.log)")
+        ranks = []
+        for r in range(SEQ_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        agree, results = {}, {}
+        for tag, ref in (("14b", "14a"), ("14c", "14a'")):
+            got = [rk[tag] for rk in ranks]
+            one = ones[ref]
+            check(got[0]["losses"] == got[1]["losses"]
+                  and got[0]["dropout_loss"] == got[1]["dropout_loss"],
+                  f"{tag}: the ranks' losses differ: {got[0]['losses']} vs "
+                  f"{got[1]['losses']}")
+            losses = got[0]["losses"] + [got[0]["dropout_loss"]]
+            want = one["losses"] + [one["dropout_loss"]]
+            check(all(abs(x - y) <= TOL_SHARD["loss"] * abs(y)
+                      for x, y in zip(losses, want)),
+                  f"{tag}: losses (the last at dropout 0.1) {losses} vs "
+                  f"{ref} {want}")
+            for r, g in enumerate(got):
+                check(g["launches_per_step"] == one["launches_per_step"],
+                      f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                      f"{ref}'s {one['launches_per_step']}")
+            grads = torch.load(os.path.join(root, f"{tag}.grads.pt"),
+                               weights_only=True)
+            agree[tag] = agreement((got[0]["losses"][0], grads),
+                                   (one["losses"][0], one_grads[ref]),
+                                   f"{tag} vs {ref}, the first step's "
+                                   "gradients", TOL_SHARD["grad"])
+            del grads
+            print(f"{tag} vs {ref} [{card}]: losses {got[0]['losses']} vs "
+                  f"{one['losses']}; at dropout 0.1 "
+                  f"{got[0]['dropout_loss']:.6f} vs "
+                  f"{one['dropout_loss']:.6f}"
+                  + (" (the ring's Philox masks, the plain path's "
+                     "generator masks: two draws)" if tag == "14c" else
+                     " (the same masks)")
+                  + f"; {got[0]['params_checked']} parameters bitwise "
+                  "equal across the seq ranks")
+            for r, g in enumerate(got):
+                coll = (g["profile"].get("collectives") or {})
+                print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
+                      f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                      f"({ref} {one['mean_step_ms']:.2f}), peak "
+                      f"{g['peak_gb']:.2f} GB ({ref} {one['peak_gb']:.2f}); "
+                      f"profiled step: busy {g['profile'].get('busy_ms')} "
+                      f"ms, share {g['profile'].get('busy_share')}, "
+                      f"collectives host {coll.get('host_ms')} ms, device "
+                      f"{coll.get('device_ms')} ms")
+            results[tag] = got
+        c = results["14c"]
+        memory = {"14a' (one process)": ones["14a'"]["long"]["path"],
+                  **{f"14b' all-gather, rank {r}": g["long"]["allgather"]
+                     for r, g in enumerate(c)},
+                  **{f"14c ring, rank {r}": g["long"]["ring"]
+                     for r, g in enumerate(c)}}
+        print(f"14d [{card}]: peak GB of one step at batch {SEQ_LONG_BATCH}"
+              f" x {SEQ_LONG_SRC} source ids, the T5 kernel off: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in memory.items()))
+        check(all(g["long"]["ring"] < g["long"]["allgather"] for g in c),
+              "14d: the ring's peak is not below the all-gather path's")
+        del one_grads
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    kernels = check_t5_offsets(gen, card, "14b rank", seq_kernel_shapes(),
+                               T5_H, T5_D, "q_offset", 0.0)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: {seconds:.1f} s (job {job_s:.2f} s)")
+    return dict(card=card, one_process=ones, ranks=results, agreement=agree,
+                memory_long_gb=memory, job_s=job_s, kernels=kernels,
+                seconds=seconds)
 
 
 def main() -> int:
@@ -5265,6 +5680,8 @@ def main() -> int:
     done("12")
     sharded = shard_phase(card)
     done("13")
+    seq = seq_phase(card)
+    done("14")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -5331,6 +5748,14 @@ def main() -> int:
                       f"step of rank {r}")
         entry["launches_shard_step"] = sharded["ranks"]["13c"][0][
             "launches_per_step"][train_key]
+        for tag, got in seq["ranks"].items():
+            for r, rank in enumerate(got):
+                if tag == "14b" or train_key == "swin":
+                    check(rank["launches_per_step"][train_key] > 0,
+                          f"{entry['name']} never launched in a phase-{tag} "
+                          f"step of rank {r}")
+        entry["launches_seq_step"] = seq["ranks"]["14b"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -5343,7 +5768,7 @@ def main() -> int:
         "launches_artifacts_request", "launches_artifacts_step",
         "launches_serving_prefill", "launches_ddp_rank_step",
         "launches_moe_step", "launches_moe_request", "launches_gpipe_step",
-        "launches_shard_step")}
+        "launches_shard_step", "launches_seq_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -5367,7 +5792,9 @@ def main() -> int:
                  f"step of phase 12 (4 GPipe stages, the T5 kernel off as "
                  f"the JAX package requires); launches_shard_step: one step "
                  f"of a phase-13c rank (t5-3b, {SHARD_LAYERS} + "
-                 f"{SHARD_LAYERS} blocks, tensor 2)"}))
+                 f"{SHARD_LAYERS} blocks, tensor 2); launches_seq_step: one "
+                 f"step of a phase-14b rank (t5-large, {DDP_LAYERS} + "
+                 f"{DDP_LAYERS} blocks, seq 2, the all-gather path)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5379,7 +5806,8 @@ def main() -> int:
                    "loop": looping, "evaluation": evaluating,
                    "artifacts": artifacts, "serving": serving,
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
-                   "sharded": sharded, "seconds": seconds}, f, indent=1,
+                   "sharded": sharded, "seq": seq, "seconds": seconds},
+                  f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5392,4 +5820,6 @@ if __name__ == "__main__":
         sys.exit(ddp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--shard-rank"]:
         sys.exit(shard_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--seq-rank"]:
+        sys.exit(seq_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -17,7 +17,8 @@ missing still ranks by its own step count.
 Across processes (a ``utils.mesh.Mesh`` with a process group) rank 0 alone
 writes, and ``wait()`` ends at a barrier, so that every rank passes it only
 once rank 0's write is renamed into place; every rank restores, each from
-the same files. Under DDP every rank holds the whole state already. Under
+the same files. Under DDP, and over data x seq, every rank holds the whole
+state already. Under
 FSDP2 and tensor parallelism every rank takes part in gathering it whole
 to rank 0's host (``Trainer.full_state_dict`` /
 ``full_optimizer_state_dict``), so rank 0 writes the files one process

@@ -132,9 +132,10 @@ class Config:
     training step and the training loop read, with the same names,
     defaults and checks. Options that are not ported raise
     ``NotImplementedError`` naming the ROADMAP item that ports them: a
-    ``seq``, ``pipe`` or ``expert`` mesh axis above 1 (A12c), MoE or GPipe
-    with ``fsdp`` or ``tensor`` above 1 (A12c) and ``profile_server_port >
-    0`` (PyTorch has no live profiler server)."""
+    ``pipe`` or ``expert`` mesh axis above 1, MoE or GPipe with ``fsdp`` or
+    ``tensor`` above 1, ``seq`` above 1 with ``fsdp``, ``tensor`` or MoE
+    (all A12d), and ``profile_server_port > 0`` (PyTorch has no live
+    profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -154,10 +155,10 @@ class Config:
     data_dir: str = "/user/data/mscoco2017/"
     result_dir: str = "results/"
     seed: int = 0
-    # Mesh: data x fsdp x tensor x seq x pipe x expert. Only the data axis
-    # is ported (one DDP rank per entry; -1 = the world's processes); the
-    # others must be 1: the pipeline and the experts run unsharded on each
-    # rank. 3 to 6 entries, right-padded with 1.
+    # Mesh: data x fsdp x tensor x seq x pipe x expert, one rank per
+    # entry of data x fsdp x tensor x seq (-1 = the world's processes);
+    # pipe and expert must be 1: the pipeline and the experts run
+    # unsharded on each rank. 3 to 6 entries, right-padded with 1.
     mesh_shape: tuple[int, ...] = (-1, 1, 1, 1, 1, 1)
     mesh_axis_names: tuple[str, ...] = ("data", "fsdp", "tensor", "seq",
                                         "pipe", "expert")
@@ -184,6 +185,12 @@ class Config:
     # take a kernel.
     use_pallas_attention: bool = False
     use_pallas_t5_attention: bool = False
+    # Sequence-parallel attention, effective with a seq axis above 1:
+    # 'allgather' gathers the whole K/V on every seq rank; 'ring' streams
+    # them around the seq group (ops/ring_attention.py), K/V O(L / S) per
+    # rank. The T5 kernel, where on, wins over the ring (as in the JAX
+    # package), so the port refuses that inert combination.
+    seq_attention: str = "allgather"
     # GPipe over the main transformer's two stacks (models/t5.py): this
     # many stages of num_layers / stages consecutive blocks, with
     # pipeline_microbatches microbatches (0 = pipeline_stages) per forward,
@@ -265,6 +272,9 @@ class Config:
                     f"{name}={shape}: expected 3 or {len(names)} axes")
             shape = shape + (1,) * (len(names) - len(shape))
             setattr(self, name, shape)
+        if self.seq_attention not in ("allgather", "ring"):
+            raise ValueError(
+                f"unknown seq_attention {self.seq_attention!r}")
         if self.pipeline_stages > 1 or self.moe_experts > 0:
             # Before the axes' refusal: a value the JAX package refuses
             # raises its ValueError.
@@ -315,13 +325,33 @@ class Config:
         return ici * dcn
 
     def _check_sharding(self) -> None:
-        """The port's checks of the ``fsdp`` and ``tensor`` axes. The JAX
-        package leaves uneven shards to XLA; the port's tensor parallelism
-        runs whole heads and whole d_ff columns per rank, so both T5s'
-        heads and d_ff must divide by ``tensor`` (the vocab need not:
-        DTensor pads its uneven shards). MoE experts and GPipe stages
-        composed with these axes move onto ranks with ROADMAP A12c."""
+        """The port's checks of the ``fsdp``, ``tensor`` and ``seq`` axes.
+        The JAX package leaves uneven shards to XLA; the port's tensor
+        parallelism runs whole heads and whole d_ff columns per rank, so
+        both T5s' heads and d_ff must divide by ``tensor`` (the vocab need
+        not: DTensor pads its uneven shards). MoE experts and GPipe stages
+        composed with these axes, and ``seq`` composed with them or with
+        MoE, are ROADMAP A12d. ``seq_attention='ring'`` with the T5 kernel
+        on and ``seq`` above 1 is refused as inert: the JAX package runs
+        the kernel there and never the ring."""
         fsdp, tensor = self._axis("fsdp"), self._axis("tensor")
+        seq = self._axis("seq")
+        if seq != 1:
+            if fsdp != 1 or tensor != 1:
+                raise NotImplementedError(
+                    f"mesh seq={seq} with fsdp={fsdp}, tensor={tensor}: "
+                    "sequence parallelism composed with sharded parameters "
+                    "is ROADMAP A12d (run seq on a data x seq mesh)")
+            if self.moe_experts > 0:
+                raise NotImplementedError(
+                    f"moe_experts={self.moe_experts} with mesh seq={seq}: "
+                    "MoE under sequence parallelism is ROADMAP A12d")
+            if (self.seq_attention == "ring"
+                    and self.use_pallas_t5_attention):
+                raise ValueError(
+                    "seq_attention='ring' with use_pallas_t5_attention and "
+                    "a seq mesh axis > 1: the T5 kernel wins there and the "
+                    "ring never runs; drop one of the flags")
         if fsdp == 1 and tensor == 1:
             return
         if self.moe_experts > 0 or self.pipeline_stages > 1:
@@ -329,7 +359,7 @@ class Config:
                 f"moe_experts={self.moe_experts} / pipeline_stages="
                 f"{self.pipeline_stages} with mesh fsdp={fsdp}, "
                 f"tensor={tensor}: experts and stages sharded with these "
-                "axes are ROADMAP A12c (run them on a data-only mesh)")
+                "axes are ROADMAP A12d (run them on a data-only mesh)")
         if tensor not in (None, 1):
             for which, size in (("language", self.language_t5),
                                 ("transformer", self.transformer_t5)):
@@ -341,11 +371,14 @@ class Config:
 
     def _check_pipeline_and_moe(self) -> None:
         """The JAX package's checks of the pipeline and MoE flags
-        (``config.py:420-475``), with its messages. Ring attention, which
-        the JAX package also refuses with a pipeline, is not ported:
-        ``--seq_attention ring`` raises on the command line."""
+        (``config.py:420-475``), with its messages."""
         axis = self._axis
         if self.pipeline_stages > 1:
+            if self.seq_attention == "ring":
+                raise ValueError(
+                    "pipeline_stages > 1 with seq_attention='ring' is not "
+                    "supported (shard_map inside the pipeline's vmapped "
+                    "stages); use the default allgather seq path")
             if self.use_pallas_t5_attention:
                 raise ValueError(
                     "pipeline_stages > 1 with use_pallas_t5_attention is "
@@ -468,7 +501,6 @@ def _swin_size(name: str) -> SwinV2Size:
 UNPORTED_FLAGS: dict[str, tuple[Any, str]] = {
     "scan_unroll": (0, "A, not ported by design: the port's layers run "
                        "in a Python loop, with no XLA scan to unroll"),
-    "seq_attention": ("allgather", "A12c, ring attention"),
 }
 
 
@@ -500,13 +532,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--result_dir", type=str, default=d.result_dir)
     add("--seed", type=int, default=d.seed)
     add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
-        help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; DATA is the "
-             "DDP ranks (-1 = all processes), the other axes must be 1 "
-             "(FSDP, TENSOR: ROADMAP A11b; SEQ, PIPE, EXPERT: A12c)")
+        help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; ranks over "
+             "DATA x FSDP x TENSOR x SEQ (-1 = all processes); PIPE and "
+             "EXPERT must be 1 (ROADMAP A12d)")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
-        help="3-6 ints: per-axis factors across slices; the DATA factor "
-             "multiplies the DDP ranks, the others must be 1")
+        help="3-6 ints: per-axis factors across slices, each multiplying "
+             "its axis's ranks; PIPE and EXPERT must be 1")
     add("--compute_dtype", type=str, default=d.compute_dtype,
         choices=list(_DTYPE_NAMES))
     add("--remat", type=str, default=d.remat, choices=list(_REMAT))
@@ -522,8 +554,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         choices=list(_DTYPE_NAMES))
     add("--swin_gelu_approximate", action="store_true")
     add("--use_pallas_t5_attention", action="store_true")
-    add("--seq_attention", type=str,
-        default=UNPORTED_FLAGS["seq_attention"][0],
+    add("--seq_attention", type=str, default=d.seq_attention,
         choices=["allgather", "ring"])
     for name in ("pipeline_stages", "pipeline_microbatches", "moe_experts",
                  "moe_top_k"):
@@ -559,7 +590,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
     flags in one message), and so does ``--mesh_shape`` or
-    ``--dcn_mesh_shape`` with a seq, pipe or expert axis above 1; the
+    ``--dcn_mesh_shape`` with a pipe or expert axis above 1; the
     ``Config`` then checks the rest as the JAX package's does (the pipeline
     and MoE flags), the sharded axes, and refuses ``profile_server_port``."""
     from .utils.mesh import unported_axes
@@ -581,7 +612,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if refused:
         raise NotImplementedError(
             "flags not ported (accepted only at their defaults; a mesh "
-            "only on its data, fsdp and tensor axes): " + "; ".join(refused))
+            "only on its data, fsdp, tensor and seq axes): "
+            + "; ".join(refused))
     return Config(**kwargs)
 
 

@@ -116,6 +116,7 @@ struct Params {
   uint32_t threshold;
   float keep_prob;
   int head_offset;  // the global index of head 0 (Philox's head)
+  int q_offset;     // the global index of query row 0 (Philox's query)
 };
 
 __device__ __forceinline__ float dot(const float* a, const float* b, int D) {
@@ -225,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dq_kernel(Params p) {
     __syncthreads();
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset,
+                                             p.q_offset + qi, key0,
                                          p.threshold)
                             : 0xffu;
 #pragma unroll
@@ -255,7 +257,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dq_kernel(Params p) {
     __syncthreads();
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset,
+                                             p.q_offset + qi, key0,
                                          p.threshold)
                             : 0xffu;
 #pragma unroll
@@ -341,7 +344,8 @@ __global__ void __launch_bounds__(kThreads) t5_bwd_dkdv_kernel(Params p) {
     }
     const int key0 = k0 + g * kPerThread;
     const unsigned keep =
-        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset, qi, key0,
+        (dropout && row_ok) ? keep_bits(seed, b, h + p.head_offset,
+                                             p.q_offset + qi, key0,
                                          p.threshold)
                             : 0xffu;
 #pragma unroll
@@ -491,6 +495,7 @@ struct TcParams {
   bool vec;               // D % 8 == 0 and 16-byte aligned matrices
   bool pair_vec;          // K even, bias and ds 8-byte aligned: float2
   int head_offset;        // the global index of head 0 (Philox's head)
+  int q_offset;           // the global index of query row 0 (Philox's query)
 };
 
 // Shared memory of either kernel: two resident tiles, two double-buffered
@@ -643,7 +648,8 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
         for (int n = 0; n < 2; ++n)
           mine |= klab::keep_nibble(pkey, (uint32_t)((kc + 8 * n) >> 2) + (t >> 1),
-                                    row0 + 8 * (t & 1), h + p.head_offset, b,
+                                    p.q_offset + row0 + 8 * (t & 1),
+                                    h + p.head_offset, b,
                                     p.threshold)
                   << (4 * n);
         const uint32_t theirs = __shfl_xor_sync(kFull, mine, 1);
@@ -871,7 +877,8 @@ __global__ void __launch_bounds__(kTcThreads)
         uint32_t x = 0;
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          x |= klab::keep_nibble(pkey, kc, qc + 8 * n + 2 * t + (i & 1),
+          x |= klab::keep_nibble(pkey, kc,
+                                 p.q_offset + qc + 8 * n + 2 * t + (i & 1),
                                  h + p.head_offset, b, p.threshold)
                << (16 * n + 4 * i);
         x |= __shfl_xor_sync(kFull, x, 4);
@@ -997,16 +1004,20 @@ bool aligned(const void* p, uintptr_t n) {
 // sum (`t5_attention_fwd.cu` writes them). delta (B,H,Q) fp32 scratch. dbias
 // (H,Q,K) fp32 or NULL; with dbias, ds is a (B,H,Q,K) fp32 scratch.
 // head_offset: the global index of head 0, the head Philox is keyed on (a
-// tensor-parallel rank holds heads head_offset .. head_offset + H - 1).
+// tensor-parallel rank holds heads head_offset .. head_offset + H - 1);
+// q_offset: the global index of query row 0, the query Philox is keyed on
+// (a sequence-parallel rank holds rows q_offset .. q_offset + Q - 1; bias
+// and dbias hold those rows).
 // Returns the first launch's cudaError_t that is not 0.
 extern "C" int klab_t5_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bias, const void* kmask, const void* seed, const void* stats,
     void* delta, void* dq, void* dk, void* dv, void* ds, void* dbias, int B,
-    int H, int Q, int K, int D, int is_bf16, int head_offset, double rate,
+    int H, int Q, int K, int D, int is_bf16, int head_offset, int q_offset,
+    double rate,
     void* stream) {
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
-      head_offset < 0 ||
+      head_offset < 0 || q_offset < 0 ||
       B > 65535 || !(rate >= 0.0 && rate < 1.0) || stats == nullptr ||
       (dbias != nullptr && (ds == nullptr || bias == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1018,7 +1029,7 @@ extern "C" int klab_t5_attention_bwd(
                  dq, dk, dv, static_cast<float*>(ds),
                  static_cast<float*>(dbias), B, H, Q, K, D,
                  (uint32_t)(rate * 4294967296.0), (float)(1.0 - rate),
-                 head_offset};
+                 head_offset, q_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
@@ -1032,7 +1043,7 @@ extern "C" int klab_t5_attention_bwd(
                          aligned(v, 16) && aligned(dout, 16) &&
                          aligned(dq, 16) && aligned(dk, 16) && aligned(dv, 16),
                      K % 2 == 0 && aligned(bias, 8) && aligned(ds, 8),
-                     head_offset};
+                     head_offset, q_offset};
     return (int)dispatch_tc(t, B, p.dbias, s);
   }
   return (int)dispatch<float>(p, s);

@@ -10,7 +10,8 @@
 // with no 1/sqrt(d) scale, logits and softmax in fp32, and the output in the
 // input dtype (fp32 or bf16). Q != K is allowed. At rate > 0 the keep bits
 // come from Philox4x32-10 keyed by a seed read from device memory
-// (`philox.cuh`): a pure function of (seed, b, head_offset + h, q, k), which
+// (`philox.cuh`): a pure function of (seed, b, head_offset + h,
+// q_offset + q, k), which
 // the backward (`t5_attention_bwd.cu`) draws again. With `stats` given, the
 // row max and the row sum of exp(logit - max) go out as (B, H, Q, 2) fp32
 // for the backward. (A single log-sum-exp would lose a fully masked row:
@@ -100,6 +101,7 @@ struct F32Args {
   float inv_keep;  // 1 / (1 - rate)
   bool vec;        // D % 4 == 0 and 16-byte aligned q, k, v, out
   int head_offset;  // the global index of head 0 (Philox's head)
+  int q_offset;     // the global index of query row 0 (Philox's query)
 };
 
 // Shared memory: Q and two K tiles (rows of DP + 4 floats), one V tile (rows
@@ -240,7 +242,8 @@ __global__ void __launch_bounds__(kF32Threads)
       // k0 + 4 (j & 7) .. + 3 of row row0 + (j >> 3); key k0 + j + 16 c of
       // row row0 + r is bit j & 3 of lane 8 r + 4 c + (j >> 2)'s draw.
       const uint32_t mine = klab::keep_nibble(
-          pkey, (uint32_t)(k0 >> 2) + (j & 7), q0 + row0 + (j >> 3),
+          pkey, (uint32_t)(k0 >> 2) + (j & 7),
+          a.q_offset + q0 + row0 + (j >> 3),
           h + a.head_offset, b, a.threshold);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -376,6 +379,7 @@ struct TcArgs {
   bool vec;        // D % 8 == 0 and 16-byte aligned q, k, v, out
   bool bias_vec;   // K even and an 8-byte aligned bias: float2 loads
   int head_offset;  // the global index of head 0 (Philox's head)
+  int q_offset;     // the global index of query row 0 (Philox's query)
 };
 
 // Shared memory: Q (then O), two K and two V tiles, two key-addend rows.
@@ -385,8 +389,12 @@ constexpr size_t fwd_tc_smem() {
          sizeof(float) * 2 * kTcKeys;
 }
 
+// Four blocks an SM at DP <= 64 (128 registers a thread): without the bound
+// ptxas gives DP = 64 130 registers once q_offset joins the keep bits, so
+// three blocks fit an SM and the forward slows (PERF.md, the kernel table;
+// tools/t5_fwd_ab.py holds two builds of this source against each other).
 template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 4 : 1)
     t5_attention_fwd_tc_kernel(TcArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = DP + 8;  // padded shared row (see mma.cuh)
@@ -530,7 +538,8 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
         mine |= klab::keep_nibble(pkey, (uint32_t)((k0 + 8 * n) >> 2) + (t >> 1),
-                                  qrow, h + a.head_offset, b, a.threshold)
+                                  a.q_offset + qrow, h + a.head_offset, b,
+                                  a.threshold)
                 << (4 * n);
       const uint32_t theirs = __shfl_xor_sync(kFull, mine, 1);
       const uint32_t bits[2] = {(t & 1) ? theirs : mine,
@@ -649,17 +658,21 @@ bool aligned(const void* p, uintptr_t n) {
 // seed: one int64 in device memory, or NULL for no dropout; rate in [0, 1)
 // is the dropout rate (ignored without a seed). stats (B,H,Q,2) fp32 or
 // NULL. head_offset: the global index of head 0, the head Philox is keyed
-// on (a tensor-parallel rank holds heads head_offset .. head_offset + H - 1).
+// on (a tensor-parallel rank holds heads head_offset .. head_offset + H - 1);
+// q_offset: the global index of query row 0, the query Philox is keyed on (a
+// sequence-parallel rank holds rows q_offset .. q_offset + Q - 1; bias holds
+// those rows).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                                      const void* v, const void* bias,
                                      const void* kmask, const void* seed,
                                      void* out, void* stats, int B, int H,
                                      int Q, int K, int D, int is_bf16,
-                                     int head_offset, double rate,
+                                     int head_offset, int q_offset,
+                                     double rate,
                                      void* stream) {
   if (B < 1 || H < 1 || Q < 1 || K < 1 || D < 1 || D > 128 || H > 65535 ||
-      head_offset < 0 ||
+      head_offset < 0 || q_offset < 0 ||
       B > 65535 || !(rate >= 0.0 && rate < 1.0))
     return (int)cudaErrorInvalidValue;
   // floor(rate * 2^32), as the TPU kernel forms it.
@@ -676,7 +689,7 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                    static_cast<const long long*>(seed), static_cast<bf16*>(out),
                    static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
                    D % 8 == 0 && vec, K % 2 == 0 && aligned(bias, 8),
-                   head_offset};
+                   head_offset, q_offset};
     return (int)dispatch_tc(t, B, s);
   }
   const F32Args f{static_cast<const float*>(q), static_cast<const float*>(k),
@@ -684,6 +697,6 @@ extern "C" int klab_t5_attention_fwd(const void* q, const void* k,
                   static_cast<const int*>(kmask),
                   static_cast<const long long*>(seed), static_cast<float*>(out),
                   static_cast<float*>(stats), H, Q, K, D, threshold, inv_keep,
-                  D % 4 == 0 && vec, head_offset};
+                  D % 4 == 0 && vec, head_offset, q_offset};
   return (int)dispatch_f32(f, B, s);
 }

@@ -14,6 +14,13 @@ window attention through the Swin kernel's recompute backward when the
 kernel flag is on; otherwise it runs under ``torch.no_grad()`` too. (With
 ``freeze_image_model_updates`` the JAX package computes the tower's
 gradients and drops them; skipping them gives the same update.)
+
+Under sequence parallelism (``set_seq_group``) the three T5 stacks split
+their positions over the seq group (``models/t5.py``); the SwinV2 tower and
+the concatenation run whole on every rank, as the JAX package leaves them
+unconstrained, and the text tower's output is gathered whole before it, so
+the transformer's encoder takes its rows of the concatenation (the image
+tokens lead: seq rank 0's rows hold them).
 """
 
 from __future__ import annotations
@@ -93,6 +100,15 @@ class MultiModalModel(nn.Module):
         if hasattr(self, "language_projection"):
             lecun_normal_(self.language_projection.weight,
                           self.language_projection.in_features, generator)
+
+    def set_seq_group(self, seq_group, mesh) -> None:
+        """Split the T5 stacks' full-sequence forwards over ``seq_group``
+        (a ``parallel.partitioning.SeqGroup`` of ``mesh``), with the
+        config's ``seq_attention``."""
+        ring = self.config.seq_attention == "ring"
+        for stack in (self.language_model.encoder, self.transformer.encoder,
+                      self.transformer.decoder):
+            stack.set_seq_group(seq_group, mesh, ring)
 
     @contextlib.contextmanager
     def computing_in(self, dtype: torch.dtype):

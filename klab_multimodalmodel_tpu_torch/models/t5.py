@@ -50,6 +50,21 @@ attention's dropout masks are drawn at the full width and sliced, so every
 rank's masks are one process's. The relative-position table stays whole on
 every rank; each reads its heads' columns.
 
+Under sequence parallelism (a ``seq`` mesh axis above 1,
+``T5Stack.set_seq_group``) each rank of a seq group runs positions
+``s L / S ..`` of every stack whose length L divides by S, as the JAX
+package's ``seq_constraint`` pins every stack's input and every block's
+carry to the ``seq`` axis; a stack whose length does not divide runs whole
+on every rank. Self-attention gathers K/V over the group
+(``seq_gather``), or with ``--seq_attention ring`` streams them around it
+(``ops/ring_attention.py``); the bias rows are the rank's
+(``T5Stack.position_bias``), the kernels key their dropout on the global
+query (``q_offset``), and the other dropout masks are drawn at the full
+length and sliced. An encoder stack gathers its output (the cross-attention
+context and the text tower's features are whole on every rank); the
+decoder keeps its rows, and ``forward``'s loss is the mean over the rank's
+positions. Decode steps never shard.
+
 ``pipeline_stages > 1`` runs a stack's full-sequence forward as the JAX
 package's GPipe schedule (``T5Stack._pipelined``): S stages of consecutive
 blocks, M microbatches, M + S - 1 ticks. On one rank the schedule reorders
@@ -73,7 +88,9 @@ from torch import nn
 from ..config import T5Size
 from ..ops.fused_attention import draw_seed, t5_attention
 from ..ops.moe import moe_capacity, moe_ffn, topk_routing
-from ..parallel.partitioning import gather_columns, tied_logits
+from ..ops.ring_attention import ring_applicable, ring_self_attention
+from ..parallel.partitioning import (gather_columns, seq_gather, seq_shard,
+                                     tied_logits)
 from ..utils.device import resolve_device
 from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
                      normal_)
@@ -127,9 +144,13 @@ class T5RelativePositionBias(nn.Module):
         self.bidirectional = bidirectional
         self.weight = nn.Parameter(torch.empty(num_buckets, num_heads))
 
-    def forward(self, query_length: int, key_length: int) -> torch.Tensor:
+    def forward(self, query_length: int, key_length: int,
+                query_offset: int = 0) -> torch.Tensor:
+        """Rows ``query_offset ..`` of ``query_length`` against every key
+        (a sequence-parallel rank's rows)."""
         device = self.weight.device
-        ctx = torch.arange(query_length, device=device)[:, None]
+        ctx = torch.arange(query_offset, query_offset + query_length,
+                           device=device)[:, None]
         mem = torch.arange(key_length, device=device)[None, :]
         buckets = relative_position_bucket(
             mem - ctx, bidirectional=self.bidirectional,
@@ -185,7 +206,10 @@ class T5Attention(nn.Module):
     with a write index: an int (every row at one position) or a (B,) int64
     tensor (every row at its own position). ``kernel_pack`` = (head bias
     (H,Q,K) fp32, key mask (B,K) int32), either may be None, routes
-    full-sequence attention through the hand-written kernel.
+    full-sequence attention through the hand-written kernel. ``seq``: the
+    rank's slice of a sequence-parallel stack's positions (x holds those
+    rows): self-attention gathers K/V over the seq group, or, with
+    ``ring``, streams them around it; the bias holds the rank's rows.
     """
 
     def __init__(self, size: T5Size, has_relative_attention_bias: bool = False,
@@ -227,17 +251,35 @@ class T5Attention(nn.Module):
                 bias: Optional[torch.Tensor] = None,
                 kernel_pack: Optional[tuple] = None,
                 cache: Optional[dict] = None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq=None, ring: bool = False) -> torch.Tensor:
         q = self._split_heads(self.q(x))
         is_cross = kv is not None
+        ring = ring and not is_cross and cache is None
         rate = 0.0 if deterministic or cache is not None else (
             self.size.dropout_rate)
         if cache is not None:
             k, v, bias = self._decode_kv(x, kv, bias, cache)
         else:
-            src = kv if is_cross else x
-            k = self._split_heads(self.k(src))
-            v = self._split_heads(self.v(src))
+            if seq is not None and not is_cross and not ring:
+                # XLA's all-gather of the sequence-sharded K/V, as one
+                # exchange of both.
+                k, v = seq_gather(torch.cat([self.k(x), self.v(x)], -1),
+                                  seq).chunk(2, -1)
+            else:
+                src = kv if is_cross else x
+                k, v = self.k(src), self.v(src)
+            k, v = self._split_heads(k), self._split_heads(v)
+            q_offset = 0 if seq is None else seq.start
+            if ring:
+                seed = None
+                if rate > 0:
+                    if generator is None:
+                        raise ValueError("dropout at rate > 0 needs a "
+                                         "generator")
+                    seed = draw_seed(generator)
+                attn = ring_self_attention(q, k, v, bias, seq, rate, seed)
+                return self.o(self._merge_heads(attn))
             if kernel_pack is not None:
                 # The kernel drops the probabilities itself, from a seed
                 # drawn from the step's generator.
@@ -250,13 +292,15 @@ class T5Attention(nn.Module):
                     seed = draw_seed(generator)
                 attn = t5_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), head_bias, kmask, rate,
-                                    seed, head_offset=self.head_offset)
+                                    seed, head_offset=self.head_offset,
+                                    q_offset=q_offset)
                 return self.o(self._merge_heads(attn))
         heads = None
         if q.shape[1] != self.size.num_heads:
             heads = (self.head_offset, self.size.num_heads)
-        attn = dot_product_attention(q, k, v, bias=bias, dropout_rate=rate,
-                                     generator=generator, heads=heads)
+        attn = dot_product_attention(
+            q, k, v, bias=bias, dropout_rate=rate, generator=generator,
+            heads=heads, rows=None if seq is None else seq.dropout_shard)
         return self.o(self._merge_heads(attn))
 
     def _decode_kv(self, x, kv, bias, cache):
@@ -356,13 +400,14 @@ class T5Mlp(nn.Module):
         self.wo.init_weights(generator)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq=None) -> torch.Tensor:
         if self.gated:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
         rate = 0.0 if deterministic else self.size.dropout_rate
-        shard = None
+        shard = _rows(seq)
         if h.shape[-1] != self.size.d_ff:
             shard = (-1, self.ff_offset, self.size.d_ff)
         return self.wo(dropout(h, rate, generator, shard))
@@ -455,31 +500,39 @@ class T5Block(nn.Module):
                 cross_pack=None, cache: Optional[dict] = None,
                 moe_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                seq=None, ring: bool = False):
         rate = 0.0 if deterministic else self.size.dropout_rate
+        rows = _rows(seq)
         sa = self.layer[0]
         h = sa["SelfAttention"](sa["layer_norm"](x), bias=self_bias,
                                 kernel_pack=self_pack,
                                 cache=None if cache is None else cache["self"],
                                 deterministic=deterministic,
-                                generator=generator)
-        x = x + dropout(h, rate, generator)
+                                generator=generator, seq=seq, ring=ring)
+        x = x + dropout(h, rate, generator, rows)
         if self.has_cross_attention:
             ca = self.layer[1]
             h = ca["EncDecAttention"](
                 ca["layer_norm"](x), kv=enc_out, bias=cross_bias,
                 kernel_pack=cross_pack,
                 cache=None if cache is None else cache["cross"],
-                deterministic=deterministic, generator=generator)
-            x = x + dropout(h, rate, generator)
+                deterministic=deterministic, generator=generator, seq=seq)
+            x = x + dropout(h, rate, generator, rows)
         ff = self.layer[-1]
         if self.moe:
             h, aux = ff["mlp"](ff["layer_norm"](x), deterministic, generator,
                                mask=moe_mask)
             return x + dropout(h, rate, generator), aux
         h = ff["DenseReluDense"](ff["layer_norm"](x), deterministic,
-                                 generator)
-        return x + dropout(h, rate, generator)
+                                 generator, seq)
+        return x + dropout(h, rate, generator, rows)
+
+
+def _rows(seq) -> Optional[tuple[int, int, int]]:
+    """``dropout``'s shard of a (B, L, ...) activation under a seq slice:
+    the rank's rows of a mask drawn at the full length."""
+    return None if seq is None else (1, *seq.dropout_shard)
 
 
 def _mask_to_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -558,17 +611,28 @@ class T5Stack(nn.Module):
     checkpoints each block when autograd records (see ``_remat_block``).
     With ``moe_experts > 0`` the forward returns ``(hidden, the sum of the
     blocks' balance losses)``; with ``pipeline_stages > 1`` a full-sequence
-    forward runs the GPipe schedule (``_pipelined``).
+    forward runs the GPipe schedule (``_pipelined``). With a seq group
+    (``set_seq_group``) a full-sequence forward whose length divides by
+    it runs the rank's positions: the caller passes the rank's rows of the
+    head bias (``position_bias``), and the output is the rank's rows, or
+    the whole sequence with ``gather_output`` (an encoder's).
     """
 
     def __init__(self, size: T5Size, num_layers: int, is_decoder: bool,
                  use_pallas: bool = False, dtype: torch.dtype = torch.float32,
                  remat: str = "", pipeline_stages: int = 1,
                  pipeline_microbatches: int = 0, moe_experts: int = 0,
-                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25):
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 gather_output: bool = False):
         super().__init__()
         self.size = size
         self.use_pallas = use_pallas
+        self.gather_output = gather_output
+        # Sequence parallelism (set_seq_group): the seq group, the mesh
+        # (the ring's gate reads it) and --seq_attention ring.
+        self.seq_group = None
+        self.mesh = None
+        self.ring_attention = False
         self.remat = remat
         self.pipeline_stages = pipeline_stages
         self.pipeline_microbatches = pipeline_microbatches
@@ -607,6 +671,33 @@ class T5Stack(nn.Module):
             elif isinstance(m, T5Mlp):
                 m.ff_offset = rank * s.d_ff // size
 
+    def set_seq_group(self, seq_group, mesh, ring: bool = False) -> None:
+        """Split full-sequence forwards over ``seq_group`` (a
+        ``parallel.partitioning.SeqGroup``) of ``mesh``; ``ring``: stream
+        self-attention's K/V around it (``--seq_attention ring``) where
+        ``ring_applicable`` holds and the T5 kernel is off, as the JAX
+        package's gate reads."""
+        self.seq_group, self.mesh, self.ring_attention = seq_group, mesh, ring
+
+    def seq_slice(self, length: int):
+        """This rank's ``SeqSlice`` of a full sequence of ``length``, or
+        None (no seq group, or a length that does not divide by it)."""
+        if self.seq_group is None:
+            return None
+        return self.seq_group.split(length)
+
+    def position_bias(self, length: int, causal: bool = False
+                      ) -> torch.Tensor:
+        """The (H, rows, length) relative-position bias (plus the causal
+        mask) of this rank's query rows of a full sequence: all of them
+        without a seq slice."""
+        seq = self.seq_slice(length)
+        start, rows = (0, length) if seq is None else (seq.start, seq.rows)
+        bias = self.relative_attention_bias(rows, length, start)
+        if causal:
+            bias = bias + causal_bias(length, bias.device, start, rows)
+        return bias
+
     def _local_heads(self, head_bias: Optional[torch.Tensor]
                      ) -> Optional[torch.Tensor]:
         """This rank's rows of a (H, Q, K) or (B, H, Q, K) head bias."""
@@ -625,7 +716,10 @@ class T5Stack(nn.Module):
                 generator: Optional[torch.Generator] = None):
         deterministic = deterministic or cache is not None
         rate = 0.0 if deterministic else self.size.dropout_rate
-        x = dropout(inputs_embeds, rate, generator)
+        seq = None if cache is not None else self.seq_slice(
+            inputs_embeds.shape[1])
+        # Every mask is drawn at the full length: a seq rank keeps its rows.
+        x = seq_shard(dropout(inputs_embeds, rate, generator), seq)
         head_bias = self._local_heads(head_bias)
         if self.pipeline_stages > 1:
             if cache is not None:
@@ -650,11 +744,19 @@ class T5Stack(nn.Module):
         kw = dict(self_bias=self_bias, enc_out=enc_out, cross_bias=cross_bias,
                   self_pack=self_pack, cross_pack=cross_pack,
                   deterministic=deterministic)
+        if seq is not None:
+            L = inputs_embeds.shape[1]
+            kw.update(seq=seq, ring=(
+                self.ring_attention and self_pack is None and ring_applicable(
+                    L, L, self.mesh, batch=x.shape[0] * self.mesh.dp_size,
+                    num_heads=self.size.num_heads)))
         if self.moe:
             # The key mask is also the routing mask: pads route nowhere.
             kw["moe_mask"] = kmask
         x, aux = self._run_blocks(self.block, x, kw, generator, cache)
-        x = dropout(self.final_layer_norm(x), rate, generator)
+        x = dropout(self.final_layer_norm(x), rate, generator, _rows(seq))
+        if self.gather_output:
+            x = seq_gather(x, seq)
         return (x, aux) if self.moe else x
 
     def _run_blocks(self, blocks, x, kw: dict, generator, cache=None):
@@ -708,7 +810,7 @@ class T5Stack(nn.Module):
         vmapped SPMD program that must stay finite everywhere; their outputs
         are never emitted. Here a stage that holds no microbatch at a tick
         does nothing. Ticks and stages stay explicit so that stages can go
-        to ranks (ROADMAP A12c)."""
+        to ranks (ROADMAP A12d)."""
         S = self.pipeline_stages
         if len(self.block) % S:
             raise ValueError(f"num_layers={len(self.block)} not divisible "
@@ -802,7 +904,8 @@ class T5Encoder(nn.Module):
             self.dtype = dtype
             self.shared = nn.Embedding(size.vocab_size, size.d_model)
             self.encoder = T5Stack(size, size.num_layers, is_decoder=False,
-                                   use_pallas=use_pallas, dtype=dtype)
+                                   use_pallas=use_pallas, dtype=dtype,
+                                   gather_output=True)
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.shared.weight, 1.0, generator)
@@ -816,9 +919,8 @@ class T5Encoder(nn.Module):
         if inputs_embeds is None:
             inputs_embeds = self.shared(input_ids.long()).to(self.dtype)
         L = inputs_embeds.shape[1]
-        relpos = self.encoder.relative_attention_bias
-        return self.encoder(inputs_embeds, head_bias=relpos(L, L),
-                            kmask=attention_mask,
+        return self.encoder(inputs_embeds, head_bias=self.encoder
+                            .position_bias(L), kmask=attention_mask,
                             deterministic=deterministic, generator=generator)
 
 
@@ -837,10 +939,15 @@ class Seq2SeqOutput:
     aux_loss: Optional[torch.Tensor] = None
 
 
-def causal_bias(length: int, device=None) -> torch.Tensor:
-    """(L, L) fp32: 0 where the key is at or before the query, else -1e9."""
+def causal_bias(length: int, device=None, query_offset: int = 0,
+                query_length: Optional[int] = None) -> torch.Tensor:
+    """(Q, L) fp32: 0 where the key is at or before the query, else -1e9;
+    query rows ``query_offset ..`` of ``query_length`` (all L by
+    default)."""
     idx = torch.arange(length, device=device)
-    return torch.where(idx[:, None] >= idx[None, :], 0.0, NEG_INF)
+    q = torch.arange(query_offset, query_offset + (
+        length if query_length is None else query_length), device=device)
+    return torch.where(q[:, None] >= idx[None, :], 0.0, NEG_INF)
 
 
 def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
@@ -897,7 +1004,7 @@ class T5ForConditionalGeneration(nn.Module):
                          **self.moe_kwargs)
             self.shared = nn.Embedding(s.vocab_size, s.d_model)
             self.encoder = T5Stack(s, s.num_layers, is_decoder=False,
-                                   **stack)
+                                   gather_output=True, **stack)
             self.decoder = T5Stack(s, s.num_decoder_layers, is_decoder=True,
                                    **stack)
             if not s.tie_word_embeddings:
@@ -933,9 +1040,9 @@ class T5ForConditionalGeneration(nn.Module):
         if inputs_embeds is None:
             inputs_embeds = self._embed(input_ids)
         L = inputs_embeds.shape[1]
-        relpos = self.encoder.relative_attention_bias
         return self._split_aux(self.encoder(
-            inputs_embeds, head_bias=relpos(L, L), kmask=attention_mask,
+            inputs_embeds, head_bias=self.encoder.position_bias(L),
+            kmask=attention_mask,
             deterministic=deterministic, generator=generator))
 
     def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -964,8 +1071,9 @@ class T5ForConditionalGeneration(nn.Module):
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
         """Teacher-forced decoder over the whole target: (B, L) ids ->
-        (B, L, vocab) logits. The self-attention bias is the relative-
-        position bias plus the causal mask."""
+        (B, L, vocab) logits (a seq rank's rows of them under sequence
+        parallelism). The self-attention bias is the relative-position bias
+        plus the causal mask."""
         return self._decode_train_with_aux(
             decoder_input_ids, encoder_hidden, encoder_attention_mask,
             decoder_attention_mask, deterministic, generator)[0]
@@ -974,8 +1082,7 @@ class T5ForConditionalGeneration(nn.Module):
                                encoder_attention_mask, decoder_attention_mask,
                                deterministic, generator):
         L = decoder_input_ids.shape[1]
-        head_bias = (self.decoder.relative_attention_bias(L, L)
-                     + causal_bias(L, decoder_input_ids.device))
+        head_bias = self.decoder.position_bias(L, causal=True)
         hidden, aux = self._split_aux(self.decoder(
             self._embed(decoder_input_ids), head_bias=head_bias,
             kmask=decoder_attention_mask, enc_out=encoder_hidden,
@@ -1027,7 +1134,8 @@ class T5ForConditionalGeneration(nn.Module):
         ``shift_right(labels)`` (or ``decoder_input_ids``), and the
         cross-entropy loss against ``labels`` weighted by
         ``label_weights``, plus ``moe_aux_loss_weight`` times the balance
-        loss under MoE."""
+        loss under MoE. Under sequence parallelism the logits and the loss
+        are the rank's decoder positions'."""
         s = self.size
         enc, enc_aux = self._encode_with_aux(input_ids, inputs_embeds,
                                              attention_mask, deterministic,
@@ -1041,7 +1149,11 @@ class T5ForConditionalGeneration(nn.Module):
         aux = None if enc_aux is None else enc_aux + dec_aux
         loss = None
         if labels is not None:
-            loss = cross_entropy_loss(logits, labels, label_weights)
+            seq = self.decoder.seq_slice(labels.shape[1])
+            if label_weights is not None:
+                label_weights = seq_shard(label_weights, seq)
+            loss = cross_entropy_loss(logits, seq_shard(labels, seq),
+                                      label_weights)
             if aux is not None:
                 loss = loss + self.moe_aux_loss_weight * aux
         return Seq2SeqOutput(loss=loss, logits=logits,

@@ -38,9 +38,9 @@ _F64 = ctypes.c_double
 # C signatures (see each source's extern "C" function).
 _SIGNATURES = {
     "t5_attention_fwd": ("klab_t5_attention_fwd",
-                         [_P] * 8 + [_I] * 7 + [_F64, _P]),
+                         [_P] * 8 + [_I] * 8 + [_F64, _P]),
     "t5_attention_bwd": ("klab_t5_attention_bwd",
-                         [_P] * 14 + [_I] * 7 + [_F64, _P]),
+                         [_P] * 14 + [_I] * 8 + [_F64, _P]),
     "swin_attention_fwd": ("klab_swin_attention_fwd",
                            [_P] * 7 + [_I] * 7 + [_P]),
 }

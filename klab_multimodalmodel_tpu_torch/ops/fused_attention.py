@@ -6,9 +6,11 @@ Three hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions:
   keymask)) v`` with no 1/sqrt(d) scale, fp32 logits and softmax, masked keys
   at -1e9. Dropout acts on the probabilities; its keep bits come from
   Philox4x32-10 (``philox4x32_10`` here, ``csrc/philox.cuh`` on the card),
-  a pure function of (seed, b, h, q, k), h the global head: a
-  tensor-parallel rank that holds heads ``head_offset`` onward passes that
-  offset, and draws one process's masks for its heads.
+  a pure function of (seed, b, h, q, k), h the global head and q the
+  global query: a tensor-parallel rank that holds heads ``head_offset``
+  onward passes that offset, a sequence-parallel rank that holds query
+  rows ``q_offset`` onward passes that one, and each draws one process's
+  masks for its part.
 * ``t5_attention_bwd``: dq, dk, dv and the batch-summed head-bias gradient
   (H, Q, K), with the same keep bits. ``t5_attention`` ties forward and
   backward together through ``T5AttentionFn`` whenever a gradient is needed.
@@ -85,22 +87,27 @@ def dropout_threshold(rate: float) -> int:
 
 def dropout_keep_mask(seed: torch.Tensor, rate: float,
                       shape: tuple[int, int, int, int],
-                      head_offset: int = 0) -> torch.Tensor:
+                      head_offset: int = 0, q_offset: int = 0,
+                      k_offset: int = 0) -> torch.Tensor:
     """Keep bits (B, H, Q, K) of the attention dropout on ``seed``'s device:
-    word ``k & 3`` of Philox4x32-10 at counter (k >> 2, q, head_offset + h,
-    b) and key (low, high 32 bits of the int64 seed), kept where larger than
-    ``dropout_threshold(rate)``."""
+    word ``k & 3`` of Philox4x32-10 at counter (k >> 2, q, h, b) and key
+    (low, high 32 bits of the int64 seed), kept where larger than
+    ``dropout_threshold(rate)``; h, q and k are global: ``head_offset + h``,
+    ``q_offset + q`` and ``k_offset + k`` (a ring rank's key chunk)."""
     B, H, Q, K = shape
     dev = seed.device
     s = seed.reshape(()).to(torch.int64)
     key = (s & _MASK32, (s >> 32) & _MASK32)
-    ar = lambda n: torch.arange(n, device=dev, dtype=torch.int64)  # noqa: E731
-    counter = (ar((K + 3) // 4)[None, None, None, :],
-               ar(Q)[None, None, :, None],
-               (ar(H) + head_offset)[None, :, None, None],
+    ar = lambda n, at=0: torch.arange(  # noqa: E731
+        at, at + n, device=dev, dtype=torch.int64)
+    first = k_offset >> 2
+    counter = (ar((k_offset + K + 3) // 4 - first, first)[None, None, None],
+               ar(Q, q_offset)[None, None, :, None],
+               ar(H, head_offset)[None, :, None, None],
                ar(B)[:, None, None, None])
     words = torch.stack(philox4x32_10(counter, key), dim=-1)
-    words = words.reshape(B, H, Q, -1)[..., :K]
+    lo = k_offset & 3
+    words = words.reshape(B, H, Q, -1)[..., lo:lo + K]
     return words > dropout_threshold(rate)
 
 
@@ -130,23 +137,26 @@ def t5_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kmask: Optional[torch.Tensor] = None,
                        dropout_rate: float = 0.0,
                        seed: Optional[torch.Tensor] = None,
-                       head_offset: int = 0) -> torch.Tensor:
+                       head_offset: int = 0,
+                       q_offset: int = 0) -> torch.Tensor:
     """q (B,H,Q,D), k/v (B,H,K,D), bias_h (H,Q,K), kmask (B,K) with >0 =
     attend, seed a one-element int64 tensor (needed at rate > 0),
-    ``head_offset`` the global index of head 0 (the keep bits' head). fp32
-    logits and softmax; the dropped, rescaled probabilities cast to v's dtype
-    before the product; output in q's dtype."""
+    ``head_offset`` the global index of head 0 and ``q_offset`` that of
+    query row 0 (the keep bits' head and query). fp32 logits and softmax;
+    the dropped, rescaled probabilities cast to v's dtype before the
+    product; output in q's dtype."""
     p = _softmax(_t5_logits(q, k, bias_h, kmask))
     if dropout_rate > 0:
         keep = dropout_keep_mask(seed, dropout_rate, tuple(p.shape),
-                                 head_offset)
+                                 head_offset, q_offset)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def t5_attention_bwd_plain(q, k, v, dout, bias_h=None, kmask=None,
                            dropout_rate: float = 0.0, seed=None,
-                           need_dbias: bool = False, head_offset: int = 0):
+                           need_dbias: bool = False, head_offset: int = 0,
+                           q_offset: int = 0):
     """Gradients of ``t5_attention_plain`` with the TPU kernel's roundings:
     P fp32; dv = Pd^T dO with Pd in the io dtype; dP = dO v^T, masked and
     rescaled by the same keep bits; dS = P (dP - sum dP P) fp32, cast to the
@@ -159,7 +169,7 @@ def t5_attention_bwd_plain(q, k, v, dout, bias_h=None, kmask=None,
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     if dropout_rate > 0:
         keep = dropout_keep_mask(seed, dropout_rate, tuple(p.shape),
-                                 head_offset)
+                                 head_offset, q_offset)
         p_drop = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
         dp = torch.where(keep, dp / (1.0 - dropout_rate), 0.0)
     dv = torch.matmul(p_drop.to(io).float().transpose(-1, -2), do)
@@ -242,22 +252,25 @@ def t5_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kmask: Optional[torch.Tensor] = None,
                  dropout_rate: float = 0.0,
                  seed: Optional[torch.Tensor] = None,
-                 head_offset: int = 0) -> torch.Tensor:
+                 head_offset: int = 0, q_offset: int = 0) -> torch.Tensor:
     """T5 attention (see ``t5_attention_plain`` for the function): the
     forward kernel ``csrc/t5_attention_fwd.cu`` and, when autograd needs a
     gradient of q, k, v or ``bias_h``, the backward kernel through
     ``T5AttentionFn``. ``bias_h`` must be fp32, ``kmask`` int32 and ``seed``
     a one-element int64 tensor on the card; ``seed`` is needed at rate > 0.
     ``head_offset``: the global index of head 0, which the dropout's keep
-    bits are keyed on (a tensor-parallel rank's first head).
+    bits are keyed on (a tensor-parallel rank's first head); ``q_offset``:
+    the global index of query row 0, their query (a sequence-parallel
+    rank's first position; ``bias_h`` then holds that rank's rows).
     """
     _check_rate(dropout_rate, seed)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias_h)):
         return T5AttentionFn.apply(q, k, v, bias_h, kmask, seed,
-                                   float(dropout_rate), int(head_offset))
+                                   float(dropout_rate), int(head_offset),
+                                   int(q_offset))
     return t5_attention_fwd(q, k, v, bias_h, kmask, dropout_rate, seed,
-                            head_offset=head_offset)[0]
+                            head_offset=head_offset, q_offset=q_offset)[0]
 
 
 t5_attention.launches = 0
@@ -266,14 +279,14 @@ t5_attention.launches_dropout = 0  # of those, at rate > 0
 
 def t5_attention_fwd(q, k, v, bias_h=None, kmask=None, dropout_rate=0.0,
                      seed=None, with_stats: bool = False,
-                     head_offset: int = 0):
+                     head_offset: int = 0, q_offset: int = 0):
     """(output, row stats (B,H,Q,2) fp32 or None): the forward kernel
     ``csrc/t5_attention_fwd.cu`` on CUDA tensors (the stats are the row max
     and sum the backward reuses), the plain version (no stats) on CPU
     tensors. No autograd: ``t5_attention`` is the entry point."""
     if q.device.type == "cpu":
         return t5_attention_plain(q, k, v, bias_h, kmask, dropout_rate,
-                                  seed, head_offset), None
+                                  seed, head_offset, q_offset), None
     B, H, Q, D = q.shape
     K = k.shape[2]
     _check_t5(q, k, v, bias_h, kmask, seed, dropout_rate)
@@ -286,7 +299,7 @@ def t5_attention_fwd(q, k, v, bias_h=None, kmask=None, dropout_rate=0.0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_h),
             _ptr(kmask), _ptr(seed) if rate > 0 else None, out.data_ptr(),
             _ptr(stats), B, H, Q, K, D, int(q.dtype == torch.bfloat16),
-            int(head_offset), rate,
+            int(head_offset), int(q_offset), rate,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(err, "t5_attention_fwd")
     t5_attention.launches += 1
@@ -302,20 +315,21 @@ def t5_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      dropout_rate: float = 0.0,
                      seed: Optional[torch.Tensor] = None,
                      stats: Optional[torch.Tensor] = None,
-                     need_dbias: bool = False, head_offset: int = 0):
+                     need_dbias: bool = False, head_offset: int = 0,
+                     q_offset: int = 0):
     """(dq, dk, dv, dbias or None) of T5 attention through
     ``csrc/t5_attention_bwd.cu`` (see ``t5_attention_bwd_plain``). On CUDA
     tensors ``stats`` is required: the (B,H,Q,2) row max and sum that
     ``t5_attention_fwd(..., with_stats=True)`` wrote; the plain version on
     CPU tensors needs none. ``need_dbias`` needs ``bias_h``.
-    ``head_offset`` as in ``t5_attention``."""
+    ``head_offset`` and ``q_offset`` as in ``t5_attention``."""
     _check_rate(dropout_rate, seed)
     if need_dbias and bias_h is None:
         raise ValueError("t5_attention_bwd: need_dbias without a bias")
     if q.device.type == "cpu":
         return t5_attention_bwd_plain(q, k, v, dout, bias_h, kmask,
                                       dropout_rate, seed, need_dbias,
-                                      head_offset)
+                                      head_offset, q_offset)
     B, H, Q, D = q.shape
     K = k.shape[2]
     _check_t5(q, k, v, bias_h, kmask, seed, dropout_rate)
@@ -338,7 +352,7 @@ def t5_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stats.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(ds),
             _ptr(dbias), B, H, Q, K, D, int(q.dtype == torch.bfloat16),
-            int(head_offset), rate,
+            int(head_offset), int(q_offset), rate,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(err, "t5_attention_bwd")
     t5_attention_bwd.launches += 1
@@ -361,12 +375,13 @@ class T5AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias_h, kmask, seed, dropout_rate,
-                head_offset=0):
+                head_offset=0, q_offset=0):
         out, stats = t5_attention_fwd(q, k, v, bias_h, kmask, dropout_rate,
                                       seed, with_stats=True,
-                                      head_offset=head_offset)
+                                      head_offset=head_offset,
+                                      q_offset=q_offset)
         ctx.dropout_rate = dropout_rate
-        ctx.head_offset = head_offset
+        ctx.offsets = (head_offset, q_offset)
         ctx.save_for_backward(q, k, v, bias_h, kmask, seed, stats)
         return out
 
@@ -376,8 +391,8 @@ class T5AttentionFn(torch.autograd.Function):
         need_dbias = bias_h is not None and ctx.needs_input_grad[3]
         dq, dk, dv, dbias = t5_attention_bwd(
             q, k, v, dout.contiguous(), bias_h, kmask, ctx.dropout_rate,
-            seed, stats, need_dbias, ctx.head_offset)
-        return dq, dk, dv, dbias, None, None, None, None
+            seed, stats, need_dbias, *ctx.offsets)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,7 +15,7 @@ one-hot dispatch and combine tensors cost FLOPs and memory that an index
 gather would not; they are kept as the JAX package has them. The JAX
 package's ``expert_constraint`` (the token exchange over the mesh's
 ``expert`` axis) is the identity on one rank: the port has no expert axis
-above 1 yet (ROADMAP A12c), and its call sites are marked in ``moe_ffn``.
+above 1 yet (ROADMAP A12d), and its call sites are marked in ``moe_ffn``.
 """
 
 from __future__ import annotations
@@ -110,9 +110,9 @@ def moe_ffn(x: torch.Tensor, combine: torch.Tensor, wi: torch.Tensor,
     ``generator``."""
     dispatch = (combine > 0).to(x.dtype)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
-    # A12c: expert_constraint(expert_in) shards the experts over ranks here.
+    # A12d: expert_constraint(expert_in) shards the experts over ranks here.
     h = F.relu(torch.einsum("egcd,edf->egcf", expert_in, wi.to(x.dtype)))
     h = dropout(h, dropout_rate, generator)
     expert_out = torch.einsum("egcf,efd->egcd", h, wo.to(x.dtype))
-    # A12c: and expert_constraint(expert_out) here.
+    # A12d: and expert_constraint(expert_out) here.
     return torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)

@@ -30,13 +30,18 @@ rules, each for a reason it states:
   the axis (``fsdp_dim``). Numerics do not depend on the dim; per-rank
   bytes do.
 
-``seq_constraint``, ``tick_constraint``, ``pipe_constraint`` and
-``expert_constraint`` belong to the ``seq``, ``pipe`` and ``expert`` axes
-(ROADMAP A12c) and are not ported.
+The ``seq`` axis replicates every parameter, as ``data`` does; its
+ranks split the positions of each T5 stack (``SeqSlice``): ``seq_shard``
+is the port of the JAX package's ``seq_constraint``, ``seq_gather`` the
+all-gather that XLA inserts for attention's keys and values (and the
+reduce-scatter of their gradient). ``tick_constraint``,
+``pipe_constraint`` and ``expert_constraint`` belong to the ``pipe`` and
+``expert`` axes (ROADMAP A12d) and are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Iterable, Mapping, Optional
@@ -92,7 +97,7 @@ def spec_for_path(name: str, ndim: int) -> Spec:
     """The layout of one parameter of rank ``ndim``: a tuple of ``ndim``
     entries, each the mesh axis that shards that torch dim or None. The
     port's names carry no pipeline stages: the GPipe schedule keeps its
-    layers' names (the ``pipe`` axis is ROADMAP A12c)."""
+    layers' names (the ``pipe`` axis is ROADMAP A12d)."""
     for pattern, trailing in _RULES:
         if re.search(pattern, name):
             if len(trailing) > ndim:
@@ -346,6 +351,104 @@ def tied_logits(hidden: torch.Tensor, weight) -> torch.Tensor:
     local = F.linear(_SumGradOverGroup.apply(hidden, group),
                      weight.to_local())
     return _GatherLastDim.apply(local, group, weight.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# The seq axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGroup:
+    """A seq group as a stack sees it: the process group, this rank's
+    place in it and its size."""
+
+    group: object
+    rank: int
+    size: int
+
+    def split(self, length: int) -> Optional["SeqSlice"]:
+        """This rank's positions of a sequence of ``length``, or None where
+        the length does not divide by the group (the stack then runs whole
+        on every rank), as ``seq_constraint`` is a no-op there."""
+        if self.size == 1 or length % self.size:
+            return None
+        return SeqSlice(self.group, self.rank, self.size, length)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSlice:
+    """Positions ``start .. start + rows`` of a sequence of ``length``,
+    split over a seq group of ``size`` ranks."""
+
+    group: object
+    rank: int
+    size: int
+    length: int
+
+    @property
+    def rows(self) -> int:
+        return self.length // self.size
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.rows
+
+    @property
+    def dropout_shard(self) -> tuple[int, int]:
+        """(first, total) rows: ``models.layers.dropout``'s shard."""
+        return self.start, self.length
+
+
+def seq_shard(x: torch.Tensor, seq: Optional[SeqSlice],
+              dim: int = 1) -> torch.Tensor:
+    """This rank's positions of ``x``, which it holds whole, on ``dim``
+    (the JAX package's ``seq_constraint``); ``x`` itself without a slice.
+    Autograd's own backward of the narrowing is the one this needs: the
+    gradient of the positions the rank dropped is 0 here and arrives from
+    the ranks that kept them, through the gradient all-reduce over data x
+    seq."""
+    if seq is None:
+        return x
+    return x.narrow(dim, seq.start, seq.rows)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Every rank's positions of ``x`` on ``dim``, in rank order
+    (``all_gather_into_tensor`` over the seq group); the backward sums the
+    gradient over the group and hands each rank its positions' part
+    (``reduce_scatter_tensor``). c10d, not the functional collectives,
+    which crash with gloo on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, seq, dim):
+        import torch.distributed as dist
+
+        ctx.seq, ctx.dim = seq, dim
+        part = x.movedim(dim, 0).contiguous()
+        out = part.new_empty((seq.size * part.shape[0],)
+                             + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(out, part, group=seq.group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        seq, dim = ctx.seq, ctx.dim
+        whole = grad.movedim(dim, 0).contiguous()
+        out = whole.new_empty((seq.rows,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, group=seq.group)
+        return out.movedim(0, dim), None, None
+
+
+def seq_gather(x: torch.Tensor, seq: Optional[SeqSlice],
+               dim: int = 1) -> torch.Tensor:
+    """The whole sequence from every rank's ``seq_shard`` of it on ``dim``,
+    differentiable (see ``_SeqGather``); ``x`` itself without a slice."""
+    if seq is None:
+        return x
+    return _SeqGather.apply(x, seq, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ bfloat16, so bf16 rows are stored as their ``uint16`` bits and viewed as
 dtype (a change recreates the cache) and ``.mask.npy`` which rows are
 filled; the mask is written only after the data, at ``flush()``. A memmap
 has no second writer: across processes each rank keeps its own files
-(``train/loop.py`` names them ``.p{rank}``).
+(``train/loop.py`` names them ``.p{rank}``), of whole rows also on the
+ranks of a seq group (the Swin tower runs whole there, and the text
+tower's output is gathered whole).
 """
 
 from __future__ import annotations

@@ -40,6 +40,15 @@ and buffer donation have no counterpart. Under MoE a rank's balance loss is
 its own rows' and is weighted by the same share, where the JAX package's
 is one mean over the global batch's groups.
 
+A mesh with ``seq`` above 1 keeps DDP over the world (data x seq), whose
+ranks hold the whole parameters: the ranks of a seq group share their
+rows, and each runs its positions of every T5 stack (``MultiModalModel.
+set_seq_group``). A rank's loss is the mean over its decoder positions; its
+token share counts those positions' targets over data x seq, so the
+all-reduced gradient is one process's. Where the target length does not
+divide by ``seq`` the decoder runs whole on every seq rank and only seq
+rank 0 counts its tokens.
+
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
 """
@@ -61,7 +70,8 @@ from torch.nn.parallel import DistributedDataParallel
 from ..config import Config
 from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
-from ..parallel.partitioning import gather_full, local_shard, parallelize
+from ..parallel.partitioning import (SeqGroup, gather_full, local_shard,
+                                     parallelize)
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
@@ -143,6 +153,10 @@ class Trainer:
         self.policy = get_policy(cfg.compute_dtype, cfg.param_dtype)
         self.model = MultiModalModel(cfg, dtype=self.policy.compute_dtype,
                                      device=self.device)
+        if self.mesh.seq > 1:
+            self.model.set_seq_group(
+                SeqGroup(self.mesh.seq_group(self.device.type),
+                         self.mesh.seq_rank, self.mesh.seq), self.mesh)
         self.net = StepNet(self.model, self.policy.compute_dtype)
         self.ddp: Optional[DistributedDataParallel] = None
         # Under sharding: the modules whose weights' gradients are summed
@@ -324,11 +338,18 @@ class Trainer:
         """(parts,) fp32: the loss's target weights summed over each of the
         batch's ``parts`` row blocks (every position with
         ``reference_pad_quirks`` or no mask, as ``cross_entropy_loss``
-        weighs them)."""
+        weighs them): over this rank's decoder positions under ``seq``, and
+        nothing on a seq rank above 0 whose decoder runs whole."""
         ids = batch["target_ids"]
         mask = batch.get("target_mask")
         if mask is None or self.config.reference_pad_quirks:
             mask = torch.ones(ids.shape, device=ids.device)
+        if self.mesh.seq > 1:
+            seq = self.model.transformer.decoder.seq_slice(ids.shape[1])
+            if seq is not None:
+                mask = mask.narrow(1, seq.start, seq.rows)
+            elif self.mesh.seq_rank:
+                mask = torch.zeros_like(mask)
         return mask.reshape(parts, -1).to(torch.float32).sum(dim=1)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -391,7 +412,7 @@ class Trainer:
             counts = self._token_counts(batch, accum)
             share = counts / (accum * self._all_reduce(counts.clone())
                               .clamp(min=1.0))
-            world = self.mesh.data
+            world = self.mesh.data * self.mesh.seq
             for i in range(accum):
                 mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
                 last = i == accum - 1

@@ -5,15 +5,19 @@ The reference trains with ``torchrun --nproc_per_node=W train.py``: it calls
 ``DistributedDataParallel``. The JAX package replaced that with a device
 mesh over the axes ``(data, fsdp, tensor, seq, pipe, expert)``; the port
 goes back to the process group, one process per rank, and lays the ranks
-out over ``(data, fsdp, tensor)`` in row-major order (rank = (d F + f) T +
-t). ``data`` alone: gradients all-reduced by DDP (``train/trainer.py``).
-``fsdp`` and ``tensor``: FSDP2 over ``(data, fsdp)`` and DTensor tensor
-parallelism over ``tensor`` (``parallel/partitioning.py``), on a
-``DeviceMesh`` of those three axes. The ranks of one tensor group share
-their rows: the batch splits over the ``data x fsdp`` index
-(``dp_rank`` of ``dp_size``). ``seq``, ``pipe`` and ``expert`` wait for
-ROADMAP A12c (the GPipe schedule and the experts run unsharded on each
-rank); a shape that sets any of them above 1 raises.
+out over ``(data, fsdp, tensor, seq)`` in row-major order (rank = ((d F +
+f) T + t) S + s). ``data`` alone: gradients all-reduced by DDP
+(``train/trainer.py``). ``fsdp`` and ``tensor``: FSDP2 over ``(data,
+fsdp)`` and DTensor tensor parallelism over ``tensor``
+(``parallel/partitioning.py``), on a ``DeviceMesh`` of those three axes.
+``seq``: each rank of a seq group runs its ``L / S`` positions of every T5
+stack, the parameters replicated as under DDP, whose gradient all-reduce
+then spans data x seq (``seq_group`` carries the stacks' K/V exchange).
+The ranks of one tensor or seq group share their rows: the batch splits
+over the ``data x fsdp`` index (``dp_rank`` of ``dp_size``). ``pipe`` and
+``expert`` wait for ROADMAP A12d (the GPipe schedule and the experts run
+unsharded on each rank); a shape that sets either above 1 raises, and so
+does ``seq`` with ``fsdp`` or ``tensor`` (``config.py``).
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -42,10 +46,13 @@ import torch.distributed as dist
 from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
-# The axes that carry ranks: data, and the sharding of parameters.
-RANK_AXES = ("data", "fsdp", "tensor")
+# The axes that carry ranks: data, the sharding of parameters, and the
+# sequence.
+RANK_AXES = ("data", "fsdp", "tensor", "seq")
+# The axes of the DeviceMesh that FSDP2 and tensor parallelism run on.
+SHARD_AXES = ("data", "fsdp", "tensor")
 # Axes not ported yet, and the ROADMAP item that ports each.
-UNPORTED_AXES = {"seq": "A12c", "pipe": "A12c", "expert": "A12c"}
+UNPORTED_AXES = {"pipe": "A12d", "expert": "A12d"}
 # Generous: the first collective waits for the slowest rank's model build
 # and, on a cold tree, the kernels' build.
 TIMEOUT = timedelta(minutes=30)
@@ -99,7 +106,8 @@ def refuse_unported_axes(mesh_shape: Sequence[int],
     refused = unported_axes(mesh_shape, axis_names)
     if refused:
         raise NotImplementedError(
-            f"{what}: only the data, fsdp and tensor axes are ported; "
+            f"{what}: only the data, fsdp, tensor and seq axes are "
+            "ported; "
             + ", ".join(refused))
 
 
@@ -225,6 +233,10 @@ class Mesh:
         return self.size("tensor")
 
     @property
+    def seq(self) -> int:
+        return self.size("seq")
+
+    @property
     def sharded(self) -> bool:
         """Whether parameters are sharded (``fsdp`` or ``tensor`` above
         1): FSDP2 and tensor parallelism instead of DDP."""
@@ -238,13 +250,20 @@ class Mesh:
     @property
     def dp_rank(self) -> int:
         """This rank's index over data x fsdp: the chunk of each global
-        batch it draws, and the stream its dropout draws from."""
-        return self.rank // self.tensor
+        batch it draws, and the stream its dropout draws from (the ranks
+        of one tensor x seq block share both)."""
+        return self.rank // (self.tensor * self.seq)
 
     @property
     def tensor_rank(self) -> int:
         """This rank's place in its tensor group."""
-        return self.rank % self.tensor
+        return self.rank // self.seq % self.tensor
+
+    @property
+    def seq_rank(self) -> int:
+        """This rank's place in its seq group: it runs positions
+        ``seq_rank * L / seq ..`` of every stack whose length L divides."""
+        return self.rank % self.seq
 
     @property
     def distributed(self) -> bool:
@@ -265,22 +284,43 @@ class Mesh:
         if device_type not in meshes:
             from torch.distributed.device_mesh import init_device_mesh
 
-            dims = tuple(self.size(a) for a in RANK_AXES)
+            if self.seq > 1:
+                raise NotImplementedError(
+                    "seq > 1 with fsdp or tensor is ROADMAP A12d")
+            dims = tuple(self.size(a) for a in SHARD_AXES)
             mesh = init_device_mesh(device_type, dims,
-                                    mesh_dim_names=RANK_AXES)
+                                    mesh_dim_names=SHARD_AXES)
             meshes[device_type] = (mesh,
                                    mesh["data", "fsdp"]._flatten("dp"))
         return meshes[device_type]
 
     def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's data x fsdp peers (its tensor rank's
-        copies of the other rows); the world's without sharding."""
+        copies of the other rows); the world's without sharding, which
+        under ``seq`` holds data x seq: each seq rank counts the target
+        tokens of its own positions."""
         if not self.sharded:
             return self.group
         return self._meshes(device_type)[1].get_group()
 
     def tensor_group(self, device_type: str) -> dist.ProcessGroup:
         return self.device_mesh(device_type)["tensor"].get_group()
+
+    def seq_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
+        """The group of this rank's seq peers (the ranks that share its
+        rows and split their positions), on the world's backend, which
+        carries ``device_type``'s tensors; None when ``seq`` is 1. Made once
+        (a collective: every rank calls it)."""
+        if self.seq == 1 or not self.distributed:
+            return None
+        if "_seq_group" not in self.__dict__:
+            S = self.seq
+            world = math.prod(self.size(a) for a in RANK_AXES)
+            # Consecutive ranks: s is the fastest rank axis.
+            self._seq_group, _ = dist.new_subgroups_by_enumeration(
+                [list(range(i, i + S)) for i in range(0, world, S)],
+                timeout=TIMEOUT)
+        return self._seq_group
 
 
 # (world group, its gloo twin): held, so that a later group made after a

@@ -1,5 +1,5 @@
 """One rank of a sharded training job of the port on the CPU (gloo), for
-the tests of FSDP2 and tensor parallelism:
+the tests of FSDP2, tensor and sequence parallelism:
 
     python -m torch.distributed.run --nproc_per_node W \\
         tests/_torch_shard_worker.py SPEC.json
@@ -15,26 +15,37 @@ takes its rows), ``result_dir`` (its checkpoint ``step_N`` is written
 there), ``out`` (rank 0's JSON: the losses), ``params`` (rank 0's ``.pt``:
 the whole parameters gathered after the steps) and optionally ``local``
 (a ``.pt`` path with ``{rank}``: each rank's own shards of the parameters
-that no tensor rank splits) and ``restore`` (a checkpoint directory's
+that no tensor rank splits; all of them without a tensor axis) and ``restore`` (a checkpoint directory's
 ``result_dir`` whose ``step_N`` this run restores after its steps; rank 0
 writes the whole parameters then held to ``restored``). A run with
 ``loop`` instead runs ``train()`` on the skewed synthetic rows of
 ``_torch_ddp_worker.loaders`` (``n_train``, ``n_val``, ``global_batch``),
-each data rank on its chunk, and rank 0 writes its losses to ``out``.
-Needs no JAX.
+each data rank on its chunk, and rank 0 writes its losses to ``out``;
+with ``eval`` (a ``.pt`` list of global batches) the trained model's
+``eval_step`` losses go into ``out`` too, and so does the count of the
+ring's exchanges in the steps. A run with ``ring`` calls
+``ring_self_attention`` alone: ``inputs`` (a ``.pt`` of whole q, k, v,
+bias, the output's cotangent ``ct``, ``rate`` and ``seed``) split over
+``layout`` = (data, seq) with seq groups of consecutive ranks (a layout
+smaller than the world repeats over the rest), and each rank writes its
+rows of the output and of dq, and its chunks of dk, dv, and its rows of
+the bias gradient, to ``out`` (with ``{rank}``), with the ring's
+exchanges. Needs no JAX.
 """
 
 import json
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from _torch_ddp_worker import loaders, read_spec
 from klab_multimodalmodel_tpu_torch import config as tcfg
 from klab_multimodalmodel_tpu_torch.checkpoint.io import (
     CheckpointManager, load_pretrained_params)
+from klab_multimodalmodel_tpu_torch.ops import ring_attention
 from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
-    tensor_parallel)
+    SeqGroup, tensor_parallel)
 from klab_multimodalmodel_tpu_torch.train import Trainer, train
 from klab_multimodalmodel_tpu_torch.train.loop import dropout_seed
 from klab_multimodalmodel_tpu_torch.utils.mesh import (make_mesh,
@@ -48,6 +59,36 @@ def rows(batch: dict, mesh) -> dict:
     return {k: v[lo:lo + n] for k, v in batch.items()}
 
 
+def run_ring(run: dict) -> None:
+    """``ring_self_attention`` on this rank's part of whole inputs, and its
+    gradients (see the module doc)."""
+    data, S = run["layout"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    group, _ = dist.new_subgroups_by_enumeration(
+        [list(range(i, i + S)) for i in range(0, world, S)])
+    s, d = rank % S, rank // S % data
+    x = torch.load(run["inputs"])
+    B, L = x["q"].shape[0], x["q"].shape[2]
+    n, lq = B // data, L // S
+    seq = SeqGroup(group, s, S).split(L)
+
+    def part(t, dim=2):
+        return t[d * n:(d + 1) * n].narrow(dim, s * lq, lq).contiguous()
+
+    q, k, v = (part(x[name]).requires_grad_() for name in "qkv")
+    bias = x["bias"]
+    bias = (bias if bias.shape[0] == 1 else bias[d * n:(d + 1) * n])
+    bias = bias.narrow(2, s * lq, lq).contiguous().requires_grad_()
+    before = ring_attention.exchanges
+    out = ring_attention.ring_self_attention(q, k, v, bias, seq,
+                                             x["rate"], x["seed"])
+    out.backward(part(x["ct"]))
+    torch.save(dict(out=out.detach(), dq=q.grad, dk=k.grad, dv=v.grad,
+                    dbias=bias.grad, rows=(d * n, s * lq),
+                    exchanges=ring_attention.exchanges - before),
+               run["out"].format(rank=rank))
+
+
 def run_loop(run: dict) -> None:
     cfg = tcfg.Config(**run["config"])
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
@@ -59,11 +100,18 @@ def run_loop(run: dict) -> None:
             json.dump(dict(losses=out["losses"], steps=out["steps"],
                            min_val_loss=out["min_val_loss"],
                            saves=[s["name"] for s in out["saves"]]), f)
+    if run.get("params"):
+        torch.save({n: p.detach() for n, p in
+                    out["trainer"].model.named_parameters()},
+                   run["params"].format(rank=mesh.rank))
 
 
 def run_one(run: dict) -> None:
     if run.get("loop"):
         run_loop(run)
+        return
+    if run.get("ring"):
+        run_ring(run)
         return
     cfg = tcfg.Config(**run["config"])
     trainer = Trainer(cfg, device="cpu")
@@ -74,6 +122,7 @@ def run_one(run: dict) -> None:
     else:
         trainer.init_state(state_dict=torch.load(run["init"]))
     gen = torch.Generator().manual_seed(dropout_seed(cfg.seed, mesh.dp_rank))
+    before = ring_attention.exchanges
     losses = [float(trainer.train_step(rows(b, mesh), gen))
               for b in torch.load(run["batches"])]
     full = trainer.full_state_dict()
@@ -81,10 +130,13 @@ def run_one(run: dict) -> None:
     manager.save(f"step_{trainer.step}", trainer)
     manager.wait()
     if run.get("local"):
-        torch.save({n: p.to_local().clone()
+        torch.save({n: (p.to_local() if isinstance(p, DTensor)
+                        else p.detach()).clone()
                     for n, p in trainer.model.named_parameters()
-                    if not tensor_parallel(n)},
+                    if not (mesh.tensor > 1 and tensor_parallel(n))},
                    run["local"].format(rank=mesh.rank))
+    evals = [float(trainer.eval_step(rows(b, mesh)))
+             for b in (torch.load(run["eval"]) if run.get("eval") else [])]
     restored = None
     if run.get("restore"):
         other = CheckpointManager(run["restore"], mesh)
@@ -93,8 +145,10 @@ def run_one(run: dict) -> None:
     if mesh.rank == 0:
         torch.save({"params": full, "restored": restored}, run["params"])
         with open(run["out"], "w") as f:
-            json.dump(dict(losses=losses, step=trainer.step,
-                           dp=[mesh.dp_rank, mesh.dp_size]), f)
+            json.dump(dict(losses=losses, step=trainer.step, evals=evals,
+                           dp=[mesh.dp_rank, mesh.dp_size],
+                           ring_exchanges=ring_attention.exchanges - before),
+                      f)
 
 
 def main() -> None:

@@ -96,10 +96,10 @@ def test_parse_arguments_matches_jax_on_run_scripts(script):
     refused = [f"--{name}" for name, (default, _) in
                tcfg.UNPORTED_FLAGS.items()
                if getattr(want, name) != default]
-    # A mesh is ported on its data, fsdp and tensor axes (the others:
-    # A12c).
+    # A mesh is ported on its data, fsdp, tensor and seq axes (pipe and
+    # expert: A12d).
     refused += [f"--{name}" for name in ("mesh_shape", "dcn_mesh_shape")
-                if any(s != 1 for s in getattr(want, name)[3:])]
+                if any(s != 1 for s in getattr(want, name)[4:])]
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             tcfg.parse_arguments(argv)
@@ -120,16 +120,21 @@ def test_defaults_match_jax():
 @pytest.mark.parametrize("argv,item", [
     ("--mesh_shape 1 2 1 1 1 1", None),
     ("--dcn_mesh_shape 1 1 2 1 1 1", None),
-    ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", "A12c"),
-    ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12c"),
+    ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", "A12d"),
+    ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12d"),
     ("--scan_unroll 2", "not ported by design"),
-    ("--seq_attention ring", "A12c"),
+    ("--seq_attention ring", None),
+    ("--mesh_shape 1 1 1 2", None),
+    ("--mesh_shape 1 1 1 2 --seq_attention ring", None),
+    ("--mesh_shape 1 2 1 2", "A12d"),
+    ("--mesh_shape 1 1 1 2 --moe_experts 2", "A12d"),
+    ("--pipeline_stages 2 --seq_attention ring", ValueError),
     ("--pipeline_stages 2 --use_pallas_t5_attention", ValueError),
     ("--pipeline_stages 2 --pipeline_microbatches 4", None),
     ("--moe_experts 2 --moe_top_k 3", ValueError),
     ("--moe_experts 2 --moe_capacity_factor 2.0", None),
     ("--moe_experts 2 --moe_aux_loss_weight 0.1", None),
-    ("--moe_experts 8 --mesh_shape 1 1 1 1 1 2", "A12c"),
+    ("--moe_experts 8 --mesh_shape 1 1 1 1 1 2", "A12d"),
     ("--profile_server_port 9012", "no live profiler server")])
 def test_unported_flag_raises_naming_its_item(argv, item):
     """A flag or mesh axis the port does not honour raises

@@ -140,20 +140,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _forward(fn, q, k, v, bias, kmask, rate, seed, head_offset=0):
+def _forward(fn, q, k, v, bias, kmask, rate, seed, head_offset=0,
+             q_offset=0):
     B, H, Q, D = q.shape
     out = torch.full_like(q, float("nan"))
     stats = torch.full((B, H, Q, 2), float("nan"))
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(kmask),
              _ptr(seed) if rate > 0 else None, _ptr(out), _ptr(stats), B, H,
              Q, k.shape[2], D, int(q.dtype == torch.bfloat16), head_offset,
-             rate, None)
+             q_offset, rate, None)
     assert err == 0
     return out, stats
 
 
 def _backward(fn, q, k, v, do, bias, kmask, rate, seed, stats, need_dbias,
-              head_offset=0):
+              head_offset=0, q_offset=0):
     B, H, Q, D = q.shape
     K = k.shape[2]
     delta = torch.full((B, H, Q), float("nan"))
@@ -163,7 +164,8 @@ def _backward(fn, q, k, v, do, bias, kmask, rate, seed, stats, need_dbias,
     err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(bias), _ptr(kmask),
              _ptr(seed) if rate > 0 else None, _ptr(stats), _ptr(delta),
              _ptr(dq), _ptr(dk), _ptr(dv), _ptr(ds), _ptr(dbias), B, H, Q, K,
-             D, int(q.dtype == torch.bfloat16), head_offset, rate, None)
+             D, int(q.dtype == torch.bfloat16), head_offset, q_offset, rate,
+             None)
     assert err == 0
     return dq, dk, dv, dbias
 
@@ -256,6 +258,45 @@ def test_t5_kernels_on_host_take_head_offset(kernels, dtype, D):
     full = t5_attention_bwd_plain(q, k, v, do, b, None, rate, seed, True)
     for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
         w = w[off:] if name == "dbias" else w[:, off:]
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.float32, 48)])
+def test_t5_kernels_on_host_take_q_offset(kernels, dtype, D):
+    """A sequence-parallel rank's query rows: the kernels on rows 24..47
+    of 48 (not a tile's start: the bf16 tiles hold 64 rows) against all 48
+    keys, with ``q_offset`` 24 and those rows of the bias, give the plain
+    version's full call on those rows, forward and backward, with dropout
+    on; without the offset the keep bits are rows 0..23's."""
+    g = torch.Generator().manual_seed(D + 1)
+    B, H, L, rate, off = 2, 2, 48, 0.3, 24
+    q, k, v, do = (torch.randn(s, generator=g).to(dtype) for s in (
+        (B, H, L, D), (B, H, L, D), (B, H, L, D), (B, H, L, D)))
+    b = torch.randn(H, L, L, generator=g)
+    seed = torch.tensor([0x0123_4567_89AB_CDEF], dtype=torch.int64)
+    rows = [t[:, :, off:].contiguous() for t in (q, do)]
+    out, stats = _forward(kernels["t5_attention_fwd"], rows[0], k, v,
+                          b[:, off:].contiguous(), None, rate, seed,
+                          q_offset=off)
+    want = t5_attention_plain(q, k, v, b, None, rate, seed)[:, :, off:]
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    shifted, _ = _forward(kernels["t5_attention_fwd"], rows[0], k, v,
+                          b[:, off:].contiguous(), None, rate, seed)
+    assert _rel_err(shifted, want) > 0.1
+    got = _backward(kernels["t5_attention_bwd"], rows[0], k, v, rows[1],
+                    b[:, off:].contiguous(), None, rate, seed, stats, True,
+                    q_offset=off)
+    # The rows' share of the whole call's gradients: the upstream gradient
+    # zero outside them.
+    do_rows = torch.zeros_like(do)
+    do_rows[:, :, off:] = do[:, :, off:]
+    full = t5_attention_bwd_plain(q, k, v, do_rows, b, None, rate, seed,
+                                  True)
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
+        w = (w[:, off:] if name == "dbias" else
+             w[:, :, off:] if name == "dq" else w)
         tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
         assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
 

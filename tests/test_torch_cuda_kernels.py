@@ -264,6 +264,40 @@ def test_t5_head_offset_matches_the_full_call(cuda, dtype, B, H, Q, K, D,
         assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Q,K,D,lo", [
+    (2, 4, 40, 70, 48, 17),      # ragged tiles, an odd first row
+    (4, 16, 320, 320, 64, 160),  # t5-large's encoder, seq rank 1 of 2
+    (4, 16, 128, 128, 64, 64),   # its decoder, seq rank 1 of 2
+    (4, 16, 128, 320, 64, 64),   # its cross-attention, seq rank 1 of 2
+])
+def test_t5_q_offset_matches_the_full_call(cuda, dtype, B, H, Q, K, D, lo):
+    """A seq rank's query rows: the kernels on rows ``lo ..`` with
+    ``q_offset`` and those rows of the bias give the plain full call's
+    rows, forward and backward, with dropout on (dk and dv: the share of
+    those rows, the full call's with the other rows' upstream gradient
+    0)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do, b, m = _case(gen, cuda, dtype, B, H, Q, K, D, True, True)
+    seed = draw_seed(gen)
+    qr, dor = (t[:, :, lo:].contiguous() for t in (q, do))
+    br = b[:, lo:].contiguous()
+    want = t5_attention_plain(q, k, v, b, m, 0.1, seed)[:, :, lo:]
+    out, stats = t5_attention_fwd(qr, k, v, br, m, 0.1, seed,
+                                  with_stats=True, q_offset=lo)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    do_rows = torch.zeros_like(do)
+    do_rows[:, :, lo:] = do[:, :, lo:]
+    full = t5_attention_bwd_plain(q, k, v, do_rows, b, m, 0.1, seed, True)
+    got = t5_attention_bwd(qr, k, v, dor, br, m, 0.1, seed, stats, True,
+                           q_offset=lo)
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
+        w = (w[:, lo:] if name == "dbias" else
+             w[:, :, lo:] if name == "dq" else w)
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
 def test_t5_dbias_is_bitwise_reproducible(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, 8, 16, 320, 320,

@@ -36,6 +36,7 @@ def test_port_has_modules():
     assert f"{PORT.name}.infer.captioner" in PORT_MODULES
     assert f"{PORT.name}.ops.fused_attention" in PORT_MODULES
     assert f"{PORT.name}.parallel.partitioning" in PORT_MODULES
+    assert f"{PORT.name}.ops.ring_attention" in PORT_MODULES
 
 
 def test_every_port_module_imports_without_jax():

@@ -40,12 +40,12 @@ def test_resolve_mesh_shape_matches_jax(shape, n):
 
 
 @pytest.mark.parametrize("shape,item", [
-    ((1, 2, 1, 2), "A12c"), ((1, 1, 2, 1, 2), "A12c"), ((1, 1, 1, 2), "A12"),
-    ((1, 1, 1, 1, 2), "A12"), ((1, 1, 1, 1, 1, 2), "A12"),
-    ((1, -1, 1, 1, 1, 2), "A12c")])
+    ((1, 2, 1, 1, 2), "A12d"), ((1, 1, 2, 1, 2), "A12d"),
+    ((1, 1, 1, 2, 2), "A12d"), ((1, 1, 1, 1, 2), "A12"),
+    ((1, 1, 1, 1, 1, 2), "A12"), ((1, -1, 1, 1, 1, 2), "A12d")])
 def test_non_data_axes_are_refused(shape, item):
-    """The axes not ported (seq, pipe, expert), alone or beside fsdp and
-    tensor: refused by ``make_mesh``, by ``Config`` (``mesh_shape`` and
+    """The axes not ported (pipe, expert), alone or beside fsdp, tensor
+    and seq: refused by ``make_mesh``, by ``Config`` (``mesh_shape`` and
     ``dcn_mesh_shape``) and by the command line, naming the ROADMAP
     item."""
     with pytest.raises(NotImplementedError, match=item):

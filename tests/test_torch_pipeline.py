@@ -153,7 +153,7 @@ def test_config_refuses_what_jax_refuses(overrides):
 
 def test_config_takes_what_jax_takes():
     """The flags build as JAX's; a pipe or expert axis above 1, which the
-    JAX package shards over, is refused naming ROADMAP A12c."""
+    JAX package shards over, is refused naming ROADMAP A12d."""
     for kw in (dict(pipeline_stages=2, pipeline_microbatches=4),
                dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
                     moe_aux_loss_weight=0.1)):
@@ -163,7 +163,7 @@ def test_config_takes_what_jax_takes():
     for kw in (dict(pipeline_stages=2, mesh_shape=(1, 1, 1, 1, 2)),
                dict(moe_experts=4, mesh_shape=(1, 1, 1, 1, 1, 2))):
         jcfg.Config(**kw)
-        with pytest.raises(NotImplementedError, match="A12c"):
+        with pytest.raises(NotImplementedError, match="A12d"):
             tcfg.Config(**kw)
 
 

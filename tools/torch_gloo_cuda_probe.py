@@ -3,13 +3,21 @@
 (the PyTorch port's phases 10 and 13 put two ranks on one card so: NCCL
 refuses two ranks on one device), and how long the large ones take.
 
-    python3 tools/torch_gloo_cuda_probe.py
+    python3 tools/torch_gloo_cuda_probe.py [CASE ...]
 
-Each case runs in its own two-rank ``torch.distributed.run`` job (a case
+Each case (all of ``CASES``, or those named) runs in its own two-rank ``torch.distributed.run`` job (a case
 that crashes takes only its job down) and prints one line: ok or the
 failure, and the seconds of the timed ones. The cases: the c10d
 collectives on CUDA tensors (``all_reduce``, ``all_gather_into_tensor``,
-``reduce_scatter_tensor``; the large ones at 256 MB), the functional
+``reduce_scatter_tensor``; the large ones at 256 MB), the sequence-parallel
+exchanges at one layer's K/V of a t5-large rank at seq 2 (batch 16, 160 of
+320 rows, K and V of 16 heads x 64 side by side in bf16: 10 MB a rank):
+``all_gather_into_tensor`` and ``reduce_scatter_tensor`` as the all-gather
+path runs them, and the ring's point-to-point exchange
+(``batch_isend_irecv`` of a send and a receive, each rank to the other;
+then the same staged through host copies, as the ring runs it where gloo
+refuses CUDA tensors), each timed over 10 calls after one warm-up, the
+functional
 collectives behind DTensor (``all_reduce``, ``all_gather_tensor``,
 ``reduce_scatter_tensor``), and DTensor's ``full_tensor`` and
 ``distribute_tensor``. Needs a card and the port's torch; no JAX.
@@ -21,6 +29,8 @@ import sys
 import time
 
 CASES = ("c10d_all_reduce", "c10d_all_gather", "c10d_reduce_scatter",
+         "seq_all_gather", "seq_reduce_scatter", "seq_batch_isend_irecv",
+         "seq_batch_isend_irecv_host",
          "funcol_all_reduce", "funcol_all_gather", "funcol_reduce_scatter",
          "dtensor_full_tensor", "dtensor_distribute")
 
@@ -64,6 +74,46 @@ def run_case(case: str) -> None:
         torch.cuda.synchronize()
         timed = ("reduce_scatter_tensor of 256 MB in",
                  time.perf_counter() - t0)
+    elif case.startswith("seq_"):
+        kv = torch.randn(16, 160, 2048, device=dev).to(torch.bfloat16)
+        whole = torch.empty(32, 160, 2048, device=dev, dtype=torch.bfloat16)
+        peer = 1 - rank
+
+        def once():
+            if case == "seq_all_gather":
+                dist.all_gather_into_tensor(whole, kv)
+            elif case == "seq_reduce_scatter":
+                dist.reduce_scatter_tensor(kv, whole)
+            else:
+                host = case.endswith("_host")
+                send = kv.cpu() if host else kv
+                recv = torch.empty_like(send)
+                for req in dist.batch_isend_irecv(
+                        [dist.P2POp(dist.isend, send, peer),
+                         dist.P2POp(dist.irecv, recv, peer)]):
+                    req.wait()
+                if host:
+                    recv.to(dev)
+
+        once()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            once()
+        torch.cuda.synchronize()
+        timed = (f"{case[4:]} of 10 MB a rank (bf16 16x160x2048), "
+                 "mean of 10", (time.perf_counter() - t0) / 10)
+        if case.startswith("seq_batch_isend_irecv"):
+            # What arrives is the peer's tensor.
+            at = "cpu" if case.endswith("_host") else dev
+            mine = torch.full((4,), float(rank), device=at)
+            got = torch.empty(4, device=at)
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, mine, peer),
+                     dist.P2POp(dist.irecv, got, peer)]):
+                req.wait()
+            if got.tolist() != [float(peer)] * 4:
+                raise RuntimeError(f"received {got.tolist()}")
     elif case == "funcol_all_reduce":
         funcol.all_reduce(x, "sum", mesh).tolist()
     elif case == "funcol_all_gather":
@@ -78,7 +128,8 @@ def run_case(case: str) -> None:
     torch.cuda.synchronize()
     if rank == 0:
         print(f"RESULT {case}: ok" + (f"; {timed[0]}: {timed[1]:.4f} s"
-                                      if timed else ""), flush=True)
+                                      if timed else "")
+              + f" (the tensors on {dev})", flush=True)
     dist.destroy_process_group()
 
 
@@ -89,7 +140,11 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    for case in CASES:
+    for case in sys.argv[1:] or CASES:
+        if case not in CASES:
+            print(f"unknown case {case!r}; the cases: {', '.join(CASES)}",
+                  file=sys.stderr)
+            return 2
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc_per_node", "2", os.path.abspath(__file__), "--case",
@@ -97,12 +152,16 @@ def main() -> int:
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("RESULT")]
         if proc.returncode == 0 and lines:
-            print(lines[0].removeprefix("RESULT "))
+            print(lines[0].removeprefix("RESULT "), flush=True)
         else:
             crashed = "SIGSEGV" in proc.stdout + proc.stderr
+            errors = [ln.strip() for ln in (proc.stdout + proc.stderr)
+                      .splitlines() if "Error" in ln
+                      and "ChildFailedError" not in ln]
             print(f"{case}: fails (exit {proc.returncode}"
                   + (", a rank crashed with SIGSEGV" if crashed else "")
-                  + ")")
+                  + ")" + (f": {errors[-1][:300]}" if errors else ""),
+                  flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     return 0
