@@ -184,7 +184,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    package's message.
 10. Data-parallel training (DDP), phase 6's set-up (the Config defaults,
    both kernel flags, ``cache_frozen_features``, 64 synthetic rows, 2
-   epochs, global batch 32) with the transformer's depth cut to 6 + 6
+   epochs, global batch 32) with the transformer's depth cut to 2 + 2
    blocks of t5-large (the launches per step follow: ``step_launches``),
    the per-rank memory reckoned and printed first:
    c. one rank over NCCL (world 1, this process's own process group):
@@ -241,7 +241,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``TOL_TRAIN_GRAD``).
 13. Sharded training (FSDP2 over fsdp, tensor parallelism over tensor) at
    t5-3b's full width (d_model 1024, 32 heads of d_kv 128, d_ff 16384),
-   its depth cut to 6 + 6 blocks, behind the default towers; bf16 compute,
+   its depth cut to 2 + 2 blocks, behind the default towers; bf16 compute,
    Adam, both kernel flags, batch 16, dropout 0; every run from the same
    seeded weights and rows. The per-rank memory of each layout is reckoned
    first (``parallel.partitioning.per_rank_bytes``).
@@ -258,7 +258,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the one card (gloo on CUDA tensors, as phase 10), which runs this
    script again with ``--shard-rank SPEC`` (the ranks' output in
    ``chiprun_out/phase13_ranks.log``). Checks: each rank's launches per
-   step (T5 forward 42, backward 18, 12 with dBias, Swin 24;
+   step (T5 forward 30, backward 6, 4 with dBias, Swin 24;
    ``step_launches``); the first step's gradients of every trainable
    tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
    updates after three steps are printed beside them); the checkpoint
@@ -268,8 +268,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    per-rank shapes (bf16, 16 heads of d_kv 128) against their plain
    versions with and without ``head_offset``, and their times per step
    beside the plain versions', SDPA's and the bound.
-14. Sequence parallelism over the seq axis: phase 10's t5-large of 6 + 6
-   blocks behind the default towers at full depth, bf16, Adam, batch 16,
+14. Sequence parallelism over the seq axis: t5-large cut to 2 + 2 blocks
+   behind the default towers at full depth, bf16, Adam, batch 16,
    dropout 0 for the compared steps, every run from the same seeded
    weights and rows.
    a. one process, both kernel flags: one warm-up and two timed steps, a
@@ -281,8 +281,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``q_offset``); c. the same with ``--seq_attention ring`` and the T5
       kernel off (the ring staged through the host: gloo refuses CUDA
       tensors for point-to-point). Checks: each rank's launches per step
-      equal a's (T5 forward 42, backward 18, 12 with dBias, Swin 24) or
-      a''s (Swin 24), c's ring turning 60 times a step; the first step's
+      equal a's (T5 forward 30, backward 6, 4 with dBias, Swin 24) or
+      a''s (Swin 24), c's ring turning 36 times a step; the first step's
       gradients and three losses against a's or a''s (``TOL_SHARD``); the
       dropout-0.1 step's loss against the one process's on the same
       stream (b draws the same masks; c's ring draws Philox masks where
@@ -303,13 +303,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       their plain versions at rate 0.1 with and without ``q_offset``, and
       their times per step beside the plain versions', SDPA's and the
       bound.
-15. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+15. Experts and pipeline stages on ranks: t5-large cut to 6 + 6 blocks
+   behind the default towers, bf16, Adam, batch 16, dropout 0 for
+   the compared steps, every run from the same seeded weights and rows.
+   The per-rank state of each run is reckoned first
+   (``parallel.partitioning.per_rank_bytes``).
+   a. one process: the MoE model (4 experts, top-2, capacity factor 1.25,
+      both kernel flags) and the pipelined one (2 stages, 4 microbatches,
+      the T5 kernel off, the Swin kernel on), each a warm-up, two timed
+      steps, a profiled step and one step at dropout 0.1. The references
+      of b and c.
+   b. ``(1, 1, 1, 1, 1, 2)``: each rank holds and runs 2 of the 4 experts
+      of every MoE layer; c. ``(1, 1, 1, 1, 2, 1)``: each rank holds and
+      runs one stage (3 + 3 blocks), the microbatches shifted between the
+      ranks through the host. Both in one ``torch.distributed.run`` job of
+      two ranks on the one card (gloo on CUDA tensors), which runs this
+      script again with ``--split-rank SPEC`` (the ranks' output in
+      ``chiprun_out/phase15_ranks.log``). Checks: each rank's launches per
+      step equal a's (b: T5 forward 42, backward 18, 12 with dBias, Swin
+      24; c: Swin 24); every loss, the dropout step's too, within 5e-4 of
+      a's and the first step's gradients at cosine >= 0.999
+      (``TOL_SPLIT``); under 0.1 % of b's first-step token-routings
+      flipped against a's (the count printed); the replicated parameters
+      bitwise equal on both ranks; each run's checkpoint, which rank 0
+      writes from both ranks' parts, restored bitwise into a one-process
+      ``Trainer`` here. Prints per rank the step spans, peak memory and
+      the state it holds beside the reckoning and a's, and in one profiled
+      step gloo's host time and the busy share.
+16. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
    phase-11a step and one phase-11c request, in one phase-12 step, in one
-   step of a phase-13c rank, and in one step of a phase-14b rank), then
-   ``{"ok": true, ...}`` as the last line.
+   step of a phase-13c rank, in one step of a phase-14b rank, and in one
+   step of a phase-15b and of a phase-15c rank), then ``{"ok": true, ...}``
+   as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -3817,23 +3845,24 @@ DDP_RANKS = 2
 DDP_BATCH = TRAIN_BATCH // DDP_RANKS  # per rank; the global batch stays 32
 # Both ranks share the one card, given explicitly (LOCAL_RANK 1 has none).
 DDP_DEVICE = "cuda:0"
-# Phase 10's transformer: t5-large at full width, its depth cut to 6 + 6
-# blocks (the text tower and the Swin tower whole): gloo's host all-reduce
-# of the gradients and the checkpoints shrink with it.
-DDP_LAYERS = 6
-T5_DDP = "t5-large-6x6"
-T5_NO_DROPOUT = "t5-large-6x6-dropout-0"
+# Phase 10's transformer: t5-large at full width, its depth cut to 2 + 2
+# blocks (the text tower and the Swin tower whole; 6 + 6 until phase 15
+# took its room): gloo's host all-reduce of the gradients and the
+# checkpoints shrink with it.
+DDP_LAYERS = 2
+T5_DDP = "t5-large-2x2"
+T5_NO_DROPOUT = "t5-large-2x2-dropout-0"
 DDP_LAUNCHES = loop_launches(DDP_LAYERS)
 DDP_LAUNCHES_NO_DROPOUT = loop_launches(DDP_LAYERS, dropout=False)
 # One rank's device memory, reckoned before the first run (GB): the fp32
-# weights (~0.633 B parameters: the towers' 0.423 B, the 6 + 6 blocks and
-# shared embedding's 0.209 B, the projection), the transformer's and the
+# weights (~0.515 B parameters: the towers' 0.422 B, the 2 + 2 blocks and
+# shared embedding's 0.093 B, the projection), the transformer's and the
 # projection's fp32 gradients (DDP's bucket views: no second copy), Adam's
 # two fp32 moments, activations at 16 rows (phase 6's 35.14 GB peak at 32
-# rows less its state, halved, the transformer's part a quarter), and the
-# frozen towers' copy that the bitwise check holds.
-DDP_MEMORY_GB = dict(weights=2.53, gradients=0.84, adam=1.68,
-                     activations=4.0, frozen_copy=1.68)
+# rows less its state, halved, the transformer's part a twelfth: 3.0), and
+# the frozen towers' copy that the bitwise check holds.
+DDP_MEMORY_GB = dict(weights=2.06, gradients=0.37, adam=0.74,
+                     activations=3.0, frozen_copy=1.69)
 # Two ranks against one process, bf16 compute: the ranks' GEMMs run at
 # batch 16 (other cuBLAS tilings than batch 32's, so other bf16 roundings
 # of the activations) and their gradients meet in gloo's fp32 sum. Losses
@@ -3851,9 +3880,10 @@ TOL_DDP = dict(loss=TOL_TRAIN_LOSS_REL, update_cosine=0.99,
 
 
 def register_no_dropout() -> None:
-    """Phase 10's t5-large of 6 + 6 blocks, with its dropout and with
-    dropout 0 (for the runs that phase 10 compares across world sizes: each
-    rank draws its own masks)."""
+    """Phase 10's t5-large of ``DDP_LAYERS`` + ``DDP_LAYERS`` blocks, with
+    its dropout and with dropout 0 (for the runs that phase 10 compares
+    across world sizes: each rank draws its own masks), and phase 14's and
+    15's at dropout 0."""
     from klab_multimodalmodel_tpu_torch import config as tcfg
 
     cut = dataclasses.replace(tcfg.T5_SIZES["t5-large"],
@@ -3862,6 +3892,10 @@ def register_no_dropout() -> None:
     tcfg.register_t5_size(T5_DDP, cut)
     tcfg.register_t5_size(T5_NO_DROPOUT, dataclasses.replace(
         cut, dropout_rate=0.0))
+    for name, layers in ((T5_SEQ, SEQ_LAYERS), (T5_SPLIT, SPLIT_LAYERS)):
+        tcfg.register_t5_size(name, dataclasses.replace(
+            cut, num_layers=layers, num_decoder_layers=layers,
+            dropout_rate=0.0))
 
 
 def ddp_config(root: str, tag: str, dropout: bool = True, **kw):
@@ -4671,11 +4705,12 @@ def gpipe_phase(card: str) -> dict:
 # Phase 13: sharded training (FSDP2 + tensor parallelism) at t5-3b's width
 # ---------------------------------------------------------------------------
 
-# t5-3b at full width, its depth cut to 6 + 6 blocks (24 + 24 would not fit
+# t5-3b at full width, its depth cut to 2 + 2 blocks (24 + 24 would not fit
 # the script's time with gloo's host staging and the one-process
-# reference), dropout 0 for the compared steps.
-SHARD_LAYERS = 6
-SHARD_T5 = "t5-3b-6x6-dropout-0"
+# reference; 6 + 6 until phase 15 took its room), dropout 0 for the
+# compared steps.
+SHARD_LAYERS = 2
+SHARD_T5 = "t5-3b-2x2-dropout-0"
 SHARD_BATCH, SHARD_STEPS = 16, 2
 SHARD_RANKS = 2
 SHARD_LAYOUTS = {"13b": (1, 2, 1), "13c": (1, 1, 2)}
@@ -4703,7 +4738,7 @@ SHARD_HEADS, SHARD_D, SHARD_OFFSET = 16, 128, 16
 
 
 def register_shard_sizes() -> None:
-    """Phase 13's t5-3b of 6 + 6 blocks at dropout 0."""
+    """Phase 13's t5-3b of 2 + 2 blocks at dropout 0."""
     from klab_multimodalmodel_tpu_torch import config as tcfg
 
     tcfg.register_t5_size(SHARD_T5, dataclasses.replace(
@@ -5246,23 +5281,25 @@ def shard_phase(card: str) -> dict:
 # Phase 14: sequence parallelism over the seq axis (all-gather and ring)
 # ---------------------------------------------------------------------------
 
-# Phase 10's t5-large of 6 + 6 blocks (T5_NO_DROPOUT; dropout 0 for the
-# compared steps) behind the default towers at full depth, batch 16, two
-# seq ranks sharing the card over gloo. Every run starts from the same
+# t5-large cut to 2 + 2 blocks (T5_SEQ; dropout 0 for the compared steps)
+# behind the default towers at full depth, batch 16, two seq ranks sharing
+# the card over gloo. Every run starts from the same
 # seeded weights and rows.
 SEQ_RANKS = 2
 SEQ_MESH = (1, 1, 1, SEQ_RANKS)
 SEQ_BATCH, SEQ_STEPS = 16, 2
-SEQ_LAUNCHES = step_launches(T5_LAYERS, DDP_LAYERS, DDP_LAYERS,
+SEQ_LAYERS = 2
+T5_SEQ = "t5-large-2x2-dropout-0"
+SEQ_LAUNCHES = step_launches(T5_LAYERS, SEQ_LAYERS, SEQ_LAYERS,
                              dropout=False)
-SEQ_LAUNCHES_DROPOUT = step_launches(T5_LAYERS, DDP_LAYERS, DDP_LAYERS)
+SEQ_LAUNCHES_DROPOUT = step_launches(T5_LAYERS, SEQ_LAYERS, SEQ_LAYERS)
 # The T5 kernel off (a', c): the Swin kernel's launches only.
 SEQ_LAUNCHES_PLAIN = dict(t5_fwd=0, t5_fwd_dropout=0, t5_bwd=0,
                           t5_bwd_dbias=0, swin=24)
 # The ring's exchanges in one step of c: the text tower's 24 self-
 # attentions forward (frozen), the transformer's 12 forward and backward
 # (one exchange forward, two backward).
-SEQ_RING_EXCHANGES = T5_LAYERS + 2 * DDP_LAYERS * 3
+SEQ_RING_EXCHANGES = T5_LAYERS + 2 * SEQ_LAYERS * 3
 # 14d: one step at batch 2 with the prompt padded to 2048 ids (encoder
 # 2112 positions), dropout 0.
 SEQ_LONG_BATCH, SEQ_LONG_SRC = 2, 2048
@@ -5270,14 +5307,16 @@ SEQ_LONG_BATCH, SEQ_LONG_SRC = 2, 2048
 
 def seq_config(**kw):
     """Phase 14's set-up: the Config defaults, both kernel flags (``kw``
-    may turn the T5 kernel off), the transformer cut to ``DDP_LAYERS`` +
-    ``DDP_LAYERS`` blocks at dropout 0, batch ``SEQ_BATCH``."""
-    from klab_multimodalmodel_tpu_torch.config import Config
+    may turn the T5 kernel off), the transformer cut to ``SEQ_LAYERS`` +
+    ``SEQ_LAYERS`` blocks at dropout 0 (``kw`` may name another), batch
+    ``SEQ_BATCH``."""
+    from klab_multimodalmodel_tpu_torch import config as tcfg
 
     register_no_dropout()
     kw = dict(dict(use_pallas_attention=True, use_pallas_t5_attention=True,
-                   batch_size=SEQ_BATCH), **kw)
-    return Config(seed=SEED, transformer_model_name=T5_NO_DROPOUT, **kw)
+                   batch_size=SEQ_BATCH, transformer_model_name=T5_SEQ),
+              **kw)
+    return tcfg.Config(seed=SEED, **kw)
 
 
 def seq_run(trainer, tag: str, card: str, expected: dict, dropout: dict,
@@ -5436,7 +5475,7 @@ def seq_kernel_shapes() -> list[tuple["T5Shape", int]]:
     phase-14b rank's step: its half of the text tower's 256 queries, the
     encoder's 320 and the decoder's 128, against every key."""
     pad = SRC_LEN - 30
-    B, layers = SEQ_BATCH, DDP_LAYERS
+    B, layers = SEQ_BATCH, SEQ_LAYERS
     return [
         (T5Shape("text", "training", B, SRC_LEN // 2, SRC_LEN, True, pad,
                  0.0, T5_LAYERS), SRC_LEN // 2),
@@ -5595,6 +5634,414 @@ def seq_phase(card: str) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: experts and pipeline stages on ranks (the expert and pipe axes)
+# ---------------------------------------------------------------------------
+
+# t5-large of 6 + 6 blocks at full width (dropout 0 for the compared
+# steps) behind the default towers, batch 16, two ranks sharing
+# the card over gloo: 15b splits 4 experts (top-2, capacity factor 1.25,
+# both kernel flags) over expert 2, 15c 2 GPipe stages (4 microbatches, the
+# T5 kernel off as the JAX package requires, the Swin kernel on) over
+# pipe 2. 15a runs both models in one process. Every run starts from the
+# same seeded weights and rows, and takes a warm-up, two timed steps, a
+# profiled step and a step at dropout 0.1.
+SPLIT_RANKS = 2
+SPLIT_BATCH, SPLIT_STEPS = 16, 2
+SPLIT_LAYERS = 6
+T5_SPLIT = "t5-large-6x6-dropout-0"
+SPLIT_MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+SPLIT_PIPE = dict(pipeline_stages=2, pipeline_microbatches=4,
+                  use_pallas_t5_attention=False)
+SPLIT_RUNS = {  # tag: (its 15a twin, mesh, config flags, launches a step)
+    "15b": ("15a-moe", (1, 1, 1, 1, 1, SPLIT_RANKS), SPLIT_MOE, (
+        step_launches(T5_LAYERS, SPLIT_LAYERS, SPLIT_LAYERS, dropout=False),
+        step_launches(T5_LAYERS, SPLIT_LAYERS, SPLIT_LAYERS))),
+    "15c": ("15a-pipe", (1, 1, 1, 1, SPLIT_RANKS, 1), SPLIT_PIPE, (
+        SEQ_LAUNCHES_PLAIN, SEQ_LAUNCHES_PLAIN)),
+}
+# 15b and 15c against 15a (bf16 compute): 15b's combine is two bf16
+# partial sums added in gloo where one process sums all four experts in
+# one product; 15c runs each microbatch's forward as one process does and
+# sums the microbatches' parameter gradients in another order. Held: the
+# losses of every step (the dropout step's too) within 5e-4 relative, the
+# first step's gradient of every trainable tensor at cosine >= 0.999 (norm
+# within phase 4's 2 %, all together >= 0.999), and under 0.1 % of 15b's
+# token-routings flipped against 15a's.
+TOL_SPLIT = dict(loss=5e-4, grad=dict(cosine=0.999, norm=0.02,
+                                      total=0.999), flipped=1e-3)
+
+
+def split_config(tag: str, **kw):
+    """Phase 15's set-up of run ``tag`` (its 15a twin's flags)."""
+    twin = {"15a-moe": "15b", "15a-pipe": "15c"}.get(tag, tag)
+    return seq_config(**dict(SPLIT_RUNS[twin][2],
+                             transformer_model_name=T5_SPLIT, **kw))
+
+
+def split_memory(card: str) -> dict:
+    """Each run's per-rank parameters, gradients and Adam moments (GB),
+    reckoned on the meta device before any run, as the split lays them out
+    (pipe rank 0's stage; its other stage holds as much)."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+
+    out = {}
+    for tag, axes in (("15a-moe", {}), ("15b", {"expert": SPLIT_RANKS}),
+                      ("15a-pipe", {}), ("15c", {"pipe": SPLIT_RANKS})):
+        cfg = split_config(tag)
+        model = MultiModalModel(cfg, device="meta")
+        names = trainable_names(model, cfg)
+        out[tag] = {k: v / 1e9 for k, v in per_rank_bytes(
+            [(n, tuple(p.shape), n in names)
+             for n, p in model.named_parameters()], axes).items()}
+    print("phase 15: state per rank reckoned (GB; params, grads, Adam): "
+          + "; ".join(f"{t} {r['params']:.2f} + {r['grads']:.2f} + "
+                      f"{r['moments']:.2f} = {r['total']:.2f}"
+                      for t, r in out.items()) + f" [{card}]")
+    return out
+
+
+def held_bytes(trainer) -> dict:
+    """What the rank holds (GB): its parameters, the trainable ones'
+    gradients and optimizer state."""
+    params = sum(p.numel() * p.element_size()
+                 for p in trainer.model.parameters())
+    grads = sum(p.grad.numel() * p.grad.element_size()
+                for p in trainer.model.parameters() if p.grad is not None)
+    moments = sum(v.numel() * v.element_size()
+                  for st in trainer.optimizer.state.values()
+                  for v in st.values()
+                  if hasattr(v, "numel") and v.dim() > 0)
+    return dict(params=params / 1e9, grads=grads / 1e9,
+                moments=moments / 1e9,
+                total=(params + grads + moments) / 1e9)
+
+
+def split_run(trainer, tag: str, card: str, launches: tuple, first,
+              collectives: bool) -> dict:
+    """One warm-up (``first(trainer, recorder)`` after it, with the
+    routings it recorded) and ``SPLIT_STEPS`` timed steps of ``trainer``
+    at dropout 0 (launches checked), a profiled step, then one step at
+    dropout 0.1 (launches checked): losses, spans, peak memory, the
+    profile."""
+    import torch
+
+    cfg = trainer.config
+    batch = train_batch(cfg, SPLIT_BATCH, SEED)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    with RoutingRecorder() as recorder:
+        first_loss = float(trainer.train_step(batch, gen))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first(trainer, recorder.calls)
+    del recorder
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen, SPLIT_STEPS,
+                                            launches[0], tag)
+    r = dict(losses=[first_loss] + losses, first_step_ms=first_ms,
+             step_ms=step_ms, mean_step_ms=sum(step_ms) / len(step_ms),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_step=per_step)
+    r["profile"] = profile_device(
+        lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
+        f"{tag} step", collectives=collectives)
+    set_dropout(trainer.model.transformer, RATE)
+    reset_counts()
+    r["dropout_loss"] = float(trainer.train_step(batch, gen))
+    got = launch_counts()
+    set_dropout(trainer.model.transformer, 0.0)
+    check(got == launches[1], f"{tag}: the dropout step's launches {got}, "
+          f"expected {launches[1]}")
+    check(all(math.isfinite(x) for x in r["losses"] + [r["dropout_loss"]]),
+          f"{tag}: non-finite loss {r['losses']} / {r['dropout_loss']}")
+    r["held_gb"] = held_bytes(trainer)
+    print(f"{tag} [{card}]: losses {r['losses']}, steps "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, peak "
+          f"{r['peak_gb']:.2f} GB, launches {per_step}; dropout-0.1 step "
+          f"loss {r['dropout_loss']:.6f}; holds "
+          f"{r['held_gb']['total']:.2f} GB of state", flush=True)
+    return r
+
+
+def routing_masks(calls: list) -> list:
+    """The routing calls' assignments and logits on the host."""
+    return [(a.cpu(), lg.float().cpu()) for a, lg in calls]
+
+
+def split_rank_main(spec_path: str) -> int:
+    """One rank of phase 15's job (started by ``torch.distributed.run``):
+    15b and 15c in turn on ``cuda:0``, which both ranks share (gloo on CUDA
+    tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
+    ``{out}.{rank}.json``, its first step's gradients, its parameters after
+    the steps and (rank 0) 15b's routings to files, and a checkpoint of
+    each run."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_no_dropout()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    rank, card = dist.get_rank(), spec["card"]
+    readings = {}
+    for run in spec["runs"]:
+        tag = run["tag"]
+        cfg = Config.from_json(json.dumps(run["config"]))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=device)
+        # Seeded with config.seed on the card: 15a's weights on every
+        # rank, then split.
+        trainer.init_state()
+        mesh = trainer.mesh
+        check(trainer.ddp is None and mesh.split,
+              f"{tag}: not a split trainer without DDP")
+        build_s = time.perf_counter() - t0
+        base = f"{run['files']}.{rank}"
+
+        def first(t, calls):
+            torch.save({n: p.grad.detach().float().cpu()
+                        for n, p in t.model.named_parameters()
+                        if p.grad is not None}, f"{base}.grads.pt")
+            if rank == 0 and calls:
+                torch.save(routing_masks(calls), f"{base}.routing.pt")
+        r = split_run(trainer, f"{tag} rank {rank}", card,
+                      tuple(run["launches"]), first, True)
+        # The parameters every rank holds, bitwise against rank 0's.
+        checked, bad = 0, []
+        for n in sorted(n for n, _ in trainer.model.named_parameters()
+                        if trainer._placement(n) is None):
+            local = trainer.model.get_parameter(n).detach()
+            ref = local.clone()
+            dist.broadcast(ref, src=0)
+            checked += 1
+            if not torch.equal(ref, local):
+                bad.append(n)
+        check(checked > 0 and not bad,
+              f"{tag} rank {rank}: {len(bad)} of {checked} replicated "
+              f"parameters differ across the ranks: {bad[:5]}")
+        torch.save({n: p.detach().cpu() for n, p in
+                    trainer.model.named_parameters() if p.requires_grad},
+                   f"{base}.params.pt")
+        t0 = time.perf_counter()
+        manager = CheckpointManager(run["checkpoint"], mesh)
+        manager.save(f"step_{trainer.step}", trainer)
+        manager.wait()
+        r.update(build_s=build_s, checkpoint_s=time.perf_counter() - t0,
+                 saves=manager.saves, replicated_checked=checked,
+                 pipe=[mesh.pipe_rank, mesh.pipe],
+                 expert=[mesh.expert_rank, mesh.expert])
+        readings[tag] = r
+        del trainer
+        free()
+        dist.barrier()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def split_whole(tag: str, parts: list, placement) -> dict:
+    """Rank-held tensors (``parts``: each rank's {name: tensor}) as one
+    process holds them: an expert bank's slices joined on dim 0, a stage's
+    blocks from the rank that holds them, the rest rank 0's."""
+    import torch
+
+    out = {}
+    for n in sorted(set().union(*parts)):
+        if tag == "15b" and placement(n):
+            out[n] = torch.cat([p[n] for p in parts])
+        else:
+            out[n] = next(p[n] for p in parts if n in p)
+    return out
+
+
+def split_phase(card: str) -> dict:
+    """Phase 15: 15a (the MoE and the pipelined model in this process),
+    then one ``torch.distributed.run`` job of two ranks on the one card
+    (gloo on CUDA tensors) that runs 15b (expert 2) and 15c (pipe 2) in
+    turn; each run's checkpoint restored here in one process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    register_no_dropout()
+    memory = split_memory(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    ones, one_grads, one_routes = {}, {}, {}
+    try:
+        for tag in ("15a-moe", "15a-pipe"):
+            free()
+            t0 = time.perf_counter()
+            trainer = Trainer(split_config(tag))
+            trainer.init_state()
+            build_s = time.perf_counter() - t0
+
+            def first(t, calls, tag=tag):
+                one_grads[tag] = {n: p.grad.detach().float().cpu()
+                                  for n, p in t.model.named_parameters()
+                                  if p.grad is not None}
+                one_routes[tag] = routing_masks(calls)
+            twin = {"15a-moe": "15b", "15a-pipe": "15c"}[tag]
+            ones[tag] = split_run(trainer, f"{tag} step", card,
+                                  SPLIT_RUNS[twin][3], first, False)
+            ones[tag]["build_s"] = build_s
+            del trainer
+            free()
+
+        def run(tag):
+            _, mesh, _, launches = SPLIT_RUNS[tag]
+            c = split_config(tag, mesh_shape=mesh)
+            return dict(tag=tag, config=json.loads(c.to_json()),
+                        launches=launches,
+                        files=os.path.join(root, tag),
+                        checkpoint=os.path.join(root, f"{tag}.ckpt"))
+        spec = dict(card=card, out=os.path.join(root, "rank"),
+                    runs=[run("15b"), run("15c")])
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONFAULTHANDLER="1",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        log_path = os.path.join(out_dir, "phase15_ranks.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(SPLIT_RANKS),
+                 os.path.abspath(__file__), "--split-rank", spec_path],
+                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                timeout=900)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                print(f.read()[-6000:])
+        check(proc.returncode == 0, f"phase 15's torchrun job exited "
+              f"{proc.returncode} (chiprun_out/phase15_ranks.log)")
+        ranks = []
+        for r in range(SPLIT_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        agree, results, restore_s = {}, {}, {}
+        for tag, (ref, _, _, _) in SPLIT_RUNS.items():
+            got = [rk[tag] for rk in ranks]
+            one = ones[ref]
+            check(got[0]["losses"] == got[1]["losses"]
+                  and got[0]["dropout_loss"] == got[1]["dropout_loss"],
+                  f"{tag}: the ranks' losses differ: {got[0]['losses']} vs "
+                  f"{got[1]['losses']}")
+            losses = got[0]["losses"] + [got[0]["dropout_loss"]]
+            want = one["losses"] + [one["dropout_loss"]]
+            worst_loss = max(abs(x - y) / abs(y)
+                             for x, y in zip(losses, want))
+            check(worst_loss <= TOL_SPLIT["loss"],
+                  f"{tag}: losses (the last at dropout 0.1) {losses} vs "
+                  f"{ref} {want}")
+            for r, g in enumerate(got):
+                check(g["launches_per_step"] == one["launches_per_step"],
+                      f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                      f"{ref}'s {one['launches_per_step']}")
+
+            def bank(n):
+                return n.endswith((".experts_wi", ".experts_wo"))
+            grads = split_whole(tag, [torch.load(
+                f"{os.path.join(root, tag)}.{r}.grads.pt", weights_only=True)
+                for r in range(SPLIT_RANKS)], bank)
+            agree[tag] = dict(loss_worst_rel=worst_loss, gradients=agreement(
+                (got[0]["losses"][0], grads), (one["losses"][0],
+                                               one_grads[ref]),
+                f"{tag} vs {ref}, the first step's gradients",
+                TOL_SPLIT["grad"]))
+            del grads
+            if tag == "15b":
+                diff = routing_differences(torch.load(
+                    f"{os.path.join(root, tag)}.0.routing.pt",
+                    weights_only=True), one_routes[ref],
+                    SPLIT_MOE["moe_top_k"])
+                share = diff["flipped"] / diff["tokens"]
+                agree[tag]["routing"] = dict(diff, share=share)
+                print(f"15b vs 15a [{card}]: {diff['flipped']} of "
+                      f"{diff['tokens']} token-routings of the first step "
+                      f"flipped an expert ({share:.2e}; limit "
+                      f"{TOL_SPLIT['flipped']})")
+                check(share <= TOL_SPLIT["flipped"],
+                      f"15b: {share:.2e} of the routings flipped")
+            # The run's checkpoint in one process: every rank's trainable
+            # parameters after the steps, bitwise.
+            t0 = time.perf_counter()
+            trainer = Trainer(split_config(ref))
+            trainer.init_state()
+            manager = CheckpointManager(os.path.join(root, f"{tag}.ckpt"))
+            manager.restore(manager.latest(), trainer)
+            params = split_whole(tag, [torch.load(
+                f"{os.path.join(root, tag)}.{r}.params.pt",
+                weights_only=True) for r in range(SPLIT_RANKS)], bank)
+            restored = trainable_on_host(trainer.model)
+            equal = (trainer.step == SPLIT_STEPS + 3
+                     and restored.keys() == params.keys()
+                     and all(torch.equal(restored[n], params[n])
+                             for n in params))
+            restore_s[tag] = time.perf_counter() - t0
+            check(equal, f"{tag}'s checkpoint restored in one process "
+                  "differs from the ranks' parameters")
+            del trainer, params, restored
+            free()
+            print(f"{tag} vs {ref} [{card}]: losses {got[0]['losses']} vs "
+                  f"{one['losses']}; at dropout 0.1 "
+                  f"{got[0]['dropout_loss']:.6f} vs "
+                  f"{one['dropout_loss']:.6f} (worst rel {worst_loss:.2e});"
+                  f" {got[0]['replicated_checked']} replicated parameters "
+                  "bitwise equal across the ranks; the checkpoint restored "
+                  f"bitwise in one process in {restore_s[tag]:.2f} s")
+            for r, g in enumerate(got):
+                coll = (g["profile"].get("collectives") or {})
+                reckoned = memory[tag]["total"]
+                print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
+                      f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                      f"({ref} {one['mean_step_ms']:.2f}), peak "
+                      f"{g['peak_gb']:.2f} GB ({ref} {one['peak_gb']:.2f}); "
+                      f"state held {g['held_gb']['total']:.2f} GB (reckoned "
+                      f"{reckoned:.2f}; {ref} held "
+                      f"{one['held_gb']['total']:.2f}); profiled step: busy "
+                      f"{g['profile'].get('busy_ms')} ms, share "
+                      f"{g['profile'].get('busy_share')}, gloo host "
+                      f"{coll.get('host_ms')} ms, device "
+                      f"{coll.get('device_ms')} ms; checkpoint "
+                      f"{g['checkpoint_s']:.2f} s")
+            results[tag] = got
+        del one_grads, one_routes
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15: {seconds:.1f} s (job {job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, one_process=ones,
+                ranks=results, agreement=agree, job_s=job_s,
+                restore_s=restore_s, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -5682,6 +6129,8 @@ def main() -> int:
     done("13")
     seq = seq_phase(card)
     done("14")
+    split = split_phase(card)
+    done("15")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -5756,6 +6205,16 @@ def main() -> int:
                           f"step of rank {r}")
         entry["launches_seq_step"] = seq["ranks"]["14b"][0][
             "launches_per_step"][train_key]
+        for tag, got in split["ranks"].items():
+            for r, rank in enumerate(got):
+                if tag == "15b" or train_key == "swin":
+                    check(rank["launches_per_step"][train_key] > 0,
+                          f"{entry['name']} never launched in a phase-{tag} "
+                          f"step of rank {r}")
+        entry["launches_expert_step"] = split["ranks"]["15b"][0][
+            "launches_per_step"][train_key]
+        entry["launches_pipe_step"] = split["ranks"]["15c"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -5768,7 +6227,8 @@ def main() -> int:
         "launches_artifacts_request", "launches_artifacts_step",
         "launches_serving_prefill", "launches_ddp_rank_step",
         "launches_moe_step", "launches_moe_request", "launches_gpipe_step",
-        "launches_shard_step", "launches_seq_step")}
+        "launches_shard_step", "launches_seq_step", "launches_expert_step",
+        "launches_pipe_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -5793,8 +6253,12 @@ def main() -> int:
                  f"the JAX package requires); launches_shard_step: one step "
                  f"of a phase-13c rank (t5-3b, {SHARD_LAYERS} + "
                  f"{SHARD_LAYERS} blocks, tensor 2); launches_seq_step: one "
-                 f"step of a phase-14b rank (t5-large, {DDP_LAYERS} + "
-                 f"{DDP_LAYERS} blocks, seq 2, the all-gather path)"}))
+                 f"step of a phase-14b rank (t5-large, {SEQ_LAYERS} + "
+                 f"{SEQ_LAYERS} blocks, seq 2, the all-gather path); "
+                 f"launches_expert_step / _pipe_step: one step of a "
+                 f"phase-15b rank (4 experts over expert 2) and of a "
+                 f"phase-15c rank (2 stages over pipe 2, the T5 kernel "
+                 f"off)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5806,7 +6270,8 @@ def main() -> int:
                    "loop": looping, "evaluation": evaluating,
                    "artifacts": artifacts, "serving": serving,
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
-                   "sharded": sharded, "seq": seq, "seconds": seconds},
+                   "sharded": sharded, "seq": seq, "split": split,
+                   "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {
@@ -5822,4 +6287,6 @@ if __name__ == "__main__":
         sys.exit(shard_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--seq-rank"]:
         sys.exit(seq_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--split-rank"]:
+        sys.exit(split_rank_main(sys.argv[2]))
     sys.exit(main())

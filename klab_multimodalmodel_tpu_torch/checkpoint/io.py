@@ -96,22 +96,6 @@ def _write_json(path: str, obj: dict) -> None:
     os.replace(tmp, path)
 
 
-def _load_optimizer_state(trainer, state: dict) -> None:
-    """The trainer's ``load_full_optimizer_state_dict``, then the saved
-    dtype of every state tensor: torch casts floating state to its
-    parameter's dtype, which would turn ``AdamBf16Mu``'s bf16 first moment
-    into fp32."""
-    opt = trainer.optimizer
-    trainer.load_full_optimizer_state_dict(state)
-    params = [p for g in opt.param_groups for p in g["params"]]
-    for i, saved in state["state"].items():
-        live = opt.state[params[int(i)]]
-        for key, value in saved.items():
-            if (isinstance(value, torch.Tensor)
-                    and live[key].dtype != value.dtype):
-                live[key] = live[key].to(value.dtype)
-
-
 def save_pretrained(path: str, state_dict: dict) -> str:
     """Write ``state_dict`` (all or some of the model's top-level
     submodules, e.g. ``convert_jax_params``'s output) as a pretrained
@@ -152,7 +136,7 @@ def load_pretrained_params(path: str, trainer) -> list[str]:
         fresh = children[top].state_dict()
         if top == "transformer" and is_moe(fresh) and not is_moe(sd):
             sd = upcycle_t5_params(sd, fresh)
-        if not getattr(trainer, "sharded", False):
+        if not getattr(trainer, "partitioned", False):
             children[top].load_state_dict(sd, strict=True)
             continue
         if set(sd) != set(fresh):
@@ -193,7 +177,7 @@ class CheckpointManager:
     def save(self, name: str, trainer, metadata: Optional[dict] = None
              ) -> str:
         self.wait()
-        sharded = trainer.sharded
+        sharded = trainer.partitioned
         if not (self.writer or sharded):
             return self.path(name)
         t0 = time.perf_counter()
@@ -292,7 +276,7 @@ class CheckpointManager:
         trainer.load_full_state_dict(saved, strict=True)
         state = torch.load(os.path.join(d, TRAIN_STATE_FILE),
                            map_location="cpu", weights_only=True)
-        _load_optimizer_state(trainer, state["optimizer"])
+        trainer.load_full_optimizer_state_dict(state["optimizer"])
         trainer.scheduler.load_state_dict(state["scheduler"])
         trainer.step = int(state["step"])
 

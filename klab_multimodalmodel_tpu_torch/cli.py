@@ -27,12 +27,15 @@ reference launches it::
         -m klab_multimodalmodel_tpu_torch train ...
 
 (``--batch_size`` per data rank), and leaves the process group on exit.
-``--mesh_shape D F T`` lays the W = D x F x T ranks out over data, fsdp and
-tensor: with F or T above 1 the model is sharded (FSDP2 over data x fsdp,
-tensor parallelism over tensor; ``parallel/partitioning.py``) and the
-ranks of a tensor group share their rows, so the global batch is
-``batch_size`` x D x F. The other commands are single-process, as in the
-JAX package, and refuse a job of several processes.
+``--mesh_shape D F T [S [P [E]]]`` lays the W ranks out over data, fsdp,
+tensor, seq, pipe and expert: with F or T above 1 the model is sharded
+(FSDP2 over data x fsdp, tensor parallelism over tensor;
+``parallel/partitioning.py``), S splits the positions, P the
+transformer's GPipe stages (``--pipeline_stages P``) and E its experts
+(``--moe_experts`` a multiple of E). The ranks of a tensor, seq, pipe or
+expert group share their rows, so the global batch is ``batch_size`` x D x
+F. The other commands are single-process, as in the JAX package, and
+refuse a job of several processes.
 """
 
 from __future__ import annotations

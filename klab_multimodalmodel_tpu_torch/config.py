@@ -131,11 +131,12 @@ class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
     training step and the training loop read, with the same names,
     defaults and checks. Options that are not ported raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them: a
-    ``pipe`` or ``expert`` mesh axis above 1, MoE or GPipe with ``fsdp`` or
-    ``tensor`` above 1, ``seq`` above 1 with ``fsdp``, ``tensor`` or MoE
-    (all A12d), and ``profile_server_port > 0`` (PyTorch has no live
-    profiler server)."""
+    ``NotImplementedError`` naming the ROADMAP item that ports them: the
+    ``pipe`` or ``expert`` mesh axis above 1 beside ``fsdp``, ``tensor`` or
+    ``seq`` above 1, MoE or GPipe with ``fsdp`` or ``tensor`` above 1,
+    ``seq`` above 1 with ``fsdp``, ``tensor`` or MoE (all A12d's second
+    half), and ``profile_server_port > 0`` (PyTorch has no live profiler
+    server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -156,9 +157,10 @@ class Config:
     result_dir: str = "results/"
     seed: int = 0
     # Mesh: data x fsdp x tensor x seq x pipe x expert, one rank per
-    # entry of data x fsdp x tensor x seq (-1 = the world's processes);
-    # pipe and expert must be 1: the pipeline and the experts run
-    # unsharded on each rank. 3 to 6 entries, right-padded with 1.
+    # entry (-1 = the world's processes); pipe must equal pipeline_stages
+    # (its ranks hold one stage each) and expert divide moe_experts (its
+    # ranks hold E / expert experts each). 3 to 6 entries, right-padded
+    # with 1.
     mesh_shape: tuple[int, ...] = (-1, 1, 1, 1, 1, 1)
     mesh_axis_names: tuple[str, ...] = ("data", "fsdp", "tensor", "seq",
                                         "pipe", "expert")
@@ -259,7 +261,7 @@ class Config:
     eval_captions_limit: int = 256
 
     def __post_init__(self) -> None:
-        from .utils.mesh import DEFAULT_AXIS_NAMES, refuse_unported_axes
+        from .utils.mesh import DEFAULT_AXIS_NAMES
 
         names = tuple(self.mesh_axis_names)
         if names == DEFAULT_AXIS_NAMES[:len(names)]:
@@ -275,12 +277,9 @@ class Config:
         if self.seq_attention not in ("allgather", "ring"):
             raise ValueError(
                 f"unknown seq_attention {self.seq_attention!r}")
-        if self.pipeline_stages > 1 or self.moe_experts > 0:
-            # Before the axes' refusal: a value the JAX package refuses
-            # raises its ValueError.
-            self._check_pipeline_and_moe()
-        for name in ("mesh_shape", "dcn_mesh_shape"):
-            refuse_unported_axes(getattr(self, name), names, name)
+        # Before the refusals of what waits: a value the JAX package
+        # refuses raises its ValueError.
+        self._check_pipeline_and_moe()
         self._check_sharding()
         for name in ("swin_softmax_dtype", "compute_dtype", "param_dtype",
                      "adam_mu_dtype", "frozen_param_dtype"):
@@ -330,12 +329,18 @@ class Config:
         parallelism runs whole heads and whole d_ff columns per rank, so
         both T5s' heads and d_ff must divide by ``tensor`` (the vocab need
         not: DTensor pads its uneven shards). MoE experts and GPipe stages
-        composed with these axes, and ``seq`` composed with them or with
-        MoE, are ROADMAP A12d. ``seq_attention='ring'`` with the T5 kernel
+        composed with these axes, ``seq`` composed with them or with MoE,
+        and the ``pipe`` and ``expert`` axes beside ``fsdp``, ``tensor`` or
+        ``seq`` are ROADMAP A12d. ``seq_attention='ring'`` with the T5 kernel
         on and ``seq`` above 1 is refused as inert: the JAX package runs
         the kernel there and never the ring."""
+        from .utils.mesh import refuse_waiting_combinations
+
         fsdp, tensor = self._axis("fsdp"), self._axis("tensor")
         seq = self._axis("seq")
+        for name in ("mesh_shape", "dcn_mesh_shape"):
+            refuse_waiting_combinations(getattr(self, name),
+                                        self.mesh_axis_names, name)
         if seq != 1:
             if fsdp != 1 or tensor != 1:
                 raise NotImplementedError(
@@ -359,7 +364,8 @@ class Config:
                 f"moe_experts={self.moe_experts} / pipeline_stages="
                 f"{self.pipeline_stages} with mesh fsdp={fsdp}, "
                 f"tensor={tensor}: experts and stages sharded with these "
-                "axes are ROADMAP A12d (run them on a data-only mesh)")
+                "axes are ROADMAP A12d (run them on a data x pipe or data x "
+                "expert mesh)")
         if tensor not in (None, 1):
             for which, size in (("language", self.language_t5),
                                 ("transformer", self.transformer_t5)):
@@ -532,13 +538,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--result_dir", type=str, default=d.result_dir)
     add("--seed", type=int, default=d.seed)
     add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
-        help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; ranks over "
-             "DATA x FSDP x TENSOR x SEQ (-1 = all processes); PIPE and "
-             "EXPERT must be 1 (ROADMAP A12d)")
+        help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; one rank per "
+             "entry (-1 = all processes); PIPE equals --pipeline_stages, "
+             "EXPERT divides --moe_experts, and neither composes with FSDP, "
+             "TENSOR or SEQ above 1 (ROADMAP A12d)")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
         help="3-6 ints: per-axis factors across slices, each multiplying "
-             "its axis's ranks; PIPE and EXPERT must be 1")
+             "its axis's ranks (PIPE and EXPERT as in --mesh_shape)")
     add("--compute_dtype", type=str, default=d.compute_dtype,
         choices=list(_DTYPE_NAMES))
     add("--remat", type=str, default=d.remat, choices=list(_REMAT))
@@ -589,12 +596,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
     """A ``Config`` from ``build_arg_parser``'s namespace. A flag the port
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
-    flags in one message), and so does ``--mesh_shape`` or
-    ``--dcn_mesh_shape`` with a pipe or expert axis above 1; the
-    ``Config`` then checks the rest as the JAX package's does (the pipeline
-    and MoE flags), the sharded axes, and refuses ``profile_server_port``."""
-    from .utils.mesh import unported_axes
-
+    flags in one message); the ``Config`` then checks the rest as the JAX
+    package's does (the pipeline and MoE flags, the pipe and expert axes),
+    refuses the axes that do not compose yet, and refuses
+    ``profile_server_port``."""
     kwargs: dict[str, Any] = dict(vars(args))
     fields = {f.name for f in dataclasses.fields(Config)}
     refused = []
@@ -604,15 +609,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
             value = tuple(value)
         if value != default:
             refused.append(f"--{name} {value!r} (ROADMAP {item})")
-    for name in ("mesh_shape", "dcn_mesh_shape"):
-        axes = unported_axes(kwargs[name])
-        if axes:
-            refused.append(f"--{name} {tuple(kwargs[name])!r} "
-                           f"({', '.join(axes)})")
     if refused:
         raise NotImplementedError(
-            "flags not ported (accepted only at their defaults; a mesh "
-            "only on its data, fsdp, tensor and seq axes): "
+            "flags not ported (accepted only at their defaults): "
             + "; ".join(refused))
     return Config(**kwargs)
 

@@ -40,8 +40,9 @@ class Captioner:
     with ``moe_experts``).
 
     ``pipeline_stages > 1``: decoding runs the same layers with the
-    schedule off (one stage), as the JAX package's captioner decodes a
-    pipelined model's parameters through an unpipelined one.
+    schedule off (one stage, and a mesh without its pipe axis), as the JAX
+    package's captioner decodes a pipelined model's parameters through an
+    unpipelined one.
 
     ``decode_int8``: decode through an int8 weight-only copy of the
     transformer (``infer/quantize.py``); the encoders keep the
@@ -59,8 +60,17 @@ class Captioner:
                  device=None, decode_int8: bool = False,
                  speculative_draft: Optional[int] = None):
         if config.pipeline_stages > 1:
-            config = dataclasses.replace(config, pipeline_stages=1,
-                                         pipeline_microbatches=0)
+            # One process and one stage: the mesh's pipe axis goes too.
+            pipe = config.mesh_axis_names.index("pipe")
+
+            def unpiped(shape):
+                return tuple(1 if i == pipe else s
+                             for i, s in enumerate(shape))
+
+            config = dataclasses.replace(
+                config, pipeline_stages=1, pipeline_microbatches=0,
+                mesh_shape=unpiped(config.mesh_shape),
+                dcn_mesh_shape=unpiped(config.dcn_mesh_shape))
         self.config = config
         self.device = resolve_device(device)
         if isinstance(state_dict_or_model, MultiModalModel):

@@ -21,6 +21,11 @@ the concatenation run whole on every rank, as the JAX package leaves them
 unconstrained, and the text tower's output is gathered whole before it, so
 the transformer's encoder takes its rows of the concatenation (the image
 tokens lead: seq rank 0's rows hold them).
+
+Under the ``pipe`` and ``expert`` axes only the transformer splits (its
+stages or its experts: ``T5ForConditionalGeneration.split_stages`` /
+``split_experts``); the towers and the projections stay whole on every
+rank, as the JAX package leaves them unpipelined.
 """
 
 from __future__ import annotations

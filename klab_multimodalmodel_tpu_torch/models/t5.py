@@ -69,13 +69,25 @@ positions. Decode steps never shard.
 package's GPipe schedule (``T5Stack._pipelined``): S stages of consecutive
 blocks, M microbatches, M + S - 1 ticks. On one rank the schedule reorders
 work and changes no value. The layers keep their names, so a pipelined
-model's state dict is a plain one: checkpoints carry no stage count.
+model's state dict is a plain one: checkpoints carry no stage count. Each
+(stage, microbatch) draws its dropout from a generator of its own, keyed
+on the step generator's state, so that no mask depends on the order in
+which stages run. Under a ``pipe`` mesh axis (``T5ForConditionalGeneration.
+split_stages``) a rank holds one stage's blocks and runs that stage,
+shifting microbatches to the next stage's rank
+(``parallel/partitioning.py`` ``pipe_stages``).
+
+Under an ``expert`` mesh axis (``T5ForConditionalGeneration.
+split_experts``) each ``T5MoeMlp`` holds its rank's slice of the expert
+banks and runs those experts (``ops/moe.py``); routing stays whole and the
+same on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import math
 import re
 from typing import Optional
@@ -89,7 +101,8 @@ from ..config import T5Size
 from ..ops.fused_attention import draw_seed, t5_attention
 from ..ops.moe import moe_capacity, moe_ffn, topk_routing
 from ..ops.ring_attention import ring_applicable, ring_self_attention
-from ..parallel.partitioning import (gather_columns, seq_gather, seq_shard,
+from ..parallel.partitioning import (ExpertGroup, PipeGroup, gather_columns,
+                                     pipe_stages, seq_gather, seq_shard,
                                      tied_logits)
 from ..utils.device import resolve_device
 from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
@@ -421,7 +434,8 @@ class T5MoeMlp(nn.Module):
     are stored in fp32 and cast to x's dtype. The router is an
     ``nn.Linear`` (not a ``KlabDense``), so int8 decode leaves it and the
     expert banks unquantized, as the JAX package does. Returns ``(y,
-    aux)``."""
+    aux)``. After ``set_expert_group`` the banks hold the rank's experts
+    only."""
 
     def __init__(self, size: T5Size, num_experts: int, top_k: int = 1,
                  capacity_factor: float = 1.25):
@@ -435,6 +449,18 @@ class T5MoeMlp(nn.Module):
             torch.empty(num_experts, s.d_model, s.d_ff))
         self.experts_wo = nn.Parameter(
             torch.empty(num_experts, s.d_ff, s.d_model))
+        self.expert: Optional[ExpertGroup] = None
+
+    def set_expert_group(self, expert: ExpertGroup) -> None:
+        """Keep only ``expert``'s slice of the banks (their weights as
+        they are), and run those experts from now on."""
+        mine = expert.experts(self.num_experts)
+        for name in ("experts_wi", "experts_wo"):
+            bank = getattr(self, name)
+            setattr(self, name, nn.Parameter(
+                bank.detach()[mine].clone(),
+                requires_grad=bank.requires_grad))
+        self.expert = expert
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.router.weight, self.size.d_model ** -0.5, generator)
@@ -452,7 +478,7 @@ class T5MoeMlp(nn.Module):
         combine, aux = topk_routing(logits, self.top_k, cap, mask=mask)
         rate = 0.0 if deterministic else self.size.dropout_rate
         y = moe_ffn(x, combine, self.experts_wi, self.experts_wo, rate,
-                    generator)
+                    generator, self.expert)
         return y.to(x.dtype), aux
 
 
@@ -639,6 +665,8 @@ class T5Stack(nn.Module):
         self.moe = moe_experts > 0
         # (rank, size) of the tensor group this stack's heads split over.
         self.tensor_shard = (0, 1)
+        # The pipe group whose stage this rank runs (split_stages).
+        self.pipe: Optional[PipeGroup] = None
         self.block = nn.ModuleList(
             T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
                     dtype=dtype, moe_experts=moe_experts,
@@ -670,6 +698,22 @@ class T5Stack(nn.Module):
                 m.head_offset = rank * s.num_heads // size
             elif isinstance(m, T5Mlp):
                 m.ff_offset = rank * s.d_ff // size
+
+    def set_pipe_group(self, pipe: PipeGroup) -> None:
+        """Hold and run only stage ``pipe.rank``'s blocks: the others'
+        places in ``block`` become empty, but block 0's relative-position
+        table, which every stage reads (the JAX package keeps it outside
+        its stacks), stays under its name."""
+        S, L = self.pipeline_stages, len(self.block)
+        if pipe.size != S or L % S:
+            raise ValueError(f"a pipe group of {pipe.size} ranks for "
+                             f"pipeline_stages={S} and {L} blocks")
+        table = self.relative_attention_bias
+        per = L // S
+        for i in range(L):
+            if i // per != pipe.rank:
+                self.block[i] = _TableOnly(table) if i == 0 else _Elsewhere()
+        self.pipe = pipe
 
     def set_seq_group(self, seq_group, mesh, ring: bool = False) -> None:
         """Split full-sequence forwards over ``seq_group`` (a
@@ -803,14 +847,16 @@ class T5Stack(nn.Module):
         s - 1 gave at tick t - 1 (stage 0 takes microbatch t) and runs
         microbatch t - s where 0 <= t - s < M. Each microbatch carries its
         activations, key masks and encoder context; the head bias is shared.
-        The last stage's outputs are put back in batch order.
+        The last stage's outputs are put back in batch order. Stage s on
+        microbatch m draws its dropout from ``_stage_generators``' (s, m).
 
         The JAX package also runs the padding lanes (t - s outside [0, M),
         fed ``t % M`` and masks seeded with ones) because its stages are one
         vmapped SPMD program that must stay finite everywhere; their outputs
         are never emitted. Here a stage that holds no microbatch at a tick
-        does nothing. Ticks and stages stay explicit so that stages can go
-        to ranks (ROADMAP A12d)."""
+        does nothing. Under a pipe group (``set_pipe_group``) this rank runs
+        its stage alone, in the same microbatch order, and the shift
+        between stages goes to the next rank (``pipe_stages``)."""
         S = self.pipeline_stages
         if len(self.block) % S:
             raise ValueError(f"num_layers={len(self.block)} not divisible "
@@ -823,24 +869,81 @@ class T5Stack(nn.Module):
         if B % M:
             raise ValueError(f"batch={B} not divisible by "
                              f"pipeline_microbatches={M}")
+        rate = 0.0 if deterministic else self.size.dropout_rate
+        gens = _stage_generators(generator if rate > 0 else None)
+        if self.pipe is not None:
+            s = self.pipe.rank
+            per = len(self.block) // S
+
+            def stage_fn(m, xm, hb, eom, km, ckm):
+                mb = {k: v for k, v in (("x", xm), ("kmask", km),
+                                        ("enc_out", eom),
+                                        ("cross_kmask", ckm))
+                      if v is not None}
+                return self._stage(s, mb, hb, deterministic, gens(s, m))
+
+            params = [p for blk in self.block[s * per:(s + 1) * per]
+                      for p in blk.parameters() if p.requires_grad]
+            return pipe_stages(stage_fn, params, self.pipe, M, x, head_bias,
+                               enc_out, kmask, cross_kmask)
         rows = B // M
         travel = {k: v for k, v in (("x", x), ("kmask", kmask),
                                     ("enc_out", enc_out),
                                     ("cross_kmask", cross_kmask))
                   if v is not None}
-        microbatches = [{k: v[m * rows:(m + 1) * rows]
-                         for k, v in travel.items()} for m in range(M)]
+        microbatches = [dict({k: v[m * rows:(m + 1) * rows]
+                              for k, v in travel.items()}, m=m)
+                        for m in range(M)]
         held: list = [None] * S  # what each stage gave at the last tick
         out = []
         for t in range(M + S - 1):
             # The shift: stage 0 takes microbatch t, stage s what s - 1 gave.
             inputs = [microbatches[t] if t < M else None] + held[:-1]
             held = [None if mb is None else dict(
-                mb, x=self._stage(s, mb, head_bias, deterministic, generator))
+                mb, x=self._stage(s, mb, head_bias, deterministic,
+                                  gens(s, mb["m"])))
                 for s, mb in enumerate(inputs)]
             if held[-1] is not None:
                 out.append(held[-1]["x"])
         return torch.cat(out)
+
+
+class _Elsewhere(nn.Module):
+    """The place in ``T5Stack.block`` of a block another pipe rank holds."""
+
+
+class _TableOnly(nn.Module):
+    """Block 0's place on a pipe rank that does not hold block 0: its
+    relative-position table alone, under the table's name
+    (``layer.0.SelfAttention.relative_attention_bias``)."""
+
+    def __init__(self, table: nn.Module):
+        super().__init__()
+        holder = nn.Module()
+        holder.relative_attention_bias = table
+        self.layer = nn.ModuleList([nn.ModuleDict({"SelfAttention": holder})])
+
+
+def _stage_generators(generator: Optional[torch.Generator]):
+    """(stage, microbatch) -> the generator that stage's blocks draw their
+    dropout from on that microbatch (None without ``generator``): seeded
+    from a hash of ``generator``'s state (on the host: no device sync) and
+    the pair, so that the masks do not depend on the order in which the
+    stages run, on one rank or on several. ``generator`` then moves on by
+    one draw, as every rank's does."""
+    if generator is None:
+        return lambda s, m: None
+    key = hashlib.blake2b(generator.get_state().numpy().tobytes(),
+                          digest_size=16).digest()
+    torch.rand((1,), generator=generator, device=generator.device)
+
+    def gen(s: int, m: int) -> torch.Generator:
+        seed = int.from_bytes(hashlib.blake2b(
+            key + f"{s},{m}".encode(), digest_size=8).digest(), "little")
+        return torch.Generator(device=generator.device).manual_seed(
+            seed & (2 ** 63 - 1))
+
+    return gen
 
 
 # A dense block's MLP weight in a T5ForConditionalGeneration state dict.
@@ -1020,6 +1123,20 @@ class T5ForConditionalGeneration(nn.Module):
         self.decoder.init_weights(generator)
         if not self.size.tie_word_embeddings:
             self.lm_head.init_weights(generator)
+
+    def split_stages(self, pipe: PipeGroup) -> None:
+        """Both stacks hold and run only stage ``pipe.rank`` of their
+        GPipe schedules (a ``pipe`` mesh axis; ``T5Stack.
+        set_pipe_group``)."""
+        for stack in (self.encoder, self.decoder):
+            stack.set_pipe_group(pipe)
+
+    def split_experts(self, expert: ExpertGroup) -> None:
+        """Every MoE layer holds and runs only ``expert.rank``'s experts
+        (an ``expert`` mesh axis; ``T5MoeMlp.set_expert_group``)."""
+        for m in self.modules():
+            if isinstance(m, T5MoeMlp):
+                m.set_expert_group(expert)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids.long()).to(self.dtype)

@@ -12,10 +12,12 @@ every step.
 The JAX package computes all of it with XLA einsums and no Pallas kernel,
 so the port runs ``torch.einsum`` (cuBLAS batched GEMMs on the card). The
 one-hot dispatch and combine tensors cost FLOPs and memory that an index
-gather would not; they are kept as the JAX package has them. The JAX
-package's ``expert_constraint`` (the token exchange over the mesh's
-``expert`` axis) is the identity on one rank: the port has no expert axis
-above 1 yet (ROADMAP A12d), and its call sites are marked in ``moe_ffn``.
+gather would not; they are kept as the JAX package has them. Where the
+JAX package calls ``expert_constraint`` (the mesh's ``expert`` axis),
+``moe_ffn`` takes an ``ExpertGroup``: the rank runs its slice of the
+experts, whose banks it holds, on the tokens every rank of the group
+holds, and the group sums the partial combine (``parallel/partitioning.py``
+``expert_enter`` / ``expert_exit``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import dropout
+from ..parallel.partitioning import ExpertGroup, expert_enter, expert_exit
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -100,19 +103,38 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
 
 def moe_ffn(x: torch.Tensor, combine: torch.Tensor, wi: torch.Tensor,
             wo: torch.Tensor, dropout_rate: float = 0.0,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            expert: Optional[ExpertGroup] = None) -> torch.Tensor:
     """The experts' un-gated ReLU FFN over dense-dispatched tokens.
 
     ``x`` (G, S, D), ``combine`` (G, S, E, C) from ``topk_routing``, ``wi``
     (E, D, F) and ``wo`` (E, F, D), cast to x's dtype. Returns (G, S, D):
     each token's gate-weighted sum of its experts' outputs, zero for a
     token every expert dropped. Dropout after the ReLU draws from
-    ``generator``."""
+    ``generator``. With ``expert`` the banks are this rank's experts
+    ``expert.experts(E)`` only: the dispatch, the FFN and the combine run
+    on that slice of the E axis, and the group sums the partial combine in
+    fp32 (and, in the backward, the partial gradients of ``x`` and
+    ``combine``). The dropout mask is drawn whole at (E, G, C, F) and
+    sliced, so a rank keeps one process's."""
+    E = combine.shape[2]
+    mine = slice(0, E) if expert is None else expert.experts(E)
+    x = expert_enter(x, expert)
+    combine = expert_enter(combine, expert)[:, :, mine]
     dispatch = (combine > 0).to(x.dtype)
+    # The JAX package's expert_constraint(expert_in).
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
-    # A12d: expert_constraint(expert_in) shards the experts over ranks here.
     h = F.relu(torch.einsum("egcd,edf->egcf", expert_in, wi.to(x.dtype)))
-    h = dropout(h, dropout_rate, generator)
+    h = dropout(h, dropout_rate, generator,
+                None if expert is None else (0, mine.start, E))
     expert_out = torch.einsum("egcf,efd->egcd", h, wo.to(x.dtype))
-    # A12d: and expert_constraint(expert_out) here.
-    return torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    # And expert_constraint(expert_out).
+    if expert is None:
+        return torch.einsum("gsec,egcd->gsd", combine.to(x.dtype),
+                            expert_out)
+    # The partials in fp32 (of the same x.dtype operands), summed, then
+    # rounded once: one process's product accumulates every expert in fp32
+    # before its one rounding.
+    return expert_exit(torch.einsum(
+        "gsec,egcd->gsd", combine.to(x.dtype).float(), expert_out.float()),
+        expert).to(x.dtype)

@@ -34,17 +34,36 @@ The ``seq`` axis replicates every parameter, as ``data`` does; its
 ranks split the positions of each T5 stack (``SeqSlice``): ``seq_shard``
 is the port of the JAX package's ``seq_constraint``, ``seq_gather`` the
 all-gather that XLA inserts for attention's keys and values (and the
-reduce-scatter of their gradient). ``tick_constraint``,
-``pipe_constraint`` and ``expert_constraint`` belong to the ``pipe`` and
-``expert`` axes (ROADMAP A12d) and are not ported.
+reduce-scatter of their gradient).
+
+The ``pipe`` and ``expert`` axes replicate every parameter but the
+transformer's stage blocks and expert banks. ``stage_for_path`` is the JAX
+``_with_pipe`` rule on the port's names (block i of a stack of L lies in
+stage ``i // (L / S)``; the relative-position tables, which the JAX
+package keeps outside its stacks, on every stage), and the ``expert``
+rule shards the banks' leading dim. The JAX package's three constraints
+become the exchanges XLA would insert for them:
+
+* ``expert_constraint``: ``ExpertGroup``; the ranks of an expert group hold
+  the same rows, so no token moves. Each runs its experts' FFN on the
+  dispatched tokens, and ``expert_enter`` / ``expert_exit`` are
+  Megatron's f and g: the token activations' and the combine weights'
+  gradients, partial on each rank, summed over the group once, and the
+  partial combine summed once in the forward;
+* ``pipe_constraint``: ``PipeGroup`` and ``pipe_stages``, the stage shift
+  (each microbatch sent to the next stage, the cotangent received back);
+* ``tick_constraint``: the microbatch rows of the tick stack are this data
+  rank's own rows (``pipe_stages`` splits them; its backward puts each
+  microbatch's gradient back in place).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
-from typing import Iterable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -96,14 +115,38 @@ _RULES: list[tuple[str, Spec]] = [
 def spec_for_path(name: str, ndim: int) -> Spec:
     """The layout of one parameter of rank ``ndim``: a tuple of ``ndim``
     entries, each the mesh axis that shards that torch dim or None. The
-    port's names carry no pipeline stages: the GPipe schedule keeps its
-    layers' names (the ``pipe`` axis is ROADMAP A12d)."""
+    ``pipe`` axis is not a dim of the port's parameters (each block keeps
+    its own): ``stage_for_path`` places them."""
     for pattern, trailing in _RULES:
         if re.search(pattern, name):
             if len(trailing) > ndim:
                 return (None,) * ndim
             return (None,) * (ndim - len(trailing)) + tuple(trailing)
     return (None,) * ndim
+
+
+# A block's parameter in one of the transformer's stacks: (stack, index).
+_STAGE_BLOCK = re.compile(
+    r"^(?:transformer\.)?(encoder|decoder)\.block\.(\d+)\.(.*)$")
+
+
+def stage_for_path(name: str, num_layers: Mapping[str, int],
+                   stages: int) -> Optional[int]:
+    """The pipeline stage that holds the transformer parameter ``name``,
+    or None where every stage holds it: the JAX ``_with_pipe`` rule, which
+    shards the leading stage axis of the pipelined stacks over ``pipe``.
+    Block i of a stack of ``num_layers[stack]`` blocks ('encoder',
+    'decoder') lies in stage ``i // (L / stages)``; the relative-position
+    table (HF's name puts it in block 0) is outside the JAX package's
+    stacks and on every stage, and so is everything outside the blocks."""
+    m = _STAGE_BLOCK.match(name)
+    if stages == 1 or m is None or "relative_attention_bias" in m.group(3):
+        return None
+    L = num_layers[m.group(1)]
+    if L % stages:
+        raise ValueError(f"num_layers={L} not divisible by "
+                         f"pipeline_stages={stages}")
+    return int(m.group(2)) // (L // stages)
 
 
 def make_param_specs(module: nn.Module) -> dict[str, Spec]:
@@ -157,11 +200,14 @@ def tensor_parallel(name: str) -> bool:
 
 def applied_spec(name: str, shape: tuple, axis_sizes: Mapping[str, int]
                  ) -> tuple:
-    """The mesh axes on each dim as ``parallelize`` lays a parameter out:
-    ``tensor`` where the rules put it (not on the Swin tower), ``fsdp`` on
-    ``fsdp_dim``. Entries are tuples of axis names."""
+    """The mesh axes on each dim as ``parallelize`` and the expert split
+    lay a parameter out: ``expert`` and ``tensor`` where the rules put them
+    (``tensor`` not on the Swin tower), ``fsdp`` on ``fsdp_dim``. Entries
+    are tuples of axis names."""
     spec = spec_for_path(name, len(shape))
     out = [[] for _ in shape]
+    if "expert" in spec and axis_sizes.get("expert", 1) > 1:
+        out[spec.index("expert")].append("expert")
     if tensor_parallel(name) and axis_sizes.get("tensor", 1) > 1:
         out[spec.index("tensor")].append("tensor")
     if shape and axis_sizes.get("fsdp", 1) > 1:
@@ -183,14 +229,22 @@ def shard_numel(shape: tuple, spec: tuple, axis_sizes: Mapping[str, int]
 
 def per_rank_bytes(named_shapes: Iterable[tuple[str, tuple, bool]],
                    axis_sizes: Mapping[str, int],
-                   moment_bytes: int = 8) -> dict[str, int]:
+                   moment_bytes: int = 8, pipe_rank: int = 0
+                   ) -> dict[str, int]:
     """Bytes of parameters (fp32), gradients (fp32) and Adam's two fp32
     moments (``moment_bytes`` per element) on one rank, for parameters
-    given as (name, shape, trainable) and laid out as ``parallelize`` lays
-    them over ``axis_sizes``. Frozen parameters have no gradient and no
-    moments."""
+    given as (name, shape, trainable) and laid out as ``parallelize`` and
+    the expert split lay them over ``axis_sizes``; with ``pipe`` above 1
+    only the blocks of stage ``pipe_rank`` (``stage_for_path``) count.
+    Frozen parameters have no gradient and no moments."""
+    named_shapes = list(named_shapes)
+    stages = axis_sizes.get("pipe", 1)
+    layers = stack_layers(n for n, _, _ in named_shapes)
     params = grads = moments = 0
     for name, shape, trainable in named_shapes:
+        if stages > 1 and stage_for_path(name, layers, stages) not in (
+                None, pipe_rank):
+            continue
         n = shard_numel(shape, applied_spec(name, shape, axis_sizes),
                         axis_sizes)
         params += 4 * n
@@ -199,6 +253,18 @@ def per_rank_bytes(named_shapes: Iterable[tuple[str, tuple, bool]],
             moments += moment_bytes * n
     return dict(params=params, grads=grads, moments=moments,
                 total=params + grads + moments)
+
+
+def stack_layers(names: Iterable[str]) -> dict[str, int]:
+    """{'encoder' / 'decoder': its block count} of the transformer's
+    stacks, read off parameter names (one past the largest index)."""
+    out: dict[str, int] = {}
+    for name in names:
+        m = _STAGE_BLOCK.match(name)
+        if m is not None:
+            out[m.group(1)] = max(out.get(m.group(1), 0),
+                                  int(m.group(2)) + 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +515,271 @@ def seq_gather(x: torch.Tensor, seq: Optional[SeqSlice],
     if seq is None:
         return x
     return _SeqGather.apply(x, seq, dim)
+
+
+# ---------------------------------------------------------------------------
+# The expert axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertGroup:
+    """An expert group as an MoE layer sees it: the process group, this
+    rank's place in it and its size. Rank e holds experts ``[e E / size,
+    (e + 1) E / size)`` of every layer's E."""
+
+    group: object
+    rank: int
+    size: int
+
+    def experts(self, num_experts: int) -> slice:
+        """This rank's experts of ``num_experts``."""
+        if num_experts % self.size:
+            raise ValueError(f"moe_experts={num_experts} must be divisible "
+                             f"by the mesh expert axis {self.size}")
+        per = num_experts // self.size
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Forward: the sum over the group (``all_reduce``); backward: the
+    identity (Megatron's ``g``): a partial result whose every rank's
+    consumers see the whole, so the gradient, the same on every rank, is
+    each part's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def expert_enter(x: torch.Tensor, expert: Optional[ExpertGroup]
+                 ) -> torch.Tensor:
+    """``x`` (replicated over the expert group) as it enters the rank's
+    experts: the identity, whose backward sums the gradient over the group
+    (each rank's part comes from its experts only): the token activations
+    before dispatch and the combine weights before the combine. ``x``
+    itself without a group."""
+    if expert is None:
+        return x
+    return _SumGradOverGroup.apply(x, expert.group)
+
+
+def expert_exit(y: torch.Tensor, expert: Optional[ExpertGroup]
+                ) -> torch.Tensor:
+    """The rank's partial combine (its experts' share of each token's
+    output) summed over the expert group; the backward hands every rank
+    the gradient as it is. ``y`` itself without a group."""
+    if expert is None:
+        return y
+    return _SumOverGroup.apply(y, expert.group)
+
+
+# ---------------------------------------------------------------------------
+# The pipe axis
+# ---------------------------------------------------------------------------
+
+# Stage shifts made by this process, each way (the counter a run reads to
+# see that activations and cotangents travelled between stages).
+shifts = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeGroup:
+    """A pipe group as a pipelined stack sees it: the process group, this
+    rank's place in it (the stage it runs) and its size (the stages)."""
+
+    group: object
+    rank: int
+    size: int
+
+    def _peer(self, step: int) -> int:
+        import torch.distributed as dist
+
+        return dist.get_global_rank(self.group, self.rank + step)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Gloo takes no CUDA tensor for point-to-point
+        (``tools/torch_gloo_cuda_probe.py``): such a shift goes through
+        host memory."""
+        import torch.distributed as dist
+
+        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def send(self, t: torch.Tensor, step: int) -> tuple:
+        """Start sending ``t`` to stage ``rank + step``; returns what
+        ``wait`` takes (the request and the buffer it reads)."""
+        import torch.distributed as dist
+
+        global shifts
+        buf = t.detach().contiguous()
+        if self._staged(buf):
+            buf = buf.cpu()
+        shifts += 1
+        return dist.isend(buf, self._peer(step), group=self.group), buf
+
+    def recv(self, like: torch.Tensor, shape: Sequence[int],
+             step: int) -> torch.Tensor:
+        """A tensor of ``shape`` (``like``'s dtype and device) from stage
+        ``rank + step``."""
+        import torch.distributed as dist
+
+        buf = torch.empty(tuple(shape), dtype=like.dtype, device=(
+            "cpu" if self._staged(like) else like.device))
+        dist.recv(buf, self._peer(step), group=self.group)
+        return buf.to(like.device)
+
+    @staticmethod
+    def wait(sent: list) -> None:
+        for req, _ in sent:
+            req.wait()
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group, in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+def tick_stack(t: Optional[torch.Tensor], M: int) -> list:
+    """The JAX ``tick_constraint``'s stack on one data rank: its rows of
+    ``t`` as M microbatches (None for each where ``t`` is None)."""
+    if t is None:
+        return [None] * M
+    rows = t.shape[0] // M
+    return [t[m * rows:(m + 1) * rows] for m in range(M)]
+
+
+# One stage's run of microbatch m: (m, x, head bias, enc_out rows, key mask
+# rows, cross key mask rows) -> the stage's output rows.
+StageFn = Callable[..., torch.Tensor]
+
+
+def _stage_forward(stage_fn: StageFn, pipe: PipeGroup, M: int, grad: bool,
+                   x, head_bias, enc_out, kmask, cross_kmask,
+                   needs: Sequence[bool]):
+    """The forward of ``pipe_stages`` on this stage: (the last stage's
+    outputs on every rank, each microbatch's input leaf and output)."""
+    first, last = pipe.rank == 0, pipe.rank == pipe.size - 1
+    hb, eo = (None if t is None else t.detach().requires_grad_(grad and n)
+              for t, n in ((head_bias, needs[1]), (enc_out, needs[2])))
+    xs, ys, sent = [], [], []
+    graph = torch.enable_grad() if grad else contextlib.nullcontext()
+    with graph:
+        # Sliced in the graph: each microbatch's share of the gradient.
+        eos = tick_stack(eo, M)
+    parts = zip(tick_stack(x, M), eos, tick_stack(kmask, M),
+                tick_stack(cross_kmask, M))
+    for m, (xm, eom, km, ckm) in enumerate(parts):
+        if not first:
+            xm = pipe.recv(x, xm.shape, -1)
+        with graph:
+            xm = xm.detach().requires_grad_(grad and (needs[0]
+                                                      or not first))
+            y = stage_fn(m, xm, hb, eom, km, ckm)
+        xs.append(xm)
+        ys.append(y)
+        if not last:
+            sent.append(pipe.send(y, 1))
+    PipeGroup.wait(sent)
+    out = torch.cat([y.detach() for y in ys]) if last else torch.zeros_like(x)
+    # The last stage's outputs on every rank (the others add zeros).
+    return pipe.sum(out), xs, ys, hb, eo
+
+
+class _PipeStages(torch.autograd.Function):
+    """The GPipe schedule across a pipe group, with its backward written
+    out: each microbatch's activations shifted to the next stage in the
+    forward and its cotangent shifted back in the backward, in the same
+    microbatch order on both ends of every shift (point-to-point has no
+    autograd). The gradients of the inputs that every stage reads (the
+    head bias, the encoder output) and of ``x`` (which only stage 0
+    reads) are partial on each rank and are summed over the group; the
+    stage's parameters' gradients are its own."""
+
+    @staticmethod
+    def forward(ctx, stage_fn, pipe, M, x, head_bias, enc_out, kmask,
+                cross_kmask, *params):
+        needs = ctx.needs_input_grad[3:6]
+        out, ctx.xs, ctx.ys, ctx.hb, ctx.eo = _stage_forward(
+            stage_fn, pipe, M, True, x, head_bias, enc_out, kmask,
+            cross_kmask, needs)
+        ctx.pipe, ctx.params, ctx.needs = pipe, params, needs
+        ctx.x_like = (x.shape, x.dtype, x.device)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        pipe, params = ctx.pipe, ctx.params
+        first, last = pipe.rank == 0, pipe.rank == pipe.size - 1
+        leaves = [t for t in (ctx.hb, ctx.eo)
+                  if t is not None and t.requires_grad]
+        p_grads = [None] * len(params)
+        l_grads = [None] * len(leaves)
+        x_grads, sent = {}, []
+        M = len(ctx.ys)
+        g_parts = tick_stack(grad_out, M)
+        for m in reversed(range(M)):
+            y, xm = ctx.ys[m], ctx.xs[m]
+            g = g_parts[m] if last else pipe.recv(y, y.shape, 1)
+            inputs = ([xm] if xm.requires_grad else []) + leaves + list(
+                params)
+            gs = list(torch.autograd.grad(y, inputs, g, allow_unused=True))
+            if xm.requires_grad:
+                gx = gs.pop(0)
+                gx = torch.zeros_like(xm) if gx is None else gx
+                if first:
+                    x_grads[m] = gx
+                else:
+                    sent.append(pipe.send(gx, -1))
+            for acc, new in ((l_grads, gs[:len(leaves)]),
+                             (p_grads, gs[len(leaves):])):
+                for i, gi in enumerate(new):
+                    if gi is not None:
+                        acc[i] = gi if acc[i] is None else acc[i] + gi
+            ctx.ys[m] = ctx.xs[m] = None
+        PipeGroup.wait(sent)
+        shape, dtype, device = ctx.x_like
+        gx = None
+        if ctx.needs[0]:
+            gx = (torch.cat([x_grads[m] for m in range(M)]) if first
+                  else torch.zeros(shape, dtype=dtype, device=device))
+            pipe.sum(gx)
+        summed = {id(t): pipe.sum(torch.zeros_like(t) if g is None else g)
+                  for t, g in zip(leaves, l_grads)}
+        g_hb, g_eo = (None if t is None else summed.get(id(t))
+                      for t in (ctx.hb, ctx.eo))
+        return (None, None, None, gx, g_hb, g_eo, None, None, *p_grads)
+
+
+def pipe_stages(stage_fn: StageFn, params: Sequence[torch.Tensor],
+                pipe: PipeGroup, M: int, x: torch.Tensor,
+                head_bias: Optional[torch.Tensor],
+                enc_out: Optional[torch.Tensor],
+                kmask: Optional[torch.Tensor],
+                cross_kmask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The GPipe schedule with stage ``pipe.rank`` on this rank (the JAX
+    ``pipe_constraint``): microbatch m (``tick_stack``'s rows of ``x`` and
+    of its masks and encoder context) goes through ``stage_fn`` once the
+    previous stage has shifted it here, and on to the next. Stage s runs
+    microbatch m at tick s + m, as one process runs the ticks. Returns
+    the last stage's outputs, in batch order, on every rank of the group.
+    ``params``: the stage's trainable parameters, whose gradients the
+    backward returns (DDP over the data group sees each once)."""
+    if not torch.is_grad_enabled():
+        return _stage_forward(stage_fn, pipe, M, False, x, head_bias,
+                              enc_out, kmask, cross_kmask,
+                              (False,) * 3)[0]
+    return _PipeStages.apply(stage_fn, pipe, M, x, head_bias, enc_out,
+                             kmask, cross_kmask, *params)
 
 
 # ---------------------------------------------------------------------------

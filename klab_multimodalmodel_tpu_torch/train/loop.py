@@ -23,7 +23,8 @@ images (logged, TensorBoard ``quality/*``, and the epoch's
 
 Across processes (a process group: ``utils/mesh.py``) the loop takes the
 JAX package's multi-process branches. A data rank is an index over data x
-fsdp (``Mesh.dp_rank``): the ranks of one tensor or seq group share it,
+fsdp (``Mesh.dp_rank``): the ranks of one tensor, seq, pipe or expert
+group share it,
 draw the same rows and the same dropout stream. Rank 0 alone saves the config, logs
 at INFO, writes TensorBoard, the profile, ``metrics.jsonl``, ``loss.png``
 and the checkpoints; each process keeps its own feature-cache files
@@ -373,8 +374,9 @@ def train(config: Config,
         if mesh.distributed:
             states = [None] * dist.get_world_size()
             dist.all_gather_object(states, state, group=mesh.cpu_group)
-            # One per data rank: a tensor x seq block holds one stream.
-            states = states[::mesh.tensor * mesh.seq]
+            # One per data rank: a tensor x seq x pipe x expert block
+            # holds one stream.
+            states = states[::mesh.rows_share]
             meta["generator_state"] = states[0]
             meta["generator_states"] = states
         return meta

@@ -26,13 +26,22 @@ means over whole parameters, which the JAX package gets from XLA, so it
 gathers each gradient whole, computes one process's update and applies
 the rank's shard of it (a mean over a shard alone would be silently
 wrong).
+
+Under the ``pipe`` and ``expert`` axes each rank's optimizer holds its own
+parameters only (its stage's blocks, its experts' slices of the banks, and
+the replicated rest): Adam's state of a local tensor is that slice of one
+process's. ``Adafactor``'s factored statistics of an expert bank are per
+expert (it factors the two largest dims, never the experts'), so they
+slice too; its block RMS over a JAX leaf that spans ranks (a scanned
+stack's blocks, an expert bank) is summed over the pipe or expert group
+(``Adafactor.spread``).
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
@@ -213,16 +222,37 @@ class Adafactor(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float):
         super().__init__(params, dict(lr=lr))
+        # (process group, the indices of the param groups whose JAX leaf
+        # spans its ranks), set under the pipe or expert axis: those
+        # groups' sums of squares and sizes are summed over it.
+        self.spread: Optional[tuple] = None
 
     @torch.no_grad()
     def step(self, closure=None):
+        import torch.distributed as dist
+
+        blocks = []
         for group in self.param_groups:
             pairs = [(p, self._scaled(p)) for p in group["params"]
                      if p.grad is not None]
+            sq = sum((u * u).sum() for _, u in pairs) if pairs else None
+            blocks.append((pairs, sq, sum(u.numel() for _, u in pairs)))
+        if self.spread is not None:
+            pg, spread = self.spread
+            dev = next(p for g in self.param_groups for p in g["params"]
+                       ).device
+            sums = torch.stack([torch.stack([
+                blocks[i][1] if blocks[i][1] is not None
+                else torch.zeros((), device=dev),
+                torch.tensor(float(blocks[i][2]), device=dev)])
+                for i in spread])
+            dist.all_reduce(sums, group=pg)
+            for i, (sq, n) in zip(spread, sums):
+                blocks[i] = (blocks[i][0], sq, n)
+        for pairs, sq, n in blocks:
             if not pairs:
                 continue
-            sq = sum((u * u).sum() for _, u in pairs)
-            rms = torch.sqrt(sq / sum(u.numel() for _, u in pairs))
+            rms = torch.sqrt(sq / n)
             denom = torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
             for p, u in pairs:
                 step = -(group["lr"] * (u / denom))
@@ -285,6 +315,26 @@ def _drop(shape, dim: int) -> tuple:
     return tuple(s for i, s in enumerate(shape) if i != dim)
 
 
+def expert_factoring_slices(whole_shape: tuple, local_shape: tuple) -> bool:
+    """Whether ``Adafactor``'s statistics of an expert bank of
+    ``whole_shape`` (E, ...) are those of its slices of ``local_shape``:
+    it factors the same two dims of both, neither the experts' dim 0."""
+    dims = _factored_dims(whole_shape)
+    return (dims is None or 0 not in dims) and (
+        dims == _factored_dims(local_shape))
+
+
+def optimizer_groups(config: Config, names: Iterable[str]
+                     ) -> list[list[str]]:
+    """The optimizer's param groups, as lists of trainable parameter
+    names in the model's order: one group (Adam), or one per JAX leaf
+    (``Adafactor``'s clipping blocks)."""
+    names = list(names)
+    if config.optimizer == "adafactor":
+        return jax_leaf_groups(names)
+    return [names]
+
+
 def make_optimizer(config: Config, model: nn.Module, num_epochs: int
                    ) -> tuple[torch.optim.Optimizer,
                               torch.optim.lr_scheduler.LambdaLR]:
@@ -296,9 +346,10 @@ def make_optimizer(config: Config, model: nn.Module, num_epochs: int
         p.requires_grad_(name in names)
         if name in names:
             params[name] = p
+    groups = optimizer_groups(config, params)
     if config.optimizer == "adafactor":
         opt = Adafactor([{"params": [params[n] for n in g]}
-                         for g in jax_leaf_groups(params)], lr=config.lr)
+                         for g in groups], lr=config.lr)
     elif config.adam_mu_dtype == "bfloat16":
         opt = AdamBf16Mu(params.values(), lr=config.lr)
     else:

@@ -49,6 +49,18 @@ all-reduced gradient is one process's. Where the target length does not
 divide by ``seq`` the decoder runs whole on every seq rank and only seq
 rank 0 counts its tokens.
 
+A mesh with ``pipe`` or ``expert`` above 1 splits the transformer after
+its weights are made or loaded: a pipe rank keeps its stage's blocks
+(``T5ForConditionalGeneration.split_stages``), an expert rank its experts
+(``split_experts``), and every rank the rest, replicated. The ranks of a
+pipe or expert group hold the same rows and compute one loss: every
+exchange between them sits inside the model (the stage shift, the experts'
+partial sums), so that the gradients of the replicated parameters come out
+the same on each rank with no further reduction. DDP, when there is more
+than one data rank, spans the data group of the rank's stage or experts
+(``Mesh.dp_group``); with one data rank there is none. Whole state dicts
+gather the stages and the experts to rank 0 over the host's gloo group.
+
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
 """
@@ -70,12 +82,14 @@ from torch.nn.parallel import DistributedDataParallel
 from ..config import Config
 from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
-from ..parallel.partitioning import (SeqGroup, gather_full, local_shard,
-                                     parallelize)
+from ..parallel.partitioning import (ExpertGroup, PipeGroup, SeqGroup,
+                                     gather_full, local_shard, parallelize,
+                                     stack_layers, stage_for_path)
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
-from .optim import make_optimizer, trainable_names
+from .optim import (Adafactor, expert_factoring_slices, make_optimizer,
+                    optimizer_groups, trainable_names)
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -157,6 +171,27 @@ class Trainer:
             self.model.set_seq_group(
                 SeqGroup(self.mesh.seq_group(self.device.type),
                          self.mesh.seq_rank, self.mesh.seq), self.mesh)
+        mesh = self.mesh
+        if mesh.pipe > 1 and cfg.pipeline_stages != mesh.pipe:
+            raise ValueError(f"mesh pipe axis {mesh.pipe} must equal "
+                             f"pipeline_stages={cfg.pipeline_stages}")
+        if mesh.expert > 1 and (cfg.moe_experts == 0
+                                or cfg.moe_experts % mesh.expert):
+            raise ValueError(f"moe_experts={cfg.moe_experts} must be a "
+                             f"multiple of the mesh expert axis {mesh.expert}")
+        # Every rank makes the groups, in one order (collectives).
+        self.pipe = (PipeGroup(mesh.pipe_group(), mesh.pipe_rank, mesh.pipe)
+                     if mesh.pipe > 1 else None)
+        self.expert = (ExpertGroup(mesh.expert_group(), mesh.expert_rank,
+                                   mesh.expert) if mesh.expert > 1 else None)
+        if mesh.split:
+            mesh.dp_group(self.device.type)
+        # Under pipe or expert: the whole model's state-dict names, in
+        # order, its optimizer's param groups (by name) and its stacks'
+        # block counts, from before the split.
+        self._whole_names: list = []
+        self._whole_groups: list = []
+        self._layers: dict = {}
         self.net = StepNet(self.model, self.policy.compute_dtype)
         self.ddp: Optional[DistributedDataParallel] = None
         # Under sharding: the modules whose weights' gradients are summed
@@ -185,9 +220,10 @@ class Trainer:
                 f"global batch {global_batch} not divisible by the mesh's "
                 f"data factor {dp} (mesh "
                 f"{dict(zip(self.mesh.axis_names, self.mesh.shape))})")
-        if self.sharded and self.optimizer is not None:
-            raise RuntimeError("a sharded Trainer is initialized once; load "
-                               "later weights with load_full_state_dict")
+        if self.partitioned and self.optimizer is not None:
+            raise RuntimeError("a sharded or split Trainer is initialized "
+                               "once; load later weights with "
+                               "load_full_state_dict")
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         else:
@@ -204,18 +240,23 @@ class Trainer:
             self._cast_frozen()
             self.tensor_partial = parallelize(self.net, self.model,
                                               self.mesh, self.device)
+        if self.mesh.split:
+            self._split()
         self.optimizer, self.scheduler = make_optimizer(
             self.config, self.model, self.num_epochs)
+        if self.mesh.split and isinstance(self.optimizer, Adafactor):
+            self._spread_adafactor()
         self._cast_frozen()
         self.step = 0
         self.ddp = None
-        if self.mesh.distributed and not self.sharded:
+        if (self.mesh.distributed and not self.sharded
+                and (not self.mesh.split or self.mesh.data > 1)):
             # Every rank builds the same weights and buffers (the same seed,
             # or the same checkpoint file): rank 0's broadcasts would only
             # repeat them, at init and before every forward.
             args = inspect.signature(
                 DistributedDataParallel.__init__).parameters
-            kw = dict(process_group=self.mesh.group,
+            kw = dict(process_group=self.mesh.dp_group(self.device.type),
                       gradient_as_bucket_view=True)
             kw["forward_sync_buffers" if "forward_sync_buffers" in args
                else "broadcast_buffers"] = False
@@ -232,6 +273,144 @@ class Trainer:
         parallelism, from ``init_state`` on), not DDP."""
         return self.mesh.sharded
 
+    @property
+    def partitioned(self) -> bool:
+        """Whether each rank holds part of the state (sharded, or the
+        transformer's stages or experts split over ranks): whole state
+        dicts are gathered and cut again."""
+        return self.mesh.sharded or self.mesh.split
+
+    # -- the pipe and expert split -----------------------------------------
+    def _split(self) -> None:
+        """Split the transformer's stages or experts over their groups,
+        their weights as they are (the same on every rank)."""
+        names = trainable_names(self.model, self.config)
+        self._whole_names = list(self.model.state_dict())
+        self._whole_groups = optimizer_groups(
+            self.config, [n for n, _ in self.model.named_parameters()
+                          if n in names])
+        self._layers = stack_layers(self._whole_names)
+        banks = {n: tuple(p.shape) for n, p in
+                 self.model.named_parameters() if self._is_bank(n)}
+        if self.pipe is not None:
+            self.model.transformer.split_stages(self.pipe)
+        if self.expert is not None:
+            self.model.transformer.split_experts(self.expert)
+            if self.config.optimizer == "adafactor":
+                local = dict(self.model.named_parameters())
+                for n, shape in banks.items():
+                    if not expert_factoring_slices(shape,
+                                                   tuple(local[n].shape)):
+                        raise NotImplementedError(
+                            f"{n} {shape}: Adafactor would factor its "
+                            "experts' dim; split it with Adam, or fewer "
+                            "experts")
+
+    def _is_bank(self, name: str) -> bool:
+        return name.endswith((".mlp.experts_wi", ".mlp.experts_wo"))
+
+    def _placement(self, name: str):
+        """Where a state-dict entry of the whole model lives: ('stage', s)
+        on pipe rank s, ('expert',) sliced on dim 0 over the expert ranks,
+        or None (on every rank)."""
+        if self.pipe is not None:
+            s = stage_for_path(name, self._layers, self.pipe.size)
+            if s is not None:
+                return ("stage", s)
+        if self.expert is not None and self._is_bank(name):
+            return ("expert",)
+        return None
+
+    def _spread_adafactor(self) -> None:
+        """Adafactor's clipping blocks whose JAX leaf spans the pipe or
+        expert group: their sums of squares are summed over it."""
+        group = (self.pipe or self.expert).group
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        spread = [i for i, g in enumerate(self.optimizer.param_groups)
+                  if self._placement(names[id(g["params"][0])]) is not None]
+        self.optimizer.spread = (group, spread)
+
+    def _sources(self) -> list:
+        """The world ranks that hold rank 0's stages (by stage) or experts
+        (by slice): the members of rank 0's pipe or expert group."""
+        m = self.mesh
+        return ([s * m.expert for s in range(m.pipe)] if m.pipe > 1
+                else list(range(m.expert)))
+
+    def _gather_split(self, mine: dict) -> list:
+        """Rank 0: every source's ``mine`` (``_sources`` order; its own in
+        its place), sent over the host's gloo group; [] elsewhere."""
+        sources = self._sources()
+        rank, group = self.mesh.rank, self.mesh.cpu_group
+        if rank == 0:
+            out = []
+            for src in sources:
+                if src == 0:
+                    out.append(mine)
+                    continue
+                box = [None]
+                dist.recv_object_list(box, src=src, group=group)
+                out.append(box[0])
+            return out
+        if rank in sources:
+            dist.send_object_list([mine], dst=0, group=group)
+        return []
+
+    def _whole_entry(self, name: str, local: dict, parts: list):
+        """Entry ``name`` whole, from the sources' ``parts`` (rank 0's own
+        ``local`` for what every rank holds): a state tensor or a dict of
+        them (optimizer state), the experts' slices joined on dim 0; None
+        where its holder has none (no optimizer state yet)."""
+        where = self._placement(name)
+        if where is None:
+            return local.get(name)
+        if where[0] == "stage":
+            return parts[where[1]].get(name)
+        pieces = [p.get(name) for p in parts]
+        if pieces[0] is None:
+            return None
+
+        def join(values):
+            first = values[0]
+            if isinstance(first, torch.Tensor) and first.dim() > 0:
+                return torch.cat(values)
+            return first
+
+        if isinstance(pieces[0], dict):
+            return {k: join([p[k] for p in pieces]) for k in pieces[0]}
+        return join(pieces)
+
+    def _local_entry(self, name: str, whole):
+        """This rank's part of a whole entry (``_whole_entry``'s inverse):
+        the experts' slice of every tensor of dim > 0."""
+        if self._placement(name) != ("expert",):
+            return whole
+        mine = self.expert.experts(self.config.moe_experts)
+
+        def cut(v):
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                return v[mine]
+            return v
+
+        if isinstance(whole, dict):
+            return {k: cut(v) for k, v in whole.items()}
+        return cut(whole)
+
+    def _optimizer_by_name(self) -> tuple[dict, dict]:
+        """(this rank's optimizer state by parameter name, on the host; the
+        hyperparameters of its param groups, which share them)."""
+        state = self.optimizer.state_dict()
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        by_name = {names[id(params[int(i)])]: {
+            k: (v.detach().to("cpu", copy=True)
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in st.items()}
+            for i, st in state["state"].items()}
+        hyper = {k: v for k, v in state["param_groups"][0].items()
+                 if k != "params"}
+        return by_name, hyper
+
     def _cast_frozen(self) -> None:
         if self.config.frozen_param_dtype == "bfloat16":
             # They feed bf16 compute and take no update; the buffers (window
@@ -246,6 +425,15 @@ class Trainer:
         process or under DDP; under sharding gathered (every rank calls
         it: ``parallel.partitioning.gather_full``), on the host, held by
         rank 0 (the other ranks get an empty dict)."""
+        if self.mesh.split:
+            local = {n: v.detach().to("cpu", copy=True)
+                     for n, v in self.model.state_dict().items()}
+            parts = self._gather_split({n: v for n, v in local.items()
+                                        if self._placement(n) is not None})
+            if self.mesh.rank != 0:
+                return {}
+            return {n: self._whole_entry(n, local, parts)
+                    for n in self._whole_names}
         if not self.sharded:
             return self.model.state_dict()
         out = {}
@@ -258,8 +446,21 @@ class Trainer:
     def load_full_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                              strict: bool = True) -> None:
         """Load a whole state dict (one process's, the same on every rank)
-        into the model; under sharding each rank copies its shards out of
-        it (no communication)."""
+        into the model; under sharding, and under the pipe and expert
+        split, each rank copies its part out of it (no communication)."""
+        if self.mesh.split:
+            known = set(self._whole_names)
+            missing = sorted(known - set(state_dict))
+            unexpected = sorted(set(state_dict) - known)
+            if unexpected or (strict and missing):
+                raise RuntimeError(f"state dict: missing {missing}, "
+                                   f"unexpected {unexpected}")
+            local = self.model.state_dict()
+            with torch.no_grad():
+                for name, value in state_dict.items():
+                    if name in local:
+                        local[name].copy_(self._local_entry(name, value))
+            return
         if not self.sharded:
             self.model.load_state_dict(state_dict, strict=strict)
             return
@@ -281,8 +482,23 @@ class Trainer:
 
     def full_optimizer_state_dict(self) -> dict:
         """The optimizer's state dict (one process's form), every tensor
-        whole; under sharding gathered (every rank calls it) and held by
-        rank 0."""
+        whole; under sharding and the split gathered (every rank calls it)
+        and held by rank 0."""
+        if self.mesh.split:
+            by_name, hyper = self._optimizer_by_name()
+            parts = self._gather_split({n: v for n, v in by_name.items()
+                                        if self._placement(n) is not None})
+            if self.mesh.rank != 0:
+                return {}
+            groups, i = [], 0
+            for g in self._whole_groups:
+                groups.append(dict(hyper, params=list(range(i, i + len(g)))))
+                i += len(g)
+            flat = [n for g in self._whole_groups for n in g]
+            out = {i: self._whole_entry(n, by_name, parts)
+                   for i, n in enumerate(flat)}
+            return {"state": {i: st for i, st in out.items()
+                              if st is not None}, "param_groups": groups}
         state = self.optimizer.state_dict()
         if not self.sharded:
             return state
@@ -298,7 +514,24 @@ class Trainer:
         """Load ``full_optimizer_state_dict``'s form into the optimizer;
         under sharding a state tensor shaped as its parameter becomes the
         rank's shard of it, unless the optimizer keeps whole state
-        (``Adafactor``)."""
+        (``Adafactor``); under the split each rank takes its parameters'
+        state, the experts' slices of it. Every state tensor keeps its saved
+        dtype (torch's loader would cast ``AdamBf16Mu``'s bf16 moment to
+        its parameter's)."""
+        if self.mesh.split:
+            flat = [n for g in self._whole_groups for n in g]
+            saved = {flat[int(i)]: st for i, st in state["state"].items()}
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            local = {i: self._local_entry(names[id(p)],
+                                          saved[names[id(p)]])
+                     for i, p in enumerate(params) if names[id(p)] in saved}
+            hyper = {k: v for k, v in state["param_groups"][0].items()
+                     if k != "params"}
+            groups = [dict(g, **hyper) for g in
+                      self.optimizer.state_dict()["param_groups"]]
+            state = {"state": local, "param_groups": groups}
         if self.sharded and not getattr(self.optimizer, "whole_state",
                                         False):
             params = [p for g in self.optimizer.param_groups
@@ -314,6 +547,13 @@ class Trainer:
                     for k, v in st.items()}
             state = dict(state, state=sharded)
         self.optimizer.load_state_dict(state)
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for i, saved in state["state"].items():
+            live = self.optimizer.state[params[int(i)]]
+            for key, value in saved.items():
+                if (isinstance(value, torch.Tensor)
+                        and live[key].dtype != value.dtype):
+                    live[key] = live[key].to(value.dtype)
 
     def to_device(self, batch: Batch) -> dict:
         """The batch on the model's device. Host arrays go to the card
@@ -353,8 +593,8 @@ class Trainer:
         return mask.reshape(parts, -1).to(torch.float32).sum(dim=1)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the data x fsdp ranks (the world's under DDP):
-        a tensor group holds one copy of its rows."""
+        """``t`` summed over the ranks of ``Mesh.dp_group``: a tensor, pipe
+        or expert group holds one copy of its rows."""
         dist.all_reduce(t, group=self.mesh.dp_group(self.device.type))
         return t
 

@@ -5,19 +5,23 @@ The reference trains with ``torchrun --nproc_per_node=W train.py``: it calls
 ``DistributedDataParallel``. The JAX package replaced that with a device
 mesh over the axes ``(data, fsdp, tensor, seq, pipe, expert)``; the port
 goes back to the process group, one process per rank, and lays the ranks
-out over ``(data, fsdp, tensor, seq)`` in row-major order (rank = ((d F +
-f) T + t) S + s). ``data`` alone: gradients all-reduced by DDP
+out over all six axes in the JAX order, row-major (rank = ((((d F + f) T +
+t) S + s) P + p) E + e). ``data`` alone: gradients all-reduced by DDP
 (``train/trainer.py``). ``fsdp`` and ``tensor``: FSDP2 over ``(data,
 fsdp)`` and DTensor tensor parallelism over ``tensor``
 (``parallel/partitioning.py``), on a ``DeviceMesh`` of those three axes.
 ``seq``: each rank of a seq group runs its ``L / S`` positions of every T5
 stack, the parameters replicated as under DDP, whose gradient all-reduce
 then spans data x seq (``seq_group`` carries the stacks' K/V exchange).
-The ranks of one tensor or seq group share their rows: the batch splits
-over the ``data x fsdp`` index (``dp_rank`` of ``dp_size``). ``pipe`` and
-``expert`` wait for ROADMAP A12d (the GPipe schedule and the experts run
-unsharded on each rank); a shape that sets either above 1 raises, and so
-does ``seq`` with ``fsdp`` or ``tensor`` (``config.py``).
+``pipe``: pipe rank p holds stage p of the transformer's GPipe schedule
+(``pipe_group`` carries the stage shift); ``expert``: expert rank e holds
+experts ``[e E/n, (e+1) E/n)`` of every MoE layer (``expert_group`` sums
+their partial outputs). The ranks of one tensor, seq, pipe or expert group
+share their rows: the batch splits over the ``data x fsdp`` index
+(``dp_rank`` of ``dp_size``). ``pipe`` and ``expert`` do not compose with
+``fsdp``, ``tensor`` or ``seq`` yet, nor with each other, and ``seq`` does
+not compose with ``fsdp`` or ``tensor`` (ROADMAP A12d's second half): such
+a shape raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -46,13 +50,8 @@ import torch.distributed as dist
 from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
-# The axes that carry ranks: data, the sharding of parameters, and the
-# sequence.
-RANK_AXES = ("data", "fsdp", "tensor", "seq")
 # The axes of the DeviceMesh that FSDP2 and tensor parallelism run on.
 SHARD_AXES = ("data", "fsdp", "tensor")
-# Axes not ported yet, and the ROADMAP item that ports each.
-UNPORTED_AXES = {"pipe": "A12d", "expert": "A12d"}
 # Generous: the first collective waits for the slowest rank's model build
 # and, on a cold tree, the kernels' build.
 TIMEOUT = timedelta(minutes=30)
@@ -88,27 +87,41 @@ def resolve_mesh_shape(mesh_shape: Sequence[int],
     return tuple(shape)
 
 
-def unported_axes(mesh_shape: Sequence[int],
-                  axis_names: Sequence[str] = DEFAULT_AXIS_NAMES
-                  ) -> list[str]:
-    """Each unported axis (``UNPORTED_AXES``) that is not 1, with the
-    ROADMAP item that ports it."""
-    return [f"{name}={size} (ROADMAP {UNPORTED_AXES[name]})"
-            for name, size in zip(axis_names, mesh_shape)
-            if name in UNPORTED_AXES and int(size) != 1]
-
-
-def refuse_unported_axes(mesh_shape: Sequence[int],
-                         axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
-                         what: str = "mesh_shape") -> None:
-    """Raise ``NotImplementedError`` if an unported axis is not 1, naming
-    the ROADMAP item that ports it."""
-    refused = unported_axes(mesh_shape, axis_names)
-    if refused:
+def refuse_waiting_combinations(shape: Sequence[int],
+                                axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
+                                what: str = "mesh_shape") -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A12d for the axes that
+    do not compose yet: ``pipe`` or ``expert`` above 1 beside ``fsdp``,
+    ``tensor`` or ``seq`` above 1, or beside each other. A -1 counts as
+    above 1."""
+    size = {n: int(v) for n, v in zip(axis_names, shape)}
+    over = [n for n in ("fsdp", "tensor", "seq", "pipe", "expert")
+            if size.get(n, 1) != 1]
+    split = [n for n in over if n in ("pipe", "expert")]
+    if split and len(over) > 1:
         raise NotImplementedError(
-            f"{what}: only the data, fsdp, tensor and seq axes are "
-            "ported; "
-            + ", ".join(refused))
+            f"{what} {tuple(shape)}: {' and '.join(over)} above 1 together "
+            "is ROADMAP A12d (run pipe or expert on a data x pipe or data "
+            "x expert mesh)")
+
+
+def axis_groups(shape: Sequence[int], axes: Sequence[int]
+                ) -> list[list[int]]:
+    """The groups of a row-major rank layout of ``shape`` along ``axes``
+    (indices into ``shape``): the ranks of a group share every other
+    axis's coordinate; groups in order of their first rank, members in
+    rank order."""
+    shape = [int(s) for s in shape]
+    groups: dict[tuple, list[int]] = {}
+    for r in range(math.prod(shape)):
+        coords, rest = [], r
+        for size in reversed(shape):
+            coords.append(rest % size)
+            rest //= size
+        coords.reverse()
+        key = tuple(c for i, c in enumerate(coords) if i not in axes)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,10 +250,24 @@ class Mesh:
         return self.size("seq")
 
     @property
+    def pipe(self) -> int:
+        return self.size("pipe")
+
+    @property
+    def expert(self) -> int:
+        return self.size("expert")
+
+    @property
     def sharded(self) -> bool:
         """Whether parameters are sharded (``fsdp`` or ``tensor`` above
         1): FSDP2 and tensor parallelism instead of DDP."""
         return self.fsdp > 1 or self.tensor > 1
+
+    @property
+    def split(self) -> bool:
+        """Whether the transformer's stages (``pipe``) or experts
+        (``expert``) are split over ranks."""
+        return self.pipe > 1 or self.expert > 1
 
     @property
     def dp_size(self) -> int:
@@ -248,22 +275,39 @@ class Mesh:
         return self.data * self.fsdp
 
     @property
+    def rows_share(self) -> int:
+        """The ranks that share one data rank's rows: tensor x seq x pipe x
+        expert, consecutive in rank order."""
+        return self.tensor * self.seq * self.pipe * self.expert
+
+    @property
     def dp_rank(self) -> int:
         """This rank's index over data x fsdp: the chunk of each global
         batch it draws, and the stream its dropout draws from (the ranks
-        of one tensor x seq block share both)."""
-        return self.rank // (self.tensor * self.seq)
+        of one tensor x seq x pipe x expert block share both)."""
+        return self.rank // self.rows_share
 
     @property
     def tensor_rank(self) -> int:
         """This rank's place in its tensor group."""
-        return self.rank // self.seq % self.tensor
+        return self.rank // (self.seq * self.pipe * self.expert) % self.tensor
 
     @property
     def seq_rank(self) -> int:
         """This rank's place in its seq group: it runs positions
         ``seq_rank * L / seq ..`` of every stack whose length L divides."""
-        return self.rank % self.seq
+        return self.rank // (self.pipe * self.expert) % self.seq
+
+    @property
+    def pipe_rank(self) -> int:
+        """This rank's place in its pipe group: the stage it holds."""
+        return self.rank // self.expert % self.pipe
+
+    @property
+    def expert_rank(self) -> int:
+        """This rank's place in its expert group: it holds experts
+        ``expert_rank * E / expert ..``."""
+        return self.rank % self.expert
 
     @property
     def distributed(self) -> bool:
@@ -294,14 +338,34 @@ class Mesh:
                                    mesh["data", "fsdp"]._flatten("dp"))
         return meshes[device_type]
 
+    def _subgroup(self, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
+        """This rank's group along ``axes`` (its peers that differ only in
+        those axes' coordinates), on the world's backend; made once for
+        every rank (a collective: every rank calls it), None in a process
+        of its own."""
+        if not self.distributed:
+            return None
+        made = self.__dict__.setdefault("_subgroups", {})
+        key = tuple(axes)
+        if key not in made:
+            idx = [self.axis_names.index(a) for a in axes]
+            made[key], _ = dist.new_subgroups_by_enumeration(
+                axis_groups(self.shape, idx), timeout=TIMEOUT)
+        return made[key]
+
     def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
-        """The group of this rank's data x fsdp peers (its tensor rank's
-        copies of the other rows); the world's without sharding, which
-        under ``seq`` holds data x seq: each seq rank counts the target
-        tokens of its own positions."""
-        if not self.sharded:
+        """The group of this rank's copies of the other rows, which carries
+        token counts and losses: the data x fsdp peers of its tensor rank
+        under sharding; else the ranks that share its pipe and expert
+        coordinates (the world's when both are 1), which under ``seq``
+        hold data x seq: each seq rank counts the target tokens of its
+        own positions. Under DDP it is also the group of the gradient
+        all-reduce."""
+        if self.sharded:
+            return self._meshes(device_type)[1].get_group()
+        if not self.split:
             return self.group
-        return self._meshes(device_type)[1].get_group()
+        return self._subgroup(("data", "fsdp", "seq"))
 
     def tensor_group(self, device_type: str) -> dist.ProcessGroup:
         return self.device_mesh(device_type)["tensor"].get_group()
@@ -311,16 +375,19 @@ class Mesh:
         rows and split their positions), on the world's backend, which
         carries ``device_type``'s tensors; None when ``seq`` is 1. Made once
         (a collective: every rank calls it)."""
-        if self.seq == 1 or not self.distributed:
+        if self.seq == 1:
             return None
-        if "_seq_group" not in self.__dict__:
-            S = self.seq
-            world = math.prod(self.size(a) for a in RANK_AXES)
-            # Consecutive ranks: s is the fastest rank axis.
-            self._seq_group, _ = dist.new_subgroups_by_enumeration(
-                [list(range(i, i + S)) for i in range(0, world, S)],
-                timeout=TIMEOUT)
-        return self._seq_group
+        return self._subgroup(("seq",))
+
+    def pipe_group(self) -> Optional[dist.ProcessGroup]:
+        """The group of this rank's pipe peers (the other stages of its
+        rows), in stage order; None when ``pipe`` is 1."""
+        return None if self.pipe == 1 else self._subgroup(("pipe",))
+
+    def expert_group(self) -> Optional[dist.ProcessGroup]:
+        """The group of this rank's expert peers (the other experts of its
+        rows), in expert order; None when ``expert`` is 1."""
+        return None if self.expert == 1 else self._subgroup(("expert",))
 
 
 # (world group, its gloo twin): held, so that a later group made after a
@@ -347,8 +414,8 @@ def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
     """The mesh over the world's processes (one, when no process group
     exists). Each axis is ``mesh_shape``'s entry (-1: the rest of the
     world) times ``dcn_mesh_shape``'s: the JAX package's parallelism across
-    slices is, here, more ranks on that axis. An unported axis above 1
-    raises."""
+    slices is, here, more ranks on that axis. Axes that do not compose yet
+    raise (``refuse_waiting_combinations``)."""
     axis_names = tuple(axis_names)
     if set(axis_names) < set(DEFAULT_AXIS_NAMES):
         axis_names = axis_names + tuple(
@@ -356,8 +423,8 @@ def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
     n = len(axis_names)
     ici = pad_mesh_shape(mesh_shape, n)
     dcn = pad_mesh_shape(dcn_mesh_shape or (), n)
-    refuse_unported_axes(ici, axis_names)
-    refuse_unported_axes(dcn, axis_names, "dcn_mesh_shape")
+    refuse_waiting_combinations([a * b for a, b in zip(ici, dcn)],
+                                axis_names)
     group = dist.group.WORLD if dist.is_initialized() else None
     world = dist.get_world_size() if group is not None else 1
     n_slices = math.prod(dcn)

@@ -13,11 +13,14 @@ loads through ``load_pretrained_params`` over its seeded weights),
 ``batches`` (a ``.pt`` list of global batches; each data rank
 takes its rows), ``result_dir`` (its checkpoint ``step_N`` is written
 there), ``out`` (rank 0's JSON: the losses), ``params`` (rank 0's ``.pt``:
-the whole parameters gathered after the steps) and optionally ``local``
-(a ``.pt`` path with ``{rank}``: each rank's own shards of the parameters
-that no tensor rank splits; all of them without a tensor axis) and ``restore`` (a checkpoint directory's
-``result_dir`` whose ``step_N`` this run restores after its steps; rank 0
-writes the whole parameters then held to ``restored``). A run with
+the whole parameters gathered after the steps, and the whole optimizer
+state as ``optimizer``) and optionally ``local`` (a ``.pt`` path with
+``{rank}``: each rank's own shards of the parameters that no tensor rank
+splits; all of them without a tensor axis) and ``restore`` (a checkpoint
+directory's ``result_dir`` whose ``step_N`` this run restores after its
+steps; rank 0 writes the whole parameters and optimizer state then held
+to ``restored`` and ``restored_optimizer``). The JSON holds the stage
+shifts of the steps too, and the size of DDP's group (0 without DDP). A run with
 ``loop`` instead runs ``train()`` on the skewed synthetic rows of
 ``_torch_ddp_worker.loaders`` (``n_train``, ``n_val``, ``global_batch``),
 each data rank on its chunk, and rank 0 writes its losses to ``out``;
@@ -44,6 +47,7 @@ from klab_multimodalmodel_tpu_torch import config as tcfg
 from klab_multimodalmodel_tpu_torch.checkpoint.io import (
     CheckpointManager, load_pretrained_params)
 from klab_multimodalmodel_tpu_torch.ops import ring_attention
+from klab_multimodalmodel_tpu_torch.parallel import partitioning
 from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
     SeqGroup, tensor_parallel)
 from klab_multimodalmodel_tpu_torch.train import Trainer, train
@@ -123,9 +127,12 @@ def run_one(run: dict) -> None:
         trainer.init_state(state_dict=torch.load(run["init"]))
     gen = torch.Generator().manual_seed(dropout_seed(cfg.seed, mesh.dp_rank))
     before = ring_attention.exchanges
+    shifts = partitioning.shifts
     losses = [float(trainer.train_step(rows(b, mesh), gen))
               for b in torch.load(run["batches"])]
+    shifts = partitioning.shifts - shifts
     full = trainer.full_state_dict()
+    full_opt = trainer.full_optimizer_state_dict()
     manager = CheckpointManager(run["result_dir"], mesh)
     manager.save(f"step_{trainer.step}", trainer)
     manager.wait()
@@ -137,17 +144,23 @@ def run_one(run: dict) -> None:
                    run["local"].format(rank=mesh.rank))
     evals = [float(trainer.eval_step(rows(b, mesh)))
              for b in (torch.load(run["eval"]) if run.get("eval") else [])]
-    restored = None
+    restored = restored_opt = None
     if run.get("restore"):
         other = CheckpointManager(run["restore"], mesh)
         other.restore(other.latest(), trainer)
         restored = trainer.full_state_dict()
+        restored_opt = trainer.full_optimizer_state_dict()
     if mesh.rank == 0:
-        torch.save({"params": full, "restored": restored}, run["params"])
+        torch.save({"params": full, "optimizer": full_opt,
+                    "restored": restored,
+                    "restored_optimizer": restored_opt}, run["params"])
         with open(run["out"], "w") as f:
             json.dump(dict(losses=losses, step=trainer.step, evals=evals,
                            dp=[mesh.dp_rank, mesh.dp_size],
-                           ring_exchanges=ring_attention.exchanges - before),
+                           ring_exchanges=ring_attention.exchanges - before,
+                           shifts=shifts,
+                           ddp_ranks=(trainer.ddp.process_group.size()
+                                      if trainer.ddp is not None else 0)),
                       f)
 
 

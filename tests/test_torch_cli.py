@@ -96,10 +96,6 @@ def test_parse_arguments_matches_jax_on_run_scripts(script):
     refused = [f"--{name}" for name, (default, _) in
                tcfg.UNPORTED_FLAGS.items()
                if getattr(want, name) != default]
-    # A mesh is ported on its data, fsdp, tensor and seq axes (pipe and
-    # expert: A12d).
-    refused += [f"--{name}" for name in ("mesh_shape", "dcn_mesh_shape")
-                if any(s != 1 for s in getattr(want, name)[4:])]
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             tcfg.parse_arguments(argv)
@@ -122,6 +118,8 @@ def test_defaults_match_jax():
     ("--dcn_mesh_shape 1 1 2 1 1 1", None),
     ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", "A12d"),
     ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12d"),
+    ("--mesh_shape 1 2 1 1 1 2 --moe_experts 2", "A12d"),
+    ("--mesh_shape 2 1 1 1 2 1 --pipeline_stages 2", None),
     ("--scan_unroll 2", "not ported by design"),
     ("--seq_attention ring", None),
     ("--mesh_shape 1 1 1 2", None),
@@ -134,14 +132,17 @@ def test_defaults_match_jax():
     ("--moe_experts 2 --moe_top_k 3", ValueError),
     ("--moe_experts 2 --moe_capacity_factor 2.0", None),
     ("--moe_experts 2 --moe_aux_loss_weight 0.1", None),
-    ("--moe_experts 8 --mesh_shape 1 1 1 1 1 2", "A12d"),
+    ("--moe_experts 8 --mesh_shape 1 1 1 1 1 2", None),
+    ("--moe_experts 6 --mesh_shape 1 1 1 1 1 4", ValueError),
+    ("--mesh_shape 1 1 1 1 2 1", ValueError),
     ("--profile_server_port 9012", "no live profiler server")])
 def test_unported_flag_raises_naming_its_item(argv, item):
-    """A flag or mesh axis the port does not honour raises
-    ``NotImplementedError`` naming its ROADMAP item; a pipeline or MoE
-    value the JAX package refuses raises its ``ValueError`` with its
-    message (``item`` ValueError); the ported flags parse as the JAX
-    package parses them (``item`` None)."""
+    """A flag or a combination of mesh axes the port does not honour
+    raises ``NotImplementedError`` naming its ROADMAP item; a pipeline,
+    MoE or mesh value the JAX package refuses raises its ``ValueError``
+    with its message (``item`` ValueError); the ported flags, the pipe and
+    expert axes among them, parse as the JAX package parses them (``item``
+    None)."""
     argv = shlex.split(argv)
     if item is ValueError:
         with pytest.raises(ValueError) as want:

@@ -448,7 +448,7 @@ def test_stopwatch_counts():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("mesh_shape", (1, 1, 1, 1, 1, 2), NotImplementedError, "A12d"),
+    ("mesh_shape", (1, 1, 1, 1, 1, 2), ValueError, "requires --moe_experts"),
     ("profile_server_port", 9999, NotImplementedError, "profiler server"),
     ("accumulation_tail", "wrap", ValueError, "accumulation_tail"),
     ("decode_workers", "fiber", ValueError, "decode_workers"),

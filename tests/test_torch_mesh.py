@@ -1,7 +1,7 @@
 """The port's mesh and process-group set-up (``utils/mesh.py``) against the
 JAX package's ``utils/mesh.py``: the pure shape functions on the same
-inputs, errors included; the refusal of every axis but ``data`` (in
-``make_mesh``, ``Config`` and the command line); the environment of
+inputs, errors included; the refusal of the axes that do not compose yet
+(in ``make_mesh``, ``Config`` and the command line); the environment of
 torchrun and of the JAX package's ``KLAB_*`` variables; the rank's device."""
 
 import os
@@ -39,24 +39,42 @@ def test_resolve_mesh_shape_matches_jax(shape, n):
             == _outcome(jmesh.resolve_mesh_shape, shape, n))
 
 
-@pytest.mark.parametrize("shape,item", [
-    ((1, 2, 1, 1, 2), "A12d"), ((1, 1, 2, 1, 2), "A12d"),
-    ((1, 1, 1, 2, 2), "A12d"), ((1, 1, 1, 1, 2), "A12"),
-    ((1, 1, 1, 1, 1, 2), "A12"), ((1, -1, 1, 1, 1, 2), "A12d")])
-def test_non_data_axes_are_refused(shape, item):
-    """The axes not ported (pipe, expert), alone or beside fsdp, tensor
-    and seq: refused by ``make_mesh``, by ``Config`` (``mesh_shape`` and
-    ``dcn_mesh_shape``) and by the command line, naming the ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match=item):
-        tmesh.make_mesh(shape)
-    with pytest.raises(NotImplementedError, match=item):
-        tmesh.make_mesh((-1, 1, 1), dcn_mesh_shape=shape)
+PIPE = dict(pipeline_stages=2, use_pallas_t5_attention=False)
+EXPERT = dict(moe_experts=2)
+
+
+@pytest.mark.parametrize("shape,flags,item", [
+    ((1, 2, 1, 1, 2), PIPE, "A12d"), ((1, 1, 2, 1, 2), PIPE, "A12d"),
+    ((1, 1, 1, 2, 2), PIPE, "seq mesh axis"), ((1, 1, 1, 1, 2), PIPE, None),
+    ((1, 1, 1, 1, 1, 2), EXPERT, None),
+    ((1, -1, 1, 1, 1, 2), EXPERT, "A12d")])
+def test_non_data_axes_are_refused(shape, flags, item):
+    """The pipe and expert axes beside fsdp, tensor or seq (as
+    ``mesh_shape`` or ``dcn_mesh_shape``) are refused by ``make_mesh``
+    naming ROADMAP A12d, and by ``Config`` and the command line with the
+    flags that the axis needs: naming A12d, or with the JAX package's
+    ValueError where it refuses first (stages with seq). Alone, each axis
+    builds as the JAX ``Config`` builds it, and ``make_mesh`` asks only
+    for the world to match."""
+    for kw in (dict(mesh_shape=shape), dict(mesh_shape=(-1, 1, 1),
+                                            dcn_mesh_shape=shape)):
+        with pytest.raises(NotImplementedError if item else ValueError,
+                           match="A12d" if item else "device count|divisible"):
+            tmesh.make_mesh(**kw)
+    argv = [f"--{k}" if v is True else f"--{k} {v}" for k, v in flags.items()
+            if v is not False]
     for field in ("mesh_shape", "dcn_mesh_shape"):
-        with pytest.raises(NotImplementedError, match=item):
-            Config(**{field: shape})
-        with pytest.raises(NotImplementedError, match=item):
-            parse_arguments([f"--{field}", *map(str, shape)])
+        cli = " ".join(argv + [f"--{field}", *map(str, shape)]).split()
+        if item is None:
+            want = jmesh.pad_mesh_shape(shape)
+            assert getattr(Config(**{field: shape}, **flags), field) == want
+            assert getattr(parse_arguments(cli), field) == want
+            continue
+        error = ValueError if item == "seq mesh axis" else NotImplementedError
+        with pytest.raises(error, match=item):
+            Config(**{field: shape}, **flags)
+        with pytest.raises(error, match=item):
+            parse_arguments(cli)
 
 
 def test_data_axis_resolves_over_the_world():
@@ -133,3 +151,37 @@ def test_single_process_commands_refuse_a_job(monkeypatch):
     with pytest.raises(RuntimeError, match="serve runs in one process"):
         cli.serve_main(["--result_dir", "nowhere"])
     assert os.environ["WORLD_SIZE"] == "4"
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 1, 1, 2), (2, 1, 1, 1, 2, 1),
+                                   (1, 2, 2, 1, 1, 1), (2, 1, 1, 2, 1, 1),
+                                   (3, 1, 1, 1, 2, 1)])
+def test_rank_layout_is_row_major_over_six_axes(shape):
+    """Each rank's place on every axis is its row-major coordinate in the
+    JAX order (data, fsdp, tensor, seq, pipe, expert); its rows are its
+    data x fsdp index. The groups along an axis (``axis_groups``) hold
+    the ranks that differ on it alone, so the data group that DDP spans
+    under the pipe or expert split (data, fsdp and seq) never mixes two
+    stages or two expert slices."""
+    import math
+
+    import numpy as np
+
+    names = tmesh.DEFAULT_AXIS_NAMES
+    for rank in range(math.prod(shape)):
+        m = tmesh.Mesh(shape=shape, axis_names=names, group=None,
+                       cpu_group=None, rank=rank)
+        d, f, t, s, p, e = np.unravel_index(rank, shape)
+        assert (m.dp_rank, m.tensor_rank, m.seq_rank, m.pipe_rank,
+                m.expert_rank) == (d * shape[1] + f, t, s, p, e)
+        assert m.dp_size == shape[0] * shape[1]
+    coords = [np.unravel_index(r, shape) for r in range(math.prod(shape))]
+    for axes in ([4], [5], [3], [0, 1, 3]):
+        groups = tmesh.axis_groups(shape, axes)
+        assert sorted(r for g in groups for r in g) == list(
+            range(math.prod(shape)))
+        for g in groups:
+            assert len(g) == math.prod(shape[a] for a in axes)
+            for r in g:
+                assert all(coords[r][i] == coords[g[0]][i]
+                           for i in range(6) if i not in axes)

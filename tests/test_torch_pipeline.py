@@ -152,8 +152,9 @@ def test_config_refuses_what_jax_refuses(overrides):
 
 
 def test_config_takes_what_jax_takes():
-    """The flags build as JAX's; a pipe or expert axis above 1, which the
-    JAX package shards over, is refused naming ROADMAP A12d."""
+    """The flags build as JAX's, a pipe or expert axis above 1 among them
+    (the port splits the stages or the experts over those ranks); beside
+    fsdp the axis is refused naming ROADMAP A12d."""
     for kw in (dict(pipeline_stages=2, pipeline_microbatches=4),
                dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
                     moe_aux_loss_weight=0.1)):
@@ -162,9 +163,11 @@ def test_config_takes_what_jax_takes():
             assert getattr(t, name) == getattr(j, name)
     for kw in (dict(pipeline_stages=2, mesh_shape=(1, 1, 1, 1, 2)),
                dict(moe_experts=4, mesh_shape=(1, 1, 1, 1, 1, 2))):
-        jcfg.Config(**kw)
+        j, t = jcfg.Config(**kw), tcfg.Config(**kw)
+        assert tuple(t.mesh_shape) == tuple(j.mesh_shape)
+        jcfg.Config(**dict(kw, mesh_shape=(1, 2, *kw["mesh_shape"][2:])))
         with pytest.raises(NotImplementedError, match="A12d"):
-            tcfg.Config(**kw)
+            tcfg.Config(**dict(kw, mesh_shape=(1, 2, *kw["mesh_shape"][2:])))
 
 
 def test_stack_refuses_what_it_cannot_schedule(lm):

@@ -17,7 +17,11 @@ path runs them, and the ring's point-to-point exchange
 (``batch_isend_irecv`` of a send and a receive, each rank to the other;
 then the same staged through host copies, as the ring runs it where gloo
 refuses CUDA tensors), each timed over 10 calls after one warm-up, the
-functional
+pipeline's stage shift at one microbatch of a phase-15c stage (4 rows of
+t5-large's encoder, 320 x 1024 in bf16: 2.6 MB), rank 0's ``isend`` to rank
+1's ``recv``, direct and staged through host copies as
+``parallel/partitioning.py`` ``PipeGroup`` runs it where gloo refuses CUDA
+tensors, the functional
 collectives behind DTensor (``all_reduce``, ``all_gather_tensor``,
 ``reduce_scatter_tensor``), and DTensor's ``full_tensor`` and
 ``distribute_tensor``. Needs a card and the port's torch; no JAX.
@@ -30,7 +34,8 @@ import time
 
 CASES = ("c10d_all_reduce", "c10d_all_gather", "c10d_reduce_scatter",
          "seq_all_gather", "seq_reduce_scatter", "seq_batch_isend_irecv",
-         "seq_batch_isend_irecv_host",
+         "seq_batch_isend_irecv_host", "pipe_send_recv",
+         "pipe_send_recv_host",
          "funcol_all_reduce", "funcol_all_gather", "funcol_reduce_scatter",
          "dtensor_full_tensor", "dtensor_distribute")
 
@@ -114,6 +119,32 @@ def run_case(case: str) -> None:
                 req.wait()
             if got.tolist() != [float(peer)] * 4:
                 raise RuntimeError(f"received {got.tolist()}")
+    elif case.startswith("pipe_send_recv"):
+        host = case.endswith("_host")
+        act = torch.randn(4, 320, 1024, device=dev).to(torch.bfloat16)
+
+        def shift(t):
+            if rank == 0:
+                buf = t.cpu() if host else t
+                dist.isend(buf, 1).wait()
+                return t
+            buf = torch.empty_like(t, device="cpu" if host else dev)
+            dist.recv(buf, 0)
+            return buf.to(dev)
+
+        shift(act)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            shift(act)
+        torch.cuda.synchronize()
+        timed = ("stage shift of 2.6 MB (bf16 4x320x1024), rank 0 to 1, "
+                 "mean of 10", (time.perf_counter() - t0) / 10)
+        # What arrives is rank 0's tensor.
+        mine = torch.full((4,), float(rank), device=dev)
+        got = shift(mine)
+        if rank == 1 and got.tolist() != [0.0] * 4:
+            raise RuntimeError(f"received {got.tolist()}")
     elif case == "funcol_all_reduce":
         funcol.all_reduce(x, "sum", mesh).tolist()
     elif case == "funcol_all_gather":
