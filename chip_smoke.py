@@ -241,7 +241,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``TOL_TRAIN_GRAD``).
 13. Sharded training (FSDP2 over fsdp, tensor parallelism over tensor) at
    t5-3b's full width (d_model 1024, 32 heads of d_kv 128, d_ff 16384),
-   its depth cut to 2 + 2 blocks, behind the default towers; bf16 compute,
+   its depth cut to 1 + 1 blocks, behind the default towers; bf16 compute,
    Adam, both kernel flags, batch 16, dropout 0; every run from the same
    seeded weights and rows. The per-rank memory of each layout is reckoned
    first (``parallel.partitioning.per_rank_bytes``).
@@ -251,14 +251,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    b. ``(1, 2, 1)``: fsdp 2, batch 8 per rank; then its checkpoint, which
       rank 0 alone writes, restored into a one-process ``Trainer`` here.
    c. ``(1, 1, 2)``: tensor 2, 16 rows on both ranks: the transformer runs
-      16 of 32 heads and the text tower 8 of 16 per rank; after the
+      16 of 32 heads per rank (the text tower whole on both); after the
       compared steps one step at dropout 0.1, then every parameter that no
       tensor rank splits must be bitwise equal on both ranks.
    13b and 13c run in one ``torch.distributed.run`` job of two ranks on
    the one card (gloo on CUDA tensors, as phase 10), which runs this
    script again with ``--shard-rank SPEC`` (the ranks' output in
    ``chiprun_out/phase13_ranks.log``). Checks: each rank's launches per
-   step (T5 forward 30, backward 6, 4 with dBias, Swin 24;
+   step (T5 forward 27, backward 3, 2 with dBias, Swin 24;
    ``step_launches``); the first step's gradients of every trainable
    tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
    updates after three steps are printed beside them); the checkpoint
@@ -303,24 +303,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       their plain versions at rate 0.1 with and without ``q_offset``, and
       their times per step beside the plain versions', SDPA's and the
       bound.
-15. Experts and pipeline stages on ranks: t5-large cut to 6 + 6 blocks
+15. Experts and pipeline stages on ranks: t5-large cut to 2 + 2 blocks
    behind the default towers, bf16, Adam, batch 16, dropout 0 for
    the compared steps, every run from the same seeded weights and rows.
    The per-rank state of each run is reckoned first
    (``parallel.partitioning.per_rank_bytes``).
    a. one process: the MoE model (4 experts, top-2, capacity factor 1.25,
       both kernel flags) and the pipelined one (2 stages, 4 microbatches,
-      the T5 kernel off, the Swin kernel on), each a warm-up, two timed
-      steps, a profiled step and one step at dropout 0.1. The references
-      of b and c.
+      the T5 kernel off, the Swin kernel on), each a warm-up, one timed
+      step, a profiled step and one step at dropout 0.1. The references
+      of b and c (a's MoE run is phase 16's too).
    b. ``(1, 1, 1, 1, 1, 2)``: each rank holds and runs 2 of the 4 experts
       of every MoE layer; c. ``(1, 1, 1, 1, 2, 1)``: each rank holds and
-      runs one stage (3 + 3 blocks), the microbatches shifted between the
+      runs one stage (1 + 1 blocks), the microbatches shifted between the
       ranks through the host. Both in one ``torch.distributed.run`` job of
       two ranks on the one card (gloo on CUDA tensors), which runs this
       script again with ``--split-rank SPEC`` (the ranks' output in
       ``chiprun_out/phase15_ranks.log``). Checks: each rank's launches per
-      step equal a's (b: T5 forward 42, backward 18, 12 with dBias, Swin
+      step equal a's (b: T5 forward 30, backward 6, 4 with dBias, Swin
       24; c: Swin 24); every loss, the dropout step's too, within 5e-4 of
       a's and the first step's gradients at cosine >= 0.999
       (``TOL_SPLIT``); under 0.1 % of b's first-step token-routings
@@ -330,14 +330,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       ``Trainer`` here. Prints per rank the step spans, peak memory and
       the state it holds beside the reckoning and a's, and in one profiled
       step gloo's host time and the busy share.
-16. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+16. MoE on a sharded mesh: phase 15a's MoE model (its 15a run the
+   reference) over four ranks sharing the card in one
+   ``torch.distributed.run`` job (gloo on CUDA tensors; ``--moe-shard-rank
+   SPEC``, the ranks' output in ``chiprun_out/phase16_ranks.log``):
+   b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, 8 rows a rank, FSDP2
+      sharding the bank slices and the rest; c. ``(1, 1, 2, 1, 1, 2)``:
+      tensor 2 x expert 2, the four ranks on the same 16 rows, rank (t, e)
+      running d_ff columns t of experts e. Each a warm-up, one timed step,
+      a profiled step and a step at dropout 0.1; the per-rank state
+      reckoned first. Checks (``TOL_SPLIT``): the ranks' losses equal,
+      every loss within 5e-4 of 15a's, the first step's gradients
+      (gathered and joined) at cosine >= 0.999, under 0.1 % of the
+      token-routings flipped, each rank's launches per step equal 15a's,
+      the router and every parameter a tensor x expert group holds alike
+      bitwise equal across it, the state held equal to the reckoning,
+      and each run's checkpoint restored bitwise into a one-process
+      ``Trainer`` here against the whole parameters rank 0 gathered.
+      Prints per rank the step spans, peak memory, and in one profiled
+      step gloo's host time and the busy share.
+17. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
    phase-11a step and one phase-11c request, in one phase-12 step, in one
-   step of a phase-13c rank, in one step of a phase-14b rank, and in one
-   step of a phase-15b and of a phase-15c rank), then ``{"ok": true, ...}``
-   as the last line.
+   step of a phase-13c rank, in one step of a phase-14b rank, in one step
+   of a phase-15b and of a phase-15c rank, and in one step of a phase-16b
+   and of a phase-16c rank), then ``{"ok": true, ...}`` as the last
+   line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -1120,9 +1140,110 @@ def decoder_passes(ids) -> int:
 SWIN_BWD_SPAN, OPT_SPAN = "SwinAttentionFnBackward", "Optimizer.step"
 
 
+def profile_readings(prof, ranges) -> dict:
+    """What ``profile_device`` reads from a finished ``torch.profiler``
+    run, from the profiler's raw events: the device events that are no
+    user annotation (kernels and copies: count, and per name count and ms)
+    and the device-side annotations (ms per name), and for every host
+    range whose name ``ranges(name)`` accepts, per name, its calls, host ms
+    and the ms of the device events that it and the host ranges nested in
+    it launched. These are ``key_averages()``'s ``count``,
+    ``self_device_time_total``, ``cpu_time_total`` and
+    ``device_time_total`` (``profile_against_averages`` holds them against
+    it), without turning each event into a ``FunctionEvent``: on a step of
+    ~10^4 kernels that takes the profiler's own reading 10-30 s of host
+    time."""
+    import bisect
+
+    import torch
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels, annotations, wanted = {}, {}, []
+    launched = {}  # a host event's correlation id: the device us it launched
+    spans = {}  # per thread: (start, end, correlation id) of host events
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        name = _rewrite_name(name=name, with_wildcard=True)
+        if e.device_type() == cuda:
+            us = e.duration_ns() / 1e3
+            if e.is_user_annotation():
+                annotations[name] = annotations.get(name, 0.0) + us
+                continue
+            count, total = kernels.get(name, (0, 0.0))
+            kernels[name] = (count + 1, total + us)
+            link = e.linked_correlation_id()
+            if link > 0:
+                launched[link] = launched.get(link, 0.0) + us
+            continue
+        if e.device_type() != cpu:
+            continue
+        thread = e.start_thread_id()
+        sync = not e.is_async() and thread == e.end_thread_id()
+        if sync and e.linked_correlation_id() == 0:
+            spans.setdefault(thread, []).append(
+                (e.start_ns(), e.end_ns(), e.correlation_id()))
+        if ranges(name):
+            wanted.append((name, thread if sync else None, e.start_ns(),
+                           e.end_ns()))
+    for events in spans.values():
+        events.sort()
+    starts = {t: [ev[0] for ev in events] for t, events in spans.items()}
+    host = {}
+    for name, thread, t0, t1 in wanted:
+        # The device time under a range: what the host events that lie
+        # within it on its thread (itself among them) launched; none under
+        # an asynchronous one.
+        events = spans.get(thread, []) if thread is not None else []
+        i = bisect.bisect_left(starts.get(thread, []), t0)
+        dev = 0.0
+        while i < len(events) and events[i][0] < t1:
+            if events[i][1] <= t1:
+                dev += launched.get(events[i][2], 0.0)
+            i += 1
+        calls, cpu_us, dev_us = host.get(name, (0, 0.0, 0.0))
+        host[name] = (calls + 1, cpu_us + (t1 - t0) / 1e3, dev_us + dev)
+    return dict(kernels=kernels, annotations=annotations, ranges=host)
+
+
+def profile_against_averages(prof, got: dict, ranges) -> None:
+    """``profile_readings``' ``got`` against ``key_averages()`` of the same
+    run (the profiler's own reading, 10-30 s of host time on a step):
+    printed side by side, and checked (kernel count and busy time, 1e-6
+    relative)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    avg = prof.key_averages()
+    ker = [e for e in avg if e.device_type == cuda
+           and not getattr(e, "is_user_annotation", False)]
+    want_n = sum(e.count for e in ker)
+    want_busy = sum(e.self_device_time_total for e in ker)
+    got_n = sum(c for c, _ in got["kernels"].values())
+    got_busy = sum(us for _, us in got["kernels"].values())
+    print(f"  profile read from raw events vs key_averages: device events "
+          f"{got_n} vs {want_n}, busy {got_busy / 1e3:.6f} vs "
+          f"{want_busy / 1e3:.6f} ms")
+    for e in avg:
+        if e.device_type != cuda and ranges(e.key):
+            calls, cpu_us, dev_us = got["ranges"].get(e.key, (0, 0.0, 0.0))
+            print(f"    {e.key[:60]}: calls {calls} vs {e.count}, host "
+                  f"{cpu_us / 1e3:.3f} vs {e.cpu_time_total / 1e3:.3f} ms, "
+                  f"device {dev_us / 1e3:.3f} vs "
+                  f"{e.device_time_total / 1e3:.3f} ms")
+    check(got_n == want_n and abs(got_busy - want_busy)
+          <= 1e-6 * max(want_busy, 1.0),
+          f"the profile's raw reading: {got_n} device events, "
+          f"{got_busy:.3f} us; key_averages: {want_n}, {want_busy:.3f}")
+
+
 def profile_device(fn, wall_ms: float, card: str, what: str,
                    spans: tuple[str, ...] = (),
-                   collectives: bool = False) -> dict:
+                   collectives: bool = False,
+                   against_averages: bool = False) -> dict:
     """One more run of ``fn`` under ``torch.profiler``: the device time of
     its kernels, their share of the (unprofiled) wall time, and the kernels
     that take most of it. The profiler slows the host, so the share is taken
@@ -1135,7 +1256,9 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
     ``collectives``: also the host and device time of the process group's
     collectives: the ranges of the backend's work (``gloo:`` or
     ``nccl:``, on gloo's own threads: host time there, and the device time
-    of the copies they run), and the ``c10d::`` operators' calls."""
+    of the copies they run), and the ``c10d::`` operators' calls.
+    ``against_averages``: the reading also held against the profiler's own
+    (``profile_against_averages``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1143,49 +1266,47 @@ def profile_device(fn, wall_ms: float, card: str, what: str,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+
+    def ranges(name: str) -> bool:
+        return (any(span in name for span in spans) or (collectives and (
+            name.startswith(("gloo:", "nccl:", "c10d::")))))
+
     # A host range opened by record_function (torch.optim's
     # "Optimizer.step#...") also leaves a device-side annotation that spans
     # its first to its last kernel, gaps included: it is no kernel, and
     # counting it would count its kernels twice.
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in device if not getattr(e, "is_user_annotation",
-                                                False)]
-    annotations = {e.key: e.device_time_total / 1e3 for e in device
-                   if getattr(e, "is_user_annotation", False)}
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    got = profile_readings(prof, ranges)
+    if against_averages:
+        profile_against_averages(prof, got, ranges)
+    annotations = {k: us / 1e3 for k, us in got["annotations"].items()}
+    busy_ms = sum(us for _, us in got["kernels"].values()) / 1e3
     if busy_ms == 0:
         print("device time: not measured (the profiler saw no device "
               "events)")
         return dict(busy_ms=None)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(got["kernels"].items(), key=lambda kv: -kv[1][1])[:10]
     span_ms, span_host_ms = {}, {}
     for span in spans:
-        ranges = [e for e in prof.key_averages()
-                  if e.device_type != torch.autograd.DeviceType.CUDA
-                  and span in e.key]
-        widest = max(ranges, key=lambda e: e.device_time_total,
-                     default=None)
-        span_ms[span] = (widest.device_time_total / 1e3 if widest
-                         else None)
-        span_host_ms[span] = (dict(calls=widest.count, name=widest.key,
-                                   ms=widest.cpu_time_total / 1e3)
+        named = [(k, v) for k, v in got["ranges"].items() if span in k]
+        widest = max(named, key=lambda kv: kv[1][2], default=None)
+        span_ms[span] = widest[1][2] / 1e3 if widest else None
+        span_host_ms[span] = (dict(calls=widest[1][0], name=widest[0],
+                                   ms=widest[1][1] / 1e3)
                               if widest else None)
     out = dict(busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
-               kernel_launches=sum(e.count for e in kernels),
-               top=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
-                         count=e.count) for e in top], span_ms=span_ms,
+               kernel_launches=sum(c for c, _ in got["kernels"].values()),
+               top=[dict(name=k[:120], ms=us / 1e3, count=c)
+                    for k, (c, us) in top], span_ms=span_ms,
                span_host_ms=span_host_ms, annotation_span_ms=annotations)
     if collectives:
-        host = [e for e in prof.key_averages()
-                if e.device_type != torch.autograd.DeviceType.CUDA]
-        work = [e for e in host if e.key.startswith(("gloo:", "nccl:"))]
+        work = {k: v for k, v in got["ranges"].items()
+                if k.startswith(("gloo:", "nccl:"))}
         out["collectives"] = dict(
-            host_ms=sum(e.cpu_time_total for e in work) / 1e3,
-            device_ms=sum(e.device_time_total for e in work) / 1e3,
-            work={e.key: e.count for e in work},
-            calls={e.key: e.count for e in host
-                   if e.key.startswith("c10d::")})
+            host_ms=sum(v[1] for v in work.values()) / 1e3,
+            device_ms=sum(v[2] for v in work.values()) / 1e3,
+            work={k: v[0] for k, v in work.items()},
+            calls={k: v[0] for k, v in got["ranges"].items()
+                   if k.startswith("c10d::")})
         print(f"  collectives: host {out['collectives']['host_ms']:.3f} ms, "
               f"device {out['collectives']['device_ms']:.3f} ms, calls "
               f"{out['collectives']['calls']}")
@@ -1769,21 +1890,26 @@ def swin_kernel_vs_none(state: dict) -> dict:
     difference or from bf16 rounding at large."""
     from klab_multimodalmodel_tpu_torch.config import Config
 
-    cfg = Config(image_model_train=True, use_pallas_t5_attention=True,
-                 seed=SEED)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(image_model_train=True, use_pallas_attention=True,
+                 use_pallas_t5_attention=True, seed=SEED)
     batch = train_batch(cfg, CMP_BATCH, SEED + 3)
     out = {}
     for dtype, tol in (("float32", TOL_TRAIN_GRAD), ("bfloat16", None)):
-        runs = {}
-        for flag in (True, False):
-            c = dataclasses.replace(cfg, compute_dtype=dtype,
-                                    use_pallas_attention=flag)
-            runs[flag] = swin_grads(c, state, batch)
+        # One model a dtype: the runs without the Swin kernel turn its flag
+        # off on the same weights.
+        trainer = Trainer(dataclasses.replace(cfg, compute_dtype=dtype))
+        trainer.init_state(state_dict=state)
+        runs = {flag: swin_grads(trainer, batch, flag)
+                for flag in (True, False)}
         out[dtype] = agreement(runs[True], runs[False],
                                f"{dtype}, SwinV2 gradients, Swin kernel vs "
                                "none", tol)
-    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    runs["fp32_qk"] = swin_grads(c, state, batch, fp32_qk=True)
+        if dtype == "bfloat16":
+            runs["fp32_qk"] = swin_grads(trainer, batch, False, fp32_qk=True)
+        del trainer
+        free()
     out["bfloat16_vs_fp32_qk"] = agreement(
         runs[True], runs["fp32_qk"], "bfloat16, SwinV2 gradients, Swin "
         "kernel vs none with fp32 q-hat and k-hat", None)
@@ -1793,30 +1919,32 @@ def swin_kernel_vs_none(state: dict) -> dict:
     return out
 
 
-def swin_grads(cfg, state: dict, batch: dict,
+def swin_grads(trainer, batch: dict, kernel: bool,
                fp32_qk: bool = False) -> tuple[float, dict]:
     """Loss and the SwinV2 tower's gradients of one deterministic forward
-    and backward on the weights ``state``; with ``fp32_qk`` the path
-    without the Swin kernel attends through ``swin_attention_reference``
-    (see ``swin_kernel_vs_none``)."""
+    and backward of ``trainer``'s model, with the Swin kernel or without
+    it (its window attentions' flag off for the call); with ``fp32_qk``
+    the path without the Swin kernel attends through
+    ``swin_attention_reference`` (see ``swin_kernel_vs_none``)."""
     from klab_multimodalmodel_tpu_torch.models import swinv2
     from klab_multimodalmodel_tpu_torch.ops import swin_attention_reference
-    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(cfg)
-    t.init_state(state_dict=state)
+    windows = [m for m in trainer.model.image_model.modules()
+               if isinstance(m, swinv2.WindowAttention)]
     saved = swinv2.WindowAttention._reference_attention
     if fp32_qk:
         swinv2.WindowAttention._reference_attention = (
             lambda self, q, k, v, scale, bias_h, mask:
             swin_attention_reference(q, k, v, scale, bias_h, mask,
                                      self.softmax_dtype))
+    for m in windows:
+        m.use_pallas = kernel
     try:
-        loss, grads = loss_and_grads(t, batch)
+        loss, grads = loss_and_grads(trainer, batch)
     finally:
         swinv2.WindowAttention._reference_attention = saved
-    del t
-    free()
+        for m in windows:
+            m.use_pallas = True
     return loss, {n: g for n, g in grads.items()
                   if n.startswith("image_model.")}
 
@@ -4705,12 +4833,12 @@ def gpipe_phase(card: str) -> dict:
 # Phase 13: sharded training (FSDP2 + tensor parallelism) at t5-3b's width
 # ---------------------------------------------------------------------------
 
-# t5-3b at full width, its depth cut to 2 + 2 blocks (24 + 24 would not fit
+# t5-3b at full width, its depth cut to 1 + 1 blocks (24 + 24 would not fit
 # the script's time with gloo's host staging and the one-process
-# reference; 6 + 6 until phase 15 took its room), dropout 0 for the
-# compared steps.
-SHARD_LAYERS = 2
-SHARD_T5 = "t5-3b-2x2-dropout-0"
+# reference; 6 + 6 until phase 15 took its room, 2 + 2 until phase 16
+# did), dropout 0 for the compared steps.
+SHARD_LAYERS = 1
+SHARD_T5 = f"t5-3b-{SHARD_LAYERS}x{SHARD_LAYERS}-dropout-0"
 SHARD_BATCH, SHARD_STEPS = 16, 2
 SHARD_RANKS = 2
 SHARD_LAYOUTS = {"13b": (1, 2, 1), "13c": (1, 1, 2)}
@@ -4718,10 +4846,10 @@ SHARD_LAUNCHES = step_launches(T5_LAYERS, SHARD_LAYERS, SHARD_LAYERS,
                                dropout=False)
 SHARD_LAUNCHES_DROPOUT = step_launches(T5_LAYERS, SHARD_LAYERS, SHARD_LAYERS)
 # 13b and 13c against 13a, bf16 compute: 13b's ranks run their GEMMs at 8
-# rows (other cuBLAS tilings, other bf16 roundings) and meet in gloo's fp32
-# reduce-scatter; 13c's row-parallel products (o, wo) sum two bf16 partials
-# in gloo where one process accumulates the whole contraction in fp32
-# before one rounding. Held: the first step's gradient of every trainable
+# rows and meet in gloo's fp32 reduce-scatter; 13c's column-parallel
+# products run at half the columns, its row-parallel ones (o, wo) sum two
+# fp32 partials where one process accumulates the whole contraction, and
+# the backward sums its partial input gradients in bf16. Held: the first step's gradient of every trainable
 # tensor, from the same weights and rows, at phase 4's bf16 tolerance
 # (TOL_TRAIN_GRAD: cosine >= 0.99, norm within 2 %, all together >= 0.999)
 # and the losses of the three steps within phase 4's 1e-2. The updates
@@ -4738,7 +4866,8 @@ SHARD_HEADS, SHARD_D, SHARD_OFFSET = 16, 128, 16
 
 
 def register_shard_sizes() -> None:
-    """Phase 13's t5-3b of 2 + 2 blocks at dropout 0."""
+    """Phase 13's t5-3b of ``SHARD_LAYERS`` + ``SHARD_LAYERS`` blocks at
+    dropout 0."""
     from klab_multimodalmodel_tpu_torch import config as tcfg
 
     tcfg.register_t5_size(SHARD_T5, dataclasses.replace(
@@ -4918,8 +5047,8 @@ def shard_rank_main(spec_path: str) -> int:
         # ~15 s.
         r["profile"] = profile_device(
             lambda: trainer.train_step(rows, gen), r["mean_step_ms"], card,
-            f"{tag} rank {rank} step", collectives=True) if run.get(
-                "profile") else {}
+            f"{tag} rank {rank} step", collectives=True,
+            against_averages=True) if run.get("profile") else {}
         if run.get("dropout_step"):
             # One step at dropout 0.1, then the parameters that no tensor
             # rank splits, bitwise across the ranks.
@@ -5135,9 +5264,11 @@ def shard_phase(card: str) -> dict:
                   for n, p in model.named_parameters() if n in frozen),
               "13a: frozen towers moved")
         one_params = trainable_on_host(model)
+        # Its reading also held against key_averages() (a step of few
+        # kernels, so the profiler's own reading costs little here).
         one["profile"] = profile_device(
             lambda: trainer.train_step(batch, gen), one["mean_step_ms"],
-            card, "13a step")
+            card, "13a step", (OPT_SPAN,), against_averages=True)
         one.update(build_s=build_s, trainable=n_train)
         print(f"13a [{card}]: t5-3b {SHARD_LAYERS} + {SHARD_LAYERS} blocks, "
               f"{n_train} trainable parameters, built in {build_s:.2f} s; "
@@ -5638,18 +5769,18 @@ def seq_phase(card: str) -> dict:
 # Phase 15: experts and pipeline stages on ranks (the expert and pipe axes)
 # ---------------------------------------------------------------------------
 
-# t5-large of 6 + 6 blocks at full width (dropout 0 for the compared
-# steps) behind the default towers, batch 16, two ranks sharing
-# the card over gloo: 15b splits 4 experts (top-2, capacity factor 1.25,
-# both kernel flags) over expert 2, 15c 2 GPipe stages (4 microbatches, the
-# T5 kernel off as the JAX package requires, the Swin kernel on) over
-# pipe 2. 15a runs both models in one process. Every run starts from the
-# same seeded weights and rows, and takes a warm-up, two timed steps, a
-# profiled step and a step at dropout 0.1.
+# t5-large of 2 + 2 blocks at full width (6 + 6 until phase 16 took its
+# room; dropout 0 for the compared steps) behind the default towers, batch
+# 16, two ranks sharing the card over gloo: 15b splits 4 experts (top-2,
+# capacity factor 1.25, both kernel flags) over expert 2, 15c 2 GPipe
+# stages (4 microbatches, the T5 kernel off as the JAX package requires,
+# the Swin kernel on) over pipe 2. 15a runs both models in one process.
+# Every run starts from the same seeded weights and rows, and takes a
+# warm-up, one timed step, a profiled step and a step at dropout 0.1.
 SPLIT_RANKS = 2
-SPLIT_BATCH, SPLIT_STEPS = 16, 2
-SPLIT_LAYERS = 6
-T5_SPLIT = "t5-large-6x6-dropout-0"
+SPLIT_BATCH, SPLIT_STEPS = 16, 1
+SPLIT_LAYERS = 2
+T5_SPLIT = f"t5-large-{SPLIT_LAYERS}x{SPLIT_LAYERS}-dropout-0"
 SPLIT_MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
 SPLIT_PIPE = dict(pipeline_stages=2, pipeline_microbatches=4,
                   use_pallas_t5_attention=False)
@@ -5707,13 +5838,16 @@ def split_memory(card: str) -> dict:
 
 def held_bytes(trainer) -> dict:
     """What the rank holds (GB): its parameters, the trainable ones'
-    gradients and optimizer state."""
-    params = sum(p.numel() * p.element_size()
-                 for p in trainer.model.parameters())
-    grads = sum(p.grad.numel() * p.grad.element_size()
-                for p in trainer.model.parameters() if p.grad is not None)
-    moments = sum(v.numel() * v.element_size()
-                  for st in trainer.optimizer.state.values()
+    gradients and optimizer state (a DTensor's local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    def nbytes(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.numel() * t.element_size()
+    params = sum(nbytes(p) for p in trainer.model.parameters())
+    grads = sum(nbytes(p.grad) for p in trainer.model.parameters()
+                if p.grad is not None)
+    moments = sum(nbytes(v) for st in trainer.optimizer.state.values()
                   for v in st.values()
                   if hasattr(v, "numel") and v.dim() > 0)
     return dict(params=params / 1e9, grads=grads / 1e9,
@@ -5868,11 +6002,13 @@ def split_whole(tag: str, parts: list, placement) -> dict:
     return out
 
 
-def split_phase(card: str) -> dict:
+def split_phase(card: str, keep: dict | None = None) -> dict:
     """Phase 15: 15a (the MoE and the pipelined model in this process),
     then one ``torch.distributed.run`` job of two ranks on the one card
     (gloo on CUDA tensors) that runs 15b (expert 2) and 15c (pipe 2) in
-    turn; each run's checkpoint restored here in one process."""
+    turn; each run's checkpoint restored here in one process. ``keep``
+    receives 15a's MoE run (``one``), its first step's gradients and its
+    routings: phase 16's one-process reference."""
     import shutil
     import tempfile
 
@@ -6031,6 +6167,9 @@ def split_phase(card: str) -> dict:
                       f"{coll.get('device_ms')} ms; checkpoint "
                       f"{g['checkpoint_s']:.2f} s")
             results[tag] = got
+        if keep is not None:
+            keep.update(one=ones["15a-moe"], grads=one_grads["15a-moe"],
+                        routes=one_routes["15a-moe"])
         del one_grads, one_routes
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6042,7 +6181,330 @@ def split_phase(card: str) -> dict:
                 restore_s=restore_s, seconds=seconds)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 16: MoE on a sharded mesh (the expert axis beside fsdp and tensor)
+# ---------------------------------------------------------------------------
+
+# Phase 15a's MoE model (t5-large of 2 + 2 blocks at full width, 4 experts,
+# top-2, capacity factor 1.25, both kernel flags, bf16, Adam, batch 16,
+# dropout 0 for the compared steps) on four ranks sharing the card over
+# gloo: 16b fsdp 2 x expert 2 (each fsdp rank its 8 rows; FSDP2 shards the
+# bank slices and the rest over the fsdp ranks), 16c tensor 2 x expert 2
+# (the four ranks share the rows; rank (t, e) runs columns t of experts e,
+# the heads of tensor rank t). 16a is 15a's MoE run: the same seeded
+# weights and rows. Each takes a warm-up, one timed step, a profiled step
+# and a step at dropout 0.1, then writes a checkpoint that this process
+# restores. Held at phase 15's tolerances (``TOL_SPLIT``).
+MOE_SHARD_RANKS = 4
+MOE_SHARD_RUNS = {"16b": (1, 2, 1, 1, 1, 2), "16c": (1, 1, 2, 1, 1, 2)}
+
+
+def moe_shard_memory(card: str) -> dict:
+    """Each run's per-rank parameters, gradients and Adam moments (GB),
+    reckoned on the meta device before the job."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.utils.mesh import DEFAULT_AXIS_NAMES
+
+    cfg = split_config("15a-moe")
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    shapes = [(n, tuple(p.shape), n in names)
+              for n, p in model.named_parameters()]
+    out = {tag: {k: v / 1e9 for k, v in per_rank_bytes(
+        shapes, dict(zip(DEFAULT_AXIS_NAMES, mesh))).items()}
+        for tag, mesh in MOE_SHARD_RUNS.items()}
+    print("phase 16: state per rank reckoned (GB; params, grads, Adam): "
+          + "; ".join(f"{t} {r['params']:.3f} + {r['grads']:.3f} + "
+                      f"{r['moments']:.3f} = {r['total']:.3f}"
+                      for t, r in out.items()) + f" [{card}]")
+    return out
+
+
+def moe_shard_rank_main(spec_path: str) -> int:
+    """One rank of phase 16's job (started by ``torch.distributed.run``):
+    16b and 16c in turn on ``cuda:0``, which the four ranks share (gloo on
+    CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
+    ``{out}.{rank}.json``, its first step's gradients (gathered over its
+    data x fsdp and tensor shards: the banks' slices on every rank, the
+    rest on rank 0), rank 0's routings and whole trainable parameters
+    after the steps to files, and a checkpoint of each run."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        gather_full, tensor_parallel)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_no_dropout()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    rank, card = dist.get_rank(), spec["card"]
+    readings = {}
+    for run in spec["runs"]:
+        tag = run["tag"]
+        cfg = Config.from_json(json.dumps(run["config"]))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=device)
+        # Seeded with config.seed on the card: 16a's weights on every
+        # rank, then cut and sharded.
+        trainer.init_state()
+        mesh = trainer.mesh
+        check(trainer.ddp is None and trainer.sharded
+              and trainer.expert is not None,
+              f"{tag}: not a sharded trainer with split banks")
+        build_s = time.perf_counter() - t0
+        base = f"{run['files']}.{rank}"
+
+        def first(t, calls):
+            grads = {}
+            for n, p in t.model.named_parameters():
+                if p.grad is None:
+                    continue
+                g = gather_full(p.grad.detach())  # every rank, in order
+                if rank == 0 or t._is_bank(n):
+                    grads[n] = g.float().cpu()
+            torch.save(grads, f"{base}.grads.pt")
+            if rank == 0 and calls:
+                torch.save(routing_masks(calls), f"{base}.routing.pt")
+        r = split_run(trainer, f"{tag} rank {rank}", card,
+                      tuple(run["launches"]), first, True)
+        # What every rank of a tensor x expert group holds alike (the
+        # router among it), bitwise against the group's first rank.
+        rows = mesh.rows_group(device.type)
+        src = rank - rank % mesh.rows_share
+        checked, bad = 0, []
+        for n, p in sorted(trainer.model.named_parameters()):
+            if trainer._placement(n) is not None or (
+                    mesh.tensor > 1 and tensor_parallel(n)):
+                continue
+            local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+            ref = local.clone()
+            dist.broadcast(ref, src=src, group=rows)
+            checked += 1
+            if not torch.equal(ref, local):
+                bad.append(n)
+        check(checked > 0 and not bad,
+              f"{tag} rank {rank}: {len(bad)} of {checked} parameters "
+              f"differ across the tensor x expert group: {bad[:5]}")
+        names = trainable_names(trainer.model, cfg)
+        t0 = time.perf_counter()
+        whole = trainer.full_state_dict()
+        gather_s = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({n: v.float() for n, v in whole.items()
+                        if n in names}, f"{run['files']}.params.pt")
+        del whole
+        t0 = time.perf_counter()
+        manager = CheckpointManager(run["checkpoint"], mesh)
+        manager.save(f"step_{trainer.step}", trainer)
+        manager.wait()
+        r.update(build_s=build_s, gather_s=gather_s,
+                 checkpoint_s=time.perf_counter() - t0,
+                 saves=manager.saves, replicated_checked=checked,
+                 coordinate=[mesh.dp_rank, mesh.tensor_rank,
+                             mesh.expert_rank])
+        readings[tag] = r
+        del trainer
+        free()
+        dist.barrier()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def join_banks(parts: list, mesh: tuple) -> dict:
+    """Rank 0's gathered tensors (``parts[0]``) whole: a bank's slices,
+    held by rank (t, e) of rank 0's tensor x expert group (ranks ``t E +
+    e``), joined on its experts' dim 0 and its d_ff (``wi``'s dim 2,
+    ``wo``'s dim 1)."""
+    import torch
+
+    T, E = mesh[2], mesh[5]
+    out = dict(parts[0])
+    for n in parts[0]:
+        if not n.endswith((".experts_wi", ".experts_wo")):
+            continue
+        rows = [torch.cat([parts[t * E + e][n] for e in range(E)])
+                for t in range(T)]
+        out[n] = torch.cat(rows, dim=2 if n.endswith("wi") else 1)
+    return out
+
+
+def moe_shard_phase(card: str, ref: dict) -> dict:
+    """Phase 16: one ``torch.distributed.run`` job of four ranks on the one
+    card (gloo on CUDA tensors) that runs 16b (fsdp 2 x expert 2) and 16c
+    (tensor 2 x expert 2) in turn, held against ``ref`` (phase 15a's MoE
+    run, ``split_phase``'s ``keep``); each run's checkpoint restored here
+    in one process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    register_no_dropout()
+    memory = moe_shard_memory(card)
+    one = ref["one"]
+    launches = SPLIT_RUNS["15b"][3]
+    root = tempfile.mkdtemp(prefix="chip_smoke_moe_shard_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        spec = dict(card=card, out=os.path.join(root, "rank"), runs=[
+            dict(tag=tag, launches=launches,
+                 config=json.loads(split_config(
+                     "15a-moe", mesh_shape=mesh).to_json()),
+                 files=os.path.join(root, tag),
+                 checkpoint=os.path.join(root, f"{tag}.ckpt"))
+            for tag, mesh in MOE_SHARD_RUNS.items()])
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONFAULTHANDLER="1",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        log_path = os.path.join(out_dir, "phase16_ranks.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(MOE_SHARD_RANKS),
+                 os.path.abspath(__file__), "--moe-shard-rank", spec_path],
+                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                timeout=900)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                print(f.read()[-6000:])
+        check(proc.returncode == 0, f"phase 16's torchrun job exited "
+              f"{proc.returncode} (chiprun_out/phase16_ranks.log)")
+        ranks = []
+        for r in range(MOE_SHARD_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        agree, results, restore_s = {}, {}, {}
+        for tag, mesh in MOE_SHARD_RUNS.items():
+            got = [rk[tag] for rk in ranks]
+            for r, g in enumerate(got):
+                check(g["losses"] == got[0]["losses"]
+                      and g["dropout_loss"] == got[0]["dropout_loss"],
+                      f"{tag}: rank {r}'s losses differ from rank 0's: "
+                      f"{g['losses']} vs {got[0]['losses']}")
+                check(g["launches_per_step"] == one["launches_per_step"],
+                      f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                      f"16a's {one['launches_per_step']}")
+                held, want = g["held_gb"]["total"], memory[tag]["total"]
+                check(abs(held - want) <= 1e-3 * want,
+                      f"{tag} rank {r}: holds {held:.4f} GB of state, "
+                      f"reckoned {want:.4f}")
+            losses = got[0]["losses"] + [got[0]["dropout_loss"]]
+            want = one["losses"] + [one["dropout_loss"]]
+            worst_loss = max(abs(x - y) / abs(y)
+                             for x, y in zip(losses, want))
+            check(worst_loss <= TOL_SPLIT["loss"],
+                  f"{tag}: losses (the last at dropout 0.1) {losses} vs "
+                  f"16a {want}")
+            base = os.path.join(root, tag)
+            grads = join_banks([torch.load(f"{base}.{r}.grads.pt",
+                                           weights_only=True)
+                                for r in range(mesh[2] * mesh[5])], mesh)
+            agree[tag] = dict(loss_worst_rel=worst_loss, gradients=agreement(
+                (got[0]["losses"][0], grads), (one["losses"][0],
+                                               ref["grads"]),
+                f"{tag} vs 16a, the first step's gradients",
+                TOL_SPLIT["grad"]))
+            del grads
+            diff = routing_differences(torch.load(
+                f"{base}.0.routing.pt", weights_only=True), ref["routes"],
+                SPLIT_MOE["moe_top_k"])
+            share = diff["flipped"] / diff["tokens"]
+            agree[tag]["routing"] = dict(diff, share=share)
+            print(f"{tag} vs 16a [{card}]: {diff['flipped']} of "
+                  f"{diff['tokens']} token-routings of the first step "
+                  f"flipped an expert ({share:.2e}; limit "
+                  f"{TOL_SPLIT['flipped']})")
+            check(share <= TOL_SPLIT["flipped"],
+                  f"{tag}: {share:.2e} of the routings flipped")
+            # The run's checkpoint in one process: the whole trainable
+            # parameters rank 0 gathered after the steps, bitwise.
+            t0 = time.perf_counter()
+            trainer = Trainer(split_config("15a-moe"))
+            trainer.init_state()
+            manager = CheckpointManager(os.path.join(root, f"{tag}.ckpt"))
+            manager.restore(manager.latest(), trainer)
+            params = torch.load(f"{base}.params.pt", weights_only=True)
+            restored = trainable_on_host(trainer.model)
+            equal = (trainer.step == SPLIT_STEPS + 3
+                     and restored.keys() == params.keys()
+                     and all(torch.equal(restored[n], params[n])
+                             for n in params))
+            restore_s[tag] = time.perf_counter() - t0
+            check(equal, f"{tag}'s checkpoint restored in one process "
+                  "differs from the ranks' parameters")
+            del trainer, params, restored
+            free()
+            print(f"{tag} vs 16a [{card}]: losses {got[0]['losses']} vs "
+                  f"{one['losses']}; at dropout 0.1 "
+                  f"{got[0]['dropout_loss']:.6f} vs "
+                  f"{one['dropout_loss']:.6f} (worst rel {worst_loss:.2e});"
+                  f" {got[0]['replicated_checked']} parameters bitwise "
+                  "equal across each tensor x expert group; the checkpoint "
+                  f"restored bitwise in one process in {restore_s[tag]:.2f}"
+                  " s")
+            for r, g in enumerate(got):
+                coll = (g["profile"].get("collectives") or {})
+                print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
+                      f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                      f"(16a {one['mean_step_ms']:.2f}), peak "
+                      f"{g['peak_gb']:.2f} GB (16a {one['peak_gb']:.2f}); "
+                      f"state held {g['held_gb']['total']:.3f} GB (reckoned "
+                      f"{memory[tag]['total']:.3f}; 16a held "
+                      f"{one['held_gb']['total']:.3f}); profiled step: busy "
+                      f"{g['profile'].get('busy_ms')} ms, share "
+                      f"{g['profile'].get('busy_share')}, gloo host "
+                      f"{coll.get('host_ms')} ms, device "
+                      f"{coll.get('device_ms')} ms; gather "
+                      f"{g['gather_s']:.2f} s, checkpoint "
+                      f"{g['checkpoint_s']:.2f} s")
+            results[tag] = got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16: {seconds:.1f} s (job {job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, ranks=results,
+                agreement=agree, job_s=job_s, restore_s=restore_s,
+                seconds=seconds)
+
+
+class StopAfter(Exception):
+    """Raised after the phase that ``--stop-after`` names."""
+
+
+def main(stop_after: str | None = None) -> int:
+    """Every phase in turn; with ``stop_after``, only the phases up to
+    that one (a shorter run for working on the script: it prints the
+    phases' seconds and no result, and exits 3)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6074,6 +6536,11 @@ def main() -> int:
     def done(phase: str) -> None:
         seconds[phase] = time.perf_counter() - started - sum(
             seconds.values())
+        if phase == stop_after:
+            print("seconds by phase: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in seconds.items())
+                + f"; stopped after phase {phase} [{card}]")
+            raise StopAfter
 
     done("1")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -6129,8 +6596,13 @@ def main() -> int:
     done("13")
     seq = seq_phase(card)
     done("14")
-    split = split_phase(card)
+    moe_ref: dict = {}
+    split = split_phase(card, moe_ref)
     done("15")
+    moe_shard = moe_shard_phase(card, moe_ref)
+    del moe_ref
+    free()
+    done("16")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -6215,6 +6687,15 @@ def main() -> int:
             "launches_per_step"][train_key]
         entry["launches_pipe_step"] = split["ranks"]["15c"][0][
             "launches_per_step"][train_key]
+        for tag, got in moe_shard["ranks"].items():
+            for r, rank in enumerate(got):
+                check(rank["launches_per_step"][train_key] > 0,
+                      f"{entry['name']} never launched in a phase-{tag} "
+                      f"step of rank {r}")
+        entry["launches_moe_fsdp_step"] = moe_shard["ranks"]["16b"][0][
+            "launches_per_step"][train_key]
+        entry["launches_moe_tensor_step"] = moe_shard["ranks"]["16c"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -6228,7 +6709,8 @@ def main() -> int:
         "launches_serving_prefill", "launches_ddp_rank_step",
         "launches_moe_step", "launches_moe_request", "launches_gpipe_step",
         "launches_shard_step", "launches_seq_step", "launches_expert_step",
-        "launches_pipe_step")}
+        "launches_pipe_step", "launches_moe_fsdp_step",
+        "launches_moe_tensor_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -6258,7 +6740,10 @@ def main() -> int:
                  f"launches_expert_step / _pipe_step: one step of a "
                  f"phase-15b rank (4 experts over expert 2) and of a "
                  f"phase-15c rank (2 stages over pipe 2, the T5 kernel "
-                 f"off)"}))
+                 f"off); launches_moe_fsdp_step / _moe_tensor_step: one "
+                 f"step of a phase-16b rank (4 experts over fsdp 2 x "
+                 f"expert 2) and of a phase-16c rank (tensor 2 x expert "
+                 f"2)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -6271,7 +6756,7 @@ def main() -> int:
                    "artifacts": artifacts, "serving": serving,
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
                    "sharded": sharded, "seq": seq, "split": split,
-                   "seconds": seconds},
+                   "moe_shard": moe_shard, "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {
@@ -6289,4 +6774,11 @@ if __name__ == "__main__":
         sys.exit(seq_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--split-rank"]:
         sys.exit(split_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--moe-shard-rank"]:
+        sys.exit(moe_shard_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--stop-after"]:
+        try:
+            sys.exit(main(sys.argv[2]))
+        except StopAfter:
+            sys.exit(3)
     sys.exit(main())

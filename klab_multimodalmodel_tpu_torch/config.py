@@ -328,12 +328,15 @@ class Config:
         The JAX package leaves uneven shards to XLA; the port's tensor
         parallelism runs whole heads and whole d_ff columns per rank, so
         both T5s' heads and d_ff must divide by ``tensor`` (the vocab need
-        not: DTensor pads its uneven shards). MoE experts and GPipe stages
-        composed with these axes, ``seq`` composed with them or with MoE,
-        and the ``pipe`` and ``expert`` axes beside ``fsdp``, ``tensor`` or
-        ``seq`` are ROADMAP A12d. ``seq_attention='ring'`` with the T5 kernel
-        on and ``seq`` above 1 is refused as inert: the JAX package runs
-        the kernel there and never the ring."""
+        not: DTensor pads its uneven shards). MoE experts share the
+        transformer's d_ff, which its check covers: under ``tensor`` each
+        rank runs its columns of every expert. Still ROADMAP A12d: GPipe
+        stages with ``fsdp`` or ``tensor``, MoE with ``seq``, and the axes
+        that ``refuse_waiting_combinations`` names (``pipe`` beside
+        ``fsdp``, ``tensor``, ``seq`` or ``expert``; ``seq`` beside
+        ``fsdp``, ``tensor`` or ``expert``). ``seq_attention='ring'`` with
+        the T5 kernel on and ``seq`` above 1 is refused as inert: the JAX
+        package runs the kernel there and never the ring."""
         from .utils.mesh import refuse_waiting_combinations
 
         fsdp, tensor = self._axis("fsdp"), self._axis("tensor")
@@ -342,11 +345,6 @@ class Config:
             refuse_waiting_combinations(getattr(self, name),
                                         self.mesh_axis_names, name)
         if seq != 1:
-            if fsdp != 1 or tensor != 1:
-                raise NotImplementedError(
-                    f"mesh seq={seq} with fsdp={fsdp}, tensor={tensor}: "
-                    "sequence parallelism composed with sharded parameters "
-                    "is ROADMAP A12d (run seq on a data x seq mesh)")
             if self.moe_experts > 0:
                 raise NotImplementedError(
                     f"moe_experts={self.moe_experts} with mesh seq={seq}: "
@@ -359,13 +357,11 @@ class Config:
                     "ring never runs; drop one of the flags")
         if fsdp == 1 and tensor == 1:
             return
-        if self.moe_experts > 0 or self.pipeline_stages > 1:
+        if self.pipeline_stages > 1:
             raise NotImplementedError(
-                f"moe_experts={self.moe_experts} / pipeline_stages="
-                f"{self.pipeline_stages} with mesh fsdp={fsdp}, "
-                f"tensor={tensor}: experts and stages sharded with these "
-                "axes are ROADMAP A12d (run them on a data x pipe or data x "
-                "expert mesh)")
+                f"pipeline_stages={self.pipeline_stages} with mesh fsdp="
+                f"{fsdp}, tensor={tensor}: stages sharded with these axes "
+                "are ROADMAP A12d (run them on a data x pipe mesh)")
         if tensor not in (None, 1):
             for which, size in (("language", self.language_t5),
                                 ("transformer", self.transformer_t5)):

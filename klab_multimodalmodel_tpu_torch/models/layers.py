@@ -65,7 +65,14 @@ class LayerNorm(nn.Module):
 class Dense(nn.Linear):
     """``nn.Linear`` whose product runs in ``compute_dtype``: input, weight
     and bias are cast to it (flax ``nn.Dense(dtype=...)``), whatever the
-    parameters' dtype."""
+    parameters' dtype.
+
+    Row-parallel under tensor parallelism (a weight that is a DTensor split
+    on its input features, ``parallel/partitioning.py``): each rank's
+    partial product of the ``compute_dtype`` operands is formed in fp32,
+    the partials are summed over the tensor group in fp32 and rounded once,
+    as one process's product accumulates every input feature in fp32
+    before its one rounding."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
@@ -75,20 +82,52 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if _row_parallel(self.weight):
+            return _row_parallel_linear(x, self.weight, bias, dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def _row_parallel(weight) -> bool:
+    """Whether ``weight`` is a DTensor split on its input features (dim 1)
+    over a one-dimensional mesh: a row-parallel layer's, as FSDP2 hands it
+    to the forward."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return (isinstance(weight, DTensor) and weight.device_mesh.ndim == 1
+            and weight.placements[0] == Shard(1))
+
+
+def _row_parallel_linear(x, weight, bias, dt: torch.dtype):
+    """The row-parallel product (see ``Dense``): ``x``, the rank's input
+    features (a DTensor split on its last dim, or its local tensor), times
+    its columns of ``weight``, summed over the weight's mesh in fp32,
+    rounded to ``dt``; a replicated DTensor, as the layer's output hook
+    expects."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ..parallel.partitioning import sum_over_group
+
+    local = x.to_local() if isinstance(x, DTensor) else x
+    partial = F.linear(local.to(dt).float(), weight.to_local().to(dt).float())
+    y = sum_over_group(partial, weight.device_mesh.get_group()).to(dt)
+    if bias is not None:
+        y = y + (bias.to_local() if isinstance(bias, DTensor) else bias)
+    return DTensor.from_local(y, weight.device_mesh, [Replicate()],
+                              run_check=False)
 
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
+            shard=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scale the
     kept values by ``1 / (1 - rate)`` formed in x's dtype. The mask comes
     from the explicit ``generator`` (on x's device), never from the global
     one. Rate 0 is the identity. ``shard`` = (dim, start, full): x is
     columns ``start ..`` of a tensor ``full`` wide on ``dim`` (a tensor
-    rank's heads or d_ff columns); the mask is drawn at the full width and
-    sliced, so the rank keeps one process's mask and its generator moves as
-    one process's does."""
+    rank's heads or d_ff columns), or a list of such triples on distinct
+    dims (an MoE rank's experts and columns); the mask is drawn at the full
+    width and sliced, so the rank keeps one process's mask and its
+    generator moves as one process's does."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -97,11 +136,13 @@ def dropout(x: torch.Tensor, rate: float,
     if shard is None:
         keep = torch.rand(x.shape, generator=generator, device=x.device)
     else:
-        dim, start, full = shard
+        shards = [shard] if isinstance(shard[0], int) else list(shard)
         shape = list(x.shape)
-        shape[dim] = full
-        keep = torch.rand(shape, generator=generator, device=x.device
-                          ).narrow(dim, start, x.shape[dim])
+        for dim, _, full in shards:
+            shape[dim] = full
+        keep = torch.rand(shape, generator=generator, device=x.device)
+        for dim, start, _ in shards:
+            keep = keep.narrow(dim, start, x.shape[dim])
     keep = keep < keep_prob
     # A fill on the device, not a copy from the host: a copy would wait
     # for the device to drain.

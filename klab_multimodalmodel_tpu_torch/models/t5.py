@@ -39,11 +39,16 @@ stacks with a Switch / GShard mixture of experts (``T5MoeMlp``, routing in
 balance losses, and ``forward`` adds ``moe_aux_loss_weight`` times the sum
 of both stacks' to the loss. The stack's key mask is also the routing mask
 (pads route nowhere); a decode step routes its chunk with no mask, at the
-capacity of the chunk's length, as the JAX package's does.
+capacity of the chunk's length, as the JAX package's does. With an
+``aux_group`` (``set_aux_group``: the ranks that hold the other rows) a
+stack's balance loss is this rank's share of the mean over every rank's
+groups (``ops/moe.py`` ``balance_share``), as the JAX package takes one
+mean over the global batch.
 
 Under tensor parallelism (``parallel/partitioning.py``, a ``tensor`` mesh
 axis above 1) each rank holds its heads' q/k/v/o columns and its d_ff
-columns of the MLP (``T5Stack.set_tensor_shard``): attention runs the
+columns of the MLP, or of every expert of its MoE banks
+(``T5Stack.set_tensor_shard``, then ``split_experts``): attention runs the
 rank's heads on their rows of the head bias, the kernels key their
 dropout on the global head (``head_offset``), and the MLP's and the plain
 attention's dropout masks are drawn at the full width and sliced, so every
@@ -99,7 +104,7 @@ from torch import nn
 
 from ..config import T5Size
 from ..ops.fused_attention import draw_seed, t5_attention
-from ..ops.moe import moe_capacity, moe_ffn, topk_routing
+from ..ops.moe import balance_share, moe_capacity, moe_ffn, topk_routing
 from ..ops.ring_attention import ring_applicable, ring_self_attention
 from ..parallel.partitioning import (ExpertGroup, PipeGroup, gather_columns,
                                      pipe_stages, seq_gather, seq_shard,
@@ -435,7 +440,8 @@ class T5MoeMlp(nn.Module):
     ``nn.Linear`` (not a ``KlabDense``), so int8 decode leaves it and the
     expert banks unquantized, as the JAX package does. Returns ``(y,
     aux)``. After ``set_expert_group`` the banks hold the rank's experts
-    only."""
+    only, and of each its d_ff columns under tensor parallelism
+    (``tensor_shard``, which ``T5Stack.set_tensor_shard`` sets)."""
 
     def __init__(self, size: T5Size, num_experts: int, top_k: int = 1,
                  capacity_factor: float = 1.25):
@@ -450,16 +456,25 @@ class T5MoeMlp(nn.Module):
         self.experts_wo = nn.Parameter(
             torch.empty(num_experts, s.d_ff, s.d_model))
         self.expert: Optional[ExpertGroup] = None
+        # (rank, size) of the tensor group the experts' d_ff splits over.
+        self.tensor_shard = (0, 1)
 
     def set_expert_group(self, expert: ExpertGroup) -> None:
         """Keep only ``expert``'s slice of the banks (their weights as
-        they are), and run those experts from now on."""
+        they are): its experts, and of each its d_ff columns (``wi``'s dim
+        2, ``wo``'s dim 1); run that slice from now on."""
+        if (expert.tensor_rank, expert.tensor) != self.tensor_shard:
+            raise ValueError(f"an expert group at tensor rank "
+                             f"{expert.tensor_rank} of {expert.tensor} for "
+                             f"banks of tensor shard {self.tensor_shard}")
         mine = expert.experts(self.num_experts)
-        for name in ("experts_wi", "experts_wo"):
+        cols = expert.columns(self.size.d_ff)
+        for name, dim in (("experts_wi", 2), ("experts_wo", 1)):
             bank = getattr(self, name)
+            part = bank.detach()[mine].narrow(dim, cols.start,
+                                              cols.stop - cols.start)
             setattr(self, name, nn.Parameter(
-                bank.detach()[mine].clone(),
-                requires_grad=bank.requires_grad))
+                part.clone(), requires_grad=bank.requires_grad))
         self.expert = expert
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -667,6 +682,9 @@ class T5Stack(nn.Module):
         self.tensor_shard = (0, 1)
         # The pipe group whose stage this rank runs (split_stages).
         self.pipe: Optional[PipeGroup] = None
+        # The group of the ranks that hold the other rows, over which the
+        # balance loss is one mean (set_aux_group).
+        self.aux_group = None
         self.block = nn.ModuleList(
             T5Block(size, is_decoder, has_relative_attention_bias=(i == 0),
                     dtype=dtype, moe_experts=moe_experts,
@@ -687,7 +705,8 @@ class T5Stack(nn.Module):
     def set_tensor_shard(self, rank: int, size: int) -> None:
         """Run heads ``rank * H / size ..`` and the same share of d_ff
         columns: the layout that ``parallel/partitioning.py`` gives this
-        stack's weights over a tensor group of ``size``."""
+        stack's weights over a tensor group of ``size``. MoE blocks learn
+        the shard here; their banks are cut by ``split_experts``."""
         s = self.size
         if s.num_heads % size or s.d_ff % size:
             raise ValueError(f"num_heads={s.num_heads} and d_ff={s.d_ff} "
@@ -698,6 +717,8 @@ class T5Stack(nn.Module):
                 m.head_offset = rank * s.num_heads // size
             elif isinstance(m, T5Mlp):
                 m.ff_offset = rank * s.d_ff // size
+            elif isinstance(m, T5MoeMlp):
+                m.tensor_shard = (rank, size)
 
     def set_pipe_group(self, pipe: PipeGroup) -> None:
         """Hold and run only stage ``pipe.rank``'s blocks: the others'
@@ -798,6 +819,8 @@ class T5Stack(nn.Module):
             # The key mask is also the routing mask: pads route nowhere.
             kw["moe_mask"] = kmask
         x, aux = self._run_blocks(self.block, x, kw, generator, cache)
+        if self.moe and cache is None:
+            aux = balance_share(aux, kmask, x.shape[0], self.aux_group)
         x = dropout(self.final_layer_norm(x), rate, generator, _rows(seq))
         if self.gather_output:
             x = seq_gather(x, seq)
@@ -1132,11 +1155,20 @@ class T5ForConditionalGeneration(nn.Module):
             stack.set_pipe_group(pipe)
 
     def split_experts(self, expert: ExpertGroup) -> None:
-        """Every MoE layer holds and runs only ``expert.rank``'s experts
-        (an ``expert`` mesh axis; ``T5MoeMlp.set_expert_group``)."""
+        """Every MoE layer holds and runs only ``expert``'s slice: its
+        experts (an ``expert`` mesh axis) and, after ``T5Stack.
+        set_tensor_shard``, their d_ff columns (``T5MoeMlp.
+        set_expert_group``)."""
         for m in self.modules():
             if isinstance(m, T5MoeMlp):
                 m.set_expert_group(expert)
+
+    def set_aux_group(self, group) -> None:
+        """Take both stacks' balance losses as this rank's share of one
+        mean over the groups of every rank of ``group`` (the ranks that
+        hold the other rows; None: this rank's alone)."""
+        for stack in (self.encoder, self.decoder):
+            stack.aux_group = group
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids.long()).to(self.dtype)

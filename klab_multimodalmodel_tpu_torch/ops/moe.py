@@ -13,11 +13,15 @@ The JAX package computes all of it with XLA einsums and no Pallas kernel,
 so the port runs ``torch.einsum`` (cuBLAS batched GEMMs on the card). The
 one-hot dispatch and combine tensors cost FLOPs and memory that an index
 gather would not; they are kept as the JAX package has them. Where the
-JAX package calls ``expert_constraint`` (the mesh's ``expert`` axis),
-``moe_ffn`` takes an ``ExpertGroup``: the rank runs its slice of the
-experts, whose banks it holds, on the tokens every rank of the group
-holds, and the group sums the partial combine (``parallel/partitioning.py``
-``expert_enter`` / ``expert_exit``).
+JAX package calls ``expert_constraint`` (the mesh's ``expert`` axis, and
+the ``tensor`` axis on the banks' d_ff), ``moe_ffn`` takes an
+``ExpertGroup`` (tensor x expert): the rank runs its slice of the experts
+and of their d_ff columns, whose banks it holds, on the tokens every rank
+of the group holds; the tensor group sums the experts' partial outputs
+and the expert group the partial combine (``parallel/partitioning.py``).
+Two sums a layer, not one over tensor x expert: a rank's partial output
+of its columns would otherwise be combined before the sum over columns,
+and the layer would round where one process does not.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import dropout
-from ..parallel.partitioning import ExpertGroup, expert_enter, expert_exit
+from ..parallel.partitioning import (ExpertGroup, expert_enter, expert_exit,
+                                     grad_summed_over, sum_over_group)
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -101,6 +106,26 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
     return combine, aux
 
 
+def balance_share(aux: torch.Tensor, mask: Optional[torch.Tensor],
+                  rows: int, group=None) -> torch.Tensor:
+    """``aux``, a balance loss averaged over this rank's nonempty groups
+    (``topk_routing``'s, summed over layers), as this rank's share of the
+    average over the nonempty groups of every rank of ``group``: times
+    its nonempty groups (rows of ``mask`` with a real token, or ``rows``)
+    over their sum across the group. Summed over the group, the shares
+    are the one mean that the JAX package takes over the global batch.
+    ``aux`` itself without a group."""
+    if group is None:
+        return aux
+    import torch.distributed as dist
+
+    n = (torch.full((), float(rows), device=aux.device) if mask is None
+         else mask.float().amax(dim=1).sum())
+    total = n.detach().clone()
+    dist.all_reduce(total, group=group)
+    return aux * (n / total.clamp(min=1.0))
+
+
 def moe_ffn(x: torch.Tensor, combine: torch.Tensor, wi: torch.Tensor,
             wo: torch.Tensor, dropout_rate: float = 0.0,
             generator: Optional[torch.Generator] = None,
@@ -112,29 +137,46 @@ def moe_ffn(x: torch.Tensor, combine: torch.Tensor, wi: torch.Tensor,
     each token's gate-weighted sum of its experts' outputs, zero for a
     token every expert dropped. Dropout after the ReLU draws from
     ``generator``. With ``expert`` the banks are this rank's experts
-    ``expert.experts(E)`` only: the dispatch, the FFN and the combine run
-    on that slice of the E axis, and the group sums the partial combine in
-    fp32 (and, in the backward, the partial gradients of ``x`` and
-    ``combine``). The dropout mask is drawn whole at (E, G, C, F) and
-    sliced, so a rank keeps one process's."""
+    ``expert.experts(E)`` and d_ff columns ``expert.columns(F)`` only: the
+    dispatch, the FFN and the combine run on that slice; the tensor group
+    sums the experts' partial outputs over their columns and the expert
+    group the partial combine, each in fp32 and rounded once (and, in the
+    backward, tensor x expert sums the partial gradient of ``x``, the
+    expert group that of ``combine``). The dropout mask is drawn whole at
+    (E, G, C, F) and sliced on E and F, so a rank keeps one process's."""
     E = combine.shape[2]
     mine = slice(0, E) if expert is None else expert.experts(E)
+    # The tokens' gradient is partial on every rank of tensor x expert, the
+    # combine weights' on every expert rank (each tensor rank's alike).
     x = expert_enter(x, expert)
-    combine = expert_enter(combine, expert)[:, :, mine]
+    combine = grad_summed_over(
+        combine, None if expert is None else expert.expert_group)[:, :, mine]
     dispatch = (combine > 0).to(x.dtype)
     # The JAX package's expert_constraint(expert_in).
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
     h = F.relu(torch.einsum("egcd,edf->egcf", expert_in, wi.to(x.dtype)))
-    h = dropout(h, dropout_rate, generator,
-                None if expert is None else (0, mine.start, E))
-    expert_out = torch.einsum("egcf,efd->egcd", h, wo.to(x.dtype))
+    if expert is not None:
+        F_all = h.shape[-1] * expert.tensor
+        h = dropout(h, dropout_rate, generator, [
+            (0, mine.start, E), (3, expert.columns(F_all).start, F_all)])
+    else:
+        h = dropout(h, dropout_rate, generator)
+    if expert is not None and expert.tensor > 1:
+        # A tensor rank's d_ff columns: their partial products of the
+        # x.dtype operands in fp32, summed over the tensor group and
+        # rounded once, as one process's product over every column.
+        expert_out = sum_over_group(torch.einsum(
+            "egcf,efd->egcd", h.float(), wo.to(x.dtype).float()),
+            expert.tensor_group).to(x.dtype)
+    else:
+        expert_out = torch.einsum("egcf,efd->egcd", h, wo.to(x.dtype))
     # And expert_constraint(expert_out).
-    if expert is None:
+    if expert is None or expert.expert_group is None:
         return torch.einsum("gsec,egcd->gsd", combine.to(x.dtype),
                             expert_out)
-    # The partials in fp32 (of the same x.dtype operands), summed, then
-    # rounded once: one process's product accumulates every expert in fp32
-    # before its one rounding.
+    # The experts' partials in fp32 (of the same x.dtype operands),
+    # summed, then rounded once: one process's product accumulates every
+    # expert in fp32 before its one rounding.
     return expert_exit(torch.einsum(
         "gsec,egcd->gsd", combine.to(x.dtype).float(), expert_out.float()),
         expert).to(x.dtype)

@@ -24,6 +24,13 @@ rules, each for a reason it states:
 * the SwinV2 tower stays replicated over ``tensor``: its 88 M parameters
   weigh little beside a T5-3B's, and splitting it would add an all-gather
   after every ``patch_embed_proj``, ``reduction`` and ``fc1``;
+* so does the frozen text tower: it runs forward only, once a step, and
+  its features feed every tensor rank whole. Split, its products at half
+  the heads and columns round otherwise than one process's, and 24
+  layers amplify those last-bit differences into features that differ
+  from one process's across most elements (t5-large on an H100, bf16),
+  which then move the MoE routing of the transformer; whole, it runs as
+  one process's. FSDP2 still shards it over ``fsdp``;
 * FSDP2 shards every parameter, also those the rules replicate (norms,
   relative-position tables, the Swin position-bias MLP): those go on dim
   0, as does any parameter whose rule's ``fsdp`` dim does not divide by
@@ -44,12 +51,14 @@ package keeps outside its stacks, on every stage), and the ``expert``
 rule shards the banks' leading dim. The JAX package's three constraints
 become the exchanges XLA would insert for them:
 
-* ``expert_constraint``: ``ExpertGroup``; the ranks of an expert group hold
-  the same rows, so no token moves. Each runs its experts' FFN on the
-  dispatched tokens, and ``expert_enter`` / ``expert_exit`` are
-  Megatron's f and g: the token activations' and the combine weights'
-  gradients, partial on each rank, summed over the group once, and the
-  partial combine summed once in the forward;
+* ``expert_constraint``: ``ExpertGroup``, the ranks that share the rows and
+  split the banks: tensor x expert. No token moves. Each rank runs its
+  experts' FFN on its ``d_ff / tensor`` columns of each (``wi`` cut on
+  dim 2, ``wo`` on dim 1, where the rules put ``tensor``), and Megatron's
+  f and g carry the partial results: the token activations' gradient is
+  summed over tensor x expert (``expert_enter``), the experts' outputs
+  over the tensor group (their d_ff columns), and the combine and the
+  combine weights' gradient over the expert group (``expert_exit``);
 * ``pipe_constraint``: ``PipeGroup`` and ``pipe_stages``, the stage shift
   (each microbatch sent to the next stage, the cotangent received back);
 * ``tick_constraint``: the microbatch rows of the tick stack are this data
@@ -187,8 +196,8 @@ def fsdp_dim(name: str, shape: tuple, fsdp: int) -> int:
 def tensor_parallel(name: str) -> bool:
     """Whether ``parallelize`` splits a parameter over ``tensor``: its rule
     names the axis (at any rank: 4 dims hold every rule) and it is not the
-    SwinV2 tower's (replicated by design)."""
-    if name.startswith("image_model."):
+    SwinV2 tower's or the text tower's (replicated by design)."""
+    if name.startswith(("image_model.", "language_model.")):
         return False
     return "tensor" in spec_for_path(name, 4)
 
@@ -202,8 +211,10 @@ def applied_spec(name: str, shape: tuple, axis_sizes: Mapping[str, int]
                  ) -> tuple:
     """The mesh axes on each dim as ``parallelize`` and the expert split
     lay a parameter out: ``expert`` and ``tensor`` where the rules put them
-    (``tensor`` not on the Swin tower), ``fsdp`` on ``fsdp_dim``. Entries
-    are tuples of axis names."""
+    (``tensor`` not on the Swin tower; a bank's d_ff), ``fsdp`` on
+    ``fsdp_dim`` (whose dim, where the rule names one, no other axis cuts,
+    so the whole shape decides it as the rank's does). Entries are tuples
+    of axis names."""
     spec = spec_for_path(name, len(shape))
     out = [[] for _ in shape]
     if "expert" in spec and axis_sizes.get("expert", 1) > 1:
@@ -524,13 +535,22 @@ def seq_gather(x: torch.Tensor, seq: Optional[SeqSlice],
 
 @dataclasses.dataclass(frozen=True)
 class ExpertGroup:
-    """An expert group as an MoE layer sees it: the process group, this
-    rank's place in it and its size. Rank e holds experts ``[e E / size,
-    (e + 1) E / size)`` of every layer's E."""
+    """The ranks that split an MoE layer's banks, as the layer sees them:
+    ``group``, the process group of tensor x expert (the ranks that share
+    the rows), this rank's place on the expert axis (``rank`` of ``size``,
+    whose ranks ``expert_group`` holds) and on the tensor axis
+    (``tensor_rank`` of ``tensor``, in ``tensor_group``). Rank (t, e)
+    holds experts ``[e E / size, (e + 1) E / size)`` of every layer's E,
+    and columns ``[t F / tensor, (t + 1) F / tensor)`` of their d_ff. A
+    group of one rank is None."""
 
     group: object
     rank: int
     size: int
+    tensor_rank: int = 0
+    tensor: int = 1
+    tensor_group: object = None
+    expert_group: object = None
 
     def experts(self, num_experts: int) -> slice:
         """This rank's experts of ``num_experts``."""
@@ -539,6 +559,14 @@ class ExpertGroup:
                              f"by the mesh expert axis {self.size}")
         per = num_experts // self.size
         return slice(self.rank * per, (self.rank + 1) * per)
+
+    def columns(self, d_ff: int) -> slice:
+        """This rank's columns of a d_ff of ``d_ff``."""
+        if d_ff % self.tensor:
+            raise ValueError(f"d_ff={d_ff} must divide by the mesh tensor "
+                             f"axis {self.tensor}")
+        per = d_ff // self.tensor
+        return slice(self.tensor_rank * per, (self.tensor_rank + 1) * per)
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -560,26 +588,37 @@ class _SumOverGroup(torch.autograd.Function):
         return grad, None
 
 
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (``all_reduce``, Megatron's ``g``: the
+    backward hands every rank the gradient as it is)."""
+    return _SumOverGroup.apply(x, group)
+
+
+def grad_summed_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient the backward sums over ``group``
+    (Megatron's ``f``); ``x`` without a group."""
+    if group is None:
+        return x
+    return _SumGradOverGroup.apply(x, group)
+
+
 def expert_enter(x: torch.Tensor, expert: Optional[ExpertGroup]
                  ) -> torch.Tensor:
-    """``x`` (replicated over the expert group) as it enters the rank's
-    experts: the identity, whose backward sums the gradient over the group
-    (each rank's part comes from its experts only): the token activations
-    before dispatch and the combine weights before the combine. ``x``
-    itself without a group."""
-    if expert is None:
-        return x
-    return _SumGradOverGroup.apply(x, expert.group)
+    """``x``, the token activations (replicated over the group), as they
+    enter the rank's experts: the identity, whose backward sums the
+    gradient over tensor x expert (each rank's part comes from its experts
+    and columns only). ``x`` itself without a group."""
+    return grad_summed_over(x, None if expert is None else expert.group)
 
 
 def expert_exit(y: torch.Tensor, expert: Optional[ExpertGroup]
                 ) -> torch.Tensor:
     """The rank's partial combine (its experts' share of each token's
     output) summed over the expert group; the backward hands every rank
-    the gradient as it is. ``y`` itself without a group."""
-    if expert is None:
+    the gradient as it is. ``y`` itself without an expert group."""
+    if expert is None or expert.expert_group is None:
         return y
-    return _SumOverGroup.apply(y, expert.group)
+    return _SumOverGroup.apply(y, expert.expert_group)
 
 
 # ---------------------------------------------------------------------------
@@ -822,21 +861,33 @@ def _t5_stacks(model: nn.Module) -> list:
 
 
 def parallelize(net: nn.Module, model: nn.Module, mesh,
-                device: torch.device) -> list[nn.Module]:
+                device: torch.device,
+                expert: Optional[ExpertGroup] = None) -> list[nn.Module]:
     """Shard ``model`` (a ``MultiModalModel``, held by the step module
     ``net``, whose forward is the loss) over ``mesh`` (a ``utils.mesh.Mesh``
     with ``fsdp`` or ``tensor`` above 1), in place:
 
     1. with ``tensor`` > 1, tensor parallelism over the ``tensor`` dim of
-       the ``DeviceMesh``: the T5 stacks of the text tower and the
-       transformer, the LM head and the projections (``_tensor_plan``);
-       each stack, attention and MLP learns its tensor rank and size, so
-       that it runs its own heads and d_ff columns
-       (``T5Stack.set_tensor_shard``);
-    2. FSDP2 over the ``(data, fsdp)`` dims: one unit per T5 block (and
+       the ``DeviceMesh``: the transformer's T5 stacks, its LM head and
+       the projections (``_tensor_plan``); each stack, attention and MLP
+       learns its tensor rank and size, so that it runs its own heads and
+       d_ff columns (``T5Stack.set_tensor_shard``);
+    2. under MoE with ``expert`` (the tensor x expert group), the banks cut
+       to the rank's experts and d_ff columns
+       (``T5ForConditionalGeneration.split_experts``);
+    3. FSDP2 over the ``(data, fsdp)`` dims: one unit per T5 block (and
        per relative-position table), per SwinV2 stage and per tower, the
        step module last as the root, each parameter sharded on
-       ``fsdp_dim``.
+       ``fsdp_dim`` of its shape on the rank (a bank's cut one).
+
+    The banks stay plain tensors, local slices with explicit partial sums
+    (``ExpertGroup``), not DTensors over ``tensor`` and ``expert``: the
+    dispatch and combine einsums have no DTensor sharding rule that keeps
+    the experts' dim local, and the sums that XLA inserts for
+    ``expert_constraint`` are then one all-reduce per MoE layer over c10d
+    (DTensor's functional collectives crash with gloo on CUDA tensors).
+    FSDP2 sees each slice as a tensor replicated over its data x fsdp
+    group, and shards it there.
 
     The weights must be in place and equal on every rank, the frozen ones
     already in their storage dtype (a unit's parameters share one dtype).
@@ -853,10 +904,12 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
     partial = []
     if mesh.tensor > 1:
         parallelize_module(model, dmesh["tensor"], _tensor_plan(model))
-        for stack in _t5_stacks(model):
+        for stack in _t5_stacks(model.transformer):
             stack.set_tensor_shard(mesh.tensor_rank, mesh.tensor)
             if stack.relative_attention_bias.weight.requires_grad:
                 partial.append(stack.relative_attention_bias)
+    if expert is not None:
+        model.transformer.split_experts(expert)
     names = {id(p): n for n, p in model.named_parameters()}
 
     def placement(p: nn.Parameter):

@@ -27,14 +27,19 @@ gathers each gradient whole, computes one process's update and applies
 the rank's shard of it (a mean over a shard alone would be silently
 wrong).
 
-Under the ``pipe`` and ``expert`` axes each rank's optimizer holds its own
-parameters only (its stage's blocks, its experts' slices of the banks, and
-the replicated rest): Adam's state of a local tensor is that slice of one
-process's. ``Adafactor``'s factored statistics of an expert bank are per
-expert (it factors the two largest dims, never the experts'), so they
-slice too; its block RMS over a JAX leaf that spans ranks (a scanned
-stack's blocks, an expert bank) is summed over the pipe or expert group
-(``Adafactor.spread``).
+Under the ``pipe`` and ``expert`` axes, and for MoE banks under ``tensor``,
+each rank's optimizer holds its own parameters only (its stage's blocks,
+its experts' slices of the banks, cut on d_ff too under ``tensor``, and the
+replicated rest): Adam's state of a local tensor is that slice of one
+process's. ``Adafactor`` factors a bank as the whole bank's shape says
+(``Adafactor.cuts``): its statistics are per expert (it never factors the
+experts' dim: ``expert_factoring_slices``), so they slice on it; a row or
+column mean over the d_ff columns is summed over the tensor group
+(``Adafactor.cut_group``), whose ranks hold the other columns. Its block
+RMS over a JAX leaf that spans ranks (a scanned stack's blocks, an expert
+bank) is summed over the pipe group or the tensor x expert group
+(``Adafactor.spread``); the ``fsdp`` and the dense layers' ``tensor``
+shards are gathered whole first (above).
 """
 
 from __future__ import annotations
@@ -223,9 +228,16 @@ class Adafactor(torch.optim.Optimizer):
     def __init__(self, params, lr: float):
         super().__init__(params, dict(lr=lr))
         # (process group, the indices of the param groups whose JAX leaf
-        # spans its ranks), set under the pipe or expert axis: those
-        # groups' sums of squares and sizes are summed over it.
+        # spans its ranks), set under the pipe or expert axis and for MoE
+        # banks under tensor: those groups' sums of squares and sizes are
+        # summed over it.
         self.spread: Optional[tuple] = None
+        # {parameter: (its whole shape, the dim cut over ``cut_group`` or
+        # None)} for a parameter that is a slice of a larger one (an MoE
+        # bank's): the whole shape picks the factored dims, and a mean
+        # over the cut dim is summed over the group.
+        self.cuts: dict = {}
+        self.cut_group = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -264,18 +276,20 @@ class Adafactor(torch.optim.Optimizer):
     def _scaled(self, p: torch.Tensor) -> torch.Tensor:
         """``scale_by_factored_rms`` of one tensor: updates its state and
         returns g / sqrt(v) with v the (factored) second-moment estimate
-        (whole, for a sharded parameter too)."""
+        (whole, for a sharded parameter too; of the rank's slice, with the
+        whole slice's means, for a cut one)."""
         g = gather_full(p.grad)
         st = self.state[p]
-        dims = _factored_dims(p.shape)
+        whole, cut = self.cuts.get(p, (tuple(g.shape), None))
+        dims = _factored_dims(whole)
         if not st:
             st["step"] = 0
             if dims is None:
                 st["v"] = torch.zeros_like(g)
             else:
                 d1, d0 = dims
-                st["v_row"] = g.new_zeros(_drop(p.shape, d0))
-                st["v_col"] = g.new_zeros(_drop(p.shape, d1))
+                st["v_row"] = g.new_zeros(_drop(g.shape, d0))
+                st["v_col"] = g.new_zeros(_drop(g.shape, d1))
         decay = 1.0 - _f32(st["step"] + 1) ** -ADAFACTOR_DECAY
         st["step"] += 1
         g_sq = g * g + ADAFACTOR_EPS
@@ -283,15 +297,28 @@ class Adafactor(torch.optim.Optimizer):
             v = st["v"] = decay * st["v"] + (1.0 - decay) * g_sq
             return g * v ** -0.5
         d1, d0 = dims
-        v_row = st["v_row"] = (decay * st["v_row"]
-                               + (1.0 - decay) * g_sq.mean(d0))
-        v_col = st["v_col"] = (decay * st["v_col"]
-                               + (1.0 - decay) * g_sq.mean(d1))
+        v_row = st["v_row"] = (decay * st["v_row"] + (1.0 - decay)
+                               * self._mean(g_sq, d0, cut == d0))
+        v_col = st["v_col"] = (decay * st["v_col"] + (1.0 - decay)
+                               * self._mean(g_sq, d1, cut == d1))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+        row_col_mean = self._mean(v_row, reduced_d1, cut == d1,
+                                  keepdim=True)
         row_factor = (v_row / row_col_mean) ** -0.5
         col_factor = v_col ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+    def _mean(self, t: torch.Tensor, dim: int, cut: bool,
+              keepdim: bool = False) -> torch.Tensor:
+        """``t``'s mean over ``dim``; where ``dim`` is cut over
+        ``cut_group`` (equal slices), the mean of the group's means."""
+        m = t.mean(dim, keepdim=keepdim)
+        if not cut:
+            return m
+        import torch.distributed as dist
+
+        dist.all_reduce(m, group=self.cut_group)
+        return m / dist.get_world_size(self.cut_group)
 
 
 def _f32(x) -> torch.Tensor:
@@ -315,13 +342,26 @@ def _drop(shape, dim: int) -> tuple:
     return tuple(s for i, s in enumerate(shape) if i != dim)
 
 
-def expert_factoring_slices(whole_shape: tuple, local_shape: tuple) -> bool:
+def expert_factoring_slices(whole_shape: tuple) -> bool:
     """Whether ``Adafactor``'s statistics of an expert bank of
-    ``whole_shape`` (E, ...) are those of its slices of ``local_shape``:
-    it factors the same two dims of both, neither the experts' dim 0."""
+    ``whole_shape`` (E, ...) slice on the experts' dim 0: it does not
+    factor that dim."""
     dims = _factored_dims(whole_shape)
-    return (dims is None or 0 not in dims) and (
-        dims == _factored_dims(local_shape))
+    return dims is None or 0 not in dims
+
+
+def state_dim(key: str, shape: tuple, dim: int) -> Optional[int]:
+    """The dim of an optimizer state entry ``key`` of a parameter of
+    ``shape`` that runs along the parameter's dim ``dim``, or None where
+    the entry has no such dim (``Adafactor``'s row statistic drops the
+    largest factored dim, its column statistic the other)."""
+    dims = _factored_dims(shape)
+    if key not in ("v_row", "v_col") or dims is None:
+        return dim
+    dropped = dims[1] if key == "v_row" else dims[0]
+    if dim == dropped:
+        return None
+    return dim - 1 if dim > dropped else dim
 
 
 def optimizer_groups(config: Config, names: Iterable[str]

@@ -36,9 +36,10 @@ count / accum) and by the world size, which DDP's average divides out
 again, so that the reduced gradient is the global one. Every microbatch but
 the last runs under ``no_sync()``. Returned losses, training and
 validation, are the all-reduced global values. The JAX package's sharding
-and buffer donation have no counterpart. Under MoE a rank's balance loss is
-its own rows' and is weighted by the same share, where the JAX package's
-is one mean over the global batch's groups.
+and buffer donation have no counterpart. Under MoE the balance loss is one
+mean over the global microbatch's groups, as the JAX package's: each rank's
+is its share of it (``T5ForConditionalGeneration.set_aux_group``), which
+takes no token share.
 
 A mesh with ``seq`` above 1 keeps DDP over the world (data x seq), whose
 ranks hold the whole parameters: the ranks of a seq group share their
@@ -52,14 +53,18 @@ rank 0 counts its tokens.
 A mesh with ``pipe`` or ``expert`` above 1 splits the transformer after
 its weights are made or loaded: a pipe rank keeps its stage's blocks
 (``T5ForConditionalGeneration.split_stages``), an expert rank its experts
-(``split_experts``), and every rank the rest, replicated. The ranks of a
-pipe or expert group hold the same rows and compute one loss: every
-exchange between them sits inside the model (the stage shift, the experts'
-partial sums), so that the gradients of the replicated parameters come out
-the same on each rank with no further reduction. DDP, when there is more
-than one data rank, spans the data group of the rank's stage or experts
+(``split_experts``), and every rank the rest, replicated. Under MoE with
+``tensor`` above 1 a rank keeps its d_ff columns of its experts too, cut
+inside ``parallelize`` before FSDP2 shards the slices over data x fsdp.
+The ranks of a pipe group, or of a tensor x expert group, hold the same
+rows and compute one loss: every exchange between them sits inside the
+model (the stage shift, the experts' partial sums), so that the gradients
+of the replicated parameters come out the same on each rank with no
+further reduction. DDP, when there is more than one data rank and nothing
+is sharded, spans the data group of the rank's stage or experts
 (``Mesh.dp_group``); with one data rank there is none. Whole state dicts
-gather the stages and the experts to rank 0 over the host's gloo group.
+gather the stages and the bank slices to rank 0 over the host's gloo
+group, as tensors.
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -84,12 +89,13 @@ from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
 from ..parallel.partitioning import (ExpertGroup, PipeGroup, SeqGroup,
                                      gather_full, local_shard, parallelize,
-                                     stack_layers, stage_for_path)
+                                     spec_for_path, stack_layers,
+                                     stage_for_path)
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
 from .optim import (Adafactor, expert_factoring_slices, make_optimizer,
-                    optimizer_groups, trainable_names)
+                    optimizer_groups, state_dim, trainable_names)
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -97,8 +103,8 @@ Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 class StepNet(nn.Module):
     """The loss of a batch, from its images or from cached tower features,
     as one module's forward: DDP reduces the gradients of what runs through
-    its wrapper's forward. Returns (loss, the frozen towers' outputs or
-    None)."""
+    its wrapper's forward. Returns (loss, the weighted balance loss that it
+    includes (0 without MoE), the frozen towers' outputs or None)."""
 
     def __init__(self, model: MultiModalModel, compute_dtype: torch.dtype):
         super().__init__()
@@ -109,24 +115,28 @@ class StepNet(nn.Module):
                 with_features: bool = False):
         if with_features:
             return self._features_then_loss(batch, generator, deterministic)
-        return self._loss(batch, generator, deterministic), None
+        return (*self._loss(batch, generator, deterministic), None)
 
-    def _loss(self, batch: dict, generator, deterministic: bool
-              ) -> torch.Tensor:
+    def _loss(self, batch: dict, generator, deterministic: bool):
         model = self.model
         if "image_features" in batch:
             # Cached tower features: the same loss as from the images.
-            return model.loss_from_image_features(
+            out = model.loss_from_image_features(
                 batch["image_features"], batch["source_ids"],
                 batch["target_ids"], source_mask=batch.get("source_mask"),
                 target_mask=batch.get("target_mask"),
                 language_features=batch.get("language_features"),
-                deterministic=deterministic, generator=generator).loss
-        images = normalize_images(batch["images"], dtype=self.compute_dtype)
-        return model(images, batch["source_ids"], batch["target_ids"],
-                     source_mask=batch.get("source_mask"),
-                     target_mask=batch.get("target_mask"),
-                     deterministic=deterministic, generator=generator).loss
+                deterministic=deterministic, generator=generator)
+        else:
+            images = normalize_images(batch["images"],
+                                      dtype=self.compute_dtype)
+            out = model(images, batch["source_ids"], batch["target_ids"],
+                        source_mask=batch.get("source_mask"),
+                        target_mask=batch.get("target_mask"),
+                        deterministic=deterministic, generator=generator)
+        aux = (torch.zeros((), device=out.loss.device) if out.aux_loss is None
+               else self.model.config.moe_aux_loss_weight * out.aux_loss)
+        return out.loss, aux
 
     def _features_then_loss(self, batch: dict, generator,
                             deterministic: bool):
@@ -139,7 +149,7 @@ class StepNet(nn.Module):
         fbatch = {k: v for k, v in batch.items() if k != "images"}
         fbatch["image_features"] = img
         fbatch["language_features"] = lang
-        return self._loss(fbatch, generator, deterministic), (img, lang)
+        return (*self._loss(fbatch, generator, deterministic), (img, lang))
 
 
 @dataclasses.dataclass
@@ -180,16 +190,26 @@ class Trainer:
             raise ValueError(f"moe_experts={cfg.moe_experts} must be a "
                              f"multiple of the mesh expert axis {mesh.expert}")
         # Every rank makes the groups, in one order (collectives).
-        self.pipe = (PipeGroup(mesh.pipe_group(), mesh.pipe_rank, mesh.pipe)
-                     if mesh.pipe > 1 else None)
-        self.expert = (ExpertGroup(mesh.expert_group(), mesh.expert_rank,
-                                   mesh.expert) if mesh.expert > 1 else None)
-        if mesh.split:
-            mesh.dp_group(self.device.type)
-        # Under pipe or expert: the whole model's state-dict names, in
-        # order, its optimizer's param groups (by name) and its stacks'
-        # block counts, from before the split.
+        dt = self.device.type
+        self.pipe = (PipeGroup(mesh.pipe_group(dt), mesh.pipe_rank,
+                               mesh.pipe) if mesh.pipe > 1 else None)
+        # The banks split over tensor x expert (MoE only).
+        self.expert = None
+        if cfg.moe_experts and (mesh.expert > 1 or mesh.tensor > 1):
+            self.expert = ExpertGroup(
+                mesh.rows_group(dt), mesh.expert_rank, mesh.expert,
+                mesh.tensor_rank, mesh.tensor,
+                mesh.tensor_group(dt) if mesh.tensor > 1 else None,
+                mesh.expert_group(dt) if mesh.expert > 1 else None)
+        if mesh.split or mesh.sharded:
+            mesh.dp_group(dt)
+        if cfg.moe_experts and mesh.dp_size > 1:
+            self.model.transformer.set_aux_group(mesh.dp_group(dt))
+        # Under pipe or split banks: the whole model's state-dict names and
+        # shapes, in order, its optimizer's param groups (by name) and its
+        # stacks' block counts, from before the split.
         self._whole_names: list = []
+        self._whole_shapes: dict = {}
         self._whole_groups: list = []
         self._layers: dict = {}
         self.net = StepNet(self.model, self.policy.compute_dtype)
@@ -231,20 +251,24 @@ class Trainer:
                 generator = torch.Generator(device=self.device).manual_seed(
                     self.config.seed)
             self.model.init_weights(generator)
+        if self.split_model:
+            self._record_whole()
         if self.mesh.sharded:
             # Shard the weights as they are (frozen ones in their storage
-            # dtype), then build the optimizer over the shards.
+            # dtype), the banks cut first, then build the optimizer over
+            # the shards.
             names = trainable_names(self.model, self.config)
             for name, p in self.model.named_parameters():
                 p.requires_grad_(name in names)
             self._cast_frozen()
             self.tensor_partial = parallelize(self.net, self.model,
-                                              self.mesh, self.device)
-        if self.mesh.split:
+                                              self.mesh, self.device,
+                                              self.expert)
+        elif self.split_model:
             self._split()
         self.optimizer, self.scheduler = make_optimizer(
             self.config, self.model, self.num_epochs)
-        if self.mesh.split and isinstance(self.optimizer, Adafactor):
+        if self.split_model and isinstance(self.optimizer, Adafactor):
             self._spread_adafactor()
         self._cast_frozen()
         self.step = 0
@@ -280,39 +304,50 @@ class Trainer:
         dicts are gathered and cut again."""
         return self.mesh.sharded or self.mesh.split
 
+    @property
+    def split_model(self) -> bool:
+        """Whether the transformer's stages or MoE banks are split over
+        ranks (``pipe``; ``expert``, or ``tensor`` under MoE): parts of
+        the whole state live on other ranks than rank 0."""
+        return self.pipe is not None or self.expert is not None
+
     # -- the pipe and expert split -----------------------------------------
-    def _split(self) -> None:
-        """Split the transformer's stages or experts over their groups,
-        their weights as they are (the same on every rank)."""
+    def _record_whole(self) -> None:
+        """The whole model's state-dict names and shapes, its optimizer's
+        param groups and its stacks' block counts, before any split; and
+        the refusal of an Adafactor that would factor the experts' dim."""
         names = trainable_names(self.model, self.config)
-        self._whole_names = list(self.model.state_dict())
+        state = self.model.state_dict()
+        self._whole_names = list(state)
+        self._whole_shapes = {n: tuple(v.shape) for n, v in state.items()}
         self._whole_groups = optimizer_groups(
             self.config, [n for n, _ in self.model.named_parameters()
                           if n in names])
         self._layers = stack_layers(self._whole_names)
-        banks = {n: tuple(p.shape) for n, p in
-                 self.model.named_parameters() if self._is_bank(n)}
+        if self.config.optimizer == "adafactor" and self.mesh.expert > 1:
+            for n, shape in self._whole_shapes.items():
+                if self._is_bank(n) and not expert_factoring_slices(shape):
+                    raise NotImplementedError(
+                        f"{n} {shape}: Adafactor would factor its "
+                        "experts' dim; split it with Adam, or fewer "
+                        "experts")
+
+    def _split(self) -> None:
+        """Split the transformer's stages or experts over their groups,
+        their weights as they are (the same on every rank)."""
         if self.pipe is not None:
             self.model.transformer.split_stages(self.pipe)
         if self.expert is not None:
             self.model.transformer.split_experts(self.expert)
-            if self.config.optimizer == "adafactor":
-                local = dict(self.model.named_parameters())
-                for n, shape in banks.items():
-                    if not expert_factoring_slices(shape,
-                                                   tuple(local[n].shape)):
-                        raise NotImplementedError(
-                            f"{n} {shape}: Adafactor would factor its "
-                            "experts' dim; split it with Adam, or fewer "
-                            "experts")
 
     def _is_bank(self, name: str) -> bool:
         return name.endswith((".mlp.experts_wi", ".mlp.experts_wo"))
 
     def _placement(self, name: str):
         """Where a state-dict entry of the whole model lives: ('stage', s)
-        on pipe rank s, ('expert',) sliced on dim 0 over the expert ranks,
-        or None (on every rank)."""
+        on pipe rank s, ('expert',) cut on its experts' dim over the expert
+        ranks and on its d_ff over the tensor ranks, or None (on every
+        rank)."""
         if self.pipe is not None:
             s = stage_for_path(name, self._layers, self.pipe.size)
             if s is not None:
@@ -322,24 +357,46 @@ class Trainer:
         return None
 
     def _spread_adafactor(self) -> None:
-        """Adafactor's clipping blocks whose JAX leaf spans the pipe or
-        expert group: their sums of squares are summed over it."""
+        """Adafactor's clipping blocks whose JAX leaf spans the pipe group
+        or the tensor x expert group: their sums of squares are summed over
+        it. A bank is factored as its whole shape says, its d_ff means
+        summed over the tensor group."""
         group = (self.pipe or self.expert).group
         names = {id(p): n for n, p in self.model.named_parameters()}
         spread = [i for i, g in enumerate(self.optimizer.param_groups)
                   if self._placement(names[id(g["params"][0])]) is not None]
         self.optimizer.spread = (group, spread)
+        if self.expert is None:
+            return
+        for g in self.optimizer.param_groups:
+            for p in g["params"]:
+                n = names[id(p)]
+                if self._is_bank(n):
+                    self.optimizer.cuts[p] = (
+                        self._whole_shapes[n],
+                        self._tensor_dim(n) if self.mesh.tensor > 1
+                        else None)
+        if self.mesh.tensor > 1:
+            self.optimizer.cut_group = self.mesh.tensor_group(
+                self.device.type)
+
+    def _tensor_dim(self, name: str) -> int:
+        """A bank's d_ff dim (its rule's ``tensor``)."""
+        return spec_for_path(name, len(self._whole_shapes[name])).index(
+            "tensor")
 
     def _sources(self) -> list:
-        """The world ranks that hold rank 0's stages (by stage) or experts
-        (by slice): the members of rank 0's pipe or expert group."""
+        """The world ranks that hold rank 0's stages (by stage) or bank
+        slices (tensor-major, expert-minor: the ranks that share rank 0's
+        rows)."""
         m = self.mesh
         return ([s * m.expert for s in range(m.pipe)] if m.pipe > 1
-                else list(range(m.expert)))
+                else list(range(m.tensor * m.expert)))
 
     def _gather_split(self, mine: dict) -> list:
         """Rank 0: every source's ``mine`` (``_sources`` order; its own in
-        its place), sent over the host's gloo group; [] elsewhere."""
+        its place), sent over the host's gloo group as raw tensors behind
+        a small pickled outline of names, shapes and dtypes; [] elsewhere."""
         sources = self._sources()
         rank, group = self.mesh.rank, self.mesh.cpu_group
         if rank == 0:
@@ -350,17 +407,23 @@ class Trainer:
                     continue
                 box = [None]
                 dist.recv_object_list(box, src=src, group=group)
-                out.append(box[0])
+                out.append(_fill(box[0], src, group))
             return out
         if rank in sources:
-            dist.send_object_list([mine], dst=0, group=group)
+            tensors = []
+            outline = _outline(mine, tensors)
+            dist.send_object_list([outline], dst=0, group=group)
+            for t in tensors:
+                if t.numel():
+                    dist.send(_bytes(t), dst=0, group=group)
         return []
 
     def _whole_entry(self, name: str, local: dict, parts: list):
         """Entry ``name`` whole, from the sources' ``parts`` (rank 0's own
         ``local`` for what every rank holds): a state tensor or a dict of
-        them (optimizer state), the experts' slices joined on dim 0; None
-        where its holder has none (no optimizer state yet)."""
+        them (optimizer state), the bank slices joined on their experts'
+        and d_ff dims; None where its holder has none (no optimizer state
+        yet)."""
         where = self._placement(name)
         if where is None:
             return local.get(name)
@@ -369,41 +432,56 @@ class Trainer:
         pieces = [p.get(name) for p in parts]
         if pieces[0] is None:
             return None
+        shape, T, E = self._whole_shapes[name], self.mesh.tensor, \
+            self.mesh.expert
 
-        def join(values):
+        def join(values, key=""):
             first = values[0]
-            if isinstance(first, torch.Tensor) and first.dim() > 0:
-                return torch.cat(values)
-            return first
+            if not (isinstance(first, torch.Tensor) and first.dim() > 0):
+                return first
+            ed = state_dim(key, shape, 0)
+            td = state_dim(key, shape, self._tensor_dim(name))
+            rows = [torch.cat(values[t * E:(t + 1) * E], dim=ed)
+                    for t in range(T)]
+            return rows[0] if td is None else torch.cat(rows, dim=td)
 
         if isinstance(pieces[0], dict):
-            return {k: join([p[k] for p in pieces]) for k in pieces[0]}
+            return {k: join([p[k] for p in pieces], k) for k in pieces[0]}
         return join(pieces)
 
     def _local_entry(self, name: str, whole):
         """This rank's part of a whole entry (``_whole_entry``'s inverse):
-        the experts' slice of every tensor of dim > 0."""
+        a bank's experts and d_ff columns of every tensor of dim > 0."""
         if self._placement(name) != ("expert",):
             return whole
-        mine = self.expert.experts(self.config.moe_experts)
+        shape = self._whole_shapes[name]
+        mine = self.expert.experts(shape[0])
+        tdim = self._tensor_dim(name)
+        cols = self.expert.columns(shape[tdim])
 
-        def cut(v):
-            if isinstance(v, torch.Tensor) and v.dim() > 0:
-                return v[mine]
-            return v
+        def cut(v, key=""):
+            if not (isinstance(v, torch.Tensor) and v.dim() > 0):
+                return v
+            v = v.narrow(state_dim(key, shape, 0), mine.start,
+                         mine.stop - mine.start)
+            td = state_dim(key, shape, tdim)
+            if td is not None:
+                v = v.narrow(td, cols.start, cols.stop - cols.start)
+            return v.contiguous()
 
         if isinstance(whole, dict):
-            return {k: cut(v) for k, v in whole.items()}
+            return {k: cut(v, k) for k, v in whole.items()}
         return cut(whole)
 
     def _optimizer_by_name(self) -> tuple[dict, dict]:
-        """(this rank's optimizer state by parameter name, on the host; the
+        """(this rank's optimizer state by parameter name, on the host, a
+        sharded tensor gathered over its mesh (every rank calls it); the
         hyperparameters of its param groups, which share them)."""
         state = self.optimizer.state_dict()
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         names = {id(p): n for n, p in self.model.named_parameters()}
         by_name = {names[id(params[int(i)])]: {
-            k: (v.detach().to("cpu", copy=True)
+            k: (gather_full(v.detach()).to("cpu", copy=True)
                 if isinstance(v, torch.Tensor) else v)
             for k, v in st.items()}
             for i, st in state["state"].items()}
@@ -422,51 +500,42 @@ class Trainer:
     # -- whole state dicts (sharded or not) --------------------------------
     def full_state_dict(self) -> dict:
         """The model's state dict with every tensor whole: its own on one
-        process or under DDP; under sharding gathered (every rank calls
-        it: ``parallel.partitioning.gather_full``), on the host, held by
-        rank 0 (the other ranks get an empty dict)."""
-        if self.mesh.split:
-            local = {n: v.detach().to("cpu", copy=True)
-                     for n, v in self.model.state_dict().items()}
-            parts = self._gather_split({n: v for n, v in local.items()
-                                        if self._placement(n) is not None})
-            if self.mesh.rank != 0:
-                return {}
-            return {n: self._whole_entry(n, local, parts)
-                    for n in self._whole_names}
-        if not self.sharded:
+        process or under DDP; under sharding and the split gathered (every
+        rank calls it: ``parallel.partitioning.gather_full``, then the
+        stages and bank slices to rank 0), on the host, held by rank 0 (the
+        other ranks get an empty dict)."""
+        if not self.partitioned:
             return self.model.state_dict()
-        out = {}
+        rank0 = self.mesh.rank == 0
+        local = {}
         for name, value in self.model.state_dict().items():
             whole = gather_full(value.detach())
-            if self.mesh.rank == 0:
-                out[name] = whole.cpu()
-        return out
+            if rank0 or self._placement(name) is not None:
+                local[name] = whole.to("cpu", copy=True)
+        if not self.split_model:
+            return local if rank0 else {}
+        parts = self._gather_split({n: v for n, v in local.items()
+                                    if self._placement(n) is not None})
+        if not rank0:
+            return {}
+        return {n: self._whole_entry(n, local, parts)
+                for n in self._whole_names}
 
     def load_full_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                              strict: bool = True) -> None:
         """Load a whole state dict (one process's, the same on every rank)
         into the model; under sharding, and under the pipe and expert
         split, each rank copies its part out of it (no communication)."""
-        if self.mesh.split:
-            known = set(self._whole_names)
-            missing = sorted(known - set(state_dict))
-            unexpected = sorted(set(state_dict) - known)
-            if unexpected or (strict and missing):
-                raise RuntimeError(f"state dict: missing {missing}, "
-                                   f"unexpected {unexpected}")
-            local = self.model.state_dict()
-            with torch.no_grad():
-                for name, value in state_dict.items():
-                    if name in local:
-                        local[name].copy_(self._local_entry(name, value))
-            return
-        if not self.sharded:
+        if not self.partitioned:
             self.model.load_state_dict(state_dict, strict=strict)
             return
-        live = dict(self.model.named_parameters())
-        live.update(self.model.named_buffers())
-        known = set(self.model.state_dict())
+        known = set(self._whole_names if self.split_model
+                    else self.model.state_dict())
+        if self.sharded:
+            live = dict(self.model.named_parameters())
+            live.update(self.model.named_buffers())
+        else:
+            live = self.model.state_dict()
         missing = sorted(known - set(state_dict))
         unexpected = sorted(set(state_dict) - known)
         if unexpected or (strict and missing):
@@ -474,7 +543,10 @@ class Trainer:
                                f"unexpected {unexpected}")
         with torch.no_grad():
             for name, value in state_dict.items():
+                if name not in live:  # another stage's
+                    continue
                 t = live[name]
+                value = self._local_entry(name, value)
                 if isinstance(t, DTensor):
                     t.to_local().copy_(local_shard(value, t))
                 else:
@@ -484,7 +556,7 @@ class Trainer:
         """The optimizer's state dict (one process's form), every tensor
         whole; under sharding and the split gathered (every rank calls it)
         and held by rank 0."""
-        if self.mesh.split:
+        if self.split_model:
             by_name, hyper = self._optimizer_by_name()
             parts = self._gather_split({n: v for n, v in by_name.items()
                                         if self._placement(n) is not None})
@@ -518,7 +590,7 @@ class Trainer:
         state, the experts' slices of it. Every state tensor keeps its saved
         dtype (torch's loader would cast ``AdamBf16Mu``'s bf16 moment to
         its parameter's)."""
-        if self.mesh.split:
+        if self.split_model:
             flat = [n for g in self._whole_groups for n in g]
             saved = {flat[int(i)]: st for i, st in state["state"].items()}
             params = [p for g in self.optimizer.param_groups
@@ -637,7 +709,7 @@ class Trainer:
         elif self.ddp is None:
             for i in range(accum):
                 mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                loss, f = self.net(mb, generator, False, with_features)
+                loss, _, f = self.net(mb, generator, False, with_features)
                 feats.append(f)
                 loss.backward()  # sums the microbatches' gradients
                 loss_sum = loss_sum + loss.detach()
@@ -658,11 +730,13 @@ class Trainer:
                 last = i == accum - 1
                 with (contextlib.nullcontext() if last
                       else self.ddp.no_sync()):
-                    loss, f = self.ddp(mb, generator, False, with_features)
+                    loss, aux, f = self.ddp(mb, generator, False,
+                                            with_features)
+                    part = _global_part(loss, aux, share[i], accum)
                     # DDP divides the reduced gradient by the world size.
-                    (loss * (share[i] * world)).backward()
+                    (part * world).backward()
                 feats.append(f)
-                loss_sum = loss_sum + loss.detach() * share[i]
+                loss_sum = loss_sum + part.detach()
             loss = self._all_reduce(loss_sum)
         self.optimizer.step()
         self.scheduler.step()
@@ -687,11 +761,12 @@ class Trainer:
         for i in range(accum):
             mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
             self.net.set_requires_gradient_sync(i == accum - 1)
-            loss, f = self.net(mb, generator, False, with_features)
+            loss, aux, f = self.net(mb, generator, False, with_features)
+            part = _global_part(loss, aux, share[i], accum)
             # FSDP2 averages the reduced gradient over the dp ranks.
-            (loss * (share[i] * dp)).backward()
+            (part * dp).backward()
             feats.append(f)
-            loss_sum = loss_sum + loss.detach() * share[i]
+            loss_sum = loss_sum + part.detach()
         if self.tensor_partial:
             group = self.mesh.tensor_group(self.device.type)
             for m in self.tensor_partial:
@@ -713,12 +788,66 @@ class Trainer:
 
     def _eval(self, batch: Batch, with_features: bool):
         batch = self.to_device(batch)
-        loss, feats = self.net(batch, None, True, with_features)
+        loss, aux, feats = self.net(batch, None, True, with_features)
+        if self.sharded:
+            # FSDP2 keeps the root unit's parameters gathered after a
+            # forward (for the backward a training step runs next): shard
+            # them again, so that the model holds its shards.
+            self.net.reshard()
         if self.ddp is not None or self.sharded:
             n = self._token_counts(batch, 1)[0]
-            pair = self._all_reduce(torch.stack([loss.float() * n, n]))
-            loss = pair[0] / pair[1].clamp(min=1.0)
+            ce = (loss - aux).float()
+            sums = self._all_reduce(torch.stack([ce * n, n, aux.float()]))
+            loss = sums[0] / sums[1].clamp(min=1.0) + sums[2]
         return loss, feats
+
+
+def _global_part(loss: torch.Tensor, aux: torch.Tensor, share: torch.Tensor,
+                 accum: int) -> torch.Tensor:
+    """A rank's part of one global microbatch's loss: its cross-entropy
+    (``loss`` less the weighted balance loss ``aux``) by its token
+    ``share``, and ``aux``, already its share of the balance loss's global
+    mean, over the ``accum`` microbatches."""
+    return (loss - aux) * share + aux / accum
+
+
+def _outline(tree, tensors: list):
+    """``tree`` (a dict of tensors, dicts and plain values) with each
+    tensor replaced by (its shape, its dtype's name), appended to
+    ``tensors`` in the order ``_fill`` reads them."""
+    if isinstance(tree, dict):
+        return {k: _outline(v, tensors) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        tensors.append(tree)
+        return _Slot(tuple(tree.shape), str(tree.dtype).split(".")[-1])
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    """A tensor's place in an ``_outline``."""
+
+    shape: tuple
+    dtype: str
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor's storage as a flat uint8 tensor (gloo sends bytes of
+    any dtype alike)."""
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _fill(outline, src: int, group):
+    """An ``_outline`` filled with the tensors ``src`` sends after it."""
+    if isinstance(outline, dict):
+        return {k: _fill(v, src, group) for k, v in outline.items()}
+    if not isinstance(outline, _Slot):
+        return outline
+    dtype = getattr(torch, outline.dtype)
+    out = torch.empty(outline.shape, dtype=dtype)
+    if out.numel():
+        dist.recv(_bytes(out), src=src, group=group)
+    return out
 
 
 class HostCopy:

@@ -15,13 +15,17 @@ stack, the parameters replicated as under DDP, whose gradient all-reduce
 then spans data x seq (``seq_group`` carries the stacks' K/V exchange).
 ``pipe``: pipe rank p holds stage p of the transformer's GPipe schedule
 (``pipe_group`` carries the stage shift); ``expert``: expert rank e holds
-experts ``[e E/n, (e+1) E/n)`` of every MoE layer (``expert_group`` sums
-their partial outputs). The ranks of one tensor, seq, pipe or expert group
-share their rows: the batch splits over the ``data x fsdp`` index
-(``dp_rank`` of ``dp_size``). ``pipe`` and ``expert`` do not compose with
-``fsdp``, ``tensor`` or ``seq`` yet, nor with each other, and ``seq`` does
-not compose with ``fsdp`` or ``tensor`` (ROADMAP A12d's second half): such
-a shape raises.
+experts ``[e E/n, (e+1) E/n)`` of every MoE layer. The ranks of one tensor,
+seq, pipe or expert group share their rows: the batch splits over the
+``data x fsdp`` index (``dp_rank`` of ``dp_size``). Under MoE a rank runs
+its experts' ``d_ff / tensor`` columns: the tensor group sums their
+outputs, the expert group the combine, and the ``rows_group`` (tensor x
+expert) the tokens' gradient (``ops/moe.py``). One ``DeviceMesh`` spans all
+six axes in the same rank order; FSDP2's ``(data, fsdp)`` sub-mesh, the
+``tensor`` sub-mesh and the groups of the other axes come from it.
+``pipe`` does not compose with ``fsdp``, ``tensor``, ``seq`` or ``expert``
+yet, and ``seq`` does not compose with ``fsdp``, ``tensor`` or ``expert``
+(ROADMAP A12d's second half): such a shape raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -50,8 +54,6 @@ import torch.distributed as dist
 from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
-# The axes of the DeviceMesh that FSDP2 and tensor parallelism run on.
-SHARD_AXES = ("data", "fsdp", "tensor")
 # Generous: the first collective waits for the slowest rank's model build
 # and, on a cold tree, the kernels' build.
 TIMEOUT = timedelta(minutes=30)
@@ -91,18 +93,19 @@ def refuse_waiting_combinations(shape: Sequence[int],
                                 axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
                                 what: str = "mesh_shape") -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A12d for the axes that
-    do not compose yet: ``pipe`` or ``expert`` above 1 beside ``fsdp``,
-    ``tensor`` or ``seq`` above 1, or beside each other. A -1 counts as
-    above 1."""
+    do not compose yet: ``pipe`` above 1 beside ``fsdp``, ``tensor``,
+    ``seq`` or ``expert`` above 1, and ``seq`` above 1 beside ``fsdp``,
+    ``tensor`` or ``expert`` above 1. A -1 counts as above 1."""
     size = {n: int(v) for n, v in zip(axis_names, shape)}
     over = [n for n in ("fsdp", "tensor", "seq", "pipe", "expert")
             if size.get(n, 1) != 1]
-    split = [n for n in over if n in ("pipe", "expert")]
-    if split and len(over) > 1:
-        raise NotImplementedError(
-            f"{what} {tuple(shape)}: {' and '.join(over)} above 1 together "
-            "is ROADMAP A12d (run pipe or expert on a data x pipe or data "
-            "x expert mesh)")
+    for axis in ("pipe", "seq"):
+        beside = [n for n in over if n != axis and n != "pipe"]
+        if axis in over and beside:
+            raise NotImplementedError(
+                f"{what} {tuple(shape)}: {axis} above 1 beside "
+                f"{' and '.join(beside)} is ROADMAP A12d (run {axis} on a "
+                f"data x {axis} mesh)")
 
 
 def axis_groups(shape: Sequence[int], axes: Sequence[int]
@@ -313,29 +316,34 @@ class Mesh:
     def distributed(self) -> bool:
         return self.group is not None
 
+    def layout(self) -> torch.Tensor:
+        """The world ranks laid out over the axes, row-major (``expert``
+        fastest): the ``DeviceMesh``'s tensor, whose groups along each axis
+        are ``axis_groups``'."""
+        return torch.arange(math.prod(self.shape)).reshape(self.shape)
+
     def device_mesh(self, device_type: str):
-        """The ``DeviceMesh`` over ``(data, fsdp, tensor)`` with named
+        """The ``DeviceMesh`` over all six axes (``layout``) with named
         dims, made once per device type (a collective: every rank calls
-        it). Its sub-meshes carry FSDP2 (``["data", "fsdp"]``) and tensor
-        parallelism (``["tensor"]``)."""
+        it). Its sub-meshes carry FSDP2 (``["data", "fsdp"]``), tensor
+        parallelism (``["tensor"]``) and the other axes' groups."""
         return self._meshes(device_type)[0]
 
     def _meshes(self, device_type: str) -> tuple:
         """(the ``DeviceMesh``, its data x fsdp dims flattened into one: the
-        rows' group, for token counts and losses), made once per device
-        type."""
+        rows' group, for token counts and losses; its tensor x seq x pipe x
+        expert dims flattened: the ranks that share those rows), made once
+        per device type, in one order on every rank."""
         meshes = self.__dict__.setdefault("_device_meshes", {})
         if device_type not in meshes:
-            from torch.distributed.device_mesh import init_device_mesh
+            from torch.distributed.device_mesh import DeviceMesh
 
-            if self.seq > 1:
-                raise NotImplementedError(
-                    "seq > 1 with fsdp or tensor is ROADMAP A12d")
-            dims = tuple(self.size(a) for a in SHARD_AXES)
-            mesh = init_device_mesh(device_type, dims,
-                                    mesh_dim_names=SHARD_AXES)
-            meshes[device_type] = (mesh,
-                                   mesh["data", "fsdp"]._flatten("dp"))
+            mesh = DeviceMesh(device_type, self.layout(),
+                              mesh_dim_names=self.axis_names)
+            share = ("tensor", "seq", "pipe", "expert")
+            meshes[device_type] = (
+                mesh, mesh["data", "fsdp"]._flatten("dp"),
+                mesh[share]._flatten("rows"))
         return meshes[device_type]
 
     def _subgroup(self, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
@@ -355,20 +363,25 @@ class Mesh:
 
     def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's copies of the other rows, which carries
-        token counts and losses: the data x fsdp peers of its tensor rank
-        under sharding; else the ranks that share its pipe and expert
-        coordinates (the world's when both are 1), which under ``seq``
-        hold data x seq: each seq rank counts the target tokens of its
-        own positions. Under DDP it is also the group of the gradient
-        all-reduce."""
-        if self.sharded:
+        token counts and losses: the data x fsdp peers of its tensor, pipe
+        and expert coordinates under sharding or a split; else the world's,
+        which under ``seq`` holds data x seq: each seq rank counts the
+        target tokens of its own positions. Under DDP it is also the group
+        of the gradient all-reduce."""
+        if self.sharded or self.split:
             return self._meshes(device_type)[1].get_group()
-        if not self.split:
-            return self.group
-        return self._subgroup(("data", "fsdp", "seq"))
+        return self.group
 
     def tensor_group(self, device_type: str) -> dist.ProcessGroup:
         return self.device_mesh(device_type)["tensor"].get_group()
+
+    def rows_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
+        """The group of the ranks that share this rank's rows (tensor x seq
+        x pipe x expert), in rank order: under MoE, tensor x expert, which
+        sums the experts' partial outputs. None in a process of its own."""
+        if not self.distributed:
+            return None
+        return self._meshes(device_type)[2].get_group()
 
     def seq_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's seq peers (the ranks that share its
@@ -379,15 +392,20 @@ class Mesh:
             return None
         return self._subgroup(("seq",))
 
-    def pipe_group(self) -> Optional[dist.ProcessGroup]:
+    def pipe_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's pipe peers (the other stages of its
         rows), in stage order; None when ``pipe`` is 1."""
-        return None if self.pipe == 1 else self._subgroup(("pipe",))
+        if self.pipe == 1:
+            return None
+        return self.device_mesh(device_type)["pipe"].get_group()
 
-    def expert_group(self) -> Optional[dist.ProcessGroup]:
+    def expert_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's expert peers (the other experts of its
-        rows), in expert order; None when ``expert`` is 1."""
-        return None if self.expert == 1 else self._subgroup(("expert",))
+        rows and d_ff columns), in expert order; None when ``expert`` is
+        1."""
+        if self.expert == 1:
+            return None
+        return self.device_mesh(device_type)["expert"].get_group()
 
 
 # (world group, its gloo twin): held, so that a later group made after a

@@ -2,9 +2,11 @@
 packages under the tests' own names, and JAX parameters made from a seed
 and converted to the port's state dict."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
+import torch
 
 import jax
 
@@ -27,6 +29,23 @@ TINY_SWIN = dict(image_size=32, patch_size=4, embed_dim=16, depths=(2, 2),
 T5_NAMES = {"v10": ("t5-torchport-tiny", TINY_T5),
             "v11": ("t5-torchport-tiny-v11", TINY_T5_V11)}
 SWIN_NAME = "swin-torchport-tiny"
+
+# One intra-op thread: xdist runs several test processes at once, and
+# torch's default of a thread per core in each of them (the torchrun jobs'
+# ranks run on one already) oversubscribes the host's cores.
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op thread count set to ``n`` inside the block."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 for _name, _kw in T5_NAMES.values():
     jcfg.register_t5_size(_name, jcfg.T5Size(**_kw))
@@ -80,6 +99,42 @@ def jax_train_state(trainer, params):
     trainer.state_shardings = make_shardings(trainer.state_specs,
                                              trainer.mesh)
     return state
+
+
+def jax_native():
+    """The JAX package's ``native`` module with its library loaded whole.
+
+    Its ``load_library`` runs ``make`` in place when the library is
+    missing and latches None for the rest of the process if ``ctypes``
+    fails, as it does on a file that another test process is still
+    writing. Here the build runs under a file lock, into a temporary file
+    moved into place with ``os.replace``, and the library is loaded only
+    once a ``dlopen`` of it succeeds; a file left half-written by a build
+    outside the lock is built again."""
+    import ctypes
+    import fcntl
+    import os
+    import subprocess
+
+    import klab_multimodalmodel_tpu.native as jnative
+
+    if jnative._lib is not None:
+        return jnative
+    path = jnative._LIB_PATH
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            ctypes.CDLL(path)
+        except OSError:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run(["make", "-C", jnative._NATIVE_DIR,
+                            f"TARGET={os.path.basename(tmp)}"], check=True,
+                           capture_output=True, timeout=300)
+            os.replace(tmp, path)
+        jnative._load_attempted = False
+        if jnative.load_library() is None:
+            raise RuntimeError(f"{path}: built, but ctypes cannot load it")
+    return jnative
 
 
 def jax_t5_lm(name="v11", seed=3, src=6, eos_scale=1.0):

@@ -16,14 +16,19 @@ there), ``out`` (rank 0's JSON: the losses), ``params`` (rank 0's ``.pt``:
 the whole parameters gathered after the steps, and the whole optimizer
 state as ``optimizer``) and optionally ``local`` (a ``.pt`` path with
 ``{rank}``: each rank's own shards of the parameters that no tensor rank
-splits; all of them without a tensor axis) and ``restore`` (a checkpoint
+splits, and of the MoE banks; all of them without a tensor axis),
+``held`` (a ``.json`` path with ``{rank}``: the bytes of the parameters
+the rank holds, 4 an element, and its ``DeviceMesh`` coordinate) and
+``restore`` (a checkpoint
 directory's ``result_dir`` whose ``step_N`` this run restores after its
 steps; rank 0 writes the whole parameters and optimizer state then held
 to ``restored`` and ``restored_optimizer``). The JSON holds the stage
 shifts of the steps too, and the size of DDP's group (0 without DDP). A run with
 ``loop`` instead runs ``train()`` on the skewed synthetic rows of
 ``_torch_ddp_worker.loaders`` (``n_train``, ``n_val``, ``global_batch``),
-each data rank on its chunk, and rank 0 writes its losses to ``out``;
+each data rank on its chunk, and rank 0 writes its losses to ``out``
+and each rank its parameters to ``params`` (with ``{rank}``; under
+sharding rank 0's are the whole ones, gathered, and the others' none);
 with ``eval`` (a ``.pt`` list of global batches) the trained model's
 ``eval_step`` losses go into ``out`` too, and so does the count of the
 ring's exchanges in the steps. A run with ``ring`` calls
@@ -54,6 +59,11 @@ from klab_multimodalmodel_tpu_torch.train import Trainer, train
 from klab_multimodalmodel_tpu_torch.train.loop import dropout_seed
 from klab_multimodalmodel_tpu_torch.utils.mesh import (make_mesh,
                                                       maybe_init_distributed)
+
+
+# MoE banks: plain slices of the rank's experts and columns, never
+# DTensors over tensor.
+BANKS = (".mlp.experts_wi", ".mlp.experts_wo")
 
 
 def rows(batch: dict, mesh) -> dict:
@@ -105,9 +115,13 @@ def run_loop(run: dict) -> None:
                            min_val_loss=out["min_val_loss"],
                            saves=[s["name"] for s in out["saves"]]), f)
     if run.get("params"):
-        torch.save({n: p.detach() for n, p in
-                    out["trainer"].model.named_parameters()},
-                   run["params"].format(rank=mesh.rank))
+        trainer = out["trainer"]
+        # Sharded: the whole parameters on rank 0 (FSDP2's are DTensors).
+        held = ({n: p for n, p in trainer.full_state_dict().items()
+                 if n in dict(trainer.model.named_parameters())}
+                if trainer.sharded else
+                {n: p.detach() for n, p in trainer.model.named_parameters()})
+        torch.save(held, run["params"].format(rank=mesh.rank))
 
 
 def run_one(run: dict) -> None:
@@ -140,8 +154,18 @@ def run_one(run: dict) -> None:
         torch.save({n: (p.to_local() if isinstance(p, DTensor)
                         else p.detach()).clone()
                     for n, p in trainer.model.named_parameters()
-                    if not (mesh.tensor > 1 and tensor_parallel(n))},
+                    if not (mesh.tensor > 1 and tensor_parallel(n))
+                    or n.endswith(BANKS)},
                    run["local"].format(rank=mesh.rank))
+    if run.get("held"):
+        with open(run["held"].format(rank=mesh.rank), "w") as f:
+            json.dump(dict(
+                params=sum(4 * (p.to_local() if isinstance(p, DTensor)
+                                else p).numel()
+                           for p in trainer.model.parameters()),
+                rank=mesh.rank,
+                coordinate=trainer.mesh.device_mesh("cpu").get_coordinate()
+                if trainer.partitioned else None), f)
     evals = [float(trainer.eval_step(rows(b, mesh)))
              for b in (torch.load(run["eval"]) if run.get("eval") else [])]
     restored = restored_opt = None

@@ -1,7 +1,7 @@
-"""What the pipe and expert tests of the port share: one 2-rank gloo job
-of ``_torch_shard_worker.py`` that runs every case of a file in turn, the
-port's one-process runs of the same cases, and the JAX ``Trainer``'s on
-the same mesh of the fake CPU devices.
+"""What the pipe and expert tests of the port share: one gloo job of
+``_torch_shard_worker.py`` (2 ranks, or ``nproc``) that runs every case of
+a file in turn, the port's one-process runs of the same cases, and the
+JAX ``Trainer``'s on the same mesh of the fake CPU devices.
 
 ``split_runs`` builds, for each case: its seeded initial weights (the
 converted JAX weights for the cases held against JAX, a one-process
@@ -14,6 +14,7 @@ of two epochs of two updates under the split mesh against one process's.
 
 import dataclasses
 import json
+import math
 
 import numpy as np
 import torch
@@ -46,8 +47,8 @@ def batches(target: int = TGT) -> list:
 def jax_run(jc, mesh: tuple, params, rows) -> tuple[list, dict]:
     """Two updates of the JAX ``Trainer`` on ``mesh`` of the fake CPU
     devices: (losses, parameters)."""
-    jt = JaxTrainer(jc, jax_make_mesh(mesh, devices=jax.devices()[:2]),
-                    num_epochs=1)
+    jt = JaxTrainer(jc, jax_make_mesh(
+        mesh, devices=jax.devices()[:math.prod(mesh)]), num_epochs=1)
     state = tp.jax_train_state(jt, params)
     losses = []
     for b in rows:
@@ -73,16 +74,24 @@ def jax_params(jc) -> dict:
 
 
 def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
-               port_runs: dict, sizes: dict, loop: dict) -> dict:
+               port_runs: dict, sizes: dict, loop: dict,
+               nproc: int = 2) -> dict:
     """Every case of ``jax_runs`` and ``port_runs`` (name -> ``Config``
-    overrides of ``base``) in one job on ``mesh``, and ``train()`` with
-    ``loop``'s overrides; see the module doc."""
+    overrides of ``base``) in one job of ``nproc`` ranks on ``mesh`` (or
+    the case's own ``mesh_shape``; a case's ``restore_run`` names an
+    earlier case whose checkpoint it restores after its steps), and
+    ``train()`` with ``loop``'s overrides (its ``mesh_shape``, or
+    ``mesh``); see the module doc."""
     jc, tc = tp.configs(**base)
     params = jax_params(jc)
     converted = convert_jax_params(params, tc)
     torch.save(converted, root / "converted.pt")
     job_runs, ones = [], {}
-    for name, overrides in {**jax_runs, **port_runs}.items():
+    cases = {**jax_runs, **port_runs}
+    for name, overrides in cases.items():
+        overrides = dict(overrides)
+        restore_run = overrides.pop("restore_run", None)
+        run_mesh = overrides.pop("mesh_shape", mesh)
         _, cfg = tp.configs(**dict(base, **overrides))
         rows = batches(cfg.max_target_length)
         torch.save(rows, root / f"{name}.batches.pt")
@@ -103,47 +112,65 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
                     for n, p in one.model.named_parameters()},
             optimizer=one.full_optimizer_state_dict(), config=cfg)
         run = dict(config=dataclasses.asdict(dataclasses.replace(
-                       cfg, mesh_shape=mesh)),
+                       cfg, mesh_shape=run_mesh)),
                    init=str(init), batches=str(root / f"{name}.batches.pt"),
                    eval=str(root / f"{name}.batches.pt"),
                    result_dir=str(root / name), out=str(root / f"{name}.json"),
                    params=str(root / f"{name}.pt"),
-                   local=str(root / f"{name}.local.{{rank}}.pt"))
-        if "dropout" in name:
+                   local=str(root / f"{name}.local.{{rank}}.pt"),
+                   held=str(root / f"{name}.held.{{rank}}.json"))
+        if restore_run is not None:
+            run["restore"] = str(root / restore_run)
+        elif "dropout" in name:
             CheckpointManager(str(root / "one_dropout")).save(
                 f"step_{one.step}", one)
             run["restore"] = str(root / "one_dropout")
         job_runs.append(run)
-    loop_cfg = dataclasses.replace(
-        tp.configs(**dict(base, **loop))[1], num_epochs=2, save_interval=1,
-        cache_frozen_features=True, data_dir="synthetic",
-        max_source_length=64, max_target_length=16, batch_size=LOOP_BATCH,
-        mesh_shape=mesh, result_dir=str(root / "loop"))
-    loop_run = dict(n_train=16, n_val=8, global_batch=LOOP_BATCH)
-    job_runs.append(dict(loop_run, loop=True,
-                         config=dataclasses.asdict(loop_cfg),
-                         out=str(root / "loop.json"),
-                         params=str(root / "loop.{rank}.pt")))
-    job = Job(root, job_runs, sizes, nproc=2, script=WORKER)
+    loop_cfg = loop_run = None
+    if loop is not None:
+        loop = dict(loop)
+        loop_mesh = loop.pop("mesh_shape", mesh)
+        loop_cfg = dataclasses.replace(
+            tp.configs(**dict(base, **loop))[1], num_epochs=2,
+            save_interval=1, cache_frozen_features=True,
+            data_dir="synthetic", max_source_length=64,
+            max_target_length=16, batch_size=LOOP_BATCH,
+            mesh_shape=loop_mesh, result_dir=str(root / "loop"))
+        loop_run = dict(n_train=16, n_val=8, global_batch=LOOP_BATCH)
+        job_runs.append(dict(loop_run, loop=True,
+                             config=dataclasses.asdict(loop_cfg),
+                             out=str(root / "loop.json"),
+                             params=str(root / "loop.{rank}.pt")))
+    job = Job(root, job_runs, sizes, nproc=nproc, script=WORKER)
 
     jax_out = {}
     for name, overrides in jax_runs.items():
-        jax_out[name] = jax_run(dataclasses.replace(jc, **overrides), mesh,
-                                params, batches())
-    one_cfg = dataclasses.replace(loop_cfg, mesh_shape=(1, 1, 1),
-                                  result_dir=str(root / "loop_one"))
-    loop_one = train(one_cfg, *loaders(one_cfg, loop_run, 0, 1),
-                     resume=False, device="cpu")
+        overrides = dict(overrides)
+        run_mesh = overrides.pop("mesh_shape", mesh)
+        jax_out[name] = jax_run(dataclasses.replace(jc, **overrides),
+                                run_mesh, params, batches())
+    loop_one = loop_got = None
+    if loop_cfg is not None:
+        one_cfg = dataclasses.replace(loop_cfg, mesh_shape=(1, 1, 1),
+                                      result_dir=str(root / "loop_one"))
+        loop_one = train(one_cfg, *loaders(one_cfg, loop_run, 0, 1),
+                         resume=False, device="cpu")
     job.wait()
     got = {}
-    for name in {**jax_runs, **port_runs}:
+    for name in cases:
         with open(root / f"{name}.json") as f:
             got[name] = dict(json.load(f), **torch.load(root / f"{name}.pt"))
         got[name]["local"] = [torch.load(root / f"{name}.local.{r}.pt")
-                              for r in range(2)]
-    with open(root / "loop.json") as f:
-        loop_got = json.load(f)
-    loop_got["params"] = [torch.load(root / f"loop.{r}.pt") for r in range(2)]
+                              for r in range(nproc)]
+        got[name]["held"] = []
+        for r in range(nproc):
+            with open(root / f"{name}.held.{r}.json") as f:
+                got[name]["held"].append(json.load(f))
+    if loop_cfg is not None:
+        with open(root / "loop.json") as f:
+            loop_got = json.load(f)
+        loop_got["params"] = [torch.load(root / f"loop.{r}.pt")
+                              for r in range(nproc)]
     return dict(root=root, tc=tc, jax=jax_out, one=ones, got=got,
                 loop=loop_got, loop_one=loop_one, loop_cfg=loop_cfg,
                 jax_params=params)

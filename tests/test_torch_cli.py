@@ -116,9 +116,12 @@ def test_defaults_match_jax():
 @pytest.mark.parametrize("argv,item", [
     ("--mesh_shape 1 2 1 1 1 1", None),
     ("--dcn_mesh_shape 1 1 2 1 1 1", None),
-    ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", "A12d"),
+    ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", None),
     ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12d"),
-    ("--mesh_shape 1 2 1 1 1 2 --moe_experts 2", "A12d"),
+    ("--mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
+    ("--mesh_shape 1 2 -1 1 1 2 --moe_experts 4", None),
+    ("--dcn_mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
+    ("--mesh_shape 1 1 1 2 1 2 --moe_experts 2", "A12d"),
     ("--mesh_shape 2 1 1 1 2 1 --pipeline_stages 2", None),
     ("--scan_unroll 2", "not ported by design"),
     ("--seq_attention ring", None),

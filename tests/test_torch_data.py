@@ -125,6 +125,14 @@ def test_abandoned_iteration_releases_producer():
     assert threading.active_count() <= before, "producer thread leaked"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_whole():
+    """The JAX package's native library built and loaded whole before any
+    test here reaches it (its datasets, resize and encoder use it):
+    ``_torch_port.jax_native``."""
+    tp.jax_native()
+
+
 @pytest.fixture
 def coco_dir(tmp_path):
     """MSCOCO layout: 3 images of seeded noise, 2 captions each, and an

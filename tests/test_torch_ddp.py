@@ -94,7 +94,9 @@ def runs(tmp_path_factory):
 
     one_cfg = dataclasses.replace(tc, batch_size=BATCH,
                                   result_dir=str(root / "one"))
-    with StepLog() as log:
+    # The one-process reference at torch's default thread count: its
+    # elementwise bound below was set against that run's sums.
+    with StepLog() as log, tp.torch_threads(tp.DEFAULT_THREADS):
         one = train(one_cfg, *loaders(one_cfg, run, 0, 1), resume=False,
                     device="cpu")
     return dict(jax=jout, ranks=job.results()[0], one=one, one_steps=log.steps,

@@ -248,15 +248,14 @@ def test_expert_rule_matches_jax_make_param_specs(runs):
     (dict(moe_experts=4, dcn_mesh_shape=(1, 1, 1, 1, 1, 3)), ValueError),
     (dict(moe_experts=4, mesh_shape=(1, 1, 1, 1, 1, 2),
           pipeline_stages=2, use_pallas_t5_attention=False), ValueError),
-    (dict(moe_experts=4, mesh_shape=(1, 1, 2, 1, 1, 2)),
-     NotImplementedError),
+    (dict(moe_experts=4, mesh_shape=(1, 1, 2, 1, 1, 2)), None),
     (dict(moe_experts=4, mesh_shape=(1, 1, 1, 2, 1, 2)),
      NotImplementedError),
 ])
 def test_expert_flags_take_or_refuse_as_jax(overrides, error):
-    """The expert axis builds where the JAX ``Config`` builds it and
-    raises its ValueError where it refuses; beside tensor or seq the port
-    refuses naming ROADMAP A12d, which the JAX package takes."""
+    """The expert axis builds where the JAX ``Config`` builds it (beside
+    tensor too) and raises its ValueError where it refuses; beside seq the
+    port refuses naming ROADMAP A12d, which the JAX package takes."""
     import klab_multimodalmodel_tpu.config as jcfg
 
     if error is ValueError:

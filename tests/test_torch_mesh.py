@@ -47,19 +47,22 @@ EXPERT = dict(moe_experts=2)
     ((1, 2, 1, 1, 2), PIPE, "A12d"), ((1, 1, 2, 1, 2), PIPE, "A12d"),
     ((1, 1, 1, 2, 2), PIPE, "seq mesh axis"), ((1, 1, 1, 1, 2), PIPE, None),
     ((1, 1, 1, 1, 1, 2), EXPERT, None),
-    ((1, -1, 1, 1, 1, 2), EXPERT, "A12d")])
+    ((1, -1, 1, 1, 1, 2), EXPERT, None), ((1, 2, 2, 1, 1, 2), EXPERT, None),
+    ((1, 1, 1, 2, 1, 2), EXPERT, "A12d")])
 def test_non_data_axes_are_refused(shape, flags, item):
-    """The pipe and expert axes beside fsdp, tensor or seq (as
-    ``mesh_shape`` or ``dcn_mesh_shape``) are refused by ``make_mesh``
-    naming ROADMAP A12d, and by ``Config`` and the command line with the
-    flags that the axis needs: naming A12d, or with the JAX package's
-    ValueError where it refuses first (stages with seq). Alone, each axis
+    """The pipe axis beside fsdp, tensor or seq, and the expert axis
+    beside seq (as ``mesh_shape`` or ``dcn_mesh_shape``), are refused by
+    ``make_mesh`` naming ROADMAP A12d, and by ``Config`` and the command
+    line with the flags that the axis needs: naming A12d, or with the JAX
+    package's ValueError where it refuses first (stages with seq). Alone,
+    and the expert axis beside fsdp and tensor (the -1 wildcard too), each
     builds as the JAX ``Config`` builds it, and ``make_mesh`` asks only
     for the world to match."""
     for kw in (dict(mesh_shape=shape), dict(mesh_shape=(-1, 1, 1),
                                             dcn_mesh_shape=shape)):
         with pytest.raises(NotImplementedError if item else ValueError,
-                           match="A12d" if item else "device count|divisible"):
+                           match="A12d" if item else
+                           "device count|divisible|does not divide"):
             tmesh.make_mesh(**kw)
     argv = [f"--{k}" if v is True else f"--{k} {v}" for k, v in flags.items()
             if v is not False]

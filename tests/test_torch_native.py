@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 
+import _torch_port as tp
 import klab_multimodalmodel_tpu.native as jnative
 from klab_multimodalmodel_tpu.text import charsmap as jcharsmap
 from klab_multimodalmodel_tpu.text import spm_proto as jspm
@@ -25,6 +26,14 @@ from test_torch_text_unigram import CHARSMAP, ROOT, write_spm
 
 SIZES = [(123, 217), (256, 256), (480, 640), (640, 427), (31, 500),
          (7, 9)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_whole():
+    """The JAX package's native library built and loaded whole before any
+    test here reaches it (its datasets, resize and encoder use it):
+    ``_torch_port.jax_native``."""
+    tp.jax_native()
 
 
 @pytest.mark.parametrize("filt", ["BICUBIC", "BILINEAR"])

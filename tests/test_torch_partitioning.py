@@ -237,18 +237,26 @@ def test_head_offset_gives_the_full_calls_heads(backward):
     (dict(mesh_shape=(1, 2, 1, 2)), NotImplementedError, "A12d"),
     (dict(mesh_shape=(1, 2, 1, 1, 2), pipeline_stages=2,
           use_pallas_t5_attention=False), NotImplementedError, "A12d"),
-    (dict(mesh_shape=(1, 1, 2, 1, 1, 2), moe_experts=2),
+    (dict(mesh_shape=(1, 1, 2, 1, 1, 2), moe_experts=2), None, None),
+    (dict(mesh_shape=(1, 2, 1), moe_experts=2), None, None),
+    (dict(mesh_shape=(1, 1, 1, 2, 1, 2), moe_experts=2),
      NotImplementedError, "A12d"),
-    (dict(mesh_shape=(1, 2, 1), moe_experts=2), NotImplementedError, "A12d"),
     (dict(mesh_shape=(1, 1, 2), pipeline_stages=2,
           use_pallas_t5_attention=False), NotImplementedError, "A12d"),
     (dict(mesh_shape=(1, 1, 3)), ValueError, "divide by the mesh tensor"),
 ])
 def test_sharded_axes_refuse_what_waits_for_a12c(overrides, error, match):
-    """(f) pipe or expert above 1 beside fsdp, tensor or seq, seq with
-    fsdp or tensor, and MoE or GPipe with fsdp or tensor above 1, name A12d
-    (its second half: the combinations that still wait); heads that do not
-    divide over tensor raise."""
+    """(f) pipe above 1 beside fsdp, tensor or seq, seq with fsdp, tensor
+    or expert, and GPipe with fsdp or tensor above 1, name A12d (its second
+    half: the combinations that still wait); MoE with fsdp, tensor and
+    expert builds as the JAX ``Config`` builds it; heads that do not divide
+    over tensor raise."""
+    if error is None:
+        import klab_multimodalmodel_tpu.config as jcfg
+
+        assert tuple(Config(**overrides).mesh_shape) == tuple(
+            jcfg.Config(**overrides).mesh_shape)
+        return
     with pytest.raises(error, match=match):
         Config(**overrides)
     Config(mesh_shape=(1, 2, 2))
