@@ -332,9 +332,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       step gloo's host time and the busy share.
 16. MoE on a sharded mesh: phase 15a's MoE model (its 15a run the
    reference) over four ranks sharing the card in one
-   ``torch.distributed.run`` job (gloo on CUDA tensors; ``--moe-shard-rank
-   SPEC``, the ranks' output in ``chiprun_out/phase16_ranks.log``):
-   b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, 8 rows a rank, FSDP2
+   ``torch.distributed.run`` job (gloo on CUDA tensors; ``--four-rank
+   SPEC``), which runs phase 17's runs after these (one start of four
+   processes; the ranks' output in ``chiprun_out/phase17_ranks.log``):
+   b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, both fsdp ranks on all
+      16 rows (the MoE layers' and the stacks' dropout draws at a rank's
+      rows: split rows would not hold one process's masks), FSDP2
       sharding the bank slices and the rest; c. ``(1, 1, 2, 1, 1, 2)``:
       tensor 2 x expert 2, the four ranks on the same 16 rows, rank (t, e)
       running d_ff columns t of experts e. Each a warm-up, one timed step,
@@ -346,18 +349,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the router and every parameter a tensor x expert group holds alike
       bitwise equal across it, the state held equal to the reckoning,
       and each run's checkpoint restored bitwise into a one-process
-      ``Trainer`` here against the whole parameters rank 0 gathered.
-      Prints per rank the step spans, peak memory, and in one profiled
+      ``Trainer`` here against the whole parameters rank 0 gathered for
+      it (one gather). Prints per rank the step spans, peak memory, and in one profiled
       step gloo's host time and the busy share.
-17. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+17. GPipe stages on a sharded mesh: phase 15a's pipelined model (its 15a
+   run the reference: 2 stages, 4 microbatches, the T5 kernel off, the
+   Swin kernel on) over the four ranks of phase 16's job (their output
+   in ``chiprun_out/phase17_ranks.log``): a. ``(1, 2, 2, 1, 1,
+   1)`` with the stages unsharded, fsdp 2 x tensor 2 (every block an FSDP2
+   unit gathered at each tick of the one-process schedule), a warm-up and
+   one timed step; b. ``(1, 2, 1, 1, 2, 1)``: fsdp 2 x pipe 2, 8 rows a
+   rank; c. ``(1, 1, 2, 1, 2, 1)``: tensor 2 x pipe 2, the four ranks on
+   the same 16 rows; b and c each a warm-up, one timed step, a profiled
+   step and a step at dropout 0.1 (each rank its rows of one process's
+   masks). The per-rank state reckoned first; checks as phase 16's
+   (``TOL_SPLIT``; no routings): the ranks' losses equal and within 5e-4
+   of 15a's, the dropout step's too, the first step's gradients gathered
+   and joined at cosine >= 0.999, launches per step equal 15a's (Swin 24,
+   T5 0), what a tensor x pipe group holds alike bitwise equal across it,
+   the state held equal to the reckoning, each checkpoint restored
+   bitwise into a one-process ``Trainer`` (the ranks gather the whole
+   state once, for the checkpoint). Prints per rank the step spans, peak
+   memory, and in one profiled step gloo's host time and the busy share.
+18. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
    phase-11a step and one phase-11c request, in one phase-12 step, in one
    step of a phase-13c rank, in one step of a phase-14b rank, in one step
-   of a phase-15b and of a phase-15c rank, and in one step of a phase-16b
-   and of a phase-16c rank), then ``{"ok": true, ...}`` as the last
-   line.
+   of a phase-15b and of a phase-15c rank, in one step of a phase-16b
+   and of a phase-16c rank, and in one step of a phase-17b and of a
+   phase-17c rank), then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -4977,8 +4999,6 @@ def shard_rank_main(spec_path: str) -> int:
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
-    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
-        CheckpointManager)
     from klab_multimodalmodel_tpu_torch.config import Config
     from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
         gather_full)
@@ -5028,20 +5048,18 @@ def shard_rank_main(spec_path: str) -> int:
                         save_grads)
         r.update(build_s=build_s, rows=n, dp=[mesh.dp_rank, mesh.dp_size],
                  tensor=[mesh.tensor_rank, mesh.tensor])
-        t0 = time.perf_counter()
-        whole = trainer.full_state_dict()
-        if rank == 0:
-            torch.save({k: v for k, v in whole.items() if k in names},
-                       run["params"])
-        del whole
-        r["gather_s"] = time.perf_counter() - t0
         if run.get("checkpoint"):
+            # The checkpoint's gather gives the compared parameters too.
+            r["saves"], r["checkpoint_s"] = checkpoint_once(
+                trainer, run["checkpoint"], names, run["params"])
+        else:
             t0 = time.perf_counter()
-            manager = CheckpointManager(run["checkpoint"], mesh)
-            manager.save(f"step_{trainer.step}", trainer)
-            manager.wait()
-            r["checkpoint_s"] = time.perf_counter() - t0
-            r["saves"] = manager.saves
+            whole = trainer.full_state_dict()
+            if rank == 0:
+                torch.save({k: v for k, v in whole.items() if k in names},
+                           run["params"])
+            del whole
+            r["gather_s"] = time.perf_counter() - t0
         # One profiled step in 13c only: 13b's (a 10-13 s step of gloo's
         # host staging, its readings in PERF.md) would cost the script
         # ~15 s.
@@ -5383,9 +5401,9 @@ def shard_phase(card: str) -> dict:
                          f"collectives host {coll.get('host_ms')} ms, device "
                          f"{coll.get('device_ms')} ms; " if g["profile"]
                          else "")
-                      + f"gather {g['gather_s']:.2f} s"
-                      + (f", checkpoint {g['checkpoint_s']:.2f} s"
-                         if "checkpoint_s" in g else ""))
+                      + (f"checkpoint (its one gather included) "
+                         f"{g['checkpoint_s']:.2f} s" if "checkpoint_s" in g
+                         else f"gather {g['gather_s']:.2f} s"))
             results[tag] = got
         c = [rk["13c"] for rk in ranks]
         print(f"13c [{card}]: dropout-0.1 step losses "
@@ -5856,16 +5874,22 @@ def held_bytes(trainer) -> dict:
 
 
 def split_run(trainer, tag: str, card: str, launches: tuple, first,
-              collectives: bool) -> dict:
+              collectives: bool, extras: bool = True,
+              own_rows: bool = False) -> dict:
     """One warm-up (``first(trainer, recorder)`` after it, with the
     routings it recorded) and ``SPLIT_STEPS`` timed steps of ``trainer``
-    at dropout 0 (launches checked), a profiled step, then one step at
-    dropout 0.1 (launches checked): losses, spans, peak memory, the
-    profile."""
+    at dropout 0 (launches checked), then, with ``extras``, a profiled
+    step and one step at dropout 0.1 (launches checked): losses, spans,
+    peak memory, the profile. Every step takes the whole batch, or with
+    ``own_rows`` the rank's data x fsdp chunk of it."""
     import torch
 
     cfg = trainer.config
     batch = train_batch(cfg, SPLIT_BATCH, SEED)
+    if own_rows:
+        n = SPLIT_BATCH // trainer.mesh.dp_size
+        lo = trainer.mesh.dp_rank * n
+        batch = {k: v[lo:lo + n] for k, v in batch.items()}
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
     t0 = time.perf_counter()
     with RoutingRecorder() as recorder:
@@ -5879,24 +5903,27 @@ def split_run(trainer, tag: str, card: str, launches: tuple, first,
     r = dict(losses=[first_loss] + losses, first_step_ms=first_ms,
              step_ms=step_ms, mean_step_ms=sum(step_ms) / len(step_ms),
              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-             launches_per_step=per_step)
-    r["profile"] = profile_device(
-        lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
-        f"{tag} step", collectives=collectives)
-    set_dropout(trainer.model.transformer, RATE)
-    reset_counts()
-    r["dropout_loss"] = float(trainer.train_step(batch, gen))
-    got = launch_counts()
-    set_dropout(trainer.model.transformer, 0.0)
-    check(got == launches[1], f"{tag}: the dropout step's launches {got}, "
-          f"expected {launches[1]}")
-    check(all(math.isfinite(x) for x in r["losses"] + [r["dropout_loss"]]),
-          f"{tag}: non-finite loss {r['losses']} / {r['dropout_loss']}")
+             launches_per_step=per_step, profile={}, dropout_loss=None)
+    if extras:
+        r["profile"] = profile_device(
+            lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
+            f"{tag} step", collectives=collectives)
+        set_dropout(trainer.model.transformer, RATE)
+        reset_counts()
+        r["dropout_loss"] = float(trainer.train_step(batch, gen))
+        got = launch_counts()
+        set_dropout(trainer.model.transformer, 0.0)
+        check(got == launches[1], f"{tag}: the dropout step's launches "
+              f"{got}, expected {launches[1]}")
+    losses = r["losses"] + ([r["dropout_loss"]] if extras else [])
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: non-finite loss {losses}")
     r["held_gb"] = held_bytes(trainer)
+    dropout = (f"; dropout-0.1 step loss {r['dropout_loss']:.6f}"
+               if extras else "")
     print(f"{tag} [{card}]: losses {r['losses']}, steps "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, peak "
-          f"{r['peak_gb']:.2f} GB, launches {per_step}; dropout-0.1 step "
-          f"loss {r['dropout_loss']:.6f}; holds "
+          f"{r['peak_gb']:.2f} GB, launches {per_step}{dropout}; holds "
           f"{r['held_gb']['total']:.2f} GB of state", flush=True)
     return r
 
@@ -6008,7 +6035,9 @@ def split_phase(card: str, keep: dict | None = None) -> dict:
     (gloo on CUDA tensors) that runs 15b (expert 2) and 15c (pipe 2) in
     turn; each run's checkpoint restored here in one process. ``keep``
     receives 15a's MoE run (``one``), its first step's gradients and its
-    routings: phase 16's one-process reference."""
+    routings: phase 16's one-process reference; and 15a's pipelined run
+    (``pipe_one``) and its first step's gradients (``pipe_grads``): phase
+    17's."""
     import shutil
     import tempfile
 
@@ -6169,7 +6198,9 @@ def split_phase(card: str, keep: dict | None = None) -> dict:
             results[tag] = got
         if keep is not None:
             keep.update(one=ones["15a-moe"], grads=one_grads["15a-moe"],
-                        routes=one_routes["15a-moe"])
+                        routes=one_routes["15a-moe"],
+                        pipe_one=ones["15a-pipe"],
+                        pipe_grads=one_grads["15a-pipe"])
         del one_grads, one_routes
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6188,14 +6219,17 @@ def split_phase(card: str, keep: dict | None = None) -> dict:
 # Phase 15a's MoE model (t5-large of 2 + 2 blocks at full width, 4 experts,
 # top-2, capacity factor 1.25, both kernel flags, bf16, Adam, batch 16,
 # dropout 0 for the compared steps) on four ranks sharing the card over
-# gloo: 16b fsdp 2 x expert 2 (each fsdp rank its 8 rows; FSDP2 shards the
+# gloo: 16b fsdp 2 x expert 2 (both fsdp ranks on all 16 rows, as each
+# MoE layer draws its dropout at the rank's rows; FSDP2 shards the
 # bank slices and the rest over the fsdp ranks), 16c tensor 2 x expert 2
 # (the four ranks share the rows; rank (t, e) runs columns t of experts e,
 # the heads of tensor rank t). 16a is 15a's MoE run: the same seeded
 # weights and rows. Each takes a warm-up, one timed step, a profiled step
 # and a step at dropout 0.1, then writes a checkpoint that this process
 # restores. Held at phase 15's tolerances (``TOL_SPLIT``).
-MOE_SHARD_RANKS = 4
+# Phases 16 and 17 run in one job of four ranks (``four_rank_job``): one
+# start of four processes and their first-run warm-up, not two.
+FOUR_RANKS = 4
 MOE_SHARD_RUNS = {"16b": (1, 2, 1, 1, 1, 2), "16c": (1, 1, 2, 1, 1, 2)}
 
 
@@ -6224,107 +6258,108 @@ def moe_shard_memory(card: str) -> dict:
     return out
 
 
-def moe_shard_rank_main(spec_path: str) -> int:
-    """One rank of phase 16's job (started by ``torch.distributed.run``):
-    16b and 16c in turn on ``cuda:0``, which the four ranks share (gloo on
-    CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
-    ``{out}.{rank}.json``, its first step's gradients (gathered over its
-    data x fsdp and tensor shards: the banks' slices on every rank, the
-    rest on rank 0), rank 0's routings and whole trainable parameters
-    after the steps to files, and a checkpoint of each run."""
+def checkpoint_once(trainer, path: str, names, out: str) -> tuple:
+    """Save ``trainer``'s checkpoint under ``path`` (every rank gathers the
+    whole state for it, once) and write rank 0's whole trainable
+    parameters from that same gather (``names``), in fp32, to ``out``, for
+    the comparison with the checkpoint restored in one process: (the
+    manager's saves, the seconds the save took)."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+
+    gathered = {}
+    whole_state = trainer.full_state_dict
+
+    def keep_whole():
+        gathered.update(whole_state())
+        return gathered
+    trainer.full_state_dict = keep_whole
+    t0 = time.perf_counter()
+    manager = CheckpointManager(path, trainer.mesh)
+    manager.save(f"step_{trainer.step}", trainer)
+    manager.wait()
+    seconds = time.perf_counter() - t0
+    del trainer.full_state_dict
+    if trainer.mesh.rank == 0:
+        torch.save({n: v.float() for n, v in gathered.items()
+                    if n in names}, out)
+    return manager.saves, seconds
+
+
+def moe_shard_rank_run(run: dict, card: str, device) -> dict:
+    """One of phase 16's runs on this rank of the four-rank job
+    (``four_rank_main``): its readings; its first step's gradients
+    (gathered over its data x fsdp and tensor shards: the banks' slices on
+    every rank, the rest on rank 0), rank 0's routings and whole trainable
+    parameters after the steps to files, and a checkpoint."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    sys.path.insert(0, REPO)
-    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
-        CheckpointManager)
     from klab_multimodalmodel_tpu_torch.config import Config
     from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
         gather_full, tensor_parallel)
     from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
     from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
-    from klab_multimodalmodel_tpu_torch.utils.mesh import (
-        maybe_init_distributed)
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    register_no_dropout()
-    device = torch.device(DDP_DEVICE)
-    maybe_init_distributed(device)
-    rank, card = dist.get_rank(), spec["card"]
-    readings = {}
-    for run in spec["runs"]:
-        tag = run["tag"]
-        cfg = Config.from_json(json.dumps(run["config"]))
-        t0 = time.perf_counter()
-        trainer = Trainer(cfg, device=device)
-        # Seeded with config.seed on the card: 16a's weights on every
-        # rank, then cut and sharded.
-        trainer.init_state()
-        mesh = trainer.mesh
-        check(trainer.ddp is None and trainer.sharded
-              and trainer.expert is not None,
-              f"{tag}: not a sharded trainer with split banks")
-        build_s = time.perf_counter() - t0
-        base = f"{run['files']}.{rank}"
+    rank = dist.get_rank()
+    tag = run["tag"]
+    cfg = Config.from_json(json.dumps(run["config"]))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    # Seeded with config.seed on the card: 16a's weights on every
+    # rank, then cut and sharded.
+    trainer.init_state()
+    mesh = trainer.mesh
+    check(trainer.ddp is None and trainer.sharded
+          and trainer.expert is not None,
+          f"{tag}: not a sharded trainer with split banks")
+    build_s = time.perf_counter() - t0
+    base = f"{run['files']}.{rank}"
 
-        def first(t, calls):
-            grads = {}
-            for n, p in t.model.named_parameters():
-                if p.grad is None:
-                    continue
-                g = gather_full(p.grad.detach())  # every rank, in order
-                if rank == 0 or t._is_bank(n):
-                    grads[n] = g.float().cpu()
-            torch.save(grads, f"{base}.grads.pt")
-            if rank == 0 and calls:
-                torch.save(routing_masks(calls), f"{base}.routing.pt")
-        r = split_run(trainer, f"{tag} rank {rank}", card,
-                      tuple(run["launches"]), first, True)
-        # What every rank of a tensor x expert group holds alike (the
-        # router among it), bitwise against the group's first rank.
-        rows = mesh.rows_group(device.type)
-        src = rank - rank % mesh.rows_share
-        checked, bad = 0, []
-        for n, p in sorted(trainer.model.named_parameters()):
-            if trainer._placement(n) is not None or (
-                    mesh.tensor > 1 and tensor_parallel(n)):
+    def first(t, calls):
+        grads = {}
+        for n, p in t.model.named_parameters():
+            if p.grad is None:
                 continue
-            local = (p.to_local() if isinstance(p, DTensor) else p).detach()
-            ref = local.clone()
-            dist.broadcast(ref, src=src, group=rows)
-            checked += 1
-            if not torch.equal(ref, local):
-                bad.append(n)
-        check(checked > 0 and not bad,
-              f"{tag} rank {rank}: {len(bad)} of {checked} parameters "
-              f"differ across the tensor x expert group: {bad[:5]}")
-        names = trainable_names(trainer.model, cfg)
-        t0 = time.perf_counter()
-        whole = trainer.full_state_dict()
-        gather_s = time.perf_counter() - t0
-        if rank == 0:
-            torch.save({n: v.float() for n, v in whole.items()
-                        if n in names}, f"{run['files']}.params.pt")
-        del whole
-        t0 = time.perf_counter()
-        manager = CheckpointManager(run["checkpoint"], mesh)
-        manager.save(f"step_{trainer.step}", trainer)
-        manager.wait()
-        r.update(build_s=build_s, gather_s=gather_s,
-                 checkpoint_s=time.perf_counter() - t0,
-                 saves=manager.saves, replicated_checked=checked,
-                 coordinate=[mesh.dp_rank, mesh.tensor_rank,
-                             mesh.expert_rank])
-        readings[tag] = r
-        del trainer
-        free()
-        dist.barrier()
-    with open(f"{spec['out']}.{rank}.json", "w") as f:
-        json.dump(readings, f, default=str)
-    dist.destroy_process_group()
-    return 0
+            g = gather_full(p.grad.detach())  # every rank, in order
+            if rank == 0 or t._is_bank(n):
+                grads[n] = g.float().cpu()
+        torch.save(grads, f"{base}.grads.pt")
+        if rank == 0 and calls:
+            torch.save(routing_masks(calls), f"{base}.routing.pt")
+    r = split_run(trainer, f"{tag} rank {rank}", card,
+                  tuple(run["launches"]), first, True)
+    # What every rank of a tensor x expert group holds alike (the
+    # router among it), bitwise against the group's first rank.
+    rows = mesh.rows_group(device.type)
+    src = rank - rank % mesh.rows_share
+    checked, bad = 0, []
+    for n, p in sorted(trainer.model.named_parameters()):
+        if trainer._placement(n) is not None or (
+                mesh.tensor > 1 and tensor_parallel(n)):
+            continue
+        local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+        ref = local.clone()
+        dist.broadcast(ref, src=src, group=rows)
+        checked += 1
+        if not torch.equal(ref, local):
+            bad.append(n)
+    check(checked > 0 and not bad,
+          f"{tag} rank {rank}: {len(bad)} of {checked} parameters "
+          f"differ across the tensor x expert group: {bad[:5]}")
+    saves, checkpoint_s = checkpoint_once(
+        trainer, run["checkpoint"], trainable_names(trainer.model, cfg),
+        f"{run['files']}.params.pt")
+    r.update(build_s=build_s, checkpoint_s=checkpoint_s,
+             saves=saves, replicated_checked=checked,
+             coordinate=[mesh.dp_rank, mesh.tensor_rank,
+                         mesh.expert_rank])
+    del trainer
+    free()
+    return r
 
 
 def join_banks(parts: list, mesh: tuple) -> dict:
@@ -6345,15 +6380,11 @@ def join_banks(parts: list, mesh: tuple) -> dict:
     return out
 
 
-def moe_shard_phase(card: str, ref: dict) -> dict:
-    """Phase 16: one ``torch.distributed.run`` job of four ranks on the one
-    card (gloo on CUDA tensors) that runs 16b (fsdp 2 x expert 2) and 16c
-    (tensor 2 x expert 2) in turn, held against ``ref`` (phase 15a's MoE
-    run, ``split_phase``'s ``keep``); each run's checkpoint restored here
-    in one process."""
-    import shutil
-    import tempfile
-
+def moe_shard_phase(card: str, ref: dict, job: dict) -> dict:
+    """Phase 16's checks of the four-rank job's 16b (fsdp 2 x expert 2) and
+    16c (tensor 2 x expert 2) runs (``four_rank_job``), held against
+    ``ref`` (phase 15a's MoE run, ``split_phase``'s ``keep``); each run's
+    checkpoint restored here in one process."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.checkpoint.io import (
@@ -6361,140 +6392,434 @@ def moe_shard_phase(card: str, ref: dict) -> dict:
     from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    register_no_dropout()
-    memory = moe_shard_memory(card)
+    memory, ranks, root = job["memory"]["16"], job["ranks"], job["root"]
+    job_s = job["seconds"]["16"]
     one = ref["one"]
-    launches = SPLIT_RUNS["15b"][3]
-    root = tempfile.mkdtemp(prefix="chip_smoke_moe_shard_")
-    out_dir = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    try:
-        spec = dict(card=card, out=os.path.join(root, "rank"), runs=[
-            dict(tag=tag, launches=launches,
-                 config=json.loads(split_config(
-                     "15a-moe", mesh_shape=mesh).to_json()),
-                 files=os.path.join(root, tag),
-                 checkpoint=os.path.join(root, f"{tag}.ckpt"))
-            for tag, mesh in MOE_SHARD_RUNS.items()])
-        spec_path = os.path.join(root, "spec.json")
-        with open(spec_path, "w") as f:
-            json.dump(spec, f)
-        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
-                   PYTHONFAULTHANDLER="1",
-                   PYTHONPATH=REPO + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        log_path = os.path.join(out_dir, "phase16_ranks.log")
+    # One process restores each run's checkpoint in turn.
+    trainer = Trainer(split_config("15a-moe"))
+    trainer.init_state()
+    agree, results, restore_s = {}, {}, {}
+    for tag, mesh in MOE_SHARD_RUNS.items():
+        got = [rk[tag] for rk in ranks]
+        for r, g in enumerate(got):
+            check(g["losses"] == got[0]["losses"]
+                  and g["dropout_loss"] == got[0]["dropout_loss"],
+                  f"{tag}: rank {r}'s losses differ from rank 0's: "
+                  f"{g['losses']} vs {got[0]['losses']}")
+            check(g["launches_per_step"] == one["launches_per_step"],
+                  f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                  f"16a's {one['launches_per_step']}")
+            held, want = g["held_gb"]["total"], memory[tag]["total"]
+            check(abs(held - want) <= 1e-3 * want,
+                  f"{tag} rank {r}: holds {held:.4f} GB of state, "
+                  f"reckoned {want:.4f}")
+        losses = got[0]["losses"] + [got[0]["dropout_loss"]]
+        want = one["losses"] + [one["dropout_loss"]]
+        worst_loss = max(abs(x - y) / abs(y)
+                         for x, y in zip(losses, want))
+        check(worst_loss <= TOL_SPLIT["loss"],
+              f"{tag}: losses (the last at dropout 0.1) {losses} vs "
+              f"16a {want}")
+        base = os.path.join(root, tag)
+        grads = join_banks([torch.load(f"{base}.{r}.grads.pt",
+                                       weights_only=True)
+                            for r in range(mesh[2] * mesh[5])], mesh)
+        agree[tag] = dict(loss_worst_rel=worst_loss, gradients=agreement(
+            (got[0]["losses"][0], grads), (one["losses"][0],
+                                           ref["grads"]),
+            f"{tag} vs 16a, the first step's gradients",
+            TOL_SPLIT["grad"]))
+        del grads
+        diff = routing_differences(torch.load(
+            f"{base}.0.routing.pt", weights_only=True), ref["routes"],
+            SPLIT_MOE["moe_top_k"])
+        share = diff["flipped"] / diff["tokens"]
+        agree[tag]["routing"] = dict(diff, share=share)
+        print(f"{tag} vs 16a [{card}]: {diff['flipped']} of "
+              f"{diff['tokens']} token-routings of the first step "
+              f"flipped an expert ({share:.2e}; limit "
+              f"{TOL_SPLIT['flipped']})")
+        check(share <= TOL_SPLIT["flipped"],
+              f"{tag}: {share:.2e} of the routings flipped")
+        # The run's checkpoint in one process: the whole trainable
+        # parameters rank 0 gathered after the steps, bitwise.
         t0 = time.perf_counter()
-        with open(log_path, "w") as log:
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc_per_node", str(MOE_SHARD_RANKS),
-                 os.path.abspath(__file__), "--moe-shard-rank", spec_path],
-                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                timeout=900)
-        job_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            with open(log_path) as f:
-                print(f.read()[-6000:])
-        check(proc.returncode == 0, f"phase 16's torchrun job exited "
-              f"{proc.returncode} (chiprun_out/phase16_ranks.log)")
-        ranks = []
-        for r in range(MOE_SHARD_RANKS):
-            with open(f"{spec['out']}.{r}.json") as f:
-                ranks.append(json.load(f))
-        agree, results, restore_s = {}, {}, {}
-        for tag, mesh in MOE_SHARD_RUNS.items():
-            got = [rk[tag] for rk in ranks]
-            for r, g in enumerate(got):
-                check(g["losses"] == got[0]["losses"]
-                      and g["dropout_loss"] == got[0]["dropout_loss"],
-                      f"{tag}: rank {r}'s losses differ from rank 0's: "
-                      f"{g['losses']} vs {got[0]['losses']}")
-                check(g["launches_per_step"] == one["launches_per_step"],
-                      f"{tag} rank {r}: launches {g['launches_per_step']}, "
-                      f"16a's {one['launches_per_step']}")
-                held, want = g["held_gb"]["total"], memory[tag]["total"]
-                check(abs(held - want) <= 1e-3 * want,
-                      f"{tag} rank {r}: holds {held:.4f} GB of state, "
-                      f"reckoned {want:.4f}")
-            losses = got[0]["losses"] + [got[0]["dropout_loss"]]
-            want = one["losses"] + [one["dropout_loss"]]
-            worst_loss = max(abs(x - y) / abs(y)
-                             for x, y in zip(losses, want))
-            check(worst_loss <= TOL_SPLIT["loss"],
-                  f"{tag}: losses (the last at dropout 0.1) {losses} vs "
-                  f"16a {want}")
-            base = os.path.join(root, tag)
-            grads = join_banks([torch.load(f"{base}.{r}.grads.pt",
-                                           weights_only=True)
-                                for r in range(mesh[2] * mesh[5])], mesh)
-            agree[tag] = dict(loss_worst_rel=worst_loss, gradients=agreement(
-                (got[0]["losses"][0], grads), (one["losses"][0],
-                                               ref["grads"]),
-                f"{tag} vs 16a, the first step's gradients",
-                TOL_SPLIT["grad"]))
-            del grads
-            diff = routing_differences(torch.load(
-                f"{base}.0.routing.pt", weights_only=True), ref["routes"],
-                SPLIT_MOE["moe_top_k"])
-            share = diff["flipped"] / diff["tokens"]
-            agree[tag]["routing"] = dict(diff, share=share)
-            print(f"{tag} vs 16a [{card}]: {diff['flipped']} of "
-                  f"{diff['tokens']} token-routings of the first step "
-                  f"flipped an expert ({share:.2e}; limit "
-                  f"{TOL_SPLIT['flipped']})")
-            check(share <= TOL_SPLIT["flipped"],
-                  f"{tag}: {share:.2e} of the routings flipped")
-            # The run's checkpoint in one process: the whole trainable
-            # parameters rank 0 gathered after the steps, bitwise.
-            t0 = time.perf_counter()
-            trainer = Trainer(split_config("15a-moe"))
-            trainer.init_state()
-            manager = CheckpointManager(os.path.join(root, f"{tag}.ckpt"))
-            manager.restore(manager.latest(), trainer)
-            params = torch.load(f"{base}.params.pt", weights_only=True)
-            restored = trainable_on_host(trainer.model)
-            equal = (trainer.step == SPLIT_STEPS + 3
-                     and restored.keys() == params.keys()
-                     and all(torch.equal(restored[n], params[n])
-                             for n in params))
-            restore_s[tag] = time.perf_counter() - t0
-            check(equal, f"{tag}'s checkpoint restored in one process "
-                  "differs from the ranks' parameters")
-            del trainer, params, restored
-            free()
-            print(f"{tag} vs 16a [{card}]: losses {got[0]['losses']} vs "
-                  f"{one['losses']}; at dropout 0.1 "
-                  f"{got[0]['dropout_loss']:.6f} vs "
-                  f"{one['dropout_loss']:.6f} (worst rel {worst_loss:.2e});"
-                  f" {got[0]['replicated_checked']} parameters bitwise "
-                  "equal across each tensor x expert group; the checkpoint "
-                  f"restored bitwise in one process in {restore_s[tag]:.2f}"
-                  " s")
-            for r, g in enumerate(got):
-                coll = (g["profile"].get("collectives") or {})
-                print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
-                      f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
-                      f"(16a {one['mean_step_ms']:.2f}), peak "
-                      f"{g['peak_gb']:.2f} GB (16a {one['peak_gb']:.2f}); "
-                      f"state held {g['held_gb']['total']:.3f} GB (reckoned "
-                      f"{memory[tag]['total']:.3f}; 16a held "
-                      f"{one['held_gb']['total']:.3f}); profiled step: busy "
-                      f"{g['profile'].get('busy_ms')} ms, share "
-                      f"{g['profile'].get('busy_share')}, gloo host "
-                      f"{coll.get('host_ms')} ms, device "
-                      f"{coll.get('device_ms')} ms; gather "
-                      f"{g['gather_s']:.2f} s, checkpoint "
-                      f"{g['checkpoint_s']:.2f} s")
-            results[tag] = got
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        manager = CheckpointManager(os.path.join(root, f"{tag}.ckpt"))
+        manager.restore(manager.latest(), trainer)
+        params = torch.load(f"{base}.params.pt", weights_only=True)
+        restored = trainable_on_host(trainer.model)
+        equal = (trainer.step == SPLIT_STEPS + 3
+                 and restored.keys() == params.keys()
+                 and all(torch.equal(restored[n], params[n])
+                         for n in params))
+        restore_s[tag] = time.perf_counter() - t0
+        check(equal, f"{tag}'s checkpoint restored in one process "
+              "differs from the ranks' parameters")
+        del params, restored
+        free()
+        print(f"{tag} vs 16a [{card}]: losses {got[0]['losses']} vs "
+              f"{one['losses']}; at dropout 0.1 "
+              f"{got[0]['dropout_loss']:.6f} vs "
+              f"{one['dropout_loss']:.6f} (worst rel {worst_loss:.2e});"
+              f" {got[0]['replicated_checked']} parameters bitwise "
+              "equal across each tensor x expert group; the checkpoint "
+              f"restored bitwise in one process in {restore_s[tag]:.2f}"
+              " s")
+        for r, g in enumerate(got):
+            coll = (g["profile"].get("collectives") or {})
+            print(f"  {tag} rank {r}: build {g['build_s']:.2f} s, steps "
+                  f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                  f"(16a {one['mean_step_ms']:.2f}), peak "
+                  f"{g['peak_gb']:.2f} GB (16a {one['peak_gb']:.2f}); "
+                  f"state held {g['held_gb']['total']:.3f} GB (reckoned "
+                  f"{memory[tag]['total']:.3f}; 16a held "
+                  f"{one['held_gb']['total']:.3f}); profiled step: busy "
+                  f"{g['profile'].get('busy_ms')} ms, share "
+                  f"{g['profile'].get('busy_share')}, gloo host "
+                  f"{coll.get('host_ms')} ms, device "
+                  f"{coll.get('device_ms')} ms; checkpoint (its one "
+                  f"gather included) {g['checkpoint_s']:.2f} s")
+        results[tag] = got
+    del trainer
     free()
     seconds = time.perf_counter() - t_phase
-    print(f"phase 16: {seconds:.1f} s (job {job_s:.2f} s)")
+    print(f"phase 16: {seconds:.1f} s (its runs in the four-rank "
+          f"job {job_s:.2f} s)")
     return dict(card=card, memory_reckoned_gb=memory, ranks=results,
                 agreement=agree, job_s=job_s, restore_s=restore_s,
                 seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: GPipe stages on a sharded mesh (the pipe axis beside fsdp and
+# tensor)
+# ---------------------------------------------------------------------------
+
+# Phase 15a's pipelined model (t5-large of 2 + 2 blocks at full width, 2
+# GPipe stages, 4 microbatches, the T5 kernel off as the JAX package
+# requires, the Swin kernel on, bf16, Adam, batch 16, dropout 0 for the
+# compared steps) on four ranks sharing the card over gloo: 17a fsdp 2 x
+# tensor 2 with the stages unsharded (each rank runs both stages' ticks,
+# every block an FSDP2 unit gathered at each tick), 17b fsdp 2 x pipe 2
+# (each fsdp rank its 8 rows, stage s's block an FSDP2 unit of pipe rank
+# s's two fsdp ranks), 17c tensor 2 x pipe 2 (the four ranks share the
+# rows; rank (t, s) runs heads and d_ff columns t of stage s). 15a's
+# pipelined run is the reference: the same seeded weights, rows and
+# dropout generator. 17b and 17c take a warm-up, one timed step, a
+# profiled step and a step at dropout 0.1; 17a a warm-up and one timed
+# step. Each run's checkpoint is restored in this process. Held at phase
+# 15's tolerances (``TOL_SPLIT``).
+PIPE_SHARD_RUNS = {"17a": (1, 2, 2, 1, 1, 1), "17b": (1, 2, 1, 1, 2, 1),
+                   "17c": (1, 1, 2, 1, 2, 1)}
+
+
+def pipe_shard_memory(card: str) -> dict:
+    """Each run's per-rank parameters, gradients and Adam moments (GB) for
+    each of its pipe ranks, reckoned on the meta device before the job."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.utils.mesh import DEFAULT_AXIS_NAMES
+
+    cfg = split_config("15a-pipe")
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    shapes = [(n, tuple(p.shape), n in names)
+              for n, p in model.named_parameters()]
+    out = {tag: [{k: v / 1e9 for k, v in per_rank_bytes(
+        shapes, dict(zip(DEFAULT_AXIS_NAMES, mesh)), pipe_rank=s).items()}
+        for s in range(mesh[4])]
+        for tag, mesh in PIPE_SHARD_RUNS.items()}
+    print("phase 17: state per rank reckoned (GB; params, grads, Adam; by "
+          "pipe rank): " + "; ".join(
+              f"{t} " + " / ".join(f"{r['params']:.3f} + {r['grads']:.3f} + "
+                                   f"{r['moments']:.3f} = {r['total']:.3f}"
+                                   for r in rs)
+              for t, rs in out.items()) + f" [{card}]")
+    return out
+
+
+def pipe_shard_rank_run(run: dict, card: str, device) -> dict:
+    """One of phase 17's runs on this rank of the four-rank job
+    (``four_rank_main``): its readings; its first step's gradients,
+    gathered over its data x fsdp and tensor shards (rank 0's whole, and
+    the other stage's blocks from the rank that holds rank 0's rows of
+    it); and a checkpoint, whose whole state rank 0 also writes (its
+    trainable parameters) for the comparison: one gather."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        gather_full, tensor_parallel)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    tag = run["tag"]
+    cfg = Config.from_json(json.dumps(run["config"]))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    # Seeded with config.seed on the card: 15a's weights on every
+    # rank, then split into stages and sharded.
+    trainer.init_state()
+    mesh = trainer.mesh
+    check(trainer.ddp is None and trainer.sharded
+          and (trainer.pipe is not None) == (mesh.pipe > 1),
+          f"{tag}: not a sharded trainer with its stages as the mesh "
+          "says")
+    build_s = time.perf_counter() - t0
+    base = f"{run['files']}.{rank}"
+    # The rank that holds rank 0's rows of the other stage (pipe rank
+    # 1 at data, fsdp and tensor 0).
+    stage_source = rank == mesh.expert * (mesh.pipe - 1)
+
+    def first(t, calls):
+        grads = {}
+        for n, p in t.model.named_parameters():
+            if p.grad is None:
+                continue
+            g = gather_full(p.grad.detach())  # every rank, in order
+            if rank == 0 or (stage_source and t._placement(n)):
+                grads[n] = g.float().cpu()
+        torch.save(grads, f"{base}.grads.pt")
+    r = split_run(trainer, f"{tag} rank {rank}", card,
+                  tuple(run["launches"]), first, True,
+                  extras=run["extras"], own_rows=True)
+    # What every rank of a tensor x pipe group holds alike (outside
+    # the stages, and not split over tensor), bitwise against the
+    # group's first rank.
+    rows = mesh.rows_group(device.type)
+    src = rank - rank % mesh.rows_share
+    checked, bad = 0, []
+    for n, p in sorted(trainer.model.named_parameters()):
+        if trainer._placement(n) is not None or (
+                mesh.tensor > 1 and tensor_parallel(n)):
+            continue
+        local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+        ref = local.clone()
+        dist.broadcast(ref, src=src, group=rows)
+        checked += 1
+        if not torch.equal(ref, local):
+            bad.append(n)
+    check(checked > 0 and not bad,
+          f"{tag} rank {rank}: {len(bad)} of {checked} parameters "
+          f"differ across the tensor x pipe group: {bad[:5]}")
+    # The whole model's trainable names (the rank holds one stage).
+    names = ({n for g in trainer._whole_groups for n in g}
+             if trainer.split_model
+             else trainable_names(trainer.model, cfg))
+    saves, checkpoint_s = checkpoint_once(
+        trainer, run["checkpoint"], names, f"{run['files']}.params.pt")
+    r.update(build_s=build_s, checkpoint_s=checkpoint_s,
+             saves=saves, replicated_checked=checked,
+             coordinate=[mesh.dp_rank, mesh.tensor_rank,
+                         mesh.pipe_rank])
+    del trainer
+    free()
+    return r
+
+
+def pipe_shard_phase(card: str, ref: dict, job: dict) -> dict:
+    """Phase 17's checks of the four-rank job's 17a (the stages unsharded
+    on fsdp 2 x tensor 2), 17b (fsdp 2 x pipe 2) and 17c (tensor 2 x pipe
+    2) runs (``four_rank_job``), held against ``ref`` (phase 15a's
+    pipelined run, ``split_phase``'s ``keep``); each run's checkpoint
+    restored here in one process."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    memory, ranks, root = job["memory"]["17"], job["ranks"], job["root"]
+    job_s = job["seconds"]["17"]
+    one = ref["pipe_one"]
+    # One process restores each run's checkpoint in turn.
+    trainer = Trainer(split_config("15a-pipe"))
+    trainer.init_state()
+    agree, results, restore_s = {}, {}, {}
+    for tag, mesh in PIPE_SHARD_RUNS.items():
+        got = [rk[tag] for rk in ranks]
+        extras = tag != "17a"
+        for r, g in enumerate(got):
+            check(g["losses"] == got[0]["losses"]
+                  and g["dropout_loss"] == got[0]["dropout_loss"],
+                  f"{tag}: rank {r}'s losses differ from rank 0's: "
+                  f"{g['losses']} vs {got[0]['losses']}")
+            check(g["launches_per_step"] == one["launches_per_step"],
+                  f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                  f"15a's {one['launches_per_step']}")
+            held = g["held_gb"]["total"]
+            want = memory[tag][g["coordinate"][2]]["total"]
+            check(abs(held - want) <= 1e-3 * want,
+                  f"{tag} rank {r}: holds {held:.4f} GB of state, "
+                  f"reckoned {want:.4f}")
+        losses = got[0]["losses"] + (
+            [got[0]["dropout_loss"]] if extras else [])
+        want = one["losses"] + ([one["dropout_loss"]] if extras else [])
+        worst_loss = max(abs(x - y) / abs(y)
+                         for x, y in zip(losses, want))
+        check(worst_loss <= TOL_SPLIT["loss"],
+              f"{tag}: losses {losses} vs 15a {want}")
+        base = os.path.join(root, tag)
+        grads = {}
+        for r in range(FOUR_RANKS):
+            if os.path.exists(f"{base}.{r}.grads.pt"):
+                grads.update(torch.load(f"{base}.{r}.grads.pt",
+                                        weights_only=True))
+        agree[tag] = dict(loss_worst_rel=worst_loss, gradients=agreement(
+            (got[0]["losses"][0], grads), (one["losses"][0],
+                                           ref["pipe_grads"]),
+            f"{tag} vs 15a, the first step's gradients",
+            TOL_SPLIT["grad"]))
+        del grads
+        # The run's checkpoint in one process: the whole trainable
+        # parameters that rank 0 gathered for it, bitwise.
+        t0 = time.perf_counter()
+        manager = CheckpointManager(os.path.join(root, f"{tag}.ckpt"))
+        manager.restore(manager.latest(), trainer)
+        params = torch.load(f"{base}.params.pt", weights_only=True)
+        restored = trainable_on_host(trainer.model)
+        steps = SPLIT_STEPS + (3 if extras else 1)
+        equal = (trainer.step == steps
+                 and restored.keys() == params.keys()
+                 and all(torch.equal(restored[n], params[n])
+                         for n in params))
+        restore_s[tag] = time.perf_counter() - t0
+        check(equal, f"{tag}'s checkpoint restored in one process "
+              "differs from the ranks' parameters")
+        del params, restored
+        free()
+        dropout = (f"; at dropout 0.1 {got[0]['dropout_loss']:.6f} vs "
+                   f"{one['dropout_loss']:.6f}" if extras else "")
+        print(f"{tag} vs 15a [{card}]: losses {got[0]['losses']} vs "
+              f"{one['losses'][:len(got[0]['losses'])]}{dropout} (worst "
+              f"rel {worst_loss:.2e}); {got[0]['replicated_checked']} "
+              "parameters bitwise equal across each tensor x pipe "
+              "group; the checkpoint restored bitwise in one process "
+              f"in {restore_s[tag]:.2f} s")
+        for r, g in enumerate(got):
+            coll = (g["profile"].get("collectives") or {})
+            print(f"  {tag} rank {r} (data x fsdp, tensor, pipe "
+                  f"{g['coordinate']}): build {g['build_s']:.2f} s, "
+                  f"steps {', '.join(f'{t:.2f}' for t in g['step_ms'])} "
+                  f"ms (15a {one['mean_step_ms']:.2f}), peak "
+                  f"{g['peak_gb']:.2f} GB (15a {one['peak_gb']:.2f}); "
+                  f"state held {g['held_gb']['total']:.3f} GB (reckoned "
+                  f"{memory[tag][g['coordinate'][2]]['total']:.3f}; 15a "
+                  f"held {one['held_gb']['total']:.3f}); profiled step: "
+                  f"busy {g['profile'].get('busy_ms')} ms, share "
+                  f"{g['profile'].get('busy_share')}, gloo host "
+                  f"{coll.get('host_ms')} ms, device "
+                  f"{coll.get('device_ms')} ms; checkpoint "
+                  f"{g['checkpoint_s']:.2f} s")
+        results[tag] = got
+    del trainer
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 17: {seconds:.1f} s (its runs in the four-rank "
+          f"job {job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, ranks=results,
+                agreement=agree, job_s=job_s, restore_s=restore_s,
+                seconds=seconds)
+
+
+def four_rank_main(spec_path: str) -> int:
+    """One rank of the four-rank job of phases 16 and 17 (started by
+    ``torch.distributed.run``): their runs in turn on ``cuda:0``, which the
+    four ranks share (gloo on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``),
+    each run's readings (and its seconds on this rank) to
+    ``{out}.{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    register_no_dropout()
+    device = torch.device(DDP_DEVICE)
+    maybe_init_distributed(device)
+    runners = {"16": moe_shard_rank_run, "17": pipe_shard_rank_run}
+    readings = {}
+    for run in spec["runs"]:
+        t0 = time.perf_counter()
+        r = runners[run["phase"]](run, spec["card"], device)
+        dist.barrier()
+        readings[run["tag"]] = dict(r, run_s=time.perf_counter() - t0)
+    with open(f"{spec['out']}.{dist.get_rank()}.json", "w") as f:
+        json.dump(readings, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def four_rank_job(card: str) -> dict:
+    """The runs of phases 16 and 17 in one ``torch.distributed.run`` job of
+    four ranks on the one card (the ranks' log in
+    ``chiprun_out/phase17_ranks.log``), each run's per-rank state reckoned
+    first: the rank readings, the directory of their files (the caller
+    removes it), each phase's seconds in the job (its runs' on the slowest
+    rank) and the reckonings."""
+    import tempfile
+
+    register_no_dropout()
+    memory = {"16": moe_shard_memory(card), "17": pipe_shard_memory(card)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_four_ranks_")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def run(phase, tag, twin, mesh, **kw):
+        return dict(kw, phase=phase, tag=tag, config=json.loads(
+            split_config(twin, mesh_shape=mesh).to_json()),
+            files=os.path.join(root, tag),
+            checkpoint=os.path.join(root, f"{tag}.ckpt"))
+    runs = [run("16", tag, "15a-moe", mesh, launches=SPLIT_RUNS["15b"][3])
+            for tag, mesh in MOE_SHARD_RUNS.items()]
+    runs += [run("17", tag, "15a-pipe", mesh, extras=tag != "17a",
+                 launches=SPLIT_RUNS["15c"][3])
+             for tag, mesh in PIPE_SHARD_RUNS.items()]
+    spec = dict(card=card, out=os.path.join(root, "rank"), runs=runs)
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+               PYTHONFAULTHANDLER="1",
+               PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log_path = os.path.join(out_dir, "phase17_ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(FOUR_RANKS), os.path.abspath(__file__),
+             "--four-rank", spec_path],
+            env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            timeout=900)
+    job_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            print(f.read()[-6000:])
+    check(proc.returncode == 0, f"the four-rank job of phases 16 and 17 "
+          f"exited {proc.returncode} (chiprun_out/phase17_ranks.log)")
+    ranks = []
+    for r in range(FOUR_RANKS):
+        with open(f"{spec['out']}.{r}.json") as f:
+            ranks.append(json.load(f))
+    seconds = {p: max(sum(rk[x["tag"]]["run_s"] for x in runs
+                          if x["phase"] == p) for rk in ranks)
+               for p in ("16", "17")}
+    print(f"phases 16 and 17: the four-rank job took {job_s:.1f} s (16's "
+          f"runs {seconds['16']:.1f} s, 17's {seconds['17']:.1f} s, the "
+          f"rest starting and joining the processes) [{card}]")
+    return dict(ranks=ranks, root=root, seconds=seconds, job_s=job_s,
+                memory=memory)
 
 
 class StopAfter(Exception):
@@ -6505,6 +6830,8 @@ def main(stop_after: str | None = None) -> int:
     """Every phase in turn; with ``stop_after``, only the phases up to
     that one (a shorter run for working on the script: it prints the
     phases' seconds and no result, and exits 3)."""
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6599,10 +6926,20 @@ def main(stop_after: str | None = None) -> int:
     moe_ref: dict = {}
     split = split_phase(card, moe_ref)
     done("15")
-    moe_shard = moe_shard_phase(card, moe_ref)
+    # Phases 16 and 17 share one four-rank job, which phase 16 starts;
+    # phase 17's seconds are its checks here (its runs' share of the job is
+    # printed).
+    job = four_rank_job(card)
+    try:
+        moe_shard = moe_shard_phase(card, moe_ref, job)
+        free()
+        done("16")
+        pipe_shard = pipe_shard_phase(card, moe_ref, job)
+    finally:
+        shutil.rmtree(job["root"], ignore_errors=True)
     del moe_ref
     free()
-    done("16")
+    done("17")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -6696,6 +7033,16 @@ def main(stop_after: str | None = None) -> int:
             "launches_per_step"][train_key]
         entry["launches_moe_tensor_step"] = moe_shard["ranks"]["16c"][0][
             "launches_per_step"][train_key]
+        for tag, got in pipe_shard["ranks"].items():
+            for r, rank in enumerate(got):
+                if train_key == "swin":
+                    check(rank["launches_per_step"][train_key] > 0,
+                          f"{entry['name']} never launched in a phase-{tag} "
+                          f"step of rank {r}")
+        entry["launches_pipe_fsdp_step"] = pipe_shard["ranks"]["17b"][0][
+            "launches_per_step"][train_key]
+        entry["launches_pipe_tensor_step"] = pipe_shard["ranks"]["17c"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -6710,7 +7057,8 @@ def main(stop_after: str | None = None) -> int:
         "launches_moe_step", "launches_moe_request", "launches_gpipe_step",
         "launches_shard_step", "launches_seq_step", "launches_expert_step",
         "launches_pipe_step", "launches_moe_fsdp_step",
-        "launches_moe_tensor_step")}
+        "launches_moe_tensor_step", "launches_pipe_fsdp_step",
+        "launches_pipe_tensor_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -6743,7 +7091,10 @@ def main(stop_after: str | None = None) -> int:
                  f"off); launches_moe_fsdp_step / _moe_tensor_step: one "
                  f"step of a phase-16b rank (4 experts over fsdp 2 x "
                  f"expert 2) and of a phase-16c rank (tensor 2 x expert "
-                 f"2)"}))
+                 f"2); launches_pipe_fsdp_step / _pipe_tensor_step: one "
+                 f"step of a phase-17b rank (2 stages over fsdp 2 x pipe "
+                 f"2) and of a phase-17c rank (tensor 2 x pipe 2), the T5 "
+                 f"kernel off"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -6756,7 +7107,8 @@ def main(stop_after: str | None = None) -> int:
                    "artifacts": artifacts, "serving": serving,
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
                    "sharded": sharded, "seq": seq, "split": split,
-                   "moe_shard": moe_shard, "seconds": seconds},
+                   "moe_shard": moe_shard, "pipe_shard": pipe_shard,
+                   "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {
@@ -6774,8 +7126,8 @@ if __name__ == "__main__":
         sys.exit(seq_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--split-rank"]:
         sys.exit(split_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--moe-shard-rank"]:
-        sys.exit(moe_shard_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--four-rank"]:
+        sys.exit(four_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--stop-after"]:
         try:
             sys.exit(main(sys.argv[2]))

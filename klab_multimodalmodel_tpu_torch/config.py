@@ -132,11 +132,10 @@ class Config:
     training step and the training loop read, with the same names,
     defaults and checks. Options that are not ported raise
     ``NotImplementedError`` naming the ROADMAP item that ports them: the
-    ``pipe`` or ``expert`` mesh axis above 1 beside ``fsdp``, ``tensor`` or
-    ``seq`` above 1, MoE or GPipe with ``fsdp`` or ``tensor`` above 1,
-    ``seq`` above 1 with ``fsdp``, ``tensor`` or MoE (all A12d's second
-    half), and ``profile_server_port > 0`` (PyTorch has no live profiler
-    server)."""
+    ``pipe`` mesh axis above 1 beside ``seq`` or ``expert`` above 1, the
+    ``seq`` axis above 1 beside ``fsdp``, ``tensor`` or ``expert`` above 1,
+    and MoE with ``seq`` above 1 (all A12d's second half); and
+    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -330,17 +329,18 @@ class Config:
         both T5s' heads and d_ff must divide by ``tensor`` (the vocab need
         not: DTensor pads its uneven shards). MoE experts share the
         transformer's d_ff, which its check covers: under ``tensor`` each
-        rank runs its columns of every expert. Still ROADMAP A12d: GPipe
-        stages with ``fsdp`` or ``tensor``, MoE with ``seq``, and the axes
-        that ``refuse_waiting_combinations`` names (``pipe`` beside
-        ``fsdp``, ``tensor``, ``seq`` or ``expert``; ``seq`` beside
-        ``fsdp``, ``tensor`` or ``expert``). ``seq_attention='ring'`` with
+        rank runs its columns of every expert. GPipe stages take ``fsdp``
+        and ``tensor`` as the JAX package takes them, at ``pipe`` 1 or
+        equal to the stages (the T5 kernel stays off under stages:
+        ``_check_pipeline_and_moe``). Still ROADMAP A12d: MoE with
+        ``seq``, and the axes that ``refuse_waiting_combinations`` names
+        (``pipe`` beside ``seq`` or ``expert``; ``seq`` beside ``fsdp``,
+        ``tensor`` or ``expert``). ``seq_attention='ring'`` with
         the T5 kernel on and ``seq`` above 1 is refused as inert: the JAX
         package runs the kernel there and never the ring."""
         from .utils.mesh import refuse_waiting_combinations
 
-        fsdp, tensor = self._axis("fsdp"), self._axis("tensor")
-        seq = self._axis("seq")
+        tensor, seq = self._axis("tensor"), self._axis("seq")
         for name in ("mesh_shape", "dcn_mesh_shape"):
             refuse_waiting_combinations(getattr(self, name),
                                         self.mesh_axis_names, name)
@@ -355,13 +355,6 @@ class Config:
                     "seq_attention='ring' with use_pallas_t5_attention and "
                     "a seq mesh axis > 1: the T5 kernel wins there and the "
                     "ring never runs; drop one of the flags")
-        if fsdp == 1 and tensor == 1:
-            return
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                f"pipeline_stages={self.pipeline_stages} with mesh fsdp="
-                f"{fsdp}, tensor={tensor}: stages sharded with these axes "
-                "are ROADMAP A12d (run them on a data x pipe mesh)")
         if tensor not in (None, 1):
             for which, size in (("language", self.language_t5),
                                 ("transformer", self.transformer_t5)):
@@ -536,8 +529,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
         help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; one rank per "
              "entry (-1 = all processes); PIPE equals --pipeline_stages, "
-             "EXPERT divides --moe_experts, and neither composes with FSDP, "
-             "TENSOR or SEQ above 1 (ROADMAP A12d)")
+             "EXPERT divides --moe_experts; still refused (ROADMAP A12d): "
+             "PIPE beside SEQ or EXPERT, SEQ beside FSDP, TENSOR or "
+             "EXPERT, and --moe_experts with SEQ, each above 1")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
         help="3-6 ints: per-axis factors across slices, each multiplying "

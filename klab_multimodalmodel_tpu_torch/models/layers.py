@@ -156,7 +156,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dropout_rate: float = 0.0,
                           generator: Optional[torch.Generator] = None,
                           heads: Optional[tuple[int, int]] = None,
-                          rows: Optional[tuple[int, int]] = None
+                          rows: Optional[tuple[int, int]] = None,
+                          batch: Optional[tuple[int, int]] = None
                           ) -> torch.Tensor:
     """Reference attention, q,k,v (B, H, L, D): no 1/sqrt(d) scale (T5
     folds it into the init), fp32 logits and softmax, probabilities cast to
@@ -164,15 +165,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, then multiplied by v with an fp32 sum. ``heads`` = (first,
     total): q holds heads ``first ..`` of ``total`` (a tensor rank's), and
     the dropout mask is those heads' of one process; ``rows``, the same for
-    query rows (a seq rank's). Not both: a mask is sliced on one dim."""
+    query rows (a seq rank's). Not both: a mask is sliced on one of those
+    dims. ``batch``, the same for the batch rows (a data rank's share of a
+    pipelined microbatch), beside either."""
     if heads is not None and rows is not None:
         raise ValueError("dropout over split heads and split rows at once")
     dtype = q.dtype
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         logits = logits + bias.float()
-    shard = ((1, *heads) if heads is not None
-             else (2, *rows) if rows is not None else None)
+    shard = [(d, *part) for d, part in ((0, batch), (1, heads), (2, rows))
+             if part is not None] or None
     probs = dropout(torch.softmax(logits, dim=-1).to(dtype), dropout_rate,
                     generator, shard)
     return torch.matmul(probs.float(), v.float()).to(dtype)

@@ -228,6 +228,9 @@ class T5Attention(nn.Module):
     rank's slice of a sequence-parallel stack's positions (x holds those
     rows): self-attention gathers K/V over the seq group, or, with
     ``ring``, streams them around it; the bias holds the rank's rows.
+    ``batch_rows`` = (first, total): x holds rows ``first ..`` of a batch
+    of ``total`` (a data rank's share of a pipelined microbatch), and the
+    dropout mask is those rows' of one process.
     """
 
     def __init__(self, size: T5Size, has_relative_attention_bias: bool = False,
@@ -270,7 +273,9 @@ class T5Attention(nn.Module):
                 kernel_pack: Optional[tuple] = None,
                 cache: Optional[dict] = None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                seq=None, ring: bool = False) -> torch.Tensor:
+                seq=None, ring: bool = False,
+                batch_rows: Optional[tuple[int, int]] = None
+                ) -> torch.Tensor:
         q = self._split_heads(self.q(x))
         is_cross = kv is not None
         ring = ring and not is_cross and cache is None
@@ -318,7 +323,8 @@ class T5Attention(nn.Module):
             heads = (self.head_offset, self.size.num_heads)
         attn = dot_product_attention(
             q, k, v, bias=bias, dropout_rate=rate, generator=generator,
-            heads=heads, rows=None if seq is None else seq.dropout_shard)
+            heads=heads, rows=None if seq is None else seq.dropout_shard,
+            batch=batch_rows)
         return self.o(self._merge_heads(attn))
 
     def _decode_kv(self, x, kv, bias, cache):
@@ -419,15 +425,16 @@ class T5Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                seq=None) -> torch.Tensor:
+                seq=None, batch_rows: Optional[tuple[int, int]] = None
+                ) -> torch.Tensor:
         if self.gated:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
         rate = 0.0 if deterministic else self.size.dropout_rate
-        shard = _rows(seq)
+        shard = _rows(seq, batch_rows)
         if h.shape[-1] != self.size.d_ff:
-            shard = (-1, self.ff_offset, self.size.d_ff)
+            shard = (shard or []) + [(-1, self.ff_offset, self.size.d_ff)]
         return self.wo(dropout(h, rate, generator, shard))
 
 
@@ -542,15 +549,17 @@ class T5Block(nn.Module):
                 moe_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                seq=None, ring: bool = False):
+                seq=None, ring: bool = False,
+                batch_rows: Optional[tuple[int, int]] = None):
         rate = 0.0 if deterministic else self.size.dropout_rate
-        rows = _rows(seq)
+        rows = _rows(seq, batch_rows)
         sa = self.layer[0]
         h = sa["SelfAttention"](sa["layer_norm"](x), bias=self_bias,
                                 kernel_pack=self_pack,
                                 cache=None if cache is None else cache["self"],
                                 deterministic=deterministic,
-                                generator=generator, seq=seq, ring=ring)
+                                generator=generator, seq=seq, ring=ring,
+                                batch_rows=batch_rows)
         x = x + dropout(h, rate, generator, rows)
         if self.has_cross_attention:
             ca = self.layer[1]
@@ -558,7 +567,8 @@ class T5Block(nn.Module):
                 ca["layer_norm"](x), kv=enc_out, bias=cross_bias,
                 kernel_pack=cross_pack,
                 cache=None if cache is None else cache["cross"],
-                deterministic=deterministic, generator=generator, seq=seq)
+                deterministic=deterministic, generator=generator, seq=seq,
+                batch_rows=batch_rows)
             x = x + dropout(h, rate, generator, rows)
         ff = self.layer[-1]
         if self.moe:
@@ -566,14 +576,19 @@ class T5Block(nn.Module):
                                mask=moe_mask)
             return x + dropout(h, rate, generator), aux
         h = ff["DenseReluDense"](ff["layer_norm"](x), deterministic,
-                                 generator, seq)
+                                 generator, seq, batch_rows)
         return x + dropout(h, rate, generator, rows)
 
 
-def _rows(seq) -> Optional[tuple[int, int, int]]:
-    """``dropout``'s shard of a (B, L, ...) activation under a seq slice:
-    the rank's rows of a mask drawn at the full length."""
-    return None if seq is None else (1, *seq.dropout_shard)
+def _rows(seq, batch_rows: Optional[tuple[int, int]] = None
+          ) -> Optional[list]:
+    """``dropout``'s shards of a (B, L, ...) activation under a seq slice
+    (the rank's positions of a mask drawn at the full length) and a share
+    of the batch (``batch_rows`` = (first, total): the rank's rows of a mask
+    drawn at all ``total``); None without either."""
+    shards = ([] if batch_rows is None else [(0, *batch_rows)]) + (
+        [] if seq is None else [(1, *seq.dropout_shard)])
+    return shards or None
 
 
 def _mask_to_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -656,7 +671,10 @@ class T5Stack(nn.Module):
     (``set_seq_group``) a full-sequence forward whose length divides by
     it runs the rank's positions: the caller passes the rank's rows of the
     head bias (``position_bias``), and the output is the rank's rows, or
-    the whole sequence with ``gather_output`` (an encoder's).
+    the whole sequence with ``gather_output`` (an encoder's). A pipelined
+    stack on one of several data ranks (``set_batch_share``) draws its
+    dropout masks as one process draws them for the whole batch, and keeps
+    its rows of them.
     """
 
     def __init__(self, size: T5Size, num_layers: int, is_decoder: bool,
@@ -682,6 +700,9 @@ class T5Stack(nn.Module):
         self.tensor_shard = (0, 1)
         # The pipe group whose stage this rank runs (split_stages).
         self.pipe: Optional[PipeGroup] = None
+        # (rank, size) of the data ranks whose rows make up the batch of a
+        # pipelined forward (set_batch_share).
+        self.batch_share = (0, 1)
         # The group of the ranks that hold the other rows, over which the
         # balance loss is one mean (set_aux_group).
         self.aux_group = None
@@ -736,6 +757,14 @@ class T5Stack(nn.Module):
                 self.block[i] = _TableOnly(table) if i == 0 else _Elsewhere()
         self.pipe = pipe
 
+    def set_batch_share(self, rank: int, size: int) -> None:
+        """This rank holds rows ``rank * B ..`` of a batch of ``size * B``
+        (the data x fsdp ranks' equal chunks, ``Mesh.dp_rank``): a
+        pipelined forward then draws each dropout mask at the whole batch's
+        rows, keyed on one process's microbatches, and keeps its own rows,
+        as the JAX package's rows on ``(data, fsdp)`` give them."""
+        self.batch_share = (rank, size)
+
     def set_seq_group(self, seq_group, mesh, ring: bool = False) -> None:
         """Split full-sequence forwards over ``seq_group`` (a
         ``parallel.partitioning.SeqGroup``) of ``mesh``; ``ring``: stream
@@ -783,8 +812,12 @@ class T5Stack(nn.Module):
         rate = 0.0 if deterministic else self.size.dropout_rate
         seq = None if cache is not None else self.seq_slice(
             inputs_embeds.shape[1])
-        # Every mask is drawn at the full length: a seq rank keeps its rows.
-        x = seq_shard(dropout(inputs_embeds, rate, generator), seq)
+        # Every mask is drawn at the full length: a seq rank keeps its rows;
+        # and under a pipeline at the whole batch: a data rank its rows.
+        pipelined = self.pipeline_stages > 1 and cache is None
+        batch = self._batch_rows(inputs_embeds.shape[0]) if pipelined else None
+        x = seq_shard(dropout(inputs_embeds, rate, generator, _rows(
+            None, batch)), seq)
         head_bias = self._local_heads(head_bias)
         if self.pipeline_stages > 1:
             if cache is not None:
@@ -797,7 +830,8 @@ class T5Stack(nn.Module):
                     "supported (config validation should have caught this)")
             x = self._pipelined(x, head_bias, kmask, enc_out, cross_kmask,
                                 deterministic, generator)
-            return dropout(self.final_layer_norm(x), rate, generator)
+            return dropout(self.final_layer_norm(x), rate, generator,
+                           _rows(None, batch))
         self_bias = cross_bias = self_pack = cross_pack = None
         if self.use_pallas and cache is None:
             self_pack = (_kernel_bias(head_bias), _kernel_mask(kmask))
@@ -844,20 +878,45 @@ class T5Stack(nn.Module):
                 x = out
         return x, aux
 
+    def _batch_rows(self, rows: int) -> Optional[tuple[int, int]]:
+        """(first, total): this rank's ``rows`` within the whole batch of the
+        data ranks (``set_batch_share``); None on one data rank."""
+        rank, size = self.batch_share
+        return None if size == 1 else (rank * rows, size * rows)
+
+    def _microbatch_place(self, B: int, M: int):
+        """m -> where this rank's microbatch m (rows ``m B / M ..`` of its
+        B) lies in one process's schedule of the whole batch: (the index of
+        the microbatch that holds those rows, their ``batch_rows`` in it,
+        or None on one data rank). Each data rank's microbatch is a slice
+        of one of one process's: their rows are consecutive."""
+        rank, size = self.batch_share
+        rows, whole = B // M, B * size // M
+
+        def place(m: int):
+            if size == 1:
+                return m, None
+            first = rank * B + m * rows
+            return first // whole, (first % whole, whole)
+
+        return place
+
     def _stage(self, s: int, mb: dict, head_bias, deterministic: bool,
-               generator) -> torch.Tensor:
+               generator, batch_rows=None) -> torch.Tensor:
         """Stage ``s`` of the pipeline (its ``num_layers / S`` consecutive
         blocks) on one microbatch ``mb`` (its activations ``x``, key masks
-        and encoder context). The dense logit biases are assembled here from
-        the shared head bias and the microbatch's masks, as the JAX
-        package's ``_StageBlocks`` does, so a microbatch carries only its
-        (rows, K) masks."""
+        and encoder context), which holds ``batch_rows`` of one process's
+        microbatch (None: all of it). The dense logit biases are assembled
+        here from the shared head bias and the microbatch's masks, as the
+        JAX package's ``_StageBlocks`` does, so a microbatch carries only
+        its (rows, K) masks."""
         per = len(self.block) // self.pipeline_stages
         self_bias, cross_bias = _assemble_dense_biases(
             head_bias, mb.get("kmask"), mb.get("enc_out"),
             mb.get("cross_kmask"))
         kw = dict(self_bias=self_bias, enc_out=mb.get("enc_out"),
-                  cross_bias=cross_bias, deterministic=deterministic)
+                  cross_bias=cross_bias, deterministic=deterministic,
+                  batch_rows=batch_rows)
         x, _ = self._run_blocks(self.block[s * per:(s + 1) * per], mb["x"],
                                 kw, generator)
         return x
@@ -879,7 +938,10 @@ class T5Stack(nn.Module):
         are never emitted. Here a stage that holds no microbatch at a tick
         does nothing. Under a pipe group (``set_pipe_group``) this rank runs
         its stage alone, in the same microbatch order, and the shift
-        between stages goes to the next rank (``pipe_stages``)."""
+        between stages goes to the next rank (``pipe_stages``). On one of
+        several data ranks (``set_batch_share``) the microbatches are of
+        the rank's rows, and each draws its dropout as the part of one
+        process's microbatch that it is (``_microbatch_place``)."""
         S = self.pipeline_stages
         if len(self.block) % S:
             raise ValueError(f"num_layers={len(self.block)} not divisible "
@@ -894,6 +956,7 @@ class T5Stack(nn.Module):
                              f"pipeline_microbatches={M}")
         rate = 0.0 if deterministic else self.size.dropout_rate
         gens = _stage_generators(generator if rate > 0 else None)
+        place = self._microbatch_place(B, M)
         if self.pipe is not None:
             s = self.pipe.rank
             per = len(self.block) // S
@@ -903,12 +966,14 @@ class T5Stack(nn.Module):
                                         ("enc_out", eom),
                                         ("cross_kmask", ckm))
                       if v is not None}
-                return self._stage(s, mb, hb, deterministic, gens(s, m))
+                g, batch_rows = place(m)
+                return self._stage(s, mb, hb, deterministic, gens(s, g),
+                                   batch_rows)
 
-            params = [p for blk in self.block[s * per:(s + 1) * per]
-                      for p in blk.parameters() if p.requires_grad]
-            return pipe_stages(stage_fn, params, self.pipe, M, x, head_bias,
-                               enc_out, kmask, cross_kmask)
+            return pipe_stages(stage_fn, list(self.block[s * per:
+                                                         (s + 1) * per]),
+                               self.pipe, M, x, head_bias, enc_out, kmask,
+                               cross_kmask)
         rows = B // M
         travel = {k: v for k, v in (("x", x), ("kmask", kmask),
                                     ("enc_out", enc_out),
@@ -917,15 +982,19 @@ class T5Stack(nn.Module):
         microbatches = [dict({k: v[m * rows:(m + 1) * rows]
                               for k, v in travel.items()}, m=m)
                         for m in range(M)]
+
+        def run(s: int, mb: dict) -> torch.Tensor:
+            g, batch_rows = place(mb["m"])
+            return self._stage(s, mb, head_bias, deterministic, gens(s, g),
+                               batch_rows)
+
         held: list = [None] * S  # what each stage gave at the last tick
         out = []
         for t in range(M + S - 1):
             # The shift: stage 0 takes microbatch t, stage s what s - 1 gave.
             inputs = [microbatches[t] if t < M else None] + held[:-1]
-            held = [None if mb is None else dict(
-                mb, x=self._stage(s, mb, head_bias, deterministic,
-                                  gens(s, mb["m"])))
-                for s, mb in enumerate(inputs)]
+            held = [None if mb is None else dict(mb, x=run(s, mb))
+                    for s, mb in enumerate(inputs)]
             if held[-1] is not None:
                 out.append(held[-1]["x"])
         return torch.cat(out)
@@ -1162,6 +1231,12 @@ class T5ForConditionalGeneration(nn.Module):
         for m in self.modules():
             if isinstance(m, T5MoeMlp):
                 m.set_expert_group(expert)
+
+    def set_batch_share(self, rank: int, size: int) -> None:
+        """Both stacks hold data rank ``rank``'s rows of ``size`` ranks'
+        (``T5Stack.set_batch_share``)."""
+        for stack in (self.encoder, self.decoder):
+            stack.set_batch_share(rank, size)
 
     def set_aux_group(self, group) -> None:
         """Take both stacks' balance losses as this rank's share of one

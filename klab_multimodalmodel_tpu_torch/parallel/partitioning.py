@@ -734,6 +734,24 @@ def _stage_forward(stage_fn: StageFn, pipe: PipeGroup, M: int, grad: bool,
     return pipe.sum(out), xs, ys, hb, eo
 
 
+def _fsdp_units(modules: Sequence[nn.Module]) -> list:
+    """The FSDP2 units among ``modules`` (none without FSDP2)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return [m for m in modules if isinstance(m, FSDPModule)]
+
+
+def _syncs_gradients(unit) -> bool:
+    """Whether FSDP2 reduce-scatters the FSDP2 unit ``unit``'s gradients
+    after its next backward (what ``set_requires_gradient_sync`` last set:
+    FSDP2 has no getter for it)."""
+    state = unit._get_fsdp_state()
+    groups = getattr(state, "_fsdp_param_groups", None)
+    if groups is None:  # torch 2.11: one group a unit
+        groups = [g for g in (state._fsdp_param_group,) if g is not None]
+    return all(g.reduce_grads for g in groups)
+
+
 class _PipeStages(torch.autograd.Function):
     """The GPipe schedule across a pipe group, with its backward written
     out: each microbatch's activations shifted to the next stage in the
@@ -742,22 +760,38 @@ class _PipeStages(torch.autograd.Function):
     autograd). The gradients of the inputs that every stage reads (the
     head bias, the encoder output) and of ``x`` (which only stage 0
     reads) are partial on each rank and are summed over the group; the
-    stage's parameters' gradients are its own."""
+    stage's parameters' gradients are its own.
+
+    Plain parameters (one rank a stage, or DDP over the data group) get
+    their gradients back from the Function, summed over the microbatches.
+    FSDP2 units (``fsdp`` or ``tensor`` above 1) cannot: the forward read
+    the units' unsharded parameters, which autograd does not link to the
+    sharded ones the Function takes. Their backward accumulates each
+    microbatch's gradients into those unsharded parameters, as a plain
+    backward would, with the reduce-scatter off; the last microbatch's
+    backward turns it back on where the step had it on (under gradient
+    accumulation only the step's last microbatch syncs), so FSDP2 reduces
+    the stage's gradients once, into the sharded parameters' ``.grad``, and
+    reshards each unit after each microbatch's backward (the pattern of
+    ``torch.distributed.pipelining``'s ``backward_maybe_with_nosync``)."""
 
     @staticmethod
-    def forward(ctx, stage_fn, pipe, M, x, head_bias, enc_out, kmask,
+    def forward(ctx, stage_fn, pipe, M, units, x, head_bias, enc_out, kmask,
                 cross_kmask, *params):
-        needs = ctx.needs_input_grad[3:6]
+        needs = ctx.needs_input_grad[4:7]
         out, ctx.xs, ctx.ys, ctx.hb, ctx.eo = _stage_forward(
             stage_fn, pipe, M, True, x, head_bias, enc_out, kmask,
             cross_kmask, needs)
         ctx.pipe, ctx.params, ctx.needs = pipe, params, needs
+        ctx.units = units
         ctx.x_like = (x.shape, x.dtype, x.device)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        pipe, params = ctx.pipe, ctx.params
+        pipe, units = ctx.pipe, ctx.units
+        # FSDP2's parameters take their gradients from its own hooks.
+        params = [] if units else ctx.params
         first, last = pipe.rank == 0, pipe.rank == pipe.size - 1
         leaves = [t for t in (ctx.hb, ctx.eo)
                   if t is not None and t.requires_grad]
@@ -766,12 +800,23 @@ class _PipeStages(torch.autograd.Function):
         x_grads, sent = {}, []
         M = len(ctx.ys)
         g_parts = tick_stack(grad_out, M)
+        sync = [_syncs_gradients(u) for u in units]
         for m in reversed(range(M)):
             y, xm = ctx.ys[m], ctx.xs[m]
             g = g_parts[m] if last else pipe.recv(y, y.shape, 1)
-            inputs = ([xm] if xm.requires_grad else []) + leaves + list(
-                params)
-            gs = list(torch.autograd.grad(y, inputs, g, allow_unused=True))
+            if units:
+                for unit, on in zip(units, sync):
+                    unit.set_requires_gradient_sync(on and m == 0,
+                                                    recurse=False)
+                # Into the .grad of xm, the leaves (summed over the
+                # microbatches) and the units' unsharded parameters.
+                torch.autograd.backward(y, g)
+                gs = [xm.grad] if xm.requires_grad else []
+            else:
+                inputs = ([xm] if xm.requires_grad else []) + leaves + list(
+                    params)
+                gs = list(torch.autograd.grad(y, inputs, g,
+                                              allow_unused=True))
             if xm.requires_grad:
                 gx = gs.pop(0)
                 gx = torch.zeros_like(xm) if gx is None else gx
@@ -785,6 +830,8 @@ class _PipeStages(torch.autograd.Function):
                     if gi is not None:
                         acc[i] = gi if acc[i] is None else acc[i] + gi
             ctx.ys[m] = ctx.xs[m] = None
+        if units:
+            l_grads = [t.grad for t in leaves]
         PipeGroup.wait(sent)
         shape, dtype, device = ctx.x_like
         gx = None
@@ -796,10 +843,13 @@ class _PipeStages(torch.autograd.Function):
                   for t, g in zip(leaves, l_grads)}
         g_hb, g_eo = (None if t is None else summed.get(id(t))
                       for t in (ctx.hb, ctx.eo))
-        return (None, None, None, gx, g_hb, g_eo, None, None, *p_grads)
+        if units:
+            p_grads = [None] * len(ctx.params)
+        return (None, None, None, None, gx, g_hb, g_eo, None, None,
+                *p_grads)
 
 
-def pipe_stages(stage_fn: StageFn, params: Sequence[torch.Tensor],
+def pipe_stages(stage_fn: StageFn, modules: Sequence[nn.Module],
                 pipe: PipeGroup, M: int, x: torch.Tensor,
                 head_bias: Optional[torch.Tensor],
                 enc_out: Optional[torch.Tensor],
@@ -811,14 +861,16 @@ def pipe_stages(stage_fn: StageFn, params: Sequence[torch.Tensor],
     previous stage has shifted it here, and on to the next. Stage s runs
     microbatch m at tick s + m, as one process runs the ticks. Returns
     the last stage's outputs, in batch order, on every rank of the group.
-    ``params``: the stage's trainable parameters, whose gradients the
-    backward returns (DDP over the data group sees each once)."""
+    ``modules``: the stage's blocks. Their trainable parameters' gradients
+    the backward returns (DDP over the data group sees each once), or,
+    where the blocks are FSDP2 units, leaves to FSDP2 (``_PipeStages``)."""
     if not torch.is_grad_enabled():
         return _stage_forward(stage_fn, pipe, M, False, x, head_bias,
                               enc_out, kmask, cross_kmask,
                               (False,) * 3)[0]
-    return _PipeStages.apply(stage_fn, pipe, M, x, head_bias, enc_out,
-                             kmask, cross_kmask, *params)
+    params = [p for m in modules for p in m.parameters() if p.requires_grad]
+    return _PipeStages.apply(stage_fn, pipe, M, _fsdp_units(modules), x,
+                             head_bias, enc_out, kmask, cross_kmask, *params)
 
 
 # ---------------------------------------------------------------------------
@@ -868,7 +920,8 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
     with ``fsdp`` or ``tensor`` above 1), in place:
 
     1. with ``tensor`` > 1, tensor parallelism over the ``tensor`` dim of
-       the ``DeviceMesh``: the transformer's T5 stacks, its LM head and
+       the ``DeviceMesh``: the transformer's T5 stacks (under ``pipe``, the
+       blocks of the rank's stage: the split comes first), its LM head and
        the projections (``_tensor_plan``); each stack, attention and MLP
        learns its tensor rank and size, so that it runs its own heads and
        d_ff columns (``T5Stack.set_tensor_shard``);
@@ -878,7 +931,11 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
     3. FSDP2 over the ``(data, fsdp)`` dims: one unit per T5 block (and
        per relative-position table), per SwinV2 stage and per tower, the
        step module last as the root, each parameter sharded on
-       ``fsdp_dim`` of its shape on the rank (a bank's cut one).
+       ``fsdp_dim`` of its shape on the rank (a bank's cut one). Under
+       ``pipe`` the units are the blocks of the rank's stage: the places of
+       the other stages' blocks (``models.t5._Elsewhere``, and block 0's
+       table on its own, ``_TableOnly``) hold no parameter of their own
+       and become no unit; the table is a unit on every pipe rank.
 
     The banks stay plain tensors, local slices with explicit partial sums
     (``ExpertGroup``), not DTensors over ``tensor`` and ``expert``: the
@@ -899,6 +956,8 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.parallel import parallelize_module
+
+    from ..models.t5 import T5Block
 
     dmesh = mesh.device_mesh(device.type)
     partial = []
@@ -924,7 +983,7 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
             # but the stack's caller reads it before any block runs: a
             # unit of its own, gathered when it is called.
             units.append(stack.relative_attention_bias)
-            units.extend(stack.block)
+            units.extend(b for b in stack.block if isinstance(b, T5Block))
     # A Swin stage is a container: its blocks and patch merging form one
     # unit (FSDP2 takes a list of modules as one).
     units.extend([*stage["blocks"], *([stage["downsample"]]

@@ -55,7 +55,13 @@ its weights are made or loaded: a pipe rank keeps its stage's blocks
 (``T5ForConditionalGeneration.split_stages``), an expert rank its experts
 (``split_experts``), and every rank the rest, replicated. Under MoE with
 ``tensor`` above 1 a rank keeps its d_ff columns of its experts too, cut
-inside ``parallelize`` before FSDP2 shards the slices over data x fsdp.
+inside ``parallelize`` before FSDP2 shards the slices over data x fsdp;
+under ``pipe`` with ``fsdp`` or ``tensor`` the stages are split first, and
+``parallelize`` then shards the rank's stage and the rest (the stage's
+blocks FSDP2 units of its data x fsdp peers; ``pipe_stages`` lets FSDP2
+reduce their gradients). A pipelined transformer on several data ranks
+draws its dropout masks as one process draws them for the whole batch and
+keeps its rows (``T5ForConditionalGeneration.set_batch_share``).
 The ranks of a pipe group, or of a tensor x expert group, hold the same
 rows and compute one loss: every exchange between them sits inside the
 model (the stage shift, the experts' partial sums), so that the gradients
@@ -64,7 +70,8 @@ further reduction. DDP, when there is more than one data rank and nothing
 is sharded, spans the data group of the rank's stage or experts
 (``Mesh.dp_group``); with one data rank there is none. Whole state dicts
 gather the stages and the bank slices to rank 0 over the host's gloo
-group, as tensors.
+group, as tensors (under sharding each rank's part gathered whole within
+its data x fsdp x tensor group first).
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -205,6 +212,9 @@ class Trainer:
             mesh.dp_group(dt)
         if cfg.moe_experts and mesh.dp_size > 1:
             self.model.transformer.set_aux_group(mesh.dp_group(dt))
+        if cfg.pipeline_stages > 1 and mesh.dp_size > 1:
+            self.model.transformer.set_batch_share(mesh.dp_rank,
+                                                   mesh.dp_size)
         # Under pipe or split banks: the whole model's state-dict names and
         # shapes, in order, its optimizer's param groups (by name) and its
         # stacks' block counts, from before the split.
@@ -255,8 +265,10 @@ class Trainer:
             self._record_whole()
         if self.mesh.sharded:
             # Shard the weights as they are (frozen ones in their storage
-            # dtype), the banks cut first, then build the optimizer over
-            # the shards.
+            # dtype), the stages split and the banks cut first, then build
+            # the optimizer over the shards.
+            if self.pipe is not None:
+                self.model.transformer.split_stages(self.pipe)
             names = trainable_names(self.model, self.config)
             for name, p in self.model.named_parameters():
                 p.requires_grad_(name in names)
@@ -359,8 +371,11 @@ class Trainer:
     def _spread_adafactor(self) -> None:
         """Adafactor's clipping blocks whose JAX leaf spans the pipe group
         or the tensor x expert group: their sums of squares are summed over
-        it. A bank is factored as its whole shape says, its d_ff means
-        summed over the tensor group."""
+        it (FSDP2's and a dense layer's tensor shards are gathered whole
+        first, ``Adafactor._scaled``, so under ``fsdp`` or ``tensor`` too
+        only the pipe ranks hold other parts of a stage's leaf). A bank is
+        factored as its whole shape says, its d_ff means summed over the
+        tensor group."""
         group = (self.pipe or self.expert).group
         names = {id(p): n for n, p in self.model.named_parameters()}
         spread = [i for i, g in enumerate(self.optimizer.param_groups)

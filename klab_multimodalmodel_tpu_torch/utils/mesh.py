@@ -23,9 +23,12 @@ outputs, the expert group the combine, and the ``rows_group`` (tensor x
 expert) the tokens' gradient (``ops/moe.py``). One ``DeviceMesh`` spans all
 six axes in the same rank order; FSDP2's ``(data, fsdp)`` sub-mesh, the
 ``tensor`` sub-mesh and the groups of the other axes come from it.
-``pipe`` does not compose with ``fsdp``, ``tensor``, ``seq`` or ``expert``
-yet, and ``seq`` does not compose with ``fsdp``, ``tensor`` or ``expert``
-(ROADMAP A12d's second half): such a shape raises.
+Under ``pipe`` with ``fsdp`` or ``tensor`` a stage's blocks are FSDP2 units
+of its ``(data, fsdp)`` peers and tensor-parallel over its tensor peers; a
+pipe group joins the ranks of one data, fsdp and tensor coordinate.
+``pipe`` does not compose with ``seq`` or ``expert`` yet, and ``seq`` does
+not compose with ``fsdp``, ``tensor`` or ``expert`` (ROADMAP A12d's second
+half): such a shape raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -93,19 +96,21 @@ def refuse_waiting_combinations(shape: Sequence[int],
                                 axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
                                 what: str = "mesh_shape") -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A12d for the axes that
-    do not compose yet: ``pipe`` above 1 beside ``fsdp``, ``tensor``,
-    ``seq`` or ``expert`` above 1, and ``seq`` above 1 beside ``fsdp``,
-    ``tensor`` or ``expert`` above 1. A -1 counts as above 1."""
+    do not compose yet: ``pipe`` above 1 beside ``seq`` or ``expert`` above
+    1, and ``seq`` above 1 beside ``fsdp``, ``tensor`` or ``expert`` above
+    1. A -1 counts as above 1."""
     size = {n: int(v) for n, v in zip(axis_names, shape)}
     over = [n for n in ("fsdp", "tensor", "seq", "pipe", "expert")
             if size.get(n, 1) != 1]
+    waiting = {"pipe": ("seq", "expert"), "seq": ("fsdp", "tensor", "expert")}
+    hint = {"pipe": "data, fsdp and tensor", "seq": "data"}
     for axis in ("pipe", "seq"):
-        beside = [n for n in over if n != axis and n != "pipe"]
+        beside = [n for n in over if n in waiting[axis]]
         if axis in over and beside:
             raise NotImplementedError(
                 f"{what} {tuple(shape)}: {axis} above 1 beside "
-                f"{' and '.join(beside)} is ROADMAP A12d (run {axis} on a "
-                f"data x {axis} mesh)")
+                f"{' and '.join(beside)} is ROADMAP A12d (run {axis} "
+                f"beside {hint[axis]} only)")
 
 
 def axis_groups(shape: Sequence[int], axes: Sequence[int]

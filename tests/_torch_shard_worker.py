@@ -22,7 +22,8 @@ the rank holds, 4 an element, and its ``DeviceMesh`` coordinate) and
 ``restore`` (a checkpoint
 directory's ``result_dir`` whose ``step_N`` this run restores after its
 steps; rank 0 writes the whole parameters and optimizer state then held
-to ``restored`` and ``restored_optimizer``). The JSON holds the stage
+to ``restored`` and ``restored_optimizer``) and ``one_stream`` (every
+data rank draws its dropout from data rank 0's generator, not its own). The JSON holds the stage
 shifts of the steps too, and the size of DDP's group (0 without DDP). A run with
 ``loop`` instead runs ``train()`` on the skewed synthetic rows of
 ``_torch_ddp_worker.loaders`` (``n_train``, ``n_val``, ``global_batch``),
@@ -38,7 +39,16 @@ bias, the output's cotangent ``ct``, ``rate`` and ``seed``) split over
 smaller than the world repeats over the rest), and each rank writes its
 rows of the output and of dq, and its chunks of dk, dv, and its rows of
 the bias gradient, to ``out`` (with ``{rank}``), with the ring's
-exchanges. Needs no JAX.
+exchanges. A run with ``stack`` runs a pipelined T5 decoder stack alone
+under FSDP2: ``inputs`` (a ``.pt`` of its ``size`` fields, ``layers``,
+``microbatches``, ``state``, whole ``x``, ``enc_out``, masks, the
+output's cotangent ``ct``, ``rate`` and ``seed``) on ``layout``, the
+stages split over pipe and every block and the relative-position table
+an FSDP2 unit of the data x fsdp ranks, which take their rows; each rank
+writes to ``out`` (with ``{rank}``) the gradients of the parameters it
+holds (whole, gathered, and its shards), whether each unit holds only
+its shards after the step, and the gradients of its rows of the inputs.
+Needs no JAX.
 """
 
 import json
@@ -103,6 +113,71 @@ def run_ring(run: dict) -> None:
                run["out"].format(rank=rank))
 
 
+class StackNet(torch.nn.Module):
+    """A decoder stack's forward from its inputs: the causal head bias
+    from its table, then the blocks."""
+
+    def __init__(self, stack):
+        super().__init__()
+        self.stack = stack
+
+    def forward(self, x, enc_out, kmask, cross_kmask, deterministic, gen):
+        return self.stack(x, head_bias=self.stack.position_bias(
+            x.shape[1], causal=True), kmask=kmask, enc_out=enc_out,
+            cross_kmask=cross_kmask, deterministic=deterministic,
+            generator=gen)
+
+
+def run_stack(run: dict) -> None:
+    """A pipelined decoder stack's forward and backward under FSDP2 (see
+    the module doc)."""
+    from torch.distributed.fsdp import fully_shard
+
+    from klab_multimodalmodel_tpu_torch.models.t5 import T5Block, T5Stack
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        PipeGroup, gather_full)
+
+    x = torch.load(run["inputs"])
+    mesh = make_mesh(run["layout"])
+    stack = T5Stack(tcfg.T5Size(**x["size"]), x["layers"], True,
+                    pipeline_stages=mesh.pipe,
+                    pipeline_microbatches=x["microbatches"])
+    stack.load_state_dict(x["state"])
+    stack.set_pipe_group(PipeGroup(mesh.pipe_group("cpu"), mesh.pipe_rank,
+                                   mesh.pipe))
+    stack.set_batch_share(mesh.dp_rank, mesh.dp_size)
+    units = {"relative_attention_bias": stack.relative_attention_bias}
+    units.update((f"block.{i}", b) for i, b in enumerate(stack.block)
+                 if isinstance(b, T5Block))
+    dp_mesh = mesh.device_mesh("cpu")["data", "fsdp"]
+    for unit in units.values():
+        fully_shard(unit, mesh=dp_mesh)
+    # The root reads the table before the blocks run, as the model does.
+    root = StackNet(stack)
+    fully_shard(root, mesh=dp_mesh)
+    n = x["x"].shape[0] // mesh.dp_size
+    lo = mesh.dp_rank * n
+
+    def mine(t):
+        return t[lo:lo + n].clone()
+    inp = mine(x["x"]).requires_grad_()
+    enc = mine(x["enc_out"]).requires_grad_()
+    gen = torch.Generator().manual_seed(x["seed"])
+    y = root(inp, enc, mine(x["kmask"]), mine(x["cross_kmask"]),
+             x["rate"] == 0, gen)
+    (y * mine(x["ct"])).sum().backward()
+    grads, local = {}, {}
+    for name, p in stack.named_parameters():  # its own names
+        grads[name] = None if p.grad is None else gather_full(p.grad)
+        local[name] = None if p.grad is None else p.grad.to_local().clone()
+    sharded = {k: all(isinstance(p, DTensor) and p.to_local().numel()
+                      < p.numel() for p in unit.parameters())
+               for k, unit in units.items()}
+    torch.save(dict(grads=grads, local=local, sharded=sharded,
+                    x_grad=inp.grad, enc_grad=enc.grad, rows=(lo, n)),
+               run["out"].format(rank=mesh.rank))
+
+
 def run_loop(run: dict) -> None:
     cfg = tcfg.Config(**run["config"])
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
@@ -131,6 +206,9 @@ def run_one(run: dict) -> None:
     if run.get("ring"):
         run_ring(run)
         return
+    if run.get("stack"):
+        run_stack(run)
+        return
     cfg = tcfg.Config(**run["config"])
     trainer = Trainer(cfg, device="cpu")
     mesh = trainer.mesh
@@ -139,7 +217,10 @@ def run_one(run: dict) -> None:
         load_pretrained_params(run["pretrained"], trainer)
     else:
         trainer.init_state(state_dict=torch.load(run["init"]))
-    gen = torch.Generator().manual_seed(dropout_seed(cfg.seed, mesh.dp_rank))
+    # Each data rank its own dropout stream, as train() draws them; with
+    # ``one_stream`` all of them data rank 0's.
+    gen = torch.Generator().manual_seed(dropout_seed(
+        cfg.seed, 0 if run.get("one_stream") else mesh.dp_rank))
     before = ring_attention.exchanges
     shifts = partitioning.shifts
     losses = [float(trainer.train_step(rows(b, mesh), gen))

@@ -79,7 +79,8 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
     """Every case of ``jax_runs`` and ``port_runs`` (name -> ``Config``
     overrides of ``base``) in one job of ``nproc`` ranks on ``mesh`` (or
     the case's own ``mesh_shape``; a case's ``restore_run`` names an
-    earlier case whose checkpoint it restores after its steps), and
+    earlier case whose checkpoint it restores after its steps, and its
+    ``one_stream`` gives every data rank one dropout stream), and
     ``train()`` with ``loop``'s overrides (its ``mesh_shape``, or
     ``mesh``); see the module doc."""
     jc, tc = tp.configs(**base)
@@ -91,6 +92,7 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
     for name, overrides in cases.items():
         overrides = dict(overrides)
         restore_run = overrides.pop("restore_run", None)
+        one_stream = overrides.pop("one_stream", False)
         run_mesh = overrides.pop("mesh_shape", mesh)
         _, cfg = tp.configs(**dict(base, **overrides))
         rows = batches(cfg.max_target_length)
@@ -118,7 +120,8 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
                    result_dir=str(root / name), out=str(root / f"{name}.json"),
                    params=str(root / f"{name}.pt"),
                    local=str(root / f"{name}.local.{{rank}}.pt"),
-                   held=str(root / f"{name}.held.{{rank}}.json"))
+                   held=str(root / f"{name}.held.{{rank}}.json"),
+                   one_stream=one_stream)
         if restore_run is not None:
             run["restore"] = str(root / restore_run)
         elif "dropout" in name:

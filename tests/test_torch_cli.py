@@ -117,7 +117,10 @@ def test_defaults_match_jax():
     ("--mesh_shape 1 2 1 1 1 1", None),
     ("--dcn_mesh_shape 1 1 2 1 1 1", None),
     ("--mesh_shape 1 2 2 1 1 1 --moe_experts 2", None),
-    ("--mesh_shape 1 1 2 --pipeline_stages 2", "A12d"),
+    ("--mesh_shape 1 1 2 --pipeline_stages 2", None),
+    ("--mesh_shape 1 2 1 1 2 1 --pipeline_stages 2", None),
+    ("--mesh_shape 1 2 2 1 1 1 --pipeline_stages 2", None),
+    ("--mesh_shape 1 1 2 1 2 1 --pipeline_stages 2", None),
     ("--mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
     ("--mesh_shape 1 2 -1 1 1 2 --moe_experts 4", None),
     ("--dcn_mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
@@ -162,6 +165,56 @@ def test_unported_flag_raises_naming_its_item(argv, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         tcfg.parse_arguments(argv)
+
+
+# The flags an axis above 1 needs to parse (its own refusals aside).
+AXIS_FLAGS = {"FSDP": [], "TENSOR": [], "SEQ": [],
+              "PIPE": ["--pipeline_stages", "2"],
+              "EXPERT": ["--moe_experts", "2"]}
+AXES = list(AXIS_FLAGS)
+
+
+def _mesh_argv(*axes: str) -> list[str]:
+    shape = [1] + [2 if a in axes else 1 for a in AXES]
+    flags = [f for a in axes for f in AXIS_FLAGS[a]]
+    return ["--mesh_shape", *map(str, shape), *flags]
+
+
+def test_mesh_help_names_only_what_still_raises():
+    """``--mesh_shape``'s help names, after "still refused", exactly the
+    pairs of axes above 1 (with the flags each needs) that the parser
+    refuses, and MoE with seq: every pair it names raises, naming ROADMAP
+    A12d or with the JAX package's ValueError, and every pair it does not
+    name parses as the JAX parser parses it."""
+    import re
+
+    mesh = next(a.help for a in tcfg.build_arg_parser()._actions
+                if "--mesh_shape" in a.option_strings)
+    assert "ROADMAP A12d" in mesh
+    refused = mesh[mesh.index("still refused"):]
+    named = set()
+    for part in re.split(r"(?=\b[A-Z]+ beside )", refused):
+        m = re.match(r"([A-Z]+) beside (.*)", part)
+        if m:
+            named |= {(m.group(1), b) for b in re.findall(
+                r"\b[A-Z]+\b", m.group(2).split(" and ")[0])}
+    assert named and all(a in AXES and b in AXES for a, b in named)
+    for i, a in enumerate(AXES):
+        for b in AXES[i + 1:]:
+            argv = _mesh_argv(a, b)
+            if (a, b) in named or (b, a) in named:
+                with pytest.raises((NotImplementedError, ValueError)) as err:
+                    tcfg.parse_arguments(argv)
+                if err.type is NotImplementedError:
+                    assert "A12d" in str(err.value), (a, b)
+                continue
+            want = jcfg.parse_arguments(argv)
+            for name, (w, g) in _shared_fields(
+                    want, tcfg.parse_arguments(argv)).items():
+                assert w == g, (a, b, name)
+    assert "--moe_experts with SEQ" in refused
+    with pytest.raises(NotImplementedError, match="A12d"):
+        tcfg.parse_arguments(_mesh_argv("SEQ") + AXIS_FLAGS["EXPERT"])
 
 
 @pytest.mark.parametrize("flags", ["--tokenizer_path {path}",

@@ -44,20 +44,23 @@ EXPERT = dict(moe_experts=2)
 
 
 @pytest.mark.parametrize("shape,flags,item", [
-    ((1, 2, 1, 1, 2), PIPE, "A12d"), ((1, 1, 2, 1, 2), PIPE, "A12d"),
+    ((1, 2, 1, 1, 2), PIPE, None), ((1, 1, 2, 1, 2), PIPE, None),
+    ((1, 2, 2, 1, 2), PIPE, None), ((1, 1, 1, 1, 2, 2), PIPE,
+                                    "requires --moe_experts"),
     ((1, 1, 1, 2, 2), PIPE, "seq mesh axis"), ((1, 1, 1, 1, 2), PIPE, None),
     ((1, 1, 1, 1, 1, 2), EXPERT, None),
     ((1, -1, 1, 1, 1, 2), EXPERT, None), ((1, 2, 2, 1, 1, 2), EXPERT, None),
     ((1, 1, 1, 2, 1, 2), EXPERT, "A12d")])
 def test_non_data_axes_are_refused(shape, flags, item):
-    """The pipe axis beside fsdp, tensor or seq, and the expert axis
-    beside seq (as ``mesh_shape`` or ``dcn_mesh_shape``), are refused by
+    """The pipe axis beside seq or expert, and the expert axis beside seq
+    (as ``mesh_shape`` or ``dcn_mesh_shape``), are refused by
     ``make_mesh`` naming ROADMAP A12d, and by ``Config`` and the command
     line with the flags that the axis needs: naming A12d, or with the JAX
-    package's ValueError where it refuses first (stages with seq). Alone,
-    and the expert axis beside fsdp and tensor (the -1 wildcard too), each
-    builds as the JAX ``Config`` builds it, and ``make_mesh`` asks only
-    for the world to match."""
+    package's ValueError where it refuses first (stages with seq, an
+    expert axis without experts). Alone, and the pipe and expert axes
+    beside fsdp and tensor (the -1 wildcard too), each builds as the JAX
+    ``Config`` builds it, and ``make_mesh`` asks only for the world to
+    match."""
     for kw in (dict(mesh_shape=shape), dict(mesh_shape=(-1, 1, 1),
                                             dcn_mesh_shape=shape)):
         with pytest.raises(NotImplementedError if item else ValueError,
@@ -73,7 +76,7 @@ def test_non_data_axes_are_refused(shape, flags, item):
             assert getattr(Config(**{field: shape}, **flags), field) == want
             assert getattr(parse_arguments(cli), field) == want
             continue
-        error = ValueError if item == "seq mesh axis" else NotImplementedError
+        error = NotImplementedError if item == "A12d" else ValueError
         with pytest.raises(error, match=item):
             Config(**{field: shape}, **flags)
         with pytest.raises(error, match=item):

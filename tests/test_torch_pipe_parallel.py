@@ -229,15 +229,17 @@ def test_pipe_rule_matches_jax_make_param_specs(runs):
           seq_attention="ring"), ValueError),
     (dict(pipeline_stages=2, dcn_mesh_shape=(1, 1, 1, 1, 3, 1)),
      ValueError),
-    (dict(pipeline_stages=2, mesh_shape=(1, 2, 1, 1, 2, 1)),
-     NotImplementedError),
+    (dict(pipeline_stages=2, mesh_shape=(1, 2, 1, 1, 2, 1)), None),
+    (dict(pipeline_stages=2, mesh_shape=(1, 1, 2, 1, 2, 1)), None),
+    (dict(pipeline_stages=2, mesh_shape=(1, 2, 2, 1, 1, 1)), None),
+    (dict(pipeline_stages=2, mesh_shape=(2, 2, 2, 1, 2, 1)), None),
 ])
 def test_pipe_flags_take_or_refuse_as_jax(overrides, error):
     """The pipe axis builds where the JAX ``Config`` builds it (equal to
-    the stages, 1, or the -1 wildcard) and raises its ValueError where it
-    refuses (another size, no stages, the T5 kernel, seq, the ring);
-    beside fsdp the port refuses naming ROADMAP A12d, which the JAX
-    package takes."""
+    the stages, 1, or the -1 wildcard; beside fsdp and tensor too, and
+    stages at pipe 1 on an fsdp x tensor mesh) and raises its ValueError
+    where it refuses (another size, no stages, the T5 kernel, seq, the
+    ring)."""
     if error is ValueError:
         with pytest.raises(ValueError) as want:
             jcfg.Config(**overrides)
@@ -246,10 +248,6 @@ def test_pipe_flags_take_or_refuse_as_jax(overrides, error):
         assert str(got.value) == str(want.value)
         return
     j = jcfg.Config(**overrides)
-    if error is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="A12d"):
-            tcfg.Config(**overrides)
-        return
     t = tcfg.Config(**overrides)
     assert tuple(t.mesh_shape) == tuple(j.mesh_shape)
     assert t.pipeline_stages == j.pipeline_stages

@@ -154,8 +154,7 @@ def test_config_refuses_what_jax_refuses(overrides):
 def test_config_takes_what_jax_takes():
     """The flags build as JAX's, a pipe or expert axis above 1 among them
     (the port splits the stages or the experts over those ranks); beside
-    fsdp the expert axis builds as JAX's too, and the pipe axis is
-    refused naming ROADMAP A12d."""
+    fsdp both axes build as JAX's too."""
     for kw in (dict(pipeline_stages=2, pipeline_microbatches=4),
                dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
                     moe_aux_loss_weight=0.1)):
@@ -168,12 +167,7 @@ def test_config_takes_what_jax_takes():
         assert tuple(t.mesh_shape) == tuple(j.mesh_shape)
         fsdp = dict(kw, mesh_shape=(1, 2, *kw["mesh_shape"][2:]))
         j = jcfg.Config(**fsdp)
-        if "moe_experts" in kw:
-            assert tuple(tcfg.Config(**fsdp).mesh_shape) == tuple(
-                j.mesh_shape)
-            continue
-        with pytest.raises(NotImplementedError, match="A12d"):
-            tcfg.Config(**fsdp)
+        assert tuple(tcfg.Config(**fsdp).mesh_shape) == tuple(j.mesh_shape)
 
 
 def test_stack_refuses_what_it_cannot_schedule(lm):
