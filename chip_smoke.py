@@ -254,10 +254,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       16 of 32 heads per rank (the text tower whole on both); after the
       compared steps one step at dropout 0.1, then every parameter that no
       tensor rank splits must be bitwise equal on both ranks.
-   13b and 13c run in one ``torch.distributed.run`` job of two ranks on
-   the one card (gloo on CUDA tensors, as phase 10), which runs this
-   script again with ``--shard-rank SPEC`` (the ranks' output in
-   ``chiprun_out/phase13_ranks.log``). Checks: each rank's launches per
+   13b and 13c run as one job of two ranks on the one card (gloo on CUDA
+   tensors, as phase 10): a ``RankServer`` of ``torch.distributed.run``
+   that runs this script again with ``--rank-server DIR``, started as
+   phase 12 starts and kept for phases 14 and 15's jobs (the ranks' output
+   in ``chiprun_out/phase13_15_ranks.log``). Checks: each rank's launches per
    step (T5 forward 27, backward 3, 2 with dBias, Swin 24;
    ``step_launches``); the first step's gradients of every trainable
    tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
@@ -292,10 +293,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       positions), the T5 kernel off: peak memory of a' and, per rank, of
       b' (c's trainer on the all-gather path) and c; the ring's must be
       below b''s.
-   b and c (with their d steps) run in one ``torch.distributed.run`` job
-   of two ranks on the one card (gloo on CUDA tensors), which runs this
-   script again with ``--seq-rank SPEC`` (the ranks' output in
-   ``chiprun_out/phase14_ranks.log``). Prints per rank the step spans,
+   b and c (with their d steps) run as one job of phase 13's two ranks.
+   a takes a loss at dropout 0.1 with no update (``dropout_probe``)
+   before and after its first step, as b and c do: phase 18's
+   references. Prints per rank the step spans,
    peak memory, and in one profiled step gloo's host time and the busy
    share.
    e. The T5 kernels at a 14b rank's shapes (bf16, batch 16, 16 heads of
@@ -316,10 +317,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    b. ``(1, 1, 1, 1, 1, 2)``: each rank holds and runs 2 of the 4 experts
       of every MoE layer; c. ``(1, 1, 1, 1, 2, 1)``: each rank holds and
       runs one stage (1 + 1 blocks), the microbatches shifted between the
-      ranks through the host. Both in one ``torch.distributed.run`` job of
-      two ranks on the one card (gloo on CUDA tensors), which runs this
-      script again with ``--split-rank SPEC`` (the ranks' output in
-      ``chiprun_out/phase15_ranks.log``). Checks: each rank's launches per
+      ranks through the host. Both in one job of phase 13's two ranks,
+      which then leave while the four of phases 16 to 18 start. Checks: each rank's launches per
       step equal a's (b: T5 forward 30, backward 6, 4 with dBias, Swin
       24; c: Swin 24); every loss, the dropout step's too, within 5e-4 of
       a's and the first step's gradients at cosine >= 0.999
@@ -331,10 +330,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the state it holds beside the reckoning and a's, and in one profiled
       step gloo's host time and the busy share.
 16. MoE on a sharded mesh: phase 15a's MoE model (its 15a run the
-   reference) over four ranks sharing the card in one
-   ``torch.distributed.run`` job (gloo on CUDA tensors; ``--four-rank
-   SPEC``), which runs phase 17's runs after these (one start of four
-   processes; the ranks' output in ``chiprun_out/phase17_ranks.log``):
+   reference) over four ranks sharing the card in one job of a
+   four-rank ``RankServer`` (gloo on CUDA tensors), which runs phase 17's
+   and 18's runs after these (one start of four processes; the ranks'
+   output in ``chiprun_out/phase16_18_ranks.log``):
    b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, both fsdp ranks on all
       16 rows (the MoE layers' and the stacks' dropout draws at a rank's
       rows: split rows would not hold one process's masks), FSDP2
@@ -354,8 +353,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       step gloo's host time and the busy share.
 17. GPipe stages on a sharded mesh: phase 15a's pipelined model (its 15a
    run the reference: 2 stages, 4 microbatches, the T5 kernel off, the
-   Swin kernel on) over the four ranks of phase 16's job (their output
-   in ``chiprun_out/phase17_ranks.log``): a. ``(1, 2, 2, 1, 1,
+   Swin kernel on) over the four ranks of phase 16's job: a. ``(1, 2, 2, 1, 1,
    1)`` with the stages unsharded, fsdp 2 x tensor 2 (every block an FSDP2
    unit gathered at each tick of the one-process schedule), a warm-up and
    one timed step; b. ``(1, 2, 1, 1, 2, 1)``: fsdp 2 x pipe 2, 8 rows a
@@ -371,15 +369,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bitwise into a one-process ``Trainer`` (the ranks gather the whole
    state once, for the checkpoint). Prints per rank the step spans, peak
    memory, and in one profiled step gloo's host time and the busy share.
-18. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+18. Sequence parallelism beside FSDP2 and tensor parallelism: phase 14's
+   model (its 14a, 14a' and 14c runs the references) over the four ranks
+   of phase 16's job: a. ``(1, 2, 1, 2)``: fsdp 2 x seq 2 on the
+   all-gather path, both kernel flags (both fsdp ranks on all 16 rows);
+   b. ``(1, 1, 2, 2)``: tensor 2 x seq 2, the same flags (the
+   transformer's T5 kernels at heads 8..15 and seq rank 1's rows at
+   once); c. the same mesh on the ring, the T5 kernel off. Each a loss at
+   dropout 0.1 with no update, a warm-up, a step at dropout 0.1 and one
+   timed step. Checks (``TOL_SPLIT``): the ranks' losses equal, the first
+   loss and the first step's gradients against 14a's (14a''s for the
+   ring), both dropout losses against 14a's probes before and after its
+   first step (14c's for the ring: one process with the T5 kernel off
+   draws the generator's masks, the ring Philox's), launches per step
+   equal 14a's (a''s), every trainable shard bitwise equal across each
+   seq group, the state held equal to the reckoning, a's checkpoint
+   restored bitwise into a one-process ``Trainer``. d. The T5 kernels at
+   an 18b rank's transformer shapes (8 heads at ``head_offset`` 8 and
+   ``q_offset``) against their plain versions with both offsets at once
+   and with none, and their times per step beside the plain versions',
+   SDPA's and the bound.
+19. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
    phase-11a step and one phase-11c request, in one phase-12 step, in one
    step of a phase-13c rank, in one step of a phase-14b rank, in one step
    of a phase-15b and of a phase-15c rank, in one step of a phase-16b
-   and of a phase-16c rank, and in one step of a phase-17b and of a
-   phase-17c rank), then ``{"ok": true, ...}`` as the last line.
+   and of a phase-16c rank, in one step of a phase-17b and of a
+   phase-17c rank, and in one step of a phase-18a and of a phase-18b
+   rank), then ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -4851,6 +4870,125 @@ def gpipe_phase(card: str) -> dict:
                 seconds=seconds)
 
 
+# Phases 13 to 18 run their multi-rank jobs on rank servers: the ranks of
+# one ``torch.distributed.run`` started ahead of the phases that use them,
+# so that their start (imports, CUDA, the process group) overlaps the
+# script's own work, and kept for every job of one world size (phases 13,
+# 14 and 15 on two ranks, 16 to 18 on four).
+RANK_JOBS = {"shard": "shard_rank_main", "seq": "seq_rank_main",
+             "split": "split_rank_main", "four": "four_rank_main"}
+
+
+class RankServer:
+    """``nproc`` ranks sharing the one card (gloo on CUDA tensors:
+    ``KLAB_CPU_COLLECTIVES=gloo``), which re-enter this script with
+    ``--rank-server DIR`` and wait there for jobs; their output goes to
+    ``chiprun_out/{log_name}`` (a rank that crashes prints its Python
+    stack: faulthandler)."""
+
+    def __init__(self, nproc: int, log_name: str):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+        self.jobs = 0
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        self.log_name = log_name
+        self.log = open(os.path.join(REPO, "chiprun_out", log_name), "w")
+        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
+                   PYTHONFAULTHANDLER="1",
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+             "--rank-server", self.dir],
+            env=env, cwd=REPO, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def close(self) -> None:
+        """End the ranks at once (torchrun passes SIGTERM on to them)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+    def _fail(self, what: str) -> None:
+        self.close()
+        self.log.flush()
+        with open(self.log.name) as f:
+            print(f.read()[-6000:])
+        check(False, f"{what} (chiprun_out/{self.log_name})")
+
+    def run(self, kind: str, spec_path: str, what: str,
+            timeout: float = 900) -> float:
+        """Job ``kind`` (a key of ``RANK_JOBS``) on ``spec_path``, on every
+        rank; returns its seconds once every rank has finished it."""
+        n, self.jobs = self.jobs, self.jobs + 1
+        tmp = os.path.join(self.dir, f".job.{n}")
+        with open(tmp, "w") as f:
+            json.dump(dict(kind=kind, spec=spec_path), f)
+        os.replace(tmp, os.path.join(self.dir, f"job.{n}"))
+        done = os.path.join(self.dir, f"done.{n}")
+        t0 = time.perf_counter()
+        while not os.path.exists(done):
+            if self.proc.poll() is not None:
+                self._fail(f"{what}: the ranks exited "
+                           f"{self.proc.returncode}")
+            if time.perf_counter() - t0 > timeout:
+                self._fail(f"{what}: not done in {timeout:.0f} s")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def stop(self) -> None:
+        """Let the ranks leave once their last job is done."""
+        open(os.path.join(self.dir, "stop"), "w").close()
+
+    def wait(self) -> None:
+        """Wait for the ranks to leave (``stop`` first)."""
+        import shutil
+
+        try:
+            rc = self.proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            self._fail("the ranks did not leave")
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        check(rc == 0, f"the ranks exited {rc} (chiprun_out/"
+              f"{self.log_name})")
+
+
+def rank_server_main(job_dir: str) -> int:
+    """One rank of a ``RankServer``: join the process group, then run each
+    job handed to ``job_dir`` (``job.N``: a kind of ``RANK_JOBS`` and its
+    spec) in turn, every rank, and mark it done (``done.N``, by rank 0
+    once all ranks have finished it), until ``stop``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        maybe_init_distributed)
+
+    maybe_init_distributed(torch.device(DDP_DEVICE))
+    n = 0
+    while True:
+        job = os.path.join(job_dir, f"job.{n}")
+        while not os.path.exists(job):
+            if os.path.exists(os.path.join(job_dir, "stop")):
+                dist.destroy_process_group()
+                return 0
+            time.sleep(0.05)
+        with open(job) as f:
+            spec = json.load(f)
+        globals()[RANK_JOBS[spec["kind"]]](spec["spec"])
+        dist.barrier()
+        if dist.get_rank() == 0:
+            open(os.path.join(job_dir, f"done.{n}"), "w").close()
+        n += 1
+
+
 # ---------------------------------------------------------------------------
 # Phase 13: sharded training (FSDP2 + tensor parallelism) at t5-3b's width
 # ---------------------------------------------------------------------------
@@ -4991,7 +5129,7 @@ def replicated_mismatches(model) -> tuple[int, list]:
 
 
 def shard_rank_main(spec_path: str) -> int:
-    """One rank of phase 13's job (started by ``torch.distributed.run``):
+    """One rank of phase 13's job (on a ``RankServer`` rank):
     the spec's layouts in turn on ``cuda:0``, which both ranks share (gloo
     on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings
     to ``{out}.{rank}.json``."""
@@ -5092,9 +5230,9 @@ def shard_rank_main(spec_path: str) -> int:
         del trainer, rows
         free()
         dist.barrier()
+    wait_saves()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump(readings, f, default=str)
-    dist.destroy_process_group()
     return 0
 
 
@@ -5103,11 +5241,12 @@ def check_t5_offsets(gen, card: str, what: str, shapes: list, H: int,
     """The T5 kernels at one rank's shapes (bf16; ``shapes``: (T5Shape, the
     offset of the rank compared) pairs): forward and backward against their
     plain versions at rate 0.1 with ``offset`` ('head_offset' or
-    'q_offset') 0 and the rank's (phase 2's tolerances), the offset's masks
-    apart from offset 0's; then per training step (``per_path`` launches
-    of each shape) the kernel, the plain version, SDPA and the bound at
-    ``rate``, the forward and the backward timed as phase 2 times them (at
-    the rank's offset). The text tower's launches have no backward."""
+    'q_offset', or a tuple of both, each shape's offset then a tuple too)
+    0 and the rank's (phase 2's tolerances), the offset's masks apart from
+    offset 0's; then per training step (``per_path`` launches of each
+    shape) the kernel, the plain version, SDPA and the bound at ``rate``,
+    the forward and the backward timed as phase 2 times them (at the
+    rank's offset). The text tower's launches have no backward."""
     import torch
     import torch.nn.functional as F
 
@@ -5116,15 +5255,16 @@ def check_t5_offsets(gen, card: str, what: str, shapes: list, H: int,
                                                     t5_attention_bwd_plain,
                                                     t5_attention_fwd,
                                                     t5_attention_plain)
+    names = (offset,) if isinstance(offset, str) else tuple(offset)
     rows = {"fwd": [], "bwd": []}
     worst = dict(fwd=0.0, bwd=0.0)
     for sh, off in shapes:
         B = sh.B
         seed = draw_seed(gen)
         q, k, v, do, bias, kmask = t5_inputs(sh, torch.bfloat16, gen, H, D)
+        rank_at = dict(zip(names, (off,) if isinstance(off, int) else off))
         outs = {}
-        for o in (0, off):
-            at = {offset: o}
+        for o, at in ((0, dict.fromkeys(names, 0)), (off, rank_at)):
             out, stats = t5_attention_fwd(q, k, v, bias, kmask, RATE, seed,
                                           True, **at)
             want = t5_attention_plain(q, k, v, bias, kmask, RATE, seed, **at)
@@ -5149,7 +5289,7 @@ def check_t5_offsets(gen, card: str, what: str, shapes: list, H: int,
         check(not torch.equal(outs[0], outs[off]),
               f"t5 fwd {what} {sh.name}: {offset} {off} drew offset 0's "
               "masks")
-        at = {offset: off}
+        at = rank_at
         sd = seed if rate > 0 else None
         _, stats = t5_attention_fwd(q, k, v, bias, kmask, rate, sd, True,
                                     **at)
@@ -5236,11 +5376,11 @@ def d128_shapes() -> list[tuple["T5Shape", int]]:
                 SHARD_LAYERS))]
 
 
-def shard_phase(card: str) -> dict:
-    """Phase 13: 13a in this process, then one ``torch.distributed.run``
-    job of two ranks on the one card (gloo on CUDA tensors) that runs 13b
-    and 13c in turn; 13b's checkpoint restored here; then the T5 kernels
-    at 13c's per-rank shapes."""
+def shard_phase(card: str, server: "RankServer") -> dict:
+    """Phase 13: 13a in this process, then a job of the two ranks of
+    ``server`` on the one card (gloo on CUDA tensors) that runs 13b and 13c
+    in turn; 13b's checkpoint restored here; then the T5 kernels at 13c's
+    per-rank shapes."""
     import shutil
     import tempfile
 
@@ -5254,8 +5394,6 @@ def shard_phase(card: str) -> dict:
     register_shard_sizes()
     memory = shard_memory(card)
     root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
-    out_dir = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     try:
         # 13a: one process.
         free()
@@ -5308,26 +5446,7 @@ def shard_phase(card: str) -> dict:
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        # A rank that crashes prints its Python stack (faulthandler).
-        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
-                   PYTHONFAULTHANDLER="1",
-                   PYTHONPATH=REPO + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        log_path = os.path.join(out_dir, "phase13_ranks.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as log:
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc_per_node", str(SHARD_RANKS),
-                 os.path.abspath(__file__), "--shard-rank", spec_path],
-                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                timeout=900)
-        job_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            with open(log_path) as f:
-                print(f.read()[-6000:])
-        check(proc.returncode == 0, f"phase 13's torchrun job exited "
-              f"{proc.returncode} (chiprun_out/phase13_ranks.log)")
+        job_s = server.run("shard", spec_path, "phase 13's runs")
         ranks = []
         for r in range(SHARD_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -5485,12 +5604,14 @@ def seq_run(trainer, tag: str, card: str, expected: dict, dropout: dict,
     mesh = trainer.mesh
     batch = train_batch(cfg, SEQ_BATCH, SEED)
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    probes = [dropout_probe(trainer, batch)]
     before = ring_attention.exchanges
     t0 = time.perf_counter()
     first = float(trainer.train_step(batch, gen))
     first_ms = (time.perf_counter() - t0) * 1e3
     exchanges = ring_attention.exchanges - before
     keep_grads(trainer)
+    probes.append(dropout_probe(trainer, batch))
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step = timed_steps(trainer, batch, gen, SEQ_STEPS,
                                             expected, tag)
@@ -5505,7 +5626,7 @@ def seq_run(trainer, tag: str, card: str, expected: dict, dropout: dict,
              mean_step_ms=sum(step_ms) / len(step_ms),
              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
              launches_per_step=per_step, ring_exchanges_per_step=exchanges,
-             seq=[mesh.seq_rank, mesh.seq])
+             seq=[mesh.seq_rank, mesh.seq], dropout_probes=probes)
     r["profile"] = profile_device(
         lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
         f"{tag} step", collectives=mesh.distributed)
@@ -5542,6 +5663,35 @@ def seq_run(trainer, tag: str, card: str, expected: dict, dropout: dict,
     return r
 
 
+def dropout_probe(trainer, batch: dict) -> float:
+    """The loss of ``batch`` at dropout 0.1, with no update, on the weights
+    as they stand, from a generator in the state that phase 18's dropout
+    step draws from (seeded ``SEED + 1``, which steps at rate 0 leave
+    untouched): across ranks the token-weighted mean over every rank's
+    positions, as a step's loss is. Phases 14 and 18 take it before their
+    first step, and phase 14 after it too (the weights of 18's dropout
+    step)."""
+    import torch
+
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    set_dropout(trainer.model.transformer, RATE)
+    try:
+        with torch.no_grad():
+            b = trainer.to_device(batch)
+            loss, _, _ = trainer.net(b, gen, False)
+            if trainer.mesh.distributed:
+                n = trainer._token_counts(b, 1)[0]
+                sums = trainer._all_reduce(torch.stack([loss.float() * n, n]))
+                loss = sums[0] / sums[1]
+            if trainer.sharded:
+                # FSDP2 keeps the root's parameters gathered after a
+                # forward that no backward follows.
+                trainer.net.reshard()
+    finally:
+        set_dropout(trainer.model.transformer, 0.0)
+    return float(loss)
+
+
 def seq_stacks(model) -> list:
     return [model.language_model.encoder, model.transformer.encoder,
             model.transformer.decoder]
@@ -5564,7 +5714,7 @@ def all_mismatches(model) -> tuple[int, list]:
 
 
 def seq_rank_main(spec_path: str) -> int:
-    """One rank of phase 14's job (started by ``torch.distributed.run``):
+    """One rank of phase 14's job (on a ``RankServer`` rank):
     14b and 14c in turn on ``cuda:0``, which both ranks share (gloo on
     CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
     ``{out}.{rank}.json``."""
@@ -5615,7 +5765,6 @@ def seq_rank_main(spec_path: str) -> int:
         dist.barrier()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump(readings, f, default=str)
-    dist.destroy_process_group()
     return 0
 
 
@@ -5636,11 +5785,15 @@ def seq_kernel_shapes() -> list[tuple["T5Shape", int]]:
                  0.0, layers), TGT_LEN // 2)]
 
 
-def seq_phase(card: str) -> dict:
-    """Phase 14: 14a and 14a' in this process, then one
-    ``torch.distributed.run`` job of two ranks on the one card (gloo on
-    CUDA tensors) that runs 14b and 14c in turn (each with its 14d step),
-    then the T5 kernels at a 14b rank's shapes (14e)."""
+def seq_phase(card: str, server: "RankServer",
+              refs: dict | None = None) -> dict:
+    """Phase 14: 14a and 14a' in this process, then a job of the two
+    ranks of ``server`` on the one card (gloo on CUDA tensors) that runs 14b
+    and 14c in turn (each with its 14d step),
+    then the T5 kernels at a 14b rank's shapes (14e). ``refs`` gets phase
+    18's references: 14a's and 14a''s readings (``one``) and first-step
+    gradients (``grads``), and the dropout probes of 14a, 14a', 14b and
+    14c (``dropout_probes``: before and after the first step)."""
     import shutil
     import tempfile
 
@@ -5650,8 +5803,6 @@ def seq_phase(card: str) -> dict:
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_seq_")
-    out_dir = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     plain_t5 = dict(use_pallas_t5_attention=False)
     ones, one_grads = {}, {}
     try:
@@ -5690,25 +5841,7 @@ def seq_phase(card: str) -> dict:
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
-                   PYTHONFAULTHANDLER="1",
-                   PYTHONPATH=REPO + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        log_path = os.path.join(out_dir, "phase14_ranks.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as log:
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc_per_node", str(SEQ_RANKS),
-                 os.path.abspath(__file__), "--seq-rank", spec_path],
-                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                timeout=600)
-        job_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            with open(log_path) as f:
-                print(f.read()[-6000:])
-        check(proc.returncode == 0, f"phase 14's torchrun job exited "
-              f"{proc.returncode} (chiprun_out/phase14_ranks.log)")
+        job_s = server.run("seq", spec_path, "phase 14's runs")
         ranks = []
         for r in range(SEQ_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -5769,6 +5902,11 @@ def seq_phase(card: str) -> dict:
               + "; ".join(f"{k} {v:.2f}" for k, v in memory.items()))
         check(all(g["long"]["ring"] < g["long"]["allgather"] for g in c),
               "14d: the ring's peak is not below the all-gather path's")
+        if refs is not None:
+            refs.update(one=ones, grads=one_grads, dropout_probes={
+                **{t: r["dropout_probes"] for t, r in ones.items()},
+                **{t: got[0]["dropout_probes"]
+                   for t, got in results.items()}})
         del one_grads
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5934,7 +6072,7 @@ def routing_masks(calls: list) -> list:
 
 
 def split_rank_main(spec_path: str) -> int:
-    """One rank of phase 15's job (started by ``torch.distributed.run``):
+    """One rank of phase 15's job (on a ``RankServer`` rank):
     15b and 15c in turn on ``cuda:0``, which both ranks share (gloo on CUDA
     tensors: ``KLAB_CPU_COLLECTIVES=gloo``); this rank's readings to
     ``{out}.{rank}.json``, its first step's gradients, its parameters after
@@ -5999,7 +6137,7 @@ def split_rank_main(spec_path: str) -> int:
         t0 = time.perf_counter()
         manager = CheckpointManager(run["checkpoint"], mesh)
         manager.save(f"step_{trainer.step}", trainer)
-        manager.wait()
+        _PENDING_SAVES.append(manager)  # written while the next run goes
         r.update(build_s=build_s, checkpoint_s=time.perf_counter() - t0,
                  saves=manager.saves, replicated_checked=checked,
                  pipe=[mesh.pipe_rank, mesh.pipe],
@@ -6008,9 +6146,9 @@ def split_rank_main(spec_path: str) -> int:
         del trainer
         free()
         dist.barrier()
+    wait_saves()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump(readings, f, default=str)
-    dist.destroy_process_group()
     return 0
 
 
@@ -6029,11 +6167,13 @@ def split_whole(tag: str, parts: list, placement) -> dict:
     return out
 
 
-def split_phase(card: str, keep: dict | None = None) -> dict:
+def split_phase(card: str, server: "RankServer", keep: dict | None = None,
+                then=None) -> dict:
     """Phase 15: 15a (the MoE and the pipelined model in this process),
-    then one ``torch.distributed.run`` job of two ranks on the one card
-    (gloo on CUDA tensors) that runs 15b (expert 2) and 15c (pipe 2) in
-    turn; each run's checkpoint restored here in one process. ``keep``
+    then a job of the two ranks of ``server`` on the one card (gloo on CUDA
+    tensors) that runs 15b (expert 2) and 15c (pipe 2) in turn, and
+    ``then()`` once it has ended; each run's checkpoint restored here in
+    one process. ``keep``
     receives 15a's MoE run (``one``), its first step's gradients and its
     routings: phase 16's one-process reference; and 15a's pipelined run
     (``pipe_one``) and its first step's gradients (``pipe_grads``): phase
@@ -6051,8 +6191,6 @@ def split_phase(card: str, keep: dict | None = None) -> dict:
     register_no_dropout()
     memory = split_memory(card)
     root = tempfile.mkdtemp(prefix="chip_smoke_split_")
-    out_dir = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     ones, one_grads, one_routes = {}, {}, {}
     try:
         for tag in ("15a-moe", "15a-pipe"):
@@ -6086,25 +6224,9 @@ def split_phase(card: str, keep: dict | None = None) -> dict:
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
-                   PYTHONFAULTHANDLER="1",
-                   PYTHONPATH=REPO + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        log_path = os.path.join(out_dir, "phase15_ranks.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as log:
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc_per_node", str(SPLIT_RANKS),
-                 os.path.abspath(__file__), "--split-rank", spec_path],
-                env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                timeout=900)
-        job_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            with open(log_path) as f:
-                print(f.read()[-6000:])
-        check(proc.returncode == 0, f"phase 15's torchrun job exited "
-              f"{proc.returncode} (chiprun_out/phase15_ranks.log)")
+        job_s = server.run("split", spec_path, "phase 15's runs")
+        if then is not None:
+            then()
         ranks = []
         for r in range(SPLIT_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -6258,12 +6380,26 @@ def moe_shard_memory(card: str) -> dict:
     return out
 
 
+# Checkpoint saves whose writes go on in the background while a rank job
+# runs its next run (``checkpoint_once``, phase 15's saves):
+# ``wait_saves`` drains them, in one order on every rank, before the job
+# writes its readings (whose saves then hold each write's seconds).
+_PENDING_SAVES: list = []
+
+
+def wait_saves() -> None:
+    while _PENDING_SAVES:
+        _PENDING_SAVES.pop(0).wait()
+
+
 def checkpoint_once(trainer, path: str, names, out: str) -> tuple:
     """Save ``trainer``'s checkpoint under ``path`` (every rank gathers the
     whole state for it, once) and write rank 0's whole trainable
     parameters from that same gather (``names``), in fp32, to ``out``, for
     the comparison with the checkpoint restored in one process: (the
-    manager's saves, the seconds the save took)."""
+    manager's saves, the seconds the save held the rank: the gather and
+    the copy to the host; the write goes on in the background until
+    ``wait_saves``)."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.checkpoint.io import (
@@ -6279,7 +6415,7 @@ def checkpoint_once(trainer, path: str, names, out: str) -> tuple:
     t0 = time.perf_counter()
     manager = CheckpointManager(path, trainer.mesh)
     manager.save(f"step_{trainer.step}", trainer)
-    manager.wait()
+    _PENDING_SAVES.append(manager)
     seconds = time.perf_counter() - t0
     del trainer.full_state_dict
     if trainer.mesh.rank == 0:
@@ -6729,9 +6865,296 @@ def pipe_shard_phase(card: str, ref: dict, job: dict) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: sequence parallelism beside FSDP2 and tensor parallelism (the
+# seq axis with fsdp and tensor)
+# ---------------------------------------------------------------------------
+
+# Phase 14's model and rows (t5-large of 2 + 2 blocks at full width behind
+# the default towers at full depth, bf16, Adam, batch 16, dropout 0 for the
+# compared steps) on four ranks sharing the card over gloo: 18a fsdp 2 x
+# seq 2 on the all-gather path with both kernel flags (FSDP2 under seq, the
+# T5 kernels at q_offset; both fsdp ranks on all 16 rows, as 16b, so that
+# every dropout mask is one process's), 18b tensor 2 x seq 2 with both
+# kernel flags (the transformer's T5 kernels at heads 8..15 of 16 and seq
+# rank 1's rows at once; the frozen text tower whole over tensor, at
+# q_offset only), 18c tensor 2 x seq 2 on the ring, the T5 kernel off.
+# Each takes a warm-up, a step at dropout 0.1 and one timed step: its
+# first loss and first-step gradients against 14a's (14a' for the ring) at
+# phase 15's tolerances (``TOL_SPLIT``), its dropout step's loss against
+# the loss at dropout 0.1 of 14a (14c for the ring) after its warm-up,
+# from the same generator state (``dropout_probe``): the masks are one
+# process's because the T5 kernels' and the ring's Philox bits key on the
+# global head and query and every other mask is drawn whole and sliced.
+# With the T5 kernel off one process's self-attention draws the
+# generator's own masks, so the ring's reference is 14c, the ring at seq 2
+# on all heads. 18a writes a checkpoint that this process restores. 18d:
+# the T5 kernels at an 18b rank's transformer shapes.
+SEQ_SHARD_RUNS = {"18a": (1, 2, 1, 2), "18b": (1, 1, 2, 2),
+                  "18c": (1, 1, 2, 2)}
+SEQ_SHARD_REFS = {"18a": ("14a", "14a"), "18b": ("14a", "14a"),
+                  "18c": ("14a'", "14c")}  # (first step, dropout step)
+
+
+def seq_shard_config(tag: str):
+    """Run ``tag``'s config: phase 14's, on its mesh (18c on the ring with
+    the T5 kernel off)."""
+    ring = (dict(seq_attention="ring", use_pallas_t5_attention=False)
+            if tag == "18c" else {})
+    return seq_config(mesh_shape=SEQ_SHARD_RUNS[tag], **ring)
+
+
+def seq_shard_memory(card: str) -> dict:
+    """Each run's per-rank parameters, gradients and Adam moments (GB),
+    reckoned on the meta device before the job (``seq`` replicates: the
+    same as without it)."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.utils.mesh import DEFAULT_AXIS_NAMES
+
+    cfg = seq_config()
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    shapes = [(n, tuple(p.shape), n in names)
+              for n, p in model.named_parameters()]
+    out = {tag: {k: v / 1e9 for k, v in per_rank_bytes(
+        shapes, dict(zip(DEFAULT_AXIS_NAMES, mesh))).items()}
+        for tag, mesh in SEQ_SHARD_RUNS.items()}
+    print("phase 18: state per rank reckoned (GB; params, grads, Adam): "
+          + "; ".join(f"{t} {r['params']:.3f} + {r['grads']:.3f} + "
+                      f"{r['moments']:.3f} = {r['total']:.3f}"
+                      for t, r in out.items()) + f" [{card}]")
+    return out
+
+
+def seq_shard_rank_run(run: dict, card: str, device) -> dict:
+    """One of phase 18's runs on this rank of the four-rank job
+    (``four_rank_main``): a warm-up, whose gradients rank 0 writes whole
+    (gathered over the data x fsdp and tensor shards: every rank takes
+    part), a step at dropout 0.1 and one timed step, launches checked;
+    what the seq group holds compared across it, bitwise; 18a's
+    checkpoint, whose whole state rank 0 also writes (its trainable
+    parameters) for the comparison."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.ops import ring_attention
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        gather_full)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    tag = run["tag"]
+    what = f"{tag} rank {rank}"
+    cfg = Config.from_json(json.dumps(run["config"]))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    # Seeded with config.seed on the card: 14a's weights on every rank,
+    # then sharded.
+    trainer.init_state()
+    mesh = trainer.mesh
+    check(trainer.ddp is None and trainer.sharded and mesh.seq == 2,
+          f"{what}: not a sharded trainer over 2 seq ranks")
+    build_s = time.perf_counter() - t0
+    batch = train_batch(cfg, SEQ_BATCH, SEED)  # every rank all 16 rows
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    probe = dropout_probe(trainer, batch)
+    before = ring_attention.exchanges
+    t0 = time.perf_counter()
+    first = float(trainer.train_step(batch, gen))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    exchanges = ring_attention.exchanges - before
+    if run["ring"]:
+        check(exchanges == SEQ_RING_EXCHANGES,
+              f"{what}: the ring turned {exchanges} times in a step, "
+              f"expected {SEQ_RING_EXCHANGES}")
+    grads = {}
+    for n, p in trainer.model.named_parameters():
+        if p.grad is not None:
+            g = gather_full(p.grad.detach())  # every rank, in order
+            if rank == 0:
+                grads[n] = g.float().cpu()
+    if rank == 0:
+        torch.save(grads, f"{run['files']}.grads.pt")
+    del grads
+    # A step at dropout 0.1 on the generator the warm-up left untouched.
+    set_dropout(trainer.model.transformer, RATE)
+    reset_counts()
+    dropout_loss = float(trainer.train_step(batch, gen))
+    got = launch_counts()
+    set_dropout(trainer.model.transformer, 0.0)
+    check(got == run["launches_dropout"] and math.isfinite(dropout_loss),
+          f"{what}: the dropout step's loss {dropout_loss}, launches "
+          f"{got}, expected {run['launches_dropout']}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen, 1,
+                                            run["launches"], what)
+    r = dict(losses=[first] + losses, dropout_loss=dropout_loss,
+             dropout_probe=probe, first_step_ms=first_ms, step_ms=step_ms,
+             mean_step_ms=sum(step_ms) / len(step_ms),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_step=per_step, ring_exchanges_per_step=exchanges,
+             held_gb=held_bytes(trainer),
+             coordinate=[mesh.dp_rank, mesh.tensor_rank, mesh.seq_rank])
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"{what}: non-finite loss {r['losses']}")
+    # Every trainable shard a rank holds, bitwise against its seq group's
+    # first rank's (the seq ranks of a data x fsdp x tensor coordinate
+    # hold the same shards; the frozen ones take no update).
+    group = mesh.seq_group(device.type)
+    src = rank - mesh.seq_rank * mesh.pipe * mesh.expert
+    checked, bad = 0, []
+    for n, p in sorted(trainer.model.named_parameters()):
+        if not p.requires_grad:
+            continue
+        local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+        ref = local.clone()
+        dist.broadcast(ref, src=src, group=group)
+        checked += 1
+        if not torch.equal(ref, local):
+            bad.append(n)
+    check(checked > 0 and not bad,
+          f"{what}: {len(bad)} of {checked} parameters differ across the "
+          f"seq group: {bad[:5]}")
+    r.update(build_s=build_s, replicated_checked=checked)
+    if run["checkpoint"]:
+        r["saves"], r["checkpoint_s"] = checkpoint_once(
+            trainer, run["checkpoint"], trainable_names(trainer.model, cfg),
+            f"{run['files']}.params.pt")
+    print(f"{what} [{card}]: losses {r['losses']}, dropout-0.1 step "
+          f"{dropout_loss:.6f}, steps {', '.join(f'{t:.2f}' for t in step_ms)}"
+          f" ms, peak {r['peak_gb']:.2f} GB, launches {per_step}; holds "
+          f"{r['held_gb']['total']:.3f} GB of state", flush=True)
+    del trainer
+    free()
+    return r
+
+
+def seq_18d_shapes() -> list[tuple["T5Shape", tuple[int, int]]]:
+    """(shape, (head_offset, q_offset) of an 18b rank at tensor rank 1 and
+    seq rank 1) of the transformer's T5 kernel launches in an 18b rank's
+    step: heads 8..15 of 16 at its half of the encoder's 320 queries and
+    the decoder's 128, against every key. (Its text tower's launches run
+    all 16 heads at ``q_offset`` only: 14e's text shape.)"""
+    return [(sh, (T5_H // 2, off)) for sh, off in seq_kernel_shapes()
+            if sh.name != "text"]
+
+
+def seq_shard_phase(card: str, ref: dict, job: dict) -> dict:
+    """Phase 18's checks of the four-rank job's 18a (fsdp 2 x seq 2), 18b
+    (tensor 2 x seq 2) and 18c (the same on the ring) runs
+    (``four_rank_job``), held against ``ref`` (phase 14's one-process
+    runs and 14c, ``seq_phase``'s ``keep``); 18a's checkpoint restored here
+    in one process; then 18d, the T5 kernels at an 18b rank's shapes."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    memory, ranks, root = job["memory"]["18"], job["ranks"], job["root"]
+    job_s = job["seconds"]["18"]
+    agree, results, restore_s = {}, {}, None
+    for tag in SEQ_SHARD_RUNS:
+        got = [rk[tag] for rk in ranks]
+        first_ref, drop_ref = SEQ_SHARD_REFS[tag]
+        one = ref["one"][first_ref]
+        for r, g in enumerate(got):
+            check(g["losses"] == got[0]["losses"]
+                  and g["dropout_loss"] == got[0]["dropout_loss"],
+                  f"{tag}: rank {r}'s losses differ from rank 0's: "
+                  f"{g['losses']} vs {got[0]['losses']}")
+            check(g["launches_per_step"] == one["launches_per_step"],
+                  f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                  f"{first_ref}'s {one['launches_per_step']}")
+            held, want = g["held_gb"]["total"], memory[tag]["total"]
+            check(abs(held - want) <= 1e-3 * want,
+                  f"{tag} rank {r}: holds {held:.4f} GB of state, "
+                  f"reckoned {want:.4f}")
+        def rel(x, y):
+            return abs(x - y) / abs(y)
+        before, after = ref["dropout_probes"][drop_ref]
+        first_rel = rel(got[0]["losses"][0], one["losses"][0])
+        probe_rel = rel(got[0]["dropout_probe"], before)
+        drop_rel = rel(got[0]["dropout_loss"], after)
+        check(max(first_rel, probe_rel, drop_rel) <= TOL_SPLIT["loss"],
+              f"{tag}: first loss {got[0]['losses'][0]} vs {first_ref} "
+              f"{one['losses'][0]}; at dropout 0.1 before it "
+              f"{got[0]['dropout_probe']} vs {drop_ref} {before}, the "
+              f"dropout step {got[0]['dropout_loss']} vs {after}")
+        grads = torch.load(os.path.join(root, f"{tag}.grads.pt"),
+                           weights_only=True)
+        agree[tag] = dict(first_loss_rel=first_rel,
+                          dropout_probe_rel=probe_rel,
+                          dropout_loss_rel=drop_rel, gradients=agreement(
+                              (got[0]["losses"][0], grads),
+                              (one["losses"][0], ref["grads"][first_ref]),
+                              f"{tag} vs {first_ref}, the first step's "
+                              "gradients", TOL_SPLIT["grad"]))
+        del grads
+        print(f"{tag} vs {first_ref} [{card}]: first loss "
+              f"{got[0]['losses'][0]:.6f} vs {one['losses'][0]:.6f} (rel "
+              f"{first_rel:.2e}); at dropout 0.1 on the first weights "
+              f"{got[0]['dropout_probe']:.6f} vs {drop_ref}'s "
+              f"{before:.6f} (rel {probe_rel:.2e}), the dropout step "
+              f"{got[0]['dropout_loss']:.6f} vs {after:.6f} (rel "
+              f"{drop_rel:.2e}); "
+              f"{got[0]['replicated_checked']} parameters bitwise equal "
+              "across each seq group")
+        for r, g in enumerate(got):
+            print(f"  {tag} rank {r} (data x fsdp, tensor, seq "
+                  f"{g['coordinate']}): build {g['build_s']:.2f} s, first "
+                  f"step {g['first_step_ms']:.2f} ms, timed step "
+                  f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms "
+                  f"({first_ref} {one['mean_step_ms']:.2f}), peak "
+                  f"{g['peak_gb']:.2f} GB ({first_ref} "
+                  f"{one['peak_gb']:.2f}); state held "
+                  f"{g['held_gb']['total']:.3f} GB (reckoned "
+                  f"{memory[tag]['total']:.3f})"
+                  + (f"; checkpoint {g['checkpoint_s']:.2f} s"
+                     if "checkpoint_s" in g else ""))
+        results[tag] = got
+    # 18a's checkpoint in one process: the whole trainable parameters that
+    # rank 0 gathered for it, bitwise.
+    t0 = time.perf_counter()
+    trainer = Trainer(seq_config())
+    trainer.init_state()
+    manager = CheckpointManager(os.path.join(root, "18a.ckpt"))
+    manager.restore(manager.latest(), trainer)
+    params = torch.load(os.path.join(root, "18a.params.pt"),
+                        weights_only=True)
+    restored = trainable_on_host(trainer.model)
+    equal = (trainer.step == 3 and restored.keys() == params.keys()
+             and all(torch.equal(restored[n], params[n]) for n in params))
+    restore_s = time.perf_counter() - t0
+    check(equal, "18a's checkpoint restored in one process differs from "
+          "the ranks' parameters")
+    print(f"18a [{card}]: the checkpoint restored bitwise in one process "
+          f"in {restore_s:.2f} s")
+    del trainer, params, restored
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    kernels = check_t5_offsets(gen, card, "18b rank", seq_18d_shapes(),
+                               T5_H // 2, T5_D, ("head_offset", "q_offset"),
+                               0.0)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18: {seconds:.1f} s (its runs in the four-rank job "
+          f"{job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, ranks=results,
+                agreement=agree, job_s=job_s, restore_s=restore_s,
+                kernels=kernels, seconds=seconds)
+
+
 def four_rank_main(spec_path: str) -> int:
-    """One rank of the four-rank job of phases 16 and 17 (started by
-    ``torch.distributed.run``): their runs in turn on ``cuda:0``, which the
+    """One rank of the four-rank job of phases 16, 17 and 18 (on a
+    ``RankServer`` rank): their runs in turn on ``cuda:0``, which the
     four ranks share (gloo on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``),
     each run's readings (and its seconds on this rank) to
     ``{out}.{rank}.json``."""
@@ -6747,33 +7170,33 @@ def four_rank_main(spec_path: str) -> int:
     register_no_dropout()
     device = torch.device(DDP_DEVICE)
     maybe_init_distributed(device)
-    runners = {"16": moe_shard_rank_run, "17": pipe_shard_rank_run}
+    runners = {"16": moe_shard_rank_run, "17": pipe_shard_rank_run,
+               "18": seq_shard_rank_run}
     readings = {}
     for run in spec["runs"]:
         t0 = time.perf_counter()
         r = runners[run["phase"]](run, spec["card"], device)
         dist.barrier()
         readings[run["tag"]] = dict(r, run_s=time.perf_counter() - t0)
+    wait_saves()
     with open(f"{spec['out']}.{dist.get_rank()}.json", "w") as f:
         json.dump(readings, f, default=str)
-    dist.destroy_process_group()
     return 0
 
 
-def four_rank_job(card: str) -> dict:
-    """The runs of phases 16 and 17 in one ``torch.distributed.run`` job of
-    four ranks on the one card (the ranks' log in
-    ``chiprun_out/phase17_ranks.log``), each run's per-rank state reckoned
+def four_rank_job(card: str, server: "RankServer") -> dict:
+    """The runs of phases 16, 17 and 18 in one job of the four ranks of
+    ``server`` on the one card (their log in
+    ``chiprun_out/phase16_18_ranks.log``), each run's per-rank state reckoned
     first: the rank readings, the directory of their files (the caller
     removes it), each phase's seconds in the job (its runs' on the slowest
     rank) and the reckonings."""
     import tempfile
 
     register_no_dropout()
-    memory = {"16": moe_shard_memory(card), "17": pipe_shard_memory(card)}
+    memory = {"16": moe_shard_memory(card), "17": pipe_shard_memory(card),
+              "18": seq_shard_memory(card)}
     root = tempfile.mkdtemp(prefix="chip_smoke_four_ranks_")
-    out_dir = os.path.join(REPO, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
 
     def run(phase, tag, twin, mesh, **kw):
         return dict(kw, phase=phase, tag=tag, config=json.loads(
@@ -6785,39 +7208,33 @@ def four_rank_job(card: str) -> dict:
     runs += [run("17", tag, "15a-pipe", mesh, extras=tag != "17a",
                  launches=SPLIT_RUNS["15c"][3])
              for tag, mesh in PIPE_SHARD_RUNS.items()]
+    for tag in SEQ_SHARD_RUNS:
+        ring = tag == "18c"
+        runs.append(dict(
+            phase="18", tag=tag, ring=ring, config=json.loads(
+                seq_shard_config(tag).to_json()),
+            files=os.path.join(root, tag),
+            checkpoint=os.path.join(root, f"{tag}.ckpt") if tag == "18a"
+            else None,
+            launches=SEQ_LAUNCHES_PLAIN if ring else SEQ_LAUNCHES,
+            launches_dropout=(SEQ_LAUNCHES_PLAIN if ring
+                              else SEQ_LAUNCHES_DROPOUT)))
     spec = dict(card=card, out=os.path.join(root, "rank"), runs=runs)
     spec_path = os.path.join(root, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
-    env = dict(os.environ, KLAB_CPU_COLLECTIVES="gloo",
-               PYTHONFAULTHANDLER="1",
-               PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    log_path = os.path.join(out_dir, "phase17_ranks.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", str(FOUR_RANKS), os.path.abspath(__file__),
-             "--four-rank", spec_path],
-            env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-            timeout=900)
-    job_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        with open(log_path) as f:
-            print(f.read()[-6000:])
-    check(proc.returncode == 0, f"the four-rank job of phases 16 and 17 "
-          f"exited {proc.returncode} (chiprun_out/phase17_ranks.log)")
+    job_s = server.run("four", spec_path, "the runs of phases 16 to 18")
     ranks = []
     for r in range(FOUR_RANKS):
         with open(f"{spec['out']}.{r}.json") as f:
             ranks.append(json.load(f))
     seconds = {p: max(sum(rk[x["tag"]]["run_s"] for x in runs
                           if x["phase"] == p) for rk in ranks)
-               for p in ("16", "17")}
-    print(f"phases 16 and 17: the four-rank job took {job_s:.1f} s (16's "
-          f"runs {seconds['16']:.1f} s, 17's {seconds['17']:.1f} s, the "
-          f"rest starting and joining the processes) [{card}]")
+               for p in ("16", "17", "18")}
+    print(f"phases 16 to 18: the four-rank job took {job_s:.1f} s (16's "
+          f"runs {seconds['16']:.1f} s, 17's {seconds['17']:.1f} s, 18's "
+          f"{seconds['18']:.1f} s, the rest waiting for the ranks' start "
+          f"and the last checkpoint writes) [{card}]")
     return dict(ranks=ranks, root=root, seconds=seconds, job_s=job_s,
                 memory=memory)
 
@@ -6916,30 +7333,52 @@ def main(stop_after: str | None = None) -> int:
     moe = moe_phase(card, training, captioning)
     free()
     done("11")
-    gpipe = gpipe_phase(card)
-    free()
-    done("12")
-    sharded = shard_phase(card)
-    done("13")
-    seq = seq_phase(card)
-    done("14")
-    moe_ref: dict = {}
-    split = split_phase(card, moe_ref)
-    done("15")
-    # Phases 16 and 17 share one four-rank job, which phase 16 starts;
-    # phase 17's seconds are its checks here (its runs' share of the job is
-    # printed).
-    job = four_rank_job(card)
+    # Two ranks for the jobs of phases 13 to 15, started now, so that
+    # their start overlaps phase 12 (whose memory leaves room for their
+    # CUDA contexts, where phase 11's MoE step might not); four for 16 to
+    # 18, started as phase 15's job ends, so that theirs overlaps phase
+    # 15's checks.
+    servers = [RankServer(2, "phase13_15_ranks.log")]
+    try:
+        gpipe = gpipe_phase(card)
+        free()
+        done("12")
+        sharded = shard_phase(card, servers[0])
+        done("13")
+        seq_ref: dict = {}
+        seq = seq_phase(card, servers[0], seq_ref)
+        done("14")
+        moe_ref: dict = {}
+
+        def hand_over():
+            servers[0].stop()
+            servers.append(RankServer(FOUR_RANKS, "phase16_18_ranks.log"))
+        split = split_phase(card, servers[0], moe_ref, then=hand_over)
+        servers[0].wait()
+        done("15")
+        # Phases 16, 17 and 18 share one four-rank job, which phase 16
+        # starts; the seconds of phases 17 and 18 are their checks here
+        # (their runs' shares of the job are printed).
+        job = four_rank_job(card, servers[1])
+        servers[1].stop()
+        servers[1].wait()
+    finally:
+        for server in servers:
+            server.close()
     try:
         moe_shard = moe_shard_phase(card, moe_ref, job)
         free()
         done("16")
         pipe_shard = pipe_shard_phase(card, moe_ref, job)
+        del moe_ref
+        free()
+        done("17")
+        seq_shard = seq_shard_phase(card, seq_ref, job)
     finally:
         shutil.rmtree(job["root"], ignore_errors=True)
-    del moe_ref
+    del seq_ref
     free()
-    done("17")
+    done("18")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -7043,6 +7482,16 @@ def main(stop_after: str | None = None) -> int:
             "launches_per_step"][train_key]
         entry["launches_pipe_tensor_step"] = pipe_shard["ranks"]["17c"][0][
             "launches_per_step"][train_key]
+        for tag, got in seq_shard["ranks"].items():
+            for r, rank in enumerate(got):
+                if tag != "18c" or train_key == "swin":
+                    check(rank["launches_per_step"][train_key] > 0,
+                          f"{entry['name']} never launched in a phase-{tag} "
+                          f"step of rank {r}")
+        entry["launches_seq_fsdp_step"] = seq_shard["ranks"]["18a"][0][
+            "launches_per_step"][train_key]
+        entry["launches_seq_tensor_step"] = seq_shard["ranks"]["18b"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -7058,7 +7507,8 @@ def main(stop_after: str | None = None) -> int:
         "launches_shard_step", "launches_seq_step", "launches_expert_step",
         "launches_pipe_step", "launches_moe_fsdp_step",
         "launches_moe_tensor_step", "launches_pipe_fsdp_step",
-        "launches_pipe_tensor_step")}
+        "launches_pipe_tensor_step", "launches_seq_fsdp_step",
+        "launches_seq_tensor_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -7094,7 +7544,10 @@ def main(stop_after: str | None = None) -> int:
                  f"2); launches_pipe_fsdp_step / _pipe_tensor_step: one "
                  f"step of a phase-17b rank (2 stages over fsdp 2 x pipe "
                  f"2) and of a phase-17c rank (tensor 2 x pipe 2), the T5 "
-                 f"kernel off"}))
+                 f"kernel off; launches_seq_fsdp_step / _seq_tensor_step: "
+                 f"one step of a phase-18a rank (fsdp 2 x seq 2) and of a "
+                 f"phase-18b rank (tensor 2 x seq 2), the all-gather "
+                 f"path"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -7108,7 +7561,7 @@ def main(stop_after: str | None = None) -> int:
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
                    "sharded": sharded, "seq": seq, "split": split,
                    "moe_shard": moe_shard, "pipe_shard": pipe_shard,
-                   "seconds": seconds},
+                   "seq_shard": seq_shard, "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {
@@ -7120,14 +7573,8 @@ def main(stop_after: str | None = None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--shard-rank"]:
-        sys.exit(shard_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--seq-rank"]:
-        sys.exit(seq_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--split-rank"]:
-        sys.exit(split_rank_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--four-rank"]:
-        sys.exit(four_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-server"]:
+        sys.exit(rank_server_main(sys.argv[2]))
     if sys.argv[1:2] == ["--stop-after"]:
         try:
             sys.exit(main(sys.argv[2]))

@@ -133,8 +133,8 @@ class Config:
     defaults and checks. Options that are not ported raise
     ``NotImplementedError`` naming the ROADMAP item that ports them: the
     ``pipe`` mesh axis above 1 beside ``seq`` or ``expert`` above 1, the
-    ``seq`` axis above 1 beside ``fsdp``, ``tensor`` or ``expert`` above 1,
-    and MoE with ``seq`` above 1 (all A12d's second half); and
+    ``seq`` axis above 1 beside ``expert`` above 1, and MoE with ``seq``
+    above 1 (all A12d's second half); and
     ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
@@ -332,10 +332,11 @@ class Config:
         rank runs its columns of every expert. GPipe stages take ``fsdp``
         and ``tensor`` as the JAX package takes them, at ``pipe`` 1 or
         equal to the stages (the T5 kernel stays off under stages:
-        ``_check_pipeline_and_moe``). Still ROADMAP A12d: MoE with
+        ``_check_pipeline_and_moe``), and ``seq`` takes them too, on
+        both ``seq_attention`` backends. Still ROADMAP A12d: MoE with
         ``seq``, and the axes that ``refuse_waiting_combinations`` names
-        (``pipe`` beside ``seq`` or ``expert``; ``seq`` beside ``fsdp``,
-        ``tensor`` or ``expert``). ``seq_attention='ring'`` with
+        (``pipe`` beside ``seq`` or ``expert``; ``seq`` beside
+        ``expert``). ``seq_attention='ring'`` with
         the T5 kernel on and ``seq`` above 1 is refused as inert: the JAX
         package runs the kernel there and never the ring."""
         from .utils.mesh import refuse_waiting_combinations
@@ -530,8 +531,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; one rank per "
              "entry (-1 = all processes); PIPE equals --pipeline_stages, "
              "EXPERT divides --moe_experts; still refused (ROADMAP A12d): "
-             "PIPE beside SEQ or EXPERT, SEQ beside FSDP, TENSOR or "
-             "EXPERT, and --moe_experts with SEQ, each above 1")
+             "PIPE beside SEQ or EXPERT, SEQ beside EXPERT, and "
+             "--moe_experts with SEQ, each above 1")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
         help="3-6 ints: per-axis factors across slices, each multiplying "

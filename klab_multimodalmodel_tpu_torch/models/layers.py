@@ -165,11 +165,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, then multiplied by v with an fp32 sum. ``heads`` = (first,
     total): q holds heads ``first ..`` of ``total`` (a tensor rank's), and
     the dropout mask is those heads' of one process; ``rows``, the same for
-    query rows (a seq rank's). Not both: a mask is sliced on one of those
-    dims. ``batch``, the same for the batch rows (a data rank's share of a
-    pipelined microbatch), beside either."""
-    if heads is not None and rows is not None:
-        raise ValueError("dropout over split heads and split rows at once")
+    query rows (a seq rank's), beside ``heads`` too (a tensor x seq rank's
+    heads at its rows); ``batch``, the same for the batch rows (a data
+    rank's share of a pipelined microbatch), beside either."""
     dtype = q.dtype
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:

@@ -20,7 +20,12 @@ their positions over the seq group (``models/t5.py``); the SwinV2 tower and
 the concatenation run whole on every rank, as the JAX package leaves them
 unconstrained, and the text tower's output is gathered whole before it, so
 the transformer's encoder takes its rows of the concatenation (the image
-tokens lead: seq rank 0's rows hold them).
+tokens lead: seq rank 0's rows hold them). Beside ``tensor`` the frozen
+text tower stays whole on every tensor rank (``parallel/partitioning.py``)
+but still splits its positions over ``seq``: its attention runs every head
+(``head_offset`` 0) at its rank's query rows (``q_offset``), while the
+transformer's runs its tensor rank's heads at those rows, both offsets at
+once.
 
 Under the ``pipe`` and ``expert`` axes only the transformer splits (its
 stages or its experts: ``T5ForConditionalGeneration.split_stages`` /

@@ -65,7 +65,10 @@ on every rank. Self-attention gathers K/V over the group
 (``ops/ring_attention.py``); the bias rows are the rank's
 (``T5Stack.position_bias``), the kernels key their dropout on the global
 query (``q_offset``), and the other dropout masks are drawn at the full
-length and sliced. An encoder stack gathers its output (the cross-attention
+length and sliced. Beside tensor parallelism a rank runs its heads at its
+rows: the bias rows are its heads' (``_local_heads``), and the kernels and
+the ring key their dropout on both the global head and the global query.
+An encoder stack gathers its output (the cross-attention
 context and the text tower's features are whole on every rank); the
 decoder keeps its rows, and ``forward``'s loss is the mean over the rank's
 positions. Decode steps never shard.
@@ -301,7 +304,8 @@ class T5Attention(nn.Module):
                         raise ValueError("dropout at rate > 0 needs a "
                                          "generator")
                     seed = draw_seed(generator)
-                attn = ring_self_attention(q, k, v, bias, seq, rate, seed)
+                attn = ring_self_attention(q, k, v, bias, seq, rate, seed,
+                                           self.head_offset)
                 return self.o(self._merge_heads(attn))
             if kernel_pack is not None:
                 # The kernel drops the probabilities itself, from a seed

@@ -18,7 +18,9 @@ Its keep bits are the T5 kernels' Philox bits (``ops.fused_attention.
 dropout_keep_mask``) at each element's global (b, h, q, k), from a seed
 drawn from the step's generator: the ring at rate > 0 equals
 ``t5_attention_plain`` at that seed, and the backward draws the bits again
-with no stored mask. (The JAX module folds per-(device, step) keys instead;
+with no stored mask. Under tensor parallelism a rank holds heads
+``head_offset ..`` of the whole, and its bits are keyed on those global
+heads, so every tensor rank draws its heads' bits of one process's. (The JAX module folds per-(device, step) keys instead;
 its stream, like every backend swap's, differs.)
 
 The JAX module's backward is autodiff through ``scan`` + ``ppermute``. Here
@@ -92,11 +94,13 @@ def _exchange(tensors: list, seq) -> list:
     return recv
 
 
-def _keep_scale(seed, rate: float, shape, seq, src: int) -> torch.Tensor:
+def _keep_scale(seed, rate: float, shape, seq, src: int,
+                head_offset: int = 0) -> torch.Tensor:
     """The dropout factor (keep / (1 - rate), fp32) of this rank's query
-    rows against key chunk ``src``, at their global indices."""
-    keep = dropout_keep_mask(seed, rate, shape, q_offset=seq.start,
-                             k_offset=src * shape[-1])
+    rows of its heads (the first is global head ``head_offset``) against
+    key chunk ``src``, at their global indices."""
+    keep = dropout_keep_mask(seed, rate, shape, head_offset=head_offset,
+                             q_offset=seq.start, k_offset=src * shape[-1])
     return keep.to(torch.float32) / (1.0 - rate)
 
 
@@ -111,10 +115,10 @@ class RingAttentionFn(torch.autograd.Function):
     """The ring's forward and its written-out backward (see the module
     doc). Inputs: q (B,H,Lq,D) this rank's rows, k/v (B,H,Lc,D) its chunk,
     bias_rows (B|1,H,Lq,L) or None, seed (int64, one element) or None, the
-    rate, the ``SeqSlice``."""
+    rate, the ``SeqSlice``, the global index of head 0."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias_rows, seed, rate, seq):
+    def forward(ctx, q, k, v, bias_rows, seed, rate, seq, head_offset=0):
         n, Lc = seq.size, k.shape[2]
         B, H, Lq, D = q.shape
         q32 = q.float()
@@ -131,13 +135,14 @@ class RingAttentionFn(torch.autograd.Function):
             p = torch.exp(logits - m_new[..., None])
             den = den * alpha + p.sum(-1)
             if rate > 0:
-                p = p * _keep_scale(seed, rate, p.shape, seq, src)
+                p = p * _keep_scale(seed, rate, p.shape, seq, src,
+                                    head_offset)
             num = num * alpha[..., None] + torch.matmul(p, v_cur.float())
             m = m_new
             if t + 1 < n:
                 k_cur, v_cur = _exchange([k_cur, v_cur], seq)
         out32 = num / den[..., None]
-        ctx.rate, ctx.seq = rate, seq
+        ctx.rate, ctx.seq, ctx.head_offset = rate, seq, head_offset
         ctx.save_for_backward(q, k, v, bias_rows, seed, out32,
                               m + torch.log(den))
         return out32.to(q.dtype)
@@ -163,7 +168,8 @@ class RingAttentionFn(torch.autograd.Function):
             dp = torch.matmul(do, v_cur.float().transpose(-1, -2))
             p_num = p
             if rate > 0:
-                scale = _keep_scale(seed, rate, p.shape, seq, src)
+                scale = _keep_scale(seed, rate, p.shape, seq, src,
+                                    ctx.head_offset)
                 p_num = p * scale
                 dp = dp * scale
             ds = p * (dp - delta)
@@ -179,19 +185,23 @@ class RingAttentionFn(torch.autograd.Function):
             # The accumulators of chunk s are one hop from home.
             dk, dv = _exchange([dk, dv], seq)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
-                None, None, None)
+                None, None, None, None)
 
 
 def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias_rows: Optional[torch.Tensor], seq,
                         dropout_rate: float = 0.0,
-                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        seed: Optional[torch.Tensor] = None,
+                        head_offset: int = 0) -> torch.Tensor:
     """Sequence-parallel self-attention over the seq group of ``seq`` (a
     ``parallel.partitioning.SeqSlice``): q (B,H,Lq,D) this rank's query
     rows, k/v (B,H,Lc,D) its K/V chunk (Lq == Lc == L / S), ``bias_rows``
     (B|1,H,Lq,L) the additive fp32 bias of its rows against every key
-    (relative position, causal and key-mask parts summed), ``seed`` a
-    one-element int64 tensor at rate > 0 (``fused_attention.draw_seed``).
+    (relative position, causal and key-mask parts summed) at its heads,
+    ``seed`` a one-element int64 tensor at rate > 0
+    (``fused_attention.draw_seed``), ``head_offset`` the global index of
+    head 0 (a tensor-parallel rank's first head), which the keep bits are
+    keyed on.
     Returns this rank's rows of the output, in q's dtype. Gate call sites
     on ``ring_applicable``."""
     if dropout_rate > 0 and seed is None:
@@ -200,4 +210,4 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"ring attention: q rows {q.shape[2]}, K/V chunk "
                          f"{k.shape[2]}, expected {seq.rows} each")
     return RingAttentionFn.apply(q, k, v, bias_rows, seed,
-                                 float(dropout_rate), seq)
+                                 float(dropout_rate), seq, int(head_offset))

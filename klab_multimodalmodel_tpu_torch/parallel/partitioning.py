@@ -37,11 +37,13 @@ rules, each for a reason it states:
   the axis (``fsdp_dim``). Numerics do not depend on the dim; per-rank
   bytes do.
 
-The ``seq`` axis replicates every parameter, as ``data`` does; its
-ranks split the positions of each T5 stack (``SeqSlice``): ``seq_shard``
-is the port of the JAX package's ``seq_constraint``, ``seq_gather`` the
-all-gather that XLA inserts for attention's keys and values (and the
-reduce-scatter of their gradient).
+The ``seq`` axis replicates every parameter, as ``data`` does: beside
+``fsdp`` and ``tensor`` the seq ranks of one data x fsdp x tensor
+coordinate hold the same shards, and the trainer sums their reduced
+gradients over the seq group. Its ranks split the positions of each T5
+stack (``SeqSlice``): ``seq_shard`` is the port of the JAX package's
+``seq_constraint``, ``seq_gather`` the all-gather that XLA inserts for
+attention's keys and values (and the reduce-scatter of their gradient).
 
 The ``pipe`` and ``expert`` axes replicate every parameter but the
 transformer's stage blocks and expert banks. ``stage_for_path`` is the JAX
@@ -247,6 +249,7 @@ def per_rank_bytes(named_shapes: Iterable[tuple[str, tuple, bool]],
     given as (name, shape, trainable) and laid out as ``parallelize`` and
     the expert split lay them over ``axis_sizes``; with ``pipe`` above 1
     only the blocks of stage ``pipe_rank`` (``stage_for_path``) count.
+    ``data`` and ``seq`` replicate, so their sizes change nothing.
     Frozen parameters have no gradient and no moments."""
     named_shapes = list(named_shapes)
     stages = axis_sizes.get("pipe", 1)

@@ -41,14 +41,19 @@ mean over the global microbatch's groups, as the JAX package's: each rank's
 is its share of it (``T5ForConditionalGeneration.set_aux_group``), which
 takes no token share.
 
-A mesh with ``seq`` above 1 keeps DDP over the world (data x seq), whose
-ranks hold the whole parameters: the ranks of a seq group share their
-rows, and each runs its positions of every T5 stack (``MultiModalModel.
-set_seq_group``). A rank's loss is the mean over its decoder positions; its
-token share counts those positions' targets over data x seq, so the
-all-reduced gradient is one process's. Where the target length does not
-divide by ``seq`` the decoder runs whole on every seq rank and only seq
-rank 0 counts its tokens.
+A mesh with ``seq`` above 1 beside ``data`` alone keeps DDP over the
+world (data x seq), whose ranks hold the whole parameters: the ranks of a
+seq group share their rows, and each runs its positions of every T5 stack
+(``MultiModalModel.set_seq_group``). A rank's loss is the mean over its
+decoder positions; its token share counts those positions' targets over
+data x seq, so the all-reduced gradient is one process's. Where the target
+length does not divide by ``seq`` the decoder runs whole on every seq rank
+and only seq rank 0 counts its tokens. Beside ``fsdp`` or ``tensor`` the
+seq ranks of one data x fsdp x tensor coordinate hold the same shards:
+FSDP2 reduces each rank's gradient over data x fsdp, and the reduced
+shards, each seq rank's part of the gradient of its positions, are then
+summed over the seq group; token counts and losses are summed over data x
+fsdp x seq (``Mesh.loss_groups``).
 
 A mesh with ``pipe`` or ``expert`` above 1 splits the transformer after
 its weights are made or loaded: a pipe rank keeps its stage's blocks
@@ -184,11 +189,13 @@ class Trainer:
         self.policy = get_policy(cfg.compute_dtype, cfg.param_dtype)
         self.model = MultiModalModel(cfg, dtype=self.policy.compute_dtype,
                                      device=self.device)
-        if self.mesh.seq > 1:
-            self.model.set_seq_group(
-                SeqGroup(self.mesh.seq_group(self.device.type),
-                         self.mesh.seq_rank, self.mesh.seq), self.mesh)
         mesh = self.mesh
+        # Every rank makes the groups, in one order (collectives): the
+        # first call makes the ``DeviceMesh`` they all come from.
+        if mesh.seq > 1:
+            self.model.set_seq_group(
+                SeqGroup(mesh.seq_group(self.device.type), mesh.seq_rank,
+                         mesh.seq), mesh)
         if mesh.pipe > 1 and cfg.pipeline_stages != mesh.pipe:
             raise ValueError(f"mesh pipe axis {mesh.pipe} must equal "
                              f"pipeline_stages={cfg.pipeline_stages}")
@@ -196,7 +203,6 @@ class Trainer:
                                 or cfg.moe_experts % mesh.expert):
             raise ValueError(f"moe_experts={cfg.moe_experts} must be a "
                              f"multiple of the mesh expert axis {mesh.expert}")
-        # Every rank makes the groups, in one order (collectives).
         dt = self.device.type
         self.pipe = (PipeGroup(mesh.pipe_group(dt), mesh.pipe_rank,
                                mesh.pipe) if mesh.pipe > 1 else None)
@@ -680,9 +686,11 @@ class Trainer:
         return mask.reshape(parts, -1).to(torch.float32).sum(dim=1)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks of ``Mesh.dp_group``: a tensor, pipe
-        or expert group holds one copy of its rows."""
-        dist.all_reduce(t, group=self.mesh.dp_group(self.device.type))
+        """``t`` summed over ``Mesh.loss_groups`` (data x fsdp x seq): a
+        tensor, pipe or expert group holds one copy of its rows, and each
+        seq rank its positions' part."""
+        for group in self.mesh.loss_groups(self.device.type):
+            dist.all_reduce(t, group=group)
         return t
 
     # -- steps -------------------------------------------------------------
@@ -764,10 +772,10 @@ class Trainer:
                               generator, with_features: bool,
                               feats: list) -> torch.Tensor:
         """The microbatches' forward and backward under FSDP2 and tensor
-        parallelism: the DDP branch's token shares over the data x fsdp
-        ranks, gradients reduced after the last microbatch only, then the
-        tensor-partial gradients summed over the tensor group. Returns the
-        global loss."""
+        parallelism: the DDP branch's token shares over the data x fsdp (x
+        seq) ranks, gradients reduced after the last microbatch only, then
+        summed over the seq group, and the tensor-partial gradients over the
+        tensor group. Returns the global loss."""
         counts = self._token_counts(batch, accum)
         share = counts / (accum * self._all_reduce(counts.clone())
                           .clamp(min=1.0))
@@ -782,12 +790,28 @@ class Trainer:
             (part * dp).backward()
             feats.append(f)
             loss_sum = loss_sum + part.detach()
+        if self.mesh.seq > 1:
+            self._sum_over_seq()
         if self.tensor_partial:
             group = self.mesh.tensor_group(self.device.type)
             for m in self.tensor_partial:
                 if m.weight.grad is not None:
                     dist.all_reduce(m.weight.grad.to_local(), group=group)
         return self._all_reduce(loss_sum)
+
+    def _sum_over_seq(self) -> None:
+        """Each trainable parameter's reduced gradient shard summed over
+        the seq group, in one all-reduce of them all: the seq ranks of a
+        data x fsdp x tensor coordinate hold the same shards, each of the
+        gradient of its own positions."""
+        grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+                 for p in self.model.parameters() if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.seq_group(self.device.type))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> torch.Tensor:

@@ -11,8 +11,12 @@ t) S + s) P + p) E + e). ``data`` alone: gradients all-reduced by DDP
 fsdp)`` and DTensor tensor parallelism over ``tensor``
 (``parallel/partitioning.py``), on a ``DeviceMesh`` of those three axes.
 ``seq``: each rank of a seq group runs its ``L / S`` positions of every T5
-stack, the parameters replicated as under DDP, whose gradient all-reduce
-then spans data x seq (``seq_group`` carries the stacks' K/V exchange).
+stack, the parameters replicated over it as over ``data``: alone beside
+``data`` under DDP, whose gradient all-reduce then spans data x seq;
+beside ``fsdp`` or ``tensor`` under FSDP2 over ``(data, fsdp)``, with the
+reduced shards then summed over the seq group (``seq_group`` carries that
+sum and the stacks' K/V exchange; ``loss_groups`` the token counts and
+losses over data x fsdp x seq).
 ``pipe``: pipe rank p holds stage p of the transformer's GPipe schedule
 (``pipe_group`` carries the stage shift); ``expert``: expert rank e holds
 experts ``[e E/n, (e+1) E/n)`` of every MoE layer. The ranks of one tensor,
@@ -27,8 +31,8 @@ Under ``pipe`` with ``fsdp`` or ``tensor`` a stage's blocks are FSDP2 units
 of its ``(data, fsdp)`` peers and tensor-parallel over its tensor peers; a
 pipe group joins the ranks of one data, fsdp and tensor coordinate.
 ``pipe`` does not compose with ``seq`` or ``expert`` yet, and ``seq`` does
-not compose with ``fsdp``, ``tensor`` or ``expert`` (ROADMAP A12d's second
-half): such a shape raises.
+not compose with ``expert`` (ROADMAP A12d's second half): such a shape
+raises.
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -97,13 +101,13 @@ def refuse_waiting_combinations(shape: Sequence[int],
                                 what: str = "mesh_shape") -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A12d for the axes that
     do not compose yet: ``pipe`` above 1 beside ``seq`` or ``expert`` above
-    1, and ``seq`` above 1 beside ``fsdp``, ``tensor`` or ``expert`` above
-    1. A -1 counts as above 1."""
+    1, and ``seq`` above 1 beside ``expert`` above 1. A -1 counts as above
+    1."""
     size = {n: int(v) for n, v in zip(axis_names, shape)}
     over = [n for n in ("fsdp", "tensor", "seq", "pipe", "expert")
             if size.get(n, 1) != 1]
-    waiting = {"pipe": ("seq", "expert"), "seq": ("fsdp", "tensor", "expert")}
-    hint = {"pipe": "data, fsdp and tensor", "seq": "data"}
+    waiting = {"pipe": ("seq", "expert"), "seq": ("expert",)}
+    hint = {"pipe": "data, fsdp and tensor", "seq": "data, fsdp and tensor"}
     for axis in ("pipe", "seq"):
         beside = [n for n in over if n in waiting[axis]]
         if axis in over and beside:
@@ -351,31 +355,27 @@ class Mesh:
                 mesh[share]._flatten("rows"))
         return meshes[device_type]
 
-    def _subgroup(self, axes: Sequence[str]) -> Optional[dist.ProcessGroup]:
-        """This rank's group along ``axes`` (its peers that differ only in
-        those axes' coordinates), on the world's backend; made once for
-        every rank (a collective: every rank calls it), None in a process
-        of its own."""
-        if not self.distributed:
-            return None
-        made = self.__dict__.setdefault("_subgroups", {})
-        key = tuple(axes)
-        if key not in made:
-            idx = [self.axis_names.index(a) for a in axes]
-            made[key], _ = dist.new_subgroups_by_enumeration(
-                axis_groups(self.shape, idx), timeout=TIMEOUT)
-        return made[key]
-
     def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
-        """The group of this rank's copies of the other rows, which carries
-        token counts and losses: the data x fsdp peers of its tensor, pipe
-        and expert coordinates under sharding or a split; else the world's,
-        which under ``seq`` holds data x seq: each seq rank counts the
-        target tokens of its own positions. Under DDP it is also the group
-        of the gradient all-reduce."""
+        """The group of this rank's copies of the other rows: the data x
+        fsdp peers of its tensor, seq, pipe and expert coordinates under
+        sharding or a split (FSDP2's, and the balance loss's); else the
+        world's, which under ``seq`` holds data x seq. Under DDP it is also
+        the group of the gradient all-reduce."""
         if self.sharded or self.split:
             return self._meshes(device_type)[1].get_group()
         return self.group
+
+    def loss_groups(self, device_type: str) -> list:
+        """The groups over which token counts and losses are summed, one
+        after the other: together they span the ranks that hold other
+        rows or other positions of them, data x fsdp x seq (each seq rank
+        counts the target tokens of its own positions). ``dp_group``, and
+        under sharding with ``seq`` the seq group too (``dp_group`` is then
+        data x fsdp only)."""
+        groups = [self.dp_group(device_type)]
+        if self.sharded and self.seq > 1:
+            groups.append(self.seq_group(device_type))
+        return groups
 
     def tensor_group(self, device_type: str) -> dist.ProcessGroup:
         return self.device_mesh(device_type)["tensor"].get_group()
@@ -390,12 +390,11 @@ class Mesh:
 
     def seq_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's seq peers (the ranks that share its
-        rows and split their positions), on the world's backend, which
-        carries ``device_type``'s tensors; None when ``seq`` is 1. Made once
-        (a collective: every rank calls it)."""
+        rows and split their positions), in seq order; None when ``seq`` is
+        1."""
         if self.seq == 1:
             return None
-        return self._subgroup(("seq",))
+        return self.device_mesh(device_type)["seq"].get_group()
 
     def pipe_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's pipe peers (the other stages of its

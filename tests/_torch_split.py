@@ -12,6 +12,7 @@ the dropout case a one-process checkpoint it restored), and a ``train()``
 of two epochs of two updates under the split mesh against one process's.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,7 +83,8 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
     earlier case whose checkpoint it restores after its steps, and its
     ``one_stream`` gives every data rank one dropout stream), and
     ``train()`` with ``loop``'s overrides (its ``mesh_shape``, or
-    ``mesh``); see the module doc."""
+    ``mesh``); a case's ``one_context`` (a context manager factory) wraps
+    its one-process run; see the module doc."""
     jc, tc = tp.configs(**base)
     params = jax_params(jc)
     converted = convert_jax_params(params, tc)
@@ -93,6 +95,7 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
         overrides = dict(overrides)
         restore_run = overrides.pop("restore_run", None)
         one_stream = overrides.pop("one_stream", False)
+        one_context = overrides.pop("one_context", contextlib.nullcontext)
         run_mesh = overrides.pop("mesh_shape", mesh)
         _, cfg = tp.configs(**dict(base, **overrides))
         rows = batches(cfg.max_target_length)
@@ -107,12 +110,13 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
             init = root / f"{name}.init.pt"
             torch.save(one.model.state_dict(), init)
         gen = torch.Generator().manual_seed(dropout_seed(cfg.seed, 0))
-        ones[name] = dict(
-            losses=[float(one.train_step(b, gen)) for b in rows],
-            evals=[float(one.eval_step(b)) for b in rows],
-            params={n: p.detach().clone()
-                    for n, p in one.model.named_parameters()},
-            optimizer=one.full_optimizer_state_dict(), config=cfg)
+        with one_context():
+            ones[name] = dict(
+                losses=[float(one.train_step(b, gen)) for b in rows],
+                evals=[float(one.eval_step(b)) for b in rows],
+                params={n: p.detach().clone()
+                        for n, p in one.model.named_parameters()},
+                optimizer=one.full_optimizer_state_dict(), config=cfg)
         run = dict(config=dataclasses.asdict(dataclasses.replace(
                        cfg, mesh_shape=run_mesh)),
                    init=str(init), batches=str(root / f"{name}.batches.pt"),

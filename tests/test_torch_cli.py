@@ -130,7 +130,9 @@ def test_defaults_match_jax():
     ("--seq_attention ring", None),
     ("--mesh_shape 1 1 1 2", None),
     ("--mesh_shape 1 1 1 2 --seq_attention ring", None),
-    ("--mesh_shape 1 2 1 2", "A12d"),
+    ("--mesh_shape 1 2 1 2", None),
+    ("--mesh_shape 1 1 2 2 --seq_attention ring", None),
+    ("--dcn_mesh_shape 1 2 2 2", None),
     ("--mesh_shape 1 1 1 2 --moe_experts 2", "A12d"),
     ("--pipeline_stages 2 --seq_attention ring", ValueError),
     ("--pipeline_stages 2 --use_pallas_t5_attention", ValueError),

@@ -298,6 +298,44 @@ def test_t5_q_offset_matches_the_full_call(cuda, dtype, B, H, Q, K, D, lo):
         assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Q,K,D,off,lo", [
+    (2, 4, 40, 70, 48, 2, 17),       # ragged tiles, an odd first row
+    (4, 8, 160, 320, 64, 8, 160),    # t5-large's encoder, tensor x seq rank
+    (4, 8, 64, 128, 64, 8, 64),      # its decoder
+    (4, 8, 64, 320, 64, 8, 64),      # its cross-attention
+])
+def test_t5_head_and_q_offsets_match_the_full_call(cuda, dtype, B, H, Q, K,
+                                                   D, off, lo):
+    """A tensor x seq rank's heads at its query rows: the kernels on heads
+    ``off ..`` and rows ``lo ..`` with ``head_offset`` and ``q_offset`` at
+    once give the plain full call's heads and rows, forward and backward,
+    with dropout on (dk and dv: those rows' share)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do, b, m = _case(gen, cuda, dtype, B, 2 * H, lo + Q, K, D,
+                              True, True)
+    seed = draw_seed(gen)
+    heads, rows = slice(off, off + H), slice(lo, lo + Q)
+    qr, dor = (t[:, heads, rows].contiguous() for t in (q, do))
+    kr, vr = (t[:, heads].contiguous() for t in (k, v))
+    br = b[heads, rows].contiguous()
+    want = t5_attention_plain(q, k, v, b, m, 0.1, seed)[:, heads, rows]
+    out, stats = t5_attention_fwd(qr, kr, vr, br, m, 0.1, seed,
+                                  with_stats=True, head_offset=off,
+                                  q_offset=lo)
+    torch.testing.assert_close(out.float(), want.float(), **TOLS[dtype])
+    do_rows = torch.zeros_like(do)
+    do_rows[:, :, rows] = do[:, :, rows]
+    full = t5_attention_bwd_plain(q, k, v, do_rows, b, m, 0.1, seed, True)
+    got = t5_attention_bwd(qr, kr, vr, dor, br, m, 0.1, seed, stats, True,
+                           head_offset=off, q_offset=lo)
+    for name, x, w in zip(("dq", "dk", "dv", "dbias"), got, full):
+        w = (w[heads, rows] if name == "dbias" else
+             w[:, heads, rows] if name == "dq" else w[:, heads])
+        tol = GRAD_TOL[torch.float32 if name == "dbias" else dtype]
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
 def test_t5_dbias_is_bitwise_reproducible(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do, b, m = _case(gen, cuda, torch.bfloat16, 8, 16, 320, 320,

@@ -50,14 +50,16 @@ EXPERT = dict(moe_experts=2)
     ((1, 1, 1, 2, 2), PIPE, "seq mesh axis"), ((1, 1, 1, 1, 2), PIPE, None),
     ((1, 1, 1, 1, 1, 2), EXPERT, None),
     ((1, -1, 1, 1, 1, 2), EXPERT, None), ((1, 2, 2, 1, 1, 2), EXPERT, None),
-    ((1, 1, 1, 2, 1, 2), EXPERT, "A12d")])
+    ((1, 1, 1, 2, 1, 2), EXPERT, "A12d"),
+    ((1, 2, 1, 2), {}, None), ((1, 1, 2, 2), {}, None),
+    ((1, 2, 2, 2), {}, None)])
 def test_non_data_axes_are_refused(shape, flags, item):
     """The pipe axis beside seq or expert, and the expert axis beside seq
     (as ``mesh_shape`` or ``dcn_mesh_shape``), are refused by
     ``make_mesh`` naming ROADMAP A12d, and by ``Config`` and the command
     line with the flags that the axis needs: naming A12d, or with the JAX
     package's ValueError where it refuses first (stages with seq, an
-    expert axis without experts). Alone, and the pipe and expert axes
+    expert axis without experts). Alone, and the pipe, expert and seq axes
     beside fsdp and tensor (the -1 wildcard too), each builds as the JAX
     ``Config`` builds it, and ``make_mesh`` asks only for the world to
     match."""

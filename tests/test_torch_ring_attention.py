@@ -210,7 +210,9 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1, 1, 2), (2, 1, 1, 2),
                                         (1, 1, 1, 4), (2, 2, 2, 1),
-                                        (2, 1, 1, 1), (2, 1, 2, 2)])
+                                        (2, 1, 1, 1), (2, 1, 2, 2),
+                                        (1, 2, 1, 2), (1, 1, 2, 2),
+                                        (1, 2, 2, 2)])
 @pytest.mark.parametrize("q_len,k_len,batch,heads", [
     (16, 16, None, None), (16, 16, 4, 2), (16, 8, None, None),
     (6, 6, None, None), (16, 16, 3, None), (16, 16, None, 3)])

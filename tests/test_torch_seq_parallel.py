@@ -291,11 +291,14 @@ def test_seq2_run_directory_captions_in_one_process(runs, tmp_path, capsys):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lo,hi", [(0, 12), (12, 24), (5, 19)])
-def test_plain_kernels_take_q_offset(dtype, lo, hi):
-    """Rows [lo, hi) of the plain kernels' whole forward and backward, at
-    rate 0.1, are the call on those rows with ``q_offset = lo`` (the rows'
-    share of dk and dv: the whole call's with the other rows' upstream
-    gradient 0); without the offset the rows draw other keep bits."""
+@pytest.mark.parametrize("h0,h1", [(0, 3), (1, 3)])
+def test_plain_kernels_take_q_offset(dtype, lo, hi, h0, h1):
+    """Rows [lo, hi) of heads [h0, h1) of the plain kernels' whole forward
+    and backward, at rate 0.1, are the call on those rows and heads with
+    ``q_offset = lo`` and ``head_offset = h0`` (a tensor x seq rank's; the
+    rows' share of dk and dv: the whole call's with the other rows'
+    upstream gradient 0); without the row offset the rows draw other keep
+    bits."""
     g = torch.Generator().manual_seed(lo * 100 + hi)
     Bq, H, L, D = 2, 3, 24, 8
     q, k, v, do = (torch.randn(Bq, H, L, D, generator=g).to(dtype)
@@ -304,35 +307,39 @@ def test_plain_kernels_take_q_offset(dtype, lo, hi):
     mask = torch.ones(Bq, L, dtype=torch.int32)
     mask[1, 17:] = 0
     seed = draw_seed(g)
-    rows = slice(lo, hi)
+    rows, heads = slice(lo, hi), slice(h0, h1)
+    qh, kh, vh, doh = (t[:, heads] for t in (q, k, v, do))
+    bh = bias[heads, rows]
     full = t5_attention_plain(q, k, v, bias, mask, 0.1, seed)
-    part = t5_attention_plain(q[:, :, rows], k, v, bias[:, rows], mask, 0.1,
-                              seed, q_offset=lo)
-    assert torch.equal(part, full[:, :, rows])
-    unshifted = t5_attention_plain(q[:, :, rows], k, v, bias[:, rows], mask,
-                                   0.1, seed)
+    part = t5_attention_plain(qh[:, :, rows], kh, vh, bh, mask, 0.1, seed,
+                              head_offset=h0, q_offset=lo)
+    assert torch.equal(part, full[:, heads, rows])
+    unshifted = t5_attention_plain(qh[:, :, rows], kh, vh, bh, mask, 0.1,
+                                   seed, head_offset=h0)
     if lo:
-        assert not torch.equal(unshifted, full[:, :, rows])
+        assert not torch.equal(unshifted, full[:, heads, rows])
     do_rows = torch.zeros_like(do)
     do_rows[:, :, rows] = do[:, :, rows]
     want = t5_attention_bwd_plain(q, k, v, do_rows, bias, mask, 0.1, seed,
                                   True)
-    got = t5_attention_bwd_plain(q[:, :, rows], k, v, do[:, :, rows],
-                                 bias[:, rows], mask, 0.1, seed, True,
+    got = t5_attention_bwd_plain(qh[:, :, rows], kh, vh, doh[:, :, rows],
+                                 bh, mask, 0.1, seed, True, head_offset=h0,
                                  q_offset=lo)
-    torch.testing.assert_close(got[0], want[0][:, :, rows], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], want[0][:, heads, rows], rtol=0,
+                               atol=0)
     for x, w in zip(got[1:3], want[1:3]):
-        torch.testing.assert_close(x.float(), w.float(), rtol=1e-5,
+        torch.testing.assert_close(x.float(), w[:, heads].float(),
+                                   rtol=1e-5,
                                    atol=1e-5 if dtype == torch.float32
                                    else 2e-2)
-    torch.testing.assert_close(got[3], want[3][:, rows], rtol=0, atol=0)
+    torch.testing.assert_close(got[3], want[3][heads, rows], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("argv,error,match", [
     ("--mesh_shape 1 1 1 2", None, None),
     ("--mesh_shape 2 1 1 2 --seq_attention ring", None, None),
-    ("--mesh_shape 1 2 1 2", NotImplementedError, "A12d"),
-    ("--mesh_shape 1 1 2 2", NotImplementedError, "A12d"),
+    ("--mesh_shape 1 2 1 2", None, None),
+    ("--mesh_shape 1 1 2 2", None, None),
     ("--mesh_shape 1 1 1 2 --moe_experts 2", NotImplementedError, "A12d"),
     ("--mesh_shape 1 1 1 1 2 --pipeline_stages 2", None, None),
     ("--mesh_shape 1 1 1 1 1 2 --moe_experts 2", None, None),
@@ -343,8 +350,9 @@ def test_plain_kernels_take_q_offset(dtype, lo, hi):
     ("--seq_attention ring --use_pallas_t5_attention", None, None),
 ])
 def test_seq_flags_parse_or_refuse(argv, error, match):
-    """``--mesh_shape D 1 1 S`` and ``--seq_attention ring`` parse as the
-    JAX package parses them; what waits for A12d raises naming it; the
+    """``--mesh_shape D 1 1 S``, ``seq`` beside ``fsdp`` or ``tensor`` and
+    ``--seq_attention ring`` parse as the JAX package parses them; what
+    waits for A12d (MoE with seq) raises naming it; the
     ring beside the T5 kernel at seq > 1 (where the kernel wins and the
     ring never runs) raises; the JAX package's own refusals raise its
     messages (a pipeline with seq > 1, or with the ring)."""
