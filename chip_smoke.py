@@ -245,7 +245,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Adam, both kernel flags, batch 16, dropout 0; every run from the same
    seeded weights and rows. The per-rank memory of each layout is reckoned
    first (``parallel.partitioning.per_rank_bytes``).
-   a. one process (world 1): one warm-up and two timed ``Trainer`` steps,
+   a. one process (world 1): one warm-up and one timed ``Trainer`` step,
       the reference of 13b-c; phase 4's checks (launches of every step,
       finite losses, frozen towers unchanged).
    b. ``(1, 2, 1)``: fsdp 2, batch 8 per rank; then its checkpoint, which
@@ -261,8 +261,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    in ``chiprun_out/phase13_15_ranks.log``). Checks: each rank's launches per
    step (T5 forward 27, backward 3, 2 with dBias, Swin 24;
    ``step_launches``); the first step's gradients of every trainable
-   tensor and the three steps' losses against 13a's (``TOL_SHARD``; the
-   updates after three steps are printed beside them); the checkpoint
+   tensor and both steps' losses against 13a's (``TOL_SHARD``; the
+   updates after both steps are printed beside them); the checkpoint
    restored bitwise. Prints per rank the step spans, peak memory, and in
    one profiled 13c step gloo's host time and the busy share (13b's, of a
    10-13 s step, are in ``PERF.md``). Then the T5 kernels at 13c's
@@ -318,7 +318,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       of every MoE layer; c. ``(1, 1, 1, 1, 2, 1)``: each rank holds and
       runs one stage (1 + 1 blocks), the microbatches shifted between the
       ranks through the host. Both in one job of phase 13's two ranks,
-      which then leave while the four of phases 16 to 18 start. Checks: each rank's launches per
+      which then leave while the four of phases 16 to 19 start. Checks: each rank's launches per
       step equal a's (b: T5 forward 30, backward 6, 4 with dBias, Swin
       24; c: Swin 24); every loss, the dropout step's too, within 5e-4 of
       a's and the first step's gradients at cosine >= 0.999
@@ -331,9 +331,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       step gloo's host time and the busy share.
 16. MoE on a sharded mesh: phase 15a's MoE model (its 15a run the
    reference) over four ranks sharing the card in one job of a
-   four-rank ``RankServer`` (gloo on CUDA tensors), which runs phase 17's
-   and 18's runs after these (one start of four processes; the ranks'
-   output in ``chiprun_out/phase16_18_ranks.log``):
+   four-rank ``RankServer`` (gloo on CUDA tensors), which runs phases
+   17's to 19's runs after these (one start of four processes; the ranks'
+   output in ``chiprun_out/phase16_19_ranks.log``):
    b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, both fsdp ranks on all
       16 rows (the MoE layers' and the stacks' dropout draws at a rank's
       rows: split rows would not hold one process's masks), FSDP2
@@ -389,7 +389,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``q_offset``) against their plain versions with both offsets at once
    and with none, and their times per step beside the plain versions',
    SDPA's and the bound.
-19. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+19. MoE under sequence parallelism: phase 15a's MoE model (its 15a run,
+   16a, the reference, with its losses at dropout 0.1 before and after
+   its first step) over the four ranks of phase 16's job, all 16 rows on
+   every rank: a. ``(1, 1, 1, 2, 1, 2)``: seq 2 x expert 2, rank (s, e)
+   running seq rank s's positions and experts e (DDP over each expert
+   slice's two seq ranks); b. ``(1, 1, 2, 2, 1, 1)``: tensor 2 x seq 2,
+   rank (t, s) running d_ff columns and heads t at positions s. Each
+   routing group spans the seq ranks. Each a loss at dropout 0.1 with no
+   update, a warm-up, a step at dropout 0.1 and one timed step. Checks:
+   the ranks' losses equal, the first loss within 1e-5 (a) or 5e-5 (b)
+   of 16a's, the first step's gradients gathered and joined at cosine
+   >= 0.9999 (a) or 0.999 (b) (``TOL_MOE_SEQ``), both dropout losses
+   within 5e-4 of 16a's probes, under 0.1 % of the first step's
+   token-routings flipped against 16a's (the seq ranks' rows joined),
+   launches per step equal 16a's, every trainable parameter and shard
+   bitwise equal across each seq group, the state held equal to the
+   reckoning, a's checkpoint restored bitwise into a one-process
+   ``Trainer``. Prints per rank the step spans, peak memory and the
+   state held, and each routing call's tokens dropped at capacity beside
+   16a's.
+20. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
@@ -397,8 +417,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    step of a phase-13c rank, in one step of a phase-14b rank, in one step
    of a phase-15b and of a phase-15c rank, in one step of a phase-16b
    and of a phase-16c rank, in one step of a phase-17b and of a
-   phase-17c rank, and in one step of a phase-18a and of a phase-18b
-   rank), then ``{"ok": true, ...}`` as the last line.
+   phase-17c rank, in one step of a phase-18a and of a phase-18b rank,
+   and in one step of a phase-19a and of a phase-19b rank), then
+   ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is false. Full results also go to
@@ -4491,12 +4512,16 @@ def moe_memory(cfg, batch: int, phase4_peak_gb: float) -> dict:
 class RoutingRecorder:
     """Wraps the model's ``topk_routing`` (and ``moe_ffn``) while in use:
     each routing call's assignments (combine > 0) and router logits, in
-    call order, and a profiler range around each call (``moe routing``,
-    ``moe ffn``) that ``profile_device`` reads apart."""
+    call order, the (token, expert) choices of its real tokens that the
+    capacity dropped (``dropped``, 0-d tensors: read after the step), and
+    a profiler range around each call (``moe routing``, ``moe ffn``) that
+    ``profile_device`` reads apart. Under ``seq`` a call's rows are the
+    rank's positions."""
 
     def __init__(self, keep: bool = True):
         self.keep = keep
         self.calls: list = []
+        self.dropped: list = []
 
     def __enter__(self):
         from torch.profiler import record_function
@@ -4507,11 +4532,18 @@ class RoutingRecorder:
         routing, ffn = self._saved
         rec = self
 
-        def topk_routing(logits, top_k, capacity, mask=None):
+        def topk_routing(logits, top_k, capacity, mask=None, seq=None):
             with record_function("moe routing"):
-                combine, aux = routing(logits, top_k, capacity, mask=mask)
+                combine, aux = routing(logits, top_k, capacity, mask=mask,
+                                       seq=seq)
             if rec.keep:
-                rec.calls.append((combine.detach() > 0, logits.detach()))
+                assigned = combine.detach() > 0
+                rec.calls.append((assigned, logits.detach()))
+                real = logits.shape[0] * logits.shape[1]
+                if mask is not None:
+                    real = (mask if seq is None else mask.narrow(
+                        1, seq.start, seq.rows)).float().sum()
+                rec.dropped.append(top_k * real - assigned.any(-1).sum())
             return combine, aux
 
         def moe_ffn(*args, **kw):
@@ -4870,11 +4902,11 @@ def gpipe_phase(card: str) -> dict:
                 seconds=seconds)
 
 
-# Phases 13 to 18 run their multi-rank jobs on rank servers: the ranks of
+# Phases 13 to 19 run their multi-rank jobs on rank servers: the ranks of
 # one ``torch.distributed.run`` started ahead of the phases that use them,
 # so that their start (imports, CUDA, the process group) overlaps the
 # script's own work, and kept for every job of one world size (phases 13,
-# 14 and 15 on two ranks, 16 to 18 on four).
+# 14 and 15 on two ranks, 16 to 19 on four).
 RANK_JOBS = {"shard": "shard_rank_main", "seq": "seq_rank_main",
              "split": "split_rank_main", "four": "four_rank_main"}
 
@@ -4999,7 +5031,8 @@ def rank_server_main(job_dir: str) -> int:
 # did), dropout 0 for the compared steps.
 SHARD_LAYERS = 1
 SHARD_T5 = f"t5-3b-{SHARD_LAYERS}x{SHARD_LAYERS}-dropout-0"
-SHARD_BATCH, SHARD_STEPS = 16, 2
+# One timed step: 13b's steps take 10-13 s of gloo's host staging each.
+SHARD_BATCH, SHARD_STEPS = 16, 1
 SHARD_RANKS = 2
 SHARD_LAYOUTS = {"13b": (1, 2, 1), "13c": (1, 1, 2)}
 SHARD_LAUNCHES = step_launches(T5_LAYERS, SHARD_LAYERS, SHARD_LAYERS,
@@ -5668,9 +5701,9 @@ def dropout_probe(trainer, batch: dict) -> float:
     as they stand, from a generator in the state that phase 18's dropout
     step draws from (seeded ``SEED + 1``, which steps at rate 0 leave
     untouched): across ranks the token-weighted mean over every rank's
-    positions, as a step's loss is. Phases 14 and 18 take it before their
-    first step, and phase 14 after it too (the weights of 18's dropout
-    step)."""
+    positions, as a step's loss is. Phases 14, 18 and 19 take it before
+    their first step, and phases 14 and 15a's MoE run after it too (the
+    weights of 18's and 19's dropout steps)."""
     import torch
 
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
@@ -5678,11 +5711,14 @@ def dropout_probe(trainer, batch: dict) -> float:
     try:
         with torch.no_grad():
             b = trainer.to_device(batch)
-            loss, _, _ = trainer.net(b, gen, False)
+            loss, aux, _ = trainer.net(b, gen, False)
             if trainer.mesh.distributed:
+                # Under MoE each rank's balance loss is its share of the
+                # whole: summed, not weighted by its tokens.
                 n = trainer._token_counts(b, 1)[0]
-                sums = trainer._all_reduce(torch.stack([loss.float() * n, n]))
-                loss = sums[0] / sums[1]
+                sums = trainer._all_reduce(torch.stack(
+                    [(loss - aux).float() * n, n, aux.float()]))
+                loss = sums[0] / sums[1] + sums[2]
             if trainer.sharded:
                 # FSDP2 keeps the root's parameters gathered after a
                 # forward that no backward follows.
@@ -6013,13 +6049,16 @@ def held_bytes(trainer) -> dict:
 
 def split_run(trainer, tag: str, card: str, launches: tuple, first,
               collectives: bool, extras: bool = True,
-              own_rows: bool = False) -> dict:
+              own_rows: bool = False, probes: bool = False) -> dict:
     """One warm-up (``first(trainer, recorder)`` after it, with the
     routings it recorded) and ``SPLIT_STEPS`` timed steps of ``trainer``
     at dropout 0 (launches checked), then, with ``extras``, a profiled
     step and one step at dropout 0.1 (launches checked): losses, spans,
-    peak memory, the profile. Every step takes the whole batch, or with
-    ``own_rows`` the rank's data x fsdp chunk of it."""
+    peak memory, the profile, the tokens each routing call of the warm-up
+    dropped at capacity; with ``probes`` the loss at dropout 0.1 before
+    the warm-up and after it (``dropout_probe``). Every step takes the
+    whole batch, or with ``own_rows`` the rank's data x fsdp chunk of
+    it."""
     import torch
 
     cfg = trainer.config
@@ -6029,19 +6068,23 @@ def split_run(trainer, tag: str, card: str, launches: tuple, first,
         lo = trainer.mesh.dp_rank * n
         batch = {k: v[lo:lo + n] for k, v in batch.items()}
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    before = dropout_probe(trainer, batch) if probes else None
     t0 = time.perf_counter()
     with RoutingRecorder() as recorder:
         first_loss = float(trainer.train_step(batch, gen))
     first_ms = (time.perf_counter() - t0) * 1e3
     first(trainer, recorder.calls)
+    dropped = [int(d) for d in recorder.dropped]
     del recorder
+    after = dropout_probe(trainer, batch) if probes else None
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step = timed_steps(trainer, batch, gen, SPLIT_STEPS,
                                             launches[0], tag)
     r = dict(losses=[first_loss] + losses, first_step_ms=first_ms,
              step_ms=step_ms, mean_step_ms=sum(step_ms) / len(step_ms),
              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-             launches_per_step=per_step, profile={}, dropout_loss=None)
+             launches_per_step=per_step, profile={}, dropout_loss=None,
+             dropped=dropped, dropout_probes=[before, after])
     if extras:
         r["profile"] = profile_device(
             lambda: trainer.train_step(batch, gen), r["mean_step_ms"], card,
@@ -6207,7 +6250,8 @@ def split_phase(card: str, server: "RankServer", keep: dict | None = None,
                 one_routes[tag] = routing_masks(calls)
             twin = {"15a-moe": "15b", "15a-pipe": "15c"}[tag]
             ones[tag] = split_run(trainer, f"{tag} step", card,
-                                  SPLIT_RUNS[twin][3], first, False)
+                                  SPLIT_RUNS[twin][3], first, False,
+                                  probes=tag == "15a-moe")
             ones[tag]["build_s"] = build_s
             del trainer
             free()
@@ -6355,9 +6399,10 @@ FOUR_RANKS = 4
 MOE_SHARD_RUNS = {"16b": (1, 2, 1, 1, 1, 2), "16c": (1, 1, 2, 1, 1, 2)}
 
 
-def moe_shard_memory(card: str) -> dict:
-    """Each run's per-rank parameters, gradients and Adam moments (GB),
-    reckoned on the meta device before the job."""
+def moe_shard_memory(card: str, runs: dict = MOE_SHARD_RUNS,
+                     phase: str = "16") -> dict:
+    """Each of a phase's MoE runs' per-rank parameters, gradients and Adam
+    moments (GB), reckoned on the meta device before the job."""
     from klab_multimodalmodel_tpu_torch.models.multimodal import (
         MultiModalModel)
     from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
@@ -6372,8 +6417,9 @@ def moe_shard_memory(card: str) -> dict:
               for n, p in model.named_parameters()]
     out = {tag: {k: v / 1e9 for k, v in per_rank_bytes(
         shapes, dict(zip(DEFAULT_AXIS_NAMES, mesh))).items()}
-        for tag, mesh in MOE_SHARD_RUNS.items()}
-    print("phase 16: state per rank reckoned (GB; params, grads, Adam): "
+        for tag, mesh in runs.items()}
+    print(f"phase {phase}: state per rank reckoned (GB; params, grads, "
+          "Adam): "
           + "; ".join(f"{t} {r['params']:.3f} + {r['grads']:.3f} + "
                       f"{r['moments']:.3f} = {r['total']:.3f}"
                       for t, r in out.items()) + f" [{card}]")
@@ -6520,7 +6566,8 @@ def moe_shard_phase(card: str, ref: dict, job: dict) -> dict:
     """Phase 16's checks of the four-rank job's 16b (fsdp 2 x expert 2) and
     16c (tensor 2 x expert 2) runs (``four_rank_job``), held against
     ``ref`` (phase 15a's MoE run, ``split_phase``'s ``keep``); each run's
-    checkpoint restored here in one process."""
+    checkpoint restored here in one process, whose ``Trainer`` is left in
+    ``ref["restorer"]`` for phase 19's."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.checkpoint.io import (
@@ -6531,9 +6578,10 @@ def moe_shard_phase(card: str, ref: dict, job: dict) -> dict:
     memory, ranks, root = job["memory"]["16"], job["ranks"], job["root"]
     job_s = job["seconds"]["16"]
     one = ref["one"]
-    # One process restores each run's checkpoint in turn.
+    # One process restores each run's checkpoint in turn (phase 19's too).
     trainer = Trainer(split_config("15a-moe"))
     trainer.init_state()
+    ref["restorer"] = trainer
     agree, results, restore_s = {}, {}, {}
     for tag, mesh in MOE_SHARD_RUNS.items():
         got = [rk[tag] for rk in ranks]
@@ -7152,8 +7200,278 @@ def seq_shard_phase(card: str, ref: dict, job: dict) -> dict:
                 kernels=kernels, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: MoE under sequence parallelism (routing groups that span the
+# seq ranks; the expert axis beside seq)
+# ---------------------------------------------------------------------------
+
+# Phase 15a's MoE model (t5-large of 2 + 2 blocks at full width, 4 experts,
+# top-2, capacity factor 1.25, both kernel flags, bf16, Adam, batch 16,
+# dropout 0 for the compared steps) on the four ranks of phases 16-18's
+# job, all 16 rows on every rank: 19a seq 2 x expert 2 (rank (s, e) runs
+# seq rank s's positions of every stack and experts [2e, 2e + 2); DDP over
+# the two seq ranks of each expert slice), 19b tensor 2 x seq 2 (rank (t,
+# s) runs columns t of every expert, and heads t, at positions s; FSDP2
+# and tensor parallelism). Each routing group spans the seq ranks: a
+# rank's slots are offset by the earlier seq rank's choices, at the
+# capacity of the full length. 16a (15a's MoE run) is the reference: the
+# same seeded weights, rows and generator. Each run takes a loss at
+# dropout 0.1 with no update (``dropout_probe``), a warm-up, a step at
+# dropout 0.1 and one timed step: its first loss, first-step gradients,
+# routings and the tokens each routing call dropped at capacity against
+# 16a's warm-up, its dropout losses against 16a's probes before and after
+# its warm-up. 19a writes a checkpoint that this process restores.
+MOE_SEQ_RUNS = {"19a": (1, 1, 1, 2, 1, 2), "19b": (1, 1, 2, 2, 1, 1)}
+# First loss (relative) and first-step gradients against 16a: 19a splits
+# only positions and experts (its partial combines summed in fp32, as
+# 15b's); 19b also splits heads and d_ff columns in bf16, as 16c and 18b.
+TOL_MOE_SEQ = {
+    "19a": dict(loss=1e-5, grad=dict(cosine=0.9999, norm=0.02,
+                                     total=0.9999)),
+    "19b": dict(loss=5e-5, grad=dict(cosine=0.999, norm=0.02,
+                                     total=0.999)),
+}
+
+
+def moe_seq_rank_run(run: dict, card: str, device) -> dict:
+    """One of phase 19's runs on this rank of the four-rank job
+    (``four_rank_main``): a loss at dropout 0.1 with no update, a warm-up
+    (its gradients gathered whole over the shards: the bank slices from
+    every rank of seq rank 0, the rest from rank 0; and seq rank 0's and
+    1's routings of their positions, from their tensor and expert rank 0),
+    a step at dropout 0.1 and one timed step, launches checked; what the
+    seq group holds compared across it, bitwise; 19a's checkpoint, whose
+    whole trainable parameters rank 0 also writes for the comparison."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        gather_full)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    tag = run["tag"]
+    what = f"{tag} rank {rank}"
+    cfg = Config.from_json(json.dumps(run["config"]))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    # Seeded with config.seed on the card: 16a's weights on every rank,
+    # then cut (and sharded).
+    trainer.init_state()
+    mesh = trainer.mesh
+    check(mesh.seq == 2 and trainer.expert is not None,
+          f"{what}: not an MoE trainer over 2 seq ranks with split banks")
+    build_s = time.perf_counter() - t0
+    batch = train_batch(cfg, SPLIT_BATCH, SEED)  # every rank all 16 rows
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    probe = dropout_probe(trainer, batch)
+    t0 = time.perf_counter()
+    with RoutingRecorder() as recorder:
+        first = float(trainer.train_step(batch, gen))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    dropped = [int(d) for d in recorder.dropped]
+    lead = mesh.tensor_rank == 0 and mesh.expert_rank == 0
+    if lead:
+        torch.save(routing_masks(recorder.calls),
+                   f"{run['files']}.s{mesh.seq_rank}.routing.pt")
+    del recorder
+    grads = {}
+    for n, p in trainer.model.named_parameters():
+        if p.grad is None:
+            continue
+        g = gather_full(p.grad.detach())  # every rank, in order
+        if rank == 0 or (mesh.seq_rank == 0 and trainer._is_bank(n)):
+            grads[n] = g.float().cpu()
+    if mesh.seq_rank == 0:
+        torch.save(grads, f"{run['files']}.{rank}.grads.pt")
+    del grads
+    # A step at dropout 0.1 on the generator the warm-up left untouched.
+    set_dropout(trainer.model.transformer, RATE)
+    reset_counts()
+    dropout_loss = float(trainer.train_step(batch, gen))
+    got = launch_counts()
+    set_dropout(trainer.model.transformer, 0.0)
+    check(got == run["launches_dropout"] and math.isfinite(dropout_loss),
+          f"{what}: the dropout step's loss {dropout_loss}, launches "
+          f"{got}, expected {run['launches_dropout']}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step = timed_steps(trainer, batch, gen, 1,
+                                            run["launches"], what)
+    r = dict(losses=[first] + losses, dropout_loss=dropout_loss,
+             dropout_probe=probe, dropped=dropped, first_step_ms=first_ms,
+             step_ms=step_ms, mean_step_ms=sum(step_ms) / len(step_ms),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_step=per_step, held_gb=held_bytes(trainer),
+             coordinate=[mesh.tensor_rank, mesh.seq_rank, mesh.expert_rank])
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"{what}: non-finite loss {r['losses']}")
+    # Every trainable parameter or shard a rank holds (its bank slices
+    # among them), bitwise against its seq group's first rank's.
+    group = mesh.seq_group(device.type)
+    src = rank - mesh.seq_rank * mesh.pipe * mesh.expert
+    checked, bad = 0, []
+    for n, p in sorted(trainer.model.named_parameters()):
+        if not p.requires_grad:
+            continue
+        local = (p.to_local() if isinstance(p, DTensor) else p).detach()
+        ref = local.clone()
+        dist.broadcast(ref, src=src, group=group)
+        checked += 1
+        if not torch.equal(ref, local):
+            bad.append(n)
+    check(checked > 0 and not bad,
+          f"{what}: {len(bad)} of {checked} parameters differ across the "
+          f"seq group: {bad[:5]}")
+    r.update(build_s=build_s, replicated_checked=checked)
+    if run["checkpoint"]:
+        r["saves"], r["checkpoint_s"] = checkpoint_once(
+            trainer, run["checkpoint"], trainable_names(trainer.model, cfg),
+            f"{run['files']}.params.pt")
+    print(f"{what} [{card}]: losses {r['losses']}, dropout-0.1 step "
+          f"{dropout_loss:.6f}, steps {', '.join(f'{t:.2f}' for t in step_ms)}"
+          f" ms, peak {r['peak_gb']:.2f} GB, launches {per_step}; holds "
+          f"{r['held_gb']['total']:.3f} GB of state", flush=True)
+    del trainer
+    free()
+    return r
+
+
+def moe_seq_phase(card: str, ref: dict, job: dict) -> dict:
+    """Phase 19's checks of the four-rank job's 19a (seq 2 x expert 2) and
+    19b (tensor 2 x seq 2) runs (``four_rank_job``), held against ``ref``
+    (16a: phase 15a's MoE run, ``split_phase``'s ``keep``); 19a's
+    checkpoint restored here in one process (phase 16's ``Trainer``, which
+    ``ref["restorer"]`` holds, or a new one)."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    memory, ranks, root = job["memory"]["19"], job["ranks"], job["root"]
+    job_s = job["seconds"]["19"]
+    one = ref["one"]
+    before, after = one["dropout_probes"]
+    top_k = SPLIT_MOE["moe_top_k"]
+    agree, results = {}, {}
+    for tag, mesh in MOE_SEQ_RUNS.items():
+        got = [rk[tag] for rk in ranks]
+        T, S, E = mesh[2], mesh[3], mesh[5]
+        for r, g in enumerate(got):
+            check(g["losses"] == got[0]["losses"]
+                  and g["dropout_loss"] == got[0]["dropout_loss"]
+                  and g["dropout_probe"] == got[0]["dropout_probe"],
+                  f"{tag}: rank {r}'s losses differ from rank 0's: "
+                  f"{g['losses']} vs {got[0]['losses']}")
+            check(g["launches_per_step"] == one["launches_per_step"],
+                  f"{tag} rank {r}: launches {g['launches_per_step']}, "
+                  f"16a's {one['launches_per_step']}")
+            held, want = g["held_gb"]["total"], memory[tag]["total"]
+            check(abs(held - want) <= 1e-3 * want,
+                  f"{tag} rank {r}: holds {held:.4f} GB of state, "
+                  f"reckoned {want:.4f}")
+
+        def rel(x, y):
+            return abs(x - y) / abs(y)
+        first_rel = rel(got[0]["losses"][0], one["losses"][0])
+        probe_rel = rel(got[0]["dropout_probe"], before)
+        drop_rel = rel(got[0]["dropout_loss"], after)
+        tol = TOL_MOE_SEQ[tag]
+        check(first_rel <= tol["loss"],
+              f"{tag}: first loss {got[0]['losses'][0]} vs 16a "
+              f"{one['losses'][0]} (rel {first_rel:.2e})")
+        check(max(probe_rel, drop_rel) <= TOL_SPLIT["loss"],
+              f"{tag}: at dropout 0.1 before the first step "
+              f"{got[0]['dropout_probe']} vs 16a {before}, the dropout step "
+              f"{got[0]['dropout_loss']} vs {after}")
+        base = os.path.join(root, tag)
+        # Seq rank 0's ranks of each tensor x expert place hold the banks.
+        grads = join_banks([torch.load(
+            f"{base}.{t * S * E + e}.grads.pt", weights_only=True)
+            for t in range(T) for e in range(E)], mesh)
+        agree[tag] = dict(first_loss_rel=first_rel,
+                          dropout_probe_rel=probe_rel,
+                          dropout_loss_rel=drop_rel, gradients=agreement(
+                              (got[0]["losses"][0], grads),
+                              (one["losses"][0], ref["grads"]),
+                              f"{tag} vs 16a, the first step's gradients",
+                              tol["grad"]))
+        del grads
+        # The seq ranks' routings of their positions, joined on S.
+        parts = [torch.load(f"{base}.s{s}.routing.pt", weights_only=True)
+                 for s in range(S)]
+        routes = [(torch.cat([p[i][0] for p in parts], dim=1),
+                   torch.cat([p[i][1] for p in parts], dim=1))
+                  for i in range(len(parts[0]))]
+        diff = routing_differences(routes, ref["routes"], top_k)
+        share = diff["flipped"] / diff["tokens"]
+        # Each seq rank's positions' drops, from its tensor and expert
+        # rank 0 (rank s E).
+        dropped = [sum(got[s * E]["dropped"][i] for s in range(S))
+                   for i in range(len(one["dropped"]))]
+        agree[tag].update(routing=dict(diff, share=share), dropped=dropped)
+        print(f"{tag} vs 16a [{card}]: {diff['flipped']} of "
+              f"{diff['tokens']} token-routings of the first step flipped "
+              f"an expert ({share:.2e}; limit {TOL_SPLIT['flipped']}); "
+              f"(token, expert) choices dropped at capacity by routing "
+              f"call {dropped} (16a {one['dropped']})")
+        check(share <= TOL_SPLIT["flipped"],
+              f"{tag}: {share:.2e} of the routings flipped")
+        print(f"{tag} vs 16a [{card}]: first loss "
+              f"{got[0]['losses'][0]:.6f} vs {one['losses'][0]:.6f} (rel "
+              f"{first_rel:.2e}, limit {tol['loss']}); at dropout 0.1 on "
+              f"the first weights {got[0]['dropout_probe']:.6f} vs "
+              f"{before:.6f} (rel {probe_rel:.2e}), the dropout step "
+              f"{got[0]['dropout_loss']:.6f} vs {after:.6f} (rel "
+              f"{drop_rel:.2e}); {got[0]['replicated_checked']} parameters "
+              "bitwise equal across each seq group")
+        for r, g in enumerate(got):
+            print(f"  {tag} rank {r} (tensor, seq, expert "
+                  f"{g['coordinate']}): build {g['build_s']:.2f} s, first "
+                  f"step {g['first_step_ms']:.2f} ms, timed step "
+                  f"{', '.join(f'{t:.2f}' for t in g['step_ms'])} ms (16a "
+                  f"{one['mean_step_ms']:.2f}), peak {g['peak_gb']:.2f} GB "
+                  f"(16a {one['peak_gb']:.2f}); state held "
+                  f"{g['held_gb']['total']:.3f} GB (reckoned "
+                  f"{memory[tag]['total']:.3f})"
+                  + (f"; checkpoint {g['checkpoint_s']:.2f} s"
+                     if "checkpoint_s" in g else ""))
+        results[tag] = got
+    # 19a's checkpoint in one process: the whole trainable parameters that
+    # rank 0 gathered for it (one copy of each expert slice), bitwise.
+    t0 = time.perf_counter()
+    trainer = ref.pop("restorer", None)
+    if trainer is None:
+        trainer = Trainer(split_config("15a-moe"))
+        trainer.init_state()
+    manager = CheckpointManager(os.path.join(root, "19a.ckpt"))
+    manager.restore(manager.latest(), trainer)
+    params = torch.load(os.path.join(root, "19a.params.pt"),
+                        weights_only=True)
+    restored = trainable_on_host(trainer.model)
+    equal = (trainer.step == 3 and restored.keys() == params.keys()
+             and all(torch.equal(restored[n], params[n]) for n in params))
+    restore_s = time.perf_counter() - t0
+    check(equal, "19a's checkpoint restored in one process differs from "
+          "the ranks' parameters")
+    print(f"19a [{card}]: the checkpoint restored bitwise in one process "
+          f"in {restore_s:.2f} s")
+    del trainer, params, restored
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 19: {seconds:.1f} s (its runs in the four-rank job "
+          f"{job_s:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, ranks=results,
+                agreement=agree, job_s=job_s, restore_s=restore_s,
+                seconds=seconds)
+
+
 def four_rank_main(spec_path: str) -> int:
-    """One rank of the four-rank job of phases 16, 17 and 18 (on a
+    """One rank of the four-rank job of phases 16 to 19 (on a
     ``RankServer`` rank): their runs in turn on ``cuda:0``, which the
     four ranks share (gloo on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``),
     each run's readings (and its seconds on this rank) to
@@ -7171,7 +7489,7 @@ def four_rank_main(spec_path: str) -> int:
     device = torch.device(DDP_DEVICE)
     maybe_init_distributed(device)
     runners = {"16": moe_shard_rank_run, "17": pipe_shard_rank_run,
-               "18": seq_shard_rank_run}
+               "18": seq_shard_rank_run, "19": moe_seq_rank_run}
     readings = {}
     for run in spec["runs"]:
         t0 = time.perf_counter()
@@ -7185,9 +7503,9 @@ def four_rank_main(spec_path: str) -> int:
 
 
 def four_rank_job(card: str, server: "RankServer") -> dict:
-    """The runs of phases 16, 17 and 18 in one job of the four ranks of
+    """The runs of phases 16 to 19 in one job of the four ranks of
     ``server`` on the one card (their log in
-    ``chiprun_out/phase16_18_ranks.log``), each run's per-rank state reckoned
+    ``chiprun_out/phase16_19_ranks.log``), each run's per-rank state reckoned
     first: the rank readings, the directory of their files (the caller
     removes it), each phase's seconds in the job (its runs' on the slowest
     rank) and the reckonings."""
@@ -7195,7 +7513,8 @@ def four_rank_job(card: str, server: "RankServer") -> dict:
 
     register_no_dropout()
     memory = {"16": moe_shard_memory(card), "17": pipe_shard_memory(card),
-              "18": seq_shard_memory(card)}
+              "18": seq_shard_memory(card),
+              "19": moe_shard_memory(card, MOE_SEQ_RUNS, "19")}
     root = tempfile.mkdtemp(prefix="chip_smoke_four_ranks_")
 
     def run(phase, tag, twin, mesh, **kw):
@@ -7219,22 +7538,29 @@ def four_rank_job(card: str, server: "RankServer") -> dict:
             launches=SEQ_LAUNCHES_PLAIN if ring else SEQ_LAUNCHES,
             launches_dropout=(SEQ_LAUNCHES_PLAIN if ring
                               else SEQ_LAUNCHES_DROPOUT)))
+    launches, launches_dropout = SPLIT_RUNS["15b"][3]
+    for tag, mesh in MOE_SEQ_RUNS.items():
+        runs.append(run("19", tag, "15a-moe", mesh, launches=launches,
+                        launches_dropout=launches_dropout))
+        if tag != "19a":  # 19a's checkpoint is the one restored
+            runs[-1]["checkpoint"] = None
     spec = dict(card=card, out=os.path.join(root, "rank"), runs=runs)
     spec_path = os.path.join(root, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
-    job_s = server.run("four", spec_path, "the runs of phases 16 to 18")
+    job_s = server.run("four", spec_path, "the runs of phases 16 to 19")
     ranks = []
     for r in range(FOUR_RANKS):
         with open(f"{spec['out']}.{r}.json") as f:
             ranks.append(json.load(f))
     seconds = {p: max(sum(rk[x["tag"]]["run_s"] for x in runs
                           if x["phase"] == p) for rk in ranks)
-               for p in ("16", "17", "18")}
-    print(f"phases 16 to 18: the four-rank job took {job_s:.1f} s (16's "
+               for p in ("16", "17", "18", "19")}
+    print(f"phases 16 to 19: the four-rank job took {job_s:.1f} s (16's "
           f"runs {seconds['16']:.1f} s, 17's {seconds['17']:.1f} s, 18's "
-          f"{seconds['18']:.1f} s, the rest waiting for the ranks' start "
-          f"and the last checkpoint writes) [{card}]")
+          f"{seconds['18']:.1f} s, 19's {seconds['19']:.1f} s, the rest "
+          f"waiting for the ranks' start and the last checkpoint writes) "
+          f"[{card}]")
     return dict(ranks=ranks, root=root, seconds=seconds, job_s=job_s,
                 memory=memory)
 
@@ -7352,13 +7678,13 @@ def main(stop_after: str | None = None) -> int:
 
         def hand_over():
             servers[0].stop()
-            servers.append(RankServer(FOUR_RANKS, "phase16_18_ranks.log"))
+            servers.append(RankServer(FOUR_RANKS, "phase16_19_ranks.log"))
         split = split_phase(card, servers[0], moe_ref, then=hand_over)
         servers[0].wait()
         done("15")
-        # Phases 16, 17 and 18 share one four-rank job, which phase 16
-        # starts; the seconds of phases 17 and 18 are their checks here
-        # (their runs' shares of the job are printed).
+        # Phases 16 to 19 share one four-rank job, which phase 16 starts;
+        # the seconds of phases 17 to 19 are their checks here (their
+        # runs' shares of the job are printed).
         job = four_rank_job(card, servers[1])
         servers[1].stop()
         servers[1].wait()
@@ -7370,15 +7696,18 @@ def main(stop_after: str | None = None) -> int:
         free()
         done("16")
         pipe_shard = pipe_shard_phase(card, moe_ref, job)
-        del moe_ref
         free()
         done("17")
         seq_shard = seq_shard_phase(card, seq_ref, job)
+        del seq_ref
+        free()
+        done("18")
+        moe_seq = moe_seq_phase(card, moe_ref, job)
+        del moe_ref
     finally:
         shutil.rmtree(job["root"], ignore_errors=True)
-    del seq_ref
     free()
-    done("18")
+    done("19")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -7492,6 +7821,15 @@ def main(stop_after: str | None = None) -> int:
             "launches_per_step"][train_key]
         entry["launches_seq_tensor_step"] = seq_shard["ranks"]["18b"][0][
             "launches_per_step"][train_key]
+        for tag, got in moe_seq["ranks"].items():
+            for r, rank in enumerate(got):
+                check(rank["launches_per_step"][train_key] > 0,
+                      f"{entry['name']} never launched in a phase-{tag} "
+                      f"step of rank {r}")
+        entry["launches_moe_seq_expert_step"] = moe_seq["ranks"]["19a"][0][
+            "launches_per_step"][train_key]
+        entry["launches_moe_seq_tensor_step"] = moe_seq["ranks"]["19b"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -7508,7 +7846,8 @@ def main(stop_after: str | None = None) -> int:
         "launches_pipe_step", "launches_moe_fsdp_step",
         "launches_moe_tensor_step", "launches_pipe_fsdp_step",
         "launches_pipe_tensor_step", "launches_seq_fsdp_step",
-        "launches_seq_tensor_step")}
+        "launches_seq_tensor_step", "launches_moe_seq_expert_step",
+        "launches_moe_seq_tensor_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -7547,7 +7886,10 @@ def main(stop_after: str | None = None) -> int:
                  f"kernel off; launches_seq_fsdp_step / _seq_tensor_step: "
                  f"one step of a phase-18a rank (fsdp 2 x seq 2) and of a "
                  f"phase-18b rank (tensor 2 x seq 2), the all-gather "
-                 f"path"}))
+                 f"path; launches_moe_seq_expert_step / "
+                 f"_moe_seq_tensor_step: one step of a phase-19a rank (4 "
+                 f"experts over seq 2 x expert 2) and of a phase-19b rank "
+                 f"(tensor 2 x seq 2)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -7561,7 +7903,8 @@ def main(stop_after: str | None = None) -> int:
                    "ddp": distributed, "moe": moe, "gpipe": gpipe,
                    "sharded": sharded, "seq": seq, "split": split,
                    "moe_shard": moe_shard, "pipe_shard": pipe_shard,
-                   "seq_shard": seq_shard, "seconds": seconds},
+                   "seq_shard": seq_shard, "moe_seq": moe_seq,
+                   "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {

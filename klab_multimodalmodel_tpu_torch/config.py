@@ -122,6 +122,16 @@ SWINV2_SIZES: dict[str, SwinV2Size] = {
 
 
 _DTYPE_NAMES = ("float32", "bfloat16")
+# The JAX ``Config``'s words for GPipe stages beside a seq axis and beside
+# MoE (``utils/mesh.py`` raises them for a pipe axis beside either).
+STAGES_WITH_SEQ = (
+    "pipeline_stages > 1 with a seq mesh axis > 1 is not supported "
+    "(sharding constraints inside the vmapped stages); shard long "
+    "sequences with --mesh_shape seq instead of the pipeline")
+STAGES_WITH_MOE = (
+    "moe_experts > 0 with pipeline_stages > 1 is not supported (the MoE "
+    "aux loss does not thread through the pipeline tick schedule); shard "
+    "experts with the mesh expert axis instead")
 _SCHEDULERS = ("", "cosine", "linear", "exponential", "step")
 _REMAT = ("", "full", "dots_saveable")
 
@@ -130,12 +140,9 @@ _REMAT = ("", "full", "dots_saveable")
 class Config:
     """The fields of the JAX package's ``Config`` that captioning, the
     training step and the training loop read, with the same names,
-    defaults and checks. Options that are not ported raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them: the
-    ``pipe`` mesh axis above 1 beside ``seq`` or ``expert`` above 1, the
-    ``seq`` axis above 1 beside ``expert`` above 1, and MoE with ``seq``
-    above 1 (all A12d's second half); and
-    ``profile_server_port > 0`` (PyTorch has no live profiler server)."""
+    defaults and checks. An option that is not ported raises
+    ``NotImplementedError``: ``profile_server_port > 0`` (PyTorch has no
+    live profiler server)."""
 
     image_model_name: str = "microsoft/swinv2-base-patch4-window8-256"
     # Train the image tower (it joins the optimizer unless
@@ -333,23 +340,14 @@ class Config:
         and ``tensor`` as the JAX package takes them, at ``pipe`` 1 or
         equal to the stages (the T5 kernel stays off under stages:
         ``_check_pipeline_and_moe``), and ``seq`` takes them too, on
-        both ``seq_attention`` backends. Still ROADMAP A12d: MoE with
-        ``seq``, and the axes that ``refuse_waiting_combinations`` names
-        (``pipe`` beside ``seq`` or ``expert``; ``seq`` beside
-        ``expert``). ``seq_attention='ring'`` with
+        both ``seq_attention`` backends, with MoE (``expert`` beside
+        ``seq`` too) as without. ``pipe`` beside ``seq`` or ``expert``
+        raises the JAX package's ValueError there (stages with seq, MoE
+        with stages). ``seq_attention='ring'`` with
         the T5 kernel on and ``seq`` above 1 is refused as inert: the JAX
         package runs the kernel there and never the ring."""
-        from .utils.mesh import refuse_waiting_combinations
-
         tensor, seq = self._axis("tensor"), self._axis("seq")
-        for name in ("mesh_shape", "dcn_mesh_shape"):
-            refuse_waiting_combinations(getattr(self, name),
-                                        self.mesh_axis_names, name)
         if seq != 1:
-            if self.moe_experts > 0:
-                raise NotImplementedError(
-                    f"moe_experts={self.moe_experts} with mesh seq={seq}: "
-                    "MoE under sequence parallelism is ROADMAP A12d")
             if (self.seq_attention == "ring"
                     and self.use_pallas_t5_attention):
                 raise ValueError(
@@ -385,11 +383,7 @@ class Config:
                     f"pipeline_stages={self.pipeline_stages} (or 1 to run "
                     "the schedule unsharded)")
             if axis("seq") != 1:
-                raise ValueError(
-                    "pipeline_stages > 1 with a seq mesh axis > 1 is not "
-                    "supported (sharding constraints inside the vmapped "
-                    "stages); shard long sequences with --mesh_shape seq "
-                    "instead of the pipeline")
+                raise ValueError(STAGES_WITH_SEQ)
         elif axis("pipe") != 1:
             raise ValueError(
                 f"mesh pipe axis {axis('pipe')} > 1 requires "
@@ -400,11 +394,7 @@ class Config:
                     f"moe_top_k={self.moe_top_k}: expected 1 (Switch) "
                     "or 2 (GShard)")
             if self.pipeline_stages > 1:
-                raise ValueError(
-                    "moe_experts > 0 with pipeline_stages > 1 is not "
-                    "supported (the MoE aux loss does not thread through "
-                    "the pipeline tick schedule); shard experts with the "
-                    "mesh expert axis instead")
+                raise ValueError(STAGES_WITH_MOE)
             expert = axis("expert")
             if expert is not None and self.moe_experts % max(expert, 1):
                 raise ValueError(
@@ -530,9 +520,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--mesh_shape", type=int, nargs="+", default=list(d.mesh_shape),
         help="3-6 ints: DATA FSDP TENSOR [SEQ [PIPE [EXPERT]]]; one rank per "
              "entry (-1 = all processes); PIPE equals --pipeline_stages, "
-             "EXPERT divides --moe_experts; still refused (ROADMAP A12d): "
-             "PIPE beside SEQ or EXPERT, SEQ beside EXPERT, and "
-             "--moe_experts with SEQ, each above 1")
+             "EXPERT divides --moe_experts; refused as the JAX package "
+             "refuses them: PIPE beside SEQ or EXPERT, each above 1")
     add("--dcn_mesh_shape", type=int, nargs="+",
         default=list(d.dcn_mesh_shape),
         help="3-6 ints: per-axis factors across slices, each multiplying "
@@ -588,9 +577,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cannot honour, given another value than its default, raises
     ``NotImplementedError`` naming the ROADMAP item that ports it (all such
     flags in one message); the ``Config`` then checks the rest as the JAX
-    package's does (the pipeline and MoE flags, the pipe and expert axes),
-    refuses the axes that do not compose yet, and refuses
-    ``profile_server_port``."""
+    package's does (the pipeline and MoE flags, the pipe and expert axes)
+    and refuses ``profile_server_port``."""
     kwargs: dict[str, Any] = dict(vars(args))
     fields = {f.name for f in dataclasses.fields(Config)}
     refused = []

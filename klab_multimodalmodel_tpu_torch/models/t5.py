@@ -71,7 +71,11 @@ the ring key their dropout on both the global head and the global query.
 An encoder stack gathers its output (the cross-attention
 context and the text tower's features are whole on every rank); the
 decoder keeps its rows, and ``forward``'s loss is the mean over the rank's
-positions. Decode steps never shard.
+positions. Under MoE a seq rank routes its positions at the capacity of
+the full length, its slots offset by the earlier seq ranks' choices
+(``ops/moe.py``), and its balance loss is its positions' share of the
+whole; a stack that runs whole on every seq rank counts its balance loss
+on seq rank 0 only. Decode steps never shard.
 
 ``pipeline_stages > 1`` runs a stack's full-sequence forward as the JAX
 package's GPipe schedule (``T5Stack._pipelined``): S stages of consecutive
@@ -495,13 +499,18 @@ class T5MoeMlp(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None
+                mask: Optional[torch.Tensor] = None, seq=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``x`` (G, S, D) and the groups' token ``mask``; with ``seq`` (a
+        ``SeqSlice``) x holds its positions of groups of ``seq.length``,
+        ``mask`` their whole (G, seq.length) mask, and the capacity is the
+        full length's (``topk_routing``)."""
         # The router in fp32: routing must not flip with the compute dtype.
         logits = F.linear(x.float(), self.router.weight.float())
-        cap = moe_capacity(x.shape[1], self.num_experts, self.top_k,
-                           self.capacity_factor)
-        combine, aux = topk_routing(logits, self.top_k, cap, mask=mask)
+        cap = moe_capacity(x.shape[1] if seq is None else seq.length,
+                           self.num_experts, self.top_k, self.capacity_factor)
+        combine, aux = topk_routing(logits, self.top_k, cap, mask=mask,
+                                    seq=seq)
         rate = 0.0 if deterministic else self.size.dropout_rate
         y = moe_ffn(x, combine, self.experts_wi, self.experts_wo, rate,
                     generator, self.expert)
@@ -577,8 +586,8 @@ class T5Block(nn.Module):
         ff = self.layer[-1]
         if self.moe:
             h, aux = ff["mlp"](ff["layer_norm"](x), deterministic, generator,
-                               mask=moe_mask)
-            return x + dropout(h, rate, generator), aux
+                               mask=moe_mask, seq=seq)
+            return x + dropout(h, rate, generator, rows), aux
         h = ff["DenseReluDense"](ff["layer_norm"](x), deterministic,
                                  generator, seq, batch_rows)
         return x + dropout(h, rate, generator, rows)
@@ -854,10 +863,15 @@ class T5Stack(nn.Module):
                     L, L, self.mesh, batch=x.shape[0] * self.mesh.dp_size,
                     num_heads=self.size.num_heads)))
         if self.moe:
-            # The key mask is also the routing mask: pads route nowhere.
+            # The key mask is also the routing mask: pads route nowhere
+            # (whole under seq: each layer routes the rank's positions).
             kw["moe_mask"] = kmask
         x, aux = self._run_blocks(self.block, x, kw, generator, cache)
         if self.moe and cache is None:
+            if (seq is None and self.seq_group is not None
+                    and self.seq_group.rank):
+                # Whole on every seq rank: seq rank 0 counts it.
+                aux = aux * 0.0
             aux = balance_share(aux, kmask, x.shape[0], self.aux_group)
         x = dropout(self.final_layer_norm(x), rate, generator, _rows(seq))
         if self.gather_output:

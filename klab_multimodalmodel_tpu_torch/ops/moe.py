@@ -22,6 +22,21 @@ and the expert group the partial combine (``parallel/partitioning.py``).
 Two sums a layer, not one over tensor x expert: a rank's partial output
 of its columns would otherwise be combined before the sum over columns,
 and the layer would round where one process does not.
+
+Under sequence parallelism a routing group (a sequence) spans the ranks of
+a seq group, each holding its positions (``SeqSlice``), where the JAX
+package routes the whole group at its global shape. ``topk_routing`` then
+takes the capacity of the full length and, in each of its ``top_k``
+passes, gathers every seq rank's count of the tokens that chose each
+expert (``seq_counts``, one all-gather of (G, E) a pass): the earlier
+ranks' counts offset the rank's slots, so that slots are claimed in
+sequence order as one process claims them, and the sum fills each
+expert's used slots and the balance loss's routed fractions. The balance
+loss is linear in the router's probabilities once those fractions are
+global: each rank's is its positions' share, and the shares sum to one
+process's value and gradient. ``moe_ffn`` needs no exchange over ``seq``:
+a rank dispatches its own tokens into slots that no other rank claims;
+the FFN (no bias, ReLU) leaves the empty slots 0.
 """
 
 from __future__ import annotations
@@ -32,8 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import dropout
-from ..parallel.partitioning import (ExpertGroup, expert_enter, expert_exit,
-                                     grad_summed_over, sum_over_group)
+from ..parallel.partitioning import (ExpertGroup, SeqSlice, expert_enter,
+                                     expert_exit, grad_summed_over,
+                                     seq_shard, sum_over_group)
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -45,8 +61,20 @@ def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
     return max(1, min(cap, num_tokens))
 
 
+def seq_counts(counts: torch.Tensor, seq: SeqSlice) -> torch.Tensor:
+    """(seq.size, *counts.shape): every seq rank's ``counts``, in seq order
+    (``all_gather_into_tensor`` over the seq group)."""
+    import torch.distributed as dist
+
+    out = counts.new_empty((seq.size * counts.shape[0],)
+                           + tuple(counts.shape[1:]))
+    dist.all_gather_into_tensor(out, counts.contiguous(), group=seq.group)
+    return out.view((seq.size,) + tuple(counts.shape))
+
+
 def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
-                 mask: Optional[torch.Tensor] = None
+                 mask: Optional[torch.Tensor] = None,
+                 seq: Optional[SeqSlice] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense-dispatch top-k routing.
 
@@ -63,13 +91,23 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
     (argmax, first index on ties). A token's slot in its expert counts the
     tokens before it in sequence order that chose that expert in this pass,
     offset by the slots earlier passes filled.
+
+    With ``seq`` the logits are positions ``seq.start ..`` of groups of
+    ``seq.length`` (``mask`` is then the whole groups' (G, seq.length)
+    mask): each pass's choice counts of every seq rank come from
+    ``seq_counts``, ``combine`` holds the rank's rows of the whole
+    routing's, and ``aux`` is the rank's share of
+    the whole one (its positions' probabilities), the shares summing to
+    it.
     """
     G, S, E = router_logits.shape
     dev = router_logits.device
     probs = torch.softmax(router_logits.float(), dim=-1)
-    m = None if mask is None else mask.float()
-    n_real = (torch.full((G,), float(S), device=dev) if m is None
-              else m.sum(dim=1).clamp(min=1.0))                    # (G,)
+    length = S if seq is None else seq.length
+    whole = None if mask is None else mask.float()
+    m = None if whole is None else seq_shard(whole, seq)
+    n_real = (torch.full((G,), float(length), device=dev) if whole is None
+              else whole.sum(dim=1).clamp(min=1.0))                # (G,)
     combine = torch.zeros((G, S, E, capacity), device=dev)
     remaining = probs
     used = torch.zeros((G, E), dtype=torch.int64, device=dev)
@@ -81,9 +119,16 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
         if m is not None:
             onehot = onehot * m[:, :, None]
         ioh = (onehot > 0).long()
+        total = onehot.sum(dim=1)                                  # (G, E)
+        offset = used
+        if seq is not None:
+            # The earlier seq ranks' tokens take this pass's first slots.
+            every = seq_counts(total, seq)                 # (ranks, G, E)
+            offset = used + every[:seq.rank].sum(dim=0).long()
+            total = every.sum(dim=0)
         pos_in_expert = (onehot.cumsum(dim=1) - onehot).long()
         pos = ((pos_in_expert * ioh).sum(-1)
-               + (used[:, None, :] * ioh).sum(-1))                 # (G, S)
+               + (offset[:, None, :] * ioh).sum(-1))               # (G, S)
         fits = pos < capacity
         # One class past the last slot takes the overflowed tokens; it is
         # dropped (jax.nn.one_hot of an out-of-range index is all zeros).
@@ -91,8 +136,10 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
                          capacity + 1)[..., :capacity].float()     # (G, S, C)
         route = onehot[:, :, :, None] * slot[:, :, None, :]        # 0 or 1
         combine = combine + (gate * fits)[:, :, None, None] * route
-        used = used + (ioh * fits[:, :, None]).sum(dim=1)
-        frac_routed = frac_routed + onehot.sum(dim=1) / n_real[:, None]
+        # The pass's tokens of expert e take its slots used .. used +
+        # total - 1 in order; those below the capacity fit.
+        used = (used + total.long()).clamp(max=capacity)
+        frac_routed = frac_routed + total / n_real[:, None]
         remaining = remaining * (1.0 - onehot)
     # E * sum_e(f_e * P_e) on the full softmax (the router's gradient sees
     # every expert), averaged over the groups that hold a real token: an
@@ -100,8 +147,8 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
     # nothing and dilutes nothing.
     pm = probs if m is None else probs * m[:, :, None]
     mean_prob = pm.sum(dim=1) / n_real[:, None]                    # (G, E)
-    n_groups = (float(G) if m is None
-                else m.amax(dim=1).sum().clamp(min=1.0))
+    n_groups = (float(G) if whole is None
+                else whole.amax(dim=1).sum().clamp(min=1.0))
     aux = E * (frac_routed / top_k * mean_prob).sum(-1).sum() / n_groups
     return combine, aux
 

@@ -53,8 +53,9 @@ package keeps outside its stacks, on every stage), and the ``expert``
 rule shards the banks' leading dim. The JAX package's three constraints
 become the exchanges XLA would insert for them:
 
-* ``expert_constraint``: ``ExpertGroup``, the ranks that share the rows and
-  split the banks: tensor x expert. No token moves. Each rank runs its
+* ``expert_constraint``: ``ExpertGroup``, the ranks that share the rows
+  (and positions, under ``seq``) and split the banks: tensor x expert. No
+  token moves. Each rank runs its
   experts' FFN on its ``d_ff / tensor`` columns of each (``wi`` cut on
   dim 2, ``wo`` on dim 1, where the rules put ``tensor``), and Megatron's
   f and g carry the partial results: the token activations' gradient is
@@ -540,7 +541,8 @@ def seq_gather(x: torch.Tensor, seq: Optional[SeqSlice],
 class ExpertGroup:
     """The ranks that split an MoE layer's banks, as the layer sees them:
     ``group``, the process group of tensor x expert (the ranks that share
-    the rows), this rank's place on the expert axis (``rank`` of ``size``,
+    the rows and, under ``seq``, the positions), this rank's place on the
+    expert axis (``rank`` of ``size``,
     whose ranks ``expert_group`` holds) and on the tensor axis
     (``tensor_rank`` of ``tensor``, in ``tensor_group``). Rank (t, e)
     holds experts ``[e E / size, (e + 1) E / size)`` of every layer's E,

@@ -53,7 +53,10 @@ seq ranks of one data x fsdp x tensor coordinate hold the same shards:
 FSDP2 reduces each rank's gradient over data x fsdp, and the reduced
 shards, each seq rank's part of the gradient of its positions, are then
 summed over the seq group; token counts and losses are summed over data x
-fsdp x seq (``Mesh.loss_groups``).
+fsdp x seq (``Mesh.loss_groups``). Under MoE a seq rank's balance loss is
+its positions' share of its rows' (``ops/moe.py``), and the balance
+loss's mean over the rows' groups spans data x fsdp (``Mesh.dp_group``),
+whose ranks hold the other rows.
 
 A mesh with ``pipe`` or ``expert`` above 1 splits the transformer after
 its weights are made or loaded: a pipe rank keeps its stage's blocks
@@ -67,16 +70,18 @@ blocks FSDP2 units of its data x fsdp peers; ``pipe_stages`` lets FSDP2
 reduce their gradients). A pipelined transformer on several data ranks
 draws its dropout masks as one process draws them for the whole batch and
 keeps its rows (``T5ForConditionalGeneration.set_batch_share``).
-The ranks of a pipe group, or of a tensor x expert group, hold the same
-rows and compute one loss: every exchange between them sits inside the
-model (the stage shift, the experts' partial sums), so that the gradients
-of the replicated parameters come out the same on each rank with no
-further reduction. DDP, when there is more than one data rank and nothing
-is sharded, spans the data group of the rank's stage or experts
-(``Mesh.dp_group``); with one data rank there is none. Whole state dicts
-gather the stages and the bank slices to rank 0 over the host's gloo
-group, as tensors (under sharding each rank's part gathered whole within
-its data x fsdp x tensor group first).
+The ranks of a pipe group, or of a tensor x expert group at one seq
+coordinate, hold the same rows and positions and compute one loss: every
+exchange between them sits inside the model (the stage shift, the
+experts' partial sums over ``Mesh.moe_group``), so that the gradients of
+the replicated parameters come out the same on each rank with no further
+reduction. DDP, when there is more than one data or seq rank and nothing
+is sharded, spans the data x seq group of the rank's stage or experts
+(``Mesh.ddp_group``); with one data rank and one seq rank there is none.
+Whole state dicts gather the stages and the bank slices to rank 0 over
+the host's gloo group, as tensors (under sharding each rank's part
+gathered whole within its data x fsdp x tensor group first; one copy of
+each bank slice, from seq rank 0).
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -210,11 +215,11 @@ class Trainer:
         self.expert = None
         if cfg.moe_experts and (mesh.expert > 1 or mesh.tensor > 1):
             self.expert = ExpertGroup(
-                mesh.rows_group(dt), mesh.expert_rank, mesh.expert,
+                mesh.moe_group(dt), mesh.expert_rank, mesh.expert,
                 mesh.tensor_rank, mesh.tensor,
                 mesh.tensor_group(dt) if mesh.tensor > 1 else None,
                 mesh.expert_group(dt) if mesh.expert > 1 else None)
-        if mesh.split or mesh.sharded:
+        if mesh.split or mesh.sharded or mesh.seq > 1:
             mesh.dp_group(dt)
         if cfg.moe_experts and mesh.dp_size > 1:
             self.model.transformer.set_aux_group(mesh.dp_group(dt))
@@ -292,13 +297,14 @@ class Trainer:
         self.step = 0
         self.ddp = None
         if (self.mesh.distributed and not self.sharded
-                and (not self.mesh.split or self.mesh.data > 1)):
+                and (not self.mesh.split
+                     or self.mesh.data * self.mesh.seq > 1)):
             # Every rank builds the same weights and buffers (the same seed,
             # or the same checkpoint file): rank 0's broadcasts would only
             # repeat them, at init and before every forward.
             args = inspect.signature(
                 DistributedDataParallel.__init__).parameters
-            kw = dict(process_group=self.mesh.dp_group(self.device.type),
+            kw = dict(process_group=self.mesh.ddp_group(self.device.type),
                       gradient_as_bucket_view=True)
             kw["forward_sync_buffers" if "forward_sync_buffers" in args
                else "broadcast_buffers"] = False
@@ -409,10 +415,13 @@ class Trainer:
     def _sources(self) -> list:
         """The world ranks that hold rank 0's stages (by stage) or bank
         slices (tensor-major, expert-minor: the ranks that share rank 0's
-        rows)."""
+        rows, at seq rank 0: the other seq ranks hold the same slices)."""
         m = self.mesh
-        return ([s * m.expert for s in range(m.pipe)] if m.pipe > 1
-                else list(range(m.tensor * m.expert)))
+        if m.pipe > 1:
+            return [s * m.expert for s in range(m.pipe)]
+        per_tensor = m.seq * m.pipe * m.expert
+        return [t * per_tensor + e for t in range(m.tensor)
+                for e in range(m.expert)]
 
     def _gather_split(self, mine: dict) -> list:
         """Rank 0: every source's ``mine`` (``_sources`` order; its own in

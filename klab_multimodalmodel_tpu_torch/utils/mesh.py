@@ -15,24 +15,25 @@ stack, the parameters replicated over it as over ``data``: alone beside
 ``data`` under DDP, whose gradient all-reduce then spans data x seq;
 beside ``fsdp`` or ``tensor`` under FSDP2 over ``(data, fsdp)``, with the
 reduced shards then summed over the seq group (``seq_group`` carries that
-sum and the stacks' K/V exchange; ``loss_groups`` the token counts and
-losses over data x fsdp x seq).
+sum, the stacks' K/V exchange and the MoE routing's counts;
+``loss_groups`` the token counts and losses over data x fsdp x seq).
 ``pipe``: pipe rank p holds stage p of the transformer's GPipe schedule
 (``pipe_group`` carries the stage shift); ``expert``: expert rank e holds
 experts ``[e E/n, (e+1) E/n)`` of every MoE layer. The ranks of one tensor,
 seq, pipe or expert group share their rows: the batch splits over the
 ``data x fsdp`` index (``dp_rank`` of ``dp_size``). Under MoE a rank runs
 its experts' ``d_ff / tensor`` columns: the tensor group sums their
-outputs, the expert group the combine, and the ``rows_group`` (tensor x
-expert) the tokens' gradient (``ops/moe.py``). One ``DeviceMesh`` spans all
-six axes in the same rank order; FSDP2's ``(data, fsdp)`` sub-mesh, the
-``tensor`` sub-mesh and the groups of the other axes come from it.
+outputs, the expert group the combine, and the ``moe_group`` (tensor x
+expert at the rank's seq coordinate) the tokens' gradient
+(``ops/moe.py``). One ``DeviceMesh`` spans all six axes in the same rank
+order; FSDP2's ``(data, fsdp)`` sub-mesh, the ``tensor`` sub-mesh and the
+groups of the other axes come from it.
 Under ``pipe`` with ``fsdp`` or ``tensor`` a stage's blocks are FSDP2 units
 of its ``(data, fsdp)`` peers and tensor-parallel over its tensor peers; a
 pipe group joins the ranks of one data, fsdp and tensor coordinate.
-``pipe`` does not compose with ``seq`` or ``expert`` yet, and ``seq`` does
-not compose with ``expert`` (ROADMAP A12d's second half): such a shape
-raises.
+``pipe`` above 1 beside ``seq`` or ``expert`` above 1 raises, as the JAX
+``Config`` refuses GPipe stages with a seq axis and MoE with stages
+(``refuse_pipe_beside``).
 
 Rendezvous comes from the environment, as torchrun sets it (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or from
@@ -58,6 +59,7 @@ from typing import Mapping, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from ..config import STAGES_WITH_MOE, STAGES_WITH_SEQ
 from .device import resolve_device
 
 DEFAULT_AXIS_NAMES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
@@ -96,25 +98,22 @@ def resolve_mesh_shape(mesh_shape: Sequence[int],
     return tuple(shape)
 
 
-def refuse_waiting_combinations(shape: Sequence[int],
-                                axis_names: Sequence[str] = DEFAULT_AXIS_NAMES,
-                                what: str = "mesh_shape") -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A12d for the axes that
-    do not compose yet: ``pipe`` above 1 beside ``seq`` or ``expert`` above
-    1, and ``seq`` above 1 beside ``expert`` above 1. A -1 counts as above
-    1."""
+# A pipe axis needs as many GPipe stages; an expert axis needs MoE.
+PIPE_BESIDE = {"seq": STAGES_WITH_SEQ, "expert": STAGES_WITH_MOE}
+
+
+def refuse_pipe_beside(shape: Sequence[int],
+                       axis_names: Sequence[str] = DEFAULT_AXIS_NAMES
+                       ) -> None:
+    """Raise the JAX ``Config``'s ``ValueError`` for ``pipe`` above 1
+    beside ``seq`` or ``expert`` above 1 (a -1 counts as above 1): the
+    stages that a pipe axis needs take neither."""
     size = {n: int(v) for n, v in zip(axis_names, shape)}
-    over = [n for n in ("fsdp", "tensor", "seq", "pipe", "expert")
-            if size.get(n, 1) != 1]
-    waiting = {"pipe": ("seq", "expert"), "seq": ("expert",)}
-    hint = {"pipe": "data, fsdp and tensor", "seq": "data, fsdp and tensor"}
-    for axis in ("pipe", "seq"):
-        beside = [n for n in over if n in waiting[axis]]
-        if axis in over and beside:
-            raise NotImplementedError(
-                f"{what} {tuple(shape)}: {axis} above 1 beside "
-                f"{' and '.join(beside)} is ROADMAP A12d (run {axis} "
-                f"beside {hint[axis]} only)")
+    if size.get("pipe", 1) == 1:
+        return
+    for axis in ("seq", "expert"):
+        if size.get(axis, 1) != 1:
+            raise ValueError(PIPE_BESIDE[axis])
 
 
 def axis_groups(shape: Sequence[int], axes: Sequence[int]
@@ -357,36 +356,65 @@ class Mesh:
 
     def dp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's copies of the other rows: the data x
-        fsdp peers of its tensor, seq, pipe and expert coordinates under
-        sharding or a split (FSDP2's, and the balance loss's); else the
-        world's, which under ``seq`` holds data x seq. Under DDP it is also
-        the group of the gradient all-reduce."""
-        if self.sharded or self.split:
+        fsdp peers of its tensor, seq, pipe and expert coordinates (FSDP2's,
+        and the balance loss's); the world's when the world is the data
+        axis alone."""
+        if self.sharded or self.split or self.seq > 1:
             return self._meshes(device_type)[1].get_group()
         return self.group
+
+    def ddp_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
+        """The group of DDP's gradient all-reduce (nothing sharded): the
+        ranks that hold the same parameters, data x seq; under the pipe or
+        expert split those of this rank's stage or experts."""
+        if not self.split:
+            return self.group
+        return self._axes_group(device_type, ("data", "seq"))
 
     def loss_groups(self, device_type: str) -> list:
         """The groups over which token counts and losses are summed, one
         after the other: together they span the ranks that hold other
         rows or other positions of them, data x fsdp x seq (each seq rank
-        counts the target tokens of its own positions). ``dp_group``, and
-        under sharding with ``seq`` the seq group too (``dp_group`` is then
-        data x fsdp only)."""
+        counts the target tokens of its own positions): the world's under
+        DDP alone, else ``dp_group`` and, with ``seq``, the seq group."""
+        if not (self.sharded or self.split):
+            return [self.group]
         groups = [self.dp_group(device_type)]
-        if self.sharded and self.seq > 1:
+        if self.seq > 1:
             groups.append(self.seq_group(device_type))
         return groups
+
+    def _axes_group(self, device_type: str, axes: tuple
+                    ) -> dist.ProcessGroup:
+        """This rank's group along ``axes`` (``axis_groups``: the ranks
+        that share every other axis's coordinate), made once per device
+        type: every group of the layout, in one order on every rank."""
+        made = self.__dict__.setdefault("_axes_groups", {})
+        key = (device_type, axes)
+        if key not in made:
+            dims = [self.axis_names.index(a) for a in axes]
+            made[key], _ = dist.new_subgroups_by_enumeration(
+                axis_groups(self.shape, dims))
+        return made[key]
 
     def tensor_group(self, device_type: str) -> dist.ProcessGroup:
         return self.device_mesh(device_type)["tensor"].get_group()
 
     def rows_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of the ranks that share this rank's rows (tensor x seq
-        x pipe x expert), in rank order: under MoE, tensor x expert, which
-        sums the experts' partial outputs. None in a process of its own."""
+        x pipe x expert), in rank order. None in a process of its own."""
         if not self.distributed:
             return None
         return self._meshes(device_type)[2].get_group()
+
+    def moe_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
+        """The group of the ranks that split an MoE layer's banks at this
+        rank's positions (tensor x expert, at its data, fsdp, seq and pipe
+        coordinates), in rank order: it sums the tokens' gradient of the
+        experts' partial outputs. None in a process of its own."""
+        if not self.distributed:
+            return None
+        return self._axes_group(device_type, ("tensor", "expert"))
 
     def seq_group(self, device_type: str) -> Optional[dist.ProcessGroup]:
         """The group of this rank's seq peers (the ranks that share its
@@ -436,8 +464,9 @@ def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
     """The mesh over the world's processes (one, when no process group
     exists). Each axis is ``mesh_shape``'s entry (-1: the rest of the
     world) times ``dcn_mesh_shape``'s: the JAX package's parallelism across
-    slices is, here, more ranks on that axis. Axes that do not compose yet
-    raise (``refuse_waiting_combinations``)."""
+    slices is, here, more ranks on that axis. ``pipe`` beside ``seq`` or
+    ``expert`` raises the JAX ``Config``'s ValueError
+    (``refuse_pipe_beside``)."""
     axis_names = tuple(axis_names)
     if set(axis_names) < set(DEFAULT_AXIS_NAMES):
         axis_names = axis_names + tuple(
@@ -445,8 +474,7 @@ def make_mesh(mesh_shape: Sequence[int] = (-1, 1, 1, 1, 1, 1),
     n = len(axis_names)
     ici = pad_mesh_shape(mesh_shape, n)
     dcn = pad_mesh_shape(dcn_mesh_shape or (), n)
-    refuse_waiting_combinations([a * b for a, b in zip(ici, dcn)],
-                                axis_names)
+    refuse_pipe_beside([a * b for a, b in zip(ici, dcn)], axis_names)
     group = dist.group.WORLD if dist.is_initialized() else None
     world = dist.get_world_size() if group is not None else 1
     n_slices = math.prod(dcn)

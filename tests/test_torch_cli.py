@@ -124,7 +124,7 @@ def test_defaults_match_jax():
     ("--mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
     ("--mesh_shape 1 2 -1 1 1 2 --moe_experts 4", None),
     ("--dcn_mesh_shape 1 2 1 1 1 2 --moe_experts 2", None),
-    ("--mesh_shape 1 1 1 2 1 2 --moe_experts 2", "A12d"),
+    ("--mesh_shape 1 1 1 2 1 2 --moe_experts 2", None),
     ("--mesh_shape 2 1 1 1 2 1 --pipeline_stages 2", None),
     ("--scan_unroll 2", "not ported by design"),
     ("--seq_attention ring", None),
@@ -133,7 +133,7 @@ def test_defaults_match_jax():
     ("--mesh_shape 1 2 1 2", None),
     ("--mesh_shape 1 1 2 2 --seq_attention ring", None),
     ("--dcn_mesh_shape 1 2 2 2", None),
-    ("--mesh_shape 1 1 1 2 --moe_experts 2", "A12d"),
+    ("--mesh_shape 1 1 1 2 --moe_experts 2", None),
     ("--pipeline_stages 2 --seq_attention ring", ValueError),
     ("--pipeline_stages 2 --use_pallas_t5_attention", ValueError),
     ("--pipeline_stages 2 --pipeline_microbatches 4", None),
@@ -145,12 +145,12 @@ def test_defaults_match_jax():
     ("--mesh_shape 1 1 1 1 2 1", ValueError),
     ("--profile_server_port 9012", "no live profiler server")])
 def test_unported_flag_raises_naming_its_item(argv, item):
-    """A flag or a combination of mesh axes the port does not honour
-    raises ``NotImplementedError`` naming its ROADMAP item; a pipeline,
-    MoE or mesh value the JAX package refuses raises its ``ValueError``
-    with its message (``item`` ValueError); the ported flags, the pipe and
-    expert axes among them, parse as the JAX package parses them (``item``
-    None)."""
+    """A flag the port does not honour raises ``NotImplementedError``
+    naming its ROADMAP item or why it is not ported; a pipeline, MoE or
+    mesh value the JAX package refuses raises its ``ValueError`` with its
+    message (``item`` ValueError); the ported flags, the pipe and expert
+    axes and MoE under the seq axis (beside the expert axis too) among
+    them, parse as the JAX package parses them (``item`` None)."""
     argv = shlex.split(argv)
     if item is ValueError:
         with pytest.raises(ValueError) as want:
@@ -182,41 +182,44 @@ def _mesh_argv(*axes: str) -> list[str]:
     return ["--mesh_shape", *map(str, shape), *flags]
 
 
-def test_mesh_help_names_only_what_still_raises():
-    """``--mesh_shape``'s help names, after "still refused", exactly the
-    pairs of axes above 1 (with the flags each needs) that the parser
-    refuses, and MoE with seq: every pair it names raises, naming ROADMAP
-    A12d or with the JAX package's ValueError, and every pair it does not
-    name parses as the JAX parser parses it."""
+def test_mesh_help_names_what_the_jax_package_refuses():
+    """``--mesh_shape``'s help names, after "refused", exactly the pairs of
+    axes above 1 (with the flags each needs) that the parser refuses: every
+    pair it names raises the JAX package's ValueError, word for word, and
+    every pair it does not name (the expert axis beside seq among them)
+    parses as the JAX parser parses it, also with MoE under a seq axis
+    alone. No pair names a ROADMAP item."""
     import re
 
     mesh = next(a.help for a in tcfg.build_arg_parser()._actions
                 if "--mesh_shape" in a.option_strings)
-    assert "ROADMAP A12d" in mesh
-    refused = mesh[mesh.index("still refused"):]
+    assert "ROADMAP" not in mesh
+    refused = mesh[mesh.index("refused"):]
     named = set()
     for part in re.split(r"(?=\b[A-Z]+ beside )", refused):
         m = re.match(r"([A-Z]+) beside (.*)", part)
         if m:
             named |= {(m.group(1), b) for b in re.findall(
                 r"\b[A-Z]+\b", m.group(2).split(" and ")[0])}
-    assert named and all(a in AXES and b in AXES for a, b in named)
+    assert named == {("PIPE", "SEQ"), ("PIPE", "EXPERT")}
     for i, a in enumerate(AXES):
         for b in AXES[i + 1:]:
             argv = _mesh_argv(a, b)
             if (a, b) in named or (b, a) in named:
-                with pytest.raises((NotImplementedError, ValueError)) as err:
+                with pytest.raises(ValueError) as want:
+                    jcfg.parse_arguments(argv)
+                with pytest.raises(ValueError) as got:
                     tcfg.parse_arguments(argv)
-                if err.type is NotImplementedError:
-                    assert "A12d" in str(err.value), (a, b)
+                assert str(got.value) == str(want.value), (a, b)
                 continue
             want = jcfg.parse_arguments(argv)
             for name, (w, g) in _shared_fields(
                     want, tcfg.parse_arguments(argv)).items():
                 assert w == g, (a, b, name)
-    assert "--moe_experts with SEQ" in refused
-    with pytest.raises(NotImplementedError, match="A12d"):
-        tcfg.parse_arguments(_mesh_argv("SEQ") + AXIS_FLAGS["EXPERT"])
+    argv = _mesh_argv("SEQ") + AXIS_FLAGS["EXPERT"]
+    for name, (w, g) in _shared_fields(jcfg.parse_arguments(argv),
+                                       tcfg.parse_arguments(argv)).items():
+        assert w == g, name
 
 
 @pytest.mark.parametrize("flags", ["--tokenizer_path {path}",

@@ -1,7 +1,8 @@
 """The port's mesh and process-group set-up (``utils/mesh.py``) against the
 JAX package's ``utils/mesh.py``: the pure shape functions on the same
-inputs, errors included; the refusal of the axes that do not compose yet
-(in ``make_mesh``, ``Config`` and the command line); the environment of
+inputs, errors included; the layouts that build, and the JAX package's
+refusals of the pipe axis beside seq or expert (in ``make_mesh``,
+``Config`` and the command line); the environment of
 torchrun and of the JAX package's ``KLAB_*`` variables; the rank's device."""
 
 import os
@@ -9,6 +10,7 @@ import os
 import pytest
 import torch
 
+import klab_multimodalmodel_tpu.config as jcfg
 from klab_multimodalmodel_tpu.utils import mesh as jmesh
 from klab_multimodalmodel_tpu_torch.config import Config, parse_arguments
 from klab_multimodalmodel_tpu_torch.utils import mesh as tmesh
@@ -50,25 +52,36 @@ EXPERT = dict(moe_experts=2)
     ((1, 1, 1, 2, 2), PIPE, "seq mesh axis"), ((1, 1, 1, 1, 2), PIPE, None),
     ((1, 1, 1, 1, 1, 2), EXPERT, None),
     ((1, -1, 1, 1, 1, 2), EXPERT, None), ((1, 2, 2, 1, 1, 2), EXPERT, None),
-    ((1, 1, 1, 2, 1, 2), EXPERT, "A12d"),
+    ((1, 1, 1, 2, 1, 2), EXPERT, None),
     ((1, 2, 1, 2), {}, None), ((1, 1, 2, 2), {}, None),
     ((1, 2, 2, 2), {}, None)])
 def test_non_data_axes_are_refused(shape, flags, item):
-    """The pipe axis beside seq or expert, and the expert axis beside seq
-    (as ``mesh_shape`` or ``dcn_mesh_shape``), are refused by
-    ``make_mesh`` naming ROADMAP A12d, and by ``Config`` and the command
-    line with the flags that the axis needs: naming A12d, or with the JAX
-    package's ValueError where it refuses first (stages with seq, an
-    expert axis without experts). Alone, and the pipe, expert and seq axes
-    beside fsdp and tensor (the -1 wildcard too), each builds as the JAX
-    ``Config`` builds it, and ``make_mesh`` asks only for the world to
-    match."""
+    """The pipe axis beside seq or expert (as ``mesh_shape`` or
+    ``dcn_mesh_shape``) is refused by ``make_mesh`` with the JAX
+    ``Config``'s words for stages beside a seq axis or MoE, and by
+    ``Config`` and the command line, with the flags that the axis needs,
+    with the JAX package's ValueError (stages with seq, an expert axis
+    without experts). Alone, and the pipe, expert and seq axes beside
+    fsdp and tensor, and the expert axis beside seq (the -1 wildcard too),
+    each builds as the JAX ``Config`` builds it, and ``make_mesh`` asks
+    only for the world to match."""
+    pipe_beside = [a for a, i in (("seq", 3), ("expert", 5))
+                   if shape[4:5] == (2,) and len(shape) > i
+                   and shape[i] != 1]
     for kw in (dict(mesh_shape=shape), dict(mesh_shape=(-1, 1, 1),
                                             dcn_mesh_shape=shape)):
-        with pytest.raises(NotImplementedError if item else ValueError,
-                           match="A12d" if item else
-                           "device count|divisible|does not divide"):
+        with pytest.raises(ValueError) as err:
             tmesh.make_mesh(**kw)
+        if pipe_beside:
+            assert str(err.value) == tmesh.PIPE_BESIDE[pipe_beside[0]]
+            with pytest.raises(ValueError) as want:
+                jcfg.Config(mesh_shape=shape, pipeline_stages=2,
+                            use_pallas_t5_attention=False,
+                            moe_experts=2 * (pipe_beside[0] == "expert"))
+            assert str(err.value) == str(want.value)
+        else:
+            assert any(w in str(err.value) for w in (
+                "device count", "divisible", "does not divide")), err.value
     argv = [f"--{k}" if v is True else f"--{k} {v}" for k, v in flags.items()
             if v is not False]
     for field in ("mesh_shape", "dcn_mesh_shape"):
@@ -78,10 +91,9 @@ def test_non_data_axes_are_refused(shape, flags, item):
             assert getattr(Config(**{field: shape}, **flags), field) == want
             assert getattr(parse_arguments(cli), field) == want
             continue
-        error = NotImplementedError if item == "A12d" else ValueError
-        with pytest.raises(error, match=item):
+        with pytest.raises(ValueError, match=item):
             Config(**{field: shape}, **flags)
-        with pytest.raises(error, match=item):
+        with pytest.raises(ValueError, match=item):
             parse_arguments(cli)
 
 

@@ -242,22 +242,20 @@ def test_head_offset_gives_the_full_calls_heads(backward):
           use_pallas_t5_attention=False), None, None),
     (dict(mesh_shape=(1, 1, 2, 1, 1, 2), moe_experts=2), None, None),
     (dict(mesh_shape=(1, 2, 1), moe_experts=2), None, None),
-    (dict(mesh_shape=(1, 1, 1, 2, 1, 2), moe_experts=2),
-     NotImplementedError, "A12d"),
+    (dict(mesh_shape=(1, 1, 1, 2, 1, 2), moe_experts=2), None, None),
     (dict(mesh_shape=(1, 1, 2), pipeline_stages=2,
           use_pallas_t5_attention=False), None, None),
     (dict(mesh_shape=(1, 1, 1, 2, 2), pipeline_stages=2), ValueError,
      "seq mesh axis"),
     (dict(mesh_shape=(1, 1, 3)), ValueError, "divide by the mesh tensor"),
 ])
-def test_sharded_axes_refuse_what_waits_for_a12c(overrides, error, match):
-    """(f) seq with expert names A12d (its second half: the combinations
-    that still wait), and stages with seq raise the JAX package's
-    ValueError; seq with fsdp and tensor, MoE with fsdp, tensor and
-    expert, and GPipe
-    stages with fsdp or tensor (at pipe 1 or equal to the stages), build
-    as the JAX ``Config`` builds them; heads that do not divide over
-    tensor raise."""
+def test_sharded_axes_build_as_jax_or_raise_its_errors(overrides, error,
+                                                       match):
+    """(f) seq with fsdp and tensor, MoE with fsdp, tensor, expert and seq
+    (the expert axis beside seq too), and GPipe stages with fsdp or tensor
+    (at pipe 1 or equal to the stages), build as the JAX ``Config`` builds
+    them; stages with seq raise the JAX package's ValueError; heads that
+    do not divide over tensor raise."""
     if error is None:
         import klab_multimodalmodel_tpu.config as jcfg
 

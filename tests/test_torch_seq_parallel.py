@@ -340,7 +340,7 @@ def test_plain_kernels_take_q_offset(dtype, lo, hi, h0, h1):
     ("--mesh_shape 2 1 1 2 --seq_attention ring", None, None),
     ("--mesh_shape 1 2 1 2", None, None),
     ("--mesh_shape 1 1 2 2", None, None),
-    ("--mesh_shape 1 1 1 2 --moe_experts 2", NotImplementedError, "A12d"),
+    ("--mesh_shape 1 1 1 2 --moe_experts 2", None, None),
     ("--mesh_shape 1 1 1 1 2 --pipeline_stages 2", None, None),
     ("--mesh_shape 1 1 1 1 1 2 --moe_experts 2", None, None),
     ("--mesh_shape 1 1 1 2 --seq_attention ring "
@@ -351,10 +351,9 @@ def test_plain_kernels_take_q_offset(dtype, lo, hi, h0, h1):
 ])
 def test_seq_flags_parse_or_refuse(argv, error, match):
     """``--mesh_shape D 1 1 S``, ``seq`` beside ``fsdp`` or ``tensor`` and
-    ``--seq_attention ring`` parse as the JAX package parses them; what
-    waits for A12d (MoE with seq) raises naming it; the
-    ring beside the T5 kernel at seq > 1 (where the kernel wins and the
-    ring never runs) raises; the JAX package's own refusals raise its
+    ``--seq_attention ring`` parse as the JAX package parses them, with
+    MoE too; the ring beside the T5 kernel at seq > 1 (where the kernel
+    wins and the ring never runs) raises; the JAX package's own refusals raise its
     messages (a pipeline with seq > 1, or with the ring)."""
     import klab_multimodalmodel_tpu.config as jcfg
 

@@ -161,7 +161,7 @@ def test_schedules_match_optax(name):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(moe_experts=4, mesh_shape=(1, 1, 1, 2, 1, 2)), "A12d"),
+    (dict(profile_server_port=9012), "no live profiler server"),
 ])
 def test_config_refuses_what_is_not_ported(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
