@@ -257,7 +257,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    13b and 13c run as one job of two ranks on the one card (gloo on CUDA
    tensors, as phase 10): a ``RankServer`` of ``torch.distributed.run``
    that runs this script again with ``--rank-server DIR``, started as
-   phase 12 starts and kept for phases 14 and 15's jobs (the ranks' output
+   phase 1 ends and kept for phases 14 and 15's jobs (the ranks' output
    in ``chiprun_out/phase13_15_ranks.log``). Checks: each rank's launches per
    step (T5 forward 27, backward 3, 2 with dBias, Swin 24;
    ``step_launches``); the first step's gradients of every trainable
@@ -332,8 +332,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 16. MoE on a sharded mesh: phase 15a's MoE model (its 15a run the
    reference) over four ranks sharing the card in one job of a
    four-rank ``RankServer`` (gloo on CUDA tensors), which runs phases
-   17's to 19's runs after these (one start of four processes; the ranks'
-   output in ``chiprun_out/phase16_19_ranks.log``):
+   17's to 20's runs too (one start of four processes; the ranks'
+   output in ``chiprun_out/phase16_19_ranks.log``). The rank jobs of
+   phases 13 to 20 run beside phases of this process that need nothing
+   of theirs, so the script runs its phases in the order 1-4, 13 (6
+   beside its job), 14 (8 beside), 15 (12 beside), then the four-rank
+   runs beside 7, 10, 5 and 9 (20a alone first, beside 7), then the
+   checks of 16 to 20, and 11, whose MoE step needs most of the card,
+   last (see ``main``):
    b. ``(1, 2, 1, 1, 1, 2)``: fsdp 2 x expert 2, both fsdp ranks on all
       16 rows (the MoE layers' and the stacks' dropout draws at a rank's
       rows: split rows would not hold one process's masks), FSDP2
@@ -409,7 +415,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``Trainer``. Prints per rank the step spans, peak memory and the
    state held, and each routing call's tokens dropped at capacity beside
    16a's.
-20. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
+20. Sharded init and per-shard checkpoints at t5-11b's width, in the
+   four-rank job (see the comment above ``INIT_MESH``): a. t5-11b at full
+   depth initialized at fsdp 2 x tensor 2 (the job's first run, while the
+   card is nearly empty), each rank's parameters and peak against the
+   reckoning, eight samples bitwise one process's; b. at 1 + 1 blocks: the
+   init, a step, a per-shard checkpoint restored at fsdp 4 and in one
+   process bitwise, a second step on each layout; c. the T5 kernels at
+   b's per-rank shapes.
+21. Prints the ``{"kernels": [...]}`` line (with each kernel's launches in
    one phase-5a step, in phase 6's full and cached steps, in one phase-7a
    beam request, in one phase-8b request and one phase-8c step, in one
    batch of phase 9a, in one full step of a phase-10a rank, in one
@@ -418,7 +432,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of a phase-15b and of a phase-15c rank, in one step of a phase-16b
    and of a phase-16c rank, in one step of a phase-17b and of a
    phase-17c rank, in one step of a phase-18a and of a phase-18b rank,
-   and in one step of a phase-19a and of a phase-19b rank), then
+   in one step of a phase-19a and of a phase-19b rank, and in one step
+   of a phase-20b rank), then
    ``{"ok": true, ...}`` as the last line.
 
 It needs one card and exits non-zero, printing no result, where
@@ -435,6 +450,7 @@ import os
 import subprocess
 import sys
 import time
+from collections.abc import Generator
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "klab_multimodalmodel_tpu_torch/csrc/"
@@ -4082,6 +4098,9 @@ def register_no_dropout() -> None:
     tcfg.register_t5_size(T5_DDP, cut)
     tcfg.register_t5_size(T5_NO_DROPOUT, dataclasses.replace(
         cut, dropout_rate=0.0))
+    tcfg.register_t5_size(INIT_T5, dataclasses.replace(
+        tcfg.T5_SIZES["t5-11b"], num_layers=INIT_LAYERS,
+        num_decoder_layers=INIT_LAYERS, dropout_rate=0.0))
     for name, layers in ((T5_SEQ, SEQ_LAYERS), (T5_SPLIT, SPLIT_LAYERS)):
         tcfg.register_t5_size(name, dataclasses.replace(
             cut, num_layers=layers, num_decoder_layers=layers,
@@ -4216,10 +4235,10 @@ def ddp_rank_main(spec_path: str) -> int:
             torch.save(trainable_on_host(model), run["params"])
         if run.get("load_check") and rank == 0:
             # The checkpoint that rank 0 alone wrote loads strictly.
-            path = os.path.join(cfg.result_dir, "checkpoints", "best",
-                                "model.pt")
-            model.load_state_dict(torch.load(path, map_location=device,
-                                             weights_only=True), strict=True)
+            from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+                read_whole)
+            model.load_state_dict(read_whole(os.path.join(
+                cfg.result_dir, "checkpoints", "best")), strict=True)
             r["best_loaded_strict"] = True
         if run.get("keep"):
             kept[run["keep"]] = (r, trainable_on_host(model))
@@ -4953,17 +4972,23 @@ class RankServer:
             print(f.read()[-6000:])
         check(False, f"{what} (chiprun_out/{self.log_name})")
 
-    def run(self, kind: str, spec_path: str, what: str,
-            timeout: float = 900) -> float:
-        """Job ``kind`` (a key of ``RANK_JOBS``) on ``spec_path``, on every
-        rank; returns its seconds once every rank has finished it."""
+    def submit(self, kind: str, spec_path: str) -> tuple:
+        """Hand the ranks job ``kind`` on ``spec_path`` and return at once:
+        the handle that ``join`` waits on. The ranks take their jobs in
+        the order they were handed over."""
         n, self.jobs = self.jobs, self.jobs + 1
         tmp = os.path.join(self.dir, f".job.{n}")
         with open(tmp, "w") as f:
             json.dump(dict(kind=kind, spec=spec_path), f)
         os.replace(tmp, os.path.join(self.dir, f"job.{n}"))
+        return n, time.perf_counter(), time.time()
+
+    def join(self, handle: tuple, what: str, timeout: float = 900) -> float:
+        """Wait until every rank has finished the job ``handle`` names;
+        the seconds from its ``submit`` to its end (the time of its done
+        mark: the caller may have come to wait later)."""
+        n, t0, wall0 = handle
         done = os.path.join(self.dir, f"done.{n}")
-        t0 = time.perf_counter()
         while not os.path.exists(done):
             if self.proc.poll() is not None:
                 self._fail(f"{what}: the ranks exited "
@@ -4971,7 +4996,7 @@ class RankServer:
             if time.perf_counter() - t0 > timeout:
                 self._fail(f"{what}: not done in {timeout:.0f} s")
             time.sleep(0.05)
-        return time.perf_counter() - t0
+        return os.path.getmtime(done) - wall0
 
     def stop(self) -> None:
         """Let the ranks leave once their last job is done."""
@@ -4989,6 +5014,16 @@ class RankServer:
         shutil.rmtree(self.dir, ignore_errors=True)
         check(rc == 0, f"the ranks exited {rc} (chiprun_out/"
               f"{self.log_name})")
+
+
+def finish(phase: Generator[None, None, dict]) -> dict:
+    """The rest of a phase that yielded once its rank job was handed over
+    (``shard_phase``, ``seq_phase``, ``split_phase``): its result."""
+    try:
+        next(phase)
+    except StopIteration as end:
+        return end.value
+    raise RuntimeError("a phase yielded a second time")
 
 
 def rank_server_main(job_dir: str) -> int:
@@ -5409,11 +5444,13 @@ def d128_shapes() -> list[tuple["T5Shape", int]]:
                 SHARD_LAYERS))]
 
 
-def shard_phase(card: str, server: "RankServer") -> dict:
+def shard_phase(card: str,
+                server: "RankServer") -> Generator[None, None, dict]:
     """Phase 13: 13a in this process, then a job of the two ranks of
     ``server`` on the one card (gloo on CUDA tensors) that runs 13b and 13c
     in turn; 13b's checkpoint restored here; then the T5 kernels at 13c's
-    per-rank shapes."""
+    per-rank shapes. A generator, as phases 14 and 15: it yields once the
+    job is handed over, and ``finish`` runs the rest."""
     import shutil
     import tempfile
 
@@ -5479,7 +5516,10 @@ def shard_phase(card: str, server: "RankServer") -> dict:
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        job_s = server.run("shard", spec_path, "phase 13's runs")
+        # The caller runs other phases while the ranks work (``finish``).
+        handle = server.submit("shard", spec_path)
+        yield
+        job_s = server.join(handle, "phase 13's runs")
         ranks = []
         for r in range(SHARD_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -5822,14 +5862,15 @@ def seq_kernel_shapes() -> list[tuple["T5Shape", int]]:
 
 
 def seq_phase(card: str, server: "RankServer",
-              refs: dict | None = None) -> dict:
+              refs: dict | None = None) -> Generator[None, None, dict]:
     """Phase 14: 14a and 14a' in this process, then a job of the two
     ranks of ``server`` on the one card (gloo on CUDA tensors) that runs 14b
     and 14c in turn (each with its 14d step),
     then the T5 kernels at a 14b rank's shapes (14e). ``refs`` gets phase
     18's references: 14a's and 14a''s readings (``one``) and first-step
     gradients (``grads``), and the dropout probes of 14a, 14a', 14b and
-    14c (``dropout_probes``: before and after the first step)."""
+    14c (``dropout_probes``: before and after the first step). A
+    generator, as ``shard_phase``."""
     import shutil
     import tempfile
 
@@ -5877,7 +5918,10 @@ def seq_phase(card: str, server: "RankServer",
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        job_s = server.run("seq", spec_path, "phase 14's runs")
+        # The caller runs other phases while the ranks work (``finish``).
+        handle = server.submit("seq", spec_path)
+        yield
+        job_s = server.join(handle, "phase 14's runs")
         ranks = []
         for r in range(SEQ_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -6164,7 +6208,7 @@ def split_rank_main(spec_path: str) -> int:
         # The parameters every rank holds, bitwise against rank 0's.
         checked, bad = 0, []
         for n in sorted(n for n, _ in trainer.model.named_parameters()
-                        if trainer._placement(n) is None):
+                        if not trainer.spans_ranks(n)):
             local = trainer.model.get_parameter(n).detach()
             ref = local.clone()
             dist.broadcast(ref, src=0)
@@ -6210,17 +6254,16 @@ def split_whole(tag: str, parts: list, placement) -> dict:
     return out
 
 
-def split_phase(card: str, server: "RankServer", keep: dict | None = None,
-                then=None) -> dict:
+def split_phase(card: str, server: "RankServer",
+                keep: dict | None = None) -> Generator[None, None, dict]:
     """Phase 15: 15a (the MoE and the pipelined model in this process),
     then a job of the two ranks of ``server`` on the one card (gloo on CUDA
-    tensors) that runs 15b (expert 2) and 15c (pipe 2) in turn, and
-    ``then()`` once it has ended; each run's checkpoint restored here in
-    one process. ``keep``
+    tensors) that runs 15b (expert 2) and 15c (pipe 2) in turn; each run's
+    checkpoint restored here in one process. ``keep``
     receives 15a's MoE run (``one``), its first step's gradients and its
     routings: phase 16's one-process reference; and 15a's pipelined run
     (``pipe_one``) and its first step's gradients (``pipe_grads``): phase
-    17's."""
+    17's. A generator, as ``shard_phase``."""
     import shutil
     import tempfile
 
@@ -6268,9 +6311,10 @@ def split_phase(card: str, server: "RankServer", keep: dict | None = None,
         spec_path = os.path.join(root, "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        job_s = server.run("split", spec_path, "phase 15's runs")
-        if then is not None:
-            then()
+        # The caller runs other phases while the ranks work (``finish``).
+        handle = server.submit("split", spec_path)
+        yield
+        job_s = server.join(handle, "phase 15's runs")
         ranks = []
         for r in range(SPLIT_RANKS):
             with open(f"{spec['out']}.{r}.json") as f:
@@ -6439,35 +6483,26 @@ def wait_saves() -> None:
 
 
 def checkpoint_once(trainer, path: str, names, out: str) -> tuple:
-    """Save ``trainer``'s checkpoint under ``path`` (every rank gathers the
-    whole state for it, once) and write rank 0's whole trainable
-    parameters from that same gather (``names``), in fp32, to ``out``, for
-    the comparison with the checkpoint restored in one process: (the
-    manager's saves, the seconds the save held the rank: the gather and
-    the copy to the host; the write goes on in the background until
-    ``wait_saves``)."""
+    """Save ``trainer``'s per-shard checkpoint under ``path`` (every rank
+    writes its own pieces) and write rank 0's whole trainable parameters
+    (``names``), gathered once, in fp32, to ``out``, for the comparison
+    with the checkpoint restored in one process: (the manager's saves,
+    the seconds the save held the rank: the copy of its pieces to the
+    host; the write goes on in the background until ``wait_saves``)."""
     import torch
 
     from klab_multimodalmodel_tpu_torch.checkpoint.io import (
         CheckpointManager)
 
-    gathered = {}
-    whole_state = trainer.full_state_dict
-
-    def keep_whole():
-        gathered.update(whole_state())
-        return gathered
-    trainer.full_state_dict = keep_whole
+    gathered = trainer.full_state_dict(names=set(names))
+    if trainer.mesh.rank == 0:
+        torch.save({n: v.float() for n, v in gathered.items()}, out)
+    del gathered
     t0 = time.perf_counter()
     manager = CheckpointManager(path, trainer.mesh)
     manager.save(f"step_{trainer.step}", trainer)
     _PENDING_SAVES.append(manager)
-    seconds = time.perf_counter() - t0
-    del trainer.full_state_dict
-    if trainer.mesh.rank == 0:
-        torch.save({n: v.float() for n, v in gathered.items()
-                    if n in names}, out)
-    return manager.saves, seconds
+    return manager.saves, time.perf_counter() - t0
 
 
 def moe_shard_rank_run(run: dict, card: str, device) -> dict:
@@ -6482,7 +6517,7 @@ def moe_shard_rank_run(run: dict, card: str, device) -> dict:
 
     from klab_multimodalmodel_tpu_torch.config import Config
     from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
-        gather_full, tensor_parallel)
+        BANKS, gather_full, tensor_parallel)
     from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
     from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
 
@@ -6507,7 +6542,7 @@ def moe_shard_rank_run(run: dict, card: str, device) -> dict:
             if p.grad is None:
                 continue
             g = gather_full(p.grad.detach())  # every rank, in order
-            if rank == 0 or t._is_bank(n):
+            if rank == 0 or n.endswith(BANKS):
                 grads[n] = g.float().cpu()
         torch.save(grads, f"{base}.grads.pt")
         if rank == 0 and calls:
@@ -6520,7 +6555,7 @@ def moe_shard_rank_run(run: dict, card: str, device) -> dict:
     src = rank - rank % mesh.rows_share
     checked, bad = 0, []
     for n, p in sorted(trainer.model.named_parameters()):
-        if trainer._placement(n) is not None or (
+        if trainer.spans_ranks(n) or (
                 mesh.tensor > 1 and tensor_parallel(n)):
             continue
         local = (p.to_local() if isinstance(p, DTensor) else p).detach()
@@ -6767,7 +6802,7 @@ def pipe_shard_rank_run(run: dict, card: str, device) -> dict:
             if p.grad is None:
                 continue
             g = gather_full(p.grad.detach())  # every rank, in order
-            if rank == 0 or (stage_source and t._placement(n)):
+            if rank == 0 or (stage_source and t.spans_ranks(n)):
                 grads[n] = g.float().cpu()
         torch.save(grads, f"{base}.grads.pt")
     r = split_run(trainer, f"{tag} rank {rank}", card,
@@ -6780,7 +6815,7 @@ def pipe_shard_rank_run(run: dict, card: str, device) -> dict:
     src = rank - rank % mesh.rows_share
     checked, bad = 0, []
     for n, p in sorted(trainer.model.named_parameters()):
-        if trainer._placement(n) is not None or (
+        if trainer.spans_ranks(n) or (
                 mesh.tensor > 1 and tensor_parallel(n)):
             continue
         local = (p.to_local() if isinstance(p, DTensor) else p).detach()
@@ -7248,7 +7283,7 @@ def moe_seq_rank_run(run: dict, card: str, device) -> dict:
 
     from klab_multimodalmodel_tpu_torch.config import Config
     from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
-        gather_full)
+        BANKS, gather_full)
     from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
     from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
 
@@ -7283,7 +7318,7 @@ def moe_seq_rank_run(run: dict, card: str, device) -> dict:
         if p.grad is None:
             continue
         g = gather_full(p.grad.detach())  # every rank, in order
-        if rank == 0 or (mesh.seq_rank == 0 and trainer._is_bank(n)):
+        if rank == 0 or (mesh.seq_rank == 0 and n.endswith(BANKS)):
             grads[n] = g.float().cpu()
     if mesh.seq_rank == 0:
         torch.save(grads, f"{run['files']}.{rank}.grads.pt")
@@ -7470,8 +7505,440 @@ def moe_seq_phase(card: str, ref: dict, job: dict) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: sharded init and per-shard checkpoints (t5-11b)
+# ---------------------------------------------------------------------------
+
+# 20a: t5-11b at full width and depth (24 + 24 blocks) behind the default
+# towers, at fsdp 2 x tensor 2 on the four ranks of phases 16-19's job,
+# which run it first, on an empty card: ``init_state()`` alone (Adam's
+# moments of its 46.92 GB of parameters would not fit four ranks on one
+# card), the model built on the meta device and each rank's pieces drawn
+# whole one parameter at a time. Held: each rank's parameters are its
+# reckoning (``per_rank_bytes``); its peak over the init is at most its
+# pieces plus ``INIT_SLACK_GB`` (the largest whole parameter is 0.268
+# GB); ``INIT_SAMPLES``, gathered to rank 0 one at a time, equal bitwise
+# the same names of one process's plan at 24 + 24 blocks, drawn in this
+# process a parameter at a time into temporaries (``plan_fingerprints``),
+# and those drawn before the transformer's second block also equal the
+# one-process ``init_state()`` of 20b's 1 + 1 blocks (after block 0 the
+# draw order of 24 + 24 blocks and of 1 + 1 parts: the decoder's block 0
+# comes after 23 more encoder blocks). 20b: t5-11b at full width, 1 + 1
+# blocks, dropout 0, both kernel flags, bf16, Adam, batch 16, fsdp 2 x
+# tensor 2: the init's pieces bitwise one process's ``init_state()``
+# (fingerprints of every rank's pieces, ``fingerprint``); one step
+# (launches checked); a per-shard checkpoint, each rank's file its owned
+# pieces only, their bytes the reckoning, all of them one process's
+# parameters and Adam state; a second step; then the four ranks at fsdp 4
+# restore it (every piece bitwise the saved state's; the restore's peak at
+# most the state it holds plus ``INIT_SLACK_GB``) and take the same second
+# step (losses within ``TOL_SHARD``); this process restores it in one
+# process, bitwise. 20c: the T5 kernels at 20b's per-rank shapes (64 of
+# 128 heads of d_kv 128 at head offset 64, 8 rows).
+INIT_MESH, INIT_RESTORE_MESH = (1, 2, 2), (1, 4, 1)
+INIT_LAYERS = 1
+INIT_T5 = f"t5-11b-{INIT_LAYERS}x{INIT_LAYERS}-dropout-0"
+INIT_BATCH = 16
+INIT_SLACK_GB = 0.6
+INIT_LAUNCHES = step_launches(T5_LAYERS, INIT_LAYERS, INIT_LAYERS,
+                              dropout=False)
+INIT_HEADS, INIT_D, INIT_OFFSET = 64, 128, 64
+INIT_SAMPLES = (
+    "transformer.encoder.block.0.layer.1.DenseReluDense.wi.weight",
+    "transformer.decoder.block.0.layer.2.DenseReluDense.wo.weight",
+    "transformer.encoder.block.0.layer.0.SelfAttention.q.weight",
+    "transformer.encoder.block.0.layer.0.SelfAttention."
+    "relative_attention_bias.weight",
+    "transformer.shared.weight",
+    "transformer.decoder.final_layer_norm.weight",
+    "image_model.encoder.layers.2.blocks.0.attention.self.query.weight",
+    "vision_projection.weight")
+
+
+def init_config(layers: int | None = None, **kw):
+    """20a's (t5-11b whole, ``layers`` None) or 20b's (``INIT_T5``)
+    config: the Config defaults (the default towers), both kernel flags."""
+    from klab_multimodalmodel_tpu_torch.config import Config
+
+    return Config(use_pallas_attention=True, use_pallas_t5_attention=True,
+                  seed=SEED, transformer_model_name=(
+                      "t5-11b" if layers is None else INIT_T5), **kw)
+
+
+def fingerprint(t) -> int:
+    """An exact fingerprint of a tensor's bytes b_i: the sum of (b_i + 1)
+    w_i mod 2^64 with odd weights w_i of the byte's place, on the tensor's
+    device in chunks (integer sums: the same on any device, in any order).
+    Any one differing byte changes it."""
+    import torch
+
+    x = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    total, chunk = 0, 1 << 24
+    for lo in range(0, x.numel(), chunk):
+        b = x[lo:lo + chunk].to(torch.int64) + 1
+        w = torch.arange(lo, lo + b.numel(), device=x.device,
+                         dtype=torch.int64)
+        w = (w * 6364136223846793005 + 1442695040888963407) | 1
+        total = (total + int((b * w).sum())) % 2 ** 64
+    return total
+
+
+def own_fingerprints(trainer) -> dict:
+    """{entry: ``fingerprint``} of every piece this rank holds: the model's
+    ("model/{name}") and the optimizer's ("optimizer/{name}/{key}")."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    out = {f"model/{n}": fingerprint(t)
+           for n, t in trainer._local_tensors().items() if t.numel()}
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    for p, st in trainer.optimizer.state.items():
+        for key, v in st.items():
+            if isinstance(v, torch.Tensor):
+                v = v.to_local() if isinstance(v, DTensor) else v
+                if v.numel():
+                    out[f"optimizer/{names[id(p)]}/{key}"] = fingerprint(v)
+    return out
+
+
+def layout_fingerprints(one, shape: tuple) -> list[dict]:
+    """What ``own_fingerprints`` gives on each rank of a layout of
+    ``shape`` (dense, Adam) holding the state of ``one``, a one-process
+    ``Trainer``: its whole tensors cut into each rank's pieces."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        piece_view, rank_piece)
+    from klab_multimodalmodel_tpu_torch.train.optim import state_piece
+    from klab_multimodalmodel_tpu_torch.utils.mesh import (
+        DEFAULT_AXIS_NAMES, Mesh)
+
+    shape = tuple(shape) + (1,) * (6 - len(shape))
+    state = one.model.state_dict()
+    names = {id(p): n for n, p in one.model.named_parameters()}
+    out = []
+    for r in range(math.prod(shape)):
+        mesh = Mesh(shape=shape, axis_names=DEFAULT_AXIS_NAMES, group=None,
+                    cpu_group=None, rank=r)
+        fps = {}
+
+        def add(entry, whole, piece):
+            if piece is not None and all(n for _, n in piece):
+                fps[entry] = fingerprint(piece_view(whole, piece))
+        for n, v in state.items():
+            add(f"model/{n}", v, rank_piece(n, tuple(v.shape), mesh,
+                                            one._layers, False))
+        for p, st in one.optimizer.state.items():
+            n = names[id(p)]
+            piece = rank_piece(n, tuple(p.shape), mesh, one._layers, False)
+            for key, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    add(f"optimizer/{n}/{key}", v, state_piece(
+                        key, tuple(p.shape), piece, v.dim()))
+        out.append(fps)
+    return out
+
+
+def plan_fingerprints(cfg, names) -> dict:
+    """One process's init of ``cfg``'s whole model as its plan draws it,
+    one parameter at a time into a temporary on the card (the model never
+    held): {name: ``fingerprint``} of ``names``."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+
+    model = MultiModalModel(cfg, device="meta")
+    shapes = {n: tuple(v.shape) for n, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    out = {}
+    for name, init in model.init_plan():
+        whole = torch.empty(shapes[name], device="cuda")
+        init(whole, gen)
+        if name in names:
+            out[name] = fingerprint(whole)
+        del whole
+    return out
+
+
+def init_memory(card: str) -> dict:
+    """20a's and 20b's per-rank parameters, gradients and Adam moments
+    (GB), and one process's of 20b, reckoned on the meta device."""
+    from klab_multimodalmodel_tpu_torch.models.multimodal import (
+        MultiModalModel)
+    from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
+        per_rank_bytes)
+    from klab_multimodalmodel_tpu_torch.train.optim import trainable_names
+
+    out = {}
+    for tag, layers, axes in (("20a", None, {"fsdp": 2, "tensor": 2}),
+                              ("20b", INIT_LAYERS, {"fsdp": 2,
+                                                    "tensor": 2}),
+                              ("20b-fsdp4", INIT_LAYERS, {"fsdp": 4}),
+                              ("20b-one", INIT_LAYERS, {})):
+        cfg = init_config(layers)
+        model = MultiModalModel(cfg, device="meta")
+        names = trainable_names(model, cfg)
+        shapes = [(n, tuple(p.shape), n in names)
+                  for n, p in model.named_parameters()]
+        out[tag] = {k: v / 1e9 for k, v in per_rank_bytes(
+            shapes, axes).items()}
+        out[tag]["trainable_tensors"] = len(names)
+    print("phase 20: state per rank reckoned (GB; params, grads, Adam): "
+          + "; ".join(f"{t} {r['params']:.3f} + {r['grads']:.3f} + "
+                      f"{r['moments']:.3f} = {r['total']:.3f}"
+                      for t, r in out.items()) + f" [{card}]")
+    return out
+
+
+def init_rank_run(run: dict, card: str, device) -> dict:
+    """20a or 20b on this rank of the four-rank job (``four_rank_main``):
+    its readings (see the phase's comment)."""
+    import torch
+    import torch.distributed as dist
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        SHARDS, CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    cfg = Config.from_json(json.dumps(run["config"]))
+    free()
+    if rank == 0:
+        free_b, total_b = torch.cuda.mem_get_info()
+        print(f"{run['tag']}: the card has {free_b / 1e9:.2f} of "
+              f"{total_b / 1e9:.2f} GB free before the init [{card}]",
+              flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device)
+    on_meta = all(p.is_meta for p in trainer.model.parameters())
+    trainer.init_state()
+    torch.cuda.synchronize()
+    r = dict(on_meta=on_meta, init_s=time.perf_counter() - t0,
+             init_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+             held_gb=held_bytes(trainer))
+    if run["tag"] == "20a":
+        t0 = time.perf_counter()
+        fps = {}
+        for name in INIT_SAMPLES:  # one at a time: each whole on rank 0
+            whole = trainer.full_state_dict(names={name})
+            if rank == 0:
+                fps[name] = fingerprint(whole[name].to(device))
+            del whole
+        r.update(fingerprints=fps, gather_s=time.perf_counter() - t0)
+        del trainer
+        free()
+        return r
+    r["init_fingerprints"] = own_fingerprints(trainer)
+    batch = train_batch(cfg, INIT_BATCH, SEED)
+
+    def rows(t):
+        n = INIT_BATCH // t.mesh.dp_size
+        return {k: v[t.mesh.dp_rank * n:(t.mesh.dp_rank + 1) * n]
+                for k, v in batch.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    reset_counts()
+    losses = [float(trainer.train_step(rows(trainer), gen))]
+    r["launches_per_step"] = launch_counts()
+    check(r["launches_per_step"] == INIT_LAUNCHES,
+          f"20b rank {rank}: launches {r['launches_per_step']}, expected "
+          f"{INIT_LAUNCHES}")
+    manager = CheckpointManager(run["checkpoint"], trainer.mesh)
+    t0 = time.perf_counter()
+    manager.save("step_1", trainer)
+    manager.wait()
+    r["save_s"] = time.perf_counter() - t0
+    r["save"] = manager.saves[-1] if manager.saves else None
+    path = os.path.join(manager.path("step_1"), SHARDS, f"{rank}.pt")
+    r["file_bytes"] = os.path.getsize(path) if os.path.exists(path) else 0
+    r["saved_fingerprints"] = own_fingerprints(trainer)
+    r["held_saved_gb"] = held_bytes(trainer)
+    step_gen = gen.get_state()
+    losses.append(float(trainer.train_step(rows(trainer), gen)))
+    r["losses"] = losses
+    del trainer
+    free()
+    base = torch.cuda.memory_allocated()
+    trainer = Trainer(dataclasses.replace(cfg, mesh_shape=INIT_RESTORE_MESH),
+                      device=device)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    manager.restore("step_1", trainer)
+    torch.cuda.synchronize()
+    r["restore_s"] = time.perf_counter() - t0
+    r["restore_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    r["held_restored_gb"] = held_bytes(trainer)
+    r["files_read"] = manager.files_read
+    r["restored_fingerprints"] = own_fingerprints(trainer)
+    gen.set_state(step_gen)
+    r["restored_loss"] = float(trainer.train_step(rows(trainer), gen))
+    del trainer
+    free()
+    return r
+
+
+def init_kernel_shapes() -> list[tuple["T5Shape", int]]:
+    """20b's per-rank shapes (8 rows, 64 of 128 heads of d_kv 128, rate
+    0.1), tensor rank 1's heads."""
+    pad = SRC_LEN - 30
+    B = INIT_BATCH // 2
+    return [(sh, INIT_OFFSET) for sh in (
+        T5Shape("encoder", "training", B, ENC_LEN, ENC_LEN, True, pad, RATE,
+                INIT_LAYERS),
+        T5Shape("decoder", "training", B, TGT_LEN, TGT_LEN, True, -1, RATE,
+                INIT_LAYERS, causal=True),
+        T5Shape("cross", "training", B, TGT_LEN, ENC_LEN, False, pad, RATE,
+                INIT_LAYERS))]
+
+
+def init_reference(card: str) -> dict:
+    """What phase 20 holds the job's ranks against, made before the job
+    on the empty card: 20a's samples as one process's plan draws them,
+    and one process's ``init_state()`` of 20b (the fingerprints of each
+    20b rank's pieces of it, and of 20a's samples it shares)."""
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    samples = plan_fingerprints(init_config(), INIT_SAMPLES)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = Trainer(init_config(INIT_LAYERS, mesh_shape=(1, 1, 1)))
+    one.init_state()
+    state = one.model.state_dict()
+    # Drawn before the transformer's block 1: the same draws at 1 + 1
+    # blocks as at 24 + 24.
+    plan = list(one.model.init_plan())
+    last = max(i for i, (n, _) in enumerate(plan)
+               if n.startswith("transformer.encoder.block.0."))
+    shared = {n: fingerprint(state[n]) for i, (n, init) in enumerate(plan)
+              if n in INIT_SAMPLES and (i <= last or not init.draws)}
+    ranks = layout_fingerprints(one, INIT_MESH)
+    seconds = time.perf_counter() - t0
+    del one, state
+    free()
+    print(f"phase 20: one process's plan of t5-11b at 24 + 24 blocks "
+          f"drawn in {plan_s:.2f} s, 20b's one-process init and its "
+          f"pieces' fingerprints in {seconds:.2f} s [{card}]", flush=True)
+    return dict(plan=samples, shared=shared, init_ranks=ranks,
+                plan_s=plan_s, one_s=seconds)
+
+
+def init_phase(card: str, job: dict) -> dict:
+    """Phase 20's checks of the four-rank job's 20a and 20b runs; 20b's
+    checkpoint restored here in one process; then 20c."""
+    import torch
+
+    from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+        CheckpointManager)
+    from klab_multimodalmodel_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    memory, ranks, ref = job["memory"]["20"], job["ranks"], job["init_ref"]
+    a = [rk["20a"] for rk in ranks]
+    for r, g in enumerate(a):
+        held, want = g["held_gb"]["params"], memory["20a"]["params"]
+        check(g["on_meta"], f"20a rank {r}: parameters not on meta")
+        check(abs(held - want) <= 1e-3 * want,
+              f"20a rank {r}: holds {held:.6f} GB of parameters, reckoned "
+              f"{want:.6f}")
+        check(g["init_peak_gb"] <= held + INIT_SLACK_GB,
+              f"20a rank {r}: peak {g['init_peak_gb']:.3f} GB over the "
+              f"init, holds {held:.3f}")
+    peaks = ", ".join(f"{g['init_peak_gb']:.3f}" for g in a)
+    fps = a[0]["fingerprints"]
+    for name in INIT_SAMPLES:
+        check(fps[name] == ref["plan"][name],
+              f"20a: {name} differs from one process's plan")
+        if name in ref["shared"]:
+            check(fps[name] == ref["shared"][name],
+                  f"20a: {name} differs from 20b's one-process init")
+    print(f"20a [{card}]: t5-11b 24 + 24 blocks initialized on the four "
+          f"ranks in {max(g['init_s'] for g in a):.1f} s (slowest rank), "
+          f"each holding {a[0]['held_gb']['params']:.3f} GB of parameters "
+          f"(reckoned {memory['20a']['params']:.3f}), peaks {peaks} "
+          f"GB; {len(INIT_SAMPLES)} samples bitwise one process's plan "
+          f"({len(ref['shared'])} also its 1 + 1 init), gathered in "
+          f"{a[0]['gather_s']:.1f} s", flush=True)
+    b = [rk["20b"] for rk in ranks]
+    for r, g in enumerate(b):
+        check(g["init_fingerprints"] == ref["init_ranks"][r],
+              f"20b rank {r}: the init's pieces differ from one process's")
+        check(g["launches_per_step"] == INIT_LAUNCHES,
+              f"20b rank {r}: launches {g['launches_per_step']}")
+        rel = abs(g["restored_loss"] - g["losses"][1]) / abs(g["losses"][1])
+        check(rel <= TOL_SHARD["loss"],
+              f"20b rank {r}: the second step's loss at fsdp 4 "
+              f"{g['restored_loss']} vs {g['losses'][1]} (rel {rel:.2e})")
+        held = g["held_restored_gb"]
+        check(g["restore_peak_gb"] <= held["params"] + held["moments"]
+              + INIT_SLACK_GB, f"20b rank {r}: the restore's peak "
+              f"{g['restore_peak_gb']:.3f} GB, holds {held}")
+    t0 = time.perf_counter()
+    one = Trainer(init_config(INIT_LAYERS, mesh_shape=(1, 1, 1)))
+    one.init_state()
+    manager = CheckpointManager(os.path.join(job["root"], "20b.ckpt"))
+    manager.restore("step_1", one)
+    restore_s = time.perf_counter() - t0
+    saved = layout_fingerprints(one, INIT_MESH)
+    restored = layout_fingerprints(one, INIT_RESTORE_MESH)
+    for r, g in enumerate(b):
+        check(g["saved_fingerprints"] == saved[r],
+              f"20b rank {r}: the one-process restore differs from the "
+              "saved pieces")
+        check(g["restored_fingerprints"] == restored[r],
+              f"20b rank {r}: the fsdp-4 restore differs from the saved "
+              "state")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in one.model.state_dict().values())
+    state_bytes += sum(v.numel() * v.element_size()
+                       for st in one.optimizer.state.values()
+                       for v in st.values() if isinstance(v, torch.Tensor))
+    del one
+    free()
+    written = sum(g["save"]["bytes"] for g in b if g["save"])
+    peaks = ", ".join(f"{g['restore_peak_gb']:.3f}" for g in b)
+    one_gb = memory["20b-one"]
+    reckoned = (one_gb["params"] + one_gb["moments"]) * 1e9 + 4 * one_gb[
+        "trainable_tensors"]
+    check(written == state_bytes and abs(written - reckoned) <= 1,
+          f"20b: the files hold {written} B of tensors, one process's "
+          f"state {state_bytes} B, reckoned {reckoned:.0f} B")
+    for r, g in enumerate(b):
+        owned = g["save"]["bytes"] if g["save"] else 0
+        check(owned <= g["file_bytes"] <= owned * 1.01 + 65536,
+              f"20b rank {r}: file of {g['file_bytes']} B for {owned} B of "
+              "pieces")
+    print(f"20b [{card}]: init pieces bitwise one process's on every rank; "
+          f"losses {b[0]['losses']} at fsdp 2 x tensor 2, the second step "
+          f"after the restore at fsdp 4 {b[0]['restored_loss']}; files "
+          f"{', '.join(str(g['file_bytes']) for g in b)} B ({written / 1e9:.3f}"
+          f" GB of pieces, one process's state {state_bytes / 1e9:.3f} GB); "
+          f"save {max(g['save_s'] for g in b):.2f} s, restore at fsdp 4 "
+          f"{max(g['restore_s'] for g in b):.2f} s (peaks {peaks} "
+          f"GB), in one process {restore_s:.2f} s, bitwise; files read at "
+          f"fsdp 4: {[g['files_read'] for g in b]}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    kernels = check_t5_offsets(gen, card, "20b rank", init_kernel_shapes(),
+                               INIT_HEADS, INIT_D, "head_offset", RATE)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 20: {seconds:.1f} s here (its runs in the four-rank job "
+          f"{job['seconds']['20']:.2f} s, the reference before it "
+          f"{ref['plan_s'] + ref['one_s']:.2f} s)")
+    return dict(card=card, memory_reckoned_gb=memory, ranks=dict(
+        a=a, b=[{k: v for k, v in g.items() if "fingerprints" not in k}
+                for g in b]), restore_s=restore_s, kernels=kernels,
+        seconds=seconds)
+
+
+
 def four_rank_main(spec_path: str) -> int:
-    """One rank of the four-rank job of phases 16 to 19 (on a
+    """One rank of the four-rank job of phases 16 to 20 (on a
     ``RankServer`` rank): their runs in turn on ``cuda:0``, which the
     four ranks share (gloo on CUDA tensors: ``KLAB_CPU_COLLECTIVES=gloo``),
     each run's readings (and its seconds on this rank) to
@@ -7489,7 +7956,8 @@ def four_rank_main(spec_path: str) -> int:
     device = torch.device(DDP_DEVICE)
     maybe_init_distributed(device)
     runners = {"16": moe_shard_rank_run, "17": pipe_shard_rank_run,
-               "18": seq_shard_rank_run, "19": moe_seq_rank_run}
+               "18": seq_shard_rank_run, "19": moe_seq_rank_run,
+               "20": init_rank_run}
     readings = {}
     for run in spec["runs"]:
         t0 = time.perf_counter()
@@ -7503,18 +7971,22 @@ def four_rank_main(spec_path: str) -> int:
 
 
 def four_rank_job(card: str, server: "RankServer") -> dict:
-    """The runs of phases 16 to 19 in one job of the four ranks of
-    ``server`` on the one card (their log in
-    ``chiprun_out/phase16_19_ranks.log``), each run's per-rank state reckoned
-    first: the rank readings, the directory of their files (the caller
-    removes it), each phase's seconds in the job (its runs' on the slowest
-    rank) and the reckonings."""
+    """Hand the runs of phases 16 to 20 to the four ranks of ``server`` on
+    the one card (their log in ``chiprun_out/phase16_19_ranks.log``), each
+    run's per-rank state reckoned and phase 20's reference made first, and
+    return while they run: what ``join_20a`` and ``four_rank_results``
+    wait on, and the directory of the runs' files (``root``; the caller
+    removes it). Two jobs: 20a alone first, which needs ~50 GB of the card
+    (the caller runs nothing large until ``join_20a``), then the rest."""
     import tempfile
 
     register_no_dropout()
     memory = {"16": moe_shard_memory(card), "17": pipe_shard_memory(card),
               "18": seq_shard_memory(card),
-              "19": moe_shard_memory(card, MOE_SEQ_RUNS, "19")}
+              "19": moe_shard_memory(card, MOE_SEQ_RUNS, "19"),
+              "20": init_memory(card)}
+    # Phase 20's reference, on the card while it is empty.
+    init_ref = init_reference(card)
     root = tempfile.mkdtemp(prefix="chip_smoke_four_ranks_")
 
     def run(phase, tag, twin, mesh, **kw):
@@ -7544,25 +8016,52 @@ def four_rank_job(card: str, server: "RankServer") -> dict:
                         launches_dropout=launches_dropout))
         if tag != "19a":  # 19a's checkpoint is the one restored
             runs[-1]["checkpoint"] = None
-    spec = dict(card=card, out=os.path.join(root, "rank"), runs=runs)
-    spec_path = os.path.join(root, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    job_s = server.run("four", spec_path, "the runs of phases 16 to 19")
-    ranks = []
-    for r in range(FOUR_RANKS):
-        with open(f"{spec['out']}.{r}.json") as f:
-            ranks.append(json.load(f))
+    # 20a first, on the nearly empty card, in a job of its own; 20b last.
+    first = [dict(phase="20", tag="20a", config=json.loads(
+        init_config(mesh_shape=INIT_MESH).to_json()))]
+    runs.append(dict(phase="20", tag="20b", config=json.loads(init_config(
+        INIT_LAYERS, mesh_shape=INIT_MESH).to_json()),
+        checkpoint=os.path.join(root, "20b.ckpt")))
+    specs, handles = [], []
+    for name, part in (("20a", first), ("rest", runs)):
+        spec = dict(card=card, out=os.path.join(root, f"rank.{name}"),
+                    runs=part)
+        spec_path = os.path.join(root, f"spec.{name}.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        specs.append(spec)
+        handles.append(server.submit("four", spec_path))
+    return dict(root=root, specs=specs, handles=handles, memory=memory,
+                init_ref=init_ref)
+
+
+def join_20a(server: "RankServer", job: dict) -> None:
+    """Wait for ``four_rank_job``'s first job, 20a, to end."""
+    server.join(job["handles"][0], "20a")
+
+
+def four_rank_results(card: str, server: "RankServer", job: dict) -> dict:
+    """Wait for ``four_rank_job``'s jobs on ``server`` to end: ``job`` with
+    the rank readings, each phase's seconds in the jobs (its runs' on the
+    slowest rank) and the seconds from the hand-over to the last run's
+    end."""
+    job_s = max(server.join(h, "the runs of phases 16 to 20")
+                for h in job["handles"])
+    ranks = [{} for _ in range(FOUR_RANKS)]
+    for spec in job["specs"]:
+        for r in range(FOUR_RANKS):
+            with open(f"{spec['out']}.{r}.json") as f:
+                ranks[r].update(json.load(f))
+    runs = [x for spec in job["specs"] for x in spec["runs"]]
     seconds = {p: max(sum(rk[x["tag"]]["run_s"] for x in runs
                           if x["phase"] == p) for rk in ranks)
-               for p in ("16", "17", "18", "19")}
-    print(f"phases 16 to 19: the four-rank job took {job_s:.1f} s (16's "
+               for p in ("16", "17", "18", "19", "20")}
+    print(f"phases 16 to 20: the four-rank jobs took {job_s:.1f} s (16's "
           f"runs {seconds['16']:.1f} s, 17's {seconds['17']:.1f} s, 18's "
-          f"{seconds['18']:.1f} s, 19's {seconds['19']:.1f} s, the rest "
-          f"waiting for the ranks' start and the last checkpoint writes) "
-          f"[{card}]")
-    return dict(ranks=ranks, root=root, seconds=seconds, job_s=job_s,
-                memory=memory)
+          f"{seconds['18']:.1f} s, 19's {seconds['19']:.1f} s, 20's "
+          f"{seconds['20']:.1f} s, the rest the last checkpoint writes; "
+          f"beside phases 7, 10, 5 and 9 of this process) [{card}]")
+    return dict(job, ranks=ranks, seconds=seconds, job_s=job_s)
 
 
 class StopAfter(Exception):
@@ -7613,85 +8112,93 @@ def main(stop_after: str | None = None) -> int:
             raise StopAfter
 
     done("1")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
-               check_swin(gen, card)]
-    for entry in kernels:
-        entry["source"], entry["replaces"] = KERNELS[entry["name"]]
-        entry["route"] = "cuda"
-        path_totals(entry)
-        print_path_totals(entry, card)
-    done("2")
-
-    # Each main path runs with the counts set to 0 just before it and read
-    # just after (inside caption() and train(): the three timed requests,
-    # the five timed steps).
-    reset_counts()
-    captioning = caption(card)
-    done("3")
-    reset_counts()
-    training = train(card)
-    free()
-    done("4")
-    reset_counts()
-    swin_training, state = train_swin(card)
-    swin_training["swin_kernel_vs_none"] = swin_kernel_vs_none(state)
-    del state
-    free()
-    options = train_options(card, training)
-    free()
-    done("5")
-    looping = loop_phase(card)
-    free()
-    done("6")
-    evaluating = evaluation_phase(card, captioning["greedy_ids"])
-    free()
-    done("7")
-    artifacts = artifacts_phase(card)
-    free()
-    done("8")
-    serving = serving_phase(card)
-    free()
-    done("9")
-    distributed = ddp_phase(card, looping["determinism"])
-    free()
-    done("10")
-    moe = moe_phase(card, training, captioning)
-    free()
-    done("11")
-    # Two ranks for the jobs of phases 13 to 15, started now, so that
-    # their start overlaps phase 12 (whose memory leaves room for their
-    # CUDA contexts, where phase 11's MoE step might not); four for 16 to
-    # 18, started as phase 15's job ends, so that theirs overlaps phase
-    # 15's checks.
+    # The rank jobs of phases 13 to 20 run beside phases of this process
+    # that need nothing of theirs: the two ranks start as phase 1 ends
+    # (their start beside phase 2, whose times are device times), phases
+    # 6, 8 and 12 run while the jobs of 13, 14 and 15 go on (``finish``),
+    # and 7, 10, 5 and 9 while the four ranks' jobs of 16 to 20 go on;
+    # those ranks start as phase 15 begins, their job of 20a (~50 GB of
+    # the card) runs beside phase 7 alone, and their runs' checkpoints
+    # (~33 GB of disk) meet no phase that writes more than phase 10's.
+    # Phases 16 to 20 then hold the four-rank runs against this process's
+    # references (phases 14 and 15), and phase 11, whose MoE step needs
+    # most of the card, comes last.
     servers = [RankServer(2, "phase13_15_ranks.log")]
+    job: dict = {}
     try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        kernels = [check_t5_fwd(gen, card), check_t5_bwd(gen, card),
+                   check_swin(gen, card)]
+        for entry in kernels:
+            entry["source"], entry["replaces"] = KERNELS[entry["name"]]
+            entry["route"] = "cuda"
+            path_totals(entry)
+            print_path_totals(entry, card)
+        done("2")
+
+        # Each main path runs with the counts set to 0 just before it and
+        # read just after (inside caption() and train(): the three timed
+        # requests, the five timed steps).
+        reset_counts()
+        captioning = caption(card)
+        done("3")
+        reset_counts()
+        training = train(card)
+        free()
+        done("4")
+        phase = shard_phase(card, servers[0])
+        next(phase)
+        done("13 (to its rank job)")
+        looping = loop_phase(card)
+        free()
+        done("6")
+        sharded = finish(phase)
+        done("13")
+        seq_ref: dict = {}
+        phase = seq_phase(card, servers[0], seq_ref)
+        next(phase)
+        done("14 (to its rank job)")
+        artifacts = artifacts_phase(card)
+        free()
+        done("8")
+        seq = finish(phase)
+        done("14")
+        moe_ref: dict = {}
+        servers.append(RankServer(FOUR_RANKS, "phase16_19_ranks.log"))
+        phase = split_phase(card, servers[0], moe_ref)
+        next(phase)
+        done("15 (to its rank job)")
         gpipe = gpipe_phase(card)
         free()
         done("12")
-        sharded = shard_phase(card, servers[0])
-        done("13")
-        seq_ref: dict = {}
-        seq = seq_phase(card, servers[0], seq_ref)
-        done("14")
-        moe_ref: dict = {}
-
-        def hand_over():
-            servers[0].stop()
-            servers.append(RankServer(FOUR_RANKS, "phase16_19_ranks.log"))
-        split = split_phase(card, servers[0], moe_ref, then=hand_over)
+        split = finish(phase)
+        servers[0].stop()
         servers[0].wait()
         done("15")
-        # Phases 16 to 19 share one four-rank job, which phase 16 starts;
-        # the seconds of phases 17 to 19 are their checks here (their
-        # runs' shares of the job are printed).
         job = four_rank_job(card, servers[1])
+        evaluating = evaluation_phase(card, captioning["greedy_ids"])
+        free()
+        done("7")
+        join_20a(servers[1], job)
+        distributed = ddp_phase(card, looping["determinism"])
+        free()
+        done("10")
+        reset_counts()
+        swin_training, state = train_swin(card)
+        swin_training["swin_kernel_vs_none"] = swin_kernel_vs_none(state)
+        del state
+        free()
+        options = train_options(card, training)
+        free()
+        done("5")
+        serving = serving_phase(card)
+        free()
+        done("9")
+        job = four_rank_results(card, servers[1], job)
         servers[1].stop()
         servers[1].wait()
-    finally:
-        for server in servers:
-            server.close()
-    try:
+        # The wait for the four ranks' last run.
+        done("16-20 runs")
         moe_shard = moe_shard_phase(card, moe_ref, job)
         free()
         done("16")
@@ -7704,10 +8211,19 @@ def main(stop_after: str | None = None) -> int:
         done("18")
         moe_seq = moe_seq_phase(card, moe_ref, job)
         del moe_ref
+        free()
+        done("19")
+        init = init_phase(card, job)
     finally:
-        shutil.rmtree(job["root"], ignore_errors=True)
+        for server in servers:
+            server.close()
+        if job:
+            shutil.rmtree(job["root"], ignore_errors=True)
     free()
-    done("19")
+    done("20")
+    moe = moe_phase(card, training, captioning)
+    free()
+    done("11")
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - started:.1f} [{card}]")
@@ -7830,6 +8346,12 @@ def main(stop_after: str | None = None) -> int:
             "launches_per_step"][train_key]
         entry["launches_moe_seq_tensor_step"] = moe_seq["ranks"]["19b"][0][
             "launches_per_step"][train_key]
+        for r, rank in enumerate(init["ranks"]["b"]):
+            check(rank["launches_per_step"][train_key] > 0,
+                  f"{entry['name']} never launched in a phase-20b step of "
+                  f"rank {r}")
+        entry["launches_init_ckpt_step"] = init["ranks"]["b"][0][
+            "launches_per_step"][train_key]
         # The line reports one training step's launches of each kernel.
         entry.update({k: entry["paths"]["training"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
@@ -7847,7 +8369,7 @@ def main(stop_after: str | None = None) -> int:
         "launches_moe_tensor_step", "launches_pipe_fsdp_step",
         "launches_pipe_tensor_step", "launches_seq_fsdp_step",
         "launches_seq_tensor_step", "launches_moe_seq_expert_step",
-        "launches_moe_seq_tensor_step")}
+        "launches_moe_seq_tensor_step", "launches_init_ckpt_step")}
         for e in kernels]
     print(json.dumps({
         "kernels": summary, "card": card,
@@ -7889,7 +8411,9 @@ def main(stop_after: str | None = None) -> int:
                  f"path; launches_moe_seq_expert_step / "
                  f"_moe_seq_tensor_step: one step of a phase-19a rank (4 "
                  f"experts over seq 2 x expert 2) and of a phase-19b rank "
-                 f"(tensor 2 x seq 2)"}))
+                 f"(tensor 2 x seq 2); launches_init_ckpt_step: one step "
+                 f"of a phase-20b rank (t5-11b, {INIT_LAYERS} + "
+                 f"{INIT_LAYERS} blocks, fsdp 2 x tensor 2)"}))
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -7904,7 +8428,7 @@ def main(stop_after: str | None = None) -> int:
                    "sharded": sharded, "seq": seq, "split": split,
                    "moe_shard": moe_shard, "pipe_shard": pipe_shard,
                    "seq_shard": seq_shard, "moe_seq": moe_seq,
-                   "seconds": seconds},
+                   "init": init, "seconds": seconds},
                   f, indent=1,
                   default=str)
     print(json.dumps({"ok": True, "device": {

@@ -86,16 +86,15 @@ def _single_process(command: str) -> None:
 def _load_run(result_dir: str, checkpoint: str):
     """(config, tokenizer, model state dict) of a trained run directory:
     its ``config.json`` and the model of ``checkpoints/{checkpoint}``
-    (``checkpoint/io.py``'s layout)."""
-    from .checkpoint.io import MODEL_FILE
+    (``checkpoint/io.py``'s layout, assembled whole)."""
+    from .checkpoint.io import read_whole
     from .text.tokenizer import load_tokenizer
 
     with open(os.path.join(result_dir, "config.json")) as f:
         config = Config.from_json(f.read())
     tokenizer = load_tokenizer(config.tokenizer_path)
-    path = os.path.join(os.path.abspath(result_dir), "checkpoints",
-                        checkpoint, MODEL_FILE)
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = read_whole(os.path.join(os.path.abspath(result_dir),
+                                    "checkpoints", checkpoint))
     return config, tokenizer, state
 
 
@@ -216,12 +215,13 @@ def convert_hf_main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def export_hf_main(argv: Optional[Sequence[str]] = None) -> None:
-    """A run's ``checkpoints/{checkpoint}/model.pt`` -> HF state dicts:
+    """A run's ``checkpoints/{checkpoint}`` (its model, assembled whole
+    from its pieces) -> HF state dicts:
     ``{output}/{transformer,language_model,image_model}/pytorch_model.bin``
     and ``{output}/vision_projection.bin``."""
     from .checkpoint.export_hf import (export_swinv2, export_t5_encoder,
                                        export_t5_lm, split_towers)
-    from .checkpoint.io import MODEL_FILE
+    from .checkpoint.io import read_whole
 
     p = argparse.ArgumentParser(
         description="Export a checkpoint's towers as HF state dicts")
@@ -233,9 +233,8 @@ def export_hf_main(argv: Optional[Sequence[str]] = None) -> None:
     _single_process("export-hf")
     cfg = _names_config(args)
 
-    path = os.path.join(os.path.abspath(args.result_dir), "checkpoints",
-                        args.checkpoint, MODEL_FILE)
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = read_whole(os.path.join(os.path.abspath(args.result_dir),
+                                    "checkpoints", args.checkpoint))
     towers = split_towers(state)
     exports = {
         "transformer": export_t5_lm(towers["transformer"],

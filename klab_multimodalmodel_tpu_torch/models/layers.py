@@ -12,8 +12,9 @@ dtype."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +25,76 @@ from torch import nn
 NEG_INF = -1e9
 
 
-class RMSNorm(nn.Module):
+# ---------------------------------------------------------------------------
+# Initializers matching the JAX package's flax initializers, as a plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """One parameter's initializer: ``normal`` (std ``arg``),
+    ``lecun_normal`` (flax's: a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in, fan_in ``arg``), ``ones``, ``zeros``,
+    ``constant`` (``arg``) or ``eye``. Called on a tensor, it fills it; the
+    first two draw from the generator, and draw the same values into any
+    contiguous tensor of one shape, dtype and device."""
+
+    kind: str
+    arg: float = 0.0
+
+    @property
+    def draws(self) -> bool:
+        return self.kind in ("normal", "lecun_normal")
+
+    def __call__(self, t: torch.Tensor, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            if self.kind == "normal":
+                t.normal_(0.0, self.arg, generator=generator)
+            elif self.kind == "lecun_normal":
+                std = math.sqrt(1.0 / self.arg) / 0.87962566103423978
+                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            elif self.kind == "eye":
+                t.zero_().diagonal().fill_(1.0)
+            else:
+                t.fill_(dict(ones=1.0, zeros=0.0).get(self.kind, self.arg))
+
+
+# A module's init plan: (its state-dict name, initializer), in draw order.
+Plan = Iterator[tuple[str, Init]]
+
+
+class PlanInit:
+    """A module whose init is a plan (``init_plan``: each parameter's name
+    and ``Init``, in the order they draw from the generator):
+    ``init_weights`` runs it into the module's own parameters. A rank that
+    holds part of a parameter runs the same plan on whole temporaries and
+    keeps its part (``train/trainer.py``), so its generator moves as one
+    process's does."""
+
+    def init_plan(self) -> Plan:
+        raise NotImplementedError
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        params = dict(self.named_parameters())
+        for name, init in self.init_plan():
+            init(params[name], generator)
+
+
+def sub_plan(prefix: str, plan: Plan) -> Plan:
+    """A submodule's ``plan`` under its name ``prefix``."""
+    for name, init in plan:
+        yield f"{prefix}.{name}", init
+
+
+def linear_plan(layer: nn.Linear) -> Plan:
+    """flax ``nn.Dense`` default: lecun-normal kernel, zero bias."""
+    yield "weight", Init("lecun_normal", layer.in_features)
+    if layer.bias is not None:
+        yield "bias", Init("zeros")
+
+
+class RMSNorm(PlanInit, nn.Module):
     """T5-style RMS LayerNorm: no mean subtraction, no bias. Variance in
     fp32, fp32 weight, result cast back to the input dtype."""
 
@@ -39,11 +109,11 @@ class RMSNorm(nn.Module):
         y = x32 * torch.rsqrt(var + self.eps)
         return (y * self.weight.float()).to(x.dtype)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.ones_(self.weight)
+    def init_plan(self) -> Plan:
+        yield "weight", Init("ones")
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(PlanInit, nn.Module):
     """Standard LayerNorm (SwinV2) with fp32 statistics."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
@@ -57,9 +127,9 @@ class LayerNorm(nn.Module):
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+    def init_plan(self) -> Plan:
+        yield "weight", Init("ones")
+        yield "bias", Init("zeros")
 
 
 class Dense(nn.Linear):
@@ -187,29 +257,3 @@ def mlp_block(x: torch.Tensor, fc1: nn.Linear, fc2: nn.Linear,
     (``intermediate.dense``, ``output.dense``)."""
     h = F.gelu(fc1(x), approximate="tanh" if gelu_approximate else "none")
     return fc2(h)
-
-
-# ---------------------------------------------------------------------------
-# Initializers matching the JAX package's flax initializers
-# ---------------------------------------------------------------------------
-
-
-def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    with torch.no_grad():
-        t.normal_(0.0, std, generator=generator)
-
-
-def lecun_normal_(t: torch.Tensor, fan_in: int,
-                  generator: torch.Generator) -> None:
-    """flax ``lecun_normal``: truncated normal on [-2, 2] standard
-    deviations, scaled so the variance is 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                          generator=generator)
-
-
-def init_linear_(layer: nn.Linear, generator: torch.Generator) -> None:
-    """flax ``nn.Dense`` default: lecun-normal kernel, zero bias."""
-    lecun_normal_(layer.weight, layer.in_features, generator)
-    if layer.bias is not None:
-        nn.init.zeros_(layer.bias)

@@ -44,12 +44,12 @@ from torch import nn
 from ..config import Config
 from ..parallel.partitioning import gather_columns
 from ..utils.device import resolve_device
-from .layers import Dense, lecun_normal_
+from .layers import Dense, Init, Plan, PlanInit, sub_plan
 from .swinv2 import SwinV2Encoder
 from .t5 import Cache, Seq2SeqOutput, T5Encoder, T5ForConditionalGeneration
 
 
-class MultiModalModel(nn.Module):
+class MultiModalModel(PlanInit, nn.Module):
     """SwinV2 + frozen T5 encoder -> seq-concat -> T5 enc-dec.
 
     ``dtype``: the compute dtype (fp32 for captioning, the policy's for
@@ -94,22 +94,26 @@ class MultiModalModel(nn.Module):
                                                  bias=False,
                                                  compute_dtype=dtype)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded random weights with the JAX init's distributions; the
-        vision projection starts as the identity when it is square."""
-        self.image_model.init_weights(generator)
-        self.language_model.init_weights(generator)
-        self.transformer.init_weights(generator)
+    def init_plan(self) -> Plan:
+        """Seeded random weights with the JAX init's distributions
+        (``init_weights`` runs this plan); the vision projection starts as
+        the identity when it is square."""
+        for name in ("image_model", "language_model", "transformer"):
+            yield from sub_plan(name, getattr(self, name).init_plan())
         proj = getattr(self, "vision_projection", None)
         if proj is not None:
-            if proj.in_features == proj.out_features:
-                with torch.no_grad():
-                    proj.weight.copy_(torch.eye(proj.in_features))
-            else:
-                lecun_normal_(proj.weight, proj.in_features, generator)
+            yield "vision_projection.weight", (
+                Init("eye") if proj.in_features == proj.out_features
+                else Init("lecun_normal", proj.in_features))
         if hasattr(self, "language_projection"):
-            lecun_normal_(self.language_projection.weight,
-                          self.language_projection.in_features, generator)
+            yield "language_projection.weight", Init(
+                "lecun_normal", self.language_projection.in_features)
+
+    def reset_buffers(self) -> None:
+        """The static tables that the state dict does not hold (the Swin
+        tower's), rebuilt on the parameters' device: after a build on the
+        meta device and ``to_empty``, they hold garbage."""
+        self.image_model.reset_buffers()
 
     def set_seq_group(self, seq_group, mesh) -> None:
         """Split the T5 stacks' full-sequence forwards over ``seq_group``

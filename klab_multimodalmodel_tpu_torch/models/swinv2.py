@@ -31,7 +31,8 @@ from torch import nn
 from ..config import SwinV2Size
 from ..ops.fused_attention import LOG_MAX_SCALE, swin_attention
 from ..utils.device import resolve_device
-from .layers import Dense, LayerNorm, init_linear_, lecun_normal_, mlp_block
+from .layers import (Dense, Init, LayerNorm, Plan, PlanInit, linear_plan,
+                     mlp_block, sub_plan)
 
 # ---------------------------------------------------------------------------
 # Static tables
@@ -107,7 +108,7 @@ def window_reverse(x: torch.Tensor, window_size: int, height: int,
 # ---------------------------------------------------------------------------
 
 
-class WindowAttention(nn.Module):
+class WindowAttention(PlanInit, nn.Module):
     """SwinV2 scaled-cosine window attention with log-CPB (HF's
     ``attention.self``). Takes pre-partitioned windows (B*nW, w*w, C) and
     the static shifted-window mask (nW, w*w, w*w) or None; returns the
@@ -131,21 +132,32 @@ class WindowAttention(nn.Module):
         self.query = Dense(dim, dim, bias=qkv_bias, compute_dtype=dtype)
         self.key = Dense(dim, dim, bias=False, compute_dtype=dtype)
         self.value = Dense(dim, dim, bias=qkv_bias, compute_dtype=dtype)
-        # torch.tensor (not from_numpy) so the tables follow the device the
-        # model is built under.
-        self.register_buffer("relative_coords_table", torch.tensor(
-            log_cpb_coords(window_size, pretrained_window_size),
-            dtype=torch.float32), persistent=False)
-        self.register_buffer("relative_position_index", torch.tensor(
-            relative_position_index(window_size).reshape(-1),
-            dtype=torch.long), persistent=False)
+        self.window_size = window_size
+        self.pretrained_window_size = pretrained_window_size
+        self.register_buffer("relative_coords_table", None, persistent=False)
+        self.register_buffer("relative_position_index", None,
+                             persistent=False)
+        self.reset_buffers()
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.constant_(self.logit_scale, math.log(10.0))
-        for layer in (self.continuous_position_bias_mlp[0],
-                      self.continuous_position_bias_mlp[2], self.query,
-                      self.key, self.value):
-            init_linear_(layer, generator)
+    def reset_buffers(self) -> None:
+        """The static tables (not in the state dict), on the device of the
+        parameters: a model built on the meta device gets them here once
+        its parameters have a real device. torch.tensor (not from_numpy)
+        so the tables follow the device the model is built under."""
+        device = self.logit_scale.device
+        self.relative_coords_table = torch.tensor(
+            log_cpb_coords(self.window_size, self.pretrained_window_size),
+            dtype=torch.float32, device=device)
+        self.relative_position_index = torch.tensor(
+            relative_position_index(self.window_size).reshape(-1),
+            dtype=torch.long, device=device)
+
+    def init_plan(self) -> Plan:
+        yield "logit_scale", Init("constant", math.log(10.0))
+        for name in ("continuous_position_bias_mlp.0",
+                     "continuous_position_bias_mlp.2", "query", "key",
+                     "value"):
+            yield from sub_plan(name, linear_plan(self.get_submodule(name)))
 
     def position_bias(self, N: int) -> torch.Tensor:
         """Continuous relative position bias, (H, N, N) fp32: a tiny MLP
@@ -208,7 +220,7 @@ class WindowAttention(nn.Module):
         return torch.matmul(probs.to(dt).float(), v.float()).to(dt)
 
 
-class SwinV2Block(nn.Module):
+class SwinV2Block(PlanInit, nn.Module):
     """One SwinV2 layer: shifted-window attention + MLP, residual-post-norm
     (the norm is applied to each sublayer's output before the residual
     add)."""
@@ -241,19 +253,29 @@ class SwinV2Block(nn.Module):
         self.output = nn.ModuleDict({"dense": Dense(hidden, dim,
                                                     compute_dtype=dtype)})
         self.layernorm_after = LayerNorm(dim, layer_norm_eps)
-        mask = None
-        if self.shift_size > 0:
-            mask = torch.tensor(shifted_window_mask(
-                R, R, self.window_size, self.shift_size))
-        self.register_buffer("attn_mask", mask, persistent=False)
+        self.register_buffer("attn_mask", None, persistent=False)
+        self.reset_buffers()
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        self.attention["self"].init_weights(generator)
-        for layer in (self.attention["output"]["dense"],
-                      self.intermediate["dense"], self.output["dense"]):
-            init_linear_(layer, generator)
-        self.layernorm_before.init_weights(generator)
-        self.layernorm_after.init_weights(generator)
+    def reset_buffers(self) -> None:
+        """The shifted-window mask (not in the state dict; see
+        ``WindowAttention.reset_buffers``) and the attention's tables."""
+        if self.shift_size > 0:
+            R = self.input_resolution
+            self.attn_mask = torch.tensor(shifted_window_mask(
+                R, R, self.window_size, self.shift_size),
+                device=self.layernorm_before.weight.device)
+        self.attention["self"].reset_buffers()
+
+    def init_plan(self) -> Plan:
+        yield from sub_plan("attention.self",
+                            self.attention["self"].init_plan())
+        for name in ("attention.output.dense", "intermediate.dense",
+                     "output.dense"):
+            yield from sub_plan(name, linear_plan(self.get_submodule(name)))
+        yield from sub_plan("layernorm_before",
+                            self.layernorm_before.init_plan())
+        yield from sub_plan("layernorm_after",
+                            self.layernorm_after.init_plan())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         R, w, s = self.input_resolution, self.window_size, self.shift_size
@@ -274,7 +296,7 @@ class SwinV2Block(nn.Module):
         return x + self.layernorm_after(h)
 
 
-class PatchMerging(nn.Module):
+class PatchMerging(PlanInit, nn.Module):
     """2x2 patch merge: concat -> Linear(4C->2C) -> LayerNorm (v2 order)."""
 
     def __init__(self, dim: int, layer_norm_eps: float = 1e-5,
@@ -284,9 +306,9 @@ class PatchMerging(nn.Module):
                                compute_dtype=dtype)
         self.norm = LayerNorm(2 * dim, layer_norm_eps)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        init_linear_(self.reduction, generator)
-        self.norm.init_weights(generator)
+    def init_plan(self) -> Plan:
+        yield from sub_plan("reduction", linear_plan(self.reduction))
+        yield from sub_plan("norm", self.norm.init_plan())
 
     def forward(self, x: torch.Tensor, resolution: int) -> torch.Tensor:
         B, L, C = x.shape
@@ -299,7 +321,7 @@ class PatchMerging(nn.Module):
         return self.norm(self.reduction(h))
 
 
-class SwinV2Encoder(nn.Module):
+class SwinV2Encoder(PlanInit, nn.Module):
     """Swinv2Model equivalent: images -> (B, tokens, num_features).
 
     Input is channels-last ``(B, H, W, 3)``, as in the JAX package; it is
@@ -345,17 +367,27 @@ class SwinV2Encoder(nn.Module):
             self.encoder = nn.ModuleDict({"layers": nn.ModuleList(stages)})
             self.layernorm = LayerNorm(dim, cfg.layer_norm_eps)
 
-    def init_weights(self, generator: torch.Generator) -> None:
+    def init_plan(self) -> Plan:
         proj = self.embeddings["patch_embeddings"]["projection"]
-        lecun_normal_(proj.weight, proj.weight[0].numel(), generator)
-        nn.init.zeros_(proj.bias)
-        self.embeddings["norm"].init_weights(generator)
+        name = "embeddings.patch_embeddings.projection"
+        yield f"{name}.weight", Init("lecun_normal", proj.weight[0].numel())
+        yield f"{name}.bias", Init("zeros")
+        yield from sub_plan("embeddings.norm",
+                            self.embeddings["norm"].init_plan())
+        for si, stage in enumerate(self.encoder["layers"]):
+            for bi, blk in enumerate(stage["blocks"]):
+                yield from sub_plan(f"encoder.layers.{si}.blocks.{bi}",
+                                    blk.init_plan())
+            if "downsample" in stage:
+                yield from sub_plan(f"encoder.layers.{si}.downsample",
+                                    stage["downsample"].init_plan())
+        yield from sub_plan("layernorm", self.layernorm.init_plan())
+
+    def reset_buffers(self) -> None:
+        """Every block's static tables (``SwinV2Block.reset_buffers``)."""
         for stage in self.encoder["layers"]:
             for blk in stage["blocks"]:
-                blk.init_weights(generator)
-            if "downsample" in stage:
-                stage["downsample"].init_weights(generator)
-        self.layernorm.init_weights(generator)
+                blk.reset_buffers()
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         proj = self.embeddings["patch_embeddings"]["projection"]

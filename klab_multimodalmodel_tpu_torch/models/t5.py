@@ -117,8 +117,8 @@ from ..parallel.partitioning import (ExpertGroup, PipeGroup, gather_columns,
                                      pipe_stages, seq_gather, seq_shard,
                                      tied_logits)
 from ..utils.device import resolve_device
-from .layers import (NEG_INF, Dense, RMSNorm, dot_product_attention, dropout,
-                     normal_)
+from .layers import (NEG_INF, Dense, Init, Plan, PlanInit, RMSNorm,
+                     dot_product_attention, dropout, sub_plan)
 
 # A decode cache: one dict per layer, {"self": {...}, "cross": {...}}.
 Cache = list
@@ -156,7 +156,7 @@ def relative_position_bucket(relative_position: torch.Tensor,
     return ret + torch.where(is_small, n, val_if_large.to(n.dtype))
 
 
-class T5RelativePositionBias(nn.Module):
+class T5RelativePositionBias(PlanInit, nn.Module):
     """Learned bucket embedding -> (heads, Lq, Lk) additive bias. Held once
     per stack, in block 0's self-attention (HF's
     ``relative_attention_bias``)."""
@@ -182,8 +182,8 @@ class T5RelativePositionBias(nn.Module):
             num_buckets=self.num_buckets, max_distance=self.max_distance)
         return self.weight[buckets].permute(2, 0, 1)  # (H, Lq, Lk)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.weight, 1.0, generator)
+    def init_plan(self) -> Plan:
+        yield "weight", Init("normal", 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +191,7 @@ class T5RelativePositionBias(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class KlabDense(Dense):
+class KlabDense(PlanInit, Dense):
     """Bias-free dense layer (torch layout: weight (out, in)) in the compute
     dtype, with the T5 fan-in normal init of its JAX counterpart.
 
@@ -208,8 +208,8 @@ class KlabDense(Dense):
         self.init_std = init_std
         self.register_buffer("qscale", None)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.weight, self.init_std, generator)
+    def init_plan(self) -> Plan:
+        yield "weight", Init("normal", self.init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x)
@@ -223,7 +223,7 @@ class KlabDense(Dense):
 # ---------------------------------------------------------------------------
 
 
-class T5Attention(nn.Module):
+class T5Attention(PlanInit, nn.Module):
     """Multi-head attention without the 1/sqrt(d) scale (T5 convention).
 
     Modes: full-sequence self-attention, cross-attention (``kv`` given),
@@ -259,11 +259,12 @@ class T5Attention(nn.Module):
                 s.relative_attention_max_distance, s.num_heads,
                 bidirectional)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        for layer in (self.q, self.k, self.v, self.o):
-            layer.init_weights(generator)
+    def init_plan(self) -> Plan:
+        for name in ("q", "k", "v", "o"):
+            yield from sub_plan(name, getattr(self, name).init_plan())
         if hasattr(self, "relative_attention_bias"):
-            self.relative_attention_bias.init_weights(generator)
+            yield from sub_plan("relative_attention_bias",
+                                self.relative_attention_bias.init_plan())
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
         B, L, inner = t.shape
@@ -407,7 +408,7 @@ def _t5_act(feed_forward_proj: str):
     return acts[name], is_gated
 
 
-class T5Mlp(nn.Module):
+class T5Mlp(PlanInit, nn.Module):
     """T5 feed-forward: un-gated ``wo(act(wi(x)))`` or the v1.1 gated
     ``wo(act(wi_0(x)) * wi_1(x))`` (HF's ``DenseReluDense``)."""
 
@@ -426,10 +427,9 @@ class T5Mlp(nn.Module):
         # parallelism).
         self.ff_offset = 0
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        for layer in ((self.wi_0, self.wi_1) if self.gated else (self.wi,)):
-            layer.init_weights(generator)
-        self.wo.init_weights(generator)
+    def init_plan(self) -> Plan:
+        for name in (("wi_0", "wi_1") if self.gated else ("wi",)) + ("wo",):
+            yield from sub_plan(name, getattr(self, name).init_plan())
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
@@ -446,7 +446,7 @@ class T5Mlp(nn.Module):
         return self.wo(dropout(h, rate, generator, shard))
 
 
-class T5MoeMlp(nn.Module):
+class T5MoeMlp(PlanInit, nn.Module):
     """The JAX package's ``T5MoeMlp``: ``num_experts`` un-gated ReLU FFNs of
     the full ``d_ff`` (whatever ``feed_forward_proj`` is), a bias-free
     router in fp32 on x cast to fp32, and dense dispatch at fixed capacity
@@ -492,10 +492,10 @@ class T5MoeMlp(nn.Module):
                 part.clone(), requires_grad=bank.requires_grad))
         self.expert = expert
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.router.weight, self.size.d_model ** -0.5, generator)
-        normal_(self.experts_wi, self.size.d_model ** -0.5, generator)
-        normal_(self.experts_wo, self.size.d_ff ** -0.5, generator)
+    def init_plan(self) -> Plan:
+        yield "router.weight", Init("normal", self.size.d_model ** -0.5)
+        yield "experts_wi", Init("normal", self.size.d_model ** -0.5)
+        yield "experts_wo", Init("normal", self.size.d_ff ** -0.5)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
@@ -517,7 +517,7 @@ class T5MoeMlp(nn.Module):
         return y.to(x.dtype), aux
 
 
-class T5Block(nn.Module):
+class T5Block(PlanInit, nn.Module):
     """Pre-norm residual block: self-attn [-> cross-attn] -> MLP, laid out
     as HF's ``layer`` list so parameter names match. With ``moe_experts >
     0`` the MLP is a ``T5MoeMlp`` (named ``mlp``, beside the layer norm
@@ -552,10 +552,10 @@ class T5Block(nn.Module):
                 "DenseReluDense": T5Mlp(s, dtype)}))
         self.layer = nn.ModuleList(layers)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        for sub in self.layer:
-            for m in sub.values():
-                m.init_weights(generator)
+    def init_plan(self) -> Plan:
+        for i, sub in enumerate(self.layer):
+            for key, m in sub.items():
+                yield from sub_plan(f"layer.{i}.{key}", m.init_plan())
 
     def forward(self, x, self_bias, enc_out, cross_bias, self_pack=None,
                 cross_pack=None, cache: Optional[dict] = None,
@@ -670,7 +670,7 @@ def _remat_block(blk: nn.Module, remat: str, x: torch.Tensor,
                            preserve_rng_state=False, context_fn=context)
 
 
-class T5Stack(nn.Module):
+class T5Stack(PlanInit, nn.Module):
     """Encoder or decoder stack (embedding handled by the caller).
 
     Callers pass the decomposed attention inputs: a shared per-head bias
@@ -731,10 +731,11 @@ class T5Stack(nn.Module):
     def relative_attention_bias(self) -> T5RelativePositionBias:
         return self.block[0].layer[0]["SelfAttention"].relative_attention_bias
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        for blk in self.block:
-            blk.init_weights(generator)
-        self.final_layer_norm.init_weights(generator)
+    def init_plan(self) -> Plan:
+        for i, blk in enumerate(self.block):
+            yield from sub_plan(f"block.{i}", blk.init_plan())
+        yield from sub_plan("final_layer_norm",
+                            self.final_layer_norm.init_plan())
 
     def set_tensor_shard(self, rank: int, size: int) -> None:
         """Run heads ``rank * H / size ..`` and the same share of d_ff
@@ -1103,7 +1104,7 @@ def _kernel_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-class T5Encoder(nn.Module):
+class T5Encoder(PlanInit, nn.Module):
     """T5EncoderModel equivalent. Accepts token ids or ``inputs_embeds``.
 
     ``dtype``: the compute dtype. ``device``: None means the card (see
@@ -1120,9 +1121,9 @@ class T5Encoder(nn.Module):
                                    use_pallas=use_pallas, dtype=dtype,
                                    gather_output=True)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.shared.weight, 1.0, generator)
-        self.encoder.init_weights(generator)
+    def init_plan(self) -> Plan:
+        yield "shared.weight", Init("normal", 1.0)
+        yield from sub_plan("encoder", self.encoder.init_plan())
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
@@ -1188,7 +1189,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-class T5ForConditionalGeneration(nn.Module):
+class T5ForConditionalGeneration(PlanInit, nn.Module):
     """Full encoder-decoder with the tied (or untied) LM head.
 
     ``dtype``: the compute dtype. ``remat``: '', 'full' or 'dots_saveable'
@@ -1227,12 +1228,12 @@ class T5ForConditionalGeneration(nn.Module):
             self.register_buffer("head_q", None)
             self.register_buffer("head_scale", None)
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.shared.weight, 1.0, generator)
-        self.encoder.init_weights(generator)
-        self.decoder.init_weights(generator)
+    def init_plan(self) -> Plan:
+        yield "shared.weight", Init("normal", 1.0)
+        yield from sub_plan("encoder", self.encoder.init_plan())
+        yield from sub_plan("decoder", self.decoder.init_plan())
         if not self.size.tie_word_embeddings:
-            self.lm_head.init_weights(generator)
+            yield from sub_plan("lm_head", self.lm_head.init_plan())
 
     def split_stages(self, pipe: PipeGroup) -> None:
         """Both stacks hold and run only stage ``pipe.rank`` of their

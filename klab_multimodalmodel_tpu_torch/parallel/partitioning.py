@@ -356,6 +356,124 @@ def local_shard(full: torch.Tensor, like) -> torch.Tensor:
     return x.to(like.to_local().device).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# A rank's piece of a whole tensor
+# ---------------------------------------------------------------------------
+
+# (offset, length) on every dim of a whole tensor: the block a rank holds.
+Piece = tuple
+
+# MoE expert banks (``T5MoeMlp``): cut on their experts and d_ff.
+BANKS = (".mlp.experts_wi", ".mlp.experts_wo")
+
+
+def _chunk(span: tuple[int, int], n: int, k: int) -> tuple[int, int]:
+    """Chunk ``k`` of ``n`` (``torch.chunk``'s sizes) of ``span``."""
+    sizes = _chunk_sizes(span[1], n)
+    return span[0] + sum(sizes[:k]), sizes[k]
+
+
+def rank_piece(name: str, shape: tuple, mesh, layers: Mapping[str, int],
+               banks: bool, whole_over_shards: bool = False
+               ) -> Optional[Piece]:
+    """The piece of the whole-model state-dict entry ``name`` (of the
+    whole ``shape``) that rank ``mesh.rank`` of ``mesh`` (a
+    ``utils.mesh.Mesh``) holds, or None where it holds none. The rules
+    that lay the model out, in the order ``parallelize`` and the split
+    apply them:
+
+    1. the pipe stage (``stage_for_path`` over the stacks' block counts
+       ``layers``): another stage's block is held by none of this stage's
+       ranks;
+    2. under MoE with split banks (``banks``: tensor or expert above 1) a
+       bank's experts on dim 0 and its d_ff columns (``ExpertGroup``);
+    3. else tensor parallelism over ``tensor`` where ``tensor_parallel``
+       says (DTensor's ``Shard``: ``torch.chunk``'s sizes);
+    4. FSDP2 over ``fsdp`` on ``fsdp_dim`` (``torch.chunk``'s sizes, of
+       what the earlier rules left), on a sharded mesh.
+
+    ``whole_over_shards`` leaves out 3 and 4: the piece of a state that
+    is whole over the shards (``Adafactor``'s). A chunk past the end of a
+    dim is a piece of length 0. Every rank can compute every rank's
+    pieces: ``dataclasses.replace(mesh, rank=r)``."""
+    piece = [(0, n) for n in shape]
+    if mesh.pipe > 1:
+        stage = stage_for_path(name, layers, mesh.pipe)
+        if stage is not None and stage != mesh.pipe_rank:
+            return None
+    spec = spec_for_path(name, len(shape))
+    tensor_dim = None
+    if banks and name.endswith(BANKS):
+        per = shape[0] // mesh.expert
+        piece[0] = (mesh.expert_rank * per, per)
+        td = spec.index("tensor")
+        per = shape[td] // mesh.tensor
+        piece[td] = (mesh.tensor_rank * per, per)
+    elif (mesh.tensor > 1 and tensor_parallel(name)
+          and not whole_over_shards):
+        tensor_dim = spec.index("tensor")
+        piece[tensor_dim] = _chunk(piece[tensor_dim], mesh.tensor,
+                                   mesh.tensor_rank)
+    if mesh.sharded and shape and not whole_over_shards:
+        d = fsdp_dim(name, shape, mesh.fsdp)
+        if d == tensor_dim:
+            raise NotImplementedError(
+                f"{name} {shape}: fsdp and tensor on one dim")
+        piece[d] = _chunk(piece[d], mesh.fsdp, mesh.dp_rank % mesh.fsdp)
+    return tuple(piece)
+
+
+def piece_view(t: torch.Tensor, piece: Piece,
+               within: Optional[Piece] = None) -> torch.Tensor:
+    """The view of ``piece`` in ``t``, which holds the whole tensor, or
+    the piece ``within`` of it."""
+    for d, (start, length) in enumerate(piece):
+        t = t.narrow(d, start - (within[d][0] if within else 0), length)
+    return t
+
+
+def overlap(a: Piece, b: Piece) -> Optional[Piece]:
+    """The block two pieces of one tensor share, or None."""
+    out = []
+    for (s0, n0), (s1, n1) in zip(a, b):
+        start, stop = max(s0, s1), min(s0 + n0, s1 + n1)
+        if stop <= start:
+            return None
+        out.append((start, stop - start))
+    return tuple(out)
+
+
+def record_piece(record: Mapping) -> Piece:
+    """The piece of a piece record ({"offsets", "lengths"})."""
+    return tuple(zip(record["offsets"], record["lengths"]))
+
+
+def assemble(pieces: Iterable[tuple[Mapping, Optional[torch.Tensor]]]
+             ) -> dict:
+    """{entry: its whole tensor on the host, or its plain value} from
+    (record, tensor) pairs (``Trainer.owned_pieces``' records: "entry",
+    "shape", "dtype" and the piece, or "entry" and "value"). Raises where
+    the pieces do not fill an entry exactly."""
+    out: dict = {}
+    filled: dict = {}
+    for rec, t in pieces:
+        entry = rec["entry"]
+        if "value" in rec:
+            out.setdefault(entry, rec["value"])
+            continue
+        whole = out.get(entry)
+        if whole is None:
+            whole = out[entry] = torch.empty(
+                rec["shape"], dtype=getattr(torch, rec["dtype"]))
+        piece_view(whole, record_piece(rec)).copy_(t)
+        filled[entry] = filled.get(entry, 0) + t.numel()
+    for entry, n in filled.items():
+        if n != out[entry].numel():
+            raise RuntimeError(f"{entry}: pieces of {n} elements for a "
+                               f"{tuple(out[entry].shape)} tensor")
+    return out
+
+
 class _GatherLastDim(torch.autograd.Function):
     """Columns split over a tensor group -> all of them on every rank
     (``all_gather_into_tensor``); the backward takes the rank's columns of
@@ -951,8 +1069,10 @@ def parallelize(net: nn.Module, model: nn.Module, mesh,
     FSDP2 sees each slice as a tensor replicated over its data x fsdp
     group, and shards it there.
 
-    The weights must be in place and equal on every rank, the frozen ones
-    already in their storage dtype (a unit's parameters share one dtype).
+    The model is on the meta device (``Trainer.init_state`` then gives
+    each rank's pieces memory and fills them), or holds the same weights
+    on every rank; the frozen ones already in their storage dtype (a
+    unit's parameters share one dtype).
     Returns the modules whose trainable ``weight`` has a gradient that is
     partial on each tensor rank and must be summed over the tensor group:
     the transformer's relative-position tables, of which each rank reads

@@ -364,6 +364,42 @@ def state_dim(key: str, shape: tuple, dim: int) -> Optional[int]:
     return dim - 1 if dim > dropped else dim
 
 
+def state_piece(key: str, shape: tuple, piece: Optional[tuple],
+                ndim: int) -> Optional[tuple]:
+    """The piece of an optimizer state entry ``key`` (of ``ndim`` dims)
+    of a parameter of the whole ``shape`` that a rank holding the
+    parameter's ``piece`` (``parallel.partitioning.rank_piece``) holds:
+    ``piece`` on the dims ``state_dim`` maps (a 0-d entry, a step count,
+    whole); None where it holds no piece of the parameter."""
+    if piece is None:
+        return None
+    out = [None] * ndim
+    if ndim:
+        for d, span in enumerate(piece):
+            j = state_dim(key, shape, d)
+            if j is not None:
+                out[j] = span
+    return tuple(out)
+
+
+def optimizer_state(whole: dict, groups: list,
+                    hyper: dict) -> dict:
+    """The one-process optimizer state dict ({"state", "param_groups"})
+    from whole entries "optimizer/{name}/{key}" (``assemble``'s) and the
+    whole model's param groups of names."""
+    by_name: dict = {}
+    for entry, v in whole.items():
+        _, name, key = entry.split("/")
+        by_name.setdefault(name, {})[key] = v
+    flat = [n for g in groups for n in g]
+    out, i = [], 0
+    for g in groups:
+        out.append(dict(hyper, params=list(range(i, i + len(g)))))
+        i += len(g)
+    return {"state": {i: by_name[n] for i, n in enumerate(flat)
+                      if n in by_name}, "param_groups": out}
+
+
 def optimizer_groups(config: Config, names: Iterable[str]
                      ) -> list[list[str]]:
     """The optimizer's param groups, as lists of trainable parameter

@@ -58,8 +58,8 @@ its positions' share of its rows' (``ops/moe.py``), and the balance
 loss's mean over the rows' groups spans data x fsdp (``Mesh.dp_group``),
 whose ranks hold the other rows.
 
-A mesh with ``pipe`` or ``expert`` above 1 splits the transformer after
-its weights are made or loaded: a pipe rank keeps its stage's blocks
+A mesh with ``pipe`` or ``expert`` above 1 splits the transformer: a
+pipe rank keeps its stage's blocks
 (``T5ForConditionalGeneration.split_stages``), an expert rank its experts
 (``split_experts``), and every rank the rest, replicated. Under MoE with
 ``tensor`` above 1 a rank keeps its d_ff columns of its experts too, cut
@@ -78,10 +78,13 @@ the replicated parameters come out the same on each rank with no further
 reduction. DDP, when there is more than one data or seq rank and nothing
 is sharded, spans the data x seq group of the rank's stage or experts
 (``Mesh.ddp_group``); with one data rank and one seq rank there is none.
-Whole state dicts gather the stages and the bank slices to rank 0 over
-the host's gloo group, as tensors (under sharding each rank's part
-gathered whole within its data x fsdp x tensor group first; one copy of
-each bank slice, from seq rank 0).
+On a partitioned mesh (sharded, or stages or banks split) the model is
+built on the meta device and each rank materializes only its pieces
+(``init_state``): a piece is the block of a whole state-dict entry that
+the rank holds (``parallel.partitioning.rank_piece``). The same pieces
+serve the whole state dicts (every rank's pieces assembled on rank 0 over
+the host's gloo group) and the per-shard checkpoints
+(``checkpoint/io.py``).
 
 Dropout draws from the ``torch.Generator`` passed to each step, on the
 model's device; the JAX package's dropout key becomes that generator.
@@ -92,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import itertools
 from typing import Mapping, Optional, Union
 
 import numpy as np
@@ -104,15 +108,16 @@ from torch.nn.parallel import DistributedDataParallel
 from ..config import Config
 from ..data.image_ops import normalize_images
 from ..models.multimodal import MultiModalModel
-from ..parallel.partitioning import (ExpertGroup, PipeGroup, SeqGroup,
-                                     gather_full, local_shard, parallelize,
-                                     spec_for_path, stack_layers,
-                                     stage_for_path)
+from ..parallel.partitioning import (BANKS, ExpertGroup, PipeGroup,
+                                     SeqGroup, assemble, parallelize,
+                                     piece_view, rank_piece, spec_for_path,
+                                     stack_layers)
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
 from .optim import (Adafactor, expert_factoring_slices, make_optimizer,
-                    optimizer_groups, state_dim, trainable_names)
+                    optimizer_groups, optimizer_state, state_piece,
+                    trainable_names)
 
 Batch = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -192,8 +197,11 @@ class Trainer:
                 and self.device.index is None):
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.policy = get_policy(cfg.compute_dtype, cfg.param_dtype)
-        self.model = MultiModalModel(cfg, dtype=self.policy.compute_dtype,
-                                     device=self.device)
+        # Partitioned, the model is built on the meta device: each rank
+        # materializes its pieces only (``init_state``).
+        self.model = MultiModalModel(
+            cfg, dtype=self.policy.compute_dtype,
+            device="meta" if self.partitioned else self.device)
         mesh = self.mesh
         # Every rank makes the groups, in one order (collectives): the
         # first call makes the ``DeviceMesh`` they all come from.
@@ -226,9 +234,9 @@ class Trainer:
         if cfg.pipeline_stages > 1 and mesh.dp_size > 1:
             self.model.transformer.set_batch_share(mesh.dp_rank,
                                                    mesh.dp_size)
-        # Under pipe or split banks: the whole model's state-dict names and
-        # shapes, in order, its optimizer's param groups (by name) and its
-        # stacks' block counts, from before the split.
+        # The whole model's state-dict names and shapes, in order, its
+        # optimizer's param groups (by name) and its stacks' block counts,
+        # from before any split (``init_state``).
         self._whole_names: list = []
         self._whole_shapes: dict = {}
         self._whole_groups: list = []
@@ -252,9 +260,21 @@ class Trainer:
         over the trainable parameters, the frozen parameters cast to
         ``frozen_param_dtype``, and across processes the DDP wrapper.
         ``global_batch``, the rows of an update, must divide over the data
-        ranks (data x fsdp). On a sharded mesh the weights are sharded
-        after they are made or loaded, and this runs once; later weights
-        come through ``load_full_state_dict``. Returns the model."""
+        ranks (data x fsdp).
+
+        On a partitioned mesh (``partitioned``) the model was built on the
+        meta device and this runs once (later weights come through
+        ``load_full_state_dict``): the whole model's names, shapes and init
+        plan are recorded, then the stages and banks are split, the frozen
+        towers cast and FSDP2 and tensor parallelism applied, all on meta;
+        then the rank's pieces get memory on the device (``to_empty``), the
+        Swin tables are rebuilt, and each piece is filled: from
+        ``state_dict``, or by the plan (``_draw_pieces``), which draws
+        every parameter whole on the device, in one process's order, keeps
+        the rank's piece and frees the rest before the next draw. So a rank
+        holds its pieces and at most one whole parameter besides (under MoE
+        a whole bank, the largest), and every layout's weights are one
+        process's, bitwise on one device type. Returns the model."""
         dp = self.mesh.dp_size
         if global_batch is not None and global_batch % dp:
             raise ValueError(
@@ -265,30 +285,25 @@ class Trainer:
             raise RuntimeError("a sharded or split Trainer is initialized "
                                "once; load later weights with "
                                "load_full_state_dict")
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict, strict=True)
-        else:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(
-                    self.config.seed)
-            self.model.init_weights(generator)
-        if self.split_model:
+        if not self.partitioned:
+            if state_dict is not None:
+                self.model.load_state_dict(state_dict, strict=True)
+            else:
+                if generator is None:
+                    generator = torch.Generator(
+                        device=self.device).manual_seed(self.config.seed)
+                self.model.init_weights(generator)
             self._record_whole()
-        if self.mesh.sharded:
-            # Shard the weights as they are (frozen ones in their storage
-            # dtype), the stages split and the banks cut first, then build
-            # the optimizer over the shards.
-            if self.pipe is not None:
-                self.model.transformer.split_stages(self.pipe)
-            names = trainable_names(self.model, self.config)
-            for name, p in self.model.named_parameters():
-                p.requires_grad_(name in names)
-            self._cast_frozen()
-            self.tensor_partial = parallelize(self.net, self.model,
-                                              self.mesh, self.device,
-                                              self.expert)
-        elif self.split_model:
-            self._split()
+        else:
+            self._record_whole()
+            plan = list(self.model.init_plan())
+            self._lay_out()
+            self.net.to_empty(device=self.device)
+            self.model.reset_buffers()
+            if state_dict is not None:
+                self.load_full_state_dict(state_dict)
+            else:
+                self._draw_pieces(plan, generator)
         self.optimizer, self.scheduler = make_optimizer(
             self.config, self.model, self.num_epochs)
         if self.split_model and isinstance(self.optimizer, Adafactor):
@@ -324,8 +339,8 @@ class Trainer:
     @property
     def partitioned(self) -> bool:
         """Whether each rank holds part of the state (sharded, or the
-        transformer's stages or experts split over ranks): whole state
-        dicts are gathered and cut again."""
+        transformer's stages or experts split over ranks): the model is
+        built on the meta device and each rank materializes its pieces."""
         return self.mesh.sharded or self.mesh.split
 
     @property
@@ -335,7 +350,6 @@ class Trainer:
         the whole state live on other ranks than rank 0."""
         return self.pipe is not None or self.expert is not None
 
-    # -- the pipe and expert split -----------------------------------------
     def _record_whole(self) -> None:
         """The whole model's state-dict names and shapes, its optimizer's
         param groups and its stacks' block counts, before any split; and
@@ -350,35 +364,200 @@ class Trainer:
         self._layers = stack_layers(self._whole_names)
         if self.config.optimizer == "adafactor" and self.mesh.expert > 1:
             for n, shape in self._whole_shapes.items():
-                if self._is_bank(n) and not expert_factoring_slices(shape):
+                if n.endswith(BANKS) and not expert_factoring_slices(shape):
                     raise NotImplementedError(
                         f"{n} {shape}: Adafactor would factor its "
                         "experts' dim; split it with Adam, or fewer "
                         "experts")
 
-    def _split(self) -> None:
-        """Split the transformer's stages or experts over their groups,
-        their weights as they are (the same on every rank)."""
+    def _lay_out(self) -> None:
+        """On the meta device: the trainable flags, the frozen towers'
+        storage dtype, the stages and banks split, then FSDP2 and tensor
+        parallelism (``parallelize``, which cuts the banks itself)."""
+        names = trainable_names(self.model, self.config)
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(name in names)
+        self._cast_frozen()
         if self.pipe is not None:
             self.model.transformer.split_stages(self.pipe)
-        if self.expert is not None:
+        if self.sharded:
+            self.tensor_partial = parallelize(self.net, self.model,
+                                              self.mesh, self.device,
+                                              self.expert)
+        elif self.expert is not None:
             self.model.transformer.split_experts(self.expert)
 
-    def _is_bank(self, name: str) -> bool:
-        return name.endswith((".mlp.experts_wi", ".mlp.experts_wo"))
+    def _draw_pieces(self, plan: list, generator) -> None:
+        """Run the whole model's init ``plan`` as one process runs it: each
+        parameter drawn whole into a temporary on the device (fp32, as one
+        process's parameters are drawn), this rank's piece copied out (and
+        cast to its storage dtype), the temporary freed. A parameter the
+        rank holds no piece of is drawn all the same, so that the
+        generator moves as one process's does."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.config.seed)
+        local = self._local_tensors()
+        with torch.no_grad():
+            for name, init in plan:
+                t = local.get(name)
+                if t is None and not init.draws:
+                    continue
+                whole = torch.empty(self._whole_shapes[name],
+                                    dtype=torch.float32, device=self.device)
+                init(whole, generator)
+                if t is not None:
+                    t.copy_(piece_view(whole, self.piece(name)))
+                del whole
 
-    def _placement(self, name: str):
-        """Where a state-dict entry of the whole model lives: ('stage', s)
-        on pipe rank s, ('expert',) cut on its experts' dim over the expert
-        ranks and on its d_ff over the tensor ranks, or None (on every
-        rank)."""
-        if self.pipe is not None:
-            s = stage_for_path(name, self._layers, self.pipe.size)
-            if s is not None:
-                return ("stage", s)
-        if self.expert is not None and self._is_bank(name):
-            return ("expert",)
-        return None
+    def _local_tensors(self) -> dict:
+        """{whole state-dict name: the tensor this rank holds of it (a
+        DTensor's local shard)}, for the entries it holds."""
+        out = {}
+        for name, t in itertools.chain(self.model.named_parameters(),
+                                       self.model.named_buffers()):
+            if name in self._whole_shapes:
+                out[name] = t.to_local() if isinstance(t, DTensor) else t
+        return out
+
+    # -- pieces ------------------------------------------------------------
+    def whole_shapes(self) -> dict:
+        """{state-dict name: shape} of the whole model, before any split
+        (from ``init_state`` on)."""
+        return dict(self._whole_shapes)
+
+    def piece(self, name: str, rank: Optional[int] = None,
+              whole_over_shards: bool = False):
+        """The piece of the whole entry ``name`` that this rank (or world
+        rank ``rank``) holds: ``parallel.partitioning.rank_piece`` on this
+        mesh and model; the whole on one process and under DDP."""
+        mesh = (self.mesh if rank is None
+                else dataclasses.replace(self.mesh, rank=rank))
+        return rank_piece(name, self._whole_shapes[name], mesh, self._layers,
+                          self.expert is not None, whole_over_shards)
+
+    def _state_piece(self, name: str, key: str, ndim: int,
+                     rank: Optional[int] = None):
+        """The piece of optimizer state entry ``key`` (``ndim`` dims) of
+        parameter ``name`` that this rank (or ``rank``) holds: the
+        parameter's, or with an optimizer whose state is whole over the
+        shards (``Adafactor.whole_state``) the parameter's before them."""
+        whole = getattr(self.optimizer, "whole_state", False)
+        return state_piece(key, self._whole_shapes[name],
+                           self.piece(name, rank, whole), ndim)
+
+    def _lowest(self, piece_of, mine) -> bool:
+        """Whether no lower world rank than this one holds ``mine``
+        (``piece_of(rank)``): the rank that writes a piece held by several."""
+        return all(piece_of(r) != mine for r in range(self.mesh.rank))
+
+    def owned_pieces(self, model: bool = True, optimizer: bool = True,
+                     names=None) -> list:
+        """This rank's pieces of the whole state that no lower rank holds,
+        so that over all ranks each piece of the layout comes once: a list
+        of (record, this rank's tensor or None). A record is {"entry",
+        "shape", "dtype", "offsets", "lengths"} (a tensor's piece) or
+        {"entry", "value"} (an optimizer's plain value, a step count); the
+        entries are "model/{name}" and "optimizer/{name}/{key}" (of the
+        entries ``names`` only, if given). Every rank computes its own from
+        the mesh and the names alone."""
+        out = []
+
+        def add(entry, shape, t, piece_of):
+            piece = piece_of(None)
+            if tuple(t.shape) != tuple(n for _, n in piece):
+                raise RuntimeError(f"{entry}: a {tuple(t.shape)} tensor for "
+                                   f"the piece {piece}")
+            if t.numel() and self._lowest(piece_of, piece):
+                out.append((dict(entry=entry, shape=list(shape),
+                                 dtype=str(t.dtype).split(".")[-1],
+                                 offsets=[o for o, _ in piece],
+                                 lengths=[n for _, n in piece]), t))
+
+        if model:
+            for name, t in self._local_tensors().items():
+                if names is not None and name not in names:
+                    continue
+                add(f"model/{name}", self._whole_shapes[name], t,
+                    lambda r, n=name: self.piece(n, r))
+        if not optimizer:
+            return out
+        by_id = {id(p): n for n, p in self.model.named_parameters()}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                name = by_id[id(p)]
+                if names is not None and name not in names:
+                    continue
+                shape = self._whole_shapes[name]
+                for key, v in self.optimizer.state.get(p, {}).items():
+                    entry = f"optimizer/{name}/{key}"
+                    if isinstance(v, torch.Tensor):
+                        v = v.to_local() if isinstance(v, DTensor) else v
+                        whole = state_piece(key, shape, tuple(
+                            (0, s) for s in shape), v.dim())
+                        add(entry, [s for _, s in whole], v,
+                            lambda r, n=name, k=key, d=v.dim():
+                            self._state_piece(n, k, d, r))
+                    elif self._lowest(lambda r, n=name: self.piece(n, r)
+                                      is not None, True):
+                        out.append((dict(entry=entry, value=v), None))
+        return out
+
+    def _to_rank0(self, pieces: list) -> list:
+        """Every rank's ``owned_pieces`` (their tensors on the host) on
+        rank 0, over the host's gloo group: each rank's records as one
+        pickled list, then their tensors' bytes. [] on the other ranks."""
+        if not self.mesh.distributed:
+            return pieces
+        rank, group = self.mesh.rank, self.mesh.cpu_group
+        if rank != 0:
+            dist.send_object_list([[r for r, _ in pieces]], dst=0,
+                                  group=group)
+            for _, t in pieces:
+                if t is not None:
+                    dist.send(_bytes(t), dst=0, group=group)
+            return []
+        out = list(pieces)
+        for src in range(1, dist.get_world_size(group)):
+            box = [None]
+            dist.recv_object_list(box, src=src, group=group)
+            for rec in box[0]:
+                t = None
+                if "value" not in rec:
+                    t = torch.empty(rec["lengths"],
+                                    dtype=getattr(torch, rec["dtype"]))
+                    dist.recv(_bytes(t), src=src, group=group)
+                out.append((rec, t))
+        return out
+
+    def _gathered(self, model: bool, names=None) -> dict:
+        """The whole entries of the model's (or the optimizer's) state (of
+        ``names``, if given) on rank 0's host, from every rank's owned
+        pieces; {} elsewhere."""
+        pieces = [(r, None if t is None else t.detach().to("cpu", copy=True))
+                  for r, t in self.owned_pieces(model=model,
+                                                optimizer=not model,
+                                                names=names)]
+        got = self._to_rank0(pieces)
+        return assemble(got) if self.mesh.rank == 0 else {}
+
+    def _cast_frozen(self) -> None:
+        if self.config.frozen_param_dtype == "bfloat16":
+            # They feed bf16 compute and take no update; the buffers (window
+            # masks, coordinate tables) stay fp32.
+            for p in self.model.parameters():
+                if not p.requires_grad and p.dtype != torch.bfloat16:
+                    p.data = p.data.to(torch.bfloat16)
+
+    # -- the pipe and expert split -----------------------------------------
+    def spans_ranks(self, name: str) -> bool:
+        """Whether the whole-model entry ``name`` lies in parts on
+        different ranks before FSDP2's and tensor parallelism's shards: a
+        pipe stage's block, or a bank cut over the tensor x expert ranks
+        (``rank_piece`` without its shards differs between ranks)."""
+        mine = self.piece(name, whole_over_shards=True)
+        return any(self.piece(name, r, True) != mine
+                   for r in range(self.mesh.layout().numel()))
 
     def _spread_adafactor(self) -> None:
         """Adafactor's clipping blocks whose JAX leaf spans the pipe group
@@ -391,14 +570,14 @@ class Trainer:
         group = (self.pipe or self.expert).group
         names = {id(p): n for n, p in self.model.named_parameters()}
         spread = [i for i, g in enumerate(self.optimizer.param_groups)
-                  if self._placement(names[id(g["params"][0])]) is not None]
+                  if self.spans_ranks(names[id(g["params"][0])])]
         self.optimizer.spread = (group, spread)
         if self.expert is None:
             return
         for g in self.optimizer.param_groups:
             for p in g["params"]:
                 n = names[id(p)]
-                if self._is_bank(n):
+                if n.endswith(BANKS):
                     self.optimizer.cuts[p] = (
                         self._whole_shapes[n],
                         self._tensor_dim(n) if self.mesh.tensor > 1
@@ -412,250 +591,120 @@ class Trainer:
         return spec_for_path(name, len(self._whole_shapes[name])).index(
             "tensor")
 
-    def _sources(self) -> list:
-        """The world ranks that hold rank 0's stages (by stage) or bank
-        slices (tensor-major, expert-minor: the ranks that share rank 0's
-        rows, at seq rank 0: the other seq ranks hold the same slices)."""
-        m = self.mesh
-        if m.pipe > 1:
-            return [s * m.expert for s in range(m.pipe)]
-        per_tensor = m.seq * m.pipe * m.expert
-        return [t * per_tensor + e for t in range(m.tensor)
-                for e in range(m.expert)]
-
-    def _gather_split(self, mine: dict) -> list:
-        """Rank 0: every source's ``mine`` (``_sources`` order; its own in
-        its place), sent over the host's gloo group as raw tensors behind
-        a small pickled outline of names, shapes and dtypes; [] elsewhere."""
-        sources = self._sources()
-        rank, group = self.mesh.rank, self.mesh.cpu_group
-        if rank == 0:
-            out = []
-            for src in sources:
-                if src == 0:
-                    out.append(mine)
-                    continue
-                box = [None]
-                dist.recv_object_list(box, src=src, group=group)
-                out.append(_fill(box[0], src, group))
-            return out
-        if rank in sources:
-            tensors = []
-            outline = _outline(mine, tensors)
-            dist.send_object_list([outline], dst=0, group=group)
-            for t in tensors:
-                if t.numel():
-                    dist.send(_bytes(t), dst=0, group=group)
-        return []
-
-    def _whole_entry(self, name: str, local: dict, parts: list):
-        """Entry ``name`` whole, from the sources' ``parts`` (rank 0's own
-        ``local`` for what every rank holds): a state tensor or a dict of
-        them (optimizer state), the bank slices joined on their experts'
-        and d_ff dims; None where its holder has none (no optimizer state
-        yet)."""
-        where = self._placement(name)
-        if where is None:
-            return local.get(name)
-        if where[0] == "stage":
-            return parts[where[1]].get(name)
-        pieces = [p.get(name) for p in parts]
-        if pieces[0] is None:
-            return None
-        shape, T, E = self._whole_shapes[name], self.mesh.tensor, \
-            self.mesh.expert
-
-        def join(values, key=""):
-            first = values[0]
-            if not (isinstance(first, torch.Tensor) and first.dim() > 0):
-                return first
-            ed = state_dim(key, shape, 0)
-            td = state_dim(key, shape, self._tensor_dim(name))
-            rows = [torch.cat(values[t * E:(t + 1) * E], dim=ed)
-                    for t in range(T)]
-            return rows[0] if td is None else torch.cat(rows, dim=td)
-
-        if isinstance(pieces[0], dict):
-            return {k: join([p[k] for p in pieces], k) for k in pieces[0]}
-        return join(pieces)
-
-    def _local_entry(self, name: str, whole):
-        """This rank's part of a whole entry (``_whole_entry``'s inverse):
-        a bank's experts and d_ff columns of every tensor of dim > 0."""
-        if self._placement(name) != ("expert",):
-            return whole
-        shape = self._whole_shapes[name]
-        mine = self.expert.experts(shape[0])
-        tdim = self._tensor_dim(name)
-        cols = self.expert.columns(shape[tdim])
-
-        def cut(v, key=""):
-            if not (isinstance(v, torch.Tensor) and v.dim() > 0):
-                return v
-            v = v.narrow(state_dim(key, shape, 0), mine.start,
-                         mine.stop - mine.start)
-            td = state_dim(key, shape, tdim)
-            if td is not None:
-                v = v.narrow(td, cols.start, cols.stop - cols.start)
-            return v.contiguous()
-
-        if isinstance(whole, dict):
-            return {k: cut(v, k) for k, v in whole.items()}
-        return cut(whole)
-
-    def _optimizer_by_name(self) -> tuple[dict, dict]:
-        """(this rank's optimizer state by parameter name, on the host, a
-        sharded tensor gathered over its mesh (every rank calls it); the
-        hyperparameters of its param groups, which share them)."""
-        state = self.optimizer.state_dict()
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
-        names = {id(p): n for n, p in self.model.named_parameters()}
-        by_name = {names[id(params[int(i)])]: {
-            k: (gather_full(v.detach()).to("cpu", copy=True)
-                if isinstance(v, torch.Tensor) else v)
-            for k, v in st.items()}
-            for i, st in state["state"].items()}
-        hyper = {k: v for k, v in state["param_groups"][0].items()
-                 if k != "params"}
-        return by_name, hyper
-
-    def _cast_frozen(self) -> None:
-        if self.config.frozen_param_dtype == "bfloat16":
-            # They feed bf16 compute and take no update; the buffers (window
-            # masks, coordinate tables) stay fp32.
-            for p in self.model.parameters():
-                if not p.requires_grad and p.dtype != torch.bfloat16:
-                    p.data = p.data.to(torch.bfloat16)
-
     # -- whole state dicts (sharded or not) --------------------------------
-    def full_state_dict(self) -> dict:
-        """The model's state dict with every tensor whole: its own on one
-        process or under DDP; under sharding and the split gathered (every
-        rank calls it: ``parallel.partitioning.gather_full``, then the
-        stages and bank slices to rank 0), on the host, held by rank 0 (the
-        other ranks get an empty dict)."""
+    def full_state_dict(self, names=None) -> dict:
+        """The model's state dict with every tensor whole (of the entries
+        ``names`` only, if given): its own on one process or under DDP;
+        when partitioned assembled on rank 0's host from every rank's
+        pieces (every rank calls it; the other ranks get an empty dict)."""
         if not self.partitioned:
-            return self.model.state_dict()
-        rank0 = self.mesh.rank == 0
-        local = {}
-        for name, value in self.model.state_dict().items():
-            whole = gather_full(value.detach())
-            if rank0 or self._placement(name) is not None:
-                local[name] = whole.to("cpu", copy=True)
-        if not self.split_model:
-            return local if rank0 else {}
-        parts = self._gather_split({n: v for n, v in local.items()
-                                    if self._placement(n) is not None})
-        if not rank0:
-            return {}
-        return {n: self._whole_entry(n, local, parts)
-                for n in self._whole_names}
+            state = self.model.state_dict()
+            return state if names is None else {
+                n: v for n, v in state.items() if n in names}
+        whole = self._gathered(model=True, names=names)
+        return {n: whole[f"model/{n}"] for n in self._whole_names
+                if f"model/{n}" in whole}
 
     def load_full_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                              strict: bool = True) -> None:
         """Load a whole state dict (one process's, the same on every rank)
-        into the model; under sharding, and under the pipe and expert
-        split, each rank copies its part out of it (no communication)."""
+        into the model; when partitioned each rank copies its pieces out
+        of it (no communication)."""
         if not self.partitioned:
             self.model.load_state_dict(state_dict, strict=strict)
             return
-        known = set(self._whole_names if self.split_model
-                    else self.model.state_dict())
-        if self.sharded:
-            live = dict(self.model.named_parameters())
-            live.update(self.model.named_buffers())
-        else:
-            live = self.model.state_dict()
+        known = set(self._whole_names)
         missing = sorted(known - set(state_dict))
         unexpected = sorted(set(state_dict) - known)
         if unexpected or (strict and missing):
             raise RuntimeError(f"state dict: missing {missing}, "
                                f"unexpected {unexpected}")
+        self.load_model_pieces(
+            [n for n in self._whole_names if n in state_dict],
+            lambda entry, piece, out: out.copy_(piece_view(
+                state_dict[entry[len("model/"):]], piece)))
+
+    def load_model_pieces(self, names, read) -> None:
+        """Fill this rank's piece of each whole entry of ``names`` in place
+        with ``read("model/{name}", piece, out)``, which copies the piece's
+        values into ``out`` (cast to its storage dtype)."""
+        local = self._local_tensors()
         with torch.no_grad():
-            for name, value in state_dict.items():
-                if name not in live:  # another stage's
-                    continue
-                t = live[name]
-                value = self._local_entry(name, value)
-                if isinstance(t, DTensor):
-                    t.to_local().copy_(local_shard(value, t))
-                else:
-                    t.copy_(value)
+            for name in names:
+                t = local.get(name)
+                if t is not None and t.numel():
+                    read(f"model/{name}", self.piece(name), t)
 
     def full_optimizer_state_dict(self) -> dict:
         """The optimizer's state dict (one process's form), every tensor
-        whole; under sharding and the split gathered (every rank calls it)
-        and held by rank 0."""
-        if self.split_model:
-            by_name, hyper = self._optimizer_by_name()
-            parts = self._gather_split({n: v for n, v in by_name.items()
-                                        if self._placement(n) is not None})
-            if self.mesh.rank != 0:
-                return {}
-            groups, i = [], 0
-            for g in self._whole_groups:
-                groups.append(dict(hyper, params=list(range(i, i + len(g)))))
-                i += len(g)
-            flat = [n for g in self._whole_groups for n in g]
-            out = {i: self._whole_entry(n, by_name, parts)
-                   for i, n in enumerate(flat)}
-            return {"state": {i: st for i, st in out.items()
-                              if st is not None}, "param_groups": groups}
-        state = self.optimizer.state_dict()
-        if not self.sharded:
-            return state
-        whole = {i: {k: (gather_full(v.detach()).cpu()
-                         if isinstance(v, torch.Tensor) else v)
-                     for k, v in st.items()}
-                 for i, st in state["state"].items()}
+        whole; when partitioned assembled on rank 0 from every rank's
+        pieces (every rank calls it) and {} elsewhere."""
+        if not self.partitioned:
+            return self.optimizer.state_dict()
+        whole = self._gathered(model=False)
         if self.mesh.rank != 0:
             return {}
-        return {"state": whole, "param_groups": state["param_groups"]}
+        hyper = {k: v for k, v in self.optimizer.param_groups[0].items()
+                 if k != "params"}
+        return optimizer_state(whole, self._whole_groups, hyper)
 
     def load_full_optimizer_state_dict(self, state: dict) -> None:
-        """Load ``full_optimizer_state_dict``'s form into the optimizer;
-        under sharding a state tensor shaped as its parameter becomes the
-        rank's shard of it, unless the optimizer keeps whole state
-        (``Adafactor``); under the split each rank takes its parameters'
-        state, the experts' slices of it. Every state tensor keeps its saved
-        dtype (torch's loader would cast ``AdamBf16Mu``'s bf16 moment to
-        its parameter's)."""
-        if self.split_model:
-            flat = [n for g in self._whole_groups for n in g]
-            saved = {flat[int(i)]: st for i, st in state["state"].items()}
-            params = [p for g in self.optimizer.param_groups
-                      for p in g["params"]]
-            names = {id(p): n for n, p in self.model.named_parameters()}
-            local = {i: self._local_entry(names[id(p)],
-                                          saved[names[id(p)]])
-                     for i, p in enumerate(params) if names[id(p)] in saved}
-            hyper = {k: v for k, v in state["param_groups"][0].items()
-                     if k != "params"}
-            groups = [dict(g, **hyper) for g in
-                      self.optimizer.state_dict()["param_groups"]]
-            state = {"state": local, "param_groups": groups}
-        if self.sharded and not getattr(self.optimizer, "whole_state",
-                                        False):
-            params = [p for g in self.optimizer.param_groups
-                      for p in g["params"]]
-            sharded = {}
-            for i, st in state["state"].items():
-                p = params[int(i)]
-                sharded[i] = {k: (DTensor.from_local(
-                    local_shard(v, p), p.device_mesh, p.placements,
-                    shape=p.shape, stride=p.stride())
-                    if isinstance(p, DTensor) and isinstance(v, torch.Tensor)
-                    and tuple(v.shape) == tuple(p.shape) else v)
-                    for k, v in st.items()}
-            state = dict(state, state=sharded)
-        self.optimizer.load_state_dict(state)
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
-        for i, saved in state["state"].items():
-            live = self.optimizer.state[params[int(i)]]
-            for key, value in saved.items():
-                if (isinstance(value, torch.Tensor)
-                        and live[key].dtype != value.dtype):
-                    live[key] = live[key].to(value.dtype)
+        """Load ``full_optimizer_state_dict``'s form into the optimizer:
+        each rank takes its pieces of each state tensor (a sharded
+        parameter's shard of Adam's moments, a bank slice's experts and
+        columns; a state that ``Adafactor`` keeps whole over the shards
+        whole). Every state tensor keeps its saved dtype (``AdamBf16Mu``'s
+        bf16 moment)."""
+        flat = [n for g in self._whole_groups for n in g]
+        entries = {}
+        for i, st in state["state"].items():
+            for key, v in st.items():
+                entries[f"optimizer/{flat[int(i)]}/{key}"] = v
+        hyper = {k: v for k, v in state["param_groups"][0].items()
+                 if k != "params"}
+        self.load_optimizer_pieces(
+            {e: (dict(shape=list(v.shape), dtype=str(v.dtype).split(".")[-1])
+                 if isinstance(v, torch.Tensor) else dict(value=v))
+             for e, v in entries.items()},
+            lambda entry, piece, out: out.copy_(piece_view(entries[entry],
+                                                           piece)), hyper)
+
+    def load_optimizer_pieces(self, entries: Mapping[str, dict], read,
+                              hyper: dict) -> None:
+        """Set the optimizer's state from whole entries
+        ("optimizer/{name}/{key}": {"shape", "dtype"} of a tensor, whose
+        piece ``read(entry, piece, out)`` copies into ``out``, or
+        {"value"}) and the param groups' hyperparameters ``hyper``. The
+        state keeps its saved dtype (torch's ``load_state_dict`` would cast
+        a bf16 moment to its parameter's); the old state is dropped first,
+        so that device memory never holds both."""
+        whole = getattr(self.optimizer, "whole_state", False)
+        saved: dict = {}
+        for entry, rec in entries.items():
+            _, name, key = entry.split("/")
+            saved.setdefault(name, {})[key] = rec
+        self.optimizer.state.clear()
+        for name, p in self.model.named_parameters():
+            if not p.requires_grad or name not in saved:
+                continue
+            st = {}
+            for key, rec in saved[name].items():
+                if "value" in rec:
+                    st[key] = rec["value"]
+                    continue
+                ndim = len(rec["shape"])
+                piece = self._state_piece(name, key, ndim)
+                # A step count stays where torch keeps it, on the host.
+                v = read(f"optimizer/{name}/{key}", piece, torch.empty(
+                    [n for _, n in piece], dtype=getattr(torch, rec["dtype"]),
+                    device=p.device if ndim else "cpu"))
+                if isinstance(p, DTensor) and not whole and ndim == p.dim():
+                    v = DTensor.from_local(v, p.device_mesh, p.placements,
+                                           shape=p.shape, stride=p.stride())
+                st[key] = v
+            self.optimizer.state[p] = st
+        for g in self.optimizer.param_groups:
+            g.update(hyper)
 
     def to_device(self, batch: Batch) -> dict:
         """The batch on the model's device. Host arrays go to the card
@@ -859,43 +908,10 @@ def _global_part(loss: torch.Tensor, aux: torch.Tensor, share: torch.Tensor,
     return (loss - aux) * share + aux / accum
 
 
-def _outline(tree, tensors: list):
-    """``tree`` (a dict of tensors, dicts and plain values) with each
-    tensor replaced by (its shape, its dtype's name), appended to
-    ``tensors`` in the order ``_fill`` reads them."""
-    if isinstance(tree, dict):
-        return {k: _outline(v, tensors) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        tensors.append(tree)
-        return _Slot(tuple(tree.shape), str(tree.dtype).split(".")[-1])
-    return tree
-
-
-@dataclasses.dataclass(frozen=True)
-class _Slot:
-    """A tensor's place in an ``_outline``."""
-
-    shape: tuple
-    dtype: str
-
-
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A host tensor's storage as a flat uint8 tensor (gloo sends bytes of
     any dtype alike)."""
-    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
-
-
-def _fill(outline, src: int, group):
-    """An ``_outline`` filled with the tensors ``src`` sends after it."""
-    if isinstance(outline, dict):
-        return {k: _fill(v, src, group) for k, v in outline.items()}
-    if not isinstance(outline, _Slot):
-        return outline
-    dtype = getattr(torch, outline.dtype)
-    out = torch.empty(outline.shape, dtype=dtype)
-    if out.numel():
-        dist.recv(_bytes(out), src=src, group=group)
-    return out
+    return t.contiguous().reshape(-1).view(torch.uint8)
 
 
 class HostCopy:

@@ -9,7 +9,12 @@ SPEC.json holds the tiny geometries to register (as
 the one process group. A run is a dict of ``config`` (``Config`` fields,
 its ``mesh_shape`` the layout), ``init`` (a ``.pt`` state dict every rank
 loads) or ``pretrained`` (a ``save_pretrained`` directory that every rank
-loads through ``load_pretrained_params`` over its seeded weights),
+loads through ``load_pretrained_params`` over its seeded weights), or
+neither (the seeded weights), optionally ``resume`` (a checkpoint
+directory's ``result_dir`` whose latest checkpoint the run restores
+before its steps, each rank writing to ``reads`` (with ``{rank}``) the
+files it read and the files its pieces overlap; rank 0's whole state
+then held goes into ``params`` as ``resumed`` and ``resumed_optimizer``),
 ``batches`` (a ``.pt`` list of global batches; each data rank
 takes its rows), ``result_dir`` (its checkpoint ``step_N`` is written
 there), ``out`` (rank 0's JSON: the losses), ``params`` (rank 0's ``.pt``:
@@ -48,23 +53,34 @@ an FSDP2 unit of the data x fsdp ranks, which take their rows; each rank
 writes to ``out`` (with ``{rank}``) the gradients of the parameters it
 holds (whole, gathered, and its shards), whether each unit holds only
 its shards after the step, and the gradients of its rows of the inputs.
+A run with ``init_check`` runs ``init_state`` alone on a generator seeded
+with ``seed`` under an ``AllocationWatch`` and writes each rank's pieces,
+buffers, generator state and the watch's readings to ``out`` (with
+``{rank}``); a run with ``interrupt`` (a rank) saves a checkpoint, then a
+second one whose shard write dies on that rank, and each rank writes to
+``out`` (with ``{rank}``) what ``wait()`` raised and ``latest()``; then a
+third whose ranks exit once it is in place, with no ``wait()``.
 Needs no JAX.
 """
 
 import json
+import os
+import time
+import weakref
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_ddp_worker import loaders, read_spec
 from klab_multimodalmodel_tpu_torch import config as tcfg
 from klab_multimodalmodel_tpu_torch.checkpoint.io import (
-    CheckpointManager, load_pretrained_params)
+    CheckpointManager, PieceReader, load_pretrained_params)
 from klab_multimodalmodel_tpu_torch.ops import ring_attention
 from klab_multimodalmodel_tpu_torch.parallel import partitioning
 from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
-    SeqGroup, tensor_parallel)
+    SeqGroup, overlap, record_piece, tensor_parallel)
 from klab_multimodalmodel_tpu_torch.train import Trainer, train
 from klab_multimodalmodel_tpu_torch.train.loop import dropout_seed
 from klab_multimodalmodel_tpu_torch.utils.mesh import (make_mesh,
@@ -199,7 +215,162 @@ def run_loop(run: dict) -> None:
         torch.save(held, run["params"].format(rank=mesh.rank))
 
 
+def resume(run: dict, trainer) -> tuple:
+    """Restore the checkpoint under ``run["resume"]`` into ``trainer``;
+    each rank writes to ``reads`` (with ``{rank}``) the files it read and
+    the files whose stored pieces overlap its own pieces. Returns the
+    whole state and optimizer state then held (rank 0's)."""
+    manager = CheckpointManager(run["resume"], trainer.mesh)
+    name = manager.latest()
+    manager.restore(name, trainer)
+    reader = PieceReader(manager.path(name))
+    want = set()
+    for entry, rec in reader.entries.items():
+        if "value" in rec:
+            continue
+        _, name, *key = entry.split("/")
+        if name not in dict(trainer.model.named_parameters()):
+            continue
+        piece = (trainer.piece(name) if not key else trainer._state_piece(
+            name, key[0], len(rec["shape"])))
+        if piece is None or not all(n for _, n in piece):
+            continue
+        want.update(p["file"] for p in rec["pieces"]
+                    if overlap(piece, record_piece(p)) is not None)
+    with open(run["reads"].format(rank=trainer.mesh.rank), "w") as f:
+        json.dump(dict(read=sorted(manager.files_read), want=sorted(want),
+                       stored=sorted({p["file"] for r in
+                                      reader.entries.values()
+                                      for p in r.get("pieces", [])})), f)
+    return trainer.full_state_dict(), trainer.full_optimizer_state_dict()
+
+
+class AllocationWatch(TorchDispatchMode):
+    """Every new storage an op makes (an output whose storage is none of
+    its inputs'; meta tensors and DTensor wrappers aside, whose local
+    tensors it sees) while ``making`` is set: the largest in elements; and
+    while ``drawing`` is set, at each draw's whole temporary (an
+    ``empty``), how many of the storages made since the last one are still
+    alive (``stale``: the earlier parameters' temporaries, and a truncated
+    normal's helpers)."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = 0
+        self.making = self.drawing = False
+        self.live = weakref.WeakSet()
+        self.stale = 0
+        self.draws = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        def plain(t):  # not meta, not a wrapper subclass (DTensor)
+            return type(t) is torch.Tensor and not t.is_meta
+
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in torch.utils._pytree.tree_leaves((args, kwargs))
+                  if plain(t)}
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (self.making and plain(t) and t.numel()
+                    and t.untyped_storage().data_ptr() not in inputs):
+                self.largest = max(self.largest, t.numel())
+                if not self.drawing:
+                    continue
+                if func is torch.ops.aten.empty.memory_format:
+                    self.stale = max(self.stale, len(self.live))
+                    self.draws += 1
+                    self.live = weakref.WeakSet()
+                self.live.add(t)
+        return out
+
+
+def run_init(run: dict) -> None:
+    """``init_state`` alone on a seeded generator, under an
+    ``AllocationWatch`` (``making`` from the pieces' ``to_empty`` to the
+    end of ``_draw_pieces``, ``drawing`` inside it: not the DDP buckets or
+    the optimizer after);
+    each rank writes to ``out`` (with ``{rank}``) whether the parameters
+    were on meta before, each held entry's piece and tensor, the buffers,
+    the generator's state after, and the watch's readings."""
+    cfg = tcfg.Config(**run["config"])
+    trainer = Trainer(cfg, device="cpu")
+    on_meta = all(p.is_meta for p in trainer.model.parameters())
+    gen = torch.Generator().manual_seed(run["seed"])
+    watch = AllocationWatch()
+    draw, to_empty = trainer._draw_pieces, trainer.net.to_empty
+
+    def making(**kw):
+        watch.making = True
+        return to_empty(**kw)
+
+    def drawing(*a):
+        watch.drawing = True
+        try:
+            draw(*a)
+        finally:
+            watch.making = watch.drawing = False
+    trainer._draw_pieces, trainer.net.to_empty = drawing, making
+    with watch:
+        trainer.init_state(gen)
+    torch.save(dict(
+        on_meta=on_meta,
+        pieces={n: (trainer.piece(n), t.detach().clone())
+                for n, t in trainer._local_tensors().items()},
+        buffers={n: b.clone() for n, b in trainer.model.named_buffers()},
+        generator=gen.get_state(), largest=watch.largest, stale=watch.stale,
+        draws=watch.draws), run["out"].format(rank=trainer.mesh.rank))
+
+
+def run_interrupted(run: dict) -> None:
+    """A save whose write dies on rank ``run["interrupt"]``: every rank
+    writes to ``out`` (with ``{rank}``) what ``wait()`` raised and
+    ``latest()``. Then a third save, after which every rank waits (up to
+    a minute) to see it in place without calling ``wait()``, writes
+    whether it did and exits at once, with no further call: the run must
+    be its job's last."""
+    from klab_multimodalmodel_tpu_torch.checkpoint import io
+
+    cfg = tcfg.Config(**run["config"])
+    trainer = Trainer(cfg, device="cpu")
+    trainer.init_state()
+    manager = CheckpointManager(run["result_dir"], trainer.mesh)
+    manager.save("step_1", trainer)
+    manager.wait()
+    real = torch.save
+
+    def dying(obj, path, *a, **kw):
+        if path.endswith(f"{io.SHARDS}/{trainer.mesh.rank}.pt"):
+            raise OSError("disk full")
+        return real(obj, path, *a, **kw)
+    if trainer.mesh.rank == run["interrupt"]:
+        io.torch.save = dying
+    trainer.step = 2
+    manager.save("step_2", trainer)
+    try:
+        manager.wait()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    io.torch.save = real
+    latest = manager.latest()
+    trainer.step = 3
+    manager.save("step_3", trainer)
+    deadline = time.monotonic() + 60
+    while not manager.exists("step_3") and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with open(run["out"].format(rank=trainer.mesh.rank), "w") as f:
+        json.dump(dict(raised=raised, latest=latest,
+                       committed=manager.exists("step_3")), f)
+    os._exit(0)  # killed: no wait(), no barrier, no teardown
+
+
 def run_one(run: dict) -> None:
+    if run.get("init_check"):
+        run_init(run)
+        return
+    if run.get("interrupt") is not None:
+        run_interrupted(run)
+        return
     if run.get("loop"):
         run_loop(run)
         return
@@ -215,8 +386,11 @@ def run_one(run: dict) -> None:
     if run.get("pretrained"):
         trainer.init_state()
         load_pretrained_params(run["pretrained"], trainer)
-    else:
+    elif run.get("init"):
         trainer.init_state(state_dict=torch.load(run["init"]))
+    else:
+        trainer.init_state()
+    resumed = resume(run, trainer) if run.get("resume") else (None, None)
     # Each data rank its own dropout stream, as train() draws them; with
     # ``one_stream`` all of them data rank 0's.
     gen = torch.Generator().manual_seed(dropout_seed(
@@ -257,6 +431,7 @@ def run_one(run: dict) -> None:
         restored_opt = trainer.full_optimizer_state_dict()
     if mesh.rank == 0:
         torch.save({"params": full, "optimizer": full_opt,
+                    "resumed": resumed[0], "resumed_optimizer": resumed[1],
                     "restored": restored,
                     "restored_optimizer": restored_opt}, run["params"])
         with open(run["out"], "w") as f:

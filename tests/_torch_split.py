@@ -28,7 +28,8 @@ from klab_multimodalmodel_tpu.train.trainer import Trainer as JaxTrainer
 from klab_multimodalmodel_tpu.utils import make_mesh as jax_make_mesh
 from klab_multimodalmodel_tpu_torch.checkpoint.from_jax import (
     convert_jax_params)
-from klab_multimodalmodel_tpu_torch.checkpoint.io import CheckpointManager
+from klab_multimodalmodel_tpu_torch.checkpoint.io import (
+    CheckpointManager, read_whole, read_whole_optimizer)
 from klab_multimodalmodel_tpu_torch.train import Trainer, train
 from klab_multimodalmodel_tpu_torch.train.loop import dropout_seed
 from test_torch_sharded import B, TGT, WORKER, make_batch
@@ -262,9 +263,9 @@ def assert_checkpoints_cross(runs: dict, name: str, dropout: str) -> None:
     saved = (runs["root"] / "one_dropout" / "checkpoints"
              / f"step_{len(runs['one'][dropout]['losses'])}")
     restored = runs["got"][dropout]
-    assert_state_equal(restored["restored"], torch.load(saved / "model.pt"))
+    assert_state_equal(restored["restored"], read_whole(str(saved)))
     assert_state_equal(restored["restored_optimizer"],
-                       torch.load(saved / "train_state.pt")["optimizer"])
+                       read_whole_optimizer(str(saved)))
 
 
 def assert_loop_matches_one_process(runs: dict) -> None:

@@ -39,6 +39,7 @@ import klab_multimodalmodel_tpu.config as jcfg
 import klab_multimodalmodel_tpu_torch.config as tcfg
 from klab_multimodalmodel_tpu_torch import cli
 from klab_multimodalmodel_tpu_torch import __main__ as module_main
+from klab_multimodalmodel_tpu_torch.checkpoint.io import read_whole
 from klab_multimodalmodel_tpu_torch.evaluation import (coco_references,
                                                        evaluate_captions)
 from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
@@ -330,8 +331,7 @@ def _rows(result_dir):
 
 
 def _state(result_dir, name):
-    return torch.load(os.path.join(result_dir, "checkpoints", name,
-                                   "model.pt"), weights_only=True)
+    return read_whole(os.path.join(result_dir, "checkpoints", name))
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from klab_multimodalmodel_tpu_torch.checkpoint import export_hf as export
 from klab_multimodalmodel_tpu_torch.checkpoint import from_jax
 from klab_multimodalmodel_tpu_torch.checkpoint.hf_files import (
     load_state_dict, read_safetensors)
+from klab_multimodalmodel_tpu_torch.checkpoint.io import read_whole
 from klab_multimodalmodel_tpu_torch.models.swinv2 import SwinV2Encoder
 from klab_multimodalmodel_tpu_torch.models.t5 import (
     T5Encoder, T5ForConditionalGeneration)
@@ -346,8 +347,7 @@ def test_convert_train_caption_export_end_to_end(tmp_path, capsys):
     assert module_main.main(["caption", str(img), "--result_dir", run,
                              "--max_length", "6", "--device", "cpu"]) == 0
     line = capsys.readouterr().out.rstrip("\n")
-    state = torch.load(os.path.join(run, "checkpoints", "best", "model.pt"),
-                       weights_only=True)
+    state = read_whole(os.path.join(run, "checkpoints", "best"))
     cap = Captioner(cfg, state, load_tokenizer(tok_path), device="cpu")
     from klab_multimodalmodel_tpu_torch.data.datasets import (
         load_image_resized)

@@ -46,6 +46,7 @@ import _torch_port as tp
 import _torch_split as ts
 import klab_multimodalmodel_tpu_torch.config as tcfg
 from klab_multimodalmodel_tpu_torch import __main__ as module_main
+from klab_multimodalmodel_tpu_torch.checkpoint.io import read_whole
 from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
 from klab_multimodalmodel_tpu_torch.models.multimodal import MultiModalModel
 from klab_multimodalmodel_tpu_torch.parallel.partitioning import (
@@ -207,8 +208,7 @@ def test_fsdp2_expert2_run_directory_captions_in_one_process(runs, tmp_path,
     assert tuple(config.mesh_shape) == EXPERT_FSDP
     path = tmp_path / "img.png"
     Image.new("RGB", (40, 36), color=(30, 140, 90)).save(path)
-    state = torch.load(os.path.join(result, "checkpoints", "best",
-                                    "model.pt"), weights_only=True)
+    state = read_whole(os.path.join(result, "checkpoints", "best"))
     cap = Captioner(config, state, ByteTokenizer(), device="cpu")
     want = cap.caption(load_image_resized(str(path), 32)[None],
                        max_length=6)

@@ -48,7 +48,8 @@ from klab_multimodalmodel_tpu.utils import make_mesh as jax_make_mesh
 from klab_multimodalmodel_tpu_torch import __main__ as module_main
 from klab_multimodalmodel_tpu_torch.checkpoint.from_jax import (
     convert_jax_params)
-from klab_multimodalmodel_tpu_torch.checkpoint.io import CheckpointManager
+from klab_multimodalmodel_tpu_torch.checkpoint.io import (CheckpointManager,
+                                                         read_whole)
 from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
 from klab_multimodalmodel_tpu_torch.ops.fused_attention import (
     draw_seed, t5_attention_bwd_plain, t5_attention_plain)
@@ -278,8 +279,7 @@ def test_seq2_run_directory_captions_in_one_process(runs, tmp_path, capsys):
     assert config.mesh_shape[3] == 2
     path = tmp_path / "img.png"
     Image.new("RGB", (40, 36), color=(120, 40, 200)).save(path)
-    state = torch.load(os.path.join(result, "checkpoints", "best",
-                                    "model.pt"), weights_only=True)
+    state = read_whole(os.path.join(result, "checkpoints", "best"))
     cap = Captioner(config, state, ByteTokenizer(), device="cpu")
     want = cap.caption(load_image_resized(str(path), 32)[None],
                        max_length=6)
