@@ -8,7 +8,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. Record the card (``nvidia-smi`` name and power limit) and build the three
    CUDA kernels from ``klab_multimodalmodel_tpu_torch/csrc``, one ``nvcc``
    per source, all at once; print ptxas's registers and spills of every
-   kernel instantiation.
+   kernel instantiation; build the port's C++ host runtime.
+   b. The port's JPEG decoder on the card's host (no model): every fixture
+      of ``tests/torch_jpeg/`` decoded natively at Pillow's draft scale for
+      256 px, its pixels held to the manifest's digest of Pillow's decode,
+      and ``load_image_bytes_resized`` (decode and resize) to the digest of
+      the JAX package's; prints the decode and load ms per image (median
+      of 5, one thread) of the COCO sizes and the 1/8 drafts, with the host
+      CPU's model name.
 2. Hold each kernel against its plain PyTorch version at the shapes of both
    main paths, and time kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``, forward or forward+backward) with
@@ -111,11 +118,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       the greedy tokens.
    c. ``caption_stream`` (chunk 4): its final texts equal ``caption``'s;
       prints the time to the first yield.
-   d. ``evaluation.run`` over 40 seeded images with four seeded references
-      each, at batch 32 (a ragged tail of 8), with ``num_beams`` 1 and 4,
-      the image loader swapped for one of seeded arrays (the script needs
-      no Pillow); checks the launches and ``metrics.json``'s
-      keys and finite values; prints images/s and the loader's host time.
+   d. ``evaluation.run`` over a COCO-layout directory whose 40
+      ``val2017/*.jpg`` are the fixture JPEGs in turn, with four seeded
+      references each, at batch 32 (a ragged tail of 8), with
+      ``num_beams`` 1 and 4, the files read by the port's own
+      ``load_image_resized`` (native decode and resize; timed); checks the
+      launches, the 40 loads and ``metrics.json``'s keys and finite
+      values; prints images/s and the loader's ms per image.
 8. The reference's artifacts at full width, needing nothing the card's
    machine lacks (no ``transformers``, ``tokenizers``, ``safetensors`` or
    Pillow), in a temporary directory that is removed afterwards:
@@ -144,19 +153,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       default threads.
    c. ``train(config)`` from the converted directory with its
       ``tokenizer.json`` and ``native_tokenizer``, batch 32, one epoch of 2
-      updates on the synthetic dataset. Checks every step's launches
-      (phase 6's full step), finite losses, the text tower equal to the
-      converted one, and one loader batch's ids against the tokenizer's
-      ids one text at a time. Prints step spans and the loader's encode ms
-      per batch.
+      updates and 2 validation batches over a COCO-layout directory of the
+      fixture JPEGs (64 a split). Checks every step's launches (phase 6's
+      full step), finite losses, the text tower equal to the converted
+      one, and one loader batch's ids against the tokenizer's ids one text
+      at a time. Prints step spans and the loader's encode ms per batch.
+      Then ``python -m klab_multimodalmodel_tpu_torch caption`` in a
+      subprocess on three fixture JPEGs with the run's directory: one
+      caption line per file.
 9. The serving stack on phase 3's weights (the same seed), fp32, both
-   kernel flags on, the byte tokenizer and the COCO prompt. The card's
-   machine has no Pillow, so the services' image decoder is swapped for a
-   decoder of raw ``.npy`` bytes (printed); the CPU tests run Pillow's.
-   Each of the 16 seeded 256x256 images is first captioned alone (batch 1):
-   every served token row must equal its image's own row, or differ only
-   at a knife edge (greedy's top-2 margin there under ``KNIFE_EDGE_REL``,
-   printed).
+   kernel flags on, the byte tokenizer and the COCO prompt. Each of the 16
+   requests carries a fixture's JPEG bytes (the fixtures in turn), which
+   the services decode natively; each image, decoded from the same bytes,
+   is first captioned alone (batch 1): every served token row must equal
+   its image's own row, or differ only at a knife edge (greedy's top-2
+   margin there under ``KNIFE_EDGE_REL``, printed).
    a. ``CaptionService`` (max_batch 8, window 5 ms) behind
       ``CaptionHTTPServer`` on 127.0.0.1: ``/healthz`` 503 before the
       warmup and 200 after; one round of 16 concurrent ``/caption``
@@ -172,7 +183,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       of the same encoder rows, an idle slot's cache index run past the
       buffer.
    c. ``/caption_stream`` on 9a's server: the last event is ``/caption``'s
-      text; prints the time to the first event.
+      text; prints the time to the first event. Then a JPEG body cut in
+      half gets 400 "bad image" with the decoder's reason, and the next
+      ``/caption`` is answered as before.
    d. ``Captioner(speculative_draft=4)`` on phase 3's three batch-8
       requests against greedy (knife-edge rule); prints decoder passes,
       accepted drafts and request ms beside greedy's, timed in turn.
@@ -649,6 +662,155 @@ def sdpa_backends(fn) -> list[str]:
                    if e.key.startswith("aten::_scaled_dot_product")
                    or e.key.startswith("aten::_efficient_attention")
                    or e.key.startswith("aten::_flash_attention")})
+
+
+# ---------------------------------------------------------------------------
+# Phase 1b: JPEG decoding on the card's host (no model)
+# ---------------------------------------------------------------------------
+
+# The JPEG fixtures and their manifest (tests/torch_jpeg/make_fixtures.py):
+# Pillow's RGB decode at the draft scale for 256 px, and the JAX package's
+# load_image_bytes_resized(data, 256), as SHA-256 digests taken where Pillow
+# is installed. Phases 1b, 7d, 8c and 9 decode these files.
+JPEG_DIR = os.path.join(REPO, "tests", "torch_jpeg")
+JPEG_SIZE = 256
+JPEG_REPS = 5  # timed decodes of each fixture (the median is printed)
+
+
+def jpeg_fixtures() -> list[tuple[str, bytes, dict]]:
+    """(file name, bytes, manifest entry) of every fixture, by name."""
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = []
+    for name in sorted(manifest):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            out.append((name, f.read(), manifest[name]))
+    return out
+
+
+def host_cpu() -> str:
+    """The host CPU: ``/proc/cpuinfo``'s model name, or ``lscpu``'s, or
+    where neither names it (a sandboxed kernel may not), its vendor, family
+    and model numbers; then the architecture and the cores."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if name in ("", "unknown"):
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=60).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), name)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    if name in ("", "unknown") and "vendor_id" in info:
+        name = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                f"model {info.get('model', '?')}")
+    return (f"{name or 'unnamed CPU'} ({platform.machine()}, "
+            f"{os.cpu_count()} cores)")
+
+
+def median_ms(fn, reps: int = JPEG_REPS) -> float:
+    """Median host-clock time of ``fn()`` in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def jpeg_phase(card: str) -> dict:
+    """Phase 1b: every fixture decoded by the port's C++ decoder at the
+    draft scale for 256 px, its pixels held to the manifest's digest of
+    Pillow's decode, and the port's ``load_image_bytes_resized`` (decode
+    and resize) to the JAX package's; the median decode and load ms of
+    each, on one host thread."""
+    import hashlib
+
+    import numpy as np
+
+    from klab_multimodalmodel_tpu_torch import native
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_bytes_resized)
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    files = {}
+    for name, data, entry in jpeg_fixtures():
+        w, h = entry["size"]
+        scale = native.draft_scale(w, h, JPEG_SIZE)
+        check(scale == entry["draft_scale"], f"{name}: draft scale 1/{scale}"
+              f", the manifest's 1/{entry['draft_scale']}")
+        decoded = native.decode_jpeg(data, scale)
+        check(list(decoded.shape) == entry["decode_shape"]
+              and sha(decoded) == entry["decode"],
+              f"{name}: the native decode {decoded.shape} differs from "
+              "Pillow's (the manifest's digest)")
+        resized = load_image_bytes_resized(data, JPEG_SIZE)
+        check(sha(resized) == entry["resized_256"],
+              f"{name}: load_image_bytes_resized differs from the JAX "
+              "package's (the manifest's digest)")
+        files[name] = dict(
+            kind=entry["kind"], size=[w, h], draft_scale=scale,
+            bytes=len(data),
+            decode_ms=median_ms(lambda: native.decode_jpeg(data, scale)),
+            load_ms=median_ms(lambda: load_image_bytes_resized(
+                data, JPEG_SIZE)))
+    for name, f in files.items():
+        if f["kind"] in ("coco", "draft_s8"):
+            print(f"phase 1b [{card}; host {cpu}]: {name} ({f['bytes']} "
+                  f"bytes, draft 1/{f['draft_scale']}): decode "
+                  f"{f['decode_ms']:.3f} ms, decode + resize to {JPEG_SIZE} "
+                  f"{f['load_ms']:.3f} ms (median of {JPEG_REPS}, one "
+                  "thread)")
+    coco = [f["decode_ms"] for f in files.values() if f["kind"] == "coco"]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 1b [{card}; host {cpu}]: {len(files)} fixture JPEGs "
+          f"decoded natively, every decode and resize equal to the "
+          f"manifest's digests (Pillow's and the JAX package's); COCO sizes "
+          f"{min(coco):.3f}-{max(coco):.3f} ms a decode; {seconds:.1f} s")
+    return dict(host_cpu=cpu, files=files, seconds=seconds)
+
+
+def coco_layout(root: str, counts: dict, captions) -> str:
+    """An MSCOCO-layout directory under ``root`` ('mscoco' in its name, as
+    ``build_dataset`` asks): for each phase in ``counts``, that many images
+    in ``{phase}2017/``, the fixture JPEGs in turn (copied), and
+    ``captions(i)``'s captions of image i in
+    ``annotations/captions_{phase}2017.json``. Returns its path."""
+    import shutil
+
+    d = os.path.join(root, "mscoco2017")
+    os.makedirs(os.path.join(d, "annotations"))
+    names = [name for name, _, _ in jpeg_fixtures()]
+    for phase, n in counts.items():
+        os.makedirs(os.path.join(d, f"{phase}2017"))
+        images, anns = [], []
+        for i in range(n):
+            file_name = f"{i:012d}.jpg"
+            shutil.copyfile(os.path.join(JPEG_DIR, names[i % len(names)]),
+                            os.path.join(d, f"{phase}2017", file_name))
+            images.append({"id": i, "file_name": file_name})
+            for text in captions(i):
+                anns.append({"id": len(anns), "image_id": i,
+                             "caption": text})
+        with open(os.path.join(d, "annotations",
+                               f"captions_{phase}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -2741,10 +2903,11 @@ def streaming_phase(card, cap, requests) -> dict:
 
 
 def evaluation_run(card, cfg, model, root: str) -> dict:
-    """7d: ``evaluation.run`` over EVAL_IMAGES seeded images with
-    EVAL_REFS seeded references each, at batch EVAL_BATCH (a ragged tail),
-    with num_beams 1 and 4. The script needs no Pillow: the evaluation's
-    image loader is swapped for one of seeded arrays."""
+    """7d: ``evaluation.run`` over a COCO-layout directory of EVAL_IMAGES
+    fixture JPEGs (the fixtures in turn) with EVAL_REFS seeded references
+    each, at batch EVAL_BATCH (a ragged tail), with num_beams 1 and 4. The
+    evaluation reads the files through the port's ``load_image_resized``
+    (the native JPEG decode and the resize), wrapped here to time it."""
     import numpy as np
     import torch
 
@@ -2755,41 +2918,29 @@ def evaluation_run(card, cfg, model, root: str) -> dict:
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     words = ["".join(rng.choice(letters, rng.integers(2, 8)))
              for _ in range(60)]
-    images, anns = [], []
-    for i in range(EVAL_IMAGES):
-        images.append({"id": i, "file_name": f"{i:012d}.jpg"})
-        for j in range(EVAL_REFS):
-            anns.append({"id": EVAL_REFS * i + j, "image_id": i,
-                         "caption": " ".join(rng.choice(words,
-                                                        rng.integers(5, 12)))})
-    os.makedirs(os.path.join(root, "annotations"))
-    with open(os.path.join(root, "annotations", "captions_val2017.json"),
-              "w") as f:
-        json.dump({"images": images, "annotations": anns}, f)
+    refs = [[" ".join(rng.choice(words, rng.integers(5, 12)))
+             for _ in range(EVAL_REFS)] for _ in range(EVAL_IMAGES)]
+    data_dir = coco_layout(root, {"val": EVAL_IMAGES}, lambda i: refs[i])
 
-    size = cfg.swin.image_size
-    load_s = [0.0]
+    load_s, loads = [0.0], [0]
+    real_loader = evaluate.load_image_resized
 
-    def seeded_loader(path: str, image_size: int):
+    def timed_loader(path: str, image_size: int):
         t0 = time.perf_counter()
-        index = int(os.path.basename(path).split(".")[0])
-        img = np.random.default_rng(index).integers(
-            0, 256, (image_size, image_size, 3), dtype=np.uint8)
+        img = real_loader(path, image_size)
         load_s[0] += time.perf_counter() - t0
+        loads[0] += 1
         return img
 
-    print("phase 7d: evaluation.evaluate.load_image_resized is swapped for "
-          "a loader of seeded arrays (the script needs no Pillow)")
-    real_loader = evaluate.load_image_resized
-    evaluate.load_image_resized = seeded_loader
+    evaluate.load_image_resized = timed_loader
     out = {}
     try:
         for beams in (1, BEAMS):
             run_cfg = dataclasses.replace(
-                cfg, num_beams=beams, data_dir=root,
+                cfg, num_beams=beams, data_dir=data_dir,
                 result_dir=os.path.join(root, f"beams{beams}"))
             reset_counts()
-            load_s[0] = 0.0
+            load_s[0], loads[0] = 0.0, 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             metrics = evaluate.run(run_cfg, model, ByteTokenizer())
@@ -2805,16 +2956,20 @@ def evaluation_run(card, cfg, model, root: str) -> dict:
             check(written == metrics and written["num_images"] == EVAL_IMAGES
                   and all(math.isfinite(written[k]) for k in keys),
                   f"metrics.json {written}")
+            check(loads[0] == EVAL_IMAGES, f"the loader read {loads[0]} "
+                  f"files, expected {EVAL_IMAGES}")
             out[f"num_beams_{beams}"] = dict(
                 seconds=seconds, images_per_s=EVAL_IMAGES / seconds,
                 loader_seconds=load_s[0],
+                loader_ms_per_image=1e3 * load_s[0] / loads[0],
                 **{k: written[k] for k in keys})
-            print(f"phase 7d [{card}]: evaluate {EVAL_IMAGES} images at "
-                  f"batch {EVAL_BATCH}, num_beams {beams}: {seconds:.2f} s, "
-                  f"{EVAL_IMAGES / seconds:.2f} images/s (the image loader "
-                  f"{1e3 * load_s[0]:.2f} ms of it, on the host while the "
-                  f"card idles); CIDEr-D {written['CIDEr-D']:.4f}, BLEU-4 "
-                  f"{written['BLEU-4']:.3e}")
+            print(f"phase 7d [{card}]: evaluate {EVAL_IMAGES} fixture JPEGs "
+                  f"at batch {EVAL_BATCH}, num_beams {beams}: {seconds:.2f} "
+                  f"s, {EVAL_IMAGES / seconds:.2f} images/s (the image loader"
+                  f" {1e3 * load_s[0]:.2f} ms of it, "
+                  f"{1e3 * load_s[0] / loads[0]:.3f} ms per image, on the "
+                  f"host while the card idles); CIDEr-D "
+                  f"{written['CIDEr-D']:.4f}, BLEU-4 {written['BLEU-4']:.3e}")
     finally:
         evaluate.load_image_resized = real_loader
     return out
@@ -2877,6 +3032,17 @@ COCO_SIZES = [(375, 500), (480, 640), (640, 427), (427, 640), (500, 375),
               (480, 640), (333, 500), (612, 612)]
 ENCODE_REPS = 20
 ENCODE_MANY = 8192  # texts in 8b's long encode batch
+# 8c's COCO-layout directory: images a phase (train and val), the fixture
+# JPEGs in turn, each with one of these captions in turn; and the fixtures
+# that the caption command captions after 8c.
+ARTIFACT_IMAGES = 2 * TRAIN_BATCH
+ARTIFACT_CAPTIONS = [
+    "A man with a red helmet on a small moped on a dirt road.",
+    "A dog jumps over a wooden fence in a park.",
+    "Two cats sit on a sunny window sill.",
+    "A plate of food with rice and vegetables on a table.",
+]
+CLI_IMAGES = ("coco_640x480.jpg", "photo_4032x3024.jpg", "cmyk_500x375.jpg")
 
 
 def write_safetensors(path: str, tensors: dict) -> int:
@@ -3226,7 +3392,10 @@ def artifacts_caption(card: str, cfg, model, out_dir: str) -> dict:
 def artifacts_train(card: str, cfg, out_dir: str, root: str) -> dict:
     """8c: ``train(config)`` from the converted directory with its
     tokenizer.json and ``native_tokenizer``, batch 32, one epoch of 2
-    updates on the synthetic dataset; otherwise phase 6's Config."""
+    updates and 2 validation batches over a COCO-layout directory of the
+    fixture JPEGs (``ARTIFACT_IMAGES`` a phase); otherwise phase 6's
+    Config. Then the ``caption`` command in a subprocess on three fixture
+    files with the run's directory."""
     import numpy as np
     import torch
 
@@ -3235,8 +3404,11 @@ def artifacts_train(card: str, cfg, out_dir: str, root: str) -> dict:
     from klab_multimodalmodel_tpu_torch.text.tokenizer import TokenizerBase
 
     tok_path = os.path.join(out_dir, "tokenizer.json")
+    data_dir = coco_layout(
+        root, {"train": ARTIFACT_IMAGES, "val": ARTIFACT_IMAGES},
+        lambda i: [ARTIFACT_CAPTIONS[i % len(ARTIFACT_CAPTIONS)]])
     cfg = dataclasses.replace(
-        cfg, data_dir="synthetic", batch_size=TRAIN_BATCH, num_epochs=1,
+        cfg, data_dir=data_dir, batch_size=TRAIN_BATCH, num_epochs=1,
         init_checkpoint=out_dir, tokenizer_path=tok_path,
         native_tokenizer=True, result_dir=os.path.join(root, "run"))
     tok = load_tokenizer(tok_path)
@@ -3261,8 +3433,8 @@ def artifacts_train(card: str, cfg, out_dir: str, root: str) -> dict:
         encode_ms[name] = (time.perf_counter() - t0) * 1e3 / ENCODE_REPS
     loader.close()
 
-    result, out = loop_run(cfg, card, "8c (from the converted directory)",
-                           phase="8")
+    result, out = loop_run(cfg, card, "8c (from the converted directory, "
+                           "over fixture JPEGs)", phase="8")
     check(result["steps"] == 2 and not result["halted"],
           f"{result['steps']} updates")
     check(all(math.isfinite(x) for p in ("train", "val")
@@ -3285,7 +3457,34 @@ def artifacts_train(card: str, cfg, out_dir: str, root: str) -> dict:
           f"the tokenizer, {encode_ms['one by one']:.3f} ms one text at a "
           f"time; losses {result['losses']}")
     result["loader_encode_ms"] = encode_ms
+    result["caption_cli"] = caption_cli(card, cfg.result_dir)
     return result
+
+
+def caption_cli(card: str, run_dir: str) -> dict:
+    """``python -m klab_multimodalmodel_tpu_torch caption`` in a subprocess
+    on ``CLI_IMAGES`` (fixture JPEGs) with 8c's run directory: one caption
+    line per file, in order."""
+    images = [os.path.join(JPEG_DIR, name) for name in CLI_IMAGES]
+    cmd = [sys.executable, "-m", "klab_multimodalmodel_tpu_torch", "caption",
+           *images, "--result_dir", run_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the caption command exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    rows = [line.split("\t", 1) for line in proc.stdout.splitlines()
+            if "\t" in line]
+    check([r[0] for r in rows] == images and all(len(r) == 2 for r in rows),
+          f"the caption command printed {proc.stdout[-2000:]!r}, not one "
+          f"caption per file")
+    print(f"phase 8c [{card}]: the caption command on {len(images)} fixture "
+          f"JPEGs ({', '.join(CLI_IMAGES)}) with 8c's run directory: one "
+          f"caption per file in {seconds:.2f} s (a new process: start, "
+          f"load and caption)")
+    return dict(seconds=seconds, images=CLI_IMAGES,
+                captions=[r[1] for r in rows])
 
 
 def artifacts_phase(card: str, **names) -> dict:
@@ -3339,51 +3538,6 @@ KNIFE_EDGE_REL = 1e-5
 # rounding compounded over the 24 decoder layers.
 TOL_INT8_DEQUANT_REL = 1e-4
 SERVE_TIMEOUT_S = 120  # every client call and wait of phase 9
-
-
-def npy_bytes(image) -> bytes:
-    import io
-
-    import numpy as np
-
-    buf = io.BytesIO()
-    np.save(buf, image, allow_pickle=False)
-    return buf.getvalue()
-
-
-def npy_decode(data: bytes, size: int):
-    """The request bytes as a raw ``.npy`` uint8 (size, size, 3) array."""
-    import io
-
-    import numpy as np
-
-    image = np.load(io.BytesIO(data), allow_pickle=False)
-    if image.shape != (size, size, 3) or image.dtype != np.uint8:
-        raise ValueError(f"expected a ({size}, {size}, 3) uint8 .npy, got "
-                         f"{image.shape} {image.dtype}")
-    return image
-
-
-class NpyRequests:
-    """Swap the services' image decoder (``load_image_bytes_resized``:
-    Pillow, which the card's machine lacks) for ``npy_decode`` while the
-    block runs."""
-
-    def __enter__(self):
-        from klab_multimodalmodel_tpu_torch.serve import continuous, service
-
-        self.modules = (service, continuous)
-        self.saved = [m.load_image_bytes_resized for m in self.modules]
-        for m in self.modules:
-            m.load_image_bytes_resized = npy_decode
-        print("phase 9: the services' load_image_bytes_resized (Pillow) is "
-              "swapped for a decoder of raw .npy bytes; requests carry "
-              "seeded 256x256 arrays")
-        return self
-
-    def __exit__(self, *exc):
-        for m, fn in zip(self.modules, self.saved):
-            m.load_image_bytes_resized = fn
 
 
 def http_call(base: str, path: str, payload=None):
@@ -3613,10 +3767,12 @@ def texts_equal(responses, solo, tok) -> int:
         flat, tok.batch_decode(solo, skip_special_tokens=True)))
 
 
-def dynamic_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
+def dynamic_phase(card, cfg, model, tok, rounds, images, solo,
+                  jpegs) -> dict:
     """9a: CaptionService behind CaptionHTTPServer under SERVE_ROUNDS
     rounds of SERVE_CLIENTS concurrent /caption requests; then 9c, the
-    stream, on the same server."""
+    stream, on the same server; then a corrupt JPEG body, which must get
+    400 "bad image" from a server that goes on serving."""
     import threading
 
     import torch
@@ -3671,8 +3827,7 @@ def dynamic_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
         # 9c: the stream's final event is /caption's text.
         import base64
 
-        payload = {"image_b64": base64.b64encode(npy_bytes(images[0]))
-                   .decode()}
+        payload = {"image_b64": base64.b64encode(jpegs[0]).decode()}
         code, body = http_call(base, "/caption", payload)
         first_ms, events = sse_first_event("127.0.0.1", server.port,
                                            dict(payload, chunk_size=
@@ -3683,6 +3838,21 @@ def dynamic_phase(card, cfg, model, tok, rounds, images, solo) -> dict:
               f"{body}")
         stream = dict(first_event_ms=first_ms, events=len(events),
                       chunk_size=STREAM_CHUNK)
+
+        # A cut JPEG: 400 "bad image" with the decoder's reason, and the
+        # server still answers the whole file.
+        cut = {"image_b64": base64.b64encode(
+            jpegs[0][:len(jpegs[0]) // 2]).decode()}
+        code, err = http_call(base, "/caption", cut)
+        check(code == 400 and err.get("error", "").startswith(
+            "bad image: JPEG: truncated"),
+              f"a cut JPEG body answered {code} {err}")
+        code, again = http_call(base, "/caption", payload)
+        check(code == 200 and again == body, f"after the cut body, "
+              f"/caption answered {code} {again}, not {body}")
+        stream["corrupt_body"] = err["error"]
+        print(f"phase 9a [{card}]: a cut JPEG body: 400 {err['error']!r}; "
+              "the next /caption 200, its caption unchanged")
     finally:
         gate.set()
         starter.join(timeout=SERVE_TIMEOUT_S)
@@ -3979,6 +4149,9 @@ def serving_phase(card: str) -> dict:
 
     from klab_multimodalmodel_tpu_torch import cli
     from klab_multimodalmodel_tpu_torch.config import Config
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_bytes_resized)
+    from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
     from klab_multimodalmodel_tpu_torch.models.multimodal import (
         MultiModalModel)
     from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
@@ -3991,33 +4164,39 @@ def serving_phase(card: str) -> dict:
     model.eval()
     tok = ByteTokenizer()
     size = cfg.swin.image_size
-    rng = np.random.default_rng(SEED + 9)
-    images = rng.integers(0, 256, (SERVE_ROUNDS * SERVE_CLIENTS, size, size,
-                                   3), dtype=np.uint8)
-    rounds = [[{"image_b64": base64.b64encode(npy_bytes(img)).decode()}
-               for img in images[r * SERVE_CLIENTS:(r + 1) * SERVE_CLIENTS]]
+    # Each request carries a fixture's JPEG bytes (the fixtures in turn);
+    # the references decode the same bytes through the services' own loader.
+    fixtures = [data for _, data, _ in jpeg_fixtures()]
+    jpegs = [fixtures[i % len(fixtures)]
+             for i in range(SERVE_ROUNDS * SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    images = np.stack([load_image_bytes_resized(b, size) for b in jpegs])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+    print(f"phase 9 [{card}]: the {len(jpegs)} requests' JPEG bodies "
+          f"decoded and resized to {size} on the host: {decode_ms:.3f} ms "
+          "per image (one thread)")
+    rounds = [[{"image_b64": base64.b64encode(b).decode()}
+               for b in jpegs[r * SERVE_CLIENTS:(r + 1) * SERVE_CLIENTS]]
               for r in range(SERVE_ROUNDS)]
     requests = [np.random.default_rng(SEED).integers(
         0, 256, (BATCH, size, size, 3), dtype=np.uint8)
         for _ in range(REQUESTS + 1)]  # phase 3's
     out = dict(encoder_vs_plain=serving_encoder_vs_plain(
         card, cfg, model, tok, images))
-    with NpyRequests():
-        from klab_multimodalmodel_tpu_torch.infer.captioner import Captioner
-
-        solo_cap = Captioner(cfg, model, tok)
-        solo_cap.caption(images[:1])  # warm-up
-        t0 = time.perf_counter()
-        solo = solo_rows(solo_cap, images)
-        solo_s = time.perf_counter() - t0
-        print(f"phase 9: each of the {len(images)} images captioned alone "
-              f"(batch 1) in {solo_s:.2f} s [{card}]")
-        out.update(dynamic_phase(card, cfg, model, tok, rounds, images,
-                                 solo))
-        free()
-        out["continuous"] = continuous_phase(card, cfg, model, tok, rounds,
-                                             images, solo)
-        free()
+    solo_cap = Captioner(cfg, model, tok)
+    solo_cap.caption(images[:1])  # warm-up
+    t0 = time.perf_counter()
+    solo = solo_rows(solo_cap, images)
+    solo_s = time.perf_counter() - t0
+    print(f"phase 9: each of the {len(images)} images captioned alone "
+          f"(batch 1) in {solo_s:.2f} s [{card}]")
+    out.update(dynamic_phase(card, cfg, model, tok, rounds, images, solo,
+                             jpegs))
+    free()
+    out["continuous"] = continuous_phase(card, cfg, model, tok, rounds,
+                                         images, solo)
+    free()
+    out["decode_ms_per_image"] = decode_ms
     out["speculative"] = speculative_phase(card, cfg, model, tok, requests)
     free()
     out["int8"] = int8_phase(card, cfg, model, tok, requests)
@@ -8112,6 +8291,8 @@ def main(stop_after: str | None = None) -> int:
             raise StopAfter
 
     done("1")
+    jpeg = jpeg_phase(card)
+    done("1b")
     # The rank jobs of phases 13 to 20 run beside phases of this process
     # that need nothing of theirs: the two ranks start as phase 1 ends
     # (their start beside phase 2, whose times are device times), phases
@@ -8419,7 +8600,7 @@ def main(stop_after: str | None = None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "build": build,
-                   "kernels": kernels,
+                   "jpeg": jpeg, "kernels": kernels,
                    "captioning": captioning, "training": training,
                    "train_with_swin": swin_training, "options": options,
                    "loop": looping, "evaluation": evaluating,

@@ -7,10 +7,17 @@ The reference's datasets:
   * RedCaps: indexes ``annotations/*.json`` eagerly and span-corrupts each
     sample anew per epoch; ``phase`` does not split the data (train and val
     iterate the same examples, as in the reference);
-  * images: decode -> RGB through Pillow (imported where an image is
-    decoded), then the port's C++ bicubic resize (``native.resize_batch``) to
-    (size, size) on the host; normalization runs on the device
-    (``image_ops.normalize_images``).
+  * images: decode -> RGB, then the port's C++ bicubic resize
+    (``native.resize_batch``) to (size, size) on the host; normalization
+    runs on the device (``image_ops.normalize_images``). The decode is
+    chosen by content: JPEG bytes (``FF D8 FF``) always go to the port's C++
+    decoder (``native.decode_jpeg``: baseline, extended and progressive
+    Huffman, 8-bit, gray / YCbCr / RGB / CMYK / YCCK, 4:4:4, 4:2:2, 4:2:0),
+    which gives Pillow's pixels bit for bit at Pillow's draft scale and
+    needs no Pillow; any other format (PNG, ...) goes to Pillow, imported
+    there, and raises ``ValueError`` naming the format where Pillow is not
+    installed. A JPEG never reaches Pillow, and a failed native decode is
+    not retried elsewhere.
 
 Items are ``(image_uint8 (H,W,3), src_text, tgt_text)``; tokenization and
 batching live in ``pipeline.py``. The synthetic dataset needs no file and
@@ -31,30 +38,62 @@ COCO_PROMPT = "What does th image describe ?"  # sic: the reference's prompt
 
 
 def load_image_resized(path: str, size: int = 256) -> np.ndarray:
-    """Decode -> RGB -> bicubic resize -> (size, size, 3) uint8. JPEG draft
-    mode decodes straight to a scale near the target (never below it); the
-    port's C++ runtime does the resize, as the JAX package's does."""
-    return _decode_resized(path, size)
+    """Decode -> RGB -> bicubic resize -> (size, size, 3) uint8. A JPEG
+    decodes straight to Pillow's draft scale near the target (never below
+    it); the port's C++ runtime does the resize, as the JAX package's
+    does."""
+    with open(path, "rb") as f:
+        return _decode_resized(f.read(), size)
 
 
 def load_image_bytes_resized(data: bytes, size: int = 256) -> np.ndarray:
-    """``load_image_resized`` over in-memory encoded bytes."""
-    import io
+    """``load_image_resized`` over in-memory encoded bytes. Malformed,
+    truncated or unsupported bytes raise ``ValueError`` (a JPEG) or
+    Pillow's ``OSError`` (another format)."""
+    return _decode_resized(bytes(data), size)
 
-    return _decode_resized(io.BytesIO(data), size)
 
-
-def _decode_resized(src, size: int) -> np.ndarray:
-    from PIL import Image
-
+def _decode_resized(data: bytes, size: int) -> np.ndarray:
     from ..native import BICUBIC, resize_batch
 
-    with Image.open(src) as im:
-        # draft only applies to JPEG. It never drafts below the target size.
-        im.draft("RGB", (size, size))
-        im = im.convert("RGB")
-        return resize_batch([np.asarray(im, dtype=np.uint8)], size,
-                            filter=BICUBIC, n_threads=1)[0]
+    return resize_batch([decode_image(data, size)], size, filter=BICUBIC,
+                        n_threads=1)[0]
+
+
+# Signatures of the formats named in the error where Pillow is missing.
+_SIGNATURES = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"GIF8", "GIF"),
+               (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def _format_name(data: bytes) -> str:
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((name for sig, name in _SIGNATURES
+                 if data.startswith(sig)), "non-JPEG")
+
+
+def decode_image(data: bytes, size: int) -> np.ndarray:
+    """Encoded bytes -> (H, W, 3) uint8 RGB at the draft scale that Pillow's
+    ``draft("RGB", (size, size))`` picks for a JPEG (full size for other
+    formats): what ``Image.open(...).convert("RGB")`` gives. JPEG bytes take
+    the native decoder; other formats need Pillow."""
+    from ..native import JPEG_SIGNATURE, decode_jpeg, draft_scale, jpeg_size
+
+    if not data:
+        raise ValueError("empty image data")
+    if data.startswith(JPEG_SIGNATURE):
+        width, height = jpeg_size(data)
+        return decode_jpeg(data, draft_scale(width, height, size))
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"cannot decode a {_format_name(data)} image: Pillow is not "
+            "installed, and without it the port decodes JPEG alone") from None
+    import io
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
 class DatasetBase:

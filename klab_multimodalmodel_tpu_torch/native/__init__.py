@@ -1,16 +1,19 @@
-"""ctypes bindings of the port's C++ host runtime (``klab_host.cpp`` beside
-this file): Pillow-compatible multithreaded image resize (``resize_batch``)
-and the unigram tokenizer core with the HF-T5 chain
-(``NativeUnigramEncoder``), the same API as the JAX package's ``native``
-module.
+"""ctypes bindings of the port's C++ host runtime (``klab_host.cpp`` and
+``klab_jpeg.cpp`` beside this file, one library): Pillow-compatible
+multithreaded image resize (``resize_batch``) and the unigram tokenizer core
+with the HF-T5 chain (``NativeUnigramEncoder``), the same API as the JAX
+package's ``native`` module; and a JPEG decoder (``decode_jpeg``,
+``jpeg_size``) that gives Pillow's pixels bit for bit, so that the port
+decodes JPEGs without Pillow.
 
 The library is built at first use, never at import, with the C++ compiler
 that ``CXX`` names (default ``g++``) and ``CXXFLAGS`` below, into ``_build/``
-beside the package (git-ignored). Its file name carries a hash of the source,
-the compiler, the flags and the host CPU (``-march=native`` code must not
-move to another CPU), so an edited source is rebuilt and a finished build is
-reused. Nothing degrades: a build that fails raises with the compiler's
-output, and no caller falls back to another resize or encoder.
+beside the package (git-ignored). Its file name carries a hash of the
+sources, the compiler, the flags and the host CPU (``-march=native`` code
+must not move to another CPU), so an edited source is rebuilt and a finished
+build is reused. Nothing degrades: a build that fails raises with the
+compiler's output, and no caller falls back to another resize, encoder or
+decoder.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import numpy as np
 from ..text.tokenizer import META, NUM_SENTINELS
 
 SOURCE = Path(__file__).resolve().parent / "klab_host.cpp"
+JPEG_SOURCE = SOURCE.parent / "klab_jpeg.cpp"
+SOURCES = (SOURCE, JPEG_SOURCE)  # compiled into one library
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # The JAX package's build flags: -march=native lets the compiler fuse the
 # resize's multiply-adds, and both builds must do the same to give the same
@@ -61,14 +66,16 @@ def _cpu_identity() -> bytes:
 
 
 def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.name.encode() + b"\0" + source.read_bytes())
     h.update("\0".join((compiler(),) + CXXFLAGS).encode())
     h.update(_cpu_identity())
     return Path(build_dir) / f"libklab_host-{h.hexdigest()[:16]}.so"
 
 
 def build_library(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``klab_host.cpp`` into ``build_dir`` unless its library is
+    """Compile ``SOURCES`` into ``build_dir`` unless their library is
     there already; the path of the library. Writes nothing outside
     ``build_dir``: the compiler's output goes to a temporary file there,
     renamed into place whole. Raises ``RuntimeError`` with the compiler's
@@ -79,7 +86,7 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
     target.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
-    cmd = [compiler(), *CXXFLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [compiler(), *CXXFLAGS, "-o", tmp, *map(str, SOURCES)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300, cwd=target.parent)
@@ -125,6 +132,13 @@ def load_library() -> ctypes.CDLL:
         lib.klab_tok_encode_batch.argtypes = [
             I, ctypes.c_char_p, P, I, P, P, I, I, I, I]
         lib.klab_tok_encode_batch.restype = I
+        lib.klab_jpeg_info.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, P, ctypes.c_char_p, I]
+        lib.klab_jpeg_info.restype = I
+        lib.klab_jpeg_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, I, P, ctypes.c_int64,
+            ctypes.c_char_p, I]
+        lib.klab_jpeg_decode.restype = I
         _lib = lib
         return lib
 
@@ -161,6 +175,59 @@ def resize_batch(images: Sequence[np.ndarray], size: int,
         ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)),
         dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), batch,
         out.ctypes.data_as(ctypes.c_void_p), size, size, filter, n_threads)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# JPEG decoding
+# ---------------------------------------------------------------------------
+
+JPEG_SIGNATURE = b"\xff\xd8\xff"  # what Pillow's JPEG plugin accepts
+DRAFT_SCALES = (8, 4, 2, 1)
+
+
+def jpeg_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from a JPEG's SOF marker. Raises ``ValueError`` with
+    the reason where the header is corrupt, truncated or unsupported, or the
+    image is over Pillow's decompression-bomb limit."""
+    data = bytes(data)
+    lib = load_library()
+    info = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(256)
+    if lib.klab_jpeg_info(data, len(data), info.ctypes.data_as(
+            ctypes.c_void_p), err, len(err)) != 0:
+        raise ValueError(f"JPEG: {err.value.decode()}")
+    return int(info[0]), int(info[1])
+
+
+def draft_scale(width: int, height: int, size: int) -> int:
+    """The scale 1/s that Pillow's ``JpegImageFile.draft(mode, (size,
+    size))`` picks: the largest s of 8, 4, 2, 1 with s <= min(width //
+    size, height // size), so the decode is never smaller than the
+    target."""
+    fit = min(width // size, height // size)
+    return next((s for s in DRAFT_SCALES if fit >= s), 1)
+
+
+def decode_jpeg(data: bytes, scale: int = 1) -> np.ndarray:
+    """JPEG bytes -> (ceil(H / scale), ceil(W / scale), 3) uint8 RGB, the
+    pixels Pillow gives for ``Image.open(...)`` with a draft at 1/scale,
+    then ``convert("RGB")``, damaged entropy-coded data recovered as
+    libjpeg recovers it. ``scale`` is 1, 2, 4 or 8. Raises ``ValueError``
+    with the reason for a malformed or truncated stream and for what the
+    decoder does not take (arithmetic coding, 12-bit or lossless frames,
+    sampling other than 4:4:4, 4:2:2 and 4:2:0). The decode runs without
+    the GIL."""
+    if scale not in DRAFT_SCALES:
+        raise ValueError(f"scale {scale}: only 1, 2, 4 or 8")
+    data = bytes(data)
+    width, height = jpeg_size(data)
+    out = np.empty((-(-height // scale), -(-width // scale), 3), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if load_library().klab_jpeg_decode(
+            data, len(data), scale, out.ctypes.data_as(ctypes.c_void_p),
+            out.nbytes, err, len(err)) != 0:
+        raise ValueError(f"JPEG: {err.value.decode()}")
     return out
 
 

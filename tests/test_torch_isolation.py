@@ -173,3 +173,140 @@ def test_synthetic_training_needs_no_optional_package(tmp_path):
     assert (tmp_path / "feature_cache" / "train.img.feat").exists()
     with open(tmp_path / "train.log") as f:
         assert "loss.png not written" in f.read()
+
+
+JPEG_FIXTURES = ROOT / "tests" / "torch_jpeg"
+
+
+def _coco_layout(root: pathlib.Path, names: list) -> str:
+    """An MSCOCO-layout directory whose train2017/ and val2017/ hold the
+    fixture JPEGs ``names`` (each twice in train), one caption each."""
+    import json
+    import shutil
+
+    d = root / "mscoco2017"
+    (d / "annotations").mkdir(parents=True)
+    for phase, copies in (("train", 2), ("val", 1)):
+        (d / f"{phase}2017").mkdir()
+        images, annotations = [], []
+        for i, src in enumerate(names * copies):
+            name = f"{i:012d}.jpg"
+            shutil.copyfile(JPEG_FIXTURES / src, d / f"{phase}2017" / name)
+            images.append({"id": i, "file_name": name})
+            annotations.append({"id": 100 + i, "image_id": i,
+                                "caption": f"a picture number {i % 3}"})
+        with open(d / "annotations" / f"captions_{phase}2017.json", "w") as f:
+            json.dump({"images": images, "annotations": annotations}, f)
+    return str(d)
+
+
+# Tiny sizes registered under names of this test's own, in both processes.
+JPEG_SIZES = (
+    "from klab_multimodalmodel_tpu_torch import config as c\n"
+    "c.register_t5_size('t5-isolation-jpeg', c.T5Size(d_model=32, d_kv=8, "
+    "d_ff=64, num_layers=1, num_decoder_layers=1, num_heads=4, "
+    "vocab_size=512, relative_attention_num_buckets=8, "
+    "relative_attention_max_distance=16))\n"
+    "c.register_swin_size('swin-isolation-jpeg', c.SwinV2Size(image_size=32, "
+    "embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4))\n")
+
+
+def test_jpeg_route_needs_no_pillow(tmp_path):
+    """With Pillow (and jax, the JAX package, matplotlib, tensorboard,
+    ml_dtypes) blocked: ``load_image_resized`` and
+    ``load_image_bytes_resized`` give every fixture JPEG the pixels they give
+    with Pillow present, a tiny ``train()`` runs over a COCO-layout
+    directory of JPEGs, and the ``caption`` CLI captions JPEG files as it
+    does with Pillow present; a PNG body raises the ``ValueError`` that
+    names PNG."""
+    import hashlib
+    import io
+    import json
+    from contextlib import redirect_stdout
+
+    from PIL import Image
+
+    from klab_multimodalmodel_tpu_torch.data.datasets import (
+        load_image_bytes_resized, load_image_resized)
+
+    names = sorted(p.name for p in JPEG_FIXTURES.glob("*.jpg"))
+    small = [n for n in names if (JPEG_FIXTURES / n).stat().st_size < 30_000]
+    data_dir = _coco_layout(tmp_path, small[:4])
+    png = tmp_path / "x.png"
+    Image.new("RGB", (40, 30), (10, 20, 30)).save(png)
+    result_dir = tmp_path / "run"
+    images = [str(JPEG_FIXTURES / n) for n in small[:3]]
+    argv = ["klab", "caption", *images, "--result_dir", str(result_dir),
+            "--device", "cpu"]
+    code = (
+        "import hashlib, io, json, runpy, sys\n"
+        "from contextlib import redirect_stdout\n"
+        f"for name in ('jax', 'jaxlib', 'flax', {JAX_PACKAGE!r}) + "
+        f"{OPTIONAL!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from klab_multimodalmodel_tpu_torch.data.datasets import (\n"
+        "    load_image_bytes_resized, load_image_resized)\n"
+        "out = {'file': {}, 'bytes': {}}\n"
+        f"for name in {names!r}:\n"
+        f"    path = {str(JPEG_FIXTURES)!r} + '/' + name\n"
+        "    out['file'][name] = hashlib.sha256(\n"
+        "        load_image_resized(path, 32).tobytes()).hexdigest()\n"
+        "    with open(path, 'rb') as f:\n"
+        "        out['bytes'][name] = hashlib.sha256(\n"
+        "            load_image_bytes_resized(f.read(), 256).tobytes()"
+        ").hexdigest()\n"
+        "try:\n"
+        f"    load_image_resized({str(png)!r}, 32)\n"
+        "except ValueError as e:\n"
+        "    out['png'] = str(e)\n"
+        + JPEG_SIZES +
+        "from klab_multimodalmodel_tpu_torch.train import train\n"
+        "cfg = c.Config(image_model_name='swin-isolation-jpeg', "
+        "language_model_name='t5-isolation-jpeg', "
+        "transformer_model_name='t5-isolation-jpeg', max_source_length=32, "
+        "max_target_length=16, generate_max_length=6, batch_size=4, "
+        f"num_epochs=1, data_dir={data_dir!r}, "
+        f"result_dir={str(result_dir)!r})\n"
+        "run = train(cfg, device='cpu')\n"
+        "out['steps'] = run['steps']\n"
+        f"sys.argv = {argv!r}\n"
+        "buf = io.StringIO()\n"
+        "with redirect_stdout(buf):\n"
+        "    try:\n"
+        "        runpy.run_module('klab_multimodalmodel_tpu_torch', "
+        "run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        "out['captions'] = buf.getvalue()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"('jax', {JAX_PACKAGE!r}) + {OPTIONAL!r} "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('RESULT ' + json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.split("RESULT ", 1)[1])
+
+    def sha(a) -> str:
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    for name in names:
+        path = JPEG_FIXTURES / name
+        assert got["file"][name] == sha(load_image_resized(str(path), 32))
+        assert got["bytes"][name] == sha(
+            load_image_bytes_resized(path.read_bytes(), 256))
+    assert got["png"].startswith("cannot decode a PNG image: Pillow is "
+                                 "not installed"), got["png"]
+    assert got["steps"] == 2
+    lines = got["captions"].splitlines()
+    assert [ln.split("\t")[0] for ln in lines] == images
+    # The same run's captions with Pillow present (the sizes registered
+    # here too).
+    from klab_multimodalmodel_tpu_torch.cli import caption_main
+
+    exec(JPEG_SIZES, {})
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        caption_main(argv[2:])
+    assert buf.getvalue() == got["captions"]

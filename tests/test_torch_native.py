@@ -202,12 +202,14 @@ def test_no_fallback_where_the_build_fails(tmp_path):
 
 
 def test_package_ships_the_runtime_source():
-    """An installed package carries ``klab_host.cpp``: the library is
-    built from it at first use."""
+    """An installed package carries ``klab_host.cpp`` and ``klab_jpeg.cpp``:
+    the library is built from them at first use."""
     import tomllib
 
     with open(ROOT / "pyproject.toml", "rb") as f:
         globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "klab_multimodalmodel_tpu_torch"]
     package = native.SOURCE.parent.parent
-    assert any(native.SOURCE in set(package.glob(g)) for g in globs)
+    assert native.SOURCE in native.SOURCES and len(native.SOURCES) == 2
+    for source in native.SOURCES:
+        assert any(source in set(package.glob(g)) for g in globs), source
