@@ -13,9 +13,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
       of ``tests/torch_jpeg/`` decoded natively at Pillow's draft scale for
       256 px, its pixels held to the manifest's digest of Pillow's decode,
       and ``load_image_bytes_resized`` (decode and resize) to the digest of
-      the JAX package's; prints the decode and load ms per image (median
-      of 5, one thread) of the COCO sizes and the 1/8 drafts, with the host
-      CPU's model name.
+      the JAX package's; the fixtures that Pillow cannot write (4:4:0,
+      4:1:1, arithmetic coding, lossless) at every draft scale too, a
+      lossless frame refused at a draft scale; prints the decode and load
+      ms per image (median of 5, one thread) of the COCO sizes, the 1/8
+      drafts and those fixtures (by scale), with the host CPU's model
+      name.
 2. Hold each kernel against its plain PyTorch version at the shapes of both
    main paths, and time kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``, forward or forward+backward) with
@@ -185,7 +188,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    c. ``/caption_stream`` on 9a's server: the last event is ``/caption``'s
       text; prints the time to the first event. Then a JPEG body cut in
       half gets 400 "bad image" with the decoder's reason, and the next
-      ``/caption`` is answered as before.
+      ``/caption`` is answered as before; the first body with 16 zero
+      bytes in place of its EOI marker gets 200 and the same caption.
    d. ``Captioner(speculative_draft=4)`` on phase 3's three batch-8
       requests against greedy (knife-edge rule); prints decoder passes,
       accepted drafts and request ms beside greedy's, timed in turn.
@@ -733,8 +737,9 @@ def jpeg_phase(card: str) -> dict:
     """Phase 1b: every fixture decoded by the port's C++ decoder at the
     draft scale for 256 px, its pixels held to the manifest's digest of
     Pillow's decode, and the port's ``load_image_bytes_resized`` (decode
-    and resize) to the JAX package's; the median decode and load ms of
-    each, on one host thread."""
+    and resize) to the JAX package's; the encoder's fixtures (4:4:0,
+    4:1:1, arithmetic coding, lossless) at every draft scale too; the
+    median decode and load ms of each, on one host thread."""
     import hashlib
 
     import numpy as np
@@ -769,13 +774,34 @@ def jpeg_phase(card: str) -> dict:
             decode_ms=median_ms(lambda: native.decode_jpeg(data, scale)),
             load_ms=median_ms(lambda: load_image_bytes_resized(
                 data, JPEG_SIZE)))
+        # The encoder's fixtures (4:4:0, 4:1:1, arithmetic coding,
+        # lossless) at every draft scale: Pillow's digest, or (a lossless
+        # frame at a draft scale, which Pillow does not decode) a refusal.
+        for s, want in entry.get("decode_scales", {}).items():
+            s = int(s)
+            if want is None:
+                try:
+                    native.decode_jpeg(data, s)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check(refused, f"{name}: decoded at 1/{s}, where Pillow "
+                      "does not decode it")
+                continue
+            check(sha(native.decode_jpeg(data, s)) == want,
+                  f"{name}: the native decode at 1/{s} differs from "
+                  "Pillow's (the manifest's digest)")
+            files[name].setdefault("scale_ms", {})[s] = median_ms(
+                lambda: native.decode_jpeg(data, s))
     for name, f in files.items():
-        if f["kind"] in ("coco", "draft_s8"):
+        if f["kind"] in ("coco", "draft_s8") or "scale_ms" in f:
             print(f"phase 1b [{card}; host {cpu}]: {name} ({f['bytes']} "
                   f"bytes, draft 1/{f['draft_scale']}): decode "
                   f"{f['decode_ms']:.3f} ms, decode + resize to {JPEG_SIZE} "
                   f"{f['load_ms']:.3f} ms (median of {JPEG_REPS}, one "
-                  "thread)")
+                  "thread)" + ("; by scale " + ", ".join(
+                      f"1/{s} {ms:.3f} ms" for s, ms in f["scale_ms"].items())
+                      if "scale_ms" in f else ""))
     coco = [f["decode_ms"] for f in files.values() if f["kind"] == "coco"]
     seconds = time.perf_counter() - t_phase
     print(f"phase 1b [{card}; host {cpu}]: {len(files)} fixture JPEGs "
@@ -3851,8 +3877,19 @@ def dynamic_phase(card, cfg, model, tok, rounds, images, solo,
         check(code == 200 and again == body, f"after the cut body, "
               f"/caption answered {code} {again}, not {body}")
         stream["corrupt_body"] = err["error"]
+        # The same file with 16 zero bytes in place of its EOI marker
+        # (a baseline file: Pillow decodes it to the same pixels): 200 and
+        # the same caption.
+        check(jpegs[0].endswith(b"\xff\xd9"), "the first body's EOI")
+        no_eoi = {"image_b64": base64.b64encode(
+            jpegs[0][:-2] + bytes(16)).decode()}
+        code, eoi_less = http_call(base, "/caption", no_eoi)
+        check(code == 200 and eoi_less == body, f"the body without EOI "
+              f"answered {code} {eoi_less}, not {body}")
+        stream["eoi_less_body"] = code
         print(f"phase 9a [{card}]: a cut JPEG body: 400 {err['error']!r}; "
-              "the next /caption 200, its caption unchanged")
+              "the next /caption 200, its caption unchanged; the body "
+              "with zero bytes in place of EOI: 200, the same caption")
     finally:
         gate.set()
         starter.join(timeout=SERVE_TIMEOUT_S)

@@ -11,10 +11,13 @@ The reference's datasets:
     (``native.resize_batch``) to (size, size) on the host; normalization
     runs on the device (``image_ops.normalize_images``). The decode is
     chosen by content: JPEG bytes (``FF D8 FF``) always go to the port's C++
-    decoder (``native.decode_jpeg``: baseline, extended and progressive
-    Huffman, 8-bit, gray / YCbCr / RGB / CMYK / YCCK, 4:4:4, 4:2:2, 4:2:0),
-    which gives Pillow's pixels bit for bit at Pillow's draft scale and
-    needs no Pillow; any other format (PNG, ...) goes to Pillow, imported
+    decoder (``native.decode_jpeg``: baseline, extended and progressive,
+    Huffman or arithmetic coding, 8-bit, gray / YCbCr / RGB / CMYK / YCCK,
+    any sampling factors libjpeg upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0,
+    4:1:1, ...), lossless at full size), which gives Pillow's pixels bit
+    for bit at Pillow's draft scale, and refuses what Pillow refuses (its
+    header parser's refusals, a file that ends where libjpeg asks for
+    more), with no Pillow; any other format (PNG, ...) goes to Pillow, imported
     there, and raises ``ValueError`` naming the format where Pillow is not
     installed. A JPEG never reaches Pillow, and a failed native decode is
     not retried elsewhere.

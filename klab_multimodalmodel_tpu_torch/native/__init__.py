@@ -214,10 +214,11 @@ def decode_jpeg(data: bytes, scale: int = 1) -> np.ndarray:
     pixels Pillow gives for ``Image.open(...)`` with a draft at 1/scale,
     then ``convert("RGB")``, damaged entropy-coded data recovered as
     libjpeg recovers it. ``scale`` is 1, 2, 4 or 8. Raises ``ValueError``
-    with the reason for a malformed or truncated stream and for what the
-    decoder does not take (arithmetic coding, 12-bit or lossless frames,
-    sampling other than 4:4:4, 4:2:2 and 4:2:0). The decode runs without
-    the GIL."""
+    with the reason where Pillow raises: a malformed stream, one that ends
+    where libjpeg under Pillow asks for more, what Pillow's header parser
+    refuses, and what the decoder does not take (12-bit and hierarchical
+    frames, a lossless frame at a draft scale or with a colour transform,
+    fractional sampling ratios). The decode runs without the GIL."""
     if scale not in DRAFT_SCALES:
         raise ValueError(f"scale {scale}: only 1, 2, 4 or 8")
     data = bytes(data)

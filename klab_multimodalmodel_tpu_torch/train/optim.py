@@ -32,10 +32,10 @@ each rank's optimizer holds its own parameters only (its stage's blocks,
 its experts' slices of the banks, cut on d_ff too under ``tensor``, and the
 replicated rest): Adam's state of a local tensor is that slice of one
 process's. ``Adafactor`` factors a bank as the whole bank's shape says
-(``Adafactor.cuts``): its statistics are per expert (it never factors the
-experts' dim: ``expert_factoring_slices``), so they slice on it; a row or
-column mean over the d_ff columns is summed over the tensor group
-(``Adafactor.cut_group``), whose ranks hold the other columns. Its block
+(``Adafactor.cuts``): a row or column mean over a dim that ranks cut (the
+experts' dim over the expert group, d_ff over the tensor group) is the
+mean of the group's means, so a statistic that drops that dim is the same
+on the group's ranks, and one that keeps it is the rank's slice. Its block
 RMS over a JAX leaf that spans ranks (a scanned stack's blocks, an expert
 bank) is summed over the pipe group or the tensor x expert group
 (``Adafactor.spread``); the ``fsdp`` and the dense layers' ``tensor``
@@ -232,12 +232,9 @@ class Adafactor(torch.optim.Optimizer):
         # banks under tensor: those groups' sums of squares and sizes are
         # summed over it.
         self.spread: Optional[tuple] = None
-        # {parameter: (its whole shape, the dim cut over ``cut_group`` or
-        # None)} for a parameter that is a slice of a larger one (an MoE
-        # bank's): the whole shape picks the factored dims, and a mean
-        # over the cut dim is summed over the group.
+        # {parameter: (its whole shape, {a dim that ranks cut in equal
+        # slices: the process group of those ranks})}: a bank's.
         self.cuts: dict = {}
-        self.cut_group = None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -280,7 +277,7 @@ class Adafactor(torch.optim.Optimizer):
         whole slice's means, for a cut one)."""
         g = gather_full(p.grad)
         st = self.state[p]
-        whole, cut = self.cuts.get(p, (tuple(g.shape), None))
+        whole, cut = self.cuts.get(p, (tuple(g.shape), {}))
         dims = _factored_dims(whole)
         if not st:
             st["step"] = 0
@@ -298,27 +295,28 @@ class Adafactor(torch.optim.Optimizer):
             return g * v ** -0.5
         d1, d0 = dims
         v_row = st["v_row"] = (decay * st["v_row"] + (1.0 - decay)
-                               * self._mean(g_sq, d0, cut == d0))
+                               * self._mean(g_sq, d0, cut.get(d0)))
         v_col = st["v_col"] = (decay * st["v_col"] + (1.0 - decay)
-                               * self._mean(g_sq, d1, cut == d1))
+                               * self._mean(g_sq, d1, cut.get(d1)))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = self._mean(v_row, reduced_d1, cut == d1,
+        row_col_mean = self._mean(v_row, reduced_d1, cut.get(d1),
                                   keepdim=True)
         row_factor = (v_row / row_col_mean) ** -0.5
         col_factor = v_col ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
-    def _mean(self, t: torch.Tensor, dim: int, cut: bool,
+    @staticmethod
+    def _mean(t: torch.Tensor, dim: int, group,
               keepdim: bool = False) -> torch.Tensor:
-        """``t``'s mean over ``dim``; where ``dim`` is cut over
-        ``cut_group`` (equal slices), the mean of the group's means."""
+        """``t``'s mean over ``dim``; where ``group``'s ranks cut ``dim``
+        (equal slices), the mean of the group's means."""
         m = t.mean(dim, keepdim=keepdim)
-        if not cut:
+        if group is None:
             return m
         import torch.distributed as dist
 
-        dist.all_reduce(m, group=self.cut_group)
-        return m / dist.get_world_size(self.cut_group)
+        dist.all_reduce(m, group=group)
+        return m / dist.get_world_size(group)
 
 
 def _f32(x) -> torch.Tensor:
@@ -342,19 +340,14 @@ def _drop(shape, dim: int) -> tuple:
     return tuple(s for i, s in enumerate(shape) if i != dim)
 
 
-def expert_factoring_slices(whole_shape: tuple) -> bool:
-    """Whether ``Adafactor``'s statistics of an expert bank of
-    ``whole_shape`` (E, ...) slice on the experts' dim 0: it does not
-    factor that dim."""
-    dims = _factored_dims(whole_shape)
-    return dims is None or 0 not in dims
-
-
 def state_dim(key: str, shape: tuple, dim: int) -> Optional[int]:
     """The dim of an optimizer state entry ``key`` of a parameter of
     ``shape`` that runs along the parameter's dim ``dim``, or None where
     the entry has no such dim (``Adafactor``'s row statistic drops the
-    largest factored dim, its column statistic the other)."""
+    largest factored dim, its column statistic the other: a bank whose
+    experts' dim is factored has a statistic that keeps that dim, a slice
+    on an expert split, and one that drops it, the same on every expert
+    rank)."""
     dims = _factored_dims(shape)
     if key not in ("v_row", "v_col") or dims is None:
         return dim

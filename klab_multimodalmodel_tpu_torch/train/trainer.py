@@ -115,7 +115,7 @@ from ..parallel.partitioning import (BANKS, ExpertGroup, PipeGroup,
 from ..utils.device import resolve_device
 from ..utils.mesh import Mesh, make_mesh
 from ..utils.precision import get_policy
-from .optim import (Adafactor, expert_factoring_slices, make_optimizer,
+from .optim import (Adafactor, make_optimizer,
                     optimizer_groups, optimizer_state, state_piece,
                     trainable_names)
 
@@ -352,8 +352,7 @@ class Trainer:
 
     def _record_whole(self) -> None:
         """The whole model's state-dict names and shapes, its optimizer's
-        param groups and its stacks' block counts, before any split; and
-        the refusal of an Adafactor that would factor the experts' dim."""
+        param groups and its stacks' block counts, before any split."""
         names = trainable_names(self.model, self.config)
         state = self.model.state_dict()
         self._whole_names = list(state)
@@ -362,13 +361,6 @@ class Trainer:
             self.config, [n for n, _ in self.model.named_parameters()
                           if n in names])
         self._layers = stack_layers(self._whole_names)
-        if self.config.optimizer == "adafactor" and self.mesh.expert > 1:
-            for n, shape in self._whole_shapes.items():
-                if n.endswith(BANKS) and not expert_factoring_slices(shape):
-                    raise NotImplementedError(
-                        f"{n} {shape}: Adafactor would factor its "
-                        "experts' dim; split it with Adam, or fewer "
-                        "experts")
 
     def _lay_out(self) -> None:
         """On the meta device: the trainable flags, the frozen towers'
@@ -565,8 +557,8 @@ class Trainer:
         it (FSDP2's and a dense layer's tensor shards are gathered whole
         first, ``Adafactor._scaled``, so under ``fsdp`` or ``tensor`` too
         only the pipe ranks hold other parts of a stage's leaf). A bank is
-        factored as its whole shape says, its d_ff means summed over the
-        tensor group."""
+        factored as its whole shape says, its means over the experts' dim
+        taken over the expert group and over d_ff over the tensor group."""
         group = (self.pipe or self.expert).group
         names = {id(p): n for n, p in self.model.named_parameters()}
         spread = [i for i, g in enumerate(self.optimizer.param_groups)
@@ -578,13 +570,12 @@ class Trainer:
             for p in g["params"]:
                 n = names[id(p)]
                 if n.endswith(BANKS):
-                    self.optimizer.cuts[p] = (
-                        self._whole_shapes[n],
-                        self._tensor_dim(n) if self.mesh.tensor > 1
-                        else None)
-        if self.mesh.tensor > 1:
-            self.optimizer.cut_group = self.mesh.tensor_group(
-                self.device.type)
+                    groups = {}
+                    if self.mesh.expert > 1:
+                        groups[0] = self.expert.expert_group
+                    if self.mesh.tensor > 1:
+                        groups[self._tensor_dim(n)] = self.expert.tensor_group
+                    self.optimizer.cuts[p] = (self._whole_shapes[n], groups)
 
     def _tensor_dim(self, name: str) -> int:
         """A bank's d_ff dim (its rule's ``tensor``)."""

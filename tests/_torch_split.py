@@ -34,6 +34,9 @@ from klab_multimodalmodel_tpu_torch.train import Trainer, train
 from klab_multimodalmodel_tpu_torch.train.loop import dropout_seed
 from test_torch_sharded import B, TGT, WORKER, make_batch
 
+# Config fields that change a case's model (and so its seeded weights).
+MODEL_KEYS = {"transformer_model_name", "language_model_name",
+              "image_model_name", "moe_experts"}
 JAX_LOSS_RTOL = 2e-5
 JAX_PARAM_TOL = dict(rtol=5e-4, atol=1e-6)
 TOL = 1e-5
@@ -90,6 +93,15 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
     params = jax_params(jc)
     converted = convert_jax_params(params, tc)
     torch.save(converted, root / "converted.pt")
+    # A JAX case whose overrides change the model has weights of its own.
+    models, tcs = {}, {}
+    for name, overrides in jax_runs.items():
+        if set(overrides) & MODEL_KEYS:
+            jc_r, tcs[name] = tp.configs(**dict(base, **{
+                k: v for k, v in overrides.items() if k != "mesh_shape"}))
+            models[name] = jax_params(jc_r)
+            torch.save(convert_jax_params(models[name], tcs[name]),
+                       root / f"{name}.converted.pt")
     job_runs, ones = [], {}
     cases = {**jax_runs, **port_runs}
     for name, overrides in cases.items():
@@ -104,8 +116,9 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
         one = Trainer(dataclasses.replace(cfg, mesh_shape=(1, 1, 1)),
                       device="cpu")
         if name in jax_runs:
-            one.init_state(state_dict=converted)
-            init = root / "converted.pt"
+            init = root / (f"{name}.converted.pt" if name in models
+                           else "converted.pt")
+            one.init_state(state_dict=torch.load(init))
         else:
             one.init_state()
             init = root / f"{name}.init.pt"
@@ -156,7 +169,8 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
         overrides = dict(overrides)
         run_mesh = overrides.pop("mesh_shape", mesh)
         jax_out[name] = jax_run(dataclasses.replace(jc, **overrides),
-                                run_mesh, params, batches())
+                                run_mesh, models.get(name, params),
+                                batches())
     loop_one = loop_got = None
     if loop_cfg is not None:
         one_cfg = dataclasses.replace(loop_cfg, mesh_shape=(1, 1, 1),
@@ -179,7 +193,7 @@ def split_runs(root, mesh: tuple, base: dict, jax_runs: dict,
             loop_got = json.load(f)
         loop_got["params"] = [torch.load(root / f"loop.{r}.pt")
                               for r in range(nproc)]
-    return dict(root=root, tc=tc, jax=jax_out, one=ones, got=got,
+    return dict(root=root, tc=tc, tcs=tcs, jax=jax_out, one=ones, got=got,
                 loop=loop_got, loop_one=loop_one, loop_cfg=loop_cfg,
                 jax_params=params)
 
@@ -195,7 +209,7 @@ def assert_matches_jax(runs: dict, name: str) -> None:
     jlosses, jparams = runs["jax"][name]
     got = runs["got"][name]
     np.testing.assert_allclose(got["losses"], jlosses, rtol=JAX_LOSS_RTOL)
-    want = convert_jax_params(jparams, runs["tc"])
+    want = convert_jax_params(jparams, runs["tcs"].get(name, runs["tc"]))
     assert set(got["params"]) == set(want)
     for pname, w in want.items():
         np.testing.assert_allclose(got["params"][pname].numpy(),

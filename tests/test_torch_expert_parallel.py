@@ -19,6 +19,11 @@ partial combine) runs one after the other:
 * Adafactor on a transformer wide enough (d_model 128) that the expert
   banks' second moment is factored: its statistics of a rank's experts are
   that slice of one process's, and its clipping RMS spans the group;
+* Adafactor at 128 experts of d_model 32 and d_ff 256, whose banks
+  factor the experts' dim: a column statistic is a mean over all 128
+  experts (the mean of the two ranks' means) and the same on both ranks,
+  a row statistic the rank's slice; held against the JAX ``Trainer`` as
+  the top-2 run is;
 * ``train()`` with ``cache_frozen_features``, two epochs of two updates,
   against one process's ``train()``.
 
@@ -38,6 +43,7 @@ import jax
 
 import _torch_port as tp
 import _torch_split as ts
+import klab_multimodalmodel_tpu.config as jcfg
 import klab_multimodalmodel_tpu_torch.config as tcfg
 from klab_multimodalmodel_tpu_torch import __main__ as module_main
 from klab_multimodalmodel_tpu_torch.checkpoint.from_jax import (
@@ -55,16 +61,22 @@ MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
 DROP_T5 = "t5-torchport-tiny-dropout-ep"
 WIDE_T5 = "t5-torchport-tiny-wide-ep"
 WIDE = dict(tp.TINY_T5, d_model=128, d_kv=32, d_ff=256)
+FF256_T5 = "t5-torchport-tiny-ff256-ep"  # 128 experts factor dim 0
+FF256 = dict(tp.TINY_T5, d_ff=256)
 for _name, _kw in ((DROP_T5, dict(tp.TINY_T5, dropout_rate=0.1)),
                    (WIDE_T5, WIDE)):
     tcfg.register_t5_size(_name, tcfg.T5Size(**_kw))
+tcfg.register_t5_size(FF256_T5, tcfg.T5Size(**FF256))
+jcfg.register_t5_size(FF256_T5, jcfg.T5Size(**FF256))
 SIZES = dict(t5_sizes={tp.T5_NAMES["v10"][0]: tp.TINY_T5,
                        DROP_T5: dict(tp.TINY_T5, dropout_rate=0.1),
-                       WIDE_T5: WIDE},
+                       WIDE_T5: WIDE, FF256_T5: FF256},
              swin_sizes={tp.SWIN_NAME: tp.TINY_SWIN})
 BASE = dict(kernels=True, compute_dtype="float32",
             max_target_length=ts.TGT, batch_size=ts.B, **MOE)
-JAX_RUNS = {"top2_kernels": dict()}
+JAX_RUNS = {"top2_kernels": dict(),
+            "adafactor_128": dict(optimizer="adafactor", moe_experts=128,
+                                  transformer_model_name=FF256_T5)}
 PORT_RUNS = {"top1": dict(moe_top_k=1),
              "dropout": dict(language_model_name=DROP_T5,
                              transformer_model_name=DROP_T5),
@@ -103,8 +115,8 @@ def test_expert2_trainer_matches_one_process(runs, name):
     """The same rows through one process: losses, eval losses, parameters
     and the optimizer's state within 1e-5 relative (at dropout 0.1 too:
     the same masks); the replicated parameters bitwise equal on both
-    ranks; each rank holds its two experts of every bank, which gather
-    into the whole."""
+    ranks; each rank holds its half of the experts of every bank, which
+    gather into the whole."""
     ts.assert_matches_one_process(runs, name)
     got = runs["got"][name]
     r0, r1 = got["local"]
@@ -114,8 +126,10 @@ def test_expert2_trainer_matches_one_process(runs, name):
     assert len(banks) == 2 * 4  # 2 + 2 blocks, wi and wo
     for n in whole:
         if n in banks:
+            per = whole[n].shape[0] // 2  # a rank's experts
             for r, local in enumerate((r0, r1)):
-                assert torch.equal(local[n], whole[n][2 * r:2 * r + 2]), n
+                assert torch.equal(local[n],
+                                   whole[n][per * r:per * (r + 1)]), n
         else:
             assert torch.equal(r0[n], r1[n]), n
 
@@ -139,6 +153,31 @@ def test_adafactor_statistics_of_an_expert_slice(runs):
     for i in banks:
         assert state[i]["v_row"].shape[0] == 4, order[i]
         assert state[i]["v_col"].shape[0] == 4, order[i]
+
+
+def test_adafactor_factoring_the_experts_dim_matches_jax(runs):
+    """128 experts (banks (128, 32, 256) and (128, 256, 32)) factor the
+    experts' dim: two Adafactor updates at expert 2 against the JAX
+    ``Trainer`` on the same mesh; the column statistic drops the experts'
+    dim (whole on every rank), the row statistic keeps it (gathered from
+    the ranks' slices), both within 1e-5 of one process's
+    (``test_expert2_trainer_matches_one_process``)."""
+    from klab_multimodalmodel_tpu_torch.train.optim import optimizer_groups
+
+    ts.assert_matches_jax(runs, "adafactor_128")
+    cfg = runs["one"]["adafactor_128"]["config"]
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    order = [n for g in optimizer_groups(
+        cfg, [n for n, _ in model.named_parameters() if n in names])
+        for n in g]
+    state = runs["got"]["adafactor_128"]["optimizer"]["state"]
+    banks = [i for i, n in enumerate(order) if _banks([n])]
+    assert len(banks) == 2 * 4
+    for i in banks:
+        wi = order[i].endswith("experts_wi")
+        assert state[i]["v_row"].shape == (128, 32), order[i]
+        assert state[i]["v_col"].shape == ((32, 256) if wi else (256, 32))
 
 
 def test_expert2_checkpoints_cross_layouts(runs):

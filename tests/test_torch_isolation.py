@@ -215,7 +215,8 @@ def test_jpeg_route_needs_no_pillow(tmp_path):
     """With Pillow (and jax, the JAX package, matplotlib, tensorboard,
     ml_dtypes) blocked: ``load_image_resized`` and
     ``load_image_bytes_resized`` give every fixture JPEG the pixels they give
-    with Pillow present, a tiny ``train()`` runs over a COCO-layout
+    with Pillow present (or, for the lossless fixture at a draft scale,
+    the same ``ValueError``), a tiny ``train()`` runs over a COCO-layout
     directory of JPEGs, and the ``caption`` CLI captions JPEG files as it
     does with Pillow present; a PNG body raises the ``ValueError`` that
     names PNG."""
@@ -249,8 +250,11 @@ def test_jpeg_route_needs_no_pillow(tmp_path):
         "out = {'file': {}, 'bytes': {}}\n"
         f"for name in {names!r}:\n"
         f"    path = {str(JPEG_FIXTURES)!r} + '/' + name\n"
-        "    out['file'][name] = hashlib.sha256(\n"
-        "        load_image_resized(path, 32).tobytes()).hexdigest()\n"
+        "    try:\n"
+        "        out['file'][name] = hashlib.sha256(\n"
+        "            load_image_resized(path, 32).tobytes()).hexdigest()\n"
+        "    except ValueError as e:\n"
+        "        out['file'][name] = str(e)\n"
         "    with open(path, 'rb') as f:\n"
         "        out['bytes'][name] = hashlib.sha256(\n"
         "            load_image_bytes_resized(f.read(), 256).tobytes()"
@@ -293,7 +297,11 @@ def test_jpeg_route_needs_no_pillow(tmp_path):
 
     for name in names:
         path = JPEG_FIXTURES / name
-        assert got["file"][name] == sha(load_image_resized(str(path), 32))
+        try:
+            want = sha(load_image_resized(str(path), 32))
+        except ValueError as e:
+            want = str(e)
+        assert got["file"][name] == want
         assert got["bytes"][name] == sha(
             load_image_bytes_resized(path.read_bytes(), 256))
     assert got["png"].startswith("cannot decode a PNG image: Pillow is "

@@ -4,7 +4,14 @@ writes from seeded numpy content (noise and smooth) at every size, quality,
 chroma subsampling, colour mode and coding option of ``CASES``, each decoded
 at every draft scale Pillow can pick for it; and the port's
 ``load_image_bytes_resized`` against the JAX package's (Pillow's decode and
-the JAX package's resize) at a target that picks that scale; byte streams
+the JAX package's resize) at a target that picks that scale; files that
+Pillow decodes but cannot write, written by the fixtures' own encoder
+(``torch_jpeg/make_fixtures.encode_jpeg``) from seeded content: every
+sampling ratio libjpeg upsamples (4:4:0, 4:1:1, 1x4, 4x2, chroma above
+luma, ...), Huffman and arithmetic coding, sequential and progressive,
+restart markers, DAC conditioning, and lossless frames (each predictor,
+gray and RGB; refused at a draft scale and with a colour transform, where
+Pillow raises or overruns its buffer); byte streams
 edited into what Pillow does not write but decodes (the colour space that
 libjpeg infers from JFIF, the Adobe transform or the component ids, YCCK,
 no Huffman tables, padding, data after EOI, progressive scans cut short
@@ -29,6 +36,7 @@ from klab_multimodalmodel_tpu.data.datasets import (
 from klab_multimodalmodel_tpu_torch import native
 from klab_multimodalmodel_tpu_torch.data.datasets import (
     load_image_bytes_resized, load_image_resized)
+from torch_jpeg.make_fixtures import encode_jpeg
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "torch_jpeg"
 SIZES = [(1, 1), (7, 13), (17, 33), (48, 64), (513, 771)]  # (height, width)
@@ -111,6 +119,75 @@ def test_decode_matches_pillow(case):
         np.testing.assert_array_equal(
             load_image_bytes_resized(data, target),
             jax_bytes_loader(data, target), err_msg=f"loader at {target}")
+
+
+# name: (sampling factors per component, encode_jpeg's options)
+ENC_SAMPLINGS = {
+    "440": [(1, 2), (1, 1), (1, 1)], "411": [(4, 1), (1, 1), (1, 1)],
+    "1x4": [(1, 4), (1, 1), (1, 1)], "4x2": [(4, 2), (1, 1), (1, 1)],
+    "2x2_1x2": [(2, 2), (1, 2), (1, 2)], "chroma_2x2": [(1, 1), (2, 2), (2, 2)],
+    "310": [(3, 1), (1, 1), (1, 1)], "420": [(2, 2), (1, 1), (1, 1)]}
+ENC_CODINGS = {
+    "huffman": {}, "progressive": {"progressive": True},
+    "restarts": {"restart": 3}, "arith": {"coding": "arith"},
+    "arith_progressive": {"coding": "arith", "progressive": True},
+    "arith_restarts": {"coding": "arith", "restart": 2,
+                       "dac": {"L": [2, 1], "U": [5, 3], "K": [3, 9]}}}
+ENCODED = [(s, c, size) for s, c, size in itertools.product(
+    ENC_SAMPLINGS, ENC_CODINGS, ((23, 41), (64, 48)))]
+
+
+@pytest.mark.parametrize("case", ENCODED, ids=lambda c: (
+    f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}"))
+def test_encoded_codings_match_pillow(case):
+    """What Pillow decodes but cannot write, bit for bit at every scale."""
+    sampling, coding, (h, w) = case
+    a = pixels(np.random.default_rng(ENCODED.index(case)), h, w, 3,
+               "smooth" if h < 50 else "noise")
+    data = encode_jpeg(a, ENC_SAMPLINGS[sampling], **ENC_CODINGS[coding])
+    for scale in native.DRAFT_SCALES:
+        if min(h, w) < scale:
+            continue
+        want, picked = pillow_decode(data, min(h, w) // scale)
+        assert picked == scale
+        np.testing.assert_array_equal(native.decode_jpeg(data, scale), want,
+                                      err_msg=f"1/{scale}")
+
+
+LOSSLESS = [(p, kind) for p in range(1, 8) for kind in ("gray", "rgb")] + [
+    (4, "gray_restarts"), (7, "rgb_restarts"), (1, "ycc")]
+
+
+@pytest.mark.parametrize("case", LOSSLESS, ids=lambda c: f"{c[1]}-p{c[0]}")
+def test_lossless_matches_pillow(case):
+    """Lossless frames at scale 1 bit for bit; at a draft scale (where
+    Pillow 12 raises or writes past its buffer) and with a colour transform
+    (which libjpeg-turbo refuses) refused."""
+    predictor, kind = case
+    h, w = 29, 37
+    a = pixels(np.random.default_rng(predictor), h, w, 3,
+               "noise" if predictor % 2 else "smooth")
+    restart = w * 2 if kind.endswith("restarts") else 0
+    if kind.startswith("gray"):
+        data = encode_jpeg(a[..., 0], [(1, 1)], predictor=predictor,
+                           restart=restart)
+    else:
+        data = encode_jpeg(a, [(1, 1)] * 3, predictor=predictor,
+                           restart=restart, rgb=kind != "ycc")
+    if kind == "ycc":
+        with pytest.raises(OSError), Image.open(io.BytesIO(data)) as im:
+            im.convert("RGB")
+        with pytest.raises(ValueError, match="with a colour transform"):
+            native.decode_jpeg(data)
+        return
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(native.decode_jpeg(data), want)
+    if kind.startswith("gray"):
+        np.testing.assert_array_equal(want[..., 0], a[..., 0])
+    for scale in (2, 4, 8):
+        with pytest.raises(ValueError, match="at a draft scale"):
+            native.decode_jpeg(data, scale)
 
 
 def segments(data: bytes) -> list[tuple[int, int, int]]:
@@ -276,12 +353,14 @@ MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
 def test_fixture_set_is_whole():
     files = sorted(p.name for p in FIXTURES.glob("*.jpg"))
     assert files == sorted(MANIFEST)
-    assert 12 <= len(files) <= 16
+    assert 12 <= len(files) <= 24
     assert sum((FIXTURES / f).stat().st_size for f in files) < 1.5e6
     kinds = {e["kind"] for e in MANIFEST.values()}
     assert {"coco", "draft_s2", "draft_s4", "draft_s8", "gray", "cmyk",
             "progressive", "restart", "subsampling_444",
-            "subsampling_422"} <= kinds
+            "subsampling_422", "subsampling_440", "subsampling_411",
+            "progressive_440", "arithmetic", "arithmetic_progressive",
+            "lossless"} <= kinds
     assert {e["draft_scale"] for e in MANIFEST.values()} == {1, 2, 4, 8}
 
 
@@ -303,6 +382,27 @@ def test_fixture_manifest(name):
     assert _sha(load_image_bytes_resized(data, 256)) == entry["resized_256"]
     assert _sha(load_image_resized(str(FIXTURES / name), 256)) == entry[
         "resized_256"]
+
+
+OWN = sorted(n for n, e in MANIFEST.items() if "decode_scales" in e)
+
+
+@pytest.mark.parametrize("name", OWN)
+def test_fixture_every_draft_scale(name):
+    """The encoder's fixtures at every draft scale: the manifest's digests
+    are Pillow's now and the port's; where Pillow does not decode (a
+    lossless frame at a draft scale), the port refuses."""
+    data = (FIXTURES / name).read_bytes()
+    w, h = MANIFEST[name]["size"]
+    for s, want in MANIFEST[name]["decode_scales"].items():
+        scale = int(s)
+        if want is None:
+            with pytest.raises(ValueError, match="at a draft scale"):
+                native.decode_jpeg(data, scale)
+            continue
+        pixels_, picked = pillow_decode(data, min(w, h) // scale)
+        assert picked == scale and _sha(pixels_) == want
+        assert _sha(native.decode_jpeg(data, scale)) == want
 
 
 def test_threads_decode_at_once():

@@ -1,15 +1,25 @@
-"""What the port's JPEG decoder refuses, and that no input crashes it: frames
-it does not decode (arithmetic coding, 12-bit samples, lossless, 4:1:1, an
-image over Pillow's decompression-bomb limit), made by patching bytes of a
-file Pillow wrote, each a ``ValueError`` that names the reason; a file cut
-at each of its markers; empty input; bytes of three fixtures flipped and cut
-at random (``hypothesis``: a ``ValueError`` or a well-formed array, never a
-crash, and Pillow's pixels where Pillow decodes the file too); and
-``POST /caption`` with a corrupt JPEG, a 400 "bad image" from a
-server that goes on serving."""
+"""What the port's JPEG decoder refuses, where it decides as Pillow decides,
+and that no input crashes it: frames it does not decode (12-bit samples,
+hierarchical, arithmetic-coded lossless, fractional sampling ratios,
+lossless with a colour transform or at a draft scale, an image over
+Pillow's decompression-bomb limit, arithmetic-coded data across Pillow's
+65536-byte reads), made by patching bytes of a file Pillow wrote, each a
+``ValueError`` that names the reason; byte streams on which the port must
+do what Pillow does (decode to the same pixels, or raise): patched SOF
+codes and sampling factors, and the markers before the first SOS that
+Pillow's own header parser refuses (TEM, a JFIF, Adobe or ICC segment too
+short, a Photoshop resource cut short) or skips; every fixture with its EOI
+marker replaced by zero or random bytes, where libjpeg under Pillow decodes
+what it reads before the end and raises where it asks for bytes past it; a
+file cut at each of its markers; empty input; bytes of fixtures flipped
+and cut at random (``hypothesis``: a ``ValueError`` or a well-formed array,
+never a crash, and Pillow's pixels where Pillow decodes the file too); and
+``POST /caption`` with a corrupt JPEG, a 400 "bad image" from a server that
+goes on serving and captions a file that ends without EOI."""
 
 import base64
 import io
+import json
 import pathlib
 
 import numpy as np
@@ -19,9 +29,13 @@ from hypothesis import strategies as st
 from PIL import Image
 
 import _torch_port as tp
+from klab_multimodalmodel_tpu.data.datasets import (
+    load_image_bytes_resized as jax_bytes_loader)
 from klab_multimodalmodel_tpu_torch import native
 from klab_multimodalmodel_tpu_torch.data.datasets import (
     load_image_bytes_resized)
+from test_torch_jpeg import segments
+from torch_jpeg.make_fixtures import encode_jpeg
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "torch_jpeg"
 
@@ -75,16 +89,29 @@ def patch_sof(data: bytes, **fields) -> bytes:
 
 
 BASE = pillow_jpeg()
+
+
+def big_arithmetic_jpeg() -> bytes:
+    """An arithmetic-coded file whose scan runs past Pillow's first 65536
+    bytes: libjpeg's arithmetic decoder cannot suspend for Pillow's next
+    read, and Pillow raises."""
+    rng = np.random.default_rng(3)
+    data = encode_jpeg(rng.integers(0, 256, (176, 256, 3), dtype=np.uint8),
+                       [(1, 1)] * 3, coding="arith", quality=95)
+    assert len(data) > 65536
+    return data
+
+
 REFUSED = {
-    "SOF9": (patch_sof(BASE, code=0xC9), r"arithmetic coding \(SOF9\)"),
-    "SOF10": (patch_sof(BASE, code=0xCA), r"arithmetic coding \(SOF10\)"),
     "precision12": (patch_sof(BASE, precision=12), r"12-bit samples"),
     "SOF3": (patch_sof(BASE, code=0xC3), r"lossless \(SOF3\)"),
     "SOF5": (patch_sof(BASE, code=0xC5), r"hierarchical \(SOF5\)"),
-    "411": (patch_sof(BASE, sampling=(0x41, 0x11, 0x11)),
-            r"sampling factors 4x1,1x1,1x1"),
-    "440": (patch_sof(BASE, sampling=(0x12, 0x11, 0x11)),
-            r"sampling factors 1x2,1x1,1x1"),
+    "SOF11": (patch_sof(BASE, code=0xCB),
+              r"arithmetic-coded lossless \(SOF11\)"),
+    "fractional": (patch_sof(BASE, sampling=(0x31, 0x21, 0x21)),
+                   r"sampling factors 3x1,2x1,2x1, not an integer ratio"),
+    "arithmetic_past_64k": (big_arithmetic_jpeg(),
+                            r"across Pillow's 65536-byte reads"),
     "65500x65500": (patch_sof(BASE, width=65500, height=65500),
                     r"decompression-bomb limit"),
     "empty": (b"", r"not a JPEG: no SOI marker"),
@@ -96,6 +123,9 @@ def test_refusals_name_the_reason(name):
     data, reason = REFUSED[name]
     with pytest.raises(ValueError, match=reason):
         native.decode_jpeg(data)
+    if data:  # Pillow refuses them too
+        with pytest.raises(Exception):
+            pillow_scaled(data, 1)
     if name == "65500x65500":
         # Refused from the SOF, before any scan is read or buffer made.
         with pytest.raises(ValueError, match=reason):
@@ -107,6 +137,165 @@ def test_refusals_name_the_reason(name):
     else:
         with pytest.raises(ValueError, match="empty image data"):
             load_image_bytes_resized(data, 16)
+
+
+def pillow_scaled(data: bytes, scale: int) -> np.ndarray:
+    """Pillow's RGB pixels with the draft at 1/scale."""
+    with Image.open(io.BytesIO(data)) as im:
+        if scale > 1:
+            im.draft("RGB", (max(1, min(im.size) // scale),) * 2)
+            assert im.decoderconfig[0] == scale
+        return np.asarray(im.convert("RGB"))
+
+
+def assert_does_what_pillow_does(data: bytes, scales=native.DRAFT_SCALES,
+                                 target: int = 16) -> bool:
+    """At each scale, the port's pixels are Pillow's or both raise; its
+    loader's at ``target`` are the JAX package's, or both raise. Whether
+    Pillow decodes at scale 1."""
+    decoded = {}
+    for scale in scales:
+        try:
+            want = pillow_scaled(data, scale)
+        except Exception:  # noqa: BLE001 — any refusal of Pillow's
+            want = None
+        if want is None:
+            with pytest.raises(ValueError):
+                native.decode_jpeg(data, scale)
+        else:
+            np.testing.assert_array_equal(native.decode_jpeg(data, scale),
+                                          want, err_msg=f"1/{scale}")
+        decoded[scale] = want is not None
+    try:
+        want = jax_bytes_loader(data, target)
+    except Exception:  # noqa: BLE001
+        with pytest.raises(ValueError):
+            load_image_bytes_resized(data, target)
+    else:
+        np.testing.assert_array_equal(load_image_bytes_resized(data, target),
+                                      want)
+    return decoded.get(1, False)
+
+
+def before(data: bytes, marker: int, insert: bytes) -> bytes:
+    """``insert`` placed before the first segment of ``marker`` (0xDA: the
+    first SOS)."""
+    p = next((p for p, code, _ in segments(data) if code == marker), None)
+    if p is None:
+        p = next(p for p, code in markers(data) if code == marker)
+    return data[:p] + insert + data[p:]
+
+
+def app(code: int, body: bytes) -> bytes:
+    return bytes([0xFF, code]) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def fuzz_file_101_7() -> bytes:
+    """The fuzz's seed 101 file 7 (gray, progressive) with its SOS marker's
+    FF and a byte after it changed: an FF 01 (TEM) before the first SOS,
+    which libjpeg ignores and Pillow's header parser refuses."""
+    import sys
+
+    sys.path.insert(0, str(FIXTURES.parent.parent / "tools"))
+    import jpeg_fuzz
+
+    data = bytearray(jpeg_fuzz.seed_files(np.random.default_rng(101))[7])
+    assert len(data) == 417 and data[128:130] == b"\xff\xda"
+    data[128], data[153] = 0x14, 0x01
+    return bytes(data)
+
+
+def sixteen_bit_dqt(data: bytes) -> bytes:
+    """The first DQT's table marked 16-bit: its 64 bytes are then short of
+    the 128 that the precision asks for."""
+    p = next(p for p, code, _ in segments(data) if code == 0xDB)
+    return data[:p + 4] + bytes([data[p + 4] | 0x10]) + data[p + 5:]
+
+
+SOS = 0xDA
+# name: (bytes, whether Pillow decodes them at scale 1)
+AS_PILLOW = {
+    # Huffman-coded data read as arithmetic-coded, and the scan's
+    # sequential parameters in a progressive frame.
+    "SOF9": lambda: (patch_sof(BASE, code=0xC9), True),
+    "SOF10": lambda: (patch_sof(BASE, code=0xCA), False),
+    # 4:2:0 data read as 4:1:1 and 4:4:0.
+    "411": lambda: (patch_sof(BASE, sampling=(0x41, 0x11, 0x11)), True),
+    "440": lambda: (patch_sof(BASE, sampling=(0x12, 0x11, 0x11)), True),
+    # Pillow's header parser (JpegImageFile._open) before the first SOS.
+    "TEM_after_SOI": lambda: (BASE[:2] + b"\xff\x01" + BASE[2:], False),
+    "TEM_before_SOS": lambda: (before(BASE, SOS, b"\xff\x01"), False),
+    "unknown_FF02": lambda: (before(BASE, SOS, b"\xff\x02"), False),
+    "unknown_FFBF": lambda: (before(BASE, 0xC0, b"\xff\xbf"), False),
+    "fuzz_101_7": lambda: (fuzz_file_101_7(), False),
+    "short_JFIF": lambda: (before(BASE, 0xDB, app(0xE0, b"JFIF\x00\x01")),
+                           False),
+    "short_Adobe": lambda: (before(BASE, 0xDB, app(0xEE, b"Adobe\x00")),
+                            False),
+    "Photoshop_cut": lambda: (before(BASE, 0xDB, app(
+        0xED, b"Photoshop 3.0\x008BIM\x03\xed")), False),
+    "Photoshop_whole": lambda: (before(BASE, 0xDB, app(
+        0xED, b"Photoshop 3.0\x008BIM\x04\x04\x00\x00\x00\x00\x00"
+        b"\x02ab")), True),
+    "ICC_short_before_SOF": lambda: (before(BASE, 0xC0, app(
+        0xE2, b"ICC_PROFILE\x00\x01")), False),
+    "ICC_short_after_SOF": lambda: (before(BASE, SOS, app(
+        0xE2, b"ICC_PROFILE\x00\x01")), True),
+    "DQT_16bit_short": lambda: (sixteen_bit_dqt(BASE), False),
+    "segment_cut_before_SOS": lambda: (BASE[:next(
+        p for p, code, _ in segments(BASE) if code == 0xC4) + 10], False),
+    "junk_and_fill": lambda: (before(BASE, 0xC0, b"\x00\x12\xff\x00\xff\xff"),
+                              True),
+    "RST_before_SOS": lambda: (before(BASE, SOS, b"\xff\xd3"), True),
+    "APP_length_0": lambda: (before(BASE, 0xDB, b"\xff\xe5\x00\x00"), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AS_PILLOW))
+def test_the_port_does_what_pillow_does(name):
+    data, decodes = AS_PILLOW[name]()
+    assert assert_does_what_pillow_does(data) == decodes
+
+
+MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
+# Bytes in place of a fixture's EOI marker: zeros, which libjpeg reads as
+# entropy-coded data, and seeded random bytes without FF.
+TAILS = [bytes(k) for k in (0, 1, 2, 4, 8, 16, 32, 64)] + [
+    np.random.default_rng(k).integers(0, 255, n, dtype=np.uint8).tobytes()
+    for k, n in ((1, 5), (2, 23))]
+
+
+@pytest.mark.parametrize("name", sorted(MANIFEST))
+def test_end_of_file_in_place_of_eoi(name):
+    """A single-scan file decodes where libjpeg never asks for bytes past
+    the end (its MCUs decoded before the end are Pillow's, bit for bit); a
+    multi-scan file never does, as libjpeg reads to EOI before its first
+    line. At every draft scale, and through both loaders."""
+    data = (FIXTURES / name).read_bytes()
+    assert data.endswith(b"\xff\xd9")
+    w, h = MANIFEST[name]["size"]
+    scales = [s for s in native.DRAFT_SCALES if min(w, h) >= s
+              and MANIFEST[name].get("decode_scales", {}).get(str(s), 1)]
+    for tail in TAILS:
+        assert_does_what_pillow_does(data[:-2] + tail, scales, 256)
+
+
+def test_end_of_file_counts_of_pr20_fixtures():
+    """The PR 20 fixtures with EOI replaced by k zero bytes: as many decode
+    through the port's loader as through the JAX package's (0, 7 and 13 of
+    15 at k = 0, 4 and 16)."""
+    names = sorted(n for n, e in MANIFEST.items() if "decode_scales" not in e)
+    assert len(names) == 15
+    for k, count in ((0, 0), (4, 7), (16, 13)):
+        got = []
+        for name in names:
+            data = (FIXTURES / name).read_bytes()[:-2] + bytes(k)
+            try:
+                load_image_bytes_resized(data, 256)
+                got.append(name)
+            except ValueError:
+                pass
+        assert len(got) == count, (k, got)
 
 
 @pytest.mark.parametrize("options", [{}, {"progressive": True},
@@ -133,7 +322,9 @@ def test_truncation_at_every_marker(options):
 
 
 FUZZED = {name: (FIXTURES / name).read_bytes() for name in (
-    "coco_375x500.jpg", "progressive_640x480.jpg", "restart_640x427.jpg")}
+    "coco_375x500.jpg", "progressive_640x480.jpg", "restart_640x427.jpg",
+    "s440_640x480.jpg", "sof9_arith_640x480.jpg",
+    "sof10_arith_progressive_640x427.jpg")}
 
 
 @settings(max_examples=150, deadline=None, derandomize=True, database=None)
@@ -173,7 +364,7 @@ def test_http_corrupt_jpeg_is_a_bad_image():
     """``/caption`` with a cut JPEG and with one whose scan names a
     component the frame lacks (Pillow raises on both): 400 "bad image"
     with the decoder's reason; the same server then captions the whole
-    file."""
+    file, and the file whose EOI is zero bytes."""
     from klab_multimodalmodel_tpu_torch.serve.http import CaptionHTTPServer
     from klab_multimodalmodel_tpu_torch.serve.service import CaptionService
     from klab_multimodalmodel_tpu_torch.text import ByteTokenizer
@@ -196,9 +387,12 @@ def test_http_corrupt_jpeg_is_a_bad_image():
             assert code == 400, err
             assert err["error"].startswith("bad image: JPEG: ") and (
                 reason in err["error"]), err
-        code, body = tp.http_post(base, "/caption", {
-            "image_b64": base64.b64encode(good).decode()})
-        assert code == 200 and isinstance(body["caption"], str)
+        # The whole file, and the file with 16 zero bytes in place of its
+        # EOI (Pillow decodes it too).
+        for body in (good, good[:-2] + bytes(16)):
+            code, body = tp.http_post(base, "/caption", {
+                "image_b64": base64.b64encode(body).decode()})
+            assert code == 200 and isinstance(body["caption"], str)
         assert tp.http_get(base, "/stats")[1]["errors"] == 0
     finally:
         server.httpd.shutdown()

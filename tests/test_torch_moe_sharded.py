@@ -24,6 +24,11 @@ within rtol 5e-4 / atol 1e-6, the tolerances of
 * Adafactor on a transformer wide enough (d_model 128, d_ff 256) that the
   banks' second moment is factored over D and F: the row statistic is
   a mean over the columns that the tensor ranks split, summed over them;
+* Adafactor at 128 experts of d_model 32 and d_ff 256, factored over the
+  experts and F, both cut (expert beside tensor): the row statistic's
+  mean over F taken over the tensor group, the column statistic's over
+  the experts over the expert group; its checkpoint restores bitwise in
+  one process;
 
 and ``train()`` with ``cache_frozen_features`` at fsdp 2 x expert 2, two
 epochs of two updates, against one process's ``train()``.
@@ -63,12 +68,14 @@ MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
 DROP_T5 = "t5-torchport-tiny-dropout-moe-sharded"
 WIDE_T5 = "t5-torchport-tiny-wide-moe-sharded"
 WIDE = dict(tp.TINY_T5, d_model=128, d_kv=32, d_ff=256)
+FF256_T5 = "t5-torchport-tiny-ff256-moe-sharded"  # 128 experts factor dim 0
+FF256 = dict(tp.TINY_T5, d_ff=256)
 for _name, _kw in ((DROP_T5, dict(tp.TINY_T5, dropout_rate=0.1)),
-                   (WIDE_T5, WIDE)):
+                   (WIDE_T5, WIDE), (FF256_T5, FF256)):
     tcfg.register_t5_size(_name, tcfg.T5Size(**_kw))
 SIZES = dict(t5_sizes={tp.T5_NAMES["v10"][0]: tp.TINY_T5,
                        DROP_T5: dict(tp.TINY_T5, dropout_rate=0.1),
-                       WIDE_T5: WIDE},
+                       WIDE_T5: WIDE, FF256_T5: FF256},
              swin_sizes={tp.SWIN_NAME: tp.TINY_SWIN})
 BASE = dict(kernels=True, compute_dtype="float32",
             max_target_length=ts.TGT, batch_size=ts.B, **MOE)
@@ -79,9 +86,13 @@ PORT_RUNS = {"dropout": dict(mesh_shape=EXPERT_TENSOR,
                              transformer_model_name=DROP_T5),
              "adafactor_wide": dict(mesh_shape=EXPERT_TENSOR,
                                     optimizer="adafactor",
-                                    transformer_model_name=WIDE_T5)}
+                                    transformer_model_name=WIDE_T5),
+             "adafactor_128": dict(mesh_shape=EXPERT_TENSOR,
+                                   optimizer="adafactor", moe_experts=128,
+                                   transformer_model_name=FF256_T5)}
 MESHES = {"fsdp2_expert2": EXPERT_FSDP, "tensor2_expert2": EXPERT_TENSOR,
-          "dropout": EXPERT_TENSOR, "adafactor_wide": EXPERT_TENSOR}
+          "dropout": EXPERT_TENSOR, "adafactor_wide": EXPERT_TENSOR,
+          "adafactor_128": EXPERT_TENSOR}
 BANKS = (".experts_wi", ".experts_wo")
 
 
@@ -131,7 +142,8 @@ def assert_ranks_hold_their_part(runs: dict, name: str, mesh: tuple):
         for n in whole:
             if not n.endswith(BANKS):
                 continue
-            part = whole[n][2 * e:2 * e + 2]
+            per = whole[n].shape[0] // E  # a rank's experts
+            part = whole[n][per * e:per * (e + 1)]
             dim = 2 if n.endswith("wi") else 1
             width = part.shape[dim] // T
             assert torch.equal(held[n], part.narrow(dim, t * width, width)), n
@@ -173,6 +185,30 @@ def test_adafactor_statistics_of_a_sharded_bank(runs):
     for i in banks:
         assert state[i]["v_row"].shape == (4, 128), order[i]
         assert state[i]["v_col"].shape == (4, 256), order[i]
+
+
+def test_adafactor_128_experts_beside_tensor(runs):
+    """128 experts at tensor 2 x expert 2: the banks (128, 32, 256) and
+    (128, 256, 32) factor the experts' dim and F, both cut; the row
+    statistic (128, 32) and the column statistic, without the experts'
+    dim, gathered whole (within 1e-5 of one process's:
+    ``test_moe_sharded_trainer_matches_one_process``); the run's
+    per-shard checkpoint restores bitwise into one process, its optimizer
+    state too."""
+    cfg = runs["one"]["adafactor_128"]["config"]
+    model = MultiModalModel(cfg, device="meta")
+    names = trainable_names(model, cfg)
+    order = [n for g in optimizer_groups(
+        cfg, [n for n, _ in model.named_parameters() if n in names])
+        for n in g]
+    state = runs["got"]["adafactor_128"]["optimizer"]["state"]
+    banks = [i for i, n in enumerate(order) if n.endswith(BANKS)]
+    assert len(banks) == 2 * 4
+    for i in banks:
+        wi = order[i].endswith("experts_wi")
+        assert state[i]["v_row"].shape == (128, 32), order[i]
+        assert state[i]["v_col"].shape == ((32, 256) if wi else (256, 32))
+    ts.assert_checkpoints_cross(runs, "adafactor_128", "dropout")
 
 
 @pytest.mark.parametrize("name", list(JAX_RUNS))

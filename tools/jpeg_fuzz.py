@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Differential fuzz of the port's JPEG decoder (``native.decode_jpeg``)
 against Pillow: seeded JPEGs that Pillow writes (baseline, progressive,
-restart markers, gray, CMYK, 4:4:4 and 4:2:2) have one or two bytes changed,
-each file is decoded by both at a draft scale, and the outcomes are counted:
-both decode (and then the pixels must be equal), only one of them raises,
-both raise. The decoder's reasons for the files it refuses and Pillow
-decodes are listed.
+restart markers, gray, CMYK, 4:4:4 and 4:2:2) and that the fixtures' own
+encoder writes (``tests/torch_jpeg/make_fixtures.py``: 4:4:0, 4:1:1,
+progressive 4:4:0, arithmetic coding sequential with restarts and a DAC
+segment and progressive, lossless) have one or two bytes changed, each file
+is decoded by both at a draft scale, and the outcomes are counted: both
+decode (and then the pixels must be equal), only one of them raises, both
+raise. The decoder's reasons for the files it refuses and Pillow decodes
+are listed. At a draft scale Pillow 12 raises on a lossless frame or writes
+past its buffer (the process may abort), so such a file is not handed to
+Pillow there and counts as refused; the port refuses it.
 
     python3 tools/jpeg_fuzz.py [--seed S] [--files N] [--where header|any]
         [--scales 1,2,4,8] [--library PATH]
@@ -37,21 +42,53 @@ SEEDS = [("RGB", {}), ("RGB", {"progressive": True}),
          ("L", {"progressive": True}), ("RGB", {"restart_marker_rows": 1})]
 
 
+# (mode, encode_jpeg's options) of the seed files of the fixtures' encoder.
+S420 = [(2, 2), (1, 1), (1, 1)]
+OWN_SEEDS = [
+    ("RGB", {"sampling": [(1, 2), (1, 1), (1, 1)]}),
+    ("RGB", {"sampling": [(4, 1), (1, 1), (1, 1)]}),
+    ("RGB", {"sampling": [(1, 2), (1, 1), (1, 1)], "progressive": True}),
+    ("RGB", {"sampling": S420, "coding": "arith", "restart": 2,
+             "dac": {"L": [1, 0], "U": [4, 2], "K": [6, 3]}}),
+    ("RGB", {"sampling": S420, "coding": "arith", "progressive": True}),
+    ("L", {"sampling": [(1, 1)], "coding": "arith", "progressive": True}),
+    ("L", {"sampling": [(1, 1)], "predictor": 4}),
+    ("L", {"sampling": [(1, 1)], "predictor": 7, "restart": 80}),
+    ("RGB", {"sampling": [(1, 1)] * 3, "predictor": 1, "rgb": True})]
+
+
 def seed_files(rng: np.random.Generator) -> list[bytes]:
     from PIL import Image
 
+    sys.path.insert(0, os.path.join(REPO, "tests", "torch_jpeg"))
+    from make_fixtures import encode_jpeg
+
     out = []
     y, x = np.mgrid[0:24, 0:40]
-    for mode, options in SEEDS:
+    for mode, options in SEEDS + OWN_SEEDS:
         channels = {"RGB": 3, "L": 1, "CMYK": 4}[mode]
         f = rng.uniform(0.05, 0.3, (channels, 2))
         a = np.stack([127 + 110 * np.sin(x * f[c, 0]) * np.cos(y * f[c, 1])
                       for c in range(channels)], -1).astype(np.uint8)
+        pixels = a[..., 0] if mode == "L" else a
+        if (mode, options) in OWN_SEEDS:
+            kw = dict(options)
+            out.append(encode_jpeg(pixels, kw.pop("sampling"), quality=85,
+                                   **kw))
+            continue
         buf = io.BytesIO()
-        Image.fromarray(a[..., 0] if mode == "L" else a, mode).save(
-            buf, "JPEG", quality=85, **options)
+        Image.fromarray(pixels, mode).save(buf, "JPEG", quality=85, **options)
         out.append(buf.getvalue())
     return out
+
+
+def lossless(data: bytes) -> bool:
+    """Whether the file's first frame marker is SOF3."""
+    for p in range(2, len(data) - 1):
+        if data[p] == 0xFF and 0xC0 <= data[p + 1] <= 0xCF and (
+                data[p + 1] not in (0xC4, 0xC8, 0xCC)):
+            return data[p + 1] == 0xC3
+    return False
 
 
 def header_bytes(data: bytes) -> list[int]:
@@ -77,6 +114,8 @@ def pillow_decode(data: bytes, scale: int):
     raises."""
     from PIL import Image
 
+    if scale > 1 and lossless(data):
+        return None, scale  # Pillow raises or overruns its buffer
     try:
         with Image.open(io.BytesIO(data)) as im:
             w, h = im.size
